@@ -5,41 +5,69 @@
 
 Phases (any failure exits non-zero; no phase's failure is caught):
 
-1. device: the card's name and power limit (nvidia-smi);
-2. build: every kernel of the main path, with nvcc, from the checkout;
-3. kernels: K1 (csrc/count_expr.cu) against its plain PyTorch version on
-   the card at S in {0, 1, 7, 954}, 1 to 6 leaves, every op and nested
-   trees — counts must be exactly equal; K1's median time per launch at
-   S = 954 with two leaves beside its memory bound and the plain time;
-4. data: the 1B-column index of bench_suite.measure_served_1b (954
-   shards of 2^20 columns, fields f and g, rows 1 and 2, word density
-   0.05, seed 3) written through the port's Holder;
-5. serve: the port's HTTP server on that directory (--device cuda, an
-   ephemeral port) answers /status, the four Count(Intersect(Row, Row))
-   queries, a nested Count and a Count(Xor) — each checked against
-   numpy — and a Set whose next Count reads the write back; K1's launch
-   counter must advance on every Count. Cold and warm p50 latencies.
+1. device: the card's name, power limit and top SM clock (nvidia-smi);
+2. build: every kernel of the served paths (K1 count_expr, K3 row_counts,
+   K4 pairwise_counts), one nvcc per source, all started together, from
+   the checkout; registers and spills from ptxas;
+3. kernels: each kernel against its plain PyTorch version on the card —
+   exact equality on every case:
+   - K1 at S in {0, 1, 7, 954}, 1 to 6 leaves, every op and nested trees;
+   - K3 at R in {0, 1, 5, 102} x S in {1, 10}, and R = 1 at S = 954, with
+     and without a filter, edge words planted, plus a tie case for the
+     top-k;
+   - K4 at (R1, R2) in {(0, 3), (1, 1), (5, 4), (13, 130), (102, 102)} x
+     S in {1, 10}, with and without a filter;
+   and median times per launch (CUDA events) beside each bound and the
+   plain version's time: K1 at S = 954 with two leaves; K3 at the served
+   TopN shape [100, 10 x 32768] and at [1, 954 x 32768] with a filter; K4
+   at the served GroupBy shape 5 x 4 x S = 10 and at 102 x 102 x S = 10;
+4. data, in one data directory:
+   - index b, the 1B-column index of bench_suite.measure_served_1b (954
+     shards of 2^20 columns, fields f and g, rows 1 and 2, word density
+     0.05, seed 3);
+   - index tg, BASELINE config 3 at bench_suite.bench_topn_groupby's
+     chip shape (10 shards; field f with 100 rows of 100000/(r+1)+100
+     random columns; fields a (5 rows) x b (4 rows) over 300,000 distinct
+     columns; seed 7);
+   both written through the port's Holder;
+5. serve: one HTTP server on that directory (--device cuda, an ephemeral
+   port) answers, each checked against numpy:
+   - Count path: /status, the four Count(Intersect(Row, Row)) queries, a
+     nested Count, a Count(Xor), and a Set whose next Count reads the
+     write back; K1's counter must advance on every Count;
+   - TopN/GroupBy path: three TopN, Rows, three GroupBy, and a Set whose
+     next TopN reads the write back through a patched row chunk; K3's
+     counter must advance on every TopN and K4's on every two-field
+     GroupBy;
+   each path runs with every launch counter set to 0 just before it and
+   read just after; cold latency of each first query and warm HTTP p50s.
 
 The line before the last is a JSON object with a `kernels` list; the
 last line is {"ok": true, "device": {...}}.
 """
 
 import json
-import os
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak (NVIDIA data sheet)
+# POPC results per SM per clock, compute capability 9.0 (CUDA C
+# Programming Guide, arithmetic-instruction throughput table)
+POPC_PER_SM_PER_CLOCK = 16
 N_SHARDS = 954
 DENSITY = 0.05
 SEED = 3
+TG_SHARDS = 10
+TG_SEED = 7
+KERNELS = ("count_expr", "row_counts", "pairwise_counts")
 
 
 def log(msg):
@@ -52,10 +80,9 @@ def popcount(words):
             dtype=np.int64))
 
 
-def device_line():
+def nvidia_smi(query):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
@@ -78,7 +105,80 @@ def time_cuda(torch, fn, reps):
     return statistics.median(times)
 
 
-def check_kernels(torch, k1, words):
+def device_ms(torch, fn, reps, kernel):
+    """Mean device milliseconds per call spent in CUDA kernels whose name
+    contains `kernel`, from a torch.profiler (CUPTI) trace of `reps`
+    calls after one warm-up; None when the trace holds no such kernel.
+    Unlike events around one call, this leaves out the wrapper's host
+    time before the launch, which is larger than a small kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    n = 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            total_us += getattr(e, "device_time_total", 0.0) \
+                or getattr(e, "cuda_time_total", 0.0)
+            n += e.count
+    return total_us / reps / 1e3 if n else None
+
+
+def kernel_ms(torch, fn, reps, kernel):
+    """(ms, call_ms, source): the kernel's device time per launch from
+    the profiler, or — where the trace shows no device time — the CUDA
+    event time per call; call_ms is always the event time per call."""
+    call_ms = time_cuda(torch, fn, reps)
+    ms = device_ms(torch, fn, reps, kernel)
+    if ms is None:
+        return call_ms, call_ms, "events"
+    return ms, call_ms, "profiler"
+
+
+def build_kernels(cuda_build):
+    """One nvcc per kernel source, all started together; then load."""
+    errors = []
+
+    def one(name):
+        try:
+            cuda_build.build(name)
+        except Exception as e:  # re-raised below, after every build ends
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(n,)) for n in KERNELS]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for name in KERNELS:
+        cuda_build.load(name)
+        info = cuda_build.build_info[name]
+        log(f"build: {name}: nvcc {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"build: {name}: {line.strip()}")
+    log(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
+
+
+def _edge_rows(rng, r, t):
+    x = rng.integers(0, 1 << 32, (r, t), dtype=np.uint32)
+    if r:
+        x[:, 0] = 0xFFFFFFFF
+        x[:, 1] = 0x80000000
+        x[r // 2, 2:6] = [0xFFFFFFFF, 0x80000000, 0, 0x7FFFFFFF]
+        x[r // 2, 6:4000] = 0
+    return x
+
+
+def check_k1(torch, k1, words):
     """K1 against the plain version on the card; returns (max_abs_err,
     timing dict at S = 954, two leaves)."""
     dev = torch.device("cuda")
@@ -118,17 +218,23 @@ def check_kernels(torch, k1, words):
         if s == N_SHARDS:
             sig = k1.chain_signature(2, "&")
             pair = stacks[:2]
-            ms = time_cuda(torch, lambda: k1.count_expr(sig, pair), 50)
+            ms, call_ms, how = kernel_ms(
+                torch, lambda: k1.count_expr(sig, pair), 50,
+                "count_chain_kernel")
             plain_ms = time_cuda(
                 torch, lambda: k1.count_expr_reference(sig, pair), 10)
             nbytes = sum(t.numel() * 4 for t in pair) + 8
-            timing = {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
-                      "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
-            tree_ms = time_cuda(
-                torch, lambda: k1.count_expr(nested[0], stacks), 20)
+            timing = {"ms": ms, "call_ms": call_ms, "how": how,
+                      "plain_ms": plain_ms, "bytes": nbytes,
+                      "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+                      "bound_by": "bytes"}
+            tree_ms, tree_call, how = kernel_ms(
+                torch, lambda: k1.count_expr(nested[0], stacks), 20,
+                "count_tree_kernel")
             tree_bytes = 4 * stacks[0].numel() * 4 + 8
-            log(f"kernels: K1 nested 4-leaf tree at S={s}: median "
-                f"{tree_ms * 1e3:.2f} us/launch, bound "
+            log(f"kernels: K1 nested 4-leaf tree at S={s}: "
+                f"{tree_ms * 1e3:.2f} us/launch ({how}; "
+                f"{tree_call * 1e3:.2f} us per call by events), bound "
                 f"{tree_bytes / H100_BYTES_PER_S * 1e6:.2f} us")
         del stacks
         torch.cuda.empty_cache()
@@ -137,7 +243,151 @@ def check_kernels(torch, k1, words):
     return max_err, timing
 
 
-def build_data(path, words):
+def check_k3(torch, k3, words):
+    """K3 against the plain version on the card; returns (max_abs_err,
+    timing dict at the served TopN shape)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 1)
+    max_err = 0
+    n_cases = 0
+    cases = [(r, s) for r in (0, 1, 5, 102) for s in (1, 10)]
+    cases.append((1, N_SHARDS))
+    for r, s in cases:
+        t = s * words
+        rows = torch.from_numpy(_edge_rows(rng, r, t).view(np.int32)).to(dev)
+        filt = torch.from_numpy(_edge_rows(rng, 1, t)[0].view(np.int32)).to(dev)
+        for f in (None, filt):
+            before = k3.row_counts.launches
+            got = k3.row_counts(rows, f)
+            torch.cuda.synchronize()
+            want = k3.row_counts_reference(rows, f)
+            if k3.row_counts.launches != before + (1 if r else 0):
+                raise AssertionError(f"K3 launches wrong at R={r} S={s}")
+            err = int((got - want).abs().max()) if r else 0
+            max_err = max(max_err, err)
+            n_cases += 1
+            if err or got.shape != want.shape:
+                raise AssertionError(f"K3 != plain at R={r} S={s} "
+                                     f"filter={f is not None}")
+        del rows, filt
+    # ties: duplicated rows must list in ascending index order
+    base = torch.from_numpy(_edge_rows(rng, 2, words).view(np.int32)).to(dev)
+    rows = base[torch.tensor([1, 0, 1, 1, 0, 0, 1], device=dev)].contiguous()
+    filt = torch.from_numpy(_edge_rows(rng, 1, words)[0].view(np.int32)).to(dev)
+    vals, idx = k3.topn_counts_stack(rows, filt, 7)
+    want = k3.row_counts_reference(rows, filt).tolist()
+    order = sorted(range(7), key=lambda i: (-want[i], i))
+    if idx.tolist() != order or vals.tolist() != [want[i] for i in order]:
+        raise AssertionError(f"K3 top-k tie order: {idx.tolist()} vs {order}")
+    n_cases += 1
+    log(f"kernels: K3 == plain on {n_cases} cases (R in 0,1,5,102 x S in "
+        f"1,10 and R=1 at S={N_SHARDS}, with and without a filter; ties)")
+
+    served = torch.from_numpy(
+        _edge_rows(rng, 100, TG_SHARDS * words).view(np.int32)).to(dev)
+    ms, call_ms, how = kernel_ms(
+        torch, lambda: k3.row_counts(served), 50, "row_counts_kernel")
+    plain_ms = time_cuda(torch, lambda: k3.row_counts_reference(served), 10)
+    nbytes = served.numel() * 4 + 100 * 8
+    timing = {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+              "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+              "bound_by": "bytes"}
+    log(f"kernels: K3 at the served TopN shape [100, {TG_SHARDS}x{words}] "
+        f"({nbytes} bytes): {ms * 1e3:.2f} us/launch ({how}; "
+        f"{call_ms * 1e3:.2f} us per call by events), bound "
+        f"{timing['bound_ms'] * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us")
+    del served
+    big = torch.from_numpy(
+        _edge_rows(rng, 1, N_SHARDS * words).view(np.int32)).to(dev)
+    bfilt = torch.from_numpy(
+        _edge_rows(rng, 1, N_SHARDS * words)[0].view(np.int32)).to(dev)
+    big_ms, big_call, how = kernel_ms(
+        torch, lambda: k3.row_counts(big, bfilt), 50, "row_counts_kernel")
+    big_plain = time_cuda(
+        torch, lambda: k3.row_counts_reference(big, bfilt), 10)
+    big_bytes = (big.numel() + bfilt.numel()) * 4 + 8
+    log(f"kernels: K3 at [1, {N_SHARDS}x{words}] with a filter "
+        f"({big_bytes} bytes): {big_ms * 1e3:.2f} us/launch ({how}; "
+        f"{big_call * 1e3:.2f} us per call by events), bound "
+        f"{big_bytes / H100_BYTES_PER_S * 1e6:.2f} us, plain "
+        f"{big_plain * 1e3:.2f} us")
+    del big, bfilt
+    torch.cuda.empty_cache()
+    return max_err, timing
+
+
+def k4_bound(r1, r2, t, sms, clock_hz):
+    """(bound_ms, bound_by, bytes_ms, popc_ms) of one K4 launch with no
+    filter: bytes in and out over HBM, or R1·R2·T POPC at the SMs'
+    issue rate, whichever is larger."""
+    nbytes = (r1 + r2) * t * 4 + r1 * r2 * 8
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    popc_ms = r1 * r2 * t / (sms * POPC_PER_SM_PER_CLOCK * clock_hz) * 1e3
+    if popc_ms > bytes_ms:
+        return popc_ms, "operations", bytes_ms, popc_ms
+    return bytes_ms, "bytes", bytes_ms, popc_ms
+
+
+def check_k4(torch, k4, words, sms, clock_hz):
+    """K4 against the plain version on the card; returns (max_abs_err,
+    timing dict at the served GroupBy shape)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    max_err = 0
+    n_cases = 0
+    for r1, r2 in ((0, 3), (1, 1), (5, 4), (13, 130), (102, 102)):
+        for s in (1, 10):
+            t = s * words
+            a = torch.from_numpy(_edge_rows(rng, r1, t).view(np.int32)).to(dev)
+            b = torch.from_numpy(_edge_rows(rng, r2, t).view(np.int32)).to(dev)
+            filt = torch.from_numpy(
+                _edge_rows(rng, 1, t)[0].view(np.int32)).to(dev)
+            for f in (None, filt):
+                before = k4.pairwise_counts.launches
+                got = k4.pairwise_counts(a, b, f)
+                torch.cuda.synchronize()
+                want = k4.pairwise_counts_reference(a, b, f)
+                if k4.pairwise_counts.launches != \
+                        before + (1 if r1 and r2 else 0):
+                    raise AssertionError(f"K4 launches wrong at {r1}x{r2}")
+                err = int((got - want).abs().max()) if r1 and r2 else 0
+                max_err = max(max_err, err)
+                n_cases += 1
+                if err or got.shape != want.shape:
+                    raise AssertionError(
+                        f"K4 != plain at {r1}x{r2} S={s} "
+                        f"filter={f is not None}")
+            del a, b, filt
+    log(f"kernels: K4 == plain on {n_cases} cases ((R1,R2) in (0,3),(1,1),"
+        f"(5,4),(13,130),(102,102) x S in 1,10, with and without a filter)")
+
+    timing = None
+    t = TG_SHARDS * words
+    for r1, r2, reps, plain_reps in ((5, 4, 50, 10), (102, 102, 20, 3)):
+        a = torch.from_numpy(_edge_rows(rng, r1, t).view(np.int32)).to(dev)
+        b = torch.from_numpy(_edge_rows(rng, r2, t).view(np.int32)).to(dev)
+        ms, call_ms, how = kernel_ms(
+            torch, lambda: k4.pairwise_counts(a, b), reps, "pairwise_")
+        plain_ms = time_cuda(
+            torch, lambda: k4.pairwise_counts_reference(a, b), plain_reps)
+        bound_ms, bound_by, bytes_ms, popc_ms = k4_bound(
+            r1, r2, t, sms, clock_hz)
+        log(f"kernels: K4 at {r1}x{r2}x S={TG_SHARDS}: "
+            f"{ms * 1e3:.2f} us/launch ({how}; {call_ms * 1e3:.2f} us per "
+            f"call by events); bound {bound_ms * 1e3:.2f} us by "
+            f"{bound_by} (bytes {bytes_ms * 1e3:.2f} us, POPC "
+            f"{popc_ms * 1e3:.2f} us at {sms} SMs x "
+            f"{POPC_PER_SM_PER_CLOCK}/clock x {clock_hz / 1e9:.3f} GHz); "
+            f"plain {plain_ms * 1e3:.2f} us")
+        if timing is None:
+            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        del a, b
+    torch.cuda.empty_cache()
+    return max_err, timing
+
+
+def build_count_data(path, words):
     from pilosa_tpu_torch.core import Holder
     from pilosa_tpu_torch.core.field import FieldOptions
 
@@ -163,6 +413,79 @@ def build_data(path, words):
     return planes
 
 
+def build_topn_data(path):
+    """BASELINE config 3 at bench_suite.bench_topn_groupby's chip shape,
+    drawn exactly as that function draws it."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    n_cols = TG_SHARDS * SHARD_WIDTH
+    rng = np.random.default_rng(TG_SEED)
+    f_cols = []
+    for r in range(100):
+        n = int(100_000 / (r + 1)) + 100
+        f_cols.append(rng.integers(0, n_cols, size=n, dtype=np.uint64))
+    g_cols = rng.choice(n_cols, size=300_000, replace=False)
+    a_rows = rng.integers(0, 5, size=len(g_cols)).astype(np.uint64)
+    b_rows = rng.integers(0, 4, size=len(g_cols)).astype(np.uint64)
+    holder = Holder(path, use_snapshot_queue=False).open()
+    try:
+        idx = holder.create_index("tg")
+        for fname in ("f", "a", "b"):
+            idx.create_field(fname)
+        idx.field("f").import_bits(
+            np.concatenate([np.full(len(c), r, dtype=np.uint64)
+                            for r, c in enumerate(f_cols)]),
+            np.concatenate(f_cols))
+        idx.field("a").import_bits(a_rows, g_cols.astype(np.uint64))
+        idx.field("b").import_bits(b_rows, g_cols.astype(np.uint64))
+    finally:
+        holder.close()
+    return {"f": [np.unique(c).astype(np.int64) for c in f_cols],
+            "g_cols": g_cols.astype(np.int64),
+            "a": a_rows.astype(np.int64), "b": b_rows.astype(np.int64)}
+
+
+def topn_expect(tg):
+    """Expected JSON of each checked TopN/Rows/GroupBy query, from numpy."""
+    f = tg["f"]
+    counts = [len(c) for c in f]
+    a_sets = [np.sort(tg["g_cols"][tg["a"] == i]) for i in range(5)]
+
+    def pairs(cnt, n, minimum=1):
+        keep = [r for r in range(100) if cnt[r] >= minimum]
+        keep.sort(key=lambda r: (-cnt[r], r))
+        return [{"id": r, "count": int(cnt[r])} for r in keep[:n]]
+
+    filtered = [len(np.intersect1d(c, a_sets[1], assume_unique=True))
+                for c in f]
+
+    def groups(mask):
+        out = []
+        for i in range(5):
+            for j in range(4):
+                n = int(np.sum((tg["a"] == i) & (tg["b"] == j) & mask))
+                if n:
+                    out.append({"group": [{"field": "a", "rowID": i},
+                                          {"field": "b", "rowID": j}],
+                                "count": n})
+        return out
+
+    everything = np.ones(len(tg["g_cols"]), dtype=bool)
+    in_f0 = np.isin(tg["g_cols"], f[0])
+    return {
+        "TopN(f, n=10)": pairs(counts, 10),
+        "TopN(f, Row(a=1), n=5)": pairs(filtered, 5),
+        "TopN(f, n=5, threshold=5000)": pairs(counts, 5, 5000),
+        "Rows(a)": {"rows": [i for i in range(5) if len(a_sets[i])]},
+        "GroupBy(Rows(a))": [
+            {"group": [{"field": "a", "rowID": i}], "count": len(a_sets[i])}
+            for i in range(5) if len(a_sets[i])],
+        "GroupBy(Rows(a), Rows(b))": groups(everything),
+        "GroupBy(Rows(a), Rows(b), filter=Row(f=0))": groups(in_f0),
+    }
+
+
 def http(uri, path, body=None):
     req = urllib.request.Request(
         uri + path, data=None if body is None else body.encode(),
@@ -174,15 +497,14 @@ def http(uri, path, body=None):
     return out
 
 
-def serve_and_check(k1, data_dir, planes, card):
-    from pilosa_tpu_torch.cli import start_server
+def reset_counters(mods):
+    for fn in mods.values():
+        fn.launches = 0
+
+
+def serve_count_path(srv, k1, planes, card):
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
-    t0 = time.perf_counter()
-    srv = start_server(["--bind", "127.0.0.1:0", "--data-dir", data_dir,
-                        "--device", "cuda"])
-    log(f"serve: server up at {srv.uri} in "
-        f"{time.perf_counter() - t0:.1f} s (holder open)")
     P = planes
     expect = {}
     for a in (1, 2):
@@ -212,48 +534,107 @@ def serve_and_check(k1, data_dir, planes, card):
                                  f"{k1.count_expr.launches - before}, not 1")
         return got, dt
 
-    try:
-        k1.count_expr.launches = 0  # the main path's run starts here
-        status = http(srv.uri, "/status")
-        if status.get("state") != "NORMAL":
-            raise AssertionError(f"/status: {status}")
-        cold = {}
-        for pql, want in expect.items():
+    status = http(srv.uri, "/status")
+    if status.get("state") != "NORMAL":
+        raise AssertionError(f"/status: {status}")
+    cold = {}
+    for pql, want in expect.items():
+        got, dt = count(pql)
+        cold[pql] = dt
+        if got != want:
+            raise AssertionError(f"{pql}: {got} != {want}")
+        log(f"serve: {pql} = {got} (cold {dt * 1e3:.1f} ms)")
+    ok = http(srv.uri, "/index/b/query", f"Set({col}, f=1)")["results"]
+    if ok != [True]:
+        raise AssertionError(f"Set({col}, f=1) -> {ok}")
+    got, dt = count(single)
+    if got != expect[single] + 1:
+        raise AssertionError(
+            f"read-your-write: {got} != {expect[single] + 1}")
+    log(f"serve: Set({col}, f=1) then {single} = {got} "
+        f"(patched, {dt * 1e3:.1f} ms)")
+    patches = srv.api.executor.stacked_stats()["patches"]
+    if patches < 1:
+        raise AssertionError("Set did not patch the cached stack")
+    warm = []
+    pairs = [q for q in expect if q.startswith("Count(Intersect")]
+    for _ in range(25):
+        for pql in pairs:
             got, dt = count(pql)
-            cold[pql] = dt
-            if got != want:
-                raise AssertionError(f"{pql}: {got} != {want}")
-            log(f"serve: {pql} = {got} (cold {dt * 1e3:.1f} ms)")
-        ok = http(srv.uri, "/index/b/query", f"Set({col}, f=1)")["results"]
-        if ok != [True]:
-            raise AssertionError(f"Set({col}, f=1) -> {ok}")
-        got, dt = count(single)
-        if got != expect[single] + 1:
-            raise AssertionError(
-                f"read-your-write: {got} != {expect[single] + 1}")
-        log(f"serve: Set({col}, f=1) then {single} = {got} "
-            f"(patched, {dt * 1e3:.1f} ms)")
-        patches = srv.api.executor.stacked_stats()["patches"]
-        if patches < 1:
-            raise AssertionError("Set did not patch the cached stack")
-        warm = []
-        pairs = [q for q in expect if q.startswith("Count(Intersect")]
-        for _ in range(25):
-            for pql in pairs:
-                got, dt = count(pql)
-                if got != expect[pql]:
-                    raise AssertionError(f"{pql} warm: {got}")
-                warm.append(dt)
-        launches = k1.count_expr.launches
-        cold_pairs = [cold[q] for q in pairs]
-        log(f"serve: Count(Intersect(Row, Row)) over {N_SHARDS} shards on "
-            f"{card}: cold (upload) p50 "
-            f"{statistics.median(cold_pairs) * 1e3:.3f} ms, warm p50 "
-            f"{statistics.median(warm) * 1e3:.3f} ms over {len(warm)} "
-            f"queries; K1 launches on the main path: {launches}")
-        return launches
-    finally:
-        srv.stop()
+            if got != expect[pql]:
+                raise AssertionError(f"{pql} warm: {got}")
+            warm.append(dt)
+    cold_pairs = [cold[q] for q in pairs]
+    log(f"serve: Count(Intersect(Row, Row)) over {N_SHARDS} shards on "
+        f"{card}: cold (upload) p50 "
+        f"{statistics.median(cold_pairs) * 1e3:.3f} ms, warm p50 "
+        f"{statistics.median(warm) * 1e3:.3f} ms over {len(warm)} "
+        f"queries; K1 launches on the path: {k1.count_expr.launches}")
+
+
+def serve_topn_path(srv, k3, k4, tg, card):
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    expect = topn_expect(tg)
+
+    def query(pql, k3_step=0, k4_step=0):
+        b3, b4 = k3.row_counts.launches, k4.pairwise_counts.launches
+        t = time.perf_counter()
+        got = http(srv.uri, "/index/tg/query", pql)["results"][0]
+        dt = time.perf_counter() - t
+        if k3.row_counts.launches < b3 + k3_step:
+            raise AssertionError(f"{pql}: K3 did not launch")
+        if k4.pairwise_counts.launches < b4 + k4_step:
+            raise AssertionError(f"{pql}: K4 did not launch")
+        if pql in expect and got != expect[pql]:
+            raise AssertionError(f"{pql}: {got} != {expect[pql]}")
+        return got, dt
+
+    # (query, K3 launches at least, K4 launches at least); the first two
+    # are cold: they gather and upload their row chunks
+    cold = {}
+    for pql, k3_step, k4_step in (
+            ("TopN(f, n=10)", 1, 0),
+            ("GroupBy(Rows(a), Rows(b))", 0, 1),
+            ("TopN(f, Row(a=1), n=5)", 1, 0),
+            ("TopN(f, n=5, threshold=5000)", 1, 0),
+            ("Rows(a)", 0, 0),
+            ("GroupBy(Rows(a))", 1, 0),
+            ("GroupBy(Rows(a), Rows(b), filter=Row(f=0))", 0, 1)):
+        got, dt = query(pql, k3_step, k4_step)
+        cold[pql] = dt
+        log(f"serve: {pql} = {json.dumps(got)[:160]} ({dt * 1e3:.1f} ms)")
+    # read-your-write through a patched row chunk: one more bit in f=9
+    row, shard = 9, 3
+    present = set(tg["f"][row].tolist())
+    col = next(c for c in range(shard * SHARD_WIDTH, (shard + 1) * SHARD_WIDTH)
+               if c not in present)
+    patches = srv.api.executor.stacked_stats()["patches"]
+    ok = http(srv.uri, "/index/tg/query", f"Set({col}, f={row})")["results"]
+    if ok != [True]:
+        raise AssertionError(f"Set({col}, f={row}) -> {ok}")
+    want = [dict(p) for p in expect["TopN(f, n=10)"]]
+    for p in want:
+        if p["id"] == row:
+            p["count"] += 1
+    expect["TopN(f, n=10)"] = want
+    got, dt = query("TopN(f, n=10)", 1, 0)
+    if srv.api.executor.stacked_stats()["patches"] <= patches:
+        raise AssertionError("Set did not patch the cached row chunk")
+    log(f"serve: Set({col}, f={row}) then TopN(f, n=10) reads it back "
+        f"(patched row chunk, {dt * 1e3:.1f} ms)")
+    warm = {"TopN(f, n=10)": [], "GroupBy(Rows(a), Rows(b))": []}
+    for _ in range(60):
+        warm["TopN(f, n=10)"].append(query("TopN(f, n=10)", 1, 0)[1])
+        warm["GroupBy(Rows(a), Rows(b))"].append(
+            query("GroupBy(Rows(a), Rows(b))", 0, 1)[1])
+    for pql, times in warm.items():
+        log(f"serve: {pql} over {TG_SHARDS} shards on {card}: cold "
+            f"{cold[pql] * 1e3:.3f} ms, warm p50 "
+            f"{statistics.median(times) * 1e3:.3f} ms over {len(times)} "
+            f"queries")
+    log(f"serve: launches on the TopN/GroupBy path: K3 "
+        f"{k3.row_counts.launches}, K4 {k4.pairwise_counts.launches}")
 
 
 def main():
@@ -263,59 +644,91 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    from pilosa_tpu_torch.cli import start_server
     from pilosa_tpu_torch.ops import count_expr as k1
     from pilosa_tpu_torch.ops import cuda_build
+    from pilosa_tpu_torch.ops import pairwise as k4
+    from pilosa_tpu_torch.ops import row_counts as k3
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
     if SHARD_WIDTH != 1 << 20:
         raise SystemExit(f"shard width {SHARD_WIDTH} != 2^20")
     kind = torch.cuda.get_device_name(0)
-    card = device_line()
-    log(f"device: {kind} | nvidia-smi: {card} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
+    card = nvidia_smi("name,power.limit")
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"device: {kind} | nvidia-smi: {card} | max SM clock {clock_mhz} "
+        f"MHz, {sms} SMs | torch {torch.__version__} cuda "
+        f"{torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    cuda_build.load("count_expr")
-    info = cuda_build.build_info["count_expr"]
-    log(f"build: count_expr in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {info['seconds']:.2f} s)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"build: {line.strip()}")
+    build_kernels(cuda_build)
+    errs, timings = {}, {}
+    errs["count_expr"], timings["count_expr"] = check_k1(
+        torch, k1, WORDS_PER_ROW)
+    t = timings["count_expr"]
+    log(f"kernels: K1 at S={N_SHARDS}, 2 leaves ({t['bytes']} bytes): "
+        f"{t['ms'] * 1e3:.2f} us/launch ({t['how']}; "
+        f"{t['call_ms'] * 1e3:.2f} us per call by events), bound "
+        f"{t['bound_ms'] * 1e3:.2f} us at 3.35 TB/s, plain version "
+        f"{t['plain_ms'] * 1e3:.2f} us; card {card}")
+    errs["row_counts"], timings["row_counts"] = check_k3(
+        torch, k3, WORDS_PER_ROW)
+    errs["pairwise_counts"], timings["pairwise_counts"] = check_k4(
+        torch, k4, WORDS_PER_ROW, sms, clock_mhz * 1e6)
+    log(f"kernels: {list(KERNELS)}")
 
-    max_err, timing = check_kernels(torch, k1, WORDS_PER_ROW)
-    log(f"kernels: K1 at S={N_SHARDS}, 2 leaves ({timing['bytes']} bytes): "
-        f"median {timing['ms'] * 1e3:.2f} us/launch, bound "
-        f"{timing['bound_ms'] * 1e3:.2f} us at 3.35 TB/s, plain version "
-        f"{timing['plain_ms'] * 1e3:.2f} us; card {card}")
-    log('kernels: ["count_expr"]')
-
+    mods = {"count_expr": k1.count_expr, "row_counts": k3.row_counts,
+            "pairwise_counts": k4.pairwise_counts}
+    launches = {}
     tmp = tempfile.mkdtemp(prefix="pilosa-torch-smoke-")
     try:
+        # config 3 first: each writer opens a Holder on the directory,
+        # and opening the 954-shard index alone takes about a minute
         t0 = time.perf_counter()
-        planes = build_data(tmp, WORDS_PER_ROW)
-        log(f"data: {N_SHARDS} shards x 2 fields x 2 rows written in "
-            f"{time.perf_counter() - t0:.1f} s")
-        launches = serve_and_check(k1, tmp, planes, card)
+        tg = build_topn_data(tmp)
+        t1 = time.perf_counter()
+        planes = build_count_data(tmp, WORDS_PER_ROW)
+        log(f"data: BASELINE config 3 over {TG_SHARDS} shards (index tg) "
+            f"written in {t1 - t0:.1f} s; {N_SHARDS} shards x 2 fields x 2 "
+            f"rows (index b) in {time.perf_counter() - t1:.1f} s")
+        t0 = time.perf_counter()
+        srv = start_server(["--bind", "127.0.0.1:0", "--data-dir", tmp,
+                            "--device", "cuda"])
+        log(f"serve: server up at {srv.uri} in "
+            f"{time.perf_counter() - t0:.1f} s (holder open)")
+        try:
+            reset_counters(mods)  # the Count path's run starts here
+            serve_count_path(srv, k1, planes, card)
+            launches["count_expr"] = k1.count_expr.launches
+            reset_counters(mods)  # the TopN/GroupBy path's run starts here
+            serve_topn_path(srv, k3, k4, tg, card)
+            launches["row_counts"] = k3.row_counts.launches
+            launches["pairwise_counts"] = k4.pairwise_counts.launches
+        finally:
+            srv.stop()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    if launches < 1:
-        raise AssertionError("K1 was not launched on the main path")
+    for name in KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on its path")
 
+    sources = {"count_expr": "pilosa_tpu/ops/pallas_kernels.py:141",
+               "row_counts": "pilosa_tpu/ops/pallas_kernels.py:515",
+               "pairwise_counts": "pilosa_tpu/ops/pallas_kernels.py:373"}
     log(card)
     log(json.dumps({"kernels": [{
-        "name": "count_expr",
+        "name": name,
         "route": "cuda",
-        "source": "pilosa_tpu_torch/csrc/count_expr.cu",
-        "replaces": "pilosa_tpu/ops/pallas_kernels.py:141",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": "bytes",
+        "source": f"pilosa_tpu_torch/csrc/{name}.cu",
+        "replaces": sources[name],
+        "launches": launches[name],
+        "max_abs_err": errs[name],
+        "ms": timings[name]["ms"],
+        "plain_ms": timings[name]["plain_ms"],
+        "bound_ms": timings[name]["bound_ms"],
+        "bound_by": timings[name]["bound_by"],
         "library_ms": None,
-    }]}))
+    } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

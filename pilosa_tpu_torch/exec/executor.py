@@ -1,14 +1,21 @@
-"""PQL executor: stacked Count, per-shard bitmap calls, and writes.
+"""PQL executor: stacked Count/TopN/GroupBy, Rows, bitmap calls, writes.
 
 Reference: executor.go (Execute :113, executeCall :274, executeCount
-:1790, executeBitmapCallShard :651). The port's slice:
+:1790, executeTopN :930, executeRows :1280, executeGroupBy :1098,
+executeBitmapCallShard :651). The port's slice:
 
 - Count over two or more shards of a stack-coverable tree (Row / Intersect
   / Union / Difference / Xor / Not) runs as ONE launch of K1 over cached
   [S, W] device stacks (exec/stacked.py); anything else counts shard by
   shard with the PyTorch plane ops (ops/bitplane.py), summed exactly.
+- TopN and single-field GroupBy count candidate rows in [R, S, W] chunks
+  with K3 (one launch per chunk); GroupBy over two or more fields counts
+  its innermost two fields' cross product with K4 (one launch per tile
+  pair). Fewer than two shards, or a filter the stacked path cannot
+  express, count shard by shard instead — on the device all the same.
+- Rows lists row ids from the host fragments.
 - Bitmap calls evaluate shard by shard on the device and return a Row.
-- Set and Clear write through the host fragments; the next Count patches
+- Set and Clear write through the host fragments; the next query patches
   the cached stacks in place.
 
 Every other call raises a clear "not yet ported" error. Per-shard work
@@ -16,17 +23,24 @@ fans over the shared worker pool and reduces IN SHARD ORDER, so every
 worker count gives identical results.
 """
 
+import math
+
+import numpy as np
 import torch
 
-from ..core.field import FIELD_TYPE_INT
+from ..core.field import FIELD_TYPE_INT, FIELD_TYPE_TIME
 from ..core.row import Row
 from ..core import timeq
 from ..core.view import VIEW_STANDARD
 from ..device import resolve_device
 from ..ops import bitplane
-from ..pql import parse
-from ..shardwidth import WORDS_PER_ROW
+from ..ops.row_counts import row_counts as _row_counts_kernel
+from ..pql import Call, parse
+from ..shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 from ..utils.workpool import shard_map_reduce
+from .result import FieldRow, GroupCount, Pair, RowIdentifiers
+
+_TOPN_STACK_CHUNK = 256  # rows per device stack on the per-shard path
 
 
 class ExecError(Exception):
@@ -49,10 +63,72 @@ class ExecOptions:
         self.remote = remote
 
 
+def uint_arg(call, key):
+    """(value, present) for a non-negative integer argument; rejects
+    negatives with the reference's message (pql.Call.UintArg
+    pql/ast.go:315: "value for 'x' must be positive, but got -1" — the
+    reference errors rather than silently serving an empty result)."""
+    val = call.args.get(key)
+    if val is None:
+        return 0, False
+    if isinstance(val, bool) or not isinstance(val, int):
+        raise ExecError(
+            f"could not convert {val!r} to an unsigned integer "
+            f"for '{key}'")
+    if val < 0:
+        raise ExecError(
+            f"value for '{key}' must be positive, but got {val}")
+    return val, True
+
+
+def uint_arg_or_none(call, key):
+    """Validated optional unsigned arg: the value, or None when absent."""
+    val, has = uint_arg(call, key)
+    return val if has else None
+
+
+def groupby_previous(call, n_children):
+    """Validated GroupBy `previous` list cursor, or None when absent: one
+    non-negative row id per Rows child, naming the last group a prior page
+    returned; results resume lexicographically after it. Per-child
+    validation mirrors the reference (Call.UintSliceArg pql/ast.go +
+    executeGroupBy's per-field check, executor.go:2737-2745) — a length
+    mismatch or a non-uint element errors rather than silently serving
+    the wrong page."""
+    prev = call.args.get("previous")
+    if prev is None:
+        return None
+    if not isinstance(prev, (list, tuple)):
+        raise ExecError(
+            "'previous' argument must be a list of row ids for GroupBy")
+    if len(prev) != n_children:
+        raise ExecError(
+            "'previous' argument must have a value for each GroupBy field")
+    out = []
+    for val in prev:
+        if isinstance(val, bool) or not isinstance(val, int):
+            raise ExecError(
+                f"could not convert {val!r} to an unsigned integer "
+                f"for 'previous'")
+        if val < 0:
+            raise ExecError(
+                f"value for 'previous' must be positive, but got {val}")
+        out.append(val)
+    return out
+
+
+def fragment_topn_candidates(frag, use_cache=True):
+    """THE per-fragment TopN candidate policy: cache ids when a cache is
+    populated (the reference's approximation), else every present row."""
+    if use_cache and frag.cache is not None and len(frag.cache):
+        return frag.cache.ids()
+    return frag.row_ids()
+
+
 #: calls this slice of the port executes
 PORTED_CALLS = frozenset((
-    "Count", "Set", "Clear", "Row", "Range", "Intersect", "Union",
-    "Difference", "Xor", "Not", "All"))
+    "Count", "TopN", "Rows", "GroupBy", "Set", "Clear", "Row", "Range",
+    "Intersect", "Union", "Difference", "Xor", "Not", "All"))
 
 
 class Executor:
@@ -96,6 +172,9 @@ class Executor:
     def execute_call(self, idx, call, shards, opt):
         handler = {
             "Count": self._exec_count,
+            "TopN": self._exec_topn,
+            "Rows": self._exec_rows,
+            "GroupBy": self._exec_group_by,
             "Set": self._exec_set,
             "Clear": self._exec_clear,
         }.get(call.name)
@@ -301,6 +380,483 @@ class Executor:
         if not counts:
             return 0
         return int(torch.stack(counts).sum())
+
+    def _set_field(self, idx, call):
+        field_name = call.args.get("field") or call.args.get("_field")
+        if field_name is None:
+            field_name = call.field_arg()
+        field = idx.field(field_name)
+        if field is None:
+            raise FieldNotFound(f"field not found: {field_name}")
+        return field
+
+    # ---------------------------------------------------------------- TopN
+
+    def _exec_topn(self, idx, call, shards, opt):
+        """TopN via exact device popcounts over cache-selected candidates.
+
+        The reference approximates with per-fragment rank caches + heap
+        merge (executor.go:930, fragment.top fragment.go:1570); here the
+        cache bounds which row planes get stacked, then exact counts come
+        from K3 launches (O(1) in shards on the stacked path). Cache-less
+        fields fall back to an exact full-row scan.
+
+        threshold / tanimotoThreshold follow executor.go:947-995 +
+        fragment.top fragment.go:1570-1700: threshold drops rows whose
+        (filtered) count is below it; tanimotoThreshold T (1-100, requires
+        a source row) keeps rows where ceil(100·|row ∩ src| /
+        (|row| + |src| - |row ∩ src|)) > T."""
+        field = self._set_field(idx, call)
+        if field.type == FIELD_TYPE_INT:
+            raise ExecError(
+                f'cannot compute TopN() on integer field: "{field.name}"')
+        if len(call.children) > 1:
+            raise ExecError("TopN() can only have one input bitmap")
+        if call.children:
+            self.validate_bitmap_call(idx, call.children[0])
+        n = uint_arg_or_none(call, "n")
+        ids = call.args.get("ids")
+        if ids is not None and (
+                not isinstance(ids, list)
+                or any(isinstance(r, bool) or not isinstance(r, int)
+                       for r in ids)):
+            # (reference: validateCallArgs executor.go:342-358)
+            raise ExecError(f"invalid call.Args[ids]: {ids!r}")
+        thr = uint_arg_or_none(call, "threshold")
+        threshold = 1 if thr is None else thr
+        tanimoto, _ = uint_arg(call, "tanimotoThreshold")
+        if tanimoto > 100:  # negatives already rejected by uint_arg
+            raise ExecError("Tanimoto Threshold is from 1 to 100 only")
+        if tanimoto > 0 and not call.children:
+            raise ExecError(
+                "TopN(): tanimotoThreshold requires a source row query")
+        counts = self._row_counts(idx, field, call, shards,
+                                  restrict_ids=ids, use_cache=ids is None)
+        # row-attribute filter (reference: attrName/attrValues
+        # executor.go:982-1005)
+        attr_name = call.args.get("attrName")
+        if attr_name is not None and field.row_attr_store is not None:
+            attr_values = call.args.get("attrValues")
+            if not isinstance(attr_values, list):
+                raise ExecError("TopN(): attrValues must be a list")
+            counts = {
+                r: c for r, c in counts.items()
+                if field.row_attr_store.attrs(r).get(attr_name) in attr_values
+            }
+        src = call.children[0] if call.children else None
+        # tanimoto needs each row's UNFILTERED cardinality and the source
+        # row's count; both come from host container cardinalities / the
+        # count fast path — no extra per-shard device work.
+        if tanimoto > 0 and src is not None:
+            shard_list = self._call_shards(idx, shards)
+            plain = self._plain_row_counts(field, counts, shard_list)
+            src_count = self._count_of(idx, src, shard_list)
+            kept = {}
+            for row_id, cnt in counts.items():
+                if cnt <= 0:
+                    continue
+                denom = plain[row_id] + src_count - cnt
+                coeff = math.ceil(cnt * 100 / denom) if denom else 100
+                if coeff > tanimoto:
+                    kept[row_id] = cnt
+            counts = kept
+        # threshold and tanimoto are either/or (fragment.top:1610-1620).
+        min_count = 1 if (tanimoto > 0 and src is not None) \
+            else max(threshold, 1)
+        pairs = [Pair(row_id, cnt) for row_id, cnt in counts.items()
+                 if cnt >= min_count]
+        pairs.sort(key=lambda p: (-p.count, p.id))
+        # remote shards return untrimmed pairs so the coordinator's merge
+        # stays exact (reference: executeTopN trims only when !opt.Remote)
+        if n is not None and ids is None and not opt.remote:
+            pairs = pairs[:int(n)]
+        return pairs
+
+    def _plain_row_counts(self, field, row_ids, shard_list):
+        """row -> UNFILTERED global cardinality, from host container
+        cardinalities (no device work; reference: fragment.rowCount)."""
+        totals = {int(r): 0 for r in row_ids}
+        view = field.view(VIEW_STANDARD)
+        if view is None:
+            return totals
+        keys = list(totals)
+
+        def shard_counts(shard):
+            frag = view.fragment(shard)
+            if frag is None:
+                return None
+            return [frag.row_count(r) for r in keys]
+
+        for counts in shard_map_reduce(shard_list, shard_counts):
+            if counts is None:
+                continue
+            for r, c in zip(keys, counts):
+                totals[r] += c
+        return totals
+
+    def _count_of(self, idx, call, shard_list):
+        """Count of a bitmap call over shards (K1 on the stacked path,
+        else a per-shard popcount sum)."""
+        fast = self._stacked.try_count(idx, call, shard_list)
+        if fast is not None:
+            return fast
+
+        def count_one(shard):
+            plane = self.bitmap_call_shard(idx, call, shard)
+            if plane is None:
+                return 0
+            return int(bitplane.popcount(plane))
+
+        return shard_map_reduce(
+            shard_list, count_one,
+            reducer=lambda acc, c: acc + c, initial=0)
+
+    def _candidate_rows(self, field, shard_list, restrict_ids, use_cache,
+                        view_name):
+        """Global candidate row set: union over fragments of their TopN
+        cache ids (when populated) or all present rows."""
+        view = field.view(view_name)
+        if view is None:
+            return []
+
+        def shard_rows(shard):
+            frag = view.fragment(shard)
+            if frag is None:
+                return None
+            return fragment_topn_candidates(frag, use_cache)
+
+        rows = set()
+        for cand in shard_map_reduce(shard_list, shard_rows):
+            if cand is not None:
+                rows.update(cand)
+        if restrict_ids is not None:
+            wanted = {int(r) for r in restrict_ids}
+            rows &= wanted
+        return sorted(rows)
+
+    def _row_counts(self, idx, field, call, shards, restrict_ids=None,
+                    view_name=VIEW_STANDARD, use_cache=False):
+        """row -> total count across shards, optionally intersected with the
+        call's first child as filter. With use_cache, candidate rows come
+        from the fragment's TopN cache when one is populated (the
+        reference's approximation: only cached rows compete).
+
+        Fast path: candidate rows stack into [R, S, W] chunks and ALL
+        shards count in O(rows/chunk) launches of K3 — independent of the
+        shard count. Falls back per-shard when the filter tree isn't
+        stack-coverable (conditions, time ranges, ...) or the query names
+        fewer than MIN_SHARDS shards."""
+        from .stacked import MIN_SHARDS
+
+        shard_list = self._call_shards(idx, shards)
+        filter_call = call.children[0] \
+            if (call is not None and call.children) else None
+
+        if len(shard_list) >= MIN_SHARDS:
+            covered, filt = self._stacked.filter_stack(
+                idx, filter_call, tuple(shard_list))
+            if covered:
+                candidates = self._candidate_rows(
+                    field, shard_list, restrict_ids, use_cache, view_name)
+                totals = self._stacked.row_counts(
+                    idx, field.name, candidates, filt, shard_list,
+                    view_name)
+                if totals is not None:
+                    if restrict_ids is not None:
+                        for r in restrict_ids:
+                            totals.setdefault(int(r), 0)
+                    return totals
+
+        # Fallback: per-shard chunks, but over the SAME global candidate
+        # set as the fast path (union across fragments), so both paths
+        # return identical counts for identical data.
+        candidates = self._candidate_rows(
+            field, shard_list, restrict_ids, use_cache, view_name)
+        totals = {}
+
+        def shard_chunks(shard):
+            """Per-shard chunked K3 counts (single-device launches; safe
+            to issue concurrently from pool workers)."""
+            view = field.view(view_name)
+            frag = view.fragment(shard) if view else None
+            if frag is None:
+                return []
+            filt = None
+            if filter_call is not None:
+                filt = self.bitmap_call_shard(idx, filter_call, shard)
+                if filt is None:
+                    return []  # empty filter -> zero counts in this shard
+            present = set(frag.row_ids())
+            row_ids = [r for r in candidates if r in present]
+            out = []
+            for i in range(0, len(row_ids), _TOPN_STACK_CHUNK):
+                chunk = row_ids[i:i + _TOPN_STACK_CHUNK]
+                stack = self._fragment_rows(frag, chunk)
+                out.append((chunk, _row_counts_kernel(stack, filt)))
+            return out
+
+        pending = [pc for per_shard in
+                   shard_map_reduce(shard_list, shard_chunks)
+                   for pc in per_shard]
+        for chunk, dev_counts in pending:
+            for r, c in zip(chunk, dev_counts.cpu().tolist()):
+                totals[r] = totals.get(r, 0) + c
+        if restrict_ids is not None:
+            for r in restrict_ids:
+                totals.setdefault(int(r), 0)
+        return totals
+
+    def _fragment_rows(self, frag, row_ids):
+        """[R, W] device stack of one fragment's rows (one upload)."""
+        host = np.stack([frag.row_plane(r) for r in row_ids])
+        return bitplane.to_device(host, self.device)
+
+    # ---------------------------------------------------------------- Rows
+
+    def _rows_views(self, field, call):
+        """View names Rows() inspects: the standard view, or for a time
+        field with from/to (or noStandardView) the minimal quantum-view
+        cover of the range, clamped to the views that actually exist
+        (reference: executeRowsShard executor.go:1338-1400 +
+        minMaxViews/timeOfView time.go:240-340)."""
+        if field.type != FIELD_TYPE_TIME:
+            return [VIEW_STANDARD]
+        from_t = timeq.parse_time(call.args["from"]) \
+            if "from" in call.args else None
+        to_t = timeq.parse_time(call.args["to"]) \
+            if "to" in call.args else None
+        if from_t is None and to_t is None \
+                and not field.options.no_standard_view:
+            return [VIEW_STANDARD]
+        quantum = field.time_quantum()
+        if not quantum:
+            return []
+        vmin, vmax = timeq.min_max_views(
+            list(field.views), quantum, VIEW_STANDARD)
+        if vmin is None:
+            return []
+        min_t = timeq.time_of_view(vmin, VIEW_STANDARD)
+        max_t = timeq.time_of_view(vmax, VIEW_STANDARD, adj=True)
+        if from_t is None or from_t < min_t:
+            from_t = min_t
+        if to_t is None or to_t > max_t:
+            to_t = max_t
+        return timeq.views_by_time_range(
+            VIEW_STANDARD, from_t, to_t, quantum)
+
+    def _exec_rows(self, idx, call, shards, opt):
+        """(reference: executeRows executor.go:1280)"""
+        field = self._set_field(idx, call)
+        limit = uint_arg_or_none(call, "limit")
+        previous = uint_arg_or_none(call, "previous")
+        column = uint_arg_or_none(call, "column")
+
+        rows = set()
+        shard_list = self._call_shards(idx, shards)
+        for view_name in self._rows_views(field, call):
+            view = field.view(view_name)
+            if view is None:
+                continue
+
+            def shard_rows(shard, view=view):
+                frag = view.fragment(shard)
+                if frag is None:
+                    return None
+                if column is not None:
+                    if column // SHARD_WIDTH != shard:
+                        return None
+                    return {r for r in frag.row_ids()
+                            if frag.contains(r, column)}
+                return set(frag.row_ids())
+
+            for found in shard_map_reduce(shard_list, shard_rows):
+                if found is not None:
+                    rows.update(found)
+        out = sorted(rows)
+        if previous is not None:
+            out = [r for r in out if r > previous]
+        if limit is not None and not opt.remote:
+            out = out[:limit]
+        return RowIdentifiers(rows=out)
+
+    # -------------------------------------------------------------- GroupBy
+
+    def _exec_group_by(self, idx, call, shards, opt):
+        """(reference: executeGroupBy executor.go:1098)"""
+        if not call.children:
+            raise ExecError("GroupBy requires at least one Rows() child")
+        for child in call.children:
+            if child.name != "Rows":
+                raise ExecError("GroupBy children must be Rows() calls")
+        limit = uint_arg_or_none(call, "limit")
+        offset = uint_arg_or_none(call, "offset")
+        previous = groupby_previous(call, len(call.children))
+        filter_call = call.args.get("filter")
+        if filter_call is not None:
+            if not isinstance(filter_call, Call):
+                raise ExecError("GroupBy filter must be a row query")
+            self.validate_bitmap_call(idx, filter_call)
+
+        fields = [self._set_field(idx, child) for child in call.children]
+        shard_list = self._call_shards(idx, shards)
+
+        # Child Rows() limit/previous/column apply to the GLOBAL merged row
+        # set (exactly Rows() semantics, reused).
+        child_rows = [
+            self._exec_rows(idx, child, shards, opt).rows
+            for child in call.children
+        ]
+        if previous is not None:
+            # Seed the outermost child's row start (the reference seeks
+            # each row iterator, executor.go:1403-1406; later iterators
+            # cycle back to their full row sets, so only the outermost —
+            # which never wraps — prunes soundly). Groups at or before
+            # the cursor are dropped lexicographically below.
+            lo = previous[0] + (1 if len(child_rows) == 1 else 0)
+            child_rows[0] = [r for r in child_rows[0] if r >= lo]
+
+        totals = self._group_by_stacked(
+            idx, fields, child_rows, filter_call, shard_list)
+        if totals is None:
+            totals = self._group_by_per_shard(
+                idx, fields, child_rows, filter_call, shard_list)
+        if previous is not None:
+            prev_t = tuple(previous)
+            totals = {g: c for g, c in totals.items() if g > prev_t}
+
+        out = [
+            GroupCount(
+                [FieldRow(f.name, rid) for f, rid in zip(fields, group)],
+                cnt)
+            for group, cnt in sorted(totals.items())
+        ]
+        if limit is not None and not opt.remote:
+            out = out[:limit]
+        # offset applies after the limit-bounded merge, and is a NO-OP
+        # when it reaches past the result set (reference guards
+        # `offset < len(results)`: executeGroupBy executor.go:1134-1143)
+        if offset is not None and not opt.remote and offset < len(out):
+            out = out[offset:]
+        return out
+
+    def _group_by_stacked(self, idx, fields, child_rows, filter_call,
+                          shard_list):
+        """Thin layer over the stacked kernels: the innermost TWO levels
+        are one tiled cross-product count matrix
+        (StackedEvaluator.pairwise_counts — one K4 launch and one host
+        fetch per tile pair); outer levels walk row combinations as
+        [S, W] device intersections in chunks; a single-field GroupBy
+        counts its rows with K3. Returns None to fall back (too few
+        shards, a filter the stacked path can't express, or a field/view
+        vanishing mid-query)."""
+        from .stacked import MIN_SHARDS
+
+        if len(shard_list) < MIN_SHARDS:
+            return None
+        shards = tuple(shard_list)
+        covered, filt = self._stacked.filter_stack(idx, filter_call, shards)
+        if not covered:
+            return None
+
+        if len(fields) == 1:
+            counts = self._stacked.row_counts(
+                idx, fields[0].name, child_rows[0], filt, shards)
+            if counts is None:
+                return None
+            return {(r,): c for r, c in counts.items() if c > 0}
+
+        totals = {}
+        a_field, b_field = fields[-2], fields[-1]
+        a_rows, b_rows = child_rows[-2], child_rows[-1]
+        chunk_size = self._stacked.row_chunk_size(shards)
+
+        def recurse(level, plane, prefix):
+            """plane: accumulated [S, W] restriction (None = everything).
+            Returns False to abort (stack construction failed; caller
+            falls back to the per-shard path)."""
+            if level == len(fields) - 2:
+                groups = self._stacked.pairwise_counts(
+                    idx, a_field.name, a_rows, b_field.name, b_rows,
+                    plane, shards)
+                if groups is None:
+                    return False
+                for pair, c in groups.items():
+                    key = prefix + pair
+                    totals[key] = totals.get(key, 0) + c
+                return True
+            # Outer-level row planes come from the rows pool in chunks (not
+            # the leaf pool: a wide outer field must not evict the hot
+            # Count stacks), sliced per combination.
+            rows = child_rows[level]
+            for i in range(0, len(rows), chunk_size):
+                chunk = tuple(rows[i:i + chunk_size])
+                stack = self._stacked.rows_stack(
+                    idx, fields[level].name, chunk, shards)
+                if stack is None:
+                    return False
+                for j, row_id in enumerate(chunk):
+                    combined = stack[j] if plane is None \
+                        else plane & stack[j]
+                    if not recurse(level + 1, combined, prefix + (row_id,)):
+                        return False
+            return True
+
+        if not recurse(0, filt, ()):
+            return None
+        return totals
+
+    def _group_by_per_shard(self, idx, fields, child_rows, filter_call,
+                            shard_list):
+        def shard_totals(shard):
+            """This shard's group -> count map (device intersect chains +
+            one host fetch; independent across shards)."""
+            frag_rows = []
+            for field, rows in zip(fields, child_rows):
+                view = field.view(VIEW_STANDARD)
+                frag = view.fragment(shard) if view else None
+                if frag is None:
+                    return None
+                present = set(frag.row_ids())
+                frag_rows.append((frag, [r for r in rows if r in present]))
+            filt = None
+            if filter_call is not None:
+                filt = self.bitmap_call_shard(idx, filter_call, shard)
+                if filt is None:
+                    return None
+
+            # depth-first cross product
+            pending = []
+
+            def recurse(level, plane, prefix):
+                frag, row_ids = frag_rows[level]
+                for row_id in row_ids:
+                    p = bitplane.to_device(frag.row_plane(row_id),
+                                           self.device)
+                    combined = p if plane is None \
+                        else bitplane.intersect(plane, p)
+                    if level + 1 == len(frag_rows):
+                        pending.append((prefix + (row_id,),
+                                        bitplane.popcount(combined)))
+                    else:
+                        recurse(level + 1, combined, prefix + (row_id,))
+
+            recurse(0, filt, ())
+            out = {}
+            if pending:
+                groups, dev_counts = zip(*pending)
+                host = torch.stack(list(dev_counts)).cpu().tolist()
+                for group, c in zip(groups, host):
+                    if c > 0:
+                        out[group] = out.get(group, 0) + c
+            return out
+
+        totals = {}
+        for shard_counts in shard_map_reduce(shard_list, shard_totals):
+            if not shard_counts:
+                continue
+            for group, c in shard_counts.items():
+                totals[group] = totals.get(group, 0) + c
+        return totals
 
     # ---------------------------------------------------------------- writes
 

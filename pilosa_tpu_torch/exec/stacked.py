@@ -1,19 +1,30 @@
-"""Stacked serving fast path: Count over every shard in one launch.
+"""Stacked serving fast path: Count, TopN and GroupBy over every shard.
 
-The general executor evaluates call trees shard by shard. For Count
-(reference: executeCount executor.go:1790) this module evaluates ALL
-shards at once: fragment rows become [shards, words] int32 stacks
-resident on the device, the call tree becomes a signature over leaf
-slots, and one launch of K1 (ops/count_expr.py) evaluates the tree,
-takes the popcount and sums over every shard into an exact int64.
+The general executor evaluates call trees shard by shard. This module
+evaluates ALL shards at once: fragment rows become [shards, words] int32
+stacks resident on the device, and
 
-Stacks are cached per (index, field, row, shard-set) and validated by the
-fragments' write-generation counters (fragment.generation — bumped by
-every mutation), so a stale stack never serves a query. A view-level
+- Count (reference: executeCount executor.go:1790): the call tree becomes
+  a signature over leaf slots, and one launch of K1 (ops/count_expr.py)
+  evaluates the tree, takes the popcount and sums over every shard into
+  an exact int64;
+- TopN and single-field GroupBy: candidate rows stack into [R, S, W]
+  chunks and one launch of K3 (ops/row_counts.py) per chunk counts each
+  row against an optional [S, W] filter (`filter_stack`, a tree evaluated
+  with PyTorch elementwise ops); one host fetch serves every chunk;
+- GroupBy over two or more fields: one launch of K4 (ops/pairwise.py)
+  per pair of row tiles of its innermost two fields gives their
+  [R1, R2] count matrix.
+
+Stacks are cached per (index, field, row, shard-set) — leaf stacks — or
+per (index, field, view, row chunk, shard-set) — row-chunk stacks — in
+two pools with their own byte budgets and LRU order, so churning TopN
+candidates never evict the Count path's leaves. Both are validated by
+the fragments' write-generation counters (fragment.generation — bumped
+by every mutation), so a stale stack never serves a query. A view-level
 (uid, mutations) stamp makes the hit check O(1); a drifted entry is
-patched in place, re-uploading only the changed shards' planes. The cache
-is bounded by device bytes (at SHARD_WIDTH = 2^20 a 954-shard stack is
-125 MB).
+patched in place, re-uploading only the changed shards' planes (at
+SHARD_WIDTH = 2^20 a 954-shard leaf stack is 125 MB).
 
 Every launch and every in-place patch holds one process-wide dispatch
 lock, so concurrent queries serialize on it. (Batching concurrent counts
@@ -29,14 +40,27 @@ import torch
 from ..core.index import EXISTENCE_FIELD_NAME
 from ..core.view import VIEW_STANDARD
 from ..ops import containers as _containers
-from ..ops.count_expr import tree_eval  # noqa: F401  (THE tree semantics)
+from ..ops.count_expr import tree_eval
+from ..ops.pairwise import pairwise_counts_stack as _pairwise_kernel
+from ..ops.row_counts import row_counts as _row_counts_kernel
 from ..shardwidth import WORDS_PER_ROW
 
-# Device-byte budget for cached stacks; excess evicts least-recently-used.
+# Device-byte budget for cached leaf stacks; excess evicts
+# least-recently-used.
 MAX_STACK_BYTES = 512 * 1024 * 1024
+# Separate budget for TopN/GroupBy row-chunk stacks ([rows, shards, words]
+# keyed by the exact candidate tuple): they are large and churn with any
+# candidate-set change, so they must not be able to evict the long-lived
+# leaf stacks the Count path depends on. (The TPU package's value, sized
+# for a 16 GB TPU, kept for parity.)
+MAX_ROWS_STACK_BYTES = 256 * 1024 * 1024
 # Below this many shards the per-shard path's launch count is too small
 # to matter.
 MIN_SHARDS = 2
+# Transient row-chunk stacks ([rows, shards, words]) are built at most this
+# large, so TopN/GroupBy launch count is O(rows/chunk) — independent of
+# the shard count. (The TPU package's value, kept for parity.)
+CHUNK_BYTES = 128 * 1024 * 1024
 
 _OPS = {"Intersect": "&", "Union": "|", "Difference": "-", "Xor": "^"}
 
@@ -86,30 +110,41 @@ def tree_signature(idx, call, leaves, leaf):
 class StackedEvaluator:
     def __init__(self, device):
         self.device = torch.device(device)
-        # key -> [gens, Container, nbytes, stamp]
-        self._stacks = OrderedDict()
-        self._stack_bytes = 0
+        # two byte-budgeted LRU pools, picked by key[0]: "leaf" (Count
+        # leaves, [S, W] Containers) and "rows" (TopN/GroupBy row
+        # chunks, [R, S, W] tensors); entry = [gens, value, nbytes, stamp]
+        self._pools = {"leaf": OrderedDict(), "rows": OrderedDict()}
+        self._pool_bytes = {"leaf": 0, "rows": 0}
+        self._pool_evictions = {"leaf": 0, "rows": 0}
         self._lock = threading.Lock()
         self._dispatch_lock = _DISPATCH_LOCK
         # counters: launches (tests assert the stacked path ran), cache
-        # traffic, and upload volume in planes
+        # traffic, upload volume in planes, and the pairwise GroupBy's
+        # launches and host syncs
         self.dispatches = 0
         self.hits = 0
         self.misses = 0
-        self.evictions = 0
         self.patches = 0
         self.planes_uploaded = 0
-        # device bytes resident per (index, field)
+        self.pairwise_dispatches = 0
+        self.pairwise_syncs = 0
+        # device bytes resident per (pool, index, field)
         self._hbm_ledger = {}
 
     def cache_stats(self):
         with self._lock:
             return {"dispatches": self.dispatches, "hits": self.hits,
-                    "misses": self.misses, "evictions": self.evictions,
+                    "misses": self.misses,
+                    "evictions": self._pool_evictions["leaf"],
                     "patches": self.patches,
                     "planes_uploaded": self.planes_uploaded,
-                    "entries": len(self._stacks),
-                    "bytes": self._stack_bytes,
+                    "entries": len(self._pools["leaf"]),
+                    "bytes": self._pool_bytes["leaf"],
+                    "rows_entries": len(self._pools["rows"]),
+                    "rows_bytes": self._pool_bytes["rows"],
+                    "rows_evictions": self._pool_evictions["rows"],
+                    "pairwise_dispatches": self.pairwise_dispatches,
+                    "pairwise_syncs": self.pairwise_syncs,
                     "device": str(self.device)}
 
     def _place(self, host_stack):
@@ -155,9 +190,9 @@ class StackedEvaluator:
         match proves no fragment of the view changed since the put, so
         the per-shard generation walk is skipped."""
         with self._lock:
-            hit = self._stacks.get(key)
+            hit = self._pools[key[0]].get(key)
             if hit is not None and hit[3] == stamp:
-                self._stacks.move_to_end(key)
+                self._pools[key[0]].move_to_end(key)
                 self.hits += 1
                 return hit[1]
         return None
@@ -167,9 +202,9 @@ class StackedEvaluator:
         refreshes the stamp (a mutation elsewhere in the view moved the
         counter without touching these shards)."""
         with self._lock:
-            hit = self._stacks.get(key)
+            hit = self._pools[key[0]].get(key)
             if hit is not None and hit[0] == gens:
-                self._stacks.move_to_end(key)
+                self._pools[key[0]].move_to_end(key)
                 if stamp is not None:
                     hit[3] = stamp
                 self.hits += 1
@@ -178,42 +213,49 @@ class StackedEvaluator:
         return None
 
     def _ledger_add(self, key, delta):
-        """Move the per-(index, field) byte ledger in lockstep with the
-        pool byte counter (caller holds self._lock)."""
-        lkey = (key[1], key[2])
+        """Move the per-(pool, index, field) byte ledger in lockstep with
+        the pool byte counter (caller holds self._lock)."""
+        lkey = (key[0], key[1], key[2])
         new = self._hbm_ledger.get(lkey, 0) + delta
         if new <= 0:
             self._hbm_ledger.pop(lkey, None)
         else:
             self._hbm_ledger[lkey] = new
 
-    def _cache_put(self, key, gens, cont, nbytes, stamp=None):
-        with self._lock:
-            old = self._stacks.pop(key, None)
-            if old is not None:
-                self._stack_bytes -= old[2]
-                self._ledger_add(key, -old[2])
-            self._stacks[key] = [gens, cont, nbytes, stamp]
-            self._stack_bytes += nbytes
-            self._ledger_add(key, nbytes)
-            while self._stack_bytes > MAX_STACK_BYTES \
-                    and len(self._stacks) > 1:
-                ekey, evicted = self._stacks.popitem(last=False)
-                self._stack_bytes -= evicted[2]
-                self._ledger_add(ekey, -evicted[2])
-                self.evictions += 1
+    @staticmethod
+    def _budget(pool):
+        return MAX_STACK_BYTES if pool == "leaf" else MAX_ROWS_STACK_BYTES
 
-    def hbm_ledger(self):
-        """{(index, field): resident device bytes}; sums to the pool's
-        byte counter."""
+    def _cache_put(self, key, gens, value, nbytes, stamp=None):
+        pool = key[0]
+        entries = self._pools[pool]
         with self._lock:
-            return dict(self._hbm_ledger)
+            old = entries.pop(key, None)
+            if old is not None:
+                self._pool_bytes[pool] -= old[2]
+                self._ledger_add(key, -old[2])
+            entries[key] = [gens, value, nbytes, stamp]
+            self._pool_bytes[pool] += nbytes
+            self._ledger_add(key, nbytes)
+            while self._pool_bytes[pool] > self._budget(pool) \
+                    and len(entries) > 1:
+                ekey, evicted = entries.popitem(last=False)
+                self._pool_bytes[pool] -= evicted[2]
+                self._ledger_add(ekey, -evicted[2])
+                self._pool_evictions[pool] += 1
+
+    def hbm_ledger(self, pool="leaf"):
+        """{(index, field): resident device bytes} of one pool; sums to
+        that pool's byte counter."""
+        with self._lock:
+            return {(k[1], k[2]): v for k, v in self._hbm_ledger.items()
+                    if k[0] == pool}
 
     def _stale_entry(self, key, gens):
         """The cached entry for `key` whose shard set matches `gens`
         (its generations may have drifted), or None."""
         with self._lock:
-            entry = self._stacks.get(key)
+            entry = self._pools[key[0]].get(key)
             if entry is None or len(entry[0]) != len(gens):
                 return None
             return entry
@@ -229,6 +271,25 @@ class StackedEvaluator:
             return None
         return changed
 
+    def _patch(self, key, stale, gens, stamp, view, row_ids, shards):
+        """Re-gather only the drifted shards of a cached stack and copy
+        them into it in place, or None when a patch isn't worthwhile."""
+        changed = self._changed_shards(stale[0], gens)
+        if changed is None:
+            return None
+        block = self._host_rows(view, row_ids, [shards[j] for j in changed])
+        # an [R, S, W] view of the entry: a rows chunk, or a leaf's [S, W]
+        value = stale[1]
+        stack = value if isinstance(value, torch.Tensor) \
+            else value.arrays[0][None]
+        cols = torch.tensor(changed, dtype=torch.long, device=self.device)
+        with self._dispatch_lock:
+            stack.index_copy_(1, cols, self._place(block))
+        with self._lock:
+            self.patches += 1
+        self._cache_put(key, gens, stale[1], stale[2], stamp)
+        return stale[1]
+
     def leaf_stack(self, idx, field_name, row_id, shards):
         """Cached dense Container of one row's [S, W] plane stack over
         `shards`."""
@@ -242,8 +303,6 @@ class StackedEvaluator:
         if hit is not None:
             return hit
         gens = self._fragment_gens(idx, field_name, shards, view=view)
-        if gens is None:
-            return None
         hit = self._cache_get(key, gens, stamp)
         if hit is not None:
             return hit
@@ -253,23 +312,49 @@ class StackedEvaluator:
         # instead of re-uploading the whole [S, W] stack for one set_bit.
         stale = self._stale_entry(key, gens)
         if stale is not None:
-            changed = self._changed_shards(stale[0], gens)
-            if changed is not None:
-                block = self._host_rows(
-                    view, [row_id], [shards[j] for j in changed])
-                stack = stale[1].arrays[0]
-                rows = torch.tensor(changed, dtype=torch.long,
-                                    device=self.device)
-                with self._dispatch_lock:
-                    stack.index_copy_(0, rows, self._place(block[0]))
-                with self._lock:
-                    self.patches += 1
-                self._cache_put(key, gens, stale[1], stale[2], stamp)
-                return stale[1]
+            patched = self._patch(key, stale, gens, stamp, view, [row_id],
+                                  shards)
+            if patched is not None:
+                return patched
         host = self._host_rows(view, [row_id], shards)
         cont = _containers.dense_container(self._place(host[0]))
         self._cache_put(key, gens, cont, cont.nbytes, stamp)
         return cont
+
+    def rows_stack(self, idx, field_name, row_chunk, shards,
+                   view_name=VIEW_STANDARD, cache=True):
+        """Cached [R, S, W] device stack of a chunk of rows (TopN/GroupBy
+        candidates) from the rows pool, patched in place after writes.
+        `row_chunk` must be a tuple (cache key). cache=False builds a
+        transient stack (freed after use) — callers pass it when the full
+        candidate set exceeds the rows pool, so oversized scans don't
+        churn out every reusable chunk. None when the field/view
+        vanished."""
+        key = ("rows", idx.name, field_name, view_name, row_chunk, shards)
+        field = idx.field(field_name)
+        view = field.view(view_name) if field is not None else None
+        if view is None:
+            return None
+        stamp = (view.uid, view.mutations)
+        if cache:
+            hit = self._cache_get_fast(key, stamp)
+            if hit is not None:
+                return hit
+        gens = self._fragment_gens(idx, field_name, shards, view=view)
+        hit = self._cache_get(key, gens, stamp if cache else None)
+        if hit is not None:
+            return hit
+        if cache:
+            stale = self._stale_entry(key, gens)
+            if stale is not None:
+                patched = self._patch(key, stale, gens, stamp, view,
+                                      list(row_chunk), shards)
+                if patched is not None:
+                    return patched
+        stack = self._place(self._host_rows(view, list(row_chunk), shards))
+        if cache:
+            self._cache_put(key, gens, stack, stack.numel() * 4, stamp)
+        return stack
 
     def _host_rows(self, view, row_ids, shards):
         """Host [R, S, W] uint32 gather of rows over shards. The per-shard
@@ -293,6 +378,17 @@ class StackedEvaluator:
         with self._lock:
             self.planes_uploaded += len(row_ids) * len(shards)
         return out
+
+    def _padded_len(self, shards):
+        """Shard-axis length of every stack: the filter [S, W] and the
+        rows [R, S, W] stacks must agree. One device, so no padding (the
+        TPU package pads to a multiple of its mesh's devices)."""
+        return len(shards)
+
+    def row_chunk_size(self, shards):
+        """Rows per [R, S, W] chunk under the CHUNK_BYTES budget."""
+        return max(
+            1, CHUNK_BYTES // (self._padded_len(shards) * WORDS_PER_ROW * 4))
 
     # -- evaluation ----------------------------------------------------------
 
@@ -335,3 +431,111 @@ class StackedEvaluator:
         with self._lock:
             self.dispatches += 1
         return self._count_fn(sig, stacks)
+
+    def filter_stack(self, idx, call, shards):
+        """Materialize a bitmap call tree as one [S, W] device stack.
+        Returns (covered, stack): covered=False means the tree has shapes
+        the stacked path can't express (fall back to per-shard);
+        stack=None with covered=True means "no filter given". The TPU
+        package evaluates the tree as one XLA elementwise program; here it
+        is PyTorch elementwise ops over the cached leaf stacks."""
+        if call is None:
+            return True, None
+        shards = tuple(shards)
+        gathered = self._gather(idx, call, shards)
+        if gathered is None:
+            return False, None
+        sig, stacks = gathered
+        with self._lock:
+            self.dispatches += 1
+        with self._dispatch_lock:
+            out = tree_eval(sig, _containers.flatten(stacks))
+        return True, out
+
+    def row_counts(self, idx, field_name, row_ids, filt, shards,
+                   view_name=VIEW_STANDARD):
+        """{row_id: exact count of row ∩ filt summed over shards}, in
+        O(rows/chunk) launches of K3 independent of the shard count, and
+        ONE host fetch for every chunk. `filt` is a [S, W] device stack
+        from filter_stack (or None). Returns None when the field/view
+        vanished mid-query."""
+        shards = tuple(shards)
+        out = {}
+        chunk_size = self.row_chunk_size(shards)
+        # Oversized candidate sets can't all stay resident: build those
+        # chunks transiently instead of churning out every cached chunk.
+        total_bytes = (len(row_ids) * self._padded_len(shards)
+                       * WORDS_PER_ROW * 4)
+        cache = total_bytes <= MAX_ROWS_STACK_BYTES
+        flat_filt = None if filt is None else filt.reshape(-1)
+        pending = []
+        for i in range(0, len(row_ids), chunk_size):
+            chunk = tuple(row_ids[i:i + chunk_size])
+            stack = self.rows_stack(idx, field_name, chunk, shards,
+                                    view_name, cache=cache)
+            if stack is None:
+                return None
+            with self._lock:
+                self.dispatches += 1
+            with self._dispatch_lock:
+                counts = _row_counts_kernel(
+                    stack.reshape(len(chunk), -1), flat_filt)
+                if not cache and self.device.type == "cuda":
+                    # Transient chunks: finish before the next one is
+                    # built, so peak device memory stays ~CHUNK_BYTES.
+                    del stack
+                    torch.cuda.current_stream(self.device).synchronize()
+            pending.append((chunk, counts))
+        if pending:
+            vals = torch.cat([c for _, c in pending]).cpu().tolist()
+            k = 0
+            for chunk, _ in pending:
+                for row_id in chunk:
+                    out[row_id] = vals[k]
+                    k += 1
+        return out
+
+    def pairwise_counts(self, idx, a_field, a_rows, b_field, b_rows, filt,
+                        shards, view_name=VIEW_STANDARD):
+        """{(a_row, b_row): count > 0} of the two-field GroupBy cross
+        product: counts[i, j] = popcount(a_rows[i] & b_rows[j] & filt)
+        summed over `shards`. Both fields' row stacks come from the rows
+        pool in row_chunk_size tiles ([R, S, W], patched in place like
+        any chunk); each (A-tile, B-tile) pair's count matrix is ONE
+        launch of K4 and ONE host fetch. Replaces the TPU package's
+        `pairwise_counts_hi_lo` + host `pairwise_counts`
+        (pilosa_tpu/ops/bitplane.py:238-285). Returns None when a
+        field/view vanished mid-query (caller falls back)."""
+        shards = tuple(shards)
+        out = {}
+        if not a_rows or not b_rows:
+            return out
+        tile = self.row_chunk_size(shards)
+        row_bytes = self._padded_len(shards) * WORDS_PER_ROW * 4
+        cache_a = len(a_rows) * row_bytes <= MAX_ROWS_STACK_BYTES
+        cache_b = len(b_rows) * row_bytes <= MAX_ROWS_STACK_BYTES
+        for i in range(0, len(a_rows), tile):
+            a_chunk = tuple(a_rows[i:i + tile])
+            a_stack = self.rows_stack(idx, a_field, a_chunk, shards,
+                                      view_name, cache=cache_a)
+            if a_stack is None:
+                return None
+            for j in range(0, len(b_rows), tile):
+                b_chunk = tuple(b_rows[j:j + tile])
+                b_stack = self.rows_stack(idx, b_field, b_chunk, shards,
+                                          view_name, cache=cache_b)
+                if b_stack is None:
+                    return None
+                with self._lock:
+                    self.dispatches += 1
+                    self.pairwise_dispatches += 1
+                with self._dispatch_lock:
+                    counts = _pairwise_kernel(a_stack, b_stack, filt)
+                # ONE host fetch for the whole [tile, tile] matrix (it
+                # also bounds transient tiles' device memory)
+                totals = counts.cpu().numpy()
+                with self._lock:
+                    self.pairwise_syncs += 1
+                for x, y in zip(*np.nonzero(totals)):
+                    out[(a_chunk[x], b_chunk[y])] = int(totals[x, y])
+        return out

@@ -20,8 +20,11 @@ Stacks are uint32 words held as int32 tensors (PyTorch lacks `~` and
 """
 
 import ctypes
+import functools
 
 import torch
+
+from . import cuda_build
 
 __all__ = [
     "MAX_LEAVES",
@@ -169,10 +172,9 @@ def _check_stacks(sig, stacks):
     return stacks
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel_fn():
     """The C entry point of csrc/count_expr.cu (built at first use)."""
-    from . import cuda_build
-
     fn = cuda_build.load("count_expr").count_expr_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p,
@@ -198,7 +200,7 @@ def _launch(sig, stacks):
              out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"count_expr kernel launch failed: CUDA error {err}")
-    count_expr.launches += 1
+    cuda_build.count_launch(count_expr)
     return out[0]
 
 

@@ -27,6 +27,7 @@ _lock = threading.Lock()
 _libs = {}
 #: per-kernel build record: {name: {"seconds", "cached", "log"}}
 build_info = {}
+_launch_lock = threading.Lock()
 
 
 def nvcc_path():
@@ -91,3 +92,11 @@ def load(name):
             lib = ctypes.CDLL(build(name))
             _libs[name] = lib
     return lib
+
+
+def count_launch(wrapper):
+    """Add one to a kernel wrapper's `launches` counter. Wrappers are
+    called from concurrent threads (the per-shard fallbacks fan out over
+    the worker pool), and `+= 1` on an attribute is not atomic."""
+    with _launch_lock:
+        wrapper.launches += 1

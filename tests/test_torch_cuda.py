@@ -1,4 +1,5 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version.
+"""K1, K3 and K4 on the card: each CUDA kernel against its plain PyTorch
+version.
 
 Imports only torch and the port, so it runs on a machine without JAX:
 
@@ -13,6 +14,8 @@ import pytest
 import torch
 
 from pilosa_tpu_torch.ops import count_expr as k1
+from pilosa_tpu_torch.ops import pairwise as k4
+from pilosa_tpu_torch.ops import row_counts as k3
 from pilosa_tpu_torch.shardwidth import WORDS_PER_ROW
 
 
@@ -62,3 +65,66 @@ def test_kernel_rejects_misaligned(cuda):
     odd = base[1:].view(2, WORDS_PER_ROW)
     with pytest.raises(ValueError, match="aligned"):
         k1.count_expr(("leaf", 0), [odd])
+
+
+def _rows(r, t, seed, device):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 32, (r, t), dtype=np.uint32)
+    if r:
+        x[:, :2] = np.array([0xFFFFFFFF, 0x80000000], dtype=np.uint32)
+        x[r // 2, 4:1000] = 0
+    return torch.from_numpy(x.view(np.int32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s", [(0, 1), (1, 1), (5, 1), (102, 1), (5, 10),
+                                 (70000, 1)])
+@pytest.mark.parametrize("has_filt", [False, True])
+def test_row_counts_kernel_matches_plain(cuda, r, s, has_filt):
+    t = s * WORDS_PER_ROW if r < 70000 else 64  # past 65535 grid rows
+    rows = _rows(r, t, seed=r + s, device=cuda)
+    filt = _rows(1, t, seed=99, device=cuda)[0] if has_filt else None
+    before = k3.row_counts.launches
+    got = k3.row_counts(rows, filt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k3.row_counts_reference(rows, filt))
+    assert k3.row_counts.launches == before + (1 if r else 0)
+
+
+@pytest.mark.cuda
+def test_topn_kernel_ties_lowest_index(cuda):
+    base = _rows(2, WORDS_PER_ROW, seed=5, device=cuda)
+    rows = base[torch.tensor([1, 0, 1, 1, 0], device=cuda)].contiguous()
+    filt = _rows(1, WORDS_PER_ROW, seed=6, device=cuda)[0]
+    vals, idx = k3.topn_counts_stack(rows, filt, 5)
+    want = k3.row_counts_reference(rows, filt)
+    order = sorted(range(5), key=lambda i: (-int(want[i]), i))
+    assert idx.tolist() == order
+    assert vals.tolist() == [int(want[i]) for i in order]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r1,r2", [(0, 3), (1, 1), (5, 4), (8, 8), (9, 3),
+                                   (13, 130), (102, 102)])
+@pytest.mark.parametrize("s", [1, 10])
+@pytest.mark.parametrize("has_filt", [False, True])
+def test_pairwise_kernel_matches_plain(cuda, r1, r2, s, has_filt):
+    t = s * WORDS_PER_ROW
+    a = _rows(r1, t, seed=r1, device=cuda)
+    b = _rows(r2, t, seed=1000 + r2, device=cuda)
+    filt = _rows(1, t, seed=7, device=cuda)[0] if has_filt else None
+    before = k4.pairwise_counts.launches
+    got = k4.pairwise_counts(a, b, filt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k4.pairwise_counts_reference(a, b, filt))
+    assert k4.pairwise_counts.launches == before + (1 if r1 and r2 else 0)
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_misaligned(cuda):
+    base = torch.zeros(2 * WORDS_PER_ROW + 1, dtype=torch.int32, device=cuda)
+    odd = base[1:].view(2, WORDS_PER_ROW)
+    with pytest.raises(ValueError, match="aligned"):
+        k3.row_counts(odd)
+    with pytest.raises(ValueError, match="aligned"):
+        k4.pairwise_counts(odd, odd)

@@ -150,7 +150,7 @@ def test_stack_cache_evicts_within_byte_budget(pair, monkeypatch):
 def test_unported_calls_raise(pair):
     _, tex, _ = pair
     with pytest.raises(NotPortedError, match="not yet ported"):
-        tex.execute("i", "TopN(f, n=2)")
+        tex.execute("i", "Sum(field=f)")
     with pytest.raises(NotPortedError, match="not yet ported"):
         tex.execute("i", "Count(Shift(Row(f=1), n=1))")
 
