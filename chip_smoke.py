@@ -7,8 +7,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi);
 2. build: every kernel of the served paths (K1 count_expr, K3 row_counts,
-   K4 pairwise_counts), one nvcc per source, all started together, from
-   the checkout; registers and spills from ptxas;
+   K4 pairwise_counts, K5 bsi_range), one nvcc per source, all started
+   together, from the checkout; registers and spills from ptxas;
 3. kernels: each kernel against its plain PyTorch version on the card —
    exact equality on every case:
    - K1 at S in {0, 1, 7, 954}, 1 to 6 leaves, every op and nested trees;
@@ -17,19 +17,28 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      top-k;
    - K4 at (R1, R2) in {(0, 3), (1, 1), (5, 4), (13, 130), (102, 102)} x
      S in {1, 10}, with and without a filter;
-   and median times per launch (CUDA events) beside each bound and the
-   plain version's time: K1 at S = 954 with two leaves; K3 at the served
-   TopN shape [100, 10 x 32768] and at [1, 954 x 32768] with a filter; K4
-   at the served GroupBy shape 5 x 4 x S = 10 and at 102 x 102 x S = 10;
-4. data, in one data directory:
-   - index b, the 1B-column index of bench_suite.measure_served_1b (954
-     shards of 2^20 columns, fields f and g, rows 1 and 2, word density
-     0.05, seed 3);
+   - K5 at every (op, allow_eq, neg_pred) of tests/test_pallas.py x depth
+     in {1, 21, 64} x S in {0, 1, 7, 128}, random sign and exists,
+     predicates 0, 2^D - 1 and random, edge words and columns equal to
+     the predicate planted;
+   and times per launch beside each bound and the plain version's time:
+   K1 at S = 954 with two leaves; K3 at the served TopN shape
+   [100, 10 x 32768], at [1, 954 x 32768] with a filter and at Sum's
+   [21, 128 x 32768] with a filter; K4 at the served GroupBy shape
+   5 x 4 x S = 10 and at 102 x 102 x S = 10; K5 at [21, 128 x 32768] and
+   [21, 954 x 32768];
+4. data, in one data directory, written through the port's Holder:
    - index tg, BASELINE config 3 at bench_suite.bench_topn_groupby's
      chip shape (10 shards; field f with 100 rows of 100000/(r+1)+100
      random columns; fields a (5 rows) x b (4 rows) over 300,000 distinct
      columns; seed 7);
-   both written through the port's Holder;
+   - index br, BASELINE config 4 drawn as bench_suite.bench_bsi_range_sum
+     draws it (int field v, min 0, max 2^20: depth 21; time field t,
+     quantum YMD; seed 11), at 128 shards with 100,000 valued columns per
+     shard, each with a t row 0 bit on 2019-01-15, 02-15 or 03-15;
+   - index b, the 1B-column index of bench_suite.measure_served_1b (954
+     shards of 2^20 columns, fields f and g, rows 1 and 2, word density
+     0.05, seed 3);
 5. serve: one HTTP server on that directory (--device cuda, an ephemeral
    port) answers, each checked against numpy:
    - Count path: /status, the four Count(Intersect(Row, Row)) queries, a
@@ -39,6 +48,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      next TopN reads the write back through a patched row chunk; K3's
      counter must advance on every TopN and K4's on every two-field
      GroupBy;
+   - BSI path (config 4): the bench's eight Count(Row(v > t)), the
+     Jan+Feb Sum, Min and Max, Count(Row(v == x)), Count(Row(v != x)),
+     Count(Row(v >< [lo, hi])) and a condition intersected with a time
+     range; then an import of 1,000 values and a Set whose next Sum and
+     Count read them back through an in-place patch of the BSI stack;
+     K5, K1 and K3 must move by exactly what each query launches;
    each path runs with every launch counter set to 0 just before it and
    read just after; cold latency of each first query and warm HTTP p50s.
 
@@ -67,7 +82,15 @@ DENSITY = 0.05
 SEED = 3
 TG_SHARDS = 10
 TG_SEED = 7
-KERNELS = ("count_expr", "row_counts", "pairwise_counts")
+BR_SHARDS = 128
+BR_SEED = 11
+BR_VALUES_PER_SHARD = 100_000
+BR_DATES = ("2019-01-15T00:00", "2019-02-15T00:00", "2019-03-15T00:00")
+BR_JAN_FEB = 'from="2019-01-01T00:00", to="2019-03-01T00:00"'
+KERNELS = ("count_expr", "row_counts", "pairwise_counts", "bsi_range")
+# (op, allow_eq) of tests/test_pallas.py's BSI range cases
+K5_CASES = (("eq", False), ("lt", False), ("lt", True), ("gt", False),
+            ("gt", True))
 
 
 def log(msg):
@@ -387,6 +410,123 @@ def check_k4(torch, k4, words, sms, clock_hz):
     return max_err, timing
 
 
+def bsi_stack_on_card(torch, depth, s, words, seed):
+    """A [D+2, S, W] int32 stack laid out as the BSI stack is (row 0
+    exists, row 1 sign, rows 2.. magnitude planes), drawn on the card
+    from `seed`, with the edge words planted in every row."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randint(-2**31, 2**31, (depth + 2, s, words),
+                      dtype=torch.int32, device="cuda", generator=gen)
+    if s:
+        x[:, :, 0] = -1
+        x[:, :, 1] = -2**31
+    return x
+
+
+def plant_predicate(stack, pred):
+    """Make words 8..39 of every shard hold existing columns whose
+    magnitude is `pred`, so the eq branch meets real matches."""
+    if stack.shape[1] == 0:
+        return
+    stack[0, :, 8:40] = -1
+    for d in range(stack.shape[0] - 2):
+        stack[2 + d, :, 8:40] = -1 if (pred >> d) & 1 else 0
+
+
+def mask_err(got, want):
+    """Largest |got - want| over the masks' words read as uint32."""
+    if got.numel() == 0:
+        return 0
+    diff = (got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF)
+    return int(diff.abs().max())
+
+
+def check_k5(torch, k5, k3, words, card):
+    """K5 against the plain version on the card; returns (max_abs_err,
+    timing dict at the served shape [21, 128 x 32768])."""
+    rng = np.random.default_rng(BR_SEED)
+    max_err = 0
+    n_cases = 0
+    for depth in (1, 21, 64):
+        for s in (0, 1, 7, BR_SHARDS):
+            stack = bsi_stack_on_card(torch, depth, s, words,
+                                      seed=depth * 1000 + s)
+            planes, sign, exists = stack[2:], stack[1], stack[0]
+            top = (1 << depth) - 1
+            rand = int.from_bytes(rng.bytes(8), "little") & top
+            for pred in (0, top, rand):
+                plant_predicate(stack, pred)
+                pbits = [(pred >> d) & 1 for d in range(depth)]
+                for op, allow_eq in K5_CASES:
+                    for neg in (False, True):
+                        before = k5.bsi_range_mask.launches
+                        got = k5.bsi_range_mask(op, planes, sign, exists,
+                                                pbits, neg, allow_eq)
+                        torch.cuda.synchronize()
+                        want = k5.bsi_range_mask_reference(
+                            op, planes, sign, exists, pbits, neg, allow_eq)
+                        if k5.bsi_range_mask.launches != \
+                                before + (1 if s else 0):
+                            raise AssertionError(
+                                f"K5 launches wrong at D={depth} S={s}")
+                        err = mask_err(got, want)
+                        max_err = max(max_err, err)
+                        n_cases += 1
+                        if err or got.shape != want.shape:
+                            raise AssertionError(
+                                f"K5 != plain: {op} allow_eq={allow_eq} "
+                                f"neg={neg} D={depth} S={s} pred={pred}")
+            del stack, planes, sign, exists
+        torch.cuda.empty_cache()
+    log(f"kernels: K5 == plain on {n_cases} cases ((op, allow_eq) x neg "
+        f"x D in 1,21,64 x S in 0,1,7,{BR_SHARDS} x predicates 0, "
+        f"2^D-1, random)")
+
+    timing = None
+    depth = 21
+    for s, reps, plain_reps in ((BR_SHARDS, 50, 5), (N_SHARDS, 20, 3)):
+        stack = bsi_stack_on_card(torch, depth, s, words, seed=s)
+        pred = int(rng.integers(0, 1 << 20))
+        plant_predicate(stack, pred)
+        planes, sign, exists = stack[2:], stack[1], stack[0]
+        pbits = [(pred >> d) & 1 for d in range(depth)]
+        args = ("gt", planes, sign, exists, pbits, False, False)
+        ms, call_ms, how = kernel_ms(
+            torch, lambda: k5.bsi_range_mask(*args), reps,
+            "bsi_range_kernel")
+        plain_ms = time_cuda(
+            torch, lambda: k5.bsi_range_mask_reference(*args), plain_reps)
+        nbytes = (depth + 3) * s * words * 4
+        bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+        log(f"kernels: K5 gt at [{depth}, {s}x{words}] ({nbytes} bytes): "
+            f"{ms * 1e3:.2f} us/launch ({how}; {call_ms * 1e3:.2f} us per "
+            f"call by events), bound {bound_ms * 1e3:.2f} us at 3.35 TB/s, "
+            f"plain {plain_ms * 1e3:.2f} us; card {card}")
+        if timing is None:
+            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": "bytes"}
+            # K3 at Sum's shape: the [D, S·W] plane view with a filter
+            flat = planes.reshape(depth, -1)
+            filt = sign.reshape(-1)
+            k3_ms, k3_call, how = kernel_ms(
+                torch, lambda: k3.row_counts(flat, filt), reps,
+                "row_counts_kernel")
+            k3_plain = time_cuda(
+                torch, lambda: k3.row_counts_reference(flat, filt),
+                plain_reps)
+            k3_bytes = (depth + 1) * s * words * 4 + depth * 8
+            log(f"kernels: K3 at Sum's [{depth}, {s}x{words}] with a "
+                f"filter ({k3_bytes} bytes): {k3_ms * 1e3:.2f} us/launch "
+                f"({how}; {k3_call * 1e3:.2f} us per call by events), "
+                f"bound {k3_bytes / H100_BYTES_PER_S * 1e6:.2f} us, plain "
+                f"{k3_plain * 1e3:.2f} us; card {card}")
+            del flat, filt
+        del stack, planes, sign, exists
+        torch.cuda.empty_cache()
+    return max_err, timing
+
+
 def build_count_data(path, words):
     from pilosa_tpu_torch.core import Holder
     from pilosa_tpu_torch.core.field import FieldOptions
@@ -444,6 +584,69 @@ def build_topn_data(path):
     return {"f": [np.unique(c).astype(np.int64) for c in f_cols],
             "g_cols": g_cols.astype(np.int64),
             "a": a_rows.astype(np.int64), "b": b_rows.astype(np.int64)}
+
+
+def _plane_of(offsets, shard_width):
+    """Dense uint32 words of one row with the given shard offsets set."""
+    bits = np.zeros(shard_width, dtype=bool)
+    bits[offsets] = True
+    return np.packbits(bits, bitorder="little").view(np.uint32)
+
+
+def build_bsi_data(path):
+    """BASELINE config 4 at BR_SHARDS shards, drawn as
+    bench_suite.bench_bsi_range_sum draws it (uniform values on distinct
+    columns, one t bit per valued column in one of three months), its
+    rows written whole with Fragment.set_row_plane: Field.import_values
+    loops in Python over each value's ~23 positions, far too slow for
+    12.8M values. Returns the drawn columns, values and months."""
+    from pilosa_tpu_torch.core import Holder, timeq
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(BR_SEED)
+    cols, vals, months = [], [], []
+    holder = Holder(path, use_snapshot_queue=False).open()
+    try:
+        idx = holder.create_index("br")
+        v = idx.create_field("v", FieldOptions.int_field(min=0, max=1 << 20))
+        t = idx.create_field("t", FieldOptions.time_field("YMD"))
+        depth = v.options.bit_depth
+        bsi_view = v.create_view_if_not_exists(v.bsi_view_name())
+        # per month: its year, month and day views; every valued column
+        # is in the standard view and the 2019 view
+        month_views = [timeq.views_by_time("standard", timeq.parse_time(d),
+                                           "YMD")[1:] for d in BR_DATES]
+        all_views = ["standard", "standard_2019"] + [
+            n for names in month_views for n in names]
+        views = {n: t.create_view_if_not_exists(n) for n in all_views}
+        for shard in range(BR_SHARDS):
+            off = rng.choice(SHARD_WIDTH, BR_VALUES_PER_SHARD, replace=False)
+            val = rng.integers(0, 1 << 20, BR_VALUES_PER_SHARD)
+            mon = rng.integers(0, 3, BR_VALUES_PER_SHARD)
+            everyone = _plane_of(off, SHARD_WIDTH)
+            frag = bsi_view.create_fragment_if_not_exists(shard)
+            frag.set_row_plane(BSI_EXISTS_BIT, everyone)
+            for i in range(depth):
+                frag.set_row_plane(
+                    BSI_OFFSET_BIT + i,
+                    _plane_of(off[(val >> i) & 1 == 1], SHARD_WIDTH))
+            for name in ("standard", "standard_2019"):
+                views[name].create_fragment_if_not_exists(
+                    shard).set_row_plane(0, everyone)
+            for m, names in enumerate(month_views):
+                plane = _plane_of(off[mon == m], SHARD_WIDTH)
+                for name in names:
+                    views[name].create_fragment_if_not_exists(
+                        shard).set_row_plane(0, plane)
+            cols.append(off.astype(np.int64) + shard * SHARD_WIDTH)
+            vals.append(val.astype(np.int64))
+            months.append(mon.astype(np.int8))
+    finally:
+        holder.close()
+    return {"cols": np.concatenate(cols), "vals": np.concatenate(vals),
+            "months": np.concatenate(months), "depth": depth}
 
 
 def topn_expect(tg):
@@ -637,6 +840,127 @@ def serve_topn_path(srv, k3, k4, tg, card):
         f"{k3.row_counts.launches}, K4 {k4.pairwise_counts.launches}")
 
 
+def serve_bsi_path(srv, k1, k3, k5, br, card):
+    """BASELINE config 4 over HTTP, every result against numpy."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    cols, vals, months = br["cols"], br["vals"].copy(), br["months"]
+    n_rows = br["depth"] + 2
+    rng = np.random.default_rng(BR_SEED + 1)
+    thresholds = [int(t) for t in rng.integers(0, 1 << 20, size=8)]
+    jan_feb = months < 2
+    time_row = f"Row(t=0, {BR_JAN_FEB})"
+    sum_pql = f"Sum({time_row}, field=v)"
+
+    def query(pql, k1_step, k3_step, k5_step):
+        before = (k1.count_expr.launches, k3.row_counts.launches,
+                  k5.bsi_range_mask.launches)
+        t0 = time.perf_counter()
+        got = http(srv.uri, "/index/br/query", pql)["results"][0]
+        dt = time.perf_counter() - t0
+        moved = (k1.count_expr.launches - before[0],
+                 k3.row_counts.launches - before[1],
+                 k5.bsi_range_mask.launches - before[2])
+        if moved != (k1_step, k3_step, k5_step):
+            raise AssertionError(f"{pql}: launches (K1, K3, K5) moved by "
+                                 f"{moved}, not {(k1_step, k3_step, k5_step)}")
+        return got, dt
+
+    def check(pql, want, steps):
+        got, dt = query(pql, *steps)
+        if got != want:
+            raise AssertionError(f"{pql}: {got} != {want}")
+        return dt
+
+    def sum_want():
+        sel = vals[jan_feb]
+        return {"value": int(sel.sum()), "count": int(sel.size)}
+
+    def extreme(fn):
+        sel = vals[jan_feb]
+        best = int(fn(sel))
+        return {"value": best, "count": int(np.sum(sel == best))}
+
+    cold = {}
+    for i, t in enumerate(thresholds):
+        pql = f"Count(Row(v > {t}))"
+        dt = check(pql, int(np.sum(vals > t)), (1, 0, 1))
+        if i == 0:
+            cold["range"] = dt
+        log(f"serve: {pql} = {int(np.sum(vals > t))} ({dt * 1e3:.1f} ms)")
+    cold["sum"] = check(sum_pql, sum_want(), (0, 3, 0))
+    x = int(vals[12345])
+    lo, hi = 200_000, 700_000
+    n_eq = int(np.sum(vals == x))
+    for pql, want, steps in (
+            (f"Min({time_row}, field=v)", extreme(np.min), (0, 1, 0)),
+            (f"Max({time_row}, field=v)", extreme(np.max), (0, 1, 0)),
+            (f"Count(Row(v == {x}))", n_eq, (1, 0, 1)),
+            (f"Count(Row(v != {x}))", int(vals.size) - n_eq, (1, 0, 1)),
+            (f"Count(Row(v >< [{lo}, {hi}]))",
+             int(np.sum((vals >= lo) & (vals <= hi))), (1, 0, 2)),
+            (f"Count(Intersect(Row(v > {thresholds[0]}), {time_row}))",
+             int(np.sum((vals > thresholds[0]) & jan_feb)), (1, 0, 1))):
+        dt = check(pql, want, steps)
+        log(f"serve: {pql} = {json.dumps(want)} ({dt * 1e3:.1f} ms)")
+    log(f"serve: {sum_pql} = {json.dumps(sum_want())} (cold "
+        f"{cold['sum'] * 1e3:.1f} ms)")
+
+    # writes: 1,000 imported values over two shards and one Set in a
+    # third; the next query patches those three shards' planes in place
+    stats = srv.api.executor.stacked_stats()
+    n = BR_VALUES_PER_SHARD
+    first, second, third = (BR_SHARDS // 25, BR_SHARDS * 3 // 5,
+                            BR_SHARDS * 4 // 5)
+    sel = np.concatenate([np.arange(first * n, first * n + 500),
+                          np.arange(second * n, second * n + 500)])
+    new_vals = rng.integers(0, 1 << 20, size=sel.size)
+    out = http(srv.uri, "/index/br/field/v/import", json.dumps(
+        {"columnIDs": cols[sel].tolist(), "values": new_vals.tolist()}))
+    if out.get("changed", 0) < 1:
+        raise AssertionError(f"import of values: {out}")
+    vals[sel] = new_vals
+    taken = set(cols[third * n:(third + 1) * n].tolist())
+    col = next(c for c in range(third * SHARD_WIDTH,
+                                (third + 1) * SHARD_WIDTH) if c not in taken)
+    set_val = 777_777
+    ok = http(srv.uri, "/index/br/query", f"Set({col}, v={set_val})")
+    if ok["results"] != [True]:
+        raise AssertionError(f"Set({col}, v={set_val}) -> {ok}")
+    # the Set column has a value and no t bit
+    vals = np.append(vals, set_val)
+    jan_feb = np.append(jan_feb, False)
+    dt = check(sum_pql, sum_want(), (0, 3, 0))
+    after = srv.api.executor.stacked_stats()
+    uploaded = after["planes_uploaded"] - stats["planes_uploaded"]
+    if uploaded != n_rows * 3 or after["patches"] <= stats["patches"]:
+        raise AssertionError(
+            f"writes in 3 shards: {uploaded} planes uploaded (want "
+            f"{n_rows} x 3), patches {stats['patches']} -> "
+            f"{after['patches']}")
+    n_set = int(np.sum(vals == set_val))
+    check(f"Count(Row(v == {set_val}))", n_set, (1, 0, 1))
+    log(f"serve: import of 1000 values + Set({col}, v={set_val}) then "
+        f"{sum_pql} reads them back ({dt * 1e3:.1f} ms; {uploaded} planes "
+        f"uploaded = {n_rows} x 3 shards, patched in place) and "
+        f"Count(Row(v == {set_val})) = {n_set}")
+
+    warm = {"range": [], "sum": []}
+    range_pql = f"Count(Row(v > {thresholds[0]}))"
+    range_want = int(np.sum(vals > thresholds[0]))
+    want = sum_want()
+    for _ in range(60):
+        warm["range"].append(check(range_pql, range_want, (1, 0, 1)))
+        warm["sum"].append(check(sum_pql, want, (0, 3, 0)))
+    for name, pql in (("range", "Count(Row(v > t))"), ("sum", sum_pql)):
+        log(f"serve: {pql} over {BR_SHARDS} shards on {card}: cold "
+            f"{cold[name] * 1e3:.3f} ms, warm p50 "
+            f"{statistics.median(warm[name]) * 1e3:.3f} ms over "
+            f"{len(warm[name])} queries")
+    log(f"serve: launches on the BSI path: K5 {k5.bsi_range_mask.launches}, "
+        f"K1 {k1.count_expr.launches}, K3 {k3.row_counts.launches}")
+
+
 def main():
     import torch
 
@@ -645,6 +969,7 @@ def main():
               "False)", file=sys.stderr)
         return 2
     from pilosa_tpu_torch.cli import start_server
+    from pilosa_tpu_torch.ops import bsi_range as k5
     from pilosa_tpu_torch.ops import count_expr as k1
     from pilosa_tpu_torch.ops import cuda_build
     from pilosa_tpu_torch.ops import pairwise as k4
@@ -675,22 +1000,30 @@ def main():
         torch, k3, WORDS_PER_ROW)
     errs["pairwise_counts"], timings["pairwise_counts"] = check_k4(
         torch, k4, WORDS_PER_ROW, sms, clock_mhz * 1e6)
+    errs["bsi_range"], timings["bsi_range"] = check_k5(
+        torch, k5, k3, WORDS_PER_ROW, card)
     log(f"kernels: {list(KERNELS)}")
 
     mods = {"count_expr": k1.count_expr, "row_counts": k3.row_counts,
-            "pairwise_counts": k4.pairwise_counts}
+            "pairwise_counts": k4.pairwise_counts,
+            "bsi_range": k5.bsi_range_mask}
     launches = {}
     tmp = tempfile.mkdtemp(prefix="pilosa-torch-smoke-")
     try:
-        # config 3 first: each writer opens a Holder on the directory,
-        # and opening the 954-shard index alone takes about a minute
+        # configs 3 and 4 first: each writer opens a Holder on the
+        # directory, and opening the 954-shard index alone takes about a
+        # minute
         t0 = time.perf_counter()
         tg = build_topn_data(tmp)
         t1 = time.perf_counter()
+        br = build_bsi_data(tmp)
+        t2 = time.perf_counter()
         planes = build_count_data(tmp, WORDS_PER_ROW)
         log(f"data: BASELINE config 3 over {TG_SHARDS} shards (index tg) "
-            f"written in {t1 - t0:.1f} s; {N_SHARDS} shards x 2 fields x 2 "
-            f"rows (index b) in {time.perf_counter() - t1:.1f} s")
+            f"written in {t1 - t0:.1f} s; config 4 over {BR_SHARDS} shards "
+            f"x {BR_VALUES_PER_SHARD} values (index br) in {t2 - t1:.1f} s; "
+            f"{N_SHARDS} shards x 2 fields x 2 rows (index b) in "
+            f"{time.perf_counter() - t2:.1f} s")
         t0 = time.perf_counter()
         srv = start_server(["--bind", "127.0.0.1:0", "--data-dir", tmp,
                             "--device", "cuda"])
@@ -704,6 +1037,9 @@ def main():
             serve_topn_path(srv, k3, k4, tg, card)
             launches["row_counts"] = k3.row_counts.launches
             launches["pairwise_counts"] = k4.pairwise_counts.launches
+            reset_counters(mods)  # the BSI path's run starts here
+            serve_bsi_path(srv, k1, k3, k5, br, card)
+            launches["bsi_range"] = k5.bsi_range_mask.launches
         finally:
             srv.stop()
     finally:
@@ -714,7 +1050,8 @@ def main():
 
     sources = {"count_expr": "pilosa_tpu/ops/pallas_kernels.py:141",
                "row_counts": "pilosa_tpu/ops/pallas_kernels.py:515",
-               "pairwise_counts": "pilosa_tpu/ops/pallas_kernels.py:373"}
+               "pairwise_counts": "pilosa_tpu/ops/pallas_kernels.py:373",
+               "bsi_range": "pilosa_tpu/ops/pallas_kernels.py:493"}
     log(card)
     log(json.dumps({"kernels": [{
         "name": name,

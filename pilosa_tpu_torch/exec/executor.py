@@ -1,20 +1,28 @@
-"""PQL executor: stacked Count/TopN/GroupBy, Rows, bitmap calls, writes.
+"""PQL executor: stacked Count/TopN/GroupBy/Sum/Min/Max, Rows, bitmap
+calls, writes.
 
 Reference: executor.go (Execute :113, executeCall :274, executeCount
 :1790, executeTopN :930, executeRows :1280, executeGroupBy :1098,
-executeBitmapCallShard :651). The port's slice:
+executeSum :331, executeBitmapCallShard :651). The port's slice:
 
-- Count over two or more shards of a stack-coverable tree (Row / Intersect
-  / Union / Difference / Xor / Not) runs as ONE launch of K1 over cached
-  [S, W] device stacks (exec/stacked.py); anything else counts shard by
-  shard with the PyTorch plane ops (ops/bitplane.py), summed exactly.
+- Count over two or more shards of a stack-coverable tree (Row, BSI
+  condition Row, time-range Row / Intersect / Union / Difference / Xor /
+  Not) runs as ONE launch of K1 over cached [S, W] device stacks
+  (exec/stacked.py), after one K5 launch per condition leaf; anything
+  else counts shard by shard with the PyTorch plane ops
+  (ops/bitplane.py), summed exactly.
+- Sum, Min and Max over two or more shards walk the field's cached
+  [D+2, S, W] bit-plane stack once (Sum: three K3 launches); fewer
+  shards, or a filter the stacked path cannot express, run the same ops
+  shard by shard.
 - TopN and single-field GroupBy count candidate rows in [R, S, W] chunks
   with K3 (one launch per chunk); GroupBy over two or more fields counts
   its innermost two fields' cross product with K4 (one launch per tile
   pair). Fewer than two shards, or a filter the stacked path cannot
   express, count shard by shard instead — on the device all the same.
 - Rows lists row ids from the host fragments.
-- Bitmap calls evaluate shard by shard on the device and return a Row.
+- Bitmap calls evaluate shard by shard on the device and return a Row;
+  a condition Row is one K5 launch per shard.
 - Set and Clear write through the host fragments; the next query patches
   the cached stacks in place.
 
@@ -29,16 +37,20 @@ import numpy as np
 import torch
 
 from ..core.field import FIELD_TYPE_INT, FIELD_TYPE_TIME
+from ..core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT, BSI_SIGN_BIT
 from ..core.row import Row
 from ..core import timeq
 from ..core.view import VIEW_STANDARD
 from ..device import resolve_device
 from ..ops import bitplane
+from ..ops import bsi as bsi_ops
 from ..ops.row_counts import row_counts as _row_counts_kernel
-from ..pql import Call, parse
+from ..pql import Call, Condition, parse
 from ..shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 from ..utils.workpool import shard_map_reduce
-from .result import FieldRow, GroupCount, Pair, RowIdentifiers
+from .bsicond import BsiConditionError, apply_bsi_condition, \
+    bsi_condition_plan
+from .result import FieldRow, GroupCount, Pair, RowIdentifiers, ValCount
 
 _TOPN_STACK_CHUNK = 256  # rows per device stack on the per-shard path
 
@@ -127,8 +139,8 @@ def fragment_topn_candidates(frag, use_cache=True):
 
 #: calls this slice of the port executes
 PORTED_CALLS = frozenset((
-    "Count", "TopN", "Rows", "GroupBy", "Set", "Clear", "Row", "Range",
-    "Intersect", "Union", "Difference", "Xor", "Not", "All"))
+    "Count", "TopN", "Rows", "GroupBy", "Sum", "Min", "Max", "Set", "Clear",
+    "Row", "Range", "Intersect", "Union", "Difference", "Xor", "Not", "All"))
 
 
 class Executor:
@@ -175,6 +187,9 @@ class Executor:
             "TopN": self._exec_topn,
             "Rows": self._exec_rows,
             "GroupBy": self._exec_group_by,
+            "Sum": self._exec_sum,
+            "Min": self._exec_min,
+            "Max": self._exec_max,
             "Set": self._exec_set,
             "Clear": self._exec_clear,
         }.get(call.name)
@@ -337,14 +352,10 @@ class Executor:
         return bitplane.to_device(frag.row_plane(row_id), self.device)
 
     def _row_shard(self, idx, call, shard):
-        """Row(field=rowID). Reference: executeRowShard executor.go:1441.
-        Conditions (BSI) and time ranges are not ported yet."""
+        """Row(field=rowID), Row(field=rowID, from=..., to=...), or BSI
+        Row(field <op> value). Reference: executeRowShard executor.go:1441."""
         if call.has_conditions():
-            raise NotPortedError(
-                "Row() conditions are not yet ported to pilosa_tpu_torch")
-        if "from" in call.args or "to" in call.args:
-            raise NotPortedError(
-                "Row() time ranges are not yet ported to pilosa_tpu_torch")
+            return self._row_bsi_shard(idx, call, shard)
         field_name = call.field_arg()
         field = idx.field(field_name)
         if field is None:
@@ -355,7 +366,79 @@ class Executor:
         if not isinstance(row_id, int):
             raise ExecError(
                 f"Row(): row ID must be an integer or key: {row_id!r}")
-        return self._fragment_row_plane(field, VIEW_STANDARD, shard, row_id)
+
+        if "from" not in call.args and "to" not in call.args:
+            return self._fragment_row_plane(field, VIEW_STANDARD, shard,
+                                            row_id)
+        if field.type != FIELD_TYPE_TIME:
+            raise ExecError(f"field {field_name} is not a time field")
+        from_t = timeq.parse_time(call.args["from"]) if "from" in call.args \
+            else timeq.parse_time("1970-01-01T00:00")
+        to_t = timeq.parse_time(call.args["to"]) if "to" in call.args \
+            else timeq.parse_time("2100-01-01T00:00")
+        out = None
+        for view_name in timeq.views_by_time_range(
+                VIEW_STANDARD, from_t, to_t, field.time_quantum()):
+            plane = self._fragment_row_plane(field, view_name, shard, row_id)
+            if plane is None:
+                continue
+            out = plane if out is None else bitplane.union(out, plane)
+        return out
+
+    # -- BSI row conditions --------------------------------------------------
+
+    def _bsi_meta(self, idx, field_name):
+        field = idx.field(field_name)
+        if field is None:
+            raise FieldNotFound(f"field not found: {field_name}")
+        if field.type != FIELD_TYPE_INT:
+            raise ExecError(f"field {field_name} is not an int field")
+        return field
+
+    def _bsi_planes(self, field, shard):
+        """(planes [D, W], sign [W], exists [W]): views of one [D+2, W]
+        device upload of the shard's bit-plane rows, or None when the
+        fragment is absent."""
+        view = field.view(field.bsi_view_name())
+        if view is None:
+            return None
+        frag = view.fragment(shard)
+        if frag is None:
+            return None
+        rows = [BSI_EXISTS_BIT, BSI_SIGN_BIT] + [
+            BSI_OFFSET_BIT + i for i in range(field.options.bit_depth)]
+        stack = self._fragment_rows(frag, rows)
+        return stack[2:], stack[1], stack[0]
+
+    def _not_null_plane(self, field, shard):
+        return self._fragment_row_plane(field, field.bsi_view_name(), shard,
+                                        BSI_EXISTS_BIT)
+
+    def _row_bsi_shard(self, idx, call, shard):
+        """Row(field <op> value) for one shard via the shared condition
+        plan (exec/bsicond.py — the same plan and K5 evaluate the stacked
+        [D, S, W] planes on the serving path). Reference:
+        executeRowBSIGroupShard executor.go:1533."""
+        if len(call.args) != 1:
+            raise ExecError("Row(): condition required" if not call.args
+                            else "Row(): too many arguments")
+        field_name, cond = next(iter(call.args.items()))
+        if not isinstance(cond, Condition):
+            raise ExecError("Row(): expected condition argument")
+        field = self._bsi_meta(idx, field_name)
+        try:
+            plan = bsi_condition_plan(field.options, cond)
+        except BsiConditionError as e:
+            raise ExecError(str(e)) from e
+        if plan[0] == "empty":
+            return None
+        if plan[0] == "notnull":
+            return self._not_null_plane(field, shard)
+        data = self._bsi_planes(field, shard)
+        if data is None:
+            return None
+        planes, sign, exists = data
+        return apply_bsi_condition(plan, planes, sign, exists)
 
     # ------------------------------------------------------------ aggregates
 
@@ -380,6 +463,135 @@ class Executor:
         if not counts:
             return 0
         return int(torch.stack(counts).sum())
+
+    def _sum_filter_planes(self, idx, call, shard):
+        """Returns (has_filter, plane). has_filter with plane None means the
+        filter is provably empty in this shard — the shard contributes
+        nothing (distinct from 'no filter given')."""
+        if call.children:
+            self.validate_bitmap_call(idx, call.children[0])
+            return True, self.bitmap_call_shard(idx, call.children[0], shard)
+        return False, None
+
+    def _agg_field(self, idx, call):
+        field_name = call.args.get("field") or call.args.get("_field")
+        if field_name is None:
+            field_name = call.field_arg()
+        return self._bsi_meta(idx, field_name)
+
+    def _agg_filter_call(self, idx, call):
+        """The optional filter child of an aggregate call, validated."""
+        if call.children:
+            self.validate_bitmap_call(idx, call.children[0])
+            return call.children[0]
+        return None
+
+    def _exec_sum(self, idx, call, shards, opt):
+        """(reference: executeSum executor.go:331 + fragment.sum)"""
+        field = self._agg_field(idx, call)
+        opts = field.options
+        depth = opts.bit_depth
+        shard_list = self._call_shards(idx, shards)
+        filter_call = self._agg_filter_call(idx, call)
+        # Fast path: K3 over the stacked BSI planes of every shard (falls
+        # back when the filter tree isn't stack-coverable).
+        fast = self._stacked.try_sum(idx, field, filter_call, shard_list)
+        if fast is not None:
+            total, count = fast
+            return ValCount(total + opts.base * count, count)
+
+        def sum_shard(shard):
+            data = self._bsi_planes(field, shard)
+            if data is None:
+                return None
+            planes, sign, exists = data
+            has_filter, filt = self._sum_filter_planes(idx, call, shard)
+            if has_filter and filt is None:
+                return None  # empty filter -> shard contributes nothing
+            pos, neg, cnt = bsi_ops.bsi_plane_counts(planes, sign, exists,
+                                                     filt)
+            return torch.cat([pos, neg, cnt.reshape(1)])
+
+        total, count = 0, 0
+        for counts in shard_map_reduce(shard_list, sum_shard):
+            if counts is None:
+                continue
+            vals = counts.tolist()
+            total += sum((vals[i] - vals[depth + i]) << i
+                         for i in range(depth))
+            count += vals[-1]
+        # base contributes once per existing column (reference: Sum adds
+        # base*count since stored values are base-adjusted)
+        total += opts.base * count
+        return ValCount(total, count)
+
+    def _minmax_shard(self, field, idx, call, shard, is_max):
+        data = self._bsi_planes(field, shard)
+        if data is None:
+            return ValCount()
+        planes, sign, exists = data
+        consider = exists
+        has_filter, filt = self._sum_filter_planes(idx, call, shard)
+        if has_filter and filt is None:
+            return ValCount()
+        if filt is not None:
+            consider = bitplane.intersect(consider, filt)
+        if not bool(consider.any()):
+            return ValCount()
+        pos = bitplane.difference(consider, sign)
+        neg = bitplane.intersect(consider, sign)
+        has_pos = bool(pos.any())
+        has_neg = bool(neg.any())
+        if is_max:
+            # highest positive, else closest-to-zero negative (reference:
+            # fragment.max fragment.go:1190)
+            if has_pos:
+                bits, final = bsi_ops.max_unsigned(planes, pos)
+                sign_mult = 1
+            else:
+                bits, final = bsi_ops.min_unsigned(planes, neg)
+                sign_mult = -1
+        else:
+            # lowest negative (largest magnitude), else lowest positive
+            if has_neg:
+                bits, final = bsi_ops.max_unsigned(planes, neg)
+                sign_mult = -1
+            else:
+                bits, final = bsi_ops.min_unsigned(planes, pos)
+                sign_mult = 1
+        mag = sum(b << i for i, b in enumerate(bits.tolist()))
+        count = int(bitplane.popcount(final))
+        return ValCount(sign_mult * mag + field.options.base, count)
+
+    def _exec_min(self, idx, call, shards, opt):
+        return self._exec_minmax(idx, call, shards, is_max=False)
+
+    def _exec_max(self, idx, call, shards, opt):
+        return self._exec_minmax(idx, call, shards, is_max=True)
+
+    def _exec_minmax(self, idx, call, shards, is_max):
+        field = self._agg_field(idx, call)
+        shard_list = self._call_shards(idx, shards)
+        # Fast path: the narrowing bit-plane walk runs ONCE over stacked
+        # [D, S, W] planes (globally — identical result to the per-shard
+        # merge) instead of once per shard.
+        filter_call = self._agg_filter_call(idx, call)
+        fast = self._stacked.try_minmax(idx, field, filter_call,
+                                        shard_list, is_max)
+        if fast is not None:
+            mag, count = fast
+            if mag is None:
+                return ValCount()
+            return ValCount(mag + field.options.base, count)
+        # Ordered reduce: larger/smaller tie-breaking is order-sensitive,
+        # so the pool's shard-order reduction is what keeps every worker
+        # count bit-identical to the serial loop.
+        return shard_map_reduce(
+            shard_list,
+            lambda shard: self._minmax_shard(field, idx, call, shard, is_max),
+            reducer=lambda out, vc: out.larger(vc) if is_max
+            else out.smaller(vc),
+            initial=ValCount())
 
     def _set_field(self, idx, call):
         field_name = call.args.get("field") or call.args.get("_field")

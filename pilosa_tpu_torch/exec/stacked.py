@@ -1,4 +1,5 @@
-"""Stacked serving fast path: Count, TopN and GroupBy over every shard.
+"""Stacked serving fast path: Count, TopN, GroupBy, Sum, Min and Max over
+every shard.
 
 The general executor evaluates call trees shard by shard. This module
 evaluates ALL shards at once: fragment rows become [shards, words] int32
@@ -14,12 +15,21 @@ stacks resident on the device, and
   with PyTorch elementwise ops); one host fetch serves every chunk;
 - GroupBy over two or more fields: one launch of K4 (ops/pairwise.py)
   per pair of row tiles of its innermost two fields gives their
-  [R1, R2] count matrix.
+  [R1, R2] count matrix;
+- BSI conditions (`Row(v > 10)`) are leaves too: one launch of K5
+  (ops/bsi_range.py) turns the field's cached [D+2, S, W] bit-plane stack
+  into an [S, W] mask (`bsi_condition_stack`); a time-range row
+  (`Row(t=1, from=..., to=...)`) is the union of its quantum views' row
+  stacks (`time_row_stack`);
+- Sum: three launches of K3 over the [D, S·W] plane view and one host
+  fetch (`try_sum`); Min and Max: the narrowing plane walk in PyTorch
+  ops, selected on the device, one host fetch (`try_minmax`).
 
 Stacks are cached per (index, field, row, shard-set) — leaf stacks — or
-per (index, field, view, row chunk, shard-set) — row-chunk stacks — in
+per (index, field, depth, shard-set) — BSI stacks, in the leaf pool too —
+or per (index, field, view, row chunk, shard-set) — row-chunk stacks — in
 two pools with their own byte budgets and LRU order, so churning TopN
-candidates never evict the Count path's leaves. Both are validated by
+candidates never evict the Count path's leaves. All are validated by
 the fragments' write-generation counters (fragment.generation — bumped
 by every mutation), so a stale stack never serves a query. A view-level
 (uid, mutations) stamp makes the hit check O(1); a drifted entry is
@@ -37,13 +47,25 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..core import timeq
+from ..core.field import FIELD_TYPE_INT, FIELD_TYPE_TIME
+from ..core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT, BSI_SIGN_BIT
 from ..core.index import EXISTENCE_FIELD_NAME
 from ..core.view import VIEW_STANDARD
 from ..ops import containers as _containers
+from ..ops.bsi import bsi_plane_counts, max_unsigned, min_unsigned
 from ..ops.count_expr import tree_eval
 from ..ops.pairwise import pairwise_counts_stack as _pairwise_kernel
 from ..ops.row_counts import row_counts as _row_counts_kernel
+from ..pql import Condition
 from ..shardwidth import WORDS_PER_ROW
+from .bsicond import (
+    BsiConditionError,
+    apply_bsi_condition,
+    bsi_condition_plan,
+    condition_from_key,
+    normalize_bsi_condition,
+)
 
 # Device-byte budget for cached leaf stacks; excess evicts
 # least-recently-used.
@@ -61,6 +83,9 @@ MIN_SHARDS = 2
 # large, so TopN/GroupBy launch count is O(rows/chunk) — independent of
 # the shard count. (The TPU package's value, kept for parity.)
 CHUNK_BYTES = 128 * 1024 * 1024
+# Time-range leaves union one cached stack per quantum view in the range
+# cover; wider covers (a years-long hourly span) use the per-shard path.
+MAX_TIME_VIEWS = 64
 
 _OPS = {"Intersect": "&", "Union": "|", "Difference": "-", "Xor": "^"}
 
@@ -68,17 +93,77 @@ _OPS = {"Intersect": "&", "Union": "|", "Difference": "-", "Xor": "^"}
 _DISPATCH_LOCK = threading.Lock()
 
 
-def tree_signature(idx, call, leaves, leaf):
+def time_range_views(idx, field_name, args):
+    """Quantum-view name cover for a time-range Row, or None when the
+    field isn't a time field / has no quantum. Pure function of the
+    schema + call args (semantics identical to the executor's per-shard
+    _row_shard)."""
+    field = idx.field(field_name)
+    if field is None or field.type != FIELD_TYPE_TIME:
+        return None
+    quantum = field.time_quantum()
+    if not quantum:
+        return None
+    try:
+        from_t = timeq.parse_time(args["from"]) if "from" in args \
+            else timeq.parse_time("1970-01-01T00:00")
+        to_t = timeq.parse_time(args["to"]) if "to" in args \
+            else timeq.parse_time("2100-01-01T00:00")
+    except (ValueError, OverflowError, OSError):
+        return None  # malformed timestamps: per-shard path raises cleanly
+    views = tuple(timeq.views_by_time_range(
+        VIEW_STANDARD, from_t, to_t, quantum))
+    if len(views) > MAX_TIME_VIEWS:
+        return None  # a huge hourly span: per-shard path handles it
+    return views
+
+
+def intern_time_leaf(idx, field_name, row_id, args, leaves):
+    '''THE ("timerow", field, row, views) leaf interner, so the leaf key
+    shape lives in one place.'''
+    views = time_range_views(idx, field_name, args)
+    if views is None:
+        return None
+    key = ("timerow", field_name, int(row_id), views)
+    if key not in leaves:
+        leaves[key] = len(leaves)
+    return ("leaf", leaves[key])
+
+
+def tree_signature(idx, call, leaves, leaf, bsi_leaf=None, time_leaf=None):
     """THE coverage walk for the stacked path: turns a bitmap call tree
     into an operator signature over leaf slots, or None when any shape
-    isn't expressible (Shift, conditions, time ranges, keys, ...).
+    isn't expressible (Shift, keys, ...).
     `leaf(idx, field_name, row_id, leaves)` decides row-leaf eligibility
-    and interns the slot."""
+    and interns the slot.
+    `bsi_leaf(idx, field_name, cond, leaves)` (optional) covers BSI
+    condition leaves like Row(v > 10) the same way (reference algorithm:
+    fragment.go:1357-1470); None declines conditions entirely.
+    `time_leaf(idx, field_name, row_id, args, leaves)` (optional) covers
+    time-range rows Row(t=1, from=..., to=...) as a union over the
+    quantum-view cover (reference: viewsByTimeRange time.go:91); None
+    declines time ranges entirely."""
     name = call.name
     if name in ("Row", "Range"):
-        if "from" in call.args or "to" in call.args \
-                or call.has_conditions():
-            return None
+        if "from" in call.args or "to" in call.args:
+            if time_leaf is None or call.has_conditions():
+                return None
+            field_name = call.field_arg()
+            if field_name is None:
+                return None
+            row_id = call.args.get(field_name)
+            if isinstance(row_id, bool):
+                row_id = int(row_id)
+            if not isinstance(row_id, int):
+                return None
+            return time_leaf(idx, field_name, row_id, call.args, leaves)
+        if call.has_conditions():
+            if bsi_leaf is None or len(call.args) != 1:
+                return None
+            field_name, cond = next(iter(call.args.items()))
+            if not isinstance(cond, Condition):
+                return None
+            return bsi_leaf(idx, field_name, cond, leaves)
         field_name = call.field_arg()
         if field_name is None:
             return None
@@ -89,15 +174,17 @@ def tree_signature(idx, call, leaves, leaf):
             return None
         return leaf(idx, field_name, row_id, leaves)
     if name in _OPS and call.children:
-        subs = tuple(tree_signature(idx, c, leaves, leaf)
-                     for c in call.children)
+        subs = tuple(
+            tree_signature(idx, c, leaves, leaf, bsi_leaf, time_leaf)
+            for c in call.children)
         if any(s is None for s in subs):
             return None
         return (_OPS[name], subs)
     if name == "Not" and len(call.children) == 1 \
             and idx.options.track_existence \
             and idx.field(EXISTENCE_FIELD_NAME) is not None:
-        child = tree_signature(idx, call.children[0], leaves, leaf)
+        child = tree_signature(idx, call.children[0], leaves, leaf,
+                               bsi_leaf, time_leaf)
         if child is None:
             return None
         exists = leaf(idx, EXISTENCE_FIELD_NAME, 0, leaves)
@@ -110,9 +197,10 @@ def tree_signature(idx, call, leaves, leaf):
 class StackedEvaluator:
     def __init__(self, device):
         self.device = torch.device(device)
-        # two byte-budgeted LRU pools, picked by key[0]: "leaf" (Count
-        # leaves, [S, W] Containers) and "rows" (TopN/GroupBy row
-        # chunks, [R, S, W] tensors); entry = [gens, value, nbytes, stamp]
+        # two byte-budgeted LRU pools, picked by _pool_of(key): "leaf"
+        # (Count leaves, [S, W] Containers, and BSI [D+2, S, W] stacks)
+        # and "rows" (TopN/GroupBy row chunks and time-view rows,
+        # [R, S, W] tensors); entry = [gens, value, nbytes, stamp]
         self._pools = {"leaf": OrderedDict(), "rows": OrderedDict()}
         self._pool_bytes = {"leaf": 0, "rows": 0}
         self._pool_evictions = {"leaf": 0, "rows": 0}
@@ -163,21 +251,36 @@ class StackedEvaluator:
             leaves[key] = len(leaves)
         return ("leaf", leaves[key])
 
+    def _bsi_leaf(self, idx, field_name, cond, leaves):
+        """Condition-leaf eligibility: an int field with a BSI view and a
+        normalizable condition. The leaf key carries (op, values) so
+        identical conditions share one slot."""
+        field = idx.field(field_name)
+        if field is None or field.type != FIELD_TYPE_INT \
+                or field.view(field.bsi_view_name()) is None:
+            return None
+        norm = normalize_bsi_condition(cond)
+        if norm is None:
+            return None
+        op, vals = norm
+        key = ("bsicond", field_name, op, vals)
+        if key not in leaves:
+            leaves[key] = len(leaves)
+        return ("leaf", leaves[key])
+
     def signature(self, idx, call, leaves):
         """Tree signature with leaf slots, or None (use the per-shard
         path)."""
-        return tree_signature(idx, call, leaves, self._leaf)
+        return tree_signature(idx, call, leaves, self._leaf, self._bsi_leaf,
+                              intern_time_leaf)
 
     # -- stack cache ---------------------------------------------------------
 
-    def _fragment_gens(self, idx, field_name, shards, view=None):
+    @staticmethod
+    def _fragment_gens(view, shards):
         """Cache-validation fingerprint: per-shard (fragment uid,
-        generation); None when the field vanished."""
-        if view is None:
-            field = idx.field(field_name)
-            view = field.view(VIEW_STANDARD) if field is not None else None
-            if view is None:
-                return None
+        generation) of `view` — the standard view for leaves, a quantum
+        view for time rows, the bsig view for BSI stacks."""
         gens = []
         for shard in shards:
             frag = view.fragment(shard)
@@ -185,14 +288,21 @@ class StackedEvaluator:
                         else (frag.uid, frag.generation))
         return tuple(gens)
 
+    @staticmethod
+    def _pool_of(key):
+        """Row-chunk stacks live in their own pool; leaf and BSI stacks
+        share the leaf pool."""
+        return "rows" if key[0] == "rows" else "leaf"
+
     def _cache_get_fast(self, key, stamp):
         """O(1) hit check via the view-level (uid, mutations) stamp: a
         match proves no fragment of the view changed since the put, so
         the per-shard generation walk is skipped."""
         with self._lock:
-            hit = self._pools[key[0]].get(key)
+            entries = self._pools[self._pool_of(key)]
+            hit = entries.get(key)
             if hit is not None and hit[3] == stamp:
-                self._pools[key[0]].move_to_end(key)
+                entries.move_to_end(key)
                 self.hits += 1
                 return hit[1]
         return None
@@ -202,9 +312,10 @@ class StackedEvaluator:
         refreshes the stamp (a mutation elsewhere in the view moved the
         counter without touching these shards)."""
         with self._lock:
-            hit = self._pools[key[0]].get(key)
+            entries = self._pools[self._pool_of(key)]
+            hit = entries.get(key)
             if hit is not None and hit[0] == gens:
-                self._pools[key[0]].move_to_end(key)
+                entries.move_to_end(key)
                 if stamp is not None:
                     hit[3] = stamp
                 self.hits += 1
@@ -215,7 +326,7 @@ class StackedEvaluator:
     def _ledger_add(self, key, delta):
         """Move the per-(pool, index, field) byte ledger in lockstep with
         the pool byte counter (caller holds self._lock)."""
-        lkey = (key[0], key[1], key[2])
+        lkey = (self._pool_of(key), key[1], key[2])
         new = self._hbm_ledger.get(lkey, 0) + delta
         if new <= 0:
             self._hbm_ledger.pop(lkey, None)
@@ -227,7 +338,7 @@ class StackedEvaluator:
         return MAX_STACK_BYTES if pool == "leaf" else MAX_ROWS_STACK_BYTES
 
     def _cache_put(self, key, gens, value, nbytes, stamp=None):
-        pool = key[0]
+        pool = self._pool_of(key)
         entries = self._pools[pool]
         with self._lock:
             old = entries.pop(key, None)
@@ -255,7 +366,7 @@ class StackedEvaluator:
         """The cached entry for `key` whose shard set matches `gens`
         (its generations may have drifted), or None."""
         with self._lock:
-            entry = self._pools[key[0]].get(key)
+            entry = self._pools[self._pool_of(key)].get(key)
             if entry is None or len(entry[0]) != len(gens):
                 return None
             return entry
@@ -302,7 +413,7 @@ class StackedEvaluator:
         hit = self._cache_get_fast(key, stamp)
         if hit is not None:
             return hit
-        gens = self._fragment_gens(idx, field_name, shards, view=view)
+        gens = self._fragment_gens(view, shards)
         hit = self._cache_get(key, gens, stamp)
         if hit is not None:
             return hit
@@ -335,12 +446,18 @@ class StackedEvaluator:
         view = field.view(view_name) if field is not None else None
         if view is None:
             return None
+        return self._rows_of_view(key, view, list(row_chunk), shards, cache)
+
+    def _rows_of_view(self, key, view, row_ids, shards, cache=True):
+        """The cached [R, S, W] device stack of `row_ids` of one view
+        under `key`: a hit, an in-place patch of the drifted shards, or a
+        fresh gather and upload (kept in its pool when `cache`)."""
         stamp = (view.uid, view.mutations)
         if cache:
             hit = self._cache_get_fast(key, stamp)
             if hit is not None:
                 return hit
-        gens = self._fragment_gens(idx, field_name, shards, view=view)
+        gens = self._fragment_gens(view, shards)
         hit = self._cache_get(key, gens, stamp if cache else None)
         if hit is not None:
             return hit
@@ -348,13 +465,94 @@ class StackedEvaluator:
             stale = self._stale_entry(key, gens)
             if stale is not None:
                 patched = self._patch(key, stale, gens, stamp, view,
-                                      list(row_chunk), shards)
+                                      row_ids, shards)
                 if patched is not None:
                     return patched
-        stack = self._place(self._host_rows(view, list(row_chunk), shards))
+        stack = self._place(self._host_rows(view, row_ids, shards))
         if cache:
             self._cache_put(key, gens, stack, stack.numel() * 4, stamp)
         return stack
+
+    def bsi_stack(self, idx, field_name, shards):
+        """(planes [D, S, W], sign [S, W], exists [S, W]) of a BSI field
+        over `shards`: views of ONE cached [D+2, S, W] device stack of its
+        bit-plane rows (row 0 exists, row 1 sign, rows 2.. magnitude bits;
+        reference layout fragment.go:91-93) in the leaf pool, so one
+        in-place patch after a write updates all three. None when the
+        field/view vanished."""
+        field = idx.field(field_name)
+        if field is None:
+            return None
+        view = field.view(field.bsi_view_name())
+        if view is None:
+            return None
+        depth = field.options.bit_depth
+        key = ("bsi", idx.name, field_name, depth, shards)
+        rows = [BSI_EXISTS_BIT, BSI_SIGN_BIT] + [
+            BSI_OFFSET_BIT + i for i in range(depth)]
+        stack = self._rows_of_view(key, view, rows, shards)
+        return stack[2:], stack[1], stack[0]
+
+    def bsi_condition_stack(self, idx, key, shards):
+        """[S, W] mask of a BSI condition leaf over the cached (and
+        incrementally patched) BSI stack: one or two K5 launches
+        (reference per-shard algorithm fragment.go:1357-1470). The empty
+        and notnull plans gather no magnitude planes. None when the field
+        vanished or the condition is malformed (the per-shard path
+        raises)."""
+        _, field_name, op, vals = key
+        field = idx.field(field_name)
+        if field is None or field.type != FIELD_TYPE_INT:
+            return None
+        try:
+            plan = bsi_condition_plan(
+                field.options, condition_from_key(op, vals))
+        except BsiConditionError:
+            return None
+        if plan[0] == "empty":
+            return torch.zeros((self._padded_len(shards), WORDS_PER_ROW),
+                               dtype=torch.int32, device=self.device)
+        if plan[0] == "notnull":
+            stack = self.rows_stack(idx, field_name, (BSI_EXISTS_BIT,),
+                                    shards, view_name=field.bsi_view_name())
+            return None if stack is None else stack[0]
+        data = self.bsi_stack(idx, field_name, shards)
+        if data is None:
+            return None
+        planes, sign, exists = data
+        with self._lock:
+            self.dispatches += 1
+        with self._dispatch_lock:
+            return apply_bsi_condition(plan, planes, sign, exists)
+
+    def time_row_stack(self, idx, key, shards):
+        """[S, W] union of one row across the quantum-view cover (the
+        time-range leaf). Each view's row stack is cached and patched
+        like any other rows-pool chunk; views absent here contribute
+        nothing (the executor's per-shard union semantics)."""
+        _, field_name, row_id, views = key
+        field = idx.field(field_name)
+        if field is None:
+            return None
+        stacks = []
+        for view_name in views:
+            if field.view(view_name) is None:
+                continue  # no data in this quantum bucket
+            stack = self.rows_stack(idx, field_name, (row_id,), shards,
+                                    view_name=view_name)
+            if stack is not None:
+                stacks.append(stack[0])
+        if not stacks:
+            return torch.zeros((self._padded_len(shards), WORDS_PER_ROW),
+                               dtype=torch.int32, device=self.device)
+        if len(stacks) == 1:
+            return stacks[0]
+        with self._lock:
+            self.dispatches += 1
+        with self._dispatch_lock:
+            return tree_eval(("|", tuple(("leaf", i)
+                                         for i in range(len(stacks)))),
+                             stacks)
 
     def _host_rows(self, view, row_ids, shards):
         """Host [R, S, W] uint32 gather of rows over shards. The per-shard
@@ -412,8 +610,18 @@ class StackedEvaluator:
             return None
         ordered = sorted(leaves.items(), key=lambda kv: kv[1])
         stacks = []
-        for (_, field_name, row_id), _slot in ordered:
-            stacks.append(self.leaf_stack(idx, field_name, row_id, shards))
+        for key, _slot in ordered:
+            if key[0] == "row":
+                stacks.append(self.leaf_stack(idx, key[1], key[2], shards))
+                continue
+            if key[0] == "bsicond":
+                s = self.bsi_condition_stack(idx, key, shards)
+            else:
+                s = self.time_row_stack(idx, key, shards)
+            # condition masks and time unions are fresh [S, W] planes:
+            # wrap them without copying, like any dense leaf
+            stacks.append(None if s is None else
+                          _containers.dense_container(s))
         if any(s is None for s in stacks):
             return None
         return sig, stacks
@@ -539,3 +747,82 @@ class StackedEvaluator:
                 for x, y in zip(*np.nonzero(totals)):
                     out[(a_chunk[x], b_chunk[y])] = int(totals[x, y])
         return out
+
+    def _bsi_filtered(self, idx, field, filter_call, shards):
+        """(planes, sign, exists, filt) for Sum/Min/Max over `shards`, or
+        None to fall back (too few shards, an uncoverable filter, or the
+        field vanished)."""
+        if len(shards) < MIN_SHARDS:
+            return None
+        covered, filt = self.filter_stack(idx, filter_call, shards)
+        if not covered:
+            return None
+        data = self.bsi_stack(idx, field.name, shards)
+        if data is None:
+            return None
+        return (*data, filt)
+
+    def try_sum(self, idx, field, filter_call, shards):
+        """(signed magnitude total, count) for Sum over the stacked BSI
+        planes, or None to fall back: K3 over the [D, S·W] plane view
+        with the positive and with the negative consider mask, and over
+        the consider mask itself, then ONE host fetch. The caller adds
+        base*count (field.go:1583). Python ints take Σ (pos[i] − neg[i])
+        << i, which D = 64 would overflow in int64."""
+        data = self._bsi_filtered(idx, field, filter_call, tuple(shards))
+        if data is None:
+            return None
+        planes, sign, exists, filt = data
+        depth = planes.shape[0]
+        with self._lock:
+            self.dispatches += 1
+        with self._dispatch_lock:
+            pos, neg, count = bsi_plane_counts(planes, sign, exists, filt)
+        vals = torch.cat([pos, neg, count.reshape(1)]).tolist()
+        total = 0
+        for i in range(depth):
+            total += (vals[i] - vals[depth + i]) << i
+        return total, vals[-1]
+
+    def try_minmax(self, idx, field, filter_call, shards, is_max):
+        """(signed magnitude, count) of the Min/Max value over the stacked
+        BSI planes, or None to fall back; (None, 0) when no column
+        qualifies. The caller adds base (reference: fragment.go:1110-1227).
+
+        Both the positive-branch and the negative-branch narrowing walks
+        run (ops.bsi max/min_unsigned over [D, S, W] planes with [S, W]
+        filters: the walk's any() is global over every shard), and the
+        reference's sign rules pick one with 0-d device selects — Max:
+        highest positive, else closest-to-zero negative; Min: most
+        negative, else lowest positive — so nothing waits on the device
+        until the one fetch at the end."""
+        data = self._bsi_filtered(idx, field, filter_call, tuple(shards))
+        if data is None:
+            return None
+        planes, sign, exists, filt = data
+        with self._lock:
+            self.dispatches += 1
+        with self._dispatch_lock:
+            consider = exists if filt is None else exists & filt
+            pos = consider & ~sign
+            neg = consider & sign
+            has_pos = pos.any()
+            has_neg = neg.any()
+            if is_max:
+                b_pos, f_pos = max_unsigned(planes, pos)
+                b_neg, f_neg = min_unsigned(planes, neg)
+                use_neg = ~has_pos
+            else:
+                b_neg, f_neg = max_unsigned(planes, neg)
+                b_pos, f_pos = min_unsigned(planes, pos)
+                use_neg = has_neg
+            bits = torch.where(use_neg, b_neg, b_pos)
+            final = torch.where(use_neg, f_neg, f_pos)
+            count = _row_counts_kernel(final.reshape(1, -1))
+            flags = torch.stack([has_pos | has_neg, use_neg])
+        vals = torch.cat([flags.to(torch.int64), bits.to(torch.int64),
+                          count]).tolist()
+        if not vals[0]:
+            return None, 0
+        mag = sum(b << i for i, b in enumerate(vals[2:-1]))
+        return (-mag if vals[1] else mag), vals[-1]

@@ -161,6 +161,16 @@ class API:
             self.holder.index(index_name).add_existence(column_ids)
         return changed
 
+    def import_values(self, index_name, field_name, column_ids, values,
+                      clear=False):
+        """Bulk BSI values (reference: api.ImportValue api.go:1035, single
+        node). clear=True removes the listed columns' values."""
+        field = self._field(index_name, field_name)
+        changed = field.import_values(column_ids, values, clear=clear)
+        if not clear:
+            self.holder.index(index_name).add_existence(column_ids)
+        return changed
+
     def schema(self):
         """Public schema in the reference's camelCase wire shape."""
         out = []

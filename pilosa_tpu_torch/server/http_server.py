@@ -125,14 +125,20 @@ class PilosaHTTPServer:
         body = req.json()
         if body is None:
             raise ApiError("import requires a JSON body")
-        timestamps = body.get("timestamps")
-        if timestamps is not None:
-            timestamps = [timeq.parse_time(t) if t else None
-                          for t in timestamps]
-        changed = self.api.import_bits(
-            req.params["index"], req.params["field"],
-            body.get("rowIDs", []), body.get("columnIDs", []),
-            timestamps=timestamps, clear=clear)
+        index, field = req.params["index"], req.params["field"]
+        if "values" in body:
+            changed = self.api.import_values(
+                index, field, body.get("columnIDs", []), body["values"],
+                clear=clear)
+        else:
+            timestamps = body.get("timestamps")
+            if timestamps is not None:
+                timestamps = [timeq.parse_time(t) if t else None
+                              for t in timestamps]
+            changed = self.api.import_bits(
+                index, field, body.get("rowIDs", []),
+                body.get("columnIDs", []), timestamps=timestamps,
+                clear=clear)
         return {"changed": changed}
 
     # -- transport -----------------------------------------------------------

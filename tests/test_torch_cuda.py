@@ -1,5 +1,5 @@
-"""K1, K3 and K4 on the card: each CUDA kernel against its plain PyTorch
-version.
+"""K1, K3, K4 and K5 on the card: each CUDA kernel against its plain
+PyTorch version.
 
 Imports only torch and the port, so it runs on a machine without JAX:
 
@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from pilosa_tpu_torch.ops import bsi_range as k5
 from pilosa_tpu_torch.ops import count_expr as k1
 from pilosa_tpu_torch.ops import pairwise as k4
 from pilosa_tpu_torch.ops import row_counts as k3
@@ -128,3 +129,66 @@ def test_new_kernels_reject_misaligned(cuda):
         k3.row_counts(odd)
     with pytest.raises(ValueError, match="aligned"):
         k4.pairwise_counts(odd, odd)
+
+
+K5_OPS = [("eq", False), ("lt", False), ("lt", True), ("gt", False),
+          ("gt", True)]
+
+
+def _bsi(depth, s, pred, seed, device):
+    """[D+2, S, W] stack (exists, sign, planes) with a run of words whose
+    columns hold the predicate's magnitude, as the BSI stack lays it out."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 32, (depth + 2, s, WORDS_PER_ROW),
+                     dtype=np.uint32)
+    x[:, :, :2] = np.array([0xFFFFFFFF, 0x80000000], dtype=np.uint32)
+    for d in range(depth):
+        x[2 + d, :, 8:40] = 0xFFFFFFFF if (pred >> d) & 1 else 0
+    x[0, :, 8:40] = 0xFFFFFFFF
+    return torch.from_numpy(x.view(np.int32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 21, 64])
+@pytest.mark.parametrize("s", [1, 7])
+@pytest.mark.parametrize("neg_pred", [False, True])
+@pytest.mark.parametrize("op,allow_eq", K5_OPS)
+@pytest.mark.parametrize("which", ["random", "zero", "all_ones"])
+def test_bsi_range_kernel_matches_plain(cuda, op, allow_eq, neg_pred, depth,
+                                        s, which):
+    rng = np.random.default_rng(depth * 7 + s)
+    pred = {"random": int.from_bytes(rng.bytes(8), "little"), "zero": 0,
+            "all_ones": -1}[which] & ((1 << depth) - 1)
+    stack = _bsi(depth, s, pred, seed=depth + s, device=cuda)
+    planes, sign, exists = stack[2:], stack[1], stack[0]
+    pbits = [(pred >> d) & 1 for d in range(depth)]
+    before = k5.bsi_range_mask.launches
+    got = k5.bsi_range_mask(op, planes, sign, exists, pbits, neg_pred,
+                            allow_eq)
+    torch.cuda.synchronize()
+    want = k5.bsi_range_mask_reference(op, planes, sign, exists, pbits,
+                                       neg_pred, allow_eq)
+    assert torch.equal(got, want)
+    assert k5.bsi_range_mask.launches == before + 1
+    # one shard's [D, W] planes of the same stack give that shard's mask
+    one = k5.bsi_range_mask(op, planes[:, s - 1], sign[s - 1],
+                            exists[s - 1], pbits, neg_pred, allow_eq)
+    assert torch.equal(one, want[s - 1])
+
+
+@pytest.mark.cuda
+def test_bsi_range_kernel_empty_and_misaligned(cuda):
+    planes = torch.zeros((3, 0), dtype=torch.int32, device=cuda)
+    row = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    before = k5.bsi_range_mask.launches
+    out = k5.bsi_range_mask("lt", planes, row, row, [1, 0, 1], False, True)
+    assert out.shape == (0,) and k5.bsi_range_mask.launches == before
+    base = torch.zeros(3 * WORDS_PER_ROW + 1, dtype=torch.int32, device=cuda)
+    odd = base[1:].view(3, WORDS_PER_ROW)
+    with pytest.raises(ValueError, match="aligned"):
+        k5.bsi_range_mask("gt", odd[1:], odd[0], odd[0], [1, 1], False,
+                          False)
+    wide = torch.zeros((65, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="depth 65"):
+        k5.bsi_range_mask("eq", wide, wide[0], wide[0], [0] * 65, False,
+                          False)

@@ -150,9 +150,21 @@ def test_stack_cache_evicts_within_byte_budget(pair, monkeypatch):
 def test_unported_calls_raise(pair):
     _, tex, _ = pair
     with pytest.raises(NotPortedError, match="not yet ported"):
-        tex.execute("i", "Sum(field=f)")
+        tex.execute("i", "ClearRow(f=1)")
     with pytest.raises(NotPortedError, match="not yet ported"):
         tex.execute("i", "Count(Shift(Row(f=1), n=1))")
+
+
+def test_sum_on_set_field_raises_like_reference(pair):
+    from pilosa_tpu.exec.executor import ExecError as JaxExecError
+    from pilosa_tpu_torch.exec.executor import ExecError
+
+    jex, tex, _ = pair
+    with pytest.raises(JaxExecError, match="not an int field"):
+        jex.execute("i", "Sum(field=f)")
+    with pytest.raises(ExecError, match="not an int field") as err:
+        tex.execute("i", "Sum(field=f)")
+    assert not isinstance(err.value, NotPortedError)
 
 
 def test_cuda_default_raises_without_card(pair):
