@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi);
-2. build: every kernel of the served paths (K1 count_expr, K3 row_counts,
-   K4 pairwise_counts, K5 bsi_range), one nvcc per source, all started
-   together, from the checkout; registers and spills from ptxas;
+2. build: every kernel of the served paths (K1 count_expr, K2
+   count_blocks, K3 row_counts, K4 pairwise_counts, K5 bsi_range), one
+   nvcc per source, all started together, from the checkout; registers
+   and spills from ptxas;
 3. kernels: each kernel against its plain PyTorch version on the card —
    exact equality on every case:
    - K1 at S in {0, 1, 7, 954}, 1 to 6 leaves, every op and nested trees;
@@ -21,12 +22,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      in {1, 21, 64} x S in {0, 1, 7, 128}, random sign and exists,
      predicates 0, 2^D - 1 and random, edge words and columns equal to
      the predicate planted;
+   - K2's three entries at NB in {0, 1, 7, 8, 33, 32768, 131072}, with
+     sentinel padding, edge words planted, and for the fused search
+     match fractions 0, 1/2 and 1 at NB_b = NB/2, NB and 2 NB;
    and times per launch beside each bound and the plain version's time:
    K1 at S = 954 with two leaves; K3 at the served TopN shape
    [100, 10 x 32768], at [1, 954 x 32768] with a filter and at Sum's
    [21, 128 x 32768] with a filter; K4 at the served GroupBy shape
    5 x 4 x S = 10 and at 102 x 102 x S = 10; K5 at [21, 128 x 32768] and
-   [21, 954 x 32768];
+   [21, 954 x 32768]; K2's entries at NB = 32768 and 131072;
 4. data, in one data directory, written through the port's Holder:
    - index tg, BASELINE config 3 at bench_suite.bench_topn_groupby's
      chip shape (10 shards; field f with 100 rows of 100000/(r+1)+100
@@ -38,7 +42,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      shard, each with a t row 0 bit on 2019-01-15, 02-15 or 03-15;
    - index b, the 1B-column index of bench_suite.measure_served_1b (954
      shards of 2^20 columns, fields f and g, rows 1 and 2, word density
-     0.05, seed 3);
+     0.05, seed 3), plus compressible rows drawn the way
+     bench_suite.bench_compression draws its corpus (seed 5): f=10, f=11
+     and g=10 with 24 random 128-word blocks per shard, each word random
+     (g=10 shares 12 of f=10's blocks in every shard), and f=20 and g=20
+     with two runs of 2^20 // 200 bits per shard (g=20's start half a
+     run later);
 5. serve: one HTTP server on that directory (--device cuda, an ephemeral
    port) answers, each checked against numpy:
    - Count path: /status, the four Count(Intersect(Row, Row)) queries, a
@@ -54,6 +63,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      range; then an import of 1,000 values and a Set whose next Sum and
      Count read them back through an in-place patch of the BSI stack;
      K5, K1 and K3 must move by exactly what each query launches;
+   - compressed path (the auto chooser over index b): Counts over the
+     sparse rows (K2), the run-length rows (torch sums), a union and a
+     dense-with-sparse intersection (densify + K1), each launch delta
+     exact; the pool's forms and resident bytes; cold and warm p50s of
+     the K2 pair and the rle pair; a Set that decays a sparse leaf to
+     dense through a patch; then K2 timed on the served containers and
+     a cold leaf build split into upload, the chooser's `analyze` on the
+     card (its counts checked against numpy) and the host builder, for
+     a dense, a sparse and a run-length leaf;
    each path runs with every launch counter set to 0 just before it and
    read just after; cold latency of each first query and warm HTTP p50s.
 
@@ -87,7 +105,14 @@ BR_SEED = 11
 BR_VALUES_PER_SHARD = 100_000
 BR_DATES = ("2019-01-15T00:00", "2019-02-15T00:00", "2019-03-15T00:00")
 BR_JAN_FEB = 'from="2019-01-01T00:00", to="2019-03-01T00:00"'
-KERNELS = ("count_expr", "row_counts", "pairwise_counts", "bsi_range")
+KERNELS = ("count_expr", "row_counts", "pairwise_counts", "bsi_range",
+           "count_blocks")
+COMP_SEED = 5
+SPARSE_BLOCKS = 24  # non-empty 128-word blocks per shard of f=10, f=11, g=10
+SHARED_BLOCKS = 12  # of them shared by f=10 and g=10 in every shard
+RUN_BITS = (1 << 20) // 200  # bits per run of f=20 and g=20, two per shard
+K2_NBS = (0, 1, 7, 8, 33, 32768, 131072)
+K2_ID_SPACE = 1 << 21  # block ids drawn below the sentinel 2^30
 # (op, allow_eq) of tests/test_pallas.py's BSI range cases
 K5_CASES = (("eq", False), ("lt", False), ("lt", True), ("gt", False),
             ("gt", True))
@@ -97,10 +122,13 @@ def log(msg):
     print(msg, flush=True)
 
 
+_POP16 = np.array([bin(i).count("1") for i in range(1 << 16)],
+                  dtype=np.uint8)
+
+
 def popcount(words):
-    return int(np.unpackbits(
-        np.ascontiguousarray(words, dtype=np.uint32).view(np.uint8)).sum(
-            dtype=np.int64))
+    return int(_POP16[np.ascontiguousarray(
+        words, dtype=np.uint32).view(np.uint16)].sum(dtype=np.int64))
 
 
 def nvidia_smi(query):
@@ -152,15 +180,31 @@ def device_ms(torch, fn, reps, kernel):
     return total_us / reps / 1e3 if n else None
 
 
-def kernel_ms(torch, fn, reps, kernel):
+L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
+
+
+def kernel_ms(torch, fn, reps, kernel, cold_l2=False):
     """(ms, call_ms, source): the kernel's device time per launch from
-    the profiler, or — where the trace shows no device time — the CUDA
-    event time per call; call_ms is always the event time per call."""
+    the profiler (asked twice), or — where the trace shows no device
+    time — the CUDA event time per call; call_ms is always the event
+    time per call. With cold_l2, every profiled call first writes
+    L2_FLUSH_BYTES, so inputs that fit in L2 are read from HBM as a
+    query that finds them cold would read them (the flush's own kernel
+    is not counted)."""
     call_ms = time_cuda(torch, fn, reps)
-    ms = device_ms(torch, fn, reps, kernel)
+    timed = fn
+    if cold_l2:
+        junk = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+        def timed():
+            junk.fill_(1)
+            fn()
+    ms = device_ms(torch, timed, reps, kernel)
+    if ms is None:
+        ms = device_ms(torch, timed, reps, kernel)
     if ms is None:
         return call_ms, call_ms, "events"
-    return ms, call_ms, "profiler"
+    return ms, call_ms, "profiler" + (", L2 flushed" if cold_l2 else "")
 
 
 def build_kernels(cuda_build):
@@ -527,7 +571,175 @@ def check_k5(torch, k5, k3, words, card):
     return max_err, timing
 
 
+def k2_ids(rng, n, avoid=None, keep=None):
+    """n distinct sorted block ids below K2_ID_SPACE: the ids of `keep`
+    first, the rest drawn outside `avoid`."""
+    keep = np.empty(0, np.int64) if keep is None else keep
+    pool = np.arange(K2_ID_SPACE)
+    if avoid is not None and len(avoid):
+        pool = np.setdiff1d(pool, avoid, assume_unique=True)
+    rest = rng.choice(pool, n - len(keep), replace=False)
+    return np.sort(np.concatenate([keep, rest]))
+
+
+def k2_sparse(torch, rng, nb, ids):
+    """(ids [nb], blocks [nb, 128]) on the card: `ids` on the first rows,
+    sentinel padding with zero blocks after, edge words planted."""
+    from pilosa_tpu_torch.ops.count_blocks import SPARSE_SENTINEL
+
+    full = np.full(nb, SPARSE_SENTINEL, dtype=np.int32)
+    full[:len(ids)] = ids
+    blocks = rng.integers(0, 1 << 32, (nb, 128), dtype=np.uint32)
+    if nb:
+        blocks[:, 0] = 0xFFFFFFFF
+        blocks[:, 1] = 0x80000000
+    blocks[len(ids):] = 0
+    return (torch.from_numpy(full).cuda(),
+            torch.from_numpy(blocks.view(np.int32)).cuda())
+
+
+def k2_launches(k2):
+    return (k2.count_blocks.launches + k2.count_and_blocks_aligned.launches
+            + k2.count_and_blocks.launches)
+
+
+def k2_fused_bytes(ids_a, ids_b):
+    """Bytes count_and_blocks must read: both id arrays and the blocks
+    of both sides whose ids match (padding never matches)."""
+    from pilosa_tpu_torch.ops.count_blocks import SPARSE_SENTINEL
+
+    a, b = ids_a.cpu().numpy(), ids_b.cpu().numpy()
+    matched = len(np.intersect1d(a[a != SPARSE_SENTINEL], b))
+    return (len(a) + len(b)) * 4 + 2 * matched * 512 + 8, matched
+
+
+def check_k2(torch, k2, card):
+    """K2's three entries against their plain versions on the card;
+    returns max_abs_err. Times each entry at NB = 32768 and 131072."""
+    rng = np.random.default_rng(COMP_SEED)
+    max_err = 0
+    n_cases = 0
+
+    def same(name, got, want, launched, before):
+        nonlocal max_err, n_cases
+        torch.cuda.synchronize()
+        err = abs(int(got) - int(want))
+        max_err = max(max_err, err)
+        n_cases += 1
+        if err or k2_launches(k2) != before + launched:
+            raise AssertionError(
+                f"K2 {name}: {int(got)} vs plain {int(want)}, launches "
+                f"{k2_launches(k2) - before} (want {launched})")
+
+    for nb in K2_NBS:
+        real = nb - nb // 4
+        ids_a = k2_ids(rng, real)
+        ids, blocks = k2_sparse(torch, rng, nb, ids_a)
+        other = k2_sparse(torch, rng, nb, ids_a)[1]
+        before = k2_launches(k2)
+        same(f"count_blocks NB={nb}", k2.count_blocks(blocks),
+             k2.count_blocks_reference(blocks), 1 if nb else 0, before)
+        before = k2_launches(k2)
+        same(f"count_and_blocks_aligned NB={nb}",
+             k2.count_and_blocks_aligned(blocks, other),
+             k2.count_and_blocks_aligned_reference(blocks, other),
+             1 if nb else 0, before)
+        for nb_b in sorted({nb // 2, nb, 2 * nb}):
+            real_b = nb_b - nb_b // 4
+            for frac in (0.0, 0.5, 1.0):
+                n_keep = int(round(frac * min(real, real_b)))
+                keep = rng.choice(ids_a, n_keep, replace=False) \
+                    if n_keep else None
+                ids_b = k2_ids(rng, real_b, avoid=ids_a, keep=keep)
+                b = k2_sparse(torch, rng, nb_b, ids_b)
+                before = k2_launches(k2)
+                same(f"count_and_blocks NB={nb} NB_b={nb_b} match={frac}",
+                     k2.count_and_blocks(ids, blocks, *b),
+                     k2.count_and_blocks_reference(ids, blocks, *b),
+                     1 if nb and nb_b else 0, before)
+        if nb in (32768, 131072):
+            ids_b = k2_ids(rng, real, avoid=ids_a,
+                           keep=rng.choice(ids_a, real // 2, replace=False))
+            b = k2_sparse(torch, rng, nb, ids_b)
+            fused_bytes, matched = k2_fused_bytes(ids, b[0])
+            for name, fn, plain, kernel_bytes in (
+                    ("count_blocks", lambda: k2.count_blocks(blocks),
+                     lambda: k2.count_blocks_reference(blocks),
+                     nb * 512 + 8),
+                    ("count_and_blocks_aligned",
+                     lambda: k2.count_and_blocks_aligned(blocks, other),
+                     lambda: k2.count_and_blocks_aligned_reference(
+                         blocks, other), 2 * nb * 512 + 8),
+                    ("count_and_blocks",
+                     lambda: k2.count_and_blocks(ids, blocks, *b),
+                     lambda: k2.count_and_blocks_reference(ids, blocks, *b),
+                     fused_bytes)):
+                ms, call_ms, how = kernel_ms(torch, fn, 50,
+                                             "count_blocks_kernel",
+                                             cold_l2=True)
+                plain_ms = time_cuda(torch, plain, 10)
+                log(f"kernels: K2 {name} at NB={nb}"
+                    + (f" (half matched: {matched} blocks)"
+                       if name == "count_and_blocks" else "")
+                    + f" ({kernel_bytes} bytes): {ms * 1e3:.2f} us/launch "
+                    f"({how}; {call_ms * 1e3:.2f} us per call by events), "
+                    f"bound {kernel_bytes / H100_BYTES_PER_S * 1e6:.2f} us "
+                    f"at 3.35 TB/s, plain {plain_ms * 1e3:.2f} us; "
+                    f"card {card}")
+            del b
+        del ids, blocks, other
+    torch.cuda.empty_cache()
+    log(f"kernels: K2 == plain on {n_cases} cases (NB in "
+        f"{','.join(map(str, K2_NBS))}; fused at NB_b = NB/2, NB, 2NB x "
+        f"match 0, 1/2, 1; sentinel padding, edge words)")
+    return max_err
+
+
+def compressible_rows(words):
+    """The compressed path's rows of index b as [N_SHARDS, W] host
+    stacks, keyed (field, row), drawn from COMP_SEED: f=10, f=11 and
+    g=10 hold SPARSE_BLOCKS random 128-word blocks per shard, each word
+    random (about half its bits set), g=10 sharing SHARED_BLOCKS of
+    f=10's blocks in every shard; f=20 and g=20 hold two runs of
+    RUN_BITS bits per shard, g=20's starting RUN_BITS // 2 later."""
+    rng = np.random.default_rng(COMP_SEED)
+    bps = words // 128
+    perm = np.argsort(rng.random((N_SHARDS, bps)), axis=1)
+    other = np.argsort(rng.random((N_SHARDS, bps)), axis=1)
+    where = {
+        ("f", 10): perm[:, :SPARSE_BLOCKS],
+        ("g", 10): np.concatenate(
+            [perm[:, :SHARED_BLOCKS],
+             perm[:, SPARSE_BLOCKS:2 * SPARSE_BLOCKS - SHARED_BLOCKS]],
+            axis=1),
+        ("f", 11): other[:, :SPARSE_BLOCKS],
+    }
+    shard_ix = np.arange(N_SHARDS)[:, None]
+    rows = {}
+    for key, blocks in where.items():
+        stack = np.zeros((N_SHARDS, bps, 128), dtype=np.uint32)
+        stack[shard_ix, blocks] = rng.integers(
+            0, 1 << 32, (N_SHARDS, SPARSE_BLOCKS, 128), dtype=np.uint32)
+        rows[key] = stack.reshape(N_SHARDS, words)
+    nbits = words * 32
+    for key in (("f", 20), ("g", 20)):
+        rows[key] = np.zeros((N_SHARDS, words), dtype=np.uint32)
+    for shard in range(N_SHARDS):
+        starts = (int(rng.integers(0, nbits // 2 - 2 * RUN_BITS)),
+                  int(rng.integers(nbits // 2, nbits - 2 * RUN_BITS)))
+        for key, shift in ((("f", 20), 0), (("g", 20), RUN_BITS // 2)):
+            bits = np.zeros(nbits, dtype=np.uint8)
+            for a in starts:
+                bits[a + shift:a + shift + RUN_BITS] = 1
+            rows[key][shard] = np.packbits(
+                bits, bitorder="little").view(np.uint32)
+    return rows
+
+
 def build_count_data(path, words):
+    """Index b: the Count path's rows 1 and 2 of f and g, one random
+    plane repeated over every shard, and the compressed path's rows
+    (compressible_rows). Returns (planes, compressed stacks)."""
     from pilosa_tpu_torch.core import Holder
     from pilosa_tpu_torch.core.field import FieldOptions
 
@@ -538,6 +750,7 @@ def build_count_data(path, words):
             dense = rng.integers(0, 1 << 32, words, dtype=np.uint32)
             keep = rng.random(words) < DENSITY
             planes[(fname, row)] = np.where(keep, dense, 0).astype(np.uint32)
+    comp = compressible_rows(words)
     holder = Holder(path, use_snapshot_queue=False).open()
     try:
         idx = holder.create_index("b")
@@ -548,9 +761,12 @@ def build_count_data(path, words):
                 frag = view.create_fragment_if_not_exists(shard)
                 for row in (1, 2):
                     frag.set_row_plane(row, planes[(fname, row)])
+                for (f, row), stack in comp.items():
+                    if f == fname:
+                        frag.set_row_plane(row, stack[shard])
     finally:
         holder.close()
-    return planes
+    return planes, comp
 
 
 def build_topn_data(path):
@@ -773,6 +989,7 @@ def serve_count_path(srv, k1, planes, card):
         f"{statistics.median(cold_pairs) * 1e3:.3f} ms, warm p50 "
         f"{statistics.median(warm) * 1e3:.3f} ms over {len(warm)} "
         f"queries; K1 launches on the path: {k1.count_expr.launches}")
+    return shard, word  # where the Set added a bit to f=1 (bit 0)
 
 
 def serve_topn_path(srv, k3, k4, tg, card):
@@ -961,6 +1178,177 @@ def serve_bsi_path(srv, k1, k3, k5, br, card):
         f"K1 {k1.count_expr.launches}, K3 {k3.row_counts.launches}")
 
 
+def serve_compressed_path(srv, k1, k2, planes, comp, set_at, card):
+    """Counts over index b's compressible rows under the auto chooser,
+    every result against numpy and every launch delta exact. Returns the
+    served f=10 and g=10 containers (for timing K2 on them)."""
+    from pilosa_tpu_torch.ops import containers
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    f10, f11, g10 = comp[("f", 10)], comp[("f", 11)], comp[("g", 10)]
+    f20, g20 = comp[("f", 20)], comp[("g", 20)]
+    # f=1 is one plane in every shard, plus the Count path's Set (bit 0
+    # of word `word` in shard `shard`)
+    shard, word = set_at
+    f1_and_f11 = popcount(f11 & planes[("f", 1)][None, :]) + int(
+        f11[shard, word] & 1)
+    # (query, expected, K1 launches, K2 launches)
+    cases = [
+        ("Count(Row(f=10))", popcount(f10), 0, 1),
+        ("Count(Intersect(Row(f=10), Row(g=10)))", popcount(f10 & g10), 0, 1),
+        ("Count(Intersect(Row(f=10), Row(f=11), Row(g=10)))",
+         popcount(f10 & f11 & g10), 0, 1),
+        ("Count(Row(f=20))", popcount(f20), 0, 0),
+        ("Count(Intersect(Row(f=20), Row(g=20)))", popcount(f20 & g20), 0, 0),
+        ("Count(Union(Row(f=10), Row(g=20)))", popcount(f10 | g20), 1, 0),
+        ("Count(Intersect(Row(f=1), Row(f=11)))", f1_and_f11, 1, 0),
+    ]
+
+    def query(pql, want, k1_step, k2_step):
+        before = (k1.count_expr.launches, k2_launches(k2))
+        t0 = time.perf_counter()
+        got = http(srv.uri, "/index/b/query", pql)["results"][0]
+        dt = time.perf_counter() - t0
+        moved = (k1.count_expr.launches - before[0],
+                 k2_launches(k2) - before[1])
+        if moved != (k1_step, k2_step):
+            raise AssertionError(f"{pql}: launches (K1, K2) moved by "
+                                 f"{moved}, not {(k1_step, k2_step)}")
+        if got != want:
+            raise AssertionError(f"{pql}: {got} != {want}")
+        return dt
+
+    cold = {}
+    for pql, want, k1_step, k2_step in cases:
+        cold[pql] = query(pql, want, k1_step, k2_step)
+        log(f"serve: {pql} = {want} (cold {cold[pql] * 1e3:.1f} ms; K1 "
+            f"+{k1_step}, K2 +{k2_step})")
+
+    st = srv.api.executor._stacked
+    want_kinds = {("f", 10): "sparse", ("f", 11): "sparse",
+                  ("g", 10): "sparse", ("f", 20): "rle", ("g", 20): "rle",
+                  ("f", 1): "dense"}
+
+    def resident():
+        return {(k[2], k[3]): e[1] for k, e in st._pools["leaf"].items()
+                if k[1] == "b" and (k[2], k[3]) in want_kinds}
+
+    held = resident()
+    kinds = {k: containers.kind_of(c) for k, c in held.items()}
+    if kinds != want_kinds:
+        raise AssertionError(f"leaf forms {kinds} != {want_kinds}")
+    for (fname, row), c in sorted(held.items()):
+        log(f"serve: leaf {fname}={row} resident as {c.kind}: {c.nbytes} "
+            f"bytes on the card (dense {f10.nbytes} bytes)")
+
+    warm = {}
+    for name, (pql, want, k1_step, k2_step) in (
+            ("K2 pair", cases[1]), ("rle pair", cases[4])):
+        warm[name] = [query(pql, want, k1_step, k2_step) for _ in range(60)]
+        log(f"serve: {pql} over {N_SHARDS} shards ({name}) on {card}: "
+            f"cold {cold[pql] * 1e3:.3f} ms, warm p50 "
+            f"{statistics.median(warm[name]) * 1e3:.3f} ms over 60 queries")
+
+    # a Set in one shard of the sparse f=10 leaf: the next Count reads
+    # it back through a patch that decays the leaf to dense (K1, not K2)
+    served = (held[("f", 10)], held[("g", 10)])
+    shard = N_SHARDS // 3
+    word = int(np.nonzero(f10[shard] == 0)[0][0])
+    col = shard * SHARD_WIDTH + word * 32
+    patches = st.patches
+    ok = http(srv.uri, "/index/b/query", f"Set({col}, f=10)")["results"]
+    if ok != [True]:
+        raise AssertionError(f"Set({col}, f=10) -> {ok}")
+    dt = query("Count(Row(f=10))", popcount(f10) + 1, 1, 0)
+    kind = containers.kind_of(resident()[("f", 10)])
+    if st.patches != patches + 1 or kind != "dense":
+        raise AssertionError(f"Set on sparse f=10: patches {patches} -> "
+                             f"{st.patches}, leaf now {kind}")
+    log(f"serve: Set({col}, f=10) then Count(Row(f=10)) = "
+        f"{popcount(f10) + 1} (patched, leaf decayed sparse -> dense, "
+        f"{dt * 1e3:.1f} ms)")
+    log(f"serve: launches on the compressed path: K2 {k2_launches(k2)} "
+        f"(count_blocks {k2.count_blocks.launches}, count_and_blocks "
+        f"{k2.count_and_blocks.launches}), K1 {k1.count_expr.launches}")
+    return served
+
+
+def time_served_k2(torch, k2, served, card):
+    """K2 on the served f=10 and g=10 containers: the fused pair (the
+    served launch) and count_blocks of f=10. Returns the pair's timing."""
+    (ids_a, blocks_a), (ids_b, blocks_b) = (c.arrays for c in served)
+    fused_bytes, matched = k2_fused_bytes(ids_a, ids_b)
+    args = (ids_a, blocks_a, ids_b, blocks_b)
+    got = k2.count_and_blocks(*args)
+    torch.cuda.synchronize()
+    err = abs(int(got) - int(k2.count_and_blocks_reference(*args)))
+    if err:
+        raise AssertionError(f"K2 on the served pair: error {err}")
+    bound_ms = fused_bytes / H100_BYTES_PER_S * 1e3
+    one_bytes = blocks_a.numel() * 4 + 8
+    out = None
+    for name, fn, plain, nbytes in (
+            (f"count_and_blocks on the served f=10 & g=10 (NB "
+             f"{ids_a.shape[0]} and {ids_b.shape[0]}, {matched} matched "
+             f"blocks)", lambda: k2.count_and_blocks(*args),
+             lambda: k2.count_and_blocks_reference(*args), fused_bytes),
+            ("count_blocks on the served f=10",
+             lambda: k2.count_blocks(blocks_a),
+             lambda: k2.count_blocks_reference(blocks_a), one_bytes)):
+        # L2-warm: the same query back to back finds its 17 MB leaf in
+        # the 50 MB L2; L2-cold: a query after others reads it from HBM
+        warm_ms, call_ms, _ = kernel_ms(torch, fn, 50, "count_blocks_kernel")
+        ms, _, how = kernel_ms(torch, fn, 50, "count_blocks_kernel",
+                               cold_l2=True)
+        plain_ms = time_cuda(torch, plain, 10)
+        log(f"kernels: K2 {name} ({nbytes} bytes): {ms * 1e3:.2f} us/launch "
+            f"({how}; {warm_ms * 1e3:.2f} us with the inputs in L2; "
+            f"{call_ms * 1e3:.2f} us per call by events), bound "
+            f"{nbytes / H100_BYTES_PER_S * 1e6:.2f} us at 3.35 TB/s, plain "
+            f"{plain_ms * 1e3:.2f} us; card {card}")
+        if out is None:
+            out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": "bytes"}
+    return err, out
+
+
+def time_analyze(torch, planes, comp, card):
+    """A cold leaf build's parts, timed on the dense f=1, the sparse f=10
+    and the run-length f=20 954-shard leaves: the upload, the chooser's
+    `analyze` on the card (its bit and block counts held to numpy, its
+    run count to the two runs per shard of f=20), and the host builder
+    of a compressed form."""
+    from pilosa_tpu_torch.ops import containers
+
+    dense = np.ascontiguousarray(np.broadcast_to(
+        planes[("f", 1)], (N_SHARDS, planes[("f", 1)].shape[0])))
+    for name, stack, want in (("f=1", dense, "dense"),
+                              ("f=10", comp[("f", 10)], "sparse"),
+                              ("f=20", comp[("f", 20)], "rle")):
+        t0 = time.perf_counter()
+        cont = containers.from_host("dense", stack.shape, (stack,), "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        info = containers.analyze(cont.arrays[0])
+        t2 = time.perf_counter()
+        kind = containers.choose(info, *stack.shape, "auto")
+        builder = {"sparse": containers._sparse_host,
+                   "rle": containers._rle_host}.get(kind)
+        if builder is not None:
+            builder(stack)
+        t3 = time.perf_counter()
+        nonempty = int(stack.reshape(N_SHARDS, -1, 128).any(axis=2).sum())
+        if (kind != want or info["bits"] != popcount(stack)
+                or info["nonempty_blocks"] != nonempty
+                or (name == "f=20" and info["runs"] != 2 * N_SHARDS)):
+            raise AssertionError(f"analyze of {name}: {info}, picks {kind}")
+        log(f"chooser: cold build of the {kind} leaf {name} ({stack.nbytes} "
+            f"bytes, {N_SHARDS} shards) on {card}: upload {t1 - t0:.4f} s, "
+            f"analyze on the card {t2 - t1:.4f} s ({info['runs']} runs, "
+            f"{info['nonempty_blocks']} non-empty blocks), host builder "
+            f"{t3 - t2:.4f} s")
+
+
 def main():
     import torch
 
@@ -970,6 +1358,7 @@ def main():
         return 2
     from pilosa_tpu_torch.cli import start_server
     from pilosa_tpu_torch.ops import bsi_range as k5
+    from pilosa_tpu_torch.ops import count_blocks as k2
     from pilosa_tpu_torch.ops import count_expr as k1
     from pilosa_tpu_torch.ops import cuda_build
     from pilosa_tpu_torch.ops import pairwise as k4
@@ -1002,11 +1391,15 @@ def main():
         torch, k4, WORDS_PER_ROW, sms, clock_mhz * 1e6)
     errs["bsi_range"], timings["bsi_range"] = check_k5(
         torch, k5, k3, WORDS_PER_ROW, card)
+    errs["count_blocks"] = check_k2(torch, k2, card)
     log(f"kernels: {list(KERNELS)}")
 
     mods = {"count_expr": k1.count_expr, "row_counts": k3.row_counts,
             "pairwise_counts": k4.pairwise_counts,
-            "bsi_range": k5.bsi_range_mask}
+            "bsi_range": k5.bsi_range_mask,
+            "count_blocks": k2.count_blocks,
+            "count_and_blocks": k2.count_and_blocks,
+            "count_and_blocks_aligned": k2.count_and_blocks_aligned}
     launches = {}
     tmp = tempfile.mkdtemp(prefix="pilosa-torch-smoke-")
     try:
@@ -1018,12 +1411,12 @@ def main():
         t1 = time.perf_counter()
         br = build_bsi_data(tmp)
         t2 = time.perf_counter()
-        planes = build_count_data(tmp, WORDS_PER_ROW)
+        planes, comp = build_count_data(tmp, WORDS_PER_ROW)
         log(f"data: BASELINE config 3 over {TG_SHARDS} shards (index tg) "
             f"written in {t1 - t0:.1f} s; config 4 over {BR_SHARDS} shards "
             f"x {BR_VALUES_PER_SHARD} values (index br) in {t2 - t1:.1f} s; "
-            f"{N_SHARDS} shards x 2 fields x 2 rows (index b) in "
-            f"{time.perf_counter() - t2:.1f} s")
+            f"{N_SHARDS} shards x 2 fields x 2 rows + 5 compressible rows "
+            f"(index b) in {time.perf_counter() - t2:.1f} s")
         t0 = time.perf_counter()
         srv = start_server(["--bind", "127.0.0.1:0", "--data-dir", tmp,
                             "--device", "cuda"])
@@ -1031,7 +1424,7 @@ def main():
             f"{time.perf_counter() - t0:.1f} s (holder open)")
         try:
             reset_counters(mods)  # the Count path's run starts here
-            serve_count_path(srv, k1, planes, card)
+            set_at = serve_count_path(srv, k1, planes, card)
             launches["count_expr"] = k1.count_expr.launches
             reset_counters(mods)  # the TopN/GroupBy path's run starts here
             serve_topn_path(srv, k3, k4, tg, card)
@@ -1040,6 +1433,15 @@ def main():
             reset_counters(mods)  # the BSI path's run starts here
             serve_bsi_path(srv, k1, k3, k5, br, card)
             launches["bsi_range"] = k5.bsi_range_mask.launches
+            reset_counters(mods)  # the compressed path's run starts here
+            served = serve_compressed_path(srv, k1, k2, planes, comp, set_at,
+                                           card)
+            launches["count_blocks"] = k2_launches(k2)
+            err, timings["count_blocks"] = time_served_k2(
+                torch, k2, served, card)
+            errs["count_blocks"] = max(errs["count_blocks"], err)
+            del served
+            time_analyze(torch, planes, comp, card)
         finally:
             srv.stop()
     finally:
@@ -1051,7 +1453,8 @@ def main():
     sources = {"count_expr": "pilosa_tpu/ops/pallas_kernels.py:141",
                "row_counts": "pilosa_tpu/ops/pallas_kernels.py:515",
                "pairwise_counts": "pilosa_tpu/ops/pallas_kernels.py:373",
-               "bsi_range": "pilosa_tpu/ops/pallas_kernels.py:493"}
+               "bsi_range": "pilosa_tpu/ops/pallas_kernels.py:493",
+               "count_blocks": "pilosa_tpu/ops/pallas_kernels.py:235"}
     log(card)
     log(json.dumps({"kernels": [{
         "name": name,

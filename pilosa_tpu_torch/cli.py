@@ -1,5 +1,5 @@
 """Command line: `python -m pilosa_tpu_torch server [--bind H:P]
-[--data-dir D] [--device cuda|cpu]`.
+[--data-dir D] [--device cuda|cpu] [--container-repr auto|dense|sparse|rle]`.
 
 The server opens the data directory (a `pilosa_tpu` data directory opens
 as is: the roaring fragment files are the interchange format), serves
@@ -24,6 +24,13 @@ def _parser():
     s.add_argument("--data-dir", default="~/.pilosa_tpu_torch")
     s.add_argument("--device", default="cuda",
                    help="torch device for the query path (cuda or cpu)")
+    s.add_argument("--container-repr", default=None,
+                   choices=["auto", "dense", "sparse", "rle"],
+                   help="leaf container representation: auto (default, or "
+                        "PILOSA_TPU_CONTAINER_REPR) picks dense/block-sparse/"
+                        "run-length per fragment by measured density; dense "
+                        "forces plain planes; sparse/rle force one "
+                        "compressed form where eligible")
     return p
 
 
@@ -49,10 +56,14 @@ def start_server(argv):
     holder and start the HTTP server; returns a Server."""
     from .core import Holder
     from .device import resolve_device
+    from .ops import containers
     from .server import API, PilosaHTTPServer
 
     args = _parser().parse_args(["server", *argv])
     device = resolve_device(args.device)
+    # module state of ops/containers: applied before the holder opens, so
+    # a bad mode fails at start, not at the first query
+    containers.configure(args.container_repr)
     host, _, port = args.bind.rpartition(":")
     holder = Holder(os.path.expanduser(args.data_dir)).open()
     try:

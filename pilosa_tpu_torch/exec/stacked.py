@@ -6,9 +6,13 @@ evaluates ALL shards at once: fragment rows become [shards, words] int32
 stacks resident on the device, and
 
 - Count (reference: executeCount executor.go:1790): the call tree becomes
-  a signature over leaf slots, and one launch of K1 (ops/count_expr.py)
-  evaluates the tree, takes the popcount and sums over every shard into
-  an exact int64;
+  a signature over leaf slots whose row leaves are Containers, built
+  dense, block-sparse or run-length by measured density
+  (ops/containers.py); `count_program` counts block-sparse leaves and
+  their intersections with K2 (ops/count_blocks.py), run-length ones with
+  torch sums, and anything else with one launch of K1
+  (ops/count_expr.py), which evaluates the densified tree, takes the
+  popcount and sums over every shard into an exact int64;
 - TopN and single-field GroupBy: candidate rows stack into [R, S, W]
   chunks and one launch of K3 (ops/row_counts.py) per chunk counts each
   row against an optional [S, W] filter (`filter_stack`, a tree evaluated
@@ -389,21 +393,31 @@ class StackedEvaluator:
         if changed is None:
             return None
         block = self._host_rows(view, row_ids, [shards[j] for j in changed])
-        # an [R, S, W] view of the entry: a rows chunk, or a leaf's [S, W]
-        value = stale[1]
-        stack = value if isinstance(value, torch.Tensor) \
-            else value.arrays[0][None]
+        value, nbytes = stale[1], stale[2]
         cols = torch.tensor(changed, dtype=torch.long, device=self.device)
         with self._dispatch_lock:
+            if isinstance(value, _containers.Container):
+                if value.kind != "dense":
+                    # a compressed leaf has no per-shard planes to copy
+                    # into: it decompresses on the device once and decays
+                    # to dense (the chooser re-picks at the next rebuild)
+                    value = _containers.dense_container(
+                        _containers.container_to_dense(value))
+                    nbytes = value.nbytes
+                stack = value.arrays[0][None]
+            else:
+                stack = value  # an [R, S, W] rows chunk or BSI stack
             stack.index_copy_(1, cols, self._place(block))
         with self._lock:
             self.patches += 1
-        self._cache_put(key, gens, stale[1], stale[2], stamp)
-        return stale[1]
+        self._cache_put(key, gens, value, nbytes, stamp)
+        return value
 
     def leaf_stack(self, idx, field_name, row_id, shards):
-        """Cached dense Container of one row's [S, W] plane stack over
-        `shards`."""
+        """Cached Container of one row's [S, W] plane stack over `shards`:
+        a cold build uploads the stack, analyzes it on the device and
+        keeps it dense or rebuilds it block-sparse or run-length under the
+        --container-repr mode (ops/containers.build)."""
         key = ("leaf", idx.name, field_name, row_id, shards)
         field = idx.field(field_name)
         view = field.view(VIEW_STANDARD) if field is not None else None
@@ -428,7 +442,7 @@ class StackedEvaluator:
             if patched is not None:
                 return patched
         host = self._host_rows(view, [row_id], shards)
-        cont = _containers.dense_container(self._place(host[0]))
+        cont = _containers.build(host[0], self.device)
         self._cache_put(key, gens, cont, cont.nbytes, stamp)
         return cont
 
@@ -591,8 +605,10 @@ class StackedEvaluator:
     # -- evaluation ----------------------------------------------------------
 
     def _count_fn(self, sig, stacks):
-        """Tree -> exact int count over all shards: ONE K1 launch under
-        the dispatch lock, then one host sync."""
+        """Tree -> exact int count over all shards: one count program
+        over the leaves' containers (K2 for sparse leaves, torch sums for
+        rle ones, else K1 over the densified tree) under the dispatch
+        lock, then one host sync."""
         flat = _containers.flatten(stacks)
         csig = tuple(c.csig for c in stacks)
         with self._dispatch_lock:
@@ -646,7 +662,8 @@ class StackedEvaluator:
         the stacked path can't express (fall back to per-shard);
         stack=None with covered=True means "no filter given". The TPU
         package evaluates the tree as one XLA elementwise program; here it
-        is PyTorch elementwise ops over the cached leaf stacks."""
+        is PyTorch elementwise ops over the cached leaves, each compressed
+        leaf densified first (containers.plane_program)."""
         if call is None:
             return True, None
         shards = tuple(shards)
@@ -656,8 +673,10 @@ class StackedEvaluator:
         sig, stacks = gathered
         with self._lock:
             self.dispatches += 1
+        csig = tuple(c.csig for c in stacks)
         with self._dispatch_lock:
-            out = tree_eval(sig, _containers.flatten(stacks))
+            out = _containers.plane_program(sig, csig,
+                                            _containers.flatten(stacks))
         return True, out
 
     def row_counts(self, idx, field_name, row_ids, filt, shards,

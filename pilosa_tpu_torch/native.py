@@ -86,9 +86,6 @@ def _declare(lib):
     lib.pilosa_extract_u16.argtypes = [u32p, size_t, u16p]
     lib.pilosa_extract_runs_u16.restype = size_t
     lib.pilosa_extract_runs_u16.argtypes = [u32p, size_t, u16p]
-    lib.pilosa_fill_range.restype = None
-    lib.pilosa_fill_range.argtypes = [
-        u32p, size_t, ctypes.c_uint32, ctypes.c_uint32]
 
 
 def enabled():
@@ -242,27 +239,3 @@ def extract_runs(plane):
     ends = np.concatenate([breaks, [len(values) - 1]])
     return np.stack([values[starts], values[ends]], axis=1).astype(np.uint16)
 
-
-def fill_range(plane, start, last):
-    """Set bits [start, last] inclusive in a uint32 plane, in place."""
-    lib = _load()
-    plane = _check_inplace(plane)
-    if lib is not None:
-        lib.pilosa_fill_range(_ptr(plane, ctypes.c_uint32), plane.size,
-                              int(start), int(last))
-        return plane
-    nbits = plane.size * 32
-    start = int(start)  # numpy scalars overflow under NEP-50 shifts below
-    if start >= nbits:
-        return plane
-    last = min(int(last), nbits - 1)
-    sw, lw = start >> 5, last >> 5
-    smask = np.uint32((0xFFFFFFFF << (start & 31)) & 0xFFFFFFFF)
-    lmask = np.uint32(0xFFFFFFFF >> (31 - (last & 31)))
-    if sw == lw:
-        plane[sw] |= smask & lmask
-    else:
-        plane[sw] |= smask
-        plane[sw + 1:lw] = np.uint32(0xFFFFFFFF)
-        plane[lw] |= lmask
-    return plane

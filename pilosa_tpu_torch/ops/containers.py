@@ -1,34 +1,132 @@
-"""Device-resident plane containers: the dense representation.
+"""Device-resident plane containers: dense, block-sparse and run-length.
 
-A Container is one leaf fragment's device stack. The TPU package also
-keeps block-sparse and run-length forms and picks one per fragment by
-measured density; the port holds every leaf dense (its `--container-repr
-dense` mode) until the compressed block-count kernel is ported, so
-`count_program` is that package's dense branch — tree-eval, popcount and
-sum over every shard — and runs as one launch of K1 (ops/count_expr.py).
+A Container is one leaf fragment's device stack in one of three forms,
+picked per fragment by measured density (the TPU package's
+`ops/containers.py`, whose policy, chooser and host builders are copied
+here verbatim):
+
+  dense   — one [S, W] int32 stack of uint32 words.
+  sparse  — block-sparse: only the non-empty BLOCK_WORDS-word blocks
+            survive, as (block_ids [NB] int32 sorted, blocks [NB, BW]).
+            Ids linearize (shard, block) row-major; padding uses an
+            out-of-range sentinel id with zero blocks.
+  rle     — run-length: sorted disjoint [start, end) bit intervals as
+            (run_shard, run_start, run_end) int32 triples with
+            shard-relative offsets. Padding runs are (shard=-1, 0, 0).
+
+The chooser is deterministic in the host data, so a rebuild of
+unchanged data re-picks the same representation. It keeps the TPU
+package's int32 gates (S · SHARD_WIDTH < 2^31) though the port counts in
+int64, so both packages pick the same form for the same stack. Its
+counts (`analyze`) are taken on the device from the uploaded dense
+stack: a cold leaf pays a few elementwise launches, not a host scan of
+the whole stack.
+
+`count_program` counts a tree over containers without densifying where
+it can: a single sparse leaf and a pure-`&` tree of sparse leaves go to
+K2 (ops/count_blocks.py), rle leaves to torch sums of run lengths and
+overlaps, and anything else densifies its leaves on the device and goes
+to K1 (ops/count_expr.py). `plane_program` densifies every leaf and
+evaluates the tree. Every count is an exact int64 0-d tensor.
 """
 
-from .count_expr import count_expr
+import os
+import threading
+
+import numpy as np
+import torch
+
+from ..shardwidth import SHARD_WIDTH, WORDS_PER_ROW
+from .count_blocks import (
+    BLOCK_WORDS,
+    SPARSE_SENTINEL,
+    align_blocks,
+    count_and_blocks,
+    count_blocks,
+)
+from .count_expr import count_expr, popcount_total, tree_eval
 
 __all__ = [
+    "BLOCK_WORDS",
     "Container",
-    "dense_container",
-    "flatten",
-    "unflatten",
-    "norm_csig",
+    "analyze",
+    "build",
+    "choose",
+    "configure",
+    "container_to_dense",
     "count_program",
+    "dense_container",
+    "flat_arity",
+    "flatten",
+    "from_host",
+    "kind_of",
+    "norm_csig",
+    "plane_program",
+    "repr_mode",
+    "to_dense",
+    "unflatten",
 ]
+
+#: auto-chooser caps: rle only pays off when the run count is small, and
+#: the pairwise intersect is O(NA * NB) — keep both bounded.
+MAX_RLE_RUNS = 4096
+MAX_RLE_PAIR = 1 << 22
+
+#: a compressed representation must at least halve the bytes before auto
+#: picks it — hysteresis against flapping near break-even, and it keeps
+#: the (cheap, fused) dense kernels for data that barely compresses.
+COMPRESS_ADVANTAGE = 0.5
+
+#: auto only compresses fragments whose dense stack is at least this
+#: big (default 4 MiB ≈ a 32-shard stack); forced sparse/rle ignore it,
+#: and ops can lower it with PILOSA_TPU_COMPRESS_FLOOR.
+AUTO_COMPRESS_FLOOR = int(os.environ.get(
+    "PILOSA_TPU_COMPRESS_FLOOR", 4 << 20))
+
+_ARITY = {"dense": 1, "sparse": 2, "rle": 3}
+_MODES = ("auto", "dense", "sparse", "rle")
+
+_MODE_LOCK = threading.Lock()
+_MODE = os.environ.get("PILOSA_TPU_CONTAINER_REPR", "auto")
+if _MODE not in _MODES:
+    _MODE = "auto"
+
+
+def configure(repr_mode=None):
+    """Apply --container-repr (auto|dense|sparse|rle). `dense` is the
+    bit-identical escape hatch; `sparse`/`rle` force a representation
+    where eligible (int32-safety gates still win) — for differential
+    tests and capacity experiments."""
+    global _MODE
+    if repr_mode is None:
+        return
+    if repr_mode not in _MODES:
+        raise ValueError(
+            f"container repr must be one of {'|'.join(_MODES)}: "
+            f"{repr_mode!r}")
+    with _MODE_LOCK:
+        _MODE = repr_mode
+
+
+def repr_mode():
+    return _MODE
+
+
+# --------------------------------------------------------------- container
 
 
 class Container:
-    """One leaf's device stack: `kind` is always "dense", `arrays` the
-    single [S, W] int32 tensor, `nbytes` the device bytes it holds."""
+    """One leaf fragment's device-resident plane stack in one of the
+    three representations. `arrays` are the int32 device tensors (arity
+    by kind: dense 1, sparse 2, rle 3); `shape` is the logical dense
+    [S, W]; `nbytes` the device bytes actually held (what the leaf pool
+    charges)."""
 
     __slots__ = ("kind", "shape", "arrays", "nbytes")
 
     def __init__(self, kind, shape, arrays, nbytes):
-        if kind != "dense":
-            raise ValueError(f"container repr {kind!r} is not ported yet")
+        if kind not in _ARITY:
+            raise ValueError(f"unknown container repr: {kind!r}")
         self.kind = kind
         self.shape = tuple(shape)
         self.arrays = tuple(arrays)
@@ -36,18 +134,33 @@ class Container:
 
     @property
     def csig(self):
-        return ("dense",)
+        """Signature of the container in a program: dense is ("dense",)
+        (its size is read off the array); compressed kinds carry S,
+        which their component shapes don't determine."""
+        if self.kind == "dense":
+            return ("dense",)
+        return (self.kind, self.shape[0])
+
+
+def kind_of(arrays):
+    """Representation of a cached pool entry: rows and BSI entries are
+    raw dense tensors (never Containers)."""
+    return arrays.kind if isinstance(arrays, Container) else "dense"
 
 
 def dense_container(stack):
     """Wrap an existing [S, W] device stack without copying."""
-    return Container("dense", tuple(stack.shape), (stack,),
-                     stack.numel() * stack.element_size())
+    nbytes = stack.numel() * stack.element_size()
+    return Container("dense", tuple(stack.shape), (stack,), nbytes)
 
 
 def flatten(containers):
     """Device tensors of the containers, in leaf-slot order."""
     return [a for c in containers for a in c.arrays]
+
+
+def flat_arity(csig):
+    return sum(_ARITY[entry[0]] for entry in csig)
 
 
 def norm_csig(csig):
@@ -59,15 +172,365 @@ def norm_csig(csig):
 
 
 def unflatten(csig, flat):
-    """[(kind, arrays, S)] for flat dense args (inverse of flatten)."""
-    csig = norm_csig(csig)
-    if any(entry[0] != "dense" for entry in csig):
-        raise ValueError("only dense containers are ported")
-    return [("dense", (a,), int(a.shape[0])) for a in flat]
+    """Inverse of flatten: [(kind, arrays, S)], S = -1 for dense (read
+    off the array)."""
+    out, i = [], 0
+    for entry in norm_csig(csig):
+        kind = entry[0]
+        n = _ARITY[kind]
+        out.append((kind, tuple(flat[i:i + n]),
+                    entry[1] if len(entry) > 1 else -1))
+        i += n
+    if i != len(flat):
+        raise ValueError(f"{len(flat)} tensors for a signature of {i}")
+    return out
+
+
+def from_host(kind, shape, host_arrays, device):
+    """A Container of `kind` placed on `device` from its host numpy
+    arrays (the builders' output: uint32 words and int32 ids/runs), each
+    as an int32 tensor."""
+    if len(host_arrays) != _ARITY[kind]:
+        raise ValueError(f"{kind} container takes {_ARITY[kind]} arrays, "
+                         f"got {len(host_arrays)}")
+    arrays, nbytes = [], 0
+    for a in host_arrays:
+        # a CPU tensor shares the array's memory: read-only arrays copy
+        a = np.require(a, requirements=("C", "W")).view(np.int32)
+        arrays.append(torch.from_numpy(a).to(device))
+        nbytes += a.nbytes
+    return Container(kind, shape, arrays, nbytes)
+
+
+# ---------------------------------------------------------------- analysis
+
+def _shifted_left(stack):
+    """bit i-1 of the plane at bit i's position (little-endian words,
+    cross-word carry; column 0 sees 0)."""
+    carry = np.concatenate(
+        [np.zeros((stack.shape[0], 1), np.uint32), stack[:, :-1] >> 31],
+        axis=1)
+    return (stack << np.uint32(1)) | carry
+
+
+def _pow2(n):
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def analyze(stack):
+    """Chooser analysis of an [S, W] int32 stack of uint32 words, on the
+    stack's device: exact bit count, density, non-empty block count, run
+    count, and the projected device bytes of each representation (padded
+    to the power-of-two component sizes the builders use). The same dict,
+    key for key, as the TPU package's host `analyze` of those words; one
+    host sync."""
+    s, w = stack.shape
+    bp = w // BLOCK_WORDS
+    # bit i-1 at bit i's position (cross-word carry; column 0 sees 0):
+    # `<<` on int32 shifts the unsigned bits, `>>` is arithmetic
+    carry = torch.cat([torch.zeros((s, 1), dtype=stack.dtype,
+                                   device=stack.device),
+                       (stack[:, :-1] >> 31) & 1], dim=1)
+    starts = stack & ~((stack << 1) | carry)
+    bits, nonempty, runs = torch.stack([
+        popcount_total(stack),
+        (stack.reshape(s, bp, BLOCK_WORDS) != 0).any(dim=2).sum(),
+        popcount_total(starts)]).tolist()
+    nb_pad = _pow2(max(1, nonempty))
+    nr_pad = _pow2(max(1, runs))
+    return {
+        "bits": bits,
+        "density": bits / float(s * w * 32) if s and w else 0.0,
+        "total_blocks": s * bp,
+        "nonempty_blocks": nonempty,
+        "runs": runs,
+        "dense_bytes": s * w * 4,
+        "sparse_bytes": nb_pad * (BLOCK_WORDS * 4 + 4),
+        "rle_bytes": nr_pad * 12,
+    }
+
+
+def _sparse_eligible(s, w):
+    # int32-exact totals AND sentinel strictly above every real id
+    return (s * SHARD_WIDTH < 2**31
+            and s * (w // BLOCK_WORDS) < SPARSE_SENTINEL)
+
+
+def _rle_eligible(s, _w):
+    # shard-relative [start, end] offsets go up to SHARD_WIDTH inclusive
+    return s * SHARD_WIDTH < 2**31 and SHARD_WIDTH <= 2**30
+
+
+def choose(info, s, w, mode=None):
+    """Representation for a stack with this analysis under `mode`.
+    Deterministic in (info, shape, mode) — the chooser-stability
+    contract. Forced modes honor the int32-safety gates but skip the
+    byte-advantage hysteresis."""
+    mode = repr_mode() if mode is None else mode
+    if mode == "dense":
+        return "dense"
+    if mode == "sparse":
+        return "sparse" if _sparse_eligible(s, w) else "dense"
+    if mode == "rle":
+        return "rle" if _rle_eligible(s, w) else "dense"
+    if info["dense_bytes"] < AUTO_COMPRESS_FLOOR:
+        return "dense"
+    budget = info["dense_bytes"] * COMPRESS_ADVANTAGE
+    best, best_bytes = "dense", info["dense_bytes"]
+    if (_sparse_eligible(s, w) and info["sparse_bytes"] <= budget
+            and info["sparse_bytes"] < best_bytes):
+        best, best_bytes = "sparse", info["sparse_bytes"]
+    if (_rle_eligible(s, w) and info["runs"] <= MAX_RLE_RUNS
+            and info["rle_bytes"] <= budget
+            and info["rle_bytes"] < best_bytes):
+        best, best_bytes = "rle", info["rle_bytes"]
+    return best
+
+
+# ------------------------------------------------------------ host builders
+
+
+def _sparse_host(stack):
+    """(block_ids [NBp] int32 sorted, blocks [NBp, BW] uint32), padded
+    to a power of two with sentinel ids + zero blocks."""
+    s, w = stack.shape
+    bp = w // BLOCK_WORDS
+    b3 = stack.reshape(s, bp, BLOCK_WORDS)
+    ss, bb = np.nonzero(b3.any(axis=2))  # row-major: ids come out sorted
+    ids = (ss.astype(np.int64) * bp + bb).astype(np.int32)
+    n = len(ids)
+    n_pad = _pow2(max(1, n))
+    ids_p = np.full(n_pad, SPARSE_SENTINEL, dtype=np.int32)
+    ids_p[:n] = ids
+    blocks_p = np.zeros((n_pad, BLOCK_WORDS), dtype=np.uint32)
+    blocks_p[:n] = b3[ss, bb]
+    return ids_p, blocks_p
+
+
+def _bit_positions(mask):
+    """(shard_idx, bit_offset) of every set bit in a [S, W] mask, sorted
+    by (shard, offset). Only the non-zero words are expanded — the masks
+    this serves (run transitions) are sparse by construction."""
+    ws, ww = np.nonzero(mask)
+    if len(ws) == 0:
+        return (np.empty(0, np.int32), np.empty(0, np.int32))
+    bits = (mask[ws, ww][:, None] >> np.arange(32, dtype=np.uint32)) & 1
+    rows, cols = np.nonzero(bits)
+    return (ws[rows].astype(np.int32),
+            (ww[rows] * 32 + cols).astype(np.int32))
+
+
+def _rle_host(stack):
+    """(run_shard, run_start, run_end) int32 triples of the maximal
+    [start, end) set-bit runs per shard row, sorted by (shard, start)
+    and padded to a power of two with empty (-1, 0, 0) runs."""
+    s, w = stack.shape
+    shifted = _shifted_left(stack)
+    s_sh, s_pos = _bit_positions(stack & ~shifted)   # 0 -> 1 transitions
+    e_sh, e_pos = _bit_positions(~stack & shifted)   # 1 -> 0 transitions
+    # runs still open at the end of the shard close at SHARD_WIDTH
+    tail = np.nonzero((stack[:, -1] >> np.uint32(31)) & 1)[0]
+    if len(tail):
+        e_sh = np.concatenate([e_sh, tail.astype(np.int32)])
+        e_pos = np.concatenate(
+            [e_pos, np.full(len(tail), w * 32, dtype=np.int32)])
+        order = np.lexsort((e_pos, e_sh))
+        e_sh, e_pos = e_sh[order], e_pos[order]
+    if len(s_sh) != len(e_sh):  # pragma: no cover — structural invariant
+        raise AssertionError("run transition mismatch")
+    n = len(s_sh)
+    n_pad = _pow2(max(1, n))
+    run_shard = np.full(n_pad, -1, dtype=np.int32)
+    run_start = np.zeros(n_pad, dtype=np.int32)
+    run_end = np.zeros(n_pad, dtype=np.int32)
+    run_shard[:n] = s_sh
+    run_start[:n] = s_pos
+    run_end[:n] = e_pos
+    return run_shard, run_start, run_end
+
+
+def build(host_stack, device, mode=None):
+    """One leaf stack placed on `device`: the dense stack goes up first
+    and is analyzed there; a leaf the chooser compresses is then built on
+    the host (`_sparse_host`, `_rle_host`) and placed in its stead."""
+    host_stack = np.ascontiguousarray(host_stack, dtype=np.uint32)
+    s, w = host_stack.shape
+    dense = from_host("dense", (s, w), (host_stack,), device)
+    kind = choose(analyze(dense.arrays[0]), s, w, mode)
+    if kind == "dense":
+        return dense
+    host = _sparse_host(host_stack) if kind == "sparse" \
+        else _rle_host(host_stack)
+    return from_host(kind, (s, w), host, device)
+
+
+# ------------------------------------------------ counts and intersections
+#
+# Every count is an exact int64 0-d tensor on the containers' device.
+
+
+def sparse_count(ids, blocks):  # noqa: ARG001 — ids fix the layout
+    """Σ popcount of a block-sparse container: one K2 launch."""
+    return count_blocks(blocks)
+
+
+def sparse_intersect_blocks(ids_a, blocks_a, ids_b, blocks_b):
+    """blocks_a ∩ blocks_b aligned onto a's block index: for each a
+    block, binary-search b's sorted ids; unmatched blocks intersect to
+    zero."""
+    return blocks_a & align_blocks(ids_a, ids_b, blocks_b)
+
+
+def rle_count(run_shard, run_start, run_end):  # noqa: ARG001
+    """Σ (end − start) over the runs (padding runs are empty)."""
+    return (run_end - run_start).sum(dtype=torch.int64)
+
+
+def rle_intersect(a_sh, a_st, a_en, b_sh, b_st, b_en):
+    """Pairwise [NA, NB] interval-overlap count restricted to matching
+    shards; runs are disjoint within a container so the overlaps sum
+    exactly. Padding runs (shard -1, empty) overlap nothing."""
+    ov = (torch.minimum(a_en[:, None], b_en[None, :])
+          - torch.maximum(a_st[:, None], b_st[None, :])).clamp_(min=0)
+    same = a_sh[:, None] == b_sh[None, :]
+    return torch.where(same, ov, 0).sum(dtype=torch.int64)
+
+
+# -------------------------------------------------------------- densifiers
+
+
+def sparse_to_dense(ids, blocks, s, w):
+    """Exact dense [S, W] stack from sparse blocks: one index_copy_ into
+    [NB + 1, BW] words whose last row takes every padding block (torch
+    scatters have no drop mode), then a view of the first NB rows."""
+    nb = (s * w) // BLOCK_WORDS
+    flat = torch.zeros((nb + 1, BLOCK_WORDS), dtype=torch.int32,
+                       device=blocks.device)
+    flat.index_copy_(0, ids.long().clamp_(max=nb), blocks)
+    return flat[:nb].view(s, w)
+
+
+def _wrap_int32(x):
+    """int64 words in [0, 2^32) as the int32 of the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def rle_to_dense(run_shard, run_start, run_end, s, w):
+    """Exact dense [S, W] stack from runs, words filled straight from
+    the runs with no per-shard loop: a run's interior words are full
+    (a +1/-1 delta over the flat word axis, prefix-summed to coverage)
+    and its first and last words take bit masks, added in (runs are
+    disjoint, so their masks in one word share no bit and the sum is
+    the OR)."""
+    dev = run_start.device
+    valid = (run_shard >= 0) & (run_end > run_start)
+    sh = run_shard.long().clamp(min=0)
+    st = run_start.long()
+    last = (run_end.long() - 1).clamp(min=0)
+    ws, we = st >> 5, last >> 5
+    lo, hi = st & 31, (last & 31) + 1
+    one_word = ws == we
+    base = sh * w
+    # interior words ws+1 .. we-1: coverage by prefix sum
+    inner = valid & (we > ws + 1)
+    delta = torch.zeros(s * w + 1, dtype=torch.int32, device=dev)
+    step = inner.to(torch.int32)
+    delta.index_add_(0, torch.where(inner, base + ws + 1, 0), step)
+    delta.index_add_(0, torch.where(inner, base + we, 0), -step)
+    cover = torch.cumsum(delta[:-1], 0, dtype=torch.int32)
+    dense = (cover > 0).to(torch.int32).neg_()  # full words are -1
+    # edge words: bits [lo, 32) of ws (or [lo, hi) for a one-word run),
+    # bits [0, hi) of we
+    head_top = torch.where(one_word, hi, 32)
+    head = (1 << head_top) - (1 << lo)
+    tail = (1 << hi) - 1
+    head = torch.where(valid, head, 0)
+    tail = torch.where(valid & ~one_word, tail, 0)
+    dense.index_add_(0, base + ws, _wrap_int32(head))
+    dense.index_add_(0, base + we, _wrap_int32(tail))
+    return dense.view(s, w)
+
+
+def to_dense(cont):
+    """Dense [S, W] view of an unflattened (kind, arrays, S) container —
+    identity for dense."""
+    kind, arrays, s = cont
+    if kind == "dense":
+        return arrays[0]
+    if kind == "sparse":
+        return sparse_to_dense(arrays[0], arrays[1], s, WORDS_PER_ROW)
+    return rle_to_dense(arrays[0], arrays[1], arrays[2], s, WORDS_PER_ROW)
+
+
+def container_to_dense(cont):
+    """Dense [S, W] of a Container object (the write path's decay)."""
+    return to_dense((cont.kind, cont.arrays, cont.shape[0]))
+
+
+# ---------------------------------------------------------------- programs
+
+
+def _count_container(cont):
+    kind, arrays = cont[0], cont[1]
+    if kind == "sparse":
+        return sparse_count(*arrays)
+    if kind == "rle":
+        return rle_count(*arrays)
+    return count_expr(("leaf", 0), [arrays[0]])
+
+
+def _pure_intersect_leaves(sig):
+    """Leaf slots of an all-& tree, or None for any other shape."""
+    if sig[0] == "leaf":
+        return [sig[1]]
+    op, subs = sig
+    if op != "&":
+        return None
+    out = []
+    for sub in subs:
+        r = _pure_intersect_leaves(sub)
+        if r is None:
+            return None
+        out.extend(r)
+    return out
 
 
 def count_program(sig, csig, flat):
-    """Exact int64 count (0-d tensor) of one tree over flattened dense
-    container args: one K1 launch on a CUDA device."""
+    """Exact int64 count (0-d tensor) of one tree over flattened
+    container args, by the first strategy that applies:
+
+    1. single leaf               -> sparse: K2; rle: Σ run lengths;
+                                    dense: K1
+    2. pure-& tree, all sparse   -> the first pairs intersected in torch,
+                                    the last pair in one K2 launch with
+                                    its block search fused
+    3. pure-& pair of small rle  -> pairwise interval overlap
+    4. anything else             -> every leaf densified on the device,
+                                    one K1 launch over the dense tree
+
+    All four give the same exact total."""
     conts = unflatten(csig, flat)
-    return count_expr(sig, [c[1][0] for c in conts])
+    if sig[0] == "leaf":
+        return _count_container(conts[sig[1]])
+    leaf_ids = _pure_intersect_leaves(sig)
+    if leaf_ids is not None and len(leaf_ids) >= 2:
+        kinds = {conts[i][0] for i in leaf_ids}
+        if kinds == {"sparse"}:
+            acc_ids, acc_blocks = conts[leaf_ids[0]][1]
+            for i in leaf_ids[1:-1]:
+                acc_blocks = sparse_intersect_blocks(
+                    acc_ids, acc_blocks, *conts[i][1])
+            return count_and_blocks(acc_ids, acc_blocks,
+                                    *conts[leaf_ids[-1]][1])
+        if kinds == {"rle"} and len(leaf_ids) == 2:
+            a, b = conts[leaf_ids[0]], conts[leaf_ids[1]]
+            if a[1][0].shape[0] * b[1][0].shape[0] <= MAX_RLE_PAIR:
+                return rle_intersect(*a[1], *b[1])
+    return count_expr(sig, [to_dense(c) for c in conts])
+
+
+def plane_program(sig, csig, flat):
+    """Dense [S, W] materialization of one tree over flattened container
+    args — filter stacks must come out as the exact planes, so every
+    leaf densifies first."""
+    return tree_eval(sig, [to_dense(c) for c in unflatten(csig, flat)])

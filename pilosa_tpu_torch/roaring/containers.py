@@ -186,10 +186,7 @@ class Container:
             return self.words
         if self.typ == TYPE_ARRAY:
             return values_to_words(self.values)
-        words = np.zeros(WORDS, dtype=np.uint32)
-        for s, l in self.runs:
-            _fill_run(words, int(s), int(l))
-        return words
+        return runs_to_words(self.runs)
 
     def to_values(self):
         """Sorted uint16 values."""
@@ -257,10 +254,27 @@ class Container:
         )
 
 
-def _fill_run(words, start, last):
-    from .. import native
-
-    native.fill_range(words, start, last)
+def runs_to_words(runs):
+    """[2048] uint32 words of [R, 2] [start, last] runs, with no per-run
+    loop (a container of random words holds hundreds of runs, and the WAL
+    replay converts every container it merges): a run's interior words
+    are full (a +1/-1 delta over the words, prefix-summed to coverage),
+    and its first and last words OR in their bit masks."""
+    runs = np.asarray(runs, dtype=np.int64).reshape(-1, 2)
+    start, last = runs[:, 0], runs[:, 1]
+    ws, we = start >> 5, last >> 5
+    inner = we > ws + 1
+    delta = (np.bincount(ws[inner] + 1, minlength=WORDS + 1)
+             - np.bincount(we[inner], minlength=WORDS + 1))
+    words = np.where(np.cumsum(delta[:WORDS]) > 0, np.uint32(0xFFFFFFFF),
+                     np.uint32(0))
+    head = (0xFFFFFFFF << (start & 31)) & 0xFFFFFFFF
+    tail = 0xFFFFFFFF >> (31 - (last & 31))
+    one = ws == we
+    np.bitwise_or.at(words, ws, np.where(one, head & tail, head)
+                     .astype(np.uint32))
+    np.bitwise_or.at(words, we[~one], tail[~one].astype(np.uint32))
+    return words
 
 
 def popcount32(words):

@@ -1,4 +1,4 @@
-"""K1, K3, K4 and K5 on the card: each CUDA kernel against its plain
+"""K1, K2, K3, K4 and K5 on the card: each CUDA kernel against its plain
 PyTorch version.
 
 Imports only torch and the port, so it runs on a machine without JAX:
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from pilosa_tpu_torch.ops import bsi_range as k5
+from pilosa_tpu_torch.ops import count_blocks as k2
 from pilosa_tpu_torch.ops import count_expr as k1
 from pilosa_tpu_torch.ops import pairwise as k4
 from pilosa_tpu_torch.ops import row_counts as k3
@@ -192,3 +193,88 @@ def test_bsi_range_kernel_empty_and_misaligned(cuda):
     with pytest.raises(ValueError, match="depth 65"):
         k5.bsi_range_mask("eq", wide, wide[0], wide[0], [0] * 65, False,
                           False)
+
+
+def _sparse(nb, n_real, ids, seed, device):
+    """(ids [nb] int32, blocks [nb, 128]) of a block-sparse container:
+    `ids` (sorted) on the first n_real rows, sentinel padding with zero
+    blocks after, edge words planted."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(0, 1 << 32, (nb, 128), dtype=np.uint32)
+    blocks[:, :2] = np.array([0xFFFFFFFF, 0x80000000], dtype=np.uint32)
+    blocks[n_real:] = 0
+    full = np.full(nb, k2.SPARSE_SENTINEL, dtype=np.int32)
+    full[:n_real] = ids
+    return (torch.from_numpy(full).to(device),
+            torch.from_numpy(blocks.view(np.int32)).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb_a,nb_b", [(0, 4), (4, 0), (1, 1), (7, 33),
+                                       (33, 7), (8, 8), (4096, 1024)])
+@pytest.mark.parametrize("shared", [0.0, 0.5, 1.0])
+def test_count_blocks_kernels_match_plain(cuda, nb_a, nb_b, shared):
+    rng = np.random.default_rng(nb_a * 7 + nb_b)
+    real_a, real_b = nb_a - nb_a // 4, nb_b - nb_b // 4
+    ids_a = np.sort(rng.choice(1 << 20, real_a, replace=False))
+    keep = rng.random(real_a) < shared
+    rest = np.setdiff1d(np.arange(1 << 20), ids_a)
+    ids_b = np.sort(np.concatenate([
+        ids_a[keep][:real_b],
+        rng.choice(rest, max(0, real_b - min(real_b, int(keep.sum()))),
+                   replace=False)]))
+    a = _sparse(nb_a, real_a, ids_a, seed=1, device=cuda)
+    b = _sparse(nb_b, real_b, ids_b, seed=2, device=cuda)
+    before = (k2.count_blocks.launches, k2.count_and_blocks.launches,
+              k2.count_and_blocks_aligned.launches)
+    got = k2.count_blocks(a[1])
+    fused = k2.count_and_blocks(*a, *b)
+    aligned = k2.count_and_blocks_aligned(a[1], a[1].flip(0).contiguous())
+    torch.cuda.synchronize()
+    assert int(got) == int(k2.count_blocks_reference(a[1]))
+    assert int(fused) == int(k2.count_and_blocks_reference(*a, *b))
+    assert int(aligned) == int(k2.count_and_blocks_aligned_reference(
+        a[1], a[1].flip(0)))
+    assert (k2.count_blocks.launches, k2.count_and_blocks.launches,
+            k2.count_and_blocks_aligned.launches) == (
+        before[0] + (1 if nb_a else 0),
+        before[1] + (1 if nb_a and nb_b else 0),
+        before[2] + (1 if nb_a else 0))
+
+
+@pytest.mark.cuda
+def test_count_blocks_kernels_reject_misaligned(cuda):
+    base = torch.zeros(4 * 128 + 1, dtype=torch.int32, device=cuda)
+    odd = base[1:].view(4, 128)
+    ids = torch.arange(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        k2.count_blocks(odd)
+    with pytest.raises(ValueError, match="aligned"):
+        k2.count_and_blocks(ids, odd, ids, odd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["random", "blocks", "runs", "empty"])
+def test_analyze_on_card_matches_cpu(cuda, pattern):
+    """The chooser's counts taken on the card equal those of the same
+    words on the CPU, and build keeps or compresses the leaf alike."""
+    from pilosa_tpu_torch.ops import containers
+
+    rng = np.random.default_rng(len(pattern))
+    s = 40  # 5 MiB dense: above the 4 MiB auto floor
+    x = np.zeros((s, WORDS_PER_ROW), dtype=np.uint32)
+    if pattern == "random":
+        x[:] = rng.integers(0, 1 << 32, x.shape, dtype=np.uint32)
+    elif pattern == "blocks":
+        b = x.reshape(s, -1, 128)
+        b[:, :3] = rng.integers(0, 1 << 32, (s, 3, 128), dtype=np.uint32)
+    elif pattern == "runs":
+        x[:, 100:4000] = 0xFFFFFFFF
+        x[:, 99] = 0x80000000
+    t = torch.from_numpy(x.view(np.int32))
+    assert containers.analyze(t.to(cuda)) == containers.analyze(t)
+    got = containers.build(x, cuda, mode="auto")
+    want = containers.build(x, "cpu", mode="auto")
+    assert got.kind == want.kind and got.nbytes == want.nbytes
+    for a, b in zip(got.arrays, want.arrays):
+        assert torch.equal(a.cpu(), b)

@@ -213,19 +213,30 @@ def test_http_end_to_end(pair, tmp_path):
 
 
 def test_subprocess_loads_no_jax(tmp_path):
-    """The port serves a Count with neither JAX nor any pilosa_tpu module
-    loaded (a subprocess: this test process has JAX loaded already)."""
+    """The port serves Counts over dense, block-sparse and run-length
+    leaves with neither JAX nor any pilosa_tpu module loaded (a
+    subprocess: this test process has JAX loaded already)."""
     code = f"""
 import sys
 from pilosa_tpu_torch.cli import start_server
+from pilosa_tpu_torch.ops import containers
 srv = start_server(["--bind", "127.0.0.1:0", "--data-dir", {str(tmp_path)!r},
-                    "--device", "cpu"])
+                    "--device", "cpu", "--container-repr", "sparse"])
 ex = srv.api.executor
 srv.api.create_index("i")
 srv.api.create_field("i", "f")
-srv.api.import_bits("i", "f", [1, 1, 1], [1, 2, 1 << 20])
-assert srv.api.query("i", "Count(Row(f=1))") == [3]
+srv.api.import_bits("i", "f", [1, 1, 1, 2], [1, 2, 1 << 20, 2])
+pql = "Count(Intersect(Row(f=1), Row(f=2)))"
+for mode, want in (("sparse", "sparse"), ("rle", "rle"), ("dense", "dense")):
+    containers.configure(mode)
+    srv.api.executor._stacked._pools["leaf"].clear()
+    assert srv.api.query("i", "Count(Row(f=1))") == [3]
+    assert srv.api.query("i", pql) == [1]
+    kinds = {{containers.kind_of(e[1])
+             for e in srv.api.executor._stacked._pools["leaf"].values()}}
+    assert kinds == {{want}}, kinds
 srv.stop()
+assert "pilosa_tpu_torch.ops.count_blocks" in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pilosa_tpu"))
 print("LOADED", bad)
