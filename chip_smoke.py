@@ -22,15 +22,20 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      in {1, 21, 64} x S in {0, 1, 7, 128}, random sign and exists,
      predicates 0, 2^D - 1 and random, edge words and columns equal to
      the predicate planted;
-   - K2's three entries at NB in {0, 1, 7, 8, 33, 32768, 131072}, with
-     sentinel padding, edge words planted, and for the fused search
-     match fractions 0, 1/2 and 1 at NB_b = NB/2, NB and 2 NB;
+   - K2's two entries, `count_blocks` and the fused `count_and_blocks`
+     (the counterpart of `count_and_blocks_stack`), at NB in {0, 1, 7, 8,
+     33, 32768, 131072}, with sentinel padding, edge words planted, and
+     for the fused entry match fractions 0, 1/2 and 1 at NB_b = NB/2, NB
+     and 2 NB, identical id arrays, and the tile-wise intersection's edge
+     cases (b 16x denser than a, a above or below all of b, a ragged last
+     tile, a or b all padding, NB_a = 1);
    and times per launch beside each bound and the plain version's time:
    K1 at S = 954 with two leaves; K3 at the served TopN shape
    [100, 10 x 32768], at [1, 954 x 32768] with a filter and at Sum's
    [21, 128 x 32768] with a filter; K4 at the served GroupBy shape
-   5 x 4 x S = 10 and at 102 x 102 x S = 10; K5 at [21, 128 x 32768] and
-   [21, 954 x 32768]; K2's entries at NB = 32768 and 131072;
+   5 x 4 x S = 10 (inputs in L2 and L2 flushed) and at 102 x 102 x S = 10;
+   K5 at [21, 128 x 32768] and [21, 954 x 32768]; K2's entries at
+   NB = 32768 and 131072 (L2 flushed; the fused one also warm);
 4. data, in one data directory, written through the port's Holder:
    - index tg, BASELINE config 3 at bench_suite.bench_topn_groupby's
      chip shape (10 shards; field f with 100 rows of 100000/(r+1)+100
@@ -52,7 +57,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    port) answers, each checked against numpy:
    - Count path: /status, the four Count(Intersect(Row, Row)) queries, a
      nested Count, a Count(Xor), and a Set whose next Count reads the
-     write back; K1's counter must advance on every Count;
+     write back; then, over index tg, Counts past K1's limits: a 17-leaf
+     and a 33-leaf Union (a 65-step program) and a right-nested depth-9
+     Intersect/Union tree; K1's counter must advance by exactly 1 on
+     every Count;
    - TopN/GroupBy path: three TopN, Rows, three GroupBy, and a Set whose
      next TopN reads the write back through a patched row chunk; K3's
      counter must advance on every TopN and K4's on every two-field
@@ -435,6 +443,12 @@ def check_k4(torch, k4, words, sms, clock_hz):
         b = torch.from_numpy(_edge_rows(rng, r2, t).view(np.int32)).to(dev)
         ms, call_ms, how = kernel_ms(
             torch, lambda: k4.pairwise_counts(a, b), reps, "pairwise_")
+        if (r1, r2) == (5, 4):
+            # 11.8 MB fit in the 50 MB L2: time it read from HBM as well
+            warm_ms = ms
+            ms, _, how = kernel_ms(torch, lambda: k4.pairwise_counts(a, b),
+                                   reps, "pairwise_", cold_l2=True)
+            how += f"; {warm_ms * 1e3:.2f} us with the inputs in L2"
         plain_ms = time_cuda(
             torch, lambda: k4.pairwise_counts_reference(a, b), plain_reps)
         bound_ms, bound_by, bytes_ms, popc_ms = k4_bound(
@@ -598,9 +612,42 @@ def k2_sparse(torch, rng, nb, ids):
             torch.from_numpy(blocks.view(np.int32)).cuda())
 
 
+K2_EDGE_CASES = ("b_16x_denser", "a_above_b", "a_below_b", "ragged",
+                 "a_padding", "b_padding", "nb_a_1")
+
+
+def k2_edge_ids(case, rng):
+    """(ids_a, nb_a, ids_b, nb_b) of one edge case of the fused entry's
+    tile-wise intersection (128 ids of a per CTA, b's ids walked 1024 at
+    a time): real ids first, padding after."""
+    pool = np.arange(0, K2_ID_SPACE, 32)
+    if case == "b_16x_denser":  # a tile's b window spans several chunks
+        a = np.sort(rng.choice(pool, 3000, replace=False))
+        rest = np.setdiff1d(np.arange(a[0], a[-1]), a)
+        b = np.sort(np.concatenate(
+            [a[::2], rng.choice(rest, 15 * len(a), replace=False)]))
+        return a, 3100, b, len(b) + 100
+    lo = np.sort(rng.choice(K2_ID_SPACE // 2, 30000, replace=False))
+    hi = np.sort(rng.choice(K2_ID_SPACE // 2, 5000, replace=False)) \
+        + K2_ID_SPACE // 2
+    if case == "a_above_b":
+        return hi, 5120, lo, 32768
+    if case == "a_below_b":
+        return lo[:5000], 5120, hi, 32768
+    if case == "ragged":  # NB_a not a multiple of the tile
+        b = np.concatenate([lo[1:2900:2], hi[:4000]])
+        return lo[:2900], 3000, b, len(b) + 50
+    if case == "a_padding":
+        return np.empty(0, np.int64), 4096, lo, 32768
+    if case == "b_padding":
+        return lo[:3000], 3200, np.empty(0, np.int64), 7000
+    if case == "nb_a_1":
+        return lo[12345:12346], 1, lo, 32768
+    raise ValueError(case)
+
+
 def k2_launches(k2):
-    return (k2.count_blocks.launches + k2.count_and_blocks_aligned.launches
-            + k2.count_and_blocks.launches)
+    return k2.count_blocks.launches + k2.count_and_blocks.launches
 
 
 def k2_fused_bytes(ids_a, ids_b):
@@ -614,7 +661,7 @@ def k2_fused_bytes(ids_a, ids_b):
 
 
 def check_k2(torch, k2, card):
-    """K2's three entries against their plain versions on the card;
+    """K2's two entries against their plain versions on the card;
     returns max_abs_err. Times each entry at NB = 32768 and 131072."""
     rng = np.random.default_rng(COMP_SEED)
     max_err = 0
@@ -640,9 +687,9 @@ def check_k2(torch, k2, card):
         same(f"count_blocks NB={nb}", k2.count_blocks(blocks),
              k2.count_blocks_reference(blocks), 1 if nb else 0, before)
         before = k2_launches(k2)
-        same(f"count_and_blocks_aligned NB={nb}",
-             k2.count_and_blocks_aligned(blocks, other),
-             k2.count_and_blocks_aligned_reference(blocks, other),
+        same(f"count_and_blocks NB={nb} identical ids",
+             k2.count_and_blocks(ids, blocks, ids, other),
+             k2.count_and_blocks_reference(ids, blocks, ids, other),
              1 if nb else 0, before)
         for nb_b in sorted({nb // 2, nb, 2 * nb}):
             real_b = nb_b - nb_b // 4
@@ -666,10 +713,6 @@ def check_k2(torch, k2, card):
                     ("count_blocks", lambda: k2.count_blocks(blocks),
                      lambda: k2.count_blocks_reference(blocks),
                      nb * 512 + 8),
-                    ("count_and_blocks_aligned",
-                     lambda: k2.count_and_blocks_aligned(blocks, other),
-                     lambda: k2.count_and_blocks_aligned_reference(
-                         blocks, other), 2 * nb * 512 + 8),
                     ("count_and_blocks",
                      lambda: k2.count_and_blocks(ids, blocks, *b),
                      lambda: k2.count_and_blocks_reference(ids, blocks, *b),
@@ -677,21 +720,35 @@ def check_k2(torch, k2, card):
                 ms, call_ms, how = kernel_ms(torch, fn, 50,
                                              "count_blocks_kernel",
                                              cold_l2=True)
+                warm = ""
+                if name == "count_and_blocks":
+                    warm_ms = kernel_ms(torch, fn, 50,
+                                        "count_blocks_kernel")[0]
+                    warm = f"; {warm_ms * 1e3:.2f} us with the inputs in L2"
                 plain_ms = time_cuda(torch, plain, 10)
                 log(f"kernels: K2 {name} at NB={nb}"
                     + (f" (half matched: {matched} blocks)"
                        if name == "count_and_blocks" else "")
                     + f" ({kernel_bytes} bytes): {ms * 1e3:.2f} us/launch "
-                    f"({how}; {call_ms * 1e3:.2f} us per call by events), "
-                    f"bound {kernel_bytes / H100_BYTES_PER_S * 1e6:.2f} us "
-                    f"at 3.35 TB/s, plain {plain_ms * 1e3:.2f} us; "
-                    f"card {card}")
+                    f"({how}{warm}; {call_ms * 1e3:.2f} us per call by "
+                    f"events), bound "
+                    f"{kernel_bytes / H100_BYTES_PER_S * 1e6:.2f} us at "
+                    f"3.35 TB/s, plain {plain_ms * 1e3:.2f} us; card {card}")
             del b
         del ids, blocks, other
+    for case in K2_EDGE_CASES:
+        ids_a, nb_a, ids_b, nb_b = k2_edge_ids(case, rng)
+        a = k2_sparse(torch, rng, nb_a, ids_a)
+        b = k2_sparse(torch, rng, nb_b, ids_b)
+        before = k2_launches(k2)
+        same(f"count_and_blocks {case} (NB_a={nb_a}, NB_b={nb_b})",
+             k2.count_and_blocks(*a, *b),
+             k2.count_and_blocks_reference(*a, *b), 1, before)
     torch.cuda.empty_cache()
     log(f"kernels: K2 == plain on {n_cases} cases (NB in "
         f"{','.join(map(str, K2_NBS))}; fused at NB_b = NB/2, NB, 2NB x "
-        f"match 0, 1/2, 1; sentinel padding, edge words)")
+        f"match 0, 1/2, 1 and on identical ids; sentinel padding, edge "
+        f"words; {', '.join(K2_EDGE_CASES)})")
     return max_err
 
 
@@ -990,6 +1047,47 @@ def serve_count_path(srv, k1, planes, card):
         f"{statistics.median(warm) * 1e3:.3f} ms over {len(warm)} "
         f"queries; K1 launches on the path: {k1.count_expr.launches}")
     return shard, word  # where the Set added a bit to f=1 (bit 0)
+
+
+def right_nested(depth):
+    """(PQL, ops) of Intersect/Union alternating over rows f=0..depth-1,
+    nested to the right: K1 stack depth `depth`."""
+    ops = [("Intersect", "Union")[i % 2] for i in range(depth - 1)]
+    pql = f"Row(f={depth - 1})"
+    for i in range(depth - 2, -1, -1):
+        pql = f"{ops[i]}(Row(f={i}), {pql})"
+    return pql, ops
+
+
+def serve_tree_limits(srv, k1, tg, card):
+    """Counts over index tg past K1's limits (16 leaves, 64 steps, stack
+    depth 8), each equal to numpy and each exactly one K1 launch: the
+    port folds sub-trees to planes first (`count_expr.fit_tree`)."""
+    f = tg["f"]
+    expect = {}
+    for n in (17, 33):
+        rows = ", ".join(f"Row(f={i})" for i in range(n))
+        expect[f"Count(Union({rows}))"] = len(
+            np.unique(np.concatenate(f[:n])))
+    deep, ops = right_nested(9)
+    acc = f[8]
+    for i in range(7, -1, -1):
+        acc = (np.intersect1d if ops[i] == "Intersect" else np.union1d)(
+            f[i], acc)
+    expect[f"Count({deep})"] = len(acc)
+    for pql, want in expect.items():
+        before = k1.count_expr.launches
+        t0 = time.perf_counter()
+        got = http(srv.uri, "/index/tg/query", pql)["results"][0]
+        dt = time.perf_counter() - t0
+        if k1.count_expr.launches != before + 1:
+            raise AssertionError(f"{pql[:40]}...: K1 launches moved by "
+                                 f"{k1.count_expr.launches - before}, not 1")
+        if got != want:
+            raise AssertionError(f"{pql}: {got} != {want}")
+        log(f"serve: {pql[:60]}... over {TG_SHARDS} shards = {got} "
+            f"(past K1's limits; one K1 launch; cold {dt * 1e3:.1f} ms "
+            f"on {card})")
 
 
 def serve_topn_path(srv, k3, k4, tg, card):
@@ -1398,8 +1496,7 @@ def main():
             "pairwise_counts": k4.pairwise_counts,
             "bsi_range": k5.bsi_range_mask,
             "count_blocks": k2.count_blocks,
-            "count_and_blocks": k2.count_and_blocks,
-            "count_and_blocks_aligned": k2.count_and_blocks_aligned}
+            "count_and_blocks": k2.count_and_blocks}
     launches = {}
     tmp = tempfile.mkdtemp(prefix="pilosa-torch-smoke-")
     try:
@@ -1425,6 +1522,7 @@ def main():
         try:
             reset_counters(mods)  # the Count path's run starts here
             set_at = serve_count_path(srv, k1, planes, card)
+            serve_tree_limits(srv, k1, tg, card)
             launches["count_expr"] = k1.count_expr.launches
             reset_counters(mods)  # the TopN/GroupBy path's run starts here
             serve_topn_path(srv, k3, k4, tg, card)

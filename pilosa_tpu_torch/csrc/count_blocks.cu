@@ -6,37 +6,58 @@
 // keeps only the non-empty 128-word blocks of an [S, W] plane stack as
 // sorted block ids [NB] int32 plus blocks [NB, 128] uint32 (held as int32
 // on the PyTorch side); padding ids are SPARSE_SENTINEL with zero blocks.
-// Three entries, all exact 64-bit totals:
+// Two entries, both exact 64-bit totals:
 //   mode 0  Σ popcount(a)                      count_blocks
-//   mode 1  Σ popcount(a & b), b pre-aligned   count_and_blocks_aligned
 //   mode 2  Σ popcount(a & b[match(ids_a)])    count_and_blocks
-// Mode 2 fuses the caller's searchsorted (pilosa_tpu/ops/containers.py
-// :757-761): for each of a's blocks the partner in b is found by binary
-// search over ids_b inside the kernel; an unmatched or padding block is
-// skipped without loading either side (a & 0 is 0).
+// Mode 2 is `count_and_blocks_stack` with its caller's searchsorted
+// alignment (pilosa_tpu/ops/containers.py:757-761) fused in: a block of a
+// counts against b's block of the same id; one without a partner, or with
+// the padding id, counts zero and is never loaded.
 //
-// Bound: memory. Every block that counts is read once and nothing is
-// written but the 8-byte total: count_blocks over the served sparse row
-// (NB = 32,768) reads 16,777,216 B, ~5.0 us at an H100 SXM's 3.35 TB/s;
-// count_and_blocks reads both id arrays plus the matched blocks of both
-// sides. Design: a 128-word block is 512 B, so one warp owns one block
-// and each lane loads one 16-byte vector of it with an evict-first load.
-// Warps walk the blocks in a grid-stride loop over one resident wave and
-// keep K2_ILP blocks in flight each; in mode 2, lanes 0..K2_ILP-1 run the
-// K2_ILP binary searches at once (ids_b is at most 512 KB and stays in
-// L2) and broadcast each result with __shfl_sync. Per-thread 64-bit sums
-// go through a warp shuffle and a block reduce to one 64-bit atomicAdd
-// per block. The Pallas kernel's [8, 128] int32 accumulator carried
-// across grid steps is TPU tiling and is not kept.
+// Bound: memory. Every block that counts is read once, each id array is
+// read once, and nothing is written but the 8-byte total: count_blocks
+// over the served sparse row (NB = 32,768) reads 16,777,216 B, ~5.0 us at
+// an H100 SXM's 3.35 TB/s; the served count_and_blocks pair reads
+// 11,984,904 B, ~3.6 us.
+//
+// count_blocks_kernel (mode 0): one warp owns one 512 B block, each lane
+// one 16-byte vector of it, loaded evict-first; warps walk the blocks in a
+// grid-stride loop over one resident wave with K2_ILP blocks in flight.
+//
+// count_blocks_kernel_fused (mode 2): the wait is latency, not bytes — a
+// binary search per block of a is a chain of ~15 dependent loads. So the
+// two sorted id lists are intersected tile by tile instead:
+//   1. each CTA owns K2_TILE consecutive ids of a, loaded coalesced into
+//      shared memory; a tile that starts with padding exits;
+//   2. in the same round trip, the CTA's K2_THREADS threads probe evenly
+//      spaced ids of b and one __syncthreads_count narrows the lower bound
+//      of the tile's first id to K2_THREADS-th of b (one round up to
+//      K2_THREADS * K2_CHUNK ids of b; more rounds past that);
+//   3. from there b's ids are loaded coalesced, K2_CHUNK at a time, into
+//      shared memory, and each thread binary-searches its own id of a in
+//      the chunk; the walk stops at the chunk that reaches the tile's last
+//      id, so a b much denser than a takes several chunks;
+//   4. matched (row of a, row of b) pairs are compacted into a shared list
+//      (warp ballot + one shared atomic per warp);
+//   5. the warps stream only the matched block pairs, K2_ILP pairs in
+//      flight per warp, 16-byte evict-first loads, AND and __popc.
+// That is ~3 dependent trips to memory (tile and probes, chunk, blocks)
+// instead of ~17. Per-thread 64-bit sums go through a warp shuffle and a
+// block reduce to one 64-bit atomicAdd per CTA in both kernels. The Pallas
+// kernel's [8, 128] int32 accumulator carried across grid steps is TPU
+// tiling and is not kept.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #define K2_THREADS 256
 #define K2_WARPS (K2_THREADS / 32)
-#define K2_ILP 4
+#define K2_ILP 4             // blocks (mode 0) or block pairs (mode 2) in flight per warp
 #define K2_VEC_PER_BLOCK 32  // 128 words = 32 uint4
 #define K2_SENTINEL (1 << 30)
+#define K2_TILE 128          // ids of a per CTA of the fused kernel
+#define K2_CHUNK 1024        // ids of b per shared-memory chunk
 
 __device__ __forceinline__ unsigned popc4(uint4 v) {
     return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
@@ -46,65 +67,12 @@ __device__ __forceinline__ uint4 and4(uint4 a, uint4 b) {
     return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
 }
 
-// Row of ids_b equal to `key`, or -1 (lower bound, then compare).
-__device__ __forceinline__ long long find_block(const int* __restrict__ ids_b,
-                                                long long nb_b, int key) {
-    long long lo = 0, hi = nb_b;
-    while (lo < hi) {
-        const long long mid = (lo + hi) >> 1;
-        if (__ldg(ids_b + mid) < key) lo = mid + 1;
-        else hi = mid;
-    }
-    return (lo < nb_b && __ldg(ids_b + lo) == key) ? lo : -1;
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(K2_THREADS)
-count_blocks_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b,
-                    const int* __restrict__ ids_a, const int* __restrict__ ids_b,
-                    long long nb_a, long long nb_b,
-                    unsigned long long* __restrict__ out) {
+// Σ of every thread's `total` into *out: a warp shuffle, a shared-memory
+// reduce, one 64-bit atomicAdd per CTA.
+__device__ __forceinline__ void block_reduce_add(unsigned long long total,
+                                                 unsigned long long* out) {
     __shared__ unsigned long long s_warp[K2_WARPS];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const long long stride = (long long)gridDim.x * K2_WARPS;
-    unsigned long long total = 0;
-    // `base` depends on the warp only, so a whole warp enters each step
-    for (long long base = (long long)blockIdx.x * K2_WARPS + warp; base < nb_a;
-         base += stride * K2_ILP) {
-        long long partner[K2_ILP];  // row of b to AND with, or -1 to skip
-        if (MODE == 2) {
-            long long mine = -1;
-            if (lane < K2_ILP) {
-                const long long i = base + lane * stride;
-                if (i < nb_a) {
-                    const int key = __ldg(ids_a + i);
-                    if (key != K2_SENTINEL) mine = find_block(ids_b, nb_b, key);
-                }
-            }
-            #pragma unroll
-            for (int u = 0; u < K2_ILP; ++u)
-                partner[u] = __shfl_sync(0xffffffffu, mine, u);
-        } else {
-            #pragma unroll
-            for (int u = 0; u < K2_ILP; ++u) {
-                const long long i = base + u * stride;
-                partner[u] = i < nb_a ? i : -1;
-            }
-        }
-        uint4 v[K2_ILP];
-        #pragma unroll
-        for (int u = 0; u < K2_ILP; ++u) {
-            const long long i = base + u * stride;
-            v[u] = make_uint4(0, 0, 0, 0);
-            if (partner[u] >= 0) {
-                v[u] = __ldcs(a + i * K2_VEC_PER_BLOCK + lane);
-                if (MODE != 0)
-                    v[u] = and4(v[u], __ldcs(b + partner[u] * K2_VEC_PER_BLOCK + lane));
-            }
-        }
-        #pragma unroll
-        for (int u = 0; u < K2_ILP; ++u) total += popc4(v[u]);
-    }
     #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
         total += __shfl_down_sync(0xffffffffu, total, off);
@@ -119,6 +87,125 @@ count_blocks_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b,
     }
 }
 
+__global__ void __launch_bounds__(K2_THREADS)
+count_blocks_kernel(const uint4* __restrict__ a, long long nb_a,
+                    unsigned long long* __restrict__ out) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long stride = (long long)gridDim.x * K2_WARPS;
+    unsigned long long total = 0;
+    // `base` depends on the warp only, so a whole warp enters each step
+    for (long long base = (long long)blockIdx.x * K2_WARPS + warp; base < nb_a;
+         base += stride * K2_ILP) {
+        uint4 v[K2_ILP];
+        #pragma unroll
+        for (int u = 0; u < K2_ILP; ++u) {
+            const long long i = base + u * stride;
+            v[u] = i < nb_a ? __ldcs(a + i * K2_VEC_PER_BLOCK + lane)
+                            : make_uint4(0, 0, 0, 0);
+        }
+        #pragma unroll
+        for (int u = 0; u < K2_ILP; ++u) total += popc4(v[u]);
+    }
+    block_reduce_add(total, out);
+}
+
+__global__ void __launch_bounds__(K2_THREADS)
+count_blocks_kernel_fused(const uint4* __restrict__ a, const uint4* __restrict__ b,
+                          const int* __restrict__ ids_a, const int* __restrict__ ids_b,
+                          int nb_a, int nb_b, unsigned long long* __restrict__ out) {
+    __shared__ int s_ids_a[K2_TILE];
+    __shared__ int s_chunk[K2_CHUNK];
+    __shared__ int s_pair_a[K2_TILE], s_pair_b[K2_TILE];
+    __shared__ int s_n_pairs;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int tile0 = blockIdx.x * K2_TILE;
+
+    // 1-2: the tile's ids, its first id and the first probes of b, all in
+    // one round trip (the probe positions do not depend on the key).
+    // lower_bound(ids_b, key_lo) lies in [lo, hi]
+    int lo = 0, hi = nb_b;
+    int step = nb_b / K2_THREADS;  // >= 4 whenever a round probes
+    int probe = hi - lo > K2_CHUNK ? __ldg(ids_b + tid * step) : 0;
+    const int key_lo = __ldg(ids_a + tile0);
+    int mine = K2_SENTINEL;
+    if (tid < K2_TILE) {
+        if (tile0 + tid < nb_a) mine = __ldg(ids_a + tile0 + tid);
+        s_ids_a[tid] = mine;
+    }
+    if (tid == 0) s_n_pairs = 0;
+    if (key_lo == K2_SENTINEL) return;  // padding only: uniform over the CTA
+    while (hi - lo > K2_CHUNK) {
+        // probes ascend with tid, so those below key_lo are a prefix
+        const int below = __syncthreads_count(probe < key_lo);
+        if (below == 0) {
+            hi = lo;
+        } else {
+            hi = below < K2_THREADS ? lo + below * step : hi;
+            lo += (below - 1) * step + 1;
+        }
+        step = (hi - lo) / K2_THREADS;
+        if (hi - lo > K2_CHUNK) probe = __ldg(ids_b + lo + tid * step);
+    }
+    // the tile's real ids, hence its last one (ids ascend, padding last)
+    const int n_real = __syncthreads_count(tid < K2_TILE && mine != K2_SENTINEL);
+    const int key_hi = s_ids_a[n_real - 1];
+
+    // 3: walk b's ids from lo in chunks until one reaches key_hi
+    int partner = -1;
+    for (int pos = lo; pos < nb_b; pos += K2_CHUNK) {
+        #pragma unroll
+        for (int j = 0; j < K2_CHUNK / K2_THREADS; ++j) {
+            const int k = j * K2_THREADS + tid;
+            s_chunk[k] = pos + k < nb_b ? __ldg(ids_b + pos + k) : K2_SENTINEL;
+        }
+        __syncthreads();
+        if (tid < n_real && partner < 0) {
+            int l = 0, h = K2_CHUNK;
+            while (l < h) {
+                const int m = (l + h) >> 1;
+                if (s_chunk[m] < mine) l = m + 1;
+                else h = m;
+            }
+            if (l < K2_CHUNK && s_chunk[l] == mine) partner = pos + l;
+        }
+        const bool done = s_chunk[K2_CHUNK - 1] >= key_hi;
+        __syncthreads();  // every thread read the chunk before it is refilled
+        if (done) break;
+    }
+
+    // 4: compact the matched pairs
+    const unsigned hit = __ballot_sync(0xffffffffu, partner >= 0);
+    int base = 0;
+    if (lane == 0 && hit) base = atomicAdd(&s_n_pairs, __popc(hit));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (partner >= 0) {
+        const int slot = base + __popc(hit & ((1u << lane) - 1));
+        s_pair_a[slot] = tile0 + tid;
+        s_pair_b[slot] = partner;
+    }
+    __syncthreads();
+    const int n_pairs = s_n_pairs;
+
+    // 5: stream the matched block pairs. The loads are unconditional (a
+    // batch's tail repeats the last pair and is masked out of the sum) so
+    // that all 2 * K2_ILP of a warp's loads are in flight at once.
+    unsigned long long total = 0;
+    for (int p0 = warp * K2_ILP; p0 < n_pairs; p0 += K2_WARPS * K2_ILP) {
+        uint4 v[K2_ILP], w[K2_ILP];
+        #pragma unroll
+        for (int u = 0; u < K2_ILP; ++u) {
+            const int p = min(p0 + u, n_pairs - 1);
+            v[u] = __ldcs(a + (long long)s_pair_a[p] * K2_VEC_PER_BLOCK + lane);
+            w[u] = __ldcs(b + (long long)s_pair_b[p] * K2_VEC_PER_BLOCK + lane);
+        }
+        #pragma unroll
+        for (int u = 0; u < K2_ILP; ++u)
+            if (p0 + u < n_pairs) total += popc4(and4(v[u], w[u]));
+    }
+    block_reduce_add(total, out);
+}
+
+// One full wave: as many blocks as can be resident at once.
 template <typename Kernel>
 static int resident_blocks(Kernel kernel) {
     int dev = 0, sms = 0, per_sm = 0;
@@ -132,37 +219,32 @@ static int resident_blocks(Kernel kernel) {
 
 // Plain C entry point, bound with ctypes. `a` and `b` are [nb, 128] word
 // arrays (16-byte aligned), `ids_a` / `ids_b` [nb] int32 block ids sorted
-// ascending (mode 2 only; b is NULL in mode 0). Zeroes `out` (one uint64)
-// and launches on `stream`. Returns cudaGetLastError().
+// ascending with padding last (mode 2 only; b and the ids are NULL in
+// mode 0). Mode 2 takes nb_a, nb_b < 2^31. Zeroes `out` (one uint64) and
+// launches on `stream`. Returns cudaGetLastError().
 extern "C" int count_blocks_launch(int mode, const void* a, const void* b,
                                    const void* ids_a, const void* ids_b,
                                    long long nb_a, long long nb_b, void* out,
                                    void* stream) {
-    if (mode < 0 || mode > 2 || nb_a < 0 || nb_b < 0 || (mode != 0 && !b) ||
-        (mode == 2 && (!ids_a || !ids_b)))
+    if ((mode != 0 && mode != 2) || nb_a < 0 || nb_b < 0 ||
+        (mode == 2 && (!b || !ids_a || !ids_b || nb_a > INT_MAX - K2_TILE ||
+                       nb_b > INT_MAX - K2_CHUNK)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err = cudaMemsetAsync(out, 0, sizeof(unsigned long long), s);
     if (err != cudaSuccess) return (int)err;
     if (nb_a == 0 || (mode == 2 && nb_b == 0)) return (int)cudaGetLastError();
-    const long long want = (nb_a + K2_WARPS - 1) / K2_WARPS;
-    const uint4* pa = (const uint4*)a;
-    const uint4* pb = (const uint4*)b;
-    const int* ia = (const int*)ids_a;
-    const int* ib = (const int*)ids_b;
     unsigned long long* o = (unsigned long long*)out;
     if (mode == 0) {
-        static const int cap = resident_blocks(count_blocks_kernel<0>);
-        count_blocks_kernel<0><<<(unsigned)(want < cap ? want : cap), K2_THREADS, 0, s>>>(
-            pa, pb, ia, ib, nb_a, nb_b, o);
-    } else if (mode == 1) {
-        static const int cap = resident_blocks(count_blocks_kernel<1>);
-        count_blocks_kernel<1><<<(unsigned)(want < cap ? want : cap), K2_THREADS, 0, s>>>(
-            pa, pb, ia, ib, nb_a, nb_b, o);
+        static const int cap = resident_blocks(count_blocks_kernel);
+        const long long want = (nb_a + K2_WARPS - 1) / K2_WARPS;
+        count_blocks_kernel<<<(unsigned)(want < cap ? want : cap), K2_THREADS, 0, s>>>(
+            (const uint4*)a, nb_a, o);
     } else {
-        static const int cap = resident_blocks(count_blocks_kernel<2>);
-        count_blocks_kernel<2><<<(unsigned)(want < cap ? want : cap), K2_THREADS, 0, s>>>(
-            pa, pb, ia, ib, nb_a, nb_b, o);
+        const unsigned tiles = (unsigned)((nb_a + K2_TILE - 1) / K2_TILE);
+        count_blocks_kernel_fused<<<tiles, K2_THREADS, 0, s>>>(
+            (const uint4*)a, (const uint4*)b, (const int*)ids_a,
+            (const int*)ids_b, (int)nb_a, (int)nb_b, o);
     }
     return (int)cudaGetLastError();
 }

@@ -3,20 +3,19 @@
 A block-sparse container (ops/containers.py) keeps only the non-empty
 128-word blocks of an [S, W] plane stack: block ids [NB] int32, sorted,
 and blocks [NB, 128] of uint32 words held as int32. Padding ids are
-SPARSE_SENTINEL and their blocks are zero. Three entries, each an exact
+SPARSE_SENTINEL and their blocks are zero. Two entries, each an exact
 int64 0-d tensor:
 
     count_blocks(blocks)                           Σ popcount(blocks)
-    count_and_blocks_aligned(a, b)                 Σ popcount(a & b)
     count_and_blocks(ids_a, blocks_a, ids_b, blocks_b)
                                                    Σ popcount(a ∩ b)
 
-The first two are the TPU kernels `count_blocks_stack` and
-`count_and_blocks_stack` (pilosa_tpu/ops/pallas_kernels.py:235, :245),
-whose callers align b onto a's block ids with `searchsorted` first
-(pilosa_tpu/ops/containers.py:757-761). The third fuses that search into
-the kernel and is the one the served path launches. Bound: memory (the
-blocks that count, read once; see csrc/count_blocks.cu).
+They are the TPU kernels `count_blocks_stack` and `count_and_blocks_stack`
+(pilosa_tpu/ops/pallas_kernels.py:235, :245); the second takes its
+caller's alignment of b onto a's block ids (`searchsorted`,
+pilosa_tpu/ops/containers.py:757-761) into the kernel, which intersects
+the two sorted id lists tile by tile. Bound: memory (the id arrays and
+the blocks that count, read once; see csrc/count_blocks.cu).
 
 Each wrapper takes its plain version for CPU tensors and launches the
 hand-written kernel `csrc/count_blocks.cu` for CUDA tensors, or raises.
@@ -36,8 +35,6 @@ __all__ = [
     "SPARSE_SENTINEL",
     "align_blocks",
     "count_and_blocks",
-    "count_and_blocks_aligned",
-    "count_and_blocks_aligned_reference",
     "count_and_blocks_reference",
     "count_blocks",
     "count_blocks_reference",
@@ -49,7 +46,7 @@ BLOCK_WORDS = 128
 #: scatter can drop it and an intersection never matches it
 SPARSE_SENTINEL = 1 << 30
 
-_MODES = {"blocks": 0, "aligned": 1, "fused": 2}
+_MODES = {"blocks": 0, "fused": 2}
 
 
 def _check_blocks(blocks, name="blocks"):
@@ -100,25 +97,11 @@ def count_blocks_reference(blocks):
     return popcount_total(blocks)
 
 
-def count_and_blocks_aligned_reference(a, b):
-    """The plain version of `count_and_blocks_aligned`."""
-    _check_aligned(a, b)
-    return popcount_total(a & b)
-
-
 def count_and_blocks_reference(ids_a, blocks_a, ids_b, blocks_b):
     """The plain version of `count_and_blocks`: searchsorted, clip, match
     mask, where, popcount."""
     _check_fused(ids_a, blocks_a, ids_b, blocks_b)
     return popcount_total(blocks_a & align_blocks(ids_a, ids_b, blocks_b))
-
-
-def _check_aligned(a, b):
-    _check_blocks(a, "a")
-    _check_blocks(b, "b")
-    if a.shape != b.shape:
-        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ")
-    return _same_device(a, b)
 
 
 def _check_fused(ids_a, blocks_a, ids_b, blocks_b):
@@ -181,17 +164,6 @@ def count_blocks(blocks):
     return _launch("blocks", count_blocks, blocks)
 
 
-def count_and_blocks_aligned(a, b):
-    """Σ popcount(a & b) over block-aligned [NB, 128] stacks (the TPU
-    contract: b already aligned onto a's block ids)."""
-    dev = _check_aligned(a, b)
-    if not _route(dev, "count_and_blocks_aligned"):
-        return count_and_blocks_aligned_reference(a, b)
-    if a.shape[0] == 0:
-        return _zero(dev)
-    return _launch("aligned", count_and_blocks_aligned, a, b)
-
-
 def count_and_blocks(ids_a, blocks_a, ids_b, blocks_b):
     """Σ popcount of the intersection of two block-sparse containers of
     one [S, W] geometry: a's blocks AND b's block of the same id, blocks
@@ -207,5 +179,4 @@ def count_and_blocks(ids_a, blocks_a, ids_b, blocks_b):
 
 #: K2 launches since the last reset, per entry (chip_smoke.py sums them)
 count_blocks.launches = 0
-count_and_blocks_aligned.launches = 0
 count_and_blocks.launches = 0

@@ -35,6 +35,7 @@ __all__ = [
     "count_expr",
     "count_expr_reference",
     "count_expr_stack",
+    "fit_tree",
     "popcount_total",
     "tree_eval",
 ]
@@ -96,10 +97,133 @@ def compile_program(sig):
     return bytes(code)
 
 
-def _leaf_count(sig):
+def _leaf_slots(sig, out):
+    """Counts of each leaf slot's occurrences in `sig`, added to `out`."""
     if sig[0] == "leaf":
-        return sig[1] + 1
-    return max(_leaf_count(s) for s in sig[1])
+        out[sig[1]] = out.get(sig[1], 0) + 1
+    else:
+        for sub in sig[1]:
+            _leaf_slots(sub, out)
+    return out
+
+
+def _depth(sig):
+    """Stack depth `compile_program` needs for `sig`: the first operand of
+    a fold sits at the node's own level, every later one a level up."""
+    if sig[0] == "leaf":
+        return 1
+    subs = sig[1]
+    return max([_depth(subs[0])] + [1 + _depth(s) for s in subs[1:]])
+
+
+def _fits(sig, n_slots):
+    return (_excess(n_slots, sum(_leaf_slots(sig, {}).values())) == 0
+            and _depth(sig) <= MAX_STACK)
+
+
+def fit_tree(sig, stacks):
+    """(sig', stacks') with the same count as (sig, stacks) and within
+    K1's limits (MAX_LEAVES slots, MAX_PROGRAM steps, MAX_STACK depth).
+
+    A tree that fits comes back as it is. Otherwise sub-trees are folded
+    to dense [S, W] planes with `tree_eval` (torch elementwise ops), each
+    plane a new leaf, as few folded leaves as the limits allow:
+
+    1. depth: a node that would sit at stack depth MAX_STACK with
+       operands of its own is folded whole;
+    2. slots and steps: while the tree has more than MAX_LEAVES slots or
+       more than MAX_PROGRAM / 2 leaf occurrences, the group that removes
+       the most of that excess per folded step is folded (the largest that
+       does not overshoot). A group is a whole node, or the first k
+       operands of a node: every fold is a left fold, so
+       op(c0, ..., cn) == op(op(c0, ..., ck-1), ck, ..., cn), `-`
+       included.
+
+    Slots are renumbered to the leaves the result uses, stacks first in
+    slot order, then the planes. Each plane is transient."""
+    stacks = list(stacks)
+    if _fits(sig, len(stacks)):
+        return sig, stacks
+    sig = _fit_depth(sig, MAX_STACK, stacks)
+    while True:
+        counts = _leaf_slots(sig, {})
+        if _excess(len(counts), sum(counts.values())) == 0:
+            break
+        path, k = _best_group(sig, counts)
+        sig = _fold(sig, path, k, stacks)
+    used = sorted(_leaf_slots(sig, {}))
+    slot = {old: new for new, old in enumerate(used)}
+    return _renumber(sig, slot), [stacks[i] for i in used]
+
+
+def _excess(n_slots, occurrences):
+    """How far a tree of that many slots and leaf occurrences is past
+    K1's slot and step limits (2m - 1 steps for m occurrences)."""
+    return max(0, n_slots - MAX_LEAVES,
+               occurrences - (MAX_PROGRAM + 1) // 2)
+
+
+def _plane_leaf(node, stacks):
+    stacks.append(tree_eval(node, stacks))
+    return ("leaf", len(stacks) - 1)
+
+
+def _fit_depth(sig, budget, stacks):
+    if sig[0] == "leaf" or _depth(sig) <= budget:
+        return sig
+    if budget == 1:
+        return _plane_leaf(sig, stacks)
+    op, subs = sig
+    return (op, (_fit_depth(subs[0], budget, stacks),)
+            + tuple(_fit_depth(s, budget - 1, stacks) for s in subs[1:]))
+
+
+def _best_group(sig, counts):
+    """(path, k) of the group whose fold removes the most excess per
+    torch step, ties to the larger gain: the first k operands of the node
+    reached by following child indices `path` from the root. Folding the
+    whole root always removes all of it, so some group gains."""
+    n_slots, total = len(counts), sum(counts.values())
+    excess = _excess(n_slots, total)
+    best, best_key = None, None
+    todo = [((), sig)]
+    while todo:
+        path, node = todo.pop()
+        if node[0] == "leaf":
+            continue
+        group, complete, n = {}, 0, 0
+        for k, sub in enumerate(node[1], start=1):
+            todo.append((path + (k - 1,), sub))
+            for slot, c in _leaf_slots(sub, {}).items():
+                group[slot] = group.get(slot, 0) + c
+                complete += group[slot] == counts[slot]
+                n += c
+            if k < 2:
+                continue
+            # the plane replaces n occurrences (n - 1 torch steps) and the
+            # `complete` slots that occur only inside the group
+            gain = excess - _excess(n_slots - complete + 1, total - n + 1)
+            key = (gain / (n - 1), gain)
+            if best_key is None or key > best_key:
+                best, best_key = (path, k), key
+    return best
+
+
+def _fold(sig, path, k, stacks):
+    if path:
+        op, subs = sig
+        i = path[0]
+        return (op, subs[:i] + (_fold(subs[i], path[1:], k, stacks),)
+                + subs[i + 1:])
+    op, subs = sig
+    leaf = _plane_leaf((op, subs[:k]), stacks)
+    return leaf if k == len(subs) else (op, (leaf,) + subs[k:])
+
+
+def _renumber(sig, slot):
+    if sig[0] == "leaf":
+        return ("leaf", slot[sig[1]])
+    return (sig[0], tuple(_renumber(s, slot) for s in sig[1]))
 
 
 def tree_eval(sig, stacks):
@@ -153,9 +277,7 @@ def _check_stacks(sig, stacks):
     stacks = list(stacks)
     if not stacks:
         raise ValueError("count_expr needs at least one leaf stack")
-    if len(stacks) > MAX_LEAVES:
-        raise ValueError(f"{len(stacks)} leaves > {MAX_LEAVES}")
-    if _leaf_count(sig) > len(stacks):
+    if max(_leaf_slots(sig, {})) >= len(stacks):
         raise ValueError("signature names a leaf slot with no stack")
     first = stacks[0]
     for s in stacks:
@@ -206,9 +328,11 @@ def _launch(sig, stacks):
 
 def count_expr(sig, stacks):
     """Σ popcount(tree(stacks)) as a 0-d int64 tensor on the stacks'
-    device. CPU stacks take the plain version; CUDA stacks launch K1
-    (an empty stack returns 0 without a launch)."""
-    stacks = _check_stacks(sig, stacks)
+    device. A tree beyond K1's limits is first brought within them by
+    `fit_tree`, on every device. CPU stacks then take the plain version;
+    CUDA stacks launch K1 once (an empty stack returns 0 without a
+    launch)."""
+    sig, stacks = fit_tree(sig, _check_stacks(sig, stacks))
     dev = stacks[0].device
     if dev.type == "cpu":
         return count_expr_reference(sig, stacks)

@@ -291,9 +291,10 @@ def test_plain_k2_matches_pallas(n):
     for fn in (k2.count_blocks_reference, k2.count_blocks):
         got = fn(_t(a))
         assert got.dtype == torch.int64 and int(got) == want
-    for fn in (k2.count_and_blocks_aligned_reference,
-               k2.count_and_blocks_aligned):
-        assert int(fn(_t(a), _t(b))) == want_and
+    # the fused entry over identical id arrays is the aligned TPU contract
+    ids = torch.arange(n, dtype=torch.int32)
+    for fn in (k2.count_and_blocks_reference, k2.count_and_blocks):
+        assert int(fn(ids, _t(a), ids, _t(b))) == want_and
 
 
 @pytest.mark.parametrize("nb_a,nb_b", [(8, 8), (16, 4), (4, 16), (33, 1),

@@ -69,6 +69,35 @@ def test_kernel_rejects_misaligned(cuda):
         k1.count_expr(("leaf", 0), [odd])
 
 
+def _right_nested(depth):
+    """Intersect/Union alternating, nested to the right: needs stack depth
+    `depth`, one more than K1 holds at depth 9."""
+    sig = ("leaf", 0)
+    for i in range(1, depth):
+        sig = ("&" if i % 2 else "|", (("leaf", i), sig))
+    return sig, depth
+
+
+BEYOND_LIMITS = {
+    "union_17_leaves": (("|", tuple(("leaf", i) for i in range(17))), 17),
+    "right_nested_depth_9": _right_nested(9),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BEYOND_LIMITS))
+def test_tree_beyond_limits_one_launch(cuda, name):
+    """fit_tree folds sub-trees to planes; the Count is still one K1
+    launch, equal to the plain tree evaluation over every leaf."""
+    sig, n = BEYOND_LIMITS[name]
+    stacks = _stacks(n, 7, seed=n, device=cuda)
+    before = k1.count_expr.launches
+    got = k1.count_expr(sig, stacks)
+    torch.cuda.synchronize()
+    assert int(got) == int(k1.popcount_total(k1.tree_eval(sig, stacks)))
+    assert k1.count_expr.launches == before + 1
+
+
 def _rows(r, t, seed, device):
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 1 << 32, (r, t), dtype=np.uint32)
@@ -225,21 +254,72 @@ def test_count_blocks_kernels_match_plain(cuda, nb_a, nb_b, shared):
                    replace=False)]))
     a = _sparse(nb_a, real_a, ids_a, seed=1, device=cuda)
     b = _sparse(nb_b, real_b, ids_b, seed=2, device=cuda)
-    before = (k2.count_blocks.launches, k2.count_and_blocks.launches,
-              k2.count_and_blocks_aligned.launches)
+    before = (k2.count_blocks.launches, k2.count_and_blocks.launches)
     got = k2.count_blocks(a[1])
     fused = k2.count_and_blocks(*a, *b)
-    aligned = k2.count_and_blocks_aligned(a[1], a[1].flip(0).contiguous())
+    # identical id arrays: b's blocks already aligned onto a's
+    other = a[1].flip(0).contiguous()
+    same = k2.count_and_blocks(a[0], a[1], a[0], other)
     torch.cuda.synchronize()
     assert int(got) == int(k2.count_blocks_reference(a[1]))
     assert int(fused) == int(k2.count_and_blocks_reference(*a, *b))
-    assert int(aligned) == int(k2.count_and_blocks_aligned_reference(
-        a[1], a[1].flip(0)))
-    assert (k2.count_blocks.launches, k2.count_and_blocks.launches,
-            k2.count_and_blocks_aligned.launches) == (
+    assert int(same) == int(k2.count_and_blocks_reference(a[0], a[1], a[0],
+                                                          other))
+    assert (k2.count_blocks.launches, k2.count_and_blocks.launches) == (
         before[0] + (1 if nb_a else 0),
-        before[1] + (1 if nb_a and nb_b else 0),
-        before[2] + (1 if nb_a else 0))
+        before[1] + (1 if nb_a else 0) + (1 if nb_a and nb_b else 0))
+
+
+def _edge_ids(case, rng):
+    """(ids_a, nb_a, ids_b, nb_b) of one edge case of the fused entry's
+    tile-wise intersection; the real ids come first, padding after."""
+    pool = np.arange(0, 1 << 21, 32)
+    if case == "b_16x_denser":  # a tile's b window spans several chunks
+        a = np.sort(rng.choice(pool, 300, replace=False))
+        rest = np.setdiff1d(np.arange(a[0], a[-1]), a)
+        b = np.sort(np.concatenate([a[::2], rng.choice(rest, 15 * 300,
+                                                       replace=False)]))
+        return a, 320, b, len(b) + 64
+    if case == "identical":
+        a = np.sort(rng.choice(pool, 1000, replace=False))
+        return a, 1100, a, 1100
+    if case in ("a_above_b", "a_below_b"):
+        lo = np.sort(rng.choice(1 << 20, 3000, replace=False))
+        hi = np.sort(rng.choice(1 << 20, 500, replace=False)) + (1 << 20)
+        if case == "a_above_b":
+            return hi, 512, lo, 3072
+        return lo[:500], 512, hi, 3072
+    if case == "ragged":  # NB_a not a multiple of the 128-id tile
+        a = np.sort(rng.choice(pool, 290, replace=False))
+        b = np.sort(np.concatenate([a[1::2], np.setdiff1d(
+            rng.choice(pool, 400, replace=False), a)]))
+        return a, 300, b, len(b) + 5
+    if case == "a_padding":
+        return np.empty(0, np.int64), 256, np.arange(0, 5000, 3), 2000
+    if case == "b_padding":
+        return np.arange(0, 5000, 3)[:1500], 1600, np.empty(0, np.int64), 700
+    if case == "nb_a_1":
+        b = np.sort(rng.choice(pool, 5000, replace=False))
+        return b[2345:2346], 1, b, 5000
+    raise ValueError(case)
+
+
+EDGE_CASES = ["b_16x_denser", "identical", "a_above_b", "a_below_b",
+              "ragged", "a_padding", "b_padding", "nb_a_1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_fused_kernel_edge_cases(cuda, case):
+    rng = np.random.default_rng(len(case))
+    ids_a, nb_a, ids_b, nb_b = _edge_ids(case, rng)
+    a = _sparse(nb_a, len(ids_a), ids_a, seed=3, device=cuda)
+    b = _sparse(nb_b, len(ids_b), ids_b, seed=4, device=cuda)
+    before = k2.count_and_blocks.launches
+    got = k2.count_and_blocks(*a, *b)
+    torch.cuda.synchronize()
+    assert int(got) == int(k2.count_and_blocks_reference(*a, *b))
+    assert k2.count_and_blocks.launches == before + 1
 
 
 @pytest.mark.cuda
