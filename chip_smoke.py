@@ -17,7 +17,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      and without a filter, edge words planted, plus a tie case for the
      top-k;
    - K4 at (R1, R2) in {(0, 3), (1, 1), (5, 4), (13, 130), (102, 102)} x
-     S in {1, 10}, with and without a filter;
+     S in {1, 10}, and at every (R1, R2) in 1..8 x 1..8 at S = 10 (the
+     small kernel's exact shapes), with and without a filter;
    - K5 at every (op, allow_eq, neg_pred) of tests/test_pallas.py x depth
      in {1, 21, 64} x S in {0, 1, 7, 128}, random sign and exists,
      predicates 0, 2^D - 1 and random, edge words and columns equal to
@@ -32,8 +33,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    and times per launch beside each bound and the plain version's time:
    K1 at S = 954 with two leaves; K3 at the served TopN shape
    [100, 10 x 32768], at [1, 954 x 32768] with a filter and at Sum's
-   [21, 128 x 32768] with a filter; K4 at the served GroupBy shape
-   5 x 4 x S = 10 (inputs in L2 and L2 flushed) and at 102 x 102 x S = 10;
+   [21, 128 x 32768] with a filter; K4 at the served GroupBy tile
+   5 x 4 x S = 10 with and without a filter, at a 1B-column GroupBy's
+   1 x 1 x S = 954 and at 102 x 102 x S = 10, each with L2 flushed and
+   warm, summed over every device operation of a call (memset included)
+   beside the kernel alone, with bytes, bound and share;
    K5 at [21, 128 x 32768] and [21, 954 x 32768]; K2's entries at
    NB = 32768 and 131072 (L2 flushed; the fused one also warm);
 4. data, in one data directory, written through the port's Holder:
@@ -164,12 +168,9 @@ def time_cuda(torch, fn, reps):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps, kernel):
-    """Mean device milliseconds per call spent in CUDA kernels whose name
-    contains `kernel`, from a torch.profiler (CUPTI) trace of `reps`
-    calls after one warm-up; None when the trace holds no such kernel.
-    Unlike events around one call, this leaves out the wrapper's host
-    time before the launch, which is larger than a small kernel."""
+def _trace(torch, fn, reps):
+    """key_averages of a torch.profiler (CUPTI) trace of `reps` calls
+    after one warm-up."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -178,14 +179,53 @@ def device_ms(torch, fn, reps, kernel):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return prof.key_averages()
+
+
+def device_ms(torch, fn, reps, kernel):
+    """Mean device milliseconds per call spent in CUDA kernels whose name
+    contains `kernel`, from a torch.profiler (CUPTI) trace of `reps`
+    calls after one warm-up; None when the trace holds no such kernel.
+    Unlike events around one call, this leaves out the wrapper's host
+    time before the launch, which is larger than a small kernel."""
     total_us = 0.0
     n = 0
-    for e in prof.key_averages():
+    for e in _trace(torch, fn, reps):
         if kernel in e.key:
             total_us += getattr(e, "device_time_total", 0.0) \
                 or getattr(e, "cuda_time_total", 0.0)
             n += e.count
     return total_us / reps / 1e3 if n else None
+
+
+# the L2 flushes' own kernels (a write: junk.fill_; a read: a reduction)
+FLUSH_KERNELS = ("FillFunctor", "reduce_kernel")
+
+
+def call_device_ms(torch, fn, reps, kernel, skip=FLUSH_KERNELS):
+    """(all_ms, kernel_ms, names): mean device milliseconds per call
+    summed over every device operation of the trace (kernels, memsets,
+    copies) but those whose name holds a `skip` term, the same over
+    kernels whose name holds `kernel` alone, and the names summed in
+    all_ms; None when the trace holds no such kernel."""
+    from torch.autograd import DeviceType
+
+    total_us = kernel_us = 0.0
+    n = 0
+    names = []
+    for e in _trace(torch, fn, reps):
+        if e.device_type != DeviceType.CUDA or any(k in e.key for k in skip):
+            continue
+        us = getattr(e, "device_time_total", 0.0) \
+            or getattr(e, "cuda_time_total", 0.0)
+        total_us += us
+        names.append(e.key)
+        if kernel in e.key:
+            kernel_us += us
+            n += e.count
+    if not n:
+        return None
+    return total_us / reps / 1e3, kernel_us / reps / 1e3, names
 
 
 L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
@@ -391,11 +431,11 @@ def check_k3(torch, k3, words):
     return max_err, timing
 
 
-def k4_bound(r1, r2, t, sms, clock_hz):
-    """(bound_ms, bound_by, bytes_ms, popc_ms) of one K4 launch with no
-    filter: bytes in and out over HBM, or R1·R2·T POPC at the SMs'
+def k4_bound(r1, r2, t, sms, clock_hz, has_filt=False):
+    """(bound_ms, bound_by, bytes_ms, popc_ms) of one K4 launch: bytes
+    in (the filter's too) and out over HBM, or R1·R2·T POPC at the SMs'
     issue rate, whichever is larger."""
-    nbytes = (r1 + r2) * t * 4 + r1 * r2 * 8
+    nbytes = (r1 + r2 + has_filt) * t * 4 + r1 * r2 * 8
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     popc_ms = r1 * r2 * t / (sms * POPC_PER_SM_PER_CLOCK * clock_hz) * 1e3
     if popc_ms > bytes_ms:
@@ -403,67 +443,100 @@ def k4_bound(r1, r2, t, sms, clock_hz):
     return bytes_ms, "bytes", bytes_ms, popc_ms
 
 
-def check_k4(torch, k4, words, sms, clock_hz):
+def k4_call_ms(torch, fn, reps, cold_l2):
+    """(all_ms, kernel_ms) of one K4 call from a profiler trace: every
+    device operation the call issues (a memset included), and the K4
+    kernel alone; with cold_l2 each call first writes L2_FLUSH_BYTES
+    (the flush is not counted)."""
+    timed = fn
+    if cold_l2:
+        junk = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+        def timed():
+            junk.fill_(1)
+            fn()
+    for _ in range(3):  # a trace now and then holds no device time
+        got = call_device_ms(torch, timed, reps, "pairwise_")
+        if got is not None:
+            return got[:2]
+    raise RuntimeError("three profiler traces held no K4 kernel")
+
+
+# K4's timed shapes: (R1, R2, S, filter, profiled calls, plain calls);
+# the served GroupBy tile first, a 1B-column GroupBy's 1 x 1 tile, and
+# the tiled kernel at a full tile
+K4_TIMED = ((5, 4, TG_SHARDS, False, 50, 10), (5, 4, TG_SHARDS, True, 50, 10),
+            (1, 1, N_SHARDS, False, 20, 3), (102, 102, TG_SHARDS, False, 20, 3))
+
+
+def check_k4(torch, k4, words, sms, clock_hz, card):
     """K4 against the plain version on the card; returns (max_abs_err,
-    timing dict at the served GroupBy shape)."""
+    timing dict at the served GroupBy shape, L2 flushed)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 2)
     max_err = 0
     n_cases = 0
-    for r1, r2 in ((0, 3), (1, 1), (5, 4), (13, 130), (102, 102)):
-        for s in (1, 10):
-            t = s * words
-            a = torch.from_numpy(_edge_rows(rng, r1, t).view(np.int32)).to(dev)
-            b = torch.from_numpy(_edge_rows(rng, r2, t).view(np.int32)).to(dev)
-            filt = torch.from_numpy(
-                _edge_rows(rng, 1, t)[0].view(np.int32)).to(dev)
-            for f in (None, filt):
-                before = k4.pairwise_counts.launches
-                got = k4.pairwise_counts(a, b, f)
-                torch.cuda.synchronize()
-                want = k4.pairwise_counts_reference(a, b, f)
-                if k4.pairwise_counts.launches != \
-                        before + (1 if r1 and r2 else 0):
-                    raise AssertionError(f"K4 launches wrong at {r1}x{r2}")
-                err = int((got - want).abs().max()) if r1 and r2 else 0
-                max_err = max(max_err, err)
-                n_cases += 1
-                if err or got.shape != want.shape:
-                    raise AssertionError(
-                        f"K4 != plain at {r1}x{r2} S={s} "
-                        f"filter={f is not None}")
-            del a, b, filt
-    log(f"kernels: K4 == plain on {n_cases} cases ((R1,R2) in (0,3),(1,1),"
-        f"(5,4),(13,130),(102,102) x S in 1,10, with and without a filter)")
-
-    timing = None
-    t = TG_SHARDS * words
-    for r1, r2, reps, plain_reps in ((5, 4, 50, 10), (102, 102, 20, 3)):
+    cases = [(r1, r2, s) for r1, r2 in ((0, 3), (1, 1), (5, 4), (13, 130),
+                                        (102, 102)) for s in (1, 10)]
+    cases += [(r1, r2, TG_SHARDS) for r1 in range(1, 9) for r2 in range(1, 9)]
+    for r1, r2, s in cases:
+        t = s * words
         a = torch.from_numpy(_edge_rows(rng, r1, t).view(np.int32)).to(dev)
         b = torch.from_numpy(_edge_rows(rng, r2, t).view(np.int32)).to(dev)
-        ms, call_ms, how = kernel_ms(
-            torch, lambda: k4.pairwise_counts(a, b), reps, "pairwise_")
-        if (r1, r2) == (5, 4):
-            # 11.8 MB fit in the 50 MB L2: time it read from HBM as well
-            warm_ms = ms
-            ms, _, how = kernel_ms(torch, lambda: k4.pairwise_counts(a, b),
-                                   reps, "pairwise_", cold_l2=True)
-            how += f"; {warm_ms * 1e3:.2f} us with the inputs in L2"
+        filt = torch.from_numpy(
+            _edge_rows(rng, 1, t)[0].view(np.int32)).to(dev)
+        for f in (None, filt):
+            before = k4.pairwise_counts.launches
+            got = k4.pairwise_counts(a, b, f)
+            torch.cuda.synchronize()
+            want = k4.pairwise_counts_reference(a, b, f)
+            if k4.pairwise_counts.launches != \
+                    before + (1 if r1 and r2 else 0):
+                raise AssertionError(f"K4 launches wrong at {r1}x{r2}")
+            err = int((got - want).abs().max()) if r1 and r2 else 0
+            max_err = max(max_err, err)
+            n_cases += 1
+            if err or got.shape != want.shape:
+                raise AssertionError(
+                    f"K4 != plain at {r1}x{r2} S={s} "
+                    f"filter={f is not None}")
+        del a, b, filt
+    log(f"kernels: K4 == plain on {n_cases} cases ((R1,R2) in (0,3),(1,1),"
+        f"(5,4),(13,130),(102,102) x S in 1,10, and every (R1,R2) in "
+        f"1..8 x 1..8 at S={TG_SHARDS}, with and without a filter)")
+
+    timing = None
+    for r1, r2, s, has_filt, reps, plain_reps in K4_TIMED:
+        t = s * words
+        a = torch.from_numpy(_edge_rows(rng, r1, t).view(np.int32)).to(dev)
+        b = torch.from_numpy(_edge_rows(rng, r2, t).view(np.int32)).to(dev)
+        f = torch.from_numpy(_edge_rows(rng, 1, t)[0].view(np.int32)).to(
+            dev) if has_filt else None
+        call = lambda: k4.pairwise_counts(a, b, f)  # noqa: E731
+        call_ms = time_cuda(torch, call, reps)
+        flushed, flushed_kernel = k4_call_ms(torch, call, reps, True)
+        warm, warm_kernel = k4_call_ms(torch, call, reps, False)
         plain_ms = time_cuda(
-            torch, lambda: k4.pairwise_counts_reference(a, b), plain_reps)
+            torch, lambda: k4.pairwise_counts_reference(a, b, f), plain_reps)
         bound_ms, bound_by, bytes_ms, popc_ms = k4_bound(
-            r1, r2, t, sms, clock_hz)
-        log(f"kernels: K4 at {r1}x{r2}x S={TG_SHARDS}: "
-            f"{ms * 1e3:.2f} us/launch ({how}; {call_ms * 1e3:.2f} us per "
-            f"call by events); bound {bound_ms * 1e3:.2f} us by "
-            f"{bound_by} (bytes {bytes_ms * 1e3:.2f} us, POPC "
+            r1, r2, t, sms, clock_hz, has_filt)
+        nbytes = bytes_ms / 1e3 * H100_BYTES_PER_S
+        log(f"kernels: K4 at {r1}x{r2} x S={s}"
+            f"{' with a filter' if has_filt else ''} ({nbytes:.0f} bytes): "
+            f"{flushed * 1e3:.2f} us device per call with L2 flushed "
+            f"({flushed_kernel * 1e3:.2f} us in the kernel; "
+            f"{bound_ms / flushed:.0%} of the bound), {warm * 1e3:.2f} us "
+            f"warm ({warm_kernel * 1e3:.2f} us in the kernel; "
+            f"{bound_ms / warm:.0%}), {call_ms * 1e3:.2f} us per call by "
+            f"events; bound {bound_ms * 1e3:.2f} us by {bound_by} (bytes "
+            f"{bytes_ms * 1e3:.2f} us at 3.35 TB/s, POPC "
             f"{popc_ms * 1e3:.2f} us at {sms} SMs x "
             f"{POPC_PER_SM_PER_CLOCK}/clock x {clock_hz / 1e9:.3f} GHz); "
-            f"plain {plain_ms * 1e3:.2f} us")
+            f"plain {plain_ms * 1e3:.2f} us; card {card}")
         if timing is None:
-            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
-        del a, b
+            timing = {"ms": flushed, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+        del a, b, f
     torch.cuda.empty_cache()
     return max_err, timing
 
@@ -1486,7 +1559,7 @@ def main():
     errs["row_counts"], timings["row_counts"] = check_k3(
         torch, k3, WORDS_PER_ROW)
     errs["pairwise_counts"], timings["pairwise_counts"] = check_k4(
-        torch, k4, WORDS_PER_ROW, sms, clock_mhz * 1e6)
+        torch, k4, WORDS_PER_ROW, sms, clock_mhz * 1e6, card)
     errs["bsi_range"], timings["bsi_range"] = check_k5(
         torch, k5, k3, WORDS_PER_ROW, card)
     errs["count_blocks"] = check_k2(torch, k2, card)

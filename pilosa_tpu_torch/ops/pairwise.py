@@ -11,10 +11,14 @@ the TPU kernel `pairwise_counts_stack`
 `pairwise_counts_reference`; a CUDA tensor goes to the hand-written
 kernel `csrc/pairwise_counts.cu` (see that file for its design and its
 bounds) or raises. An empty R1 or R2 returns zeros without a launch.
+For R1, R2 <= 8 the kernel keeps its running sums, with the blocks
+arrived, in a per-stream state of 64 int64, made zero once on that
+stream and left zero by every launch (`_state`).
 """
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -74,8 +78,29 @@ def _kernel_fn():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     return fn
+
+
+#: the small kernel's per-stream state (a running sum and the blocks
+#: arrived per output), keyed (device index, stream handle)
+_states = {}
+_states_lock = threading.Lock()
+
+
+def _state(stream):
+    """The stream's 64-int64 state of the small kernel's reduction, made
+    zero once on that stream; every launch leaves it zero. One per
+    stream, so launches on two streams never share one."""
+    key = (stream.device.index, stream.cuda_stream)
+    t = _states.get(key)
+    if t is None:
+        with _states_lock, torch.cuda.stream(stream):
+            t = _states.get(key)
+            if t is None:
+                t = _states[key] = torch.zeros(
+                    64, dtype=torch.int64, device=stream.device)
+    return t
 
 
 def _launch(a, b, filt):
@@ -92,10 +117,10 @@ def _launch(a, b, filt):
     if max(n_a, n_b) > 2**31 - 1:
         raise ValueError("row counts exceed the kernel's int range")
     out = torch.empty((n_a, n_b), dtype=torch.int64, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    stream = torch.cuda.current_stream(a.device)
     err = fn(a.data_ptr(), n_a, b.data_ptr(), n_b,
              None if filt is None else filt.data_ptr(), n_words,
-             out.data_ptr(), stream)
+             out.data_ptr(), _state(stream).data_ptr(), stream.cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"pairwise_counts kernel launch failed: CUDA error {err}")

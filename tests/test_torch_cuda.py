@@ -152,6 +152,99 @@ def test_pairwise_kernel_matches_plain(cuda, r1, r2, s, has_filt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r1", range(1, 9))
+@pytest.mark.parametrize("r2", range(1, 9))
+@pytest.mark.parametrize("s", [1, 10])
+@pytest.mark.parametrize("has_filt", [False, True])
+def test_pairwise_small_kernel_every_shape(cuda, r1, r2, s, has_filt):
+    """The small kernel's 64 exact shapes, R1, R2 in 1..8."""
+    t = s * WORDS_PER_ROW
+    a = _rows(r1, t, seed=10 * r1 + r2, device=cuda)
+    b = _rows(r2, t, seed=100 + 10 * r1 + r2, device=cuda)
+    filt = _rows(1, t, seed=8, device=cuda)[0] if has_filt else None
+    before = k4.pairwise_counts.launches
+    got = k4.pairwise_counts(a, b, filt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k4.pairwise_counts_reference(a, b, filt))
+    assert k4.pairwise_counts.launches == before + 1
+
+
+def _ragged_words(device, which):
+    """Word counts whose vectors do not split evenly over the small
+    kernel's grid: 4 words (one vector), or, for every whole number k of
+    256-thread blocks an SM can hold, k blocks per SM at one vector a
+    thread (SMs x k x 256 x 4 words) +- 4. The launch's own grid, SMs x
+    the occupancy of its instantiation, is one of these."""
+    if which == "one_vector":
+        return [4]
+    props = torch.cuda.get_device_properties(device)
+    per_sm = getattr(props, "max_threads_per_multi_processor", 2048) // 256
+    step = 4 if which == "grid_plus_4" else -4
+    return [props.multi_processor_count * k * 256 * 4 + step
+            for k in range(1, per_sm + 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r1,r2", [(1, 1), (5, 4), (3, 7), (8, 8)])
+@pytest.mark.parametrize("which", ["one_vector", "grid_minus_4",
+                                   "grid_plus_4"])
+@pytest.mark.parametrize("has_filt", [False, True])
+def test_pairwise_small_kernel_ragged_words(cuda, r1, r2, which, has_filt):
+    for t in _ragged_words(cuda, which):
+        a = _rows(r1, t, seed=t % 1000 + r1, device=cuda)
+        b = _rows(r2, t, seed=t % 1000 + 50 + r2, device=cuda)
+        filt = _rows(1, t, seed=9, device=cuda)[0] if has_filt else None
+        before = k4.pairwise_counts.launches
+        got = k4.pairwise_counts(a, b, filt)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k4.pairwise_counts_reference(a, b, filt)), t
+        assert k4.pairwise_counts.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("word", [0xFFFFFFFF, 0x80000000])
+@pytest.mark.parametrize("r1,r2", [(1, 1), (5, 4), (8, 8), (9, 3)])
+def test_pairwise_kernel_edge_words(cuda, word, r1, r2):
+    t = 10 * WORDS_PER_ROW
+    full = np.full((max(r1, r2) + 1, t), word, dtype=np.uint32)
+    x = torch.from_numpy(full.view(np.int32)).to(cuda)
+    a, b, filt = x[:r1], x[:r2], x[-1]
+    want = t * bin(word).count("1")
+    for f in (None, filt):
+        got = k4.pairwise_counts(a, b, f)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k4.pairwise_counts_reference(a, b, f))
+        assert (got == want).all()
+
+
+@pytest.mark.cuda
+def test_pairwise_small_kernel_two_streams(cuda):
+    """Back-to-back launches on two streams, unsynchronised: each stream
+    has its own state (running sums and arrivals), each result is right,
+    and every state is left at zero."""
+    t = 10 * WORDS_PER_ROW
+    shapes = [(5, 4), (2, 3), (8, 8), (1, 1)]
+    inputs = [(_rows(r1, t, seed=r1, device=cuda),
+               _rows(r2, t, seed=20 + r2, device=cuda)) for r1, r2 in shapes]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    before = k4.pairwise_counts.launches
+    got = []
+    for rnd in range(4):
+        for i, (a, b) in enumerate(inputs):
+            with torch.cuda.stream(streams[(i + rnd) % 2]):
+                got.append(k4.pairwise_counts(a, b))
+    torch.cuda.synchronize()
+    assert k4.pairwise_counts.launches == before + 4 * len(inputs)
+    for k, out in enumerate(got):
+        a, b = inputs[k % len(inputs)]
+        assert torch.equal(out, k4.pairwise_counts_reference(a, b))
+    keys = {(cuda.index or 0, st.cuda_stream) for st in streams}
+    assert keys <= set(k4._states)
+    assert not any(k4._states[k].any() for k in keys)
+
+
+@pytest.mark.cuda
 def test_new_kernels_reject_misaligned(cuda):
     base = torch.zeros(2 * WORDS_PER_ROW + 1, dtype=torch.int32, device=cuda)
     odd = base[1:].view(2, WORDS_PER_ROW)

@@ -52,7 +52,8 @@ def _naive(a, b, filt=None):
     return out
 
 
-@pytest.mark.parametrize("r1,r2", [(1, 1), (5, 4), (9, 5), (13, 130)])
+@pytest.mark.parametrize("r1,r2", [(1, 1), (5, 4), (8, 8), (3, 7), (1, 8),
+                                   (9, 5), (13, 130)])
 @pytest.mark.parametrize("s", [1, 2])
 @pytest.mark.parametrize("has_filt", [False, True])
 def test_plain_k4_matches_pallas_interpret(r1, r2, s, has_filt):
