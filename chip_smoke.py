@@ -6,10 +6,10 @@
 Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi);
-2. build: every kernel of the served paths (K1 count_expr, K2
-   count_blocks, K3 row_counts, K4 pairwise_counts, K5 bsi_range), one
-   nvcc per source, all started together, from the checkout; registers
-   and spills from ptxas;
+2. build: every kernel of the served paths (K1 count_expr and its
+   batched entry, K2 count_blocks, K3 row_counts, K4 pairwise_counts, K5
+   bsi_range), one nvcc per source, all started together, from the
+   checkout; registers and spills from ptxas;
 3. kernels: each kernel against its plain PyTorch version on the card —
    exact equality on every case:
    - K1 at S in {0, 1, 7, 954}, 1 to 6 leaves, every op and nested trees;
@@ -30,6 +30,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      and 2 NB, identical id arrays, and the tile-wise intersection's edge
      cases (b 16x denser than a, a above or below all of b, a ragged last
      tile, a or b all padding, NB_a = 1);
+   - K1's batched entry (`count_expr_batch`) at B in {1, 2, 3, 4, 5, 17,
+     32, 64} at S = 10, chain, tree and 17-leaf programs, members that
+     share leaves and members that do not, and S = 0 (no launch);
    and times per launch beside each bound and the plain version's time:
    K1 at S = 954 with two leaves; K3 at the served TopN shape
    [100, 10 x 32768], at [1, 954 x 32768] with a filter and at Sum's
@@ -39,7 +42,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    warm, summed over every device operation of a call (memset included)
    beside the kernel alone, with bytes, bound and share;
    K5 at [21, 128 x 32768] and [21, 954 x 32768]; K2's entries at
-   NB = 32768 and 131072 (L2 flushed; the fused one also warm);
+   NB = 32768 and 131072 (L2 flushed; the fused one also warm); K1's
+   batched entry at B = 4 x 2 leaves x S = 954 beside four single K1
+   launches on the same members, and at B = 64 x 2 leaves x S = 10, over
+   every device operation of a call (memset and pointer-table copy
+   included);
 4. data, in one data directory, written through the port's Holder:
    - index tg, BASELINE config 3 at bench_suite.bench_topn_groupby's
      chip shape (10 shards; field f with 100 rows of 100000/(r+1)+100
@@ -65,6 +72,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      and a 33-leaf Union (a 65-step program) and a right-nested depth-9
      Intersect/Union tree; K1's counter must advance by exactly 1 on
      every Count;
+   - batched paths: one POST /index/b/query-batch of 64 Counts (the four
+     Intersect pairs and four single rows, 8 times each: two groups of
+     32, two launches of K1's batched entry and no single K1 launch);
+     200 warm Counts from 1 client thread and the same 200 from 8
+     (GroupCommit), with QPS, p50, p99 and the batching factor; then a
+     second server with --coalesce-window 1ms over a copy of index tg
+     alone answers 8 threads x 25 Counts and Rows as the first server
+     does, with /debug/batching showing 200 coalesced queries and a
+     batch of two or more;
    - TopN/GroupBy path: three TopN, Rows, three GroupBy, and a Set whose
      next TopN reads the write back through a patched row chunk; K3's
      counter must advance on every TopN and K4's on every two-field
@@ -92,6 +108,7 @@ last line is {"ok": true, "device": {...}}.
 """
 
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -119,6 +136,9 @@ BR_DATES = ("2019-01-15T00:00", "2019-02-15T00:00", "2019-03-15T00:00")
 BR_JAN_FEB = 'from="2019-01-01T00:00", to="2019-03-01T00:00"'
 KERNELS = ("count_expr", "row_counts", "pairwise_counts", "bsi_range",
            "count_blocks")
+# the kernels line's entries: one per source, and K1's batched entry,
+# which lives in count_expr.cu
+ENTRIES = KERNELS + ("count_expr_batch",)
 COMP_SEED = 5
 SPARSE_BLOCKS = 24  # non-empty 128-word blocks per shard of f=10, f=11, g=10
 SHARED_BLOCKS = 12  # of them shared by f=10 and g=10 in every shard
@@ -355,6 +375,110 @@ def check_k1(torch, k1, words):
         torch.cuda.empty_cache()
     log(f"kernels: K1 == plain on {n_cases} cases "
         f"(S in 0,1,7,{N_SHARDS}; 1-6 leaves; nested trees)")
+    return max_err, timing
+
+
+K1B_SIZES = (1, 2, 3, 4, 5, 17, 32, 64)
+
+
+def traced_call_ms(torch, fn, reps, kernel):
+    """(all_ms, kernel_ms, names) of one call of `fn` from a profiler
+    trace: every device operation it issues (memsets and copies
+    included) and the kernels named `kernel` alone."""
+    for _ in range(3):  # a trace now and then holds no device time
+        got = call_device_ms(torch, fn, reps, kernel)
+        if got is not None:
+            return got
+    raise RuntimeError(f"three profiler traces held no {kernel}")
+
+
+def check_k1_batch(torch, k1, words, card):
+    """K1's batched entry against its plain version on the card: B in
+    K1B_SIZES at S = 10, chain and tree programs (and one past K1's
+    limits), members that share leaves and members that do not, and
+    S = 0; then timed at B = 4 x 2 leaves x S = N_SHARDS beside four
+    single K1 launches on the same inputs, and at B = 64 x 2 leaves x
+    S = 10. Returns (max_abs_err, timing dict at B = 4, S = N_SHARDS)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 5)
+    sigs = [k1.chain_signature(2, "&"), k1.chain_signature(4, "|-^"),
+            ("|", (("&", (("leaf", 0), ("leaf", 1))),
+                   ("-", (("leaf", 2), ("leaf", 3))))),
+            ("leaf", 0), ("|", tuple(("leaf", i) for i in range(17)))]
+    pool_host = _edge_rows(rng, 96 * TG_SHARDS, words).reshape(
+        96, TG_SHARDS, words)
+    pool = [torch.from_numpy(pool_host[i].view(np.int32)).to(dev)
+            for i in range(96)]
+    del pool_host
+    max_err = 0
+    n_cases = 0
+    for sig in sigs:
+        n = max(k1._leaf_slots(sig, {})) + 1
+        for b in K1B_SIZES:
+            for shared in (False, True):
+                if shared:
+                    members = [[pool[(q + i) % (n + b)] for i in range(n)]
+                               for q in range(b)]
+                else:
+                    members = [[pool[(q * n + i) % len(pool)]
+                                for i in range(n)] for q in range(b)]
+                before = k1.count_expr_batch.launches
+                got = k1.count_expr_batch(sig, members)
+                torch.cuda.synchronize()
+                want = k1.count_expr_batch_reference(sig, members)
+                if k1.count_expr_batch.launches != before + 1:
+                    raise AssertionError(f"batched K1 launches wrong at B={b}")
+                err = int((got - want).abs().max())
+                max_err = max(max_err, err)
+                n_cases += 1
+                if err or got.shape != (b,):
+                    raise AssertionError(
+                        f"batched K1 != plain at B={b} sig={sig} "
+                        f"shared={shared}: {got.tolist()} vs {want.tolist()}")
+    empty = torch.zeros((0, words), dtype=torch.int32, device=dev)
+    before = k1.count_expr_batch.launches
+    got = k1.count_expr_batch(sigs[0], [[empty, empty]] * 4)
+    if got.tolist() != [0] * 4 or k1.count_expr_batch.launches != before:
+        raise AssertionError("batched K1 at S = 0 launched or was not 0")
+    n_cases += 1
+    log(f"kernels: batched K1 == plain on {n_cases} cases (B in "
+        f"{list(K1B_SIZES)} at S={TG_SHARDS}; chain, tree and 17-leaf "
+        f"programs; shared and own leaves; S = 0 without a launch)")
+
+    sig = k1.chain_signature(2, "&")
+    timing = None
+    for b, s, reps in ((4, N_SHARDS, 20), (64, TG_SHARDS, 20)):
+        host = rng.integers(0, 1 << 32, (2 * b, s, words), dtype=np.uint32)
+        leaves = [torch.from_numpy(host[i].view(np.int32)).to(dev)
+                  for i in range(2 * b)]
+        del host
+        members = [leaves[2 * q:2 * q + 2] for q in range(b)]
+        nbytes = 2 * b * s * words * 4 + 2 * b * 8 + b * 8
+        bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+        batch = lambda: k1.count_expr_batch(sig, members)  # noqa: E731
+        all_ms, kernel_only, names = traced_call_ms(torch, batch, reps,
+                                                    "_batch_kernel")
+        singles = lambda: [k1.count_expr(sig, m)  # noqa: E731
+                           for m in members]
+        single_all = traced_call_ms(torch, singles, reps,
+                                    "count_chain_kernel")
+        call_ms = time_cuda(torch, batch, reps)
+        plain_ms = time_cuda(
+            torch, lambda: k1.count_expr_batch_reference(sig, members), 3)
+        log(f"kernels: batched K1 at B={b} x 2 leaves x S={s} ({nbytes} "
+            f"bytes): {all_ms * 1e3:.2f} us device per call over "
+            f"{sorted(set(names))} ({kernel_only * 1e3:.2f} us in the "
+            f"kernel; {bound_ms / all_ms:.0%} of the bound), "
+            f"{call_ms * 1e3:.2f} us per call by events; {b} single K1 "
+            f"launches on the same members: "
+            f"{single_all[0] * 1e3:.2f} us device; bound "
+            f"{bound_ms * 1e3:.2f} us at 3.35 TB/s; plain "
+            f"{plain_ms * 1e3:.2f} us; card {card}")
+        if timing is None:
+            timing = {"ms": all_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": "bytes"}
+        del leaves, members
+        torch.cuda.empty_cache()
     return max_err, timing
 
 
@@ -1163,6 +1287,172 @@ def serve_tree_limits(srv, k1, tg, card):
             f"on {card})")
 
 
+def count_expect(planes):
+    """Numpy answers of the four Count(Intersect(Row(f=a), Row(g=b)))
+    and the four single-row Counts over index b."""
+    expect = {}
+    for a in (1, 2):
+        for b in (1, 2):
+            expect[f"Count(Intersect(Row(f={a}), Row(g={b})))"] = \
+                N_SHARDS * popcount(planes[("f", a)] & planes[("g", b)])
+    for f in ("f", "g"):
+        for r in (1, 2):
+            expect[f"Count(Row({f}={r}))"] = \
+                N_SHARDS * popcount(planes[(f, r)])
+    return expect
+
+
+def _clients(uri, queries, n_threads):
+    """`queries` split over `n_threads` client threads, each sending its
+    share one at a time; returns (wall seconds, [(pql, answer, seconds)])."""
+    shares = [queries[i::n_threads] for i in range(n_threads)]
+    done = [[] for _ in range(n_threads)]
+    errors = []
+    start = threading.Barrier(n_threads + 1)
+
+    def client(i):
+        start.wait()
+        try:
+            for pql in shares[i]:
+                t = time.perf_counter()
+                got = http(uri, "/index/b/query", pql)["results"][0]
+                done[i].append((pql, got, time.perf_counter() - t))
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return wall, [x for d in done for x in d]
+
+
+def serve_batch_path(srv, k1, planes, set_at, card):
+    """The batched paths over index b (954 shards): a POST query-batch of
+    64 Counts (32 Intersect pairs, one group; 32 single rows, another),
+    sent twice, must be two launches of K1's batched entry each time and
+    no single K1 launch;
+    then 200 warm Counts from one client and the same 200 from 8 client
+    threads through /query (GroupCommit). Every answer equals numpy."""
+    expect = count_expect(planes)
+    # the Count path's Set: bit 0 of a word of f=1 that was clear
+    _, word = set_at
+    expect["Count(Row(f=1))"] += 1
+    for g in (1, 2):
+        expect[f"Count(Intersect(Row(f=1), Row(g={g})))"] += \
+            int(planes[("g", g)][word]) & 1
+    pairs = [q for q in expect if q.startswith("Count(Intersect")]
+    singles = [q for q in expect if q.startswith("Count(Row")]
+    batch = (pairs + singles) * 8
+    walls = []
+    for _ in range(2):  # the first re-gathers leaves the pool evicted
+        b0, s0 = k1.count_expr_batch.launches, k1.count_expr.launches
+        t0 = time.perf_counter()
+        out = http(srv.uri, "/index/b/query-batch",
+                   json.dumps({"queries": batch}))["results"]
+        walls.append(time.perf_counter() - t0)
+        for pql, slot in zip(batch, out):
+            if slot.get("results") != [expect[pql]]:
+                raise AssertionError(f"query-batch {pql}: {slot} != "
+                                     f"{expect[pql]}")
+            if slot.get("batch") != 32:
+                raise AssertionError(f"query-batch {pql}: batch "
+                                     f"{slot.get('batch')}, not 32")
+        launched = (k1.count_expr_batch.launches - b0,
+                    k1.count_expr.launches - s0)
+        if launched != (2, 0):
+            raise AssertionError(f"query-batch of 64 Counts launched "
+                                 f"batched K1 / K1 {launched} times, not "
+                                 f"(2, 0)")
+    log(f"serve: POST query-batch of {len(batch)} Counts over {N_SHARDS} "
+        f"shards = numpy, twice: {walls[0] * 1e3:.1f} ms (leaves evicted "
+        f"by the tree-limit Counts re-gathered), then {walls[1] * 1e3:.1f} "
+        f"ms warm; each two groups of 32, two batched K1 launches, no "
+        f"single K1 launch; card {card}")
+
+    queries = [pql for _ in range(25) for pql in expect]  # 200 warm Counts
+    for n_threads in (1, 8):
+        st0 = srv.api.executor.stacked_stats()
+        wall, done = _clients(srv.uri, queries, n_threads)
+        st1 = srv.api.executor.stacked_stats()
+        for pql, got, _ in done:
+            if got != expect[pql]:
+                raise AssertionError(f"{n_threads} clients: {pql} = {got}, "
+                                     f"numpy {expect[pql]}")
+        lat = sorted(t for _, _, t in done)
+        batches = st1["count_batches"] - st0["count_batches"]
+        batched = st1["count_batched_queries"] - st0["count_batched_queries"]
+        log(f"serve: {len(done)} warm Counts over {N_SHARDS} shards from "
+            f"{n_threads} client thread(s): {len(done) / wall:.1f} QPS, "
+            f"p50 {statistics.median(lat) * 1e3:.3f} ms, p99 "
+            f"{lat[int(0.99 * (len(lat) - 1))] * 1e3:.3f} ms; GroupCommit "
+            f"count_batches {batches}, count_batched_queries {batched} "
+            f"({batched / max(batches, 1):.2f} a batch); card {card}")
+
+
+def serve_coalescer(srv, data_dir, card):
+    """A second server with --coalesce-window 1ms over a copy of index
+    tg alone: 8 client threads x 25 Counts and Rows, each equal to the
+    first server's answer; /debug/batching must show 200 coalesced
+    queries and a batch of two or more."""
+    queries = [f"Count(Intersect(Row(a={i}), Row(b={j})))"
+               for i in range(5) for j in range(4)]
+    queries += [f"Count(Row(f={r}))" for r in range(80, 95)]
+    queries += [f"Row(f={r})" for r in range(85, 100)]
+    want = {q: http(srv.uri, "/index/tg/query", q)["results"] for q in queries}
+    from pilosa_tpu_torch.cli import start_server
+
+    t0 = time.perf_counter()
+    co = start_server(["--bind", "127.0.0.1:0", "--data-dir", data_dir,
+                       "--device", "cuda", "--coalesce-window", "1ms"])
+    log(f"serve: coalescing server up in {time.perf_counter() - t0:.1f} s "
+        f"(index tg alone)")
+    try:
+        sent = [queries[(7 * k) % len(queries)] for k in range(200)]
+        shares = [sent[i::8] for i in range(8)]
+        errors = []
+
+        def client(share):
+            try:
+                for q in share:
+                    got = http(co.uri, "/index/tg/query", q)["results"]
+                    if got != want[q]:
+                        raise AssertionError(f"coalesced {q}: {got} != "
+                                             f"{want[q]}")
+            except Exception as e:  # re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(sh,))
+                   for sh in shares]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        st = http(co.uri, "/debug/batching")
+        c = st["coalescer"]
+        if c["coalesced_queries"] != 200 or c["max_occupancy"] < 2:
+            raise AssertionError(f"/debug/batching: {st}")
+        log(f"serve: coalescer (1 ms window) over {TG_SHARDS} shards: 200 "
+            f"Counts and Rows from 8 threads = the first server's in "
+            f"{wall:.2f} s ({200 / wall:.1f} QPS); {c['batches']} batches, "
+            f"max occupancy {c['max_occupancy']}, occupancy histogram "
+            f"{c['occupancy_hist']}; batched launches "
+            f"{st['batch_dispatches']}; card {card}")
+    finally:
+        co.stop()
+
+
 def serve_topn_path(srv, k3, k4, tg, card):
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
@@ -1563,15 +1853,19 @@ def main():
     errs["bsi_range"], timings["bsi_range"] = check_k5(
         torch, k5, k3, WORDS_PER_ROW, card)
     errs["count_blocks"] = check_k2(torch, k2, card)
-    log(f"kernels: {list(KERNELS)}")
+    errs["count_expr_batch"], timings["count_expr_batch"] = check_k1_batch(
+        torch, k1, WORDS_PER_ROW, card)
+    log(f"kernels: {list(ENTRIES)}")
 
     mods = {"count_expr": k1.count_expr, "row_counts": k3.row_counts,
             "pairwise_counts": k4.pairwise_counts,
             "bsi_range": k5.bsi_range_mask,
             "count_blocks": k2.count_blocks,
-            "count_and_blocks": k2.count_and_blocks}
+            "count_and_blocks": k2.count_and_blocks,
+            "count_expr_batch": k1.count_expr_batch}
     launches = {}
     tmp = tempfile.mkdtemp(prefix="pilosa-torch-smoke-")
+    co_dir = tempfile.mkdtemp(prefix="pilosa-torch-smoke-co-")
     try:
         # configs 3 and 4 first: each writer opens a Holder on the
         # directory, and opening the 954-shard index alone takes about a
@@ -1587,6 +1881,8 @@ def main():
             f"x {BR_VALUES_PER_SHARD} values (index br) in {t2 - t1:.1f} s; "
             f"{N_SHARDS} shards x 2 fields x 2 rows + 5 compressible rows "
             f"(index b) in {time.perf_counter() - t2:.1f} s")
+        # index tg alone, before any write, for the coalescing server
+        shutil.copytree(os.path.join(tmp, "tg"), os.path.join(co_dir, "tg"))
         t0 = time.perf_counter()
         srv = start_server(["--bind", "127.0.0.1:0", "--data-dir", tmp,
                             "--device", "cuda"])
@@ -1597,6 +1893,13 @@ def main():
             set_at = serve_count_path(srv, k1, planes, card)
             serve_tree_limits(srv, k1, tg, card)
             launches["count_expr"] = k1.count_expr.launches
+            if k1.count_expr_batch.launches:
+                raise AssertionError("a lone Count launched the batched "
+                                     "entry on the Count path")
+            reset_counters(mods)  # the batched paths' run starts here
+            serve_batch_path(srv, k1, planes, set_at, card)
+            serve_coalescer(srv, co_dir, card)
+            launches["count_expr_batch"] = k1.count_expr_batch.launches
             reset_counters(mods)  # the TopN/GroupBy path's run starts here
             serve_topn_path(srv, k3, k4, tg, card)
             launches["row_counts"] = k3.row_counts.launches
@@ -1617,7 +1920,8 @@ def main():
             srv.stop()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for name in KERNELS:
+        shutil.rmtree(co_dir, ignore_errors=True)
+    for name in ENTRIES:
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on its path")
 
@@ -1625,12 +1929,15 @@ def main():
                "row_counts": "pilosa_tpu/ops/pallas_kernels.py:515",
                "pairwise_counts": "pilosa_tpu/ops/pallas_kernels.py:373",
                "bsi_range": "pilosa_tpu/ops/pallas_kernels.py:493",
-               "count_blocks": "pilosa_tpu/ops/pallas_kernels.py:235"}
+               "count_blocks": "pilosa_tpu/ops/pallas_kernels.py:235",
+               "count_expr_batch": "pilosa_tpu/ops/pallas_kernels.py:141, "
+                                   "vmapped by pilosa_tpu/exec/stacked.py:1620"}
     log(card)
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": f"pilosa_tpu_torch/csrc/{name}.cu",
+        "source": "pilosa_tpu_torch/csrc/"
+                  f"{'count_expr' if name == 'count_expr_batch' else name}.cu",
         "replaces": sources[name],
         "launches": launches[name],
         "max_abs_err": errs[name],
@@ -1639,7 +1946,7 @@ def main():
         "bound_ms": timings[name]["bound_ms"],
         "bound_by": timings[name]["bound_by"],
         "library_ms": None,
-    } for name in KERNELS]}))
+    } for name in ENTRIES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,6 @@
 """Command line: `python -m pilosa_tpu_torch server [--bind H:P]
-[--data-dir D] [--device cuda|cpu] [--container-repr auto|dense|sparse|rle]`.
+[--data-dir D] [--device cuda|cpu] [--container-repr auto|dense|sparse|rle]
+[--coalesce-window DURATION] [--coalesce-max-queue N]`.
 
 The server opens the data directory (a `pilosa_tpu` data directory opens
 as is: the roaring fragment files are the interchange format), serves
@@ -10,9 +11,24 @@ CUDA device is present and the CPU was not asked for.
 
 import argparse
 import os
+import re
 import signal
 import sys
 import threading
+
+
+def parse_duration(s):
+    """'10m', '30s', '500ms', '1h30m' -> seconds (Go time.ParseDuration
+    forms); a bare number is seconds."""
+    s = str(s).strip()
+    units = {"ns": 1e-9, "us": 1e-6, "ms": 1e-3, "s": 1, "m": 60, "h": 3600}
+    parts = re.findall(r"(\d+(?:\.\d+)?)(ns|us|ms|s|m|h)", s)
+    if not parts:
+        return float(s)
+    consumed = "".join(n + u for n, u in parts)
+    if consumed != s:
+        raise ValueError(f"invalid duration: {s!r}")
+    return sum(float(n) * units[u] for n, u in parts)
 
 
 def _parser():
@@ -31,6 +47,14 @@ def _parser():
                         "run-length per fragment by measured density; dense "
                         "forces plain planes; sparse/rle force one "
                         "compressed form where eligible")
+    s.add_argument("--coalesce-window", type=parse_duration, default=0.0,
+                   help="query coalescer window (e.g. 1ms): concurrent "
+                        "batchable queries arriving within it fuse into "
+                        "batched launches (default 0 = off: every query "
+                        "takes the per-query path)")
+    s.add_argument("--coalesce-max-queue", type=int, default=256,
+                   help="coalesce queue cap: past it, queries get 503 + "
+                        "Retry-After instead of an unbounded wait")
     return p
 
 
@@ -48,6 +72,7 @@ class Server:
 
     def stop(self):
         self.http.stop()
+        self.api.close()
         self.holder.close()
 
 
@@ -67,7 +92,9 @@ def start_server(argv):
     host, _, port = args.bind.rpartition(":")
     holder = Holder(os.path.expanduser(args.data_dir)).open()
     try:
-        api = API(holder, device=device)
+        api = API(holder, device=device,
+                  coalesce_window=args.coalesce_window,
+                  coalesce_max_queue=args.coalesce_max_queue)
         http = PilosaHTTPServer(api, host=host or "127.0.0.1",
                                 port=int(port)).start()
     except BaseException:

@@ -233,3 +233,142 @@ extern "C" int count_expr_launch(const void* const* leaf_ptrs, int n_leaves,
     }
     return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// K1's batched entry: B independent trees of one signature in one launch.
+//
+// Replaces the TPU package's batched count programs `_count_batch_fn` and
+// `_vmap_count_fn` (pilosa_tpu/exec/stacked.py:1424, :1620), which run
+// `containers.count_program`, and so K1's function
+// (pilosa_tpu/ops/pallas_kernels.py:141), over a batch of leaf sets.
+//
+// Every member runs the same postfix program over its own n leaves. Member
+// q's leaf pointers are row q of a device-resident [B, n] int64 table: B·n
+// pointers as kernel parameters indexed by blockIdx would be copied to local
+// memory (ROADMAP trap 6). The grid is (blocks per member, B): the blocks of
+// one resident wave split evenly over the members. Each block stages its
+// member's row of the table and the program in shared memory once, runs
+// K1's chain loop (K1_ILP evict-first 16-byte vectors in flight) or its
+// register stack over that member's words, and adds its block sum into
+// out[q] with one 64-bit atomicAdd.
+//
+// Bound: memory, as K1: each member's leaf words read once (B·n·S·W·4
+// bytes), plus the table and the B totals. Members that share a leaf read
+// it once each; reading a shared leaf once for the batch is later work.
+
+#define K1B_STAGE_PARAMS()                                                  \
+    __shared__ const uint4* s_ptr[K1_MAX_LEAVES];                           \
+    __shared__ uint8_t s_code[K1_MAX_PROG];                                 \
+    if ((int)threadIdx.x < n_leaves)                                        \
+        s_ptr[threadIdx.x] = reinterpret_cast<const uint4*>(                \
+            table[(long long)blockIdx.y * n_leaves + threadIdx.x]);         \
+    if (threadIdx.x < K1_MAX_PROG) s_code[threadIdx.x] = prog.code[threadIdx.x]; \
+    __syncthreads()
+
+__global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS_PER_SM)
+count_chain_batch_kernel(const long long* table, int n_leaves, Program prog,
+                         int prog_len, long long n_vec,
+                         unsigned long long* out) {
+    K1B_STAGE_PARAMS();
+    unsigned long long total = 0;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long base = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         base < n_vec; base += stride * K1_ILP) {
+        uint4 acc[K1_ILP];
+        const uint4* p0 = s_ptr[s_code[0]];
+        #pragma unroll
+        for (int u = 0; u < K1_ILP; ++u) {
+            const long long i = base + u * stride;
+            acc[u] = i < n_vec ? __ldcs(p0 + i) : make_uint4(0, 0, 0, 0);
+        }
+        for (int pc = 1; pc < prog_len; pc += 2) {
+            const uint4* p = s_ptr[s_code[pc]];
+            const int op = s_code[pc + 1];
+            uint4 v[K1_ILP];
+            #pragma unroll
+            for (int u = 0; u < K1_ILP; ++u) {
+                const long long i = base + u * stride;
+                v[u] = i < n_vec ? __ldcs(p + i) : make_uint4(0, 0, 0, 0);
+            }
+            #pragma unroll
+            for (int u = 0; u < K1_ILP; ++u) acc[u] = combine(op, acc[u], v[u]);
+        }
+        #pragma unroll
+        for (int u = 0; u < K1_ILP; ++u) total += popc4(acc[u]);
+    }
+    block_reduce_add(total, out + blockIdx.y);
+}
+
+__global__ void __launch_bounds__(K1_THREADS)
+count_tree_batch_kernel(const long long* table, int n_leaves, Program prog,
+                        int prog_len, long long n_vec,
+                        unsigned long long* out) {
+    K1B_STAGE_PARAMS();
+    unsigned long long total = 0;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < n_vec; i += stride) {
+        uint4 r0, r1, r2, r3, r4, r5, r6, r7;
+        r0 = r1 = r2 = r3 = r4 = r5 = r6 = r7 = make_uint4(0, 0, 0, 0);
+        int sp = 0;
+        for (int pc = 0; pc < prog_len; ++pc) {
+            const int c = s_code[pc];
+            if (c < K1_MAX_LEAVES) {
+                const uint4 v = __ldcs(s_ptr[c] + i);
+                K1_SET(sp, v);
+                ++sp;
+            } else {
+                uint4 a, b;
+                K1_GET(sp - 1, b);
+                K1_GET(sp - 2, a);
+                const uint4 v = combine(c, a, b);
+                K1_SET(sp - 2, v);
+                --sp;
+            }
+        }
+        total += popc4(r0);
+    }
+    block_reduce_add(total, out + blockIdx.y);
+}
+
+// Plain C entry point, bound with ctypes. `table` is a device [n_members,
+// n_leaves] int64 array of leaf pointers, each to [n_words] words (16-byte
+// aligned, n_words a multiple of 4, the same for every member); `code` holds
+// the members' one postfix program. Zeroes `out` (n_members uint64) and
+// launches on `stream`. Returns cudaGetLastError().
+extern "C" int count_expr_batch_launch(const unsigned char* code, int code_len,
+                                       const void* table, int n_leaves,
+                                       int n_members, long long n_words,
+                                       void* out, void* stream) {
+    if (n_leaves < 1 || n_leaves > K1_MAX_LEAVES || code_len < 1 ||
+        code_len > K1_MAX_PROG || n_members < 1 || n_members > 65535 ||
+        n_words % 4 != 0)
+        return (int)cudaErrorInvalidValue;
+    Program prog;
+    for (int k = 0; k < K1_MAX_PROG; ++k) prog.code[k] = k < code_len ? code[k] : 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err = cudaMemsetAsync(
+        out, 0, (size_t)n_members * sizeof(unsigned long long), s);
+    if (err != cudaSuccess) return (int)err;
+    const long long n_vec = n_words / 4;
+    if (n_vec == 0) return (int)cudaGetLastError();
+    const long long want = (n_vec + K1_THREADS - 1) / K1_THREADS;
+    const long long* tab = (const long long*)table;
+    unsigned long long* o = (unsigned long long*)out;
+    if (is_chain(code, code_len)) {
+        static const int cap = k1_grid(count_chain_batch_kernel);
+        long long per = cap / n_members;
+        per = per < 1 ? 1 : (per > want ? want : per);
+        count_chain_batch_kernel<<<dim3((unsigned)per, (unsigned)n_members),
+                                   K1_THREADS, 0, s>>>(
+            tab, n_leaves, prog, code_len, n_vec, o);
+    } else {
+        static const int cap = k1_grid(count_tree_batch_kernel);
+        long long per = cap / n_members;
+        per = per < 1 ? 1 : (per > want ? want : per);
+        count_tree_batch_kernel<<<dim3((unsigned)per, (unsigned)n_members),
+                                  K1_THREADS, 0, s>>>(
+            tab, n_leaves, prog, code_len, n_vec, o);
+    }
+    return (int)cudaGetLastError();
+}

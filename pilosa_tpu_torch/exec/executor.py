@@ -25,6 +25,11 @@ executeSum :331, executeBitmapCallShard :651). The port's slice:
   a condition Row is one K5 launch per shard.
 - Set and Clear write through the host fragments; the next query patches
   the cached stacks in place.
+- `execute_batch` (the query-batch route) and `launch_batch` /
+  `resolve_batch` (the query coalescer) run lists of single-call reads:
+  batchable Counts and bitmap trees as batched launches grouped by
+  signature, with one fetch for the whole batch; every other member
+  takes the per-query path.
 
 Every other call raises a clear "not yet ported" error. Per-shard work
 fans over the shared worker pool and reduces IN SHARD ORDER, so every
@@ -204,6 +209,159 @@ class Executor:
         if shards is not None:
             return list(shards)
         return idx.available_shards()
+
+    # --------------------------------------------------- batched execution
+
+    #: single-call read families the batched pipeline serves with one
+    #: launch per group; anything else (aggregates, TopN, writes,
+    #: multi-call requests) takes the per-query path per member
+    BATCHABLE_CALLS = frozenset((
+        "Count", "Row", "Range", "Intersect", "Union", "Difference",
+        "Xor"))
+
+    def launch_batch(self, index_name, queries, shards=None, options=None):
+        """Phase 1 of batched execution: parse/translate/classify every
+        query, gather leaf stacks for the batchable ones, and launch them
+        in groups (StackedEvaluator.launch_query_batch) WITHOUT waiting
+        for results. Returns (handle, state) for resolve_batch. A
+        member's own failure is kept in its slot, never raised — one bad
+        query must not sink its batchmates. A failed launch is kept as
+        the handle and becomes the error of every member that rode it."""
+        import copy
+
+        from .translate import translate_calls
+
+        idx = self.holder.index(index_name)
+        if idx is None:
+            raise ExecError(f"index not found: {index_name}")
+        opt = options or ExecOptions()
+        shard_list = self._call_shards(idx, shards)
+        entries = []
+        items = []
+        # Coalesced traffic repeats hot queries, so identical PQL strings
+        # in one batch share a single parsed (and translated) AST. Key
+        # translation mutates the tree in place and is not idempotent, so
+        # a shared tree is translated exactly once.
+        parsed_cache = {}
+        translated = set()
+        for query in queries:
+            # e["raw"] is the member's UNTRANSLATED form: every per-query
+            # re-execution (not-batchable shape, gather miss) starts from
+            # it, never from e["query"], which execute() would translate
+            # again
+            e = {"query": query, "raw": query, "error": None, "item": None,
+                 "fallback": False, "call": None, "kind": None}
+            entries.append(e)
+            try:
+                if isinstance(query, str):
+                    q = parsed_cache.get(query)
+                    if q is None:
+                        q = parsed_cache[query] = parse(query)
+                    query = e["query"] = q
+                call = query.calls[0] if len(query.calls) == 1 else None
+                if call is None or call.name not in self.BATCHABLE_CALLS:
+                    e["fallback"] = True  # execute() translates it
+                    continue
+                if not opt.remote:
+                    if not isinstance(e["raw"], str):
+                        e["raw"] = copy.deepcopy(query)
+                    if id(query) not in translated:
+                        translate_calls(idx, query.calls)
+                        translated.add(id(query))
+                if call.name == "Count":
+                    if len(call.children) != 1:
+                        raise ExecError(
+                            "Count() takes exactly one row query")
+                    tree, kind = call.children[0], "count"
+                else:
+                    tree, kind = call, "plane"
+                self.validate_bitmap_call(idx, tree)
+                gathered = self._stacked.gather_for_batch(
+                    idx, tree, shard_list)
+                if gathered is None:
+                    e["fallback"] = True
+                    continue
+                e["call"] = call
+                e["kind"] = kind
+                sig, stacks = gathered
+                e["item"] = len(items)
+                items.append((kind, sig, stacks))
+            except Exception as exc:  # noqa: BLE001 — per-query isolation
+                e["error"] = exc
+        handle = []
+        if items:
+            try:
+                handle = self._stacked.launch_query_batch(items)
+            except Exception as exc:  # noqa: BLE001 — the riders' error
+                handle = exc
+        return handle, (idx, opt, shards, shard_list, entries)
+
+    def resolve_batch(self, handle, state):
+        """Phase 2: ONE wait for the batch's copy to the host, then the
+        per-member demux — counts to exact ints, plane stacks to Row
+        segments — and fallback members run the ordinary per-query path.
+        Returns (results, error, batch_size) per member in submission
+        order: error is the member's exception (None on success),
+        batch_size the occupancy of the launch it rode (0 = per-query
+        path). A failed launch or fetch is the error of every member that
+        rode it; nothing re-runs them."""
+        from .translate import translate_results
+
+        idx, opt, shards, shard_list, entries = state
+        batch_error = handle if isinstance(handle, Exception) else None
+        resolved = {}
+        if handle and batch_error is None:
+            try:
+                resolved = self._stacked.resolve_query_batch(handle)
+            except Exception as exc:  # noqa: BLE001 — the riders' error
+                batch_error = exc
+        out = []
+        for e in entries:
+            query = e["query"]
+            try:
+                if e["error"] is not None:
+                    raise e["error"]
+                if e["fallback"]:
+                    # from the untranslated form: e["query"] may already
+                    # be key-translated, and translation is not idempotent
+                    results = self.execute(
+                        idx.name, e["raw"], shards=shards, options=opt)
+                    out.append((results, None, 0))
+                    continue
+                if batch_error is not None:
+                    raise batch_error
+                val, bsize = resolved[e["item"]]
+                if e["kind"] == "count":
+                    results = [val]
+                else:
+                    row = Row()
+                    for j, shard in enumerate(shard_list):
+                        seg = val[j]
+                        if seg.any():
+                            # copy: a view would pin the whole [n, S, W]
+                            # host buffer for the row's lifetime
+                            row.segments[shard] = np.array(seg)
+                    if opt.exclude_columns:
+                        row.segments = {}
+                    if not opt.remote:
+                        self.attach_row_attrs(idx, e["call"], row, opt)
+                    results = [row]
+                if not opt.remote:
+                    results = translate_results(idx, query.calls, results)
+                out.append((results, None, bsize))
+            except Exception as exc:  # noqa: BLE001 — per-query isolation
+                out.append((None, exc, 0))
+        return out
+
+    def execute_batch(self, index_name, queries, shards=None,
+                      options=None):
+        """Batched execution, launch + resolve in one call (the explicit
+        POST /index/{i}/query-batch route). The coalescer drives the two
+        phases separately so batch N+1's launch overlaps batch N's
+        resolve (double buffering)."""
+        handle, state = self.launch_batch(
+            index_name, queries, shards=shards, options=options)
+        return self.resolve_batch(handle, state)
 
     # ------------------------------------------------------- bitmap calls
 

@@ -41,11 +41,27 @@ patched in place, re-uploading only the changed shards' planes (at
 SHARD_WIDTH = 2^20 a 954-shard leaf stack is 125 MB).
 
 Every launch and every in-place patch holds one process-wide dispatch
-lock, so concurrent queries serialize on it. (Batching concurrent counts
-into one launch is the TPU package's GroupCommit; it is not ported yet.)
+lock. Concurrent queries are batched, as in the TPU package:
+
+- Counts go through a GroupCommit (`_count_commit`): the first thread to
+  arrive leads and drains every Count queued meanwhile, groups them by
+  signature, container signature and shapes, counts each dense group
+  with ONE launch of K1's batched entry (`containers.count_program_batch`
+  -> `count_expr_batch`) and each other group member by member, and
+  fetches every total with ONE device->host copy. A lone Count takes the
+  plain one-launch path.
+- TopN, GroupBy, Sum, Min and Max share their result fetches through a
+  second GroupCommit (`_fetch_commit`).
+- The query coalescer and the query-batch route (server/api.py) run
+  `launch_query_batch` / `resolve_query_batch`: batched Counts and plane
+  trees, grouped by (kind, signature, component shapes), launched
+  without a wait, and fetched by one asynchronous copy into pinned host
+  memory that `resolve` alone waits for, so a batch's fetch overlaps the
+  next batch's launch.
 """
 
 import threading
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -95,6 +111,136 @@ _OPS = {"Intersect": "&", "Union": "|", "Difference": "-", "Xor": "^"}
 
 #: serializes every device launch and in-place stack patch in the process
 _DISPATCH_LOCK = threading.Lock()
+
+#: padding buckets of the TPU package's batched programs (it pads a batch
+#: up to the next one, repeating query 0, to bound its compiled programs).
+#: A CUDA kernel takes B at run time, so the port launches only the real
+#: members; the buckets stay as the batch size limits (64 a launch).
+BATCH_BUCKETS = (1, 4, 16, 64)
+
+
+def batch_bucket(n):
+    """Smallest padding bucket holding `n` queries."""
+    for b in BATCH_BUCKETS:
+        if n <= b:
+            return b
+    return BATCH_BUCKETS[-1]
+
+
+#: thread-local batch attribution: the batch paths stamp how many queries
+#: shared the thread's last batched launch
+_BATCH_TLS = threading.local()
+
+
+def note_batch_size(n):
+    """Record the batch size the current thread's query rode (0 resets;
+    1 = solo launch)."""
+    _BATCH_TLS.size = int(n)
+
+
+def last_batch_size():
+    """Batch size stamped by the last batched launch on THIS thread (0
+    when the thread never rode one)."""
+    return getattr(_BATCH_TLS, "size", 0)
+
+
+class GroupCommit:
+    """Group-commit batching for the serving path (cross-query batching).
+
+    Resolving a result costs one device->host round trip. Serving threads
+    therefore amortize it: the first thread to arrive becomes the LEADER
+    and drains everything queued, processing the WHOLE batch with one
+    `process` call (one fetch — or one batched launch + one fetch);
+    threads that arrive while the leader works queue up for the next
+    leader. Leadership transfers by the emptiness rule: whoever appends to
+    an EMPTY queue leads. Zero added latency for a lone query (its leader
+    drains immediately); under concurrency, batch size grows to the
+    natural arrival rate — classic group commit.
+
+    A leader failure propagates to EVERY waiter in its batch — events
+    always fire, so no HTTP thread can hang on a dead leader."""
+
+    #: a batch slower than this is round-trip dominated (a remote device);
+    #: batching windows only engage then
+    RTT_DOMINATED_S = 0.02
+    #: leader pause before draining on round-trip dominated transports —
+    #: lets concurrent queries pile into the batch; NEVER applied on fast
+    #: local transports
+    WINDOW_S = 0.005
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._queue = []
+        self._window_s = 0.0  # adaptive: engages once batches measure slow
+        # Minimum observed batch latency ~ the transport's round-trip
+        # floor: a large batch is slow everywhere, but only a transport
+        # whose FASTEST batch is still slow is round-trip dominated.
+        self._min_elapsed_s = float("inf")
+        # batches/batched expose the achieved batching factor
+        # (batched/batches ≈ queries per round trip)
+        self.batches = 0
+        self.batched = 0
+
+    def submit(self, payload, process):
+        """Enqueue `payload`; the batch leader calls
+        `process([payloads...]) -> [results...]` once for everything it
+        drained. Returns this payload's result; re-raises the leader's
+        exception if its batch failed."""
+        entry = [payload, None, None, threading.Event()]
+        with self._lock:
+            self._queue.append(entry)
+            leader = len(self._queue) == 1
+        if not leader:
+            entry[3].wait()
+            if entry[2] is not None:
+                raise entry[2]
+            return entry[1]
+        if self._window_s > 0.0:
+            time.sleep(self._window_s)
+        with self._lock:
+            batch = self._queue
+            self._queue = []
+        try:
+            t0 = time.perf_counter()
+            results = process([e[0] for e in batch])
+            elapsed = time.perf_counter() - t0
+            self._min_elapsed_s = min(self._min_elapsed_s, elapsed)
+            self._window_s = self.WINDOW_S \
+                if self._min_elapsed_s > self.RTT_DOMINATED_S else 0.0
+            with self._lock:  # two leaders may finish at once
+                self.batches += 1
+                self.batched += len(batch)
+            for e, r in zip(batch, results):
+                e[1] = r
+        except BaseException as exc:
+            for e in batch:
+                e[2] = exc
+            raise
+        finally:
+            for e in batch:
+                if e is not entry:
+                    e[3].set()
+        return entry[1]
+
+
+def _device_get_batch(payloads):
+    """GroupCommit `process` for plain result fetches: each payload is a
+    tuple of int64 tensors on one device; ONE device->host copy resolves
+    them all. Returns per payload a list of host numpy arrays, each of
+    its tensor's shape."""
+    flat = [t for tensors in payloads for t in tensors]
+    if len(flat) == 1:
+        host = flat[0].reshape(-1).cpu().numpy()
+    else:
+        host = torch.cat([t.reshape(-1) for t in flat]).cpu().numpy()
+    out, i = [], 0
+    for tensors in payloads:
+        vals = []
+        for t in tensors:
+            vals.append(host[i:i + t.numel()].reshape(tuple(t.shape)))
+            i += t.numel()
+        out.append(vals)
+    return out
 
 
 def time_range_views(idx, field_name, args):
@@ -220,6 +366,15 @@ class StackedEvaluator:
         self.planes_uploaded = 0
         self.pairwise_dispatches = 0
         self.pairwise_syncs = 0
+        # cross-query batching: Counts fuse into one launch per group and
+        # one fetch (_count_commit); TopN/GroupBy/Sum/Min/Max share their
+        # fetches (_fetch_commit); launch_query_batch counts its launches
+        # and fetches
+        self._count_commit = GroupCommit()
+        self._fetch_commit = GroupCommit()
+        self.batch_dispatches = 0
+        self.batched_queries = 0
+        self.batch_fetches = 0
         # device bytes resident per (pool, index, field)
         self._hbm_ledger = {}
 
@@ -237,6 +392,13 @@ class StackedEvaluator:
                     "rows_evictions": self._pool_evictions["rows"],
                     "pairwise_dispatches": self.pairwise_dispatches,
                     "pairwise_syncs": self.pairwise_syncs,
+                    "group_fetches": self._fetch_commit.batches,
+                    "group_fetched_queries": self._fetch_commit.batched,
+                    "count_batches": self._count_commit.batches,
+                    "count_batched_queries": self._count_commit.batched,
+                    "batch_dispatches": self.batch_dispatches,
+                    "batched_queries": self.batched_queries,
+                    "batch_fetches": self.batch_fetches,
                     "device": str(self.device)}
 
     def _place(self, host_stack):
@@ -615,6 +777,169 @@ class StackedEvaluator:
             total = _containers.count_program(sig, csig, flat)
         return int(total)
 
+    #: Counts a GroupCommit leader counts in one launch at most (the TPU
+    #: package's MAX_COUNT_BATCH)
+    MAX_COUNT_BATCH = 32
+
+    def _batched_count(self, sig, stacks):
+        """Group-commit count execution: the batch leader drains every
+        queued Count, groups them by signature, counts each group with
+        one launch and fetches ALL results in one copy. Solo queries
+        take `_count_fn`; leader failures propagate to every waiter
+        (GroupCommit contract). The batch size is stamped into the
+        waiter's thread-local (`last_batch_size`)."""
+        count, size = self._count_commit.submit(
+            (sig, tuple(stacks)), self._process_count_batch)
+        note_batch_size(size)
+        return count
+
+    def _process_count_batch(self, payloads):
+        """GroupCommit `process` for Counts: payloads are (sig, stacks)
+        pairs; returns (count, batch size) pairs in order, the size being
+        how many queries shared the payload's launch. Payloads group by
+        signature, container signature and component shapes; each group
+        is `count_program_batch` (one launch of K1's batched entry for a
+        dense group of two or more), and every group's totals come back
+        in ONE device->host copy."""
+        if len(payloads) == 1:
+            sig, stacks = payloads[0]
+            return [(self._count_fn(sig, stacks), 1)]
+        # the exact component shapes too: concurrent Counts over other
+        # shard sets (another index, a `shards` argument) count apart
+        groups = {}
+        for pos, (sig, stacks) in enumerate(payloads):
+            csig = tuple(c.csig for c in stacks)
+            gsig = tuple(c.gsig for c in stacks)
+            groups.setdefault((sig, csig, gsig), []).append(pos)
+        outs = []
+        for (sig, csig, _gsig), positions in groups.items():
+            for i in range(0, len(positions), self.MAX_COUNT_BATCH):
+                chunk = positions[i:i + self.MAX_COUNT_BATCH]
+                flats = [_containers.flatten(payloads[pos][1])
+                         for pos in chunk]
+                with self._dispatch_lock:
+                    out = _containers.count_program_batch(sig, csig, flats)
+                outs.append((chunk, out))
+        vals = torch.cat([out for _, out in outs]).tolist()  # ONE fetch
+        results = [None] * len(payloads)
+        i = 0
+        for chunk, _ in outs:
+            for pos in chunk:
+                results[pos] = (vals[i], len(chunk))
+                i += 1
+        return results
+
+    def _fetch(self, values):
+        """Host numpy copy of one int64 device tensor, the fetch shared
+        with concurrently serving queries through the group commit."""
+        return self._fetch_commit.submit((values,), _device_get_batch)[0]
+
+    # -- batched launches (query coalescer, query-batch route) ----------------
+
+    def gather_for_batch(self, idx, call, shards):
+        """Batch-member coverage + leaf-stack gather: (sig, stacks) or None
+        when the tree isn't batchable on the stacked path (the caller
+        falls back to the per-query path)."""
+        shards = tuple(shards)
+        if len(shards) < MIN_SHARDS:
+            return None
+        return self._gather(idx, call, shards)
+
+    def launch_query_batch(self, items):
+        """Launch every gathered query in `items` — (kind, sig, stacks)
+        triples, kind "count" or "plane" — and enqueue the copy of every
+        result into pinned host memory, WITHOUT waiting for any of it.
+        Items group on (kind, sig, gsig) and chunk at BATCH_BUCKETS[-1]:
+        a count group is `count_program_batch` (one launch of K1's
+        batched entry when its leaves are dense), a plane group one
+        `plane_program` per member. Returns the handle
+        `resolve_query_batch` turns into per-item results.
+
+        The split is the double buffer: the coalescer launches batch N+1
+        before it resolves batch N, and N's copy, enqueued right after
+        N's launches with an event behind it, is all that resolve waits
+        for."""
+        groups = {}
+        for pos, (kind, sig, stacks) in enumerate(items):
+            gsig = tuple(c.gsig for c in stacks)
+            groups.setdefault((kind, sig, gsig), []).append(pos)
+        launched = []
+        for (kind, sig, _gsig), positions in groups.items():
+            csig = tuple(c.csig for c in items[positions[0]][2])
+            for i in range(0, len(positions), BATCH_BUCKETS[-1]):
+                chunk = positions[i:i + BATCH_BUCKETS[-1]]
+                flats = [_containers.flatten(items[pos][2]) for pos in chunk]
+                with self._lock:
+                    self.dispatches += 1
+                    self.batch_dispatches += 1
+                    self.batched_queries += len(chunk)
+                with self._dispatch_lock:
+                    if kind == "count":
+                        out = _containers.count_program_batch(
+                            sig, csig, flats)
+                    else:
+                        out = [_containers.plane_program(sig, csig, flat)
+                               for flat in flats]
+                launched.append((kind, chunk, out))
+        return self._copy_to_host(launched)
+
+    def _copy_to_host(self, launched):
+        """Enqueue the device->host copy of every launched result: the
+        counts into one pinned int64 buffer, the planes into one pinned
+        [n, S, W] buffer, and one event behind them. On the CPU the
+        buffers are the results' own copies and there is no event."""
+        cuda = self.device.type == "cuda"
+        n_counts = sum(len(chunk) for kind, chunk, _ in launched
+                       if kind == "count")
+        planes = [p for kind, _, out in launched if kind != "count"
+                  for p in out]
+        counts_h = torch.empty((n_counts,), dtype=torch.int64,
+                               pin_memory=cuda)
+        planes_h = None
+        if planes:
+            planes_h = torch.empty((len(planes), *planes[0].shape),
+                                   dtype=torch.int32, pin_memory=cuda)
+        i = j = 0
+        for kind, chunk, out in launched:
+            if kind == "count":
+                counts_h[i:i + len(chunk)].copy_(out, non_blocking=cuda)
+                i += len(chunk)
+            else:
+                for plane in out:
+                    planes_h[j].copy_(plane, non_blocking=cuda)
+                    j += 1
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return [(kind, chunk) for kind, chunk, _ in launched], counts_h, \
+            planes_h, event
+
+    def resolve_query_batch(self, handle):
+        """Wait for the ONE copy `launch_query_batch` enqueued and split
+        it. Returns {item position: (result, batch size)}: count results
+        are exact Python ints, plane results host [S, W] uint32 arrays
+        (row j = the j-th shard the stacks were gathered over)."""
+        launched, counts_h, planes_h, event = handle
+        if event is not None:
+            event.synchronize()
+        with self._lock:
+            self.batch_fetches += 1
+        counts = counts_h.tolist()
+        planes = None if planes_h is None \
+            else planes_h.numpy().view(np.uint32)
+        results = {}
+        i = j = 0
+        for kind, chunk in launched:
+            for pos in chunk:
+                if kind == "count":
+                    results[pos] = (counts[i], len(chunk))
+                    i += 1
+                else:
+                    results[pos] = (planes[j], len(chunk))
+                    j += 1
+        return results
+
     # -- public entry points -------------------------------------------------
 
     def _gather(self, idx, call, shards):
@@ -654,7 +979,9 @@ class StackedEvaluator:
         sig, stacks = gathered
         with self._lock:
             self.dispatches += 1
-        return self._count_fn(sig, stacks)
+        # group commit: concurrent Counts fuse into one launch per group
+        # and one fetch (see _batched_count)
+        return self._batched_count(sig, stacks)
 
     def filter_stack(self, idx, call, shards):
         """Materialize a bitmap call tree as one [S, W] device stack.
@@ -714,7 +1041,7 @@ class StackedEvaluator:
                     torch.cuda.current_stream(self.device).synchronize()
             pending.append((chunk, counts))
         if pending:
-            vals = torch.cat([c for _, c in pending]).cpu().tolist()
+            vals = self._fetch(torch.cat([c for _, c in pending])).tolist()
             k = 0
             for chunk, _ in pending:
                 for row_id in chunk:
@@ -759,8 +1086,9 @@ class StackedEvaluator:
                 with self._dispatch_lock:
                     counts = _pairwise_kernel(a_stack, b_stack, filt)
                 # ONE host fetch for the whole [tile, tile] matrix (it
-                # also bounds transient tiles' device memory)
-                totals = counts.cpu().numpy()
+                # also bounds transient tiles' device memory), shared with
+                # concurrent queries through the group commit
+                totals = self._fetch(counts)
                 with self._lock:
                     self.pairwise_syncs += 1
                 for x, y in zip(*np.nonzero(totals)):
@@ -797,7 +1125,7 @@ class StackedEvaluator:
             self.dispatches += 1
         with self._dispatch_lock:
             pos, neg, count = bsi_plane_counts(planes, sign, exists, filt)
-        vals = torch.cat([pos, neg, count.reshape(1)]).tolist()
+        vals = self._fetch(torch.cat([pos, neg, count.reshape(1)])).tolist()
         total = 0
         for i in range(depth):
             total += (vals[i] - vals[depth + i]) << i
@@ -839,8 +1167,8 @@ class StackedEvaluator:
             final = torch.where(use_neg, f_neg, f_pos)
             count = _row_counts_kernel(final.reshape(1, -1))
             flags = torch.stack([has_pos | has_neg, use_neg])
-        vals = torch.cat([flags.to(torch.int64), bits.to(torch.int64),
-                          count]).tolist()
+        vals = self._fetch(torch.cat([flags.to(torch.int64),
+                                      bits.to(torch.int64), count])).tolist()
         if not vals[0]:
             return None, 0
         mag = sum(b << i for i, b in enumerate(vals[2:-1]))

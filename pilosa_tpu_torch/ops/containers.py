@@ -44,7 +44,8 @@ from .count_blocks import (
     count_and_blocks,
     count_blocks,
 )
-from .count_expr import count_expr, popcount_total, tree_eval
+from .count_expr import count_expr, count_expr_batch, popcount_total, \
+    tree_eval
 
 __all__ = [
     "BLOCK_WORDS",
@@ -140,6 +141,12 @@ class Container:
         if self.kind == "dense":
             return ("dense",)
         return (self.kind, self.shape[0])
+
+    @property
+    def gsig(self):
+        """Grouping signature of a batch member: the kind and the exact
+        shape of every component (the TPU package's `gsig`)."""
+        return (self.kind,) + tuple(tuple(a.shape) for a in self.arrays)
 
 
 def kind_of(arrays):
@@ -495,6 +502,26 @@ def _pure_intersect_leaves(sig):
     return out
 
 
+def _count_route(sig, conts):
+    """The strategy `count_program` takes for one tree over unflattened
+    containers: "sparse" or "rle" (a single compressed leaf), "sparse_and"
+    (strategy 2), "rle_and" (strategy 3), or "k1" — one K1 launch over the
+    densified tree (a single dense leaf, or strategy 4)."""
+    if sig[0] == "leaf":
+        kind = conts[sig[1]][0]
+        return "k1" if kind == "dense" else kind
+    leaf_ids = _pure_intersect_leaves(sig)
+    if leaf_ids is not None and len(leaf_ids) >= 2:
+        kinds = {conts[i][0] for i in leaf_ids}
+        if kinds == {"sparse"}:
+            return "sparse_and"
+        if kinds == {"rle"} and len(leaf_ids) == 2:
+            a, b = conts[leaf_ids[0]], conts[leaf_ids[1]]
+            if a[1][0].shape[0] * b[1][0].shape[0] <= MAX_RLE_PAIR:
+                return "rle_and"
+    return "k1"
+
+
 def count_program(sig, csig, flat):
     """Exact int64 count (0-d tensor) of one tree over flattened
     container args, by the first strategy that applies:
@@ -512,21 +539,42 @@ def count_program(sig, csig, flat):
     conts = unflatten(csig, flat)
     if sig[0] == "leaf":
         return _count_container(conts[sig[1]])
+    route = _count_route(sig, conts)
+    if route == "k1":
+        return count_expr(sig, [to_dense(c) for c in conts])
     leaf_ids = _pure_intersect_leaves(sig)
-    if leaf_ids is not None and len(leaf_ids) >= 2:
-        kinds = {conts[i][0] for i in leaf_ids}
-        if kinds == {"sparse"}:
-            acc_ids, acc_blocks = conts[leaf_ids[0]][1]
-            for i in leaf_ids[1:-1]:
-                acc_blocks = sparse_intersect_blocks(
-                    acc_ids, acc_blocks, *conts[i][1])
-            return count_and_blocks(acc_ids, acc_blocks,
-                                    *conts[leaf_ids[-1]][1])
-        if kinds == {"rle"} and len(leaf_ids) == 2:
-            a, b = conts[leaf_ids[0]], conts[leaf_ids[1]]
-            if a[1][0].shape[0] * b[1][0].shape[0] <= MAX_RLE_PAIR:
-                return rle_intersect(*a[1], *b[1])
-    return count_expr(sig, [to_dense(c) for c in conts])
+    if route == "sparse_and":
+        acc_ids, acc_blocks = conts[leaf_ids[0]][1]
+        for i in leaf_ids[1:-1]:
+            acc_blocks = sparse_intersect_blocks(
+                acc_ids, acc_blocks, *conts[i][1])
+        return count_and_blocks(acc_ids, acc_blocks,
+                                *conts[leaf_ids[-1]][1])
+    return rle_intersect(*conts[leaf_ids[0]][1], *conts[leaf_ids[1]][1])
+
+
+def count_program_batch(sig, csig, flats):
+    """[B] int64 counts of B trees of one signature, each over its own
+    flattened container args, equal to `count_program` member by member.
+    A lone member is `count_program`; otherwise the members whose count
+    ends in K1 are counted by ONE launch of K1's batched entry
+    (`count_expr_batch`), the others (K2, the run-length sums) by
+    `count_program` one by one."""
+    if len(flats) == 1:
+        return count_program(sig, csig, flats[0]).reshape(1)
+    members = [unflatten(csig, flat) for flat in flats]
+    k1 = [i for i, conts in enumerate(members)
+          if _count_route(sig, conts) == "k1"]
+    out = [None if i in k1 else count_program(sig, csig, flats[i])
+           for i in range(len(members))]
+    if k1:
+        vals = count_expr_batch(
+            sig, [[to_dense(c) for c in members[i]] for i in k1])
+        if len(k1) == len(members):
+            return vals
+        for j, i in enumerate(k1):
+            out[i] = vals[j]
+    return torch.stack(out)
 
 
 def plane_program(sig, csig, flat):

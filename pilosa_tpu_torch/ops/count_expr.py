@@ -17,6 +17,12 @@ Stacks are uint32 words held as int32 tensors (PyTorch lacks `~` and
 `count_expr` is the wrapper: a CPU tensor goes to the plain version
 `count_expr_reference`; a CUDA tensor goes to the hand-written kernel
 `csrc/count_expr.cu` (see that file for its design and bound) or raises.
+
+`count_expr_batch` is K1's batched entry: B members of one signature,
+each over its own leaves, counted in one launch into a [B] int64 tensor
+(the counterpart of the TPU package's vmapped batch count programs,
+pilosa_tpu/exec/stacked.py:1424, :1620). Its plain version is
+`count_expr_batch_reference`.
 """
 
 import ctypes
@@ -33,6 +39,8 @@ __all__ = [
     "chain_signature",
     "compile_program",
     "count_expr",
+    "count_expr_batch",
+    "count_expr_batch_reference",
     "count_expr_reference",
     "count_expr_stack",
     "fit_tree",
@@ -351,3 +359,92 @@ def count_expr_stack(first, rest, ops):
     """`count_expr_stack` of the TPU package: Σ popcount of the chain
     `ops` folded left-to-right over (first, *rest)."""
     return count_expr(chain_signature(1 + len(rest), ops), [first, *rest])
+
+
+def count_expr_batch_reference(sig, stacks_per_member):
+    """The plain version of K1's batched entry: one `count_expr_reference`
+    per member, as a [B] int64 tensor."""
+    return torch.stack([count_expr_reference(sig, stacks)
+                        for stacks in stacks_per_member])
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_kernel_fn():
+    """The batched C entry point of csrc/count_expr.cu."""
+    fn = cuda_build.load("count_expr").count_expr_batch_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    return fn
+
+
+def _launch_batch(sig, members):
+    fn = _batch_kernel_fn()
+    code = compile_program(sig)
+    first = members[0][0]
+    for stacks in members:
+        for s in stacks:
+            if not s.is_contiguous():
+                raise ValueError("leaf stacks must be contiguous")
+            if s.data_ptr() % 16:
+                raise ValueError("leaf stacks must be 16-byte aligned")
+    if first.shape[1] % 4:
+        raise ValueError("words per shard must be a multiple of 4")
+    dev = first.device
+    # [B, n] leaf pointers, copied from pinned memory without a wait: the
+    # host allocator keeps the pinned rows until the copy has run
+    table = torch.tensor([[s.data_ptr() for s in stacks]
+                          for stacks in members],
+                         dtype=torch.int64).pin_memory().to(
+                             dev, non_blocking=True)
+    out = torch.empty((len(members),), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(code, len(code), table.data_ptr(), len(members[0]),
+             len(members), first.numel(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"count_expr_batch kernel launch failed: CUDA error {err}")
+    cuda_build.count_launch(count_expr_batch)
+    return out
+
+
+def count_expr_batch(sig, stacks_per_member):
+    """[B] int64 tensor of Σ popcount(tree(stacks)) for each member's
+    stacks, all members over one signature `sig`. `fit_tree` runs per
+    member first, and every member must come out with the same fitted
+    signature. Every member's stacks must share one [S, W] shape, dtype
+    and device. CPU stacks take the plain version; CUDA stacks launch the
+    batched kernel once (an empty stack returns zeros without a
+    launch)."""
+    members = [_check_stacks(sig, stacks) for stacks in stacks_per_member]
+    if not members:
+        raise ValueError("count_expr_batch needs at least one member")
+    first = members[0][0]
+    for stacks in members:
+        s = stacks[0]
+        if s.shape != first.shape or s.dtype != first.dtype \
+                or s.device != first.device:
+            raise ValueError(
+                f"members' leaf stacks must share one [S, W] shape, dtype "
+                f"and device: {tuple(s.shape)} {s.dtype} {s.device} vs "
+                f"{tuple(first.shape)} {first.dtype} {first.device}")
+    fitted = [fit_tree(sig, stacks) for stacks in members]
+    fsig = fitted[0][0]
+    if any(f[0] != fsig or len(f[1]) != len(fitted[0][1]) for f in fitted):
+        raise AssertionError(
+            "members of one signature fitted to different trees")
+    members = [f[1] for f in fitted]
+    dev = first.device
+    if dev.type == "cpu":
+        return count_expr_batch_reference(fsig, members)
+    if dev.type != "cuda":
+        raise ValueError(f"count_expr_batch: unsupported device {dev}")
+    if first.shape[0] == 0:
+        return torch.zeros((len(members),), dtype=torch.int64, device=dev)
+    return _launch_batch(fsig, members)
+
+
+#: launches of the batched entry since the last reset (read by
+#: chip_smoke.py)
+count_expr_batch.launches = 0

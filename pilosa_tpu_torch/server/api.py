@@ -1,5 +1,13 @@
 """API facade (reference: api.go): between the HTTP transport and the
-holder/executor. Single node; wire shapes follow the TPU package's."""
+holder/executor. Single node; wire shapes follow the TPU package's.
+
+With a coalesce window (`API(coalesce_window=...)`, `server
+--coalesce-window`), concurrent batchable queries fuse into batched
+launches through the QueryCoalescer; window 0, the default, builds none
+and every query takes the per-query path."""
+
+import random
+import threading
 
 from ..core import FieldOptions
 from ..core.field import (
@@ -27,6 +35,29 @@ class NotFoundError(ApiError):
 
 class ConflictError(ApiError):
     status = 409
+
+
+class ServiceUnavailableError(ApiError):
+    """503: the node cannot serve right now. Carries Retry-After so
+    clients back off."""
+    status = 503
+
+    def __init__(self, message, retry_after=None):
+        super().__init__(message)
+        if retry_after is not None:
+            self.headers = {
+                "Retry-After": str(max(1, int(round(retry_after))))}
+
+
+def shed_reject(site, message, retry_after):
+    """THE 503 rejection path of a load-shedding site: one jitter rule
+    (x1.0-1.25, so synchronized client retries decorrelate) and the
+    `X-Pilosa-Shed` header naming the site, which tells a shedding node
+    from a dead one."""
+    ra = max(1.0, float(retry_after)) * random.uniform(1.0, 1.25)
+    err = ServiceUnavailableError(message, retry_after=ra)
+    err.headers["X-Pilosa-Shed"] = site
+    raise err
 
 
 def field_options_from_json(opts):
@@ -93,21 +124,250 @@ def result_to_json(result):
     raise ApiError(f"unencodable result type {type(result)!r}")
 
 
-class API:
-    """Holds the holder and the port's Executor on `device`."""
+class QueryCoalescer:
+    """Folds concurrent batchable queries into batched launches
+    (exec/stacked.launch_query_batch), so the per-query launch and fetch
+    are paid once per batch instead of once per query.
 
-    def __init__(self, holder, device=None):
+    Lifecycle: HTTP handler threads submit() parsed single-call queries
+    and block on a per-query event; one lazily started daemon drain
+    thread owns the pipeline. On an idle→busy transition it holds the
+    batch open for `window` seconds so batchmates arriving within the
+    window fuse; while the pipeline is busy the launch+resolve of the
+    previous batch IS the accumulation window (no extra sleep). The loop
+    is double-buffered: batch N+1 is launched (Executor.launch_batch)
+    BEFORE batch N's results are waited for (resolve_batch), so batch
+    N's copy to the host overlaps batch N+1's launch.
+
+    Overload: a queue past `max_queue` rejects with 503 + Retry-After —
+    never an unbounded wait."""
+
+    def __init__(self, api, window, max_queue=256):
+        self.api = api
+        self.window = float(window)
+        self.max_queue = int(max_queue)
+        self._cond = threading.Condition()
+        self._queue = []  # member dicts, FIFO
+        self._thread = None
+        self._closed = False
+        # GET /debug/batching
+        self.batches = 0            # batched launches issued
+        self.coalesced = 0          # queries that rode one
+        self.rejected = 0           # overload 503s
+        self.max_occupancy = 0      # largest single batch seen
+        self.batch_hist = {}        # occupancy -> count
+
+    def submit(self, index_name, query):
+        """Enqueue one parsed batchable query and wait for its slot of the
+        batched result. Returns (results, batch_size); re-raises the
+        member's own error (a batchmate's failure is not ours)."""
+        m = {"index": index_name, "query": query, "event": threading.Event(),
+             "results": None, "error": None, "batch": 0}
+        with self._cond:
+            if self._closed:
+                raise ServiceUnavailableError(
+                    "query coalescer shut down", retry_after=1)
+            if len(self._queue) >= self.max_queue:
+                self.rejected += 1
+                shed_reject(
+                    "coalesce",
+                    f"coalesce queue full ({self.max_queue}); shed load "
+                    "or raise --coalesce-max-queue", 1)
+            self._queue.append(m)
+            if self._thread is None:
+                self._start_thread_locked()
+            self._cond.notify()
+        # Bounded waits + a liveness check: the drain loop delivers every
+        # member's event even on internal errors (its whole body is
+        # exception-guarded), but if the thread is ever lost anyway, fail
+        # this handler fast instead of blocking it forever, and leave the
+        # coalescer usable for the next submit.
+        while not m["event"].wait(0.5):
+            with self._cond:
+                t = self._thread
+                if t is not None and t.is_alive():
+                    continue
+                if m in self._queue:
+                    self._queue.remove(m)
+                self._thread = None
+                if self._queue and not self._closed:
+                    self._start_thread_locked()
+            if not m["event"].is_set():
+                m["error"] = ServiceUnavailableError(
+                    "coalescer drain thread died; retry", retry_after=1)
+            break
+        if m["error"] is not None:
+            raise m["error"]
+        return m["results"], m["batch"]
+
+    def _start_thread_locked(self):
+        self._thread = threading.Thread(
+            target=self._drain_loop, daemon=True, name="query-coalescer")
+        self._thread.start()
+
+    def close(self):
+        """Shut down the pipeline: wake the drain thread, deliver
+        in-flight batches, fail queued members with 503 so blocked
+        handler threads return instead of hanging past server shutdown,
+        and refuse new submits. Idempotent."""
+        with self._cond:
+            if self._closed:
+                return
+            self._closed = True
+            t = self._thread
+            self._cond.notify_all()
+        if t is not None and t.is_alive():
+            t.join(timeout=5)
+        # no drain thread (never started, or already dead): fail the
+        # leftovers here; otherwise the loop's shutdown path did it
+        self._fail(self._pop_members(), ServiceUnavailableError(
+            "query coalescer shut down", retry_after=1))
+
+    @staticmethod
+    def _fail(members, exc):
+        for m in members:
+            if not m["event"].is_set():
+                m["error"] = exc
+                m["event"].set()
+
+    def stats(self):
+        with self._cond:
+            return {
+                "enabled": True,
+                "window_seconds": self.window,
+                "max_queue": self.max_queue,
+                "queue_depth": len(self._queue),
+                "batches": self.batches,
+                "coalesced_queries": self.coalesced,
+                "rejected": self.rejected,
+                "max_occupancy": self.max_occupancy,
+                "occupancy_hist": dict(sorted(self.batch_hist.items())),
+            }
+
+    def _pop_members(self):
+        """Drain everything queued right now (caller holds no lock)."""
+        with self._cond:
+            members, self._queue = self._queue, []
+            return members
+
+    def _drain_loop(self):
+        ex = self.api.batch_executor()
+        pending = []  # [(handle, state, members)] launched, unresolved
+        while True:
+            with self._cond:
+                while not self._queue and not pending \
+                        and not self._closed:
+                    self._cond.wait()
+                if self._closed:
+                    break
+            # Everything below is exception-guarded: an error ANYWHERE in
+            # the iteration (grouping, counters — not just the
+            # launch/resolve calls, which guard themselves) is delivered
+            # to every affected member and the loop keeps serving. An
+            # unguarded escape would kill the singleton thread and wedge
+            # every future submit.
+            members = []
+            launched = []
+            try:
+                was_idle = not pending
+                members = self._pop_members()
+                if members and was_idle and self.window > 0:
+                    # idle→busy: hold the window open so concurrent
+                    # arrivals fuse into this batch; close() cuts the
+                    # wait short
+                    with self._cond:
+                        self._cond.wait_for(lambda: self._closed,
+                                            timeout=self.window)
+                    members += self._pop_members()
+                for index_name, group in self._group(members).items():
+                    try:
+                        handle, state = ex.launch_batch(
+                            index_name, [m["query"] for m in group])
+                    except Exception as exc:  # noqa: BLE001 — deliver
+                        self._fail(group, exc)
+                        continue
+                    with self._cond:
+                        self.batches += 1
+                        self.coalesced += len(group)
+                        n = len(group)
+                        self.max_occupancy = max(self.max_occupancy, n)
+                        self.batch_hist[n] = self.batch_hist.get(n, 0) + 1
+                    launched.append((handle, state, group))
+                # double buffer: batch N+1 is in flight; NOW resolve N
+                for handle, state, group in pending:
+                    self._resolve(ex, handle, state, group)
+                pending = launched
+            except Exception as exc:  # noqa: BLE001 — deliver, don't die
+                self._fail(members, exc)
+                for _, _, group in pending + launched:
+                    self._fail(group, exc)
+                pending = []
+        # closed: deliver in-flight batches (already launched — the
+        # results are real), then fail whatever is still queued
+        for handle, state, group in pending:
+            self._resolve(ex, handle, state, group)
+        self._fail(self._pop_members(), ServiceUnavailableError(
+            "query coalescer shut down", retry_after=1))
+
+    @staticmethod
+    def _group(members):
+        by_index = {}
+        for m in members:
+            by_index.setdefault(m["index"], []).append(m)
+        return by_index
+
+    @staticmethod
+    def _resolve(ex, handle, state, group):
+        try:
+            outs = ex.resolve_batch(handle, state)
+        except Exception as exc:  # noqa: BLE001 — deliver, don't die
+            for m in group:
+                m["error"] = exc
+                m["event"].set()
+            return
+        for m, (results, error, bsize) in zip(group, outs):
+            m["results"] = results
+            m["error"] = error
+            m["batch"] = bsize
+            m["event"].set()
+
+
+class API:
+    """Holds the holder and the port's Executor on `device`, and the
+    query coalescer when `coalesce_window` > 0."""
+
+    def __init__(self, holder, device=None, coalesce_window=0.0,
+                 coalesce_max_queue=256):
         self.holder = holder
         self.executor = Executor(holder, device=device)
+        # window 0 — the default — builds no coalescer: every query takes
+        # the per-query path
+        self.coalesce_window = float(coalesce_window or 0.0)
+        self.coalesce_max_queue = int(coalesce_max_queue)
+        self._coalescer = None
+        if self.coalesce_window > 0:
+            self._coalescer = QueryCoalescer(
+                self, self.coalesce_window, self.coalesce_max_queue)
 
     @property
     def device(self):
         return self.executor.device
 
+    def batch_executor(self):
+        """The executor the coalescer drains into."""
+        return self.executor
+
     def query(self, index_name, pql, shards=None, options=None):
         """(reference: api.Query api.go:135)"""
         if self.holder.index(index_name) is None:
             raise NotFoundError(f"index not found: {index_name}")
+        # coalescer routing: batchable single-call reads with default
+        # options fuse with concurrent arrivals into one batched launch;
+        # ineligible queries (and window 0) take the per-query path
+        if self._coalescer is not None:
+            routed = self._try_coalesce(index_name, pql, shards, options)
+            if routed is not None:
+                return routed[0]
         try:
             query = parse(pql) if isinstance(pql, str) else pql
             return self.executor.execute(
@@ -117,6 +377,68 @@ class API:
             raise
         except Exception as e:
             raise ApiError(str(e)) from e
+
+    def _try_coalesce(self, index_name, pql, shards, options):
+        """Route one query through the coalescer when eligible. Returns a
+        1-tuple (results,) on the coalesced path, or None to fall through
+        to the per-query path (an ineligible query — or a parse error,
+        which the per-query path re-raises as an ApiError)."""
+        if shards is not None or not isinstance(pql, str):
+            return None
+        o = options
+        if o is not None and (o.remote or o.exclude_columns
+                              or o.exclude_row_attrs):
+            return None
+        try:
+            query = parse(pql)
+        except Exception:  # noqa: BLE001 — the per-query path reports it
+            return None
+        call = query.calls[0] if len(query.calls) == 1 else None
+        if call is None or call.writes() \
+                or call.name not in self.executor.BATCHABLE_CALLS:
+            return None
+        try:
+            results, _ = self._coalescer.submit(index_name, query)
+        except ApiError:
+            raise
+        except Exception as e:
+            raise ApiError(str(e)) from e
+        return (results,)
+
+    def query_batch(self, index_name, pqls, shards=None):
+        """Execute a list of PQL queries as batched launches (the POST
+        /index/{i}/query-batch route, the coalescer's executor path).
+        Returns (results, error, batch_size) per query in request order —
+        per-query error isolation, like the coalescer's."""
+        if self.holder.index(index_name) is None:
+            raise NotFoundError(f"index not found: {index_name}")
+        return self.executor.execute_batch(
+            index_name, list(pqls), shards=shards)
+
+    def batching_stats(self):
+        """GET /debug/batching: the coalescer's occupancy and queue stats
+        plus the batched-launch counters of the stacked evaluator."""
+        if self._coalescer is not None:
+            co = self._coalescer.stats()
+        else:
+            co = {"enabled": False,
+                  "window_seconds": self.coalesce_window,
+                  "max_queue": self.coalesce_max_queue}
+        st = self.executor.stacked_stats()
+        return {
+            "coalescer": co,
+            "batch_dispatches": st["batch_dispatches"],
+            "batched_queries": st["batched_queries"],
+            "count_batches": st["count_batches"],
+            "count_batched_queries": st["count_batched_queries"],
+        }
+
+    def close(self):
+        """Stop the query coalescer: its blocked waiters get a 503
+        instead of hanging on a daemon thread that dies with the process.
+        Idempotent; a deployment without a coalescer no-ops."""
+        if self._coalescer is not None:
+            self._coalescer.close()
 
     def create_index(self, name, options=None):
         from ..core.holder import HolderError

@@ -59,11 +59,14 @@ class PilosaHTTPServer:
                   self._post_query,
                   args=("shards", "columnAttrs", "excludeRowAttrs",
                         "excludeColumns")),
+            Route("POST", r"/index/(?P<index>[^/]+)/query-batch",
+                  self._post_query_batch, args=("shards",)),
             Route("POST",
                   r"/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import",
                   self._post_import, args=("clear",)),
             Route("GET", r"/schema", self._get_schema),
             Route("GET", r"/status", self._get_status),
+            Route("GET", r"/debug/batching", self._get_debug_batching),
         ]
         self._httpd = None
         self._thread = None
@@ -119,6 +122,41 @@ class PilosaHTTPServer:
         results = self.api.query(req.params["index"], pql, shards=shards,
                                  options=options)
         return {"results": [result_to_json(r) for r in results]}
+
+    def _post_query_batch(self, req):
+        """Batched query endpoint: a JSON list of PQL strings executed as
+        batched launches (the coalescer's executor path). Body:
+        {"queries": ["Count(Row(f=1))", ...]} — or a bare JSON list.
+        Per-query error isolation: each slot of "results" is either
+        {"results": [...], "batch": n} or {"error": "..."}."""
+        try:
+            body = req.json()
+        except ValueError as e:
+            raise ApiError(f"invalid JSON body: {e}") from e
+        queries = body.get("queries") if isinstance(body, dict) else body
+        if not isinstance(queries, list) \
+                or not all(isinstance(q, str) for q in queries):
+            raise ApiError(
+                'body must be {"queries": [<pql>, ...]} or a JSON list '
+                "of PQL strings")
+        shards = None
+        if "shards" in req.query:
+            shards = [int(s) for s in req.query["shards"][0].split(",") if s]
+        out = []
+        for results, error, bsize in self.api.query_batch(
+                req.params["index"], queries, shards=shards):
+            if error is not None:
+                out.append({"error": str(error)})
+            else:
+                out.append({"results": [result_to_json(r)
+                                        for r in results],
+                            "batch": bsize})
+        return {"results": out}
+
+    def _get_debug_batching(self, req):
+        """Coalescer queue depth / occupancy histogram / rejects plus the
+        batched-launch counters."""
+        return self.api.batching_stats()
 
     def _post_import(self, req):
         clear = req.query.get("clear", ["false"])[0] == "true"
@@ -188,6 +226,7 @@ class PilosaHTTPServer:
         length = int(handler.headers.get("Content-Length", 0))
         body = handler.rfile.read(length) if length else b""
         status, payload = 404, {"error": "not found"}
+        extra_headers = None  # e.g. Retry-After on a 503
         for route in self.routes:
             if route.method != handler.command:
                 continue
@@ -206,6 +245,7 @@ class PilosaHTTPServer:
                     Request(m.groupdict(), query, body))
             except ApiError as e:
                 status, payload = e.status, {"error": str(e)}
+                extra_headers = e.headers
             except Exception as e:  # internal error
                 status, payload = 500, {"error": str(e)}
             break
@@ -213,5 +253,7 @@ class PilosaHTTPServer:
         handler.send_response(status)
         handler.send_header("Content-Type", "application/json")
         handler.send_header("Content-Length", str(len(data)))
+        for name, value in (extra_headers or {}).items():
+            handler.send_header(name, value)
         handler.end_headers()
         handler.wfile.write(data)

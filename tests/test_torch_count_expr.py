@@ -136,3 +136,68 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="no stack"):
         k1.count_expr(("&", (("leaf", 0), ("leaf", 1))), [a])
     assert k1.count_expr.launches == 0  # CPU tensors never launch
+
+
+# --------------------------------------------------- K1's batched entry
+
+
+def _jax_count(sig, planes):
+    """The TPU package's count of one member: Pallas `count_expr_stack`
+    in interpret mode for a chain, `_tree_eval` + popcount otherwise."""
+    acc = StackedEvaluator._tree_eval(sig, [jax.numpy.asarray(p)
+                                            for p in planes])
+    return int(np.sum(np.asarray(jax.lax.population_count(acc)),
+                      dtype=np.int64))
+
+
+BATCH_SIGS = {
+    "chain_and": k1.chain_signature(2, "&"),
+    "chain_mixed": k1.chain_signature(4, "|-^"),
+    "tree": NESTED[0],
+    "leaf": ("leaf", 0),
+    # 17 slots: past K1's limit, fitted per member first
+    "union_17": ("|", tuple(("leaf", i) for i in range(17))),
+}
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 5, 17])
+@pytest.mark.parametrize("name", sorted(BATCH_SIGS))
+def test_batch_reference_matches_jax_per_member(name, b):
+    sig = BATCH_SIGS[name]
+    n = max(k1._leaf_slots(sig, {})) + 1
+    rng = np.random.default_rng(b * 31 + n)
+    pool = [_stack(rng, 3) for _ in range(n + 2)]
+    # members share some leaves and not others
+    members = [[pool[(q + i) % len(pool)] for i in range(n)]
+               for q in range(b)]
+    want = [_jax_count(sig, m) for m in members]
+    if name == "chain_and":
+        want_pallas = [int(pk.count_expr_stack(m[0], m[1:], ("&",)))
+                       for m in members]
+        assert want_pallas == want
+    stacks = [[_t(p) for p in m] for m in members]
+    ref = k1.count_expr_batch_reference(sig, stacks)
+    got = k1.count_expr_batch(sig, stacks)
+    assert ref.dtype == got.dtype == torch.int64
+    assert ref.shape == got.shape == (b,)
+    assert ref.tolist() == got.tolist() == want
+    assert k1.count_expr_batch.launches == 0  # CPU tensors never launch
+
+
+def test_batch_empty_stacks_and_mismatched_members():
+    sig = k1.chain_signature(2, "&")
+    empty = torch.zeros((0, WORDS_PER_ROW), dtype=torch.int32)
+    assert k1.count_expr_batch(sig, [[empty, empty]] * 3).tolist() \
+        == [0, 0, 0]
+    a = torch.zeros((2, WORDS_PER_ROW), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shape"):
+        k1.count_expr_batch(sig, [[a, a], [a[:1], a[:1]]])
+    with pytest.raises(ValueError, match="shape"):
+        k1.count_expr_batch(sig, [[a, a], [a, a[:1]]])
+    with pytest.raises(TypeError, match="dtype"):
+        k1.count_expr_batch(sig, [[a, a], [a.to(torch.int64)] * 2])
+    with pytest.raises(ValueError, match="no stack"):
+        k1.count_expr_batch(sig, [[a, a], [a]])
+    with pytest.raises(ValueError, match="at least one member"):
+        k1.count_expr_batch(sig, [])
+    assert k1.count_expr_batch.launches == 0

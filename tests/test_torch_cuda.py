@@ -1,5 +1,5 @@
-"""K1, K2, K3, K4 and K5 on the card: each CUDA kernel against its plain
-PyTorch version.
+"""K1 (and its batched entry), K2, K3, K4 and K5 on the card: each CUDA
+kernel against its plain PyTorch version.
 
 Imports only torch and the port, so it runs on a machine without JAX:
 
@@ -96,6 +96,96 @@ def test_tree_beyond_limits_one_launch(cuda, name):
     torch.cuda.synchronize()
     assert int(got) == int(k1.popcount_total(k1.tree_eval(sig, stacks)))
     assert k1.count_expr.launches == before + 1
+
+
+def _members(sig, b, s, device, shared):
+    """b members of `sig`, each a list of leaf stacks from one pool:
+    with `shared`, member q takes pool leaves q.. (neighbours share
+    leaves), else every member has leaves of its own."""
+    n = max(k1._leaf_slots(sig, {})) + 1
+    size = n + b if shared else n * b
+    pool = _stacks(size, s, seed=b * 100 + s + n, device=device)
+    if shared:
+        return [[pool[(q + i) % size] for i in range(n)] for q in range(b)]
+    return [pool[q * n:(q + 1) * n] for q in range(b)]
+
+
+BATCH_SIGS = SIGS + [BEYOND_LIMITS["union_17_leaves"][0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 17, 32, 64])
+@pytest.mark.parametrize("sig", BATCH_SIGS,
+                         ids=[str(i) for i in range(len(BATCH_SIGS))])
+def test_batch_kernel_matches_plain(cuda, sig, b, shared):
+    """K1's batched entry against its plain version: chain and tree
+    programs, a tree past K1's limits, members that share leaves and
+    members that do not; one launch per batch."""
+    members = _members(sig, b, 10, cuda, shared)
+    before = k1.count_expr_batch.launches
+    got = k1.count_expr_batch(sig, members)
+    torch.cuda.synchronize()
+    assert k1.count_expr_batch.launches == before + 1
+    want = k1.count_expr_batch_reference(sig, members)
+    assert got.dtype == torch.int64 and got.shape == (b,)
+    assert got.tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+def test_batch_kernel_edge_words_exact(cuda):
+    """Every word all ones: each member's total is S·W·32, no
+    accumulation overflows."""
+    ones = torch.full((33, WORDS_PER_ROW), -1, dtype=torch.int32,
+                      device=cuda)
+    got = k1.count_expr_batch(k1.chain_signature(2, "&"),
+                              [[ones, ones]] * 5)
+    torch.cuda.synchronize()
+    assert got.tolist() == [33 * WORDS_PER_ROW * 32] * 5
+
+
+@pytest.mark.cuda
+def test_batch_kernel_two_streams(cuda):
+    """Back-to-back batches on two streams, unsynchronised: each result
+    equals the plain version."""
+    sigs = [SIGS[0], SIGS[3], SIGS[2]]
+    inputs = [(sig, _members(sig, b, 7, cuda, shared=True))
+              for sig, b in zip(sigs, (4, 17, 3))]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    before = k1.count_expr_batch.launches
+    got = []
+    for rnd in range(4):
+        for i, (sig, members) in enumerate(inputs):
+            with torch.cuda.stream(streams[(i + rnd) % 2]):
+                got.append(k1.count_expr_batch(sig, members))
+    torch.cuda.synchronize()
+    assert k1.count_expr_batch.launches == before + 4 * len(inputs)
+    for k, out in enumerate(got):
+        sig, members = inputs[k % len(inputs)]
+        assert out.tolist() \
+            == k1.count_expr_batch_reference(sig, members).tolist()
+
+
+@pytest.mark.cuda
+def test_batch_kernel_empty_and_mismatched(cuda):
+    sig = k1.chain_signature(2, "&")
+    empty = torch.zeros((0, WORDS_PER_ROW), dtype=torch.int32, device=cuda)
+    before = k1.count_expr_batch.launches
+    out = k1.count_expr_batch(sig, [[empty, empty]] * 4)
+    assert out.device.type == "cuda" and out.tolist() == [0] * 4
+    assert k1.count_expr_batch.launches == before  # S = 0: no launch
+    a = _stacks(2, 3, seed=1, device=cuda)
+    with pytest.raises(ValueError, match="device"):
+        k1.count_expr_batch(sig, [a, [t.cpu() for t in a]])
+    with pytest.raises(ValueError, match="device"):
+        k1.count_expr_batch(sig, [a, [a[0], a[1].cpu()]])
+    base = torch.zeros(3 * WORDS_PER_ROW + 1, dtype=torch.int32,
+                       device=cuda)
+    odd = base[1:].view(3, WORDS_PER_ROW)
+    with pytest.raises(ValueError, match="aligned"):
+        k1.count_expr_batch(sig, [a, [odd, odd]])
+    assert k1.count_expr_batch.launches == before
 
 
 def _rows(r, t, seed, device):

@@ -214,8 +214,9 @@ def test_http_end_to_end(pair, tmp_path):
 
 def test_subprocess_loads_no_jax(tmp_path):
     """The port serves Counts over dense, block-sparse and run-length
-    leaves with neither JAX nor any pilosa_tpu module loaded (a
-    subprocess: this test process has JAX loaded already)."""
+    leaves, a query batch and a coalesced query with neither JAX nor any
+    pilosa_tpu module loaded (a subprocess: this test process has JAX
+    loaded already)."""
     code = f"""
 import sys
 from pilosa_tpu_torch.cli import start_server
@@ -235,6 +236,15 @@ for mode, want in (("sparse", "sparse"), ("rle", "rle"), ("dense", "dense")):
     kinds = {{containers.kind_of(e[1])
              for e in srv.api.executor._stacked._pools["leaf"].values()}}
     assert kinds == {{want}}, kinds
+from pilosa_tpu_torch.server.api import API
+out = srv.api.query_batch("i", ["Count(Row(f=1))", "Count(Row(f=2))",
+                                "Row(f=2)"])
+assert [(o[0], o[2]) for o in out[:2]] == [([3], 2), ([1], 2)], out
+assert [int(c) for c in out[2][0][0].columns()] == [2]
+capi = API(srv.holder, device="cpu", coalesce_window=0.001)
+assert capi.query("i", pql) == [1]
+assert capi.batching_stats()["coalescer"]["coalesced_queries"] == 1
+capi.close()
 srv.stop()
 assert "pilosa_tpu_torch.ops.count_blocks" in sys.modules
 bad = sorted(m for m in sys.modules
