@@ -116,6 +116,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1516,6 +1517,278 @@ def serve_topn_path(srv, k3, k4, tg, card):
             f"queries")
     log(f"serve: launches on the TopN/GroupBy path: K3 "
         f"{k3.row_counts.launches}, K4 {k4.pairwise_counts.launches}")
+    return row, col  # the Set's bit of index tg
+
+
+def http_raw(uri, method, path, body=None):
+    """(status, content type, body bytes) of one request; HTTP errors are
+    answers too."""
+    data = body if isinstance(body, (bytes, type(None))) else body.encode()
+    req = urllib.request.Request(uri + path, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.headers.get("Content-Type"), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def shift_plane(plane, n):
+    """Numpy Shift of one shard's plane: bits move n columns up, and
+    those past the shard's last column drop."""
+    bits = np.unpackbits(plane.view(np.uint8), bitorder="little")
+    out = np.zeros_like(bits)
+    if n < len(bits):
+        out[n:] = bits[:len(bits) - n]
+    return np.packbits(out, bitorder="little").view(np.uint32)
+
+
+def csv_lines(rows):
+    """The export's row,col lines of {row: sorted columns}."""
+    return [f"{r},{c}" for r in sorted(rows) for c in rows[r]]
+
+
+def plane_columns(plane, base):
+    bits = np.unpackbits(plane.view(np.uint8), bitorder="little")
+    return (np.nonzero(bits)[0] + base).tolist()
+
+
+def serve_pql_surface(srv, k1, k3, planes, comp, tg, set_at, tg_set, card):
+    """The remaining PQL calls and the public routes over index b (954
+    shards), index tg and a small keyed index, every answer against
+    numpy and every launch delta exact: Count(Shift) at n = 1, 33 (with
+    an Intersect) and 2^20 - 1, and an Options(shards) Count, one K1
+    launch each; MinRow/MaxRow on b's and tg's f, with and without a
+    filter, one K3 launch per row chunk walked and no K1; Store into a
+    new field and ClearRow, each read back by a Count; an import-roaring
+    into a new field; GET /export of b's f, shard 0; DELETE of the
+    stored field, re-create and import, then a Count; keyed import, Row,
+    TopN and export; row and column attributes with columnAttrs=true.
+    Only fields and indexes this phase makes are written or deleted."""
+    from pilosa_tpu_torch.roaring import Bitmap, serialize
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    F1, G1, G2 = planes[("f", 1)], planes[("g", 1)], planes[("g", 2)]
+    shard1, word1 = set_at  # the Count path's Set: bit 0, f=1
+    F1s = F1.copy()
+    F1s[word1] |= np.uint32(1)
+    # the compressed path's Set: bit 0 of the first clear word of f=10
+    # in shard N_SHARDS // 3
+    shard10 = N_SHARDS // 3
+    word10 = int(np.nonzero(comp[("f", 10)][shard10] == 0)[0][0])
+
+    def total(fn):
+        """Σ over index b's shards of popcount(fn(f=1 plane))."""
+        return (N_SHARDS - 1) * popcount(fn(F1)) + popcount(fn(F1s))
+
+    def query(index, pql, k1_step, k3_step, path_args=""):
+        before = (k1.count_expr.launches, k3.row_counts.launches)
+        t0 = time.perf_counter()
+        got = http(srv.uri, f"/index/{index}/query{path_args}", pql)
+        dt = time.perf_counter() - t0
+        moved = (k1.count_expr.launches - before[0],
+                 k3.row_counts.launches - before[1])
+        if moved != (k1_step, k3_step):
+            raise AssertionError(f"{pql[:60]}: launches (K1, K3) moved by "
+                                 f"{moved}, not {(k1_step, k3_step)}")
+        return got, dt
+
+    def check(index, pql, want, k1_step, k3_step):
+        got, dt = query(index, pql, k1_step, k3_step)
+        if got["results"][0] != want:
+            raise AssertionError(f"{pql[:60]}: {got['results'][0]} != {want}")
+        return dt
+
+    # Shift: one K1 launch over the transient shifted [S, W] leaf
+    shift_cases = [
+        ("Count(Shift(Row(f=1), n=1))",
+         total(lambda p: shift_plane(p, 1))),
+        ("Count(Intersect(Shift(Row(f=1), n=33), Row(g=1)))",
+         total(lambda p: shift_plane(p, 33) & G1)),
+        (f"Count(Shift(Row(f=1), n={SHARD_WIDTH - 1}))",
+         total(lambda p: shift_plane(p, SHARD_WIDTH - 1))),
+    ]
+    cold = {}
+    for pql, want in shift_cases:
+        cold[pql] = check("b", pql, want, 1, 0)
+        log(f"serve: {pql} over {N_SHARDS} shards = {want} (one K1 launch; "
+            f"first call {cold[pql] * 1e3:.1f} ms)")
+    pql = shift_cases[0][0]
+    warm = [check("b", pql, shift_cases[0][1], 1, 0) for _ in range(20)]
+    log(f"serve: {pql} over {N_SHARDS} shards on {card}: cold "
+        f"{cold[pql] * 1e3:.3f} ms, warm p50 "
+        f"{statistics.median(warm) * 1e3:.3f} ms over {len(warm)} queries")
+
+    # Options(shards): one K1 launch over 477-shard leaf stacks
+    half = N_SHARDS // 2
+    pql = (f"Options(Count(Intersect(Row(f=1), Row(g=1))), "
+           f"shards=[{', '.join(str(i) for i in range(half))}])")
+    dt = check("b", pql, half * popcount(F1 & G1), 1, 0)
+    log(f"serve: Options(Count(Intersect(Row(f=1), Row(g=1))), shards=[0.."
+        f"{half - 1}]) = {half * popcount(F1 & G1)} (one K1 launch, "
+        f"{dt * 1e3:.1f} ms)")
+
+    # MinRow/MaxRow: the rows in direction order, one K3 launch per row
+    # chunk until one has a non-zero count
+    b_rows = {1: None, 2: None, 10: comp[("f", 10)], 11: comp[("f", 11)],
+              20: comp[("f", 20)]}
+
+    def b_count(row, filt):
+        if b_rows[row] is None:
+            plane = planes[("f", row)]
+            n = N_SHARDS * popcount(plane if filt is None else plane & filt)
+            if row == 1:
+                n += 1 if filt is None else int(filt[word1]) & 1
+            return n
+        stack = b_rows[row]
+        n = popcount(stack if filt is None else stack & filt[None, :])
+        if row == 10:
+            n += 1 if filt is None else int(filt[word10]) & 1
+        return n
+
+    chunk_b = max(1, (128 * 1024 * 1024) // (N_SHARDS * SHARD_WIDTH // 8))
+
+    def walk(order, count_of, chunk):
+        """(row, count, K3 launches) of the first non-zero row."""
+        for i, row in enumerate(order):
+            n = count_of(row)
+            if n:
+                return row, n, i // chunk + 1
+        return 0, 0, -(-len(order) // chunk)
+
+    f_sets = [set(c.tolist()) for c in tg["f"]]
+    f_sets[tg_set[0]].add(tg_set[1])
+    a1 = set(tg["g_cols"][tg["a"] == 1].tolist())
+    chunk_tg = max(1, (128 * 1024 * 1024) // (TG_SHARDS * SHARD_WIDTH // 8))
+    mm_cases = []
+    for call, filt_pql, filt in (("MinRow", "", None),
+                                 ("MaxRow", "", None),
+                                 ("MinRow", "Row(g=2), ", G2),
+                                 ("MaxRow", "Row(g=2), ", G2)):
+        order = sorted(b_rows, reverse=call == "MaxRow")
+        row, n, k3_n = walk(order, lambda r: b_count(r, filt), chunk_b)
+        mm_cases.append(("b", f"{call}({filt_pql}field=f)",
+                         {"id": row, "count": n}, k3_n))
+    for call, filt_pql, filt in (("MinRow", "", None),
+                                 ("MaxRow", "", None),
+                                 ("MaxRow", "Row(a=1), ", a1)):
+        order = sorted(range(100), reverse=call == "MaxRow")
+        row, n, k3_n = walk(
+            order, lambda r: len(f_sets[r] if filt is None
+                                 else f_sets[r] & filt), chunk_tg)
+        mm_cases.append(("tg", f"{call}({filt_pql}field=f)",
+                         {"id": row, "count": n}, k3_n))
+    for index, pql, want, k3_n in mm_cases:
+        dt = check(index, pql, want, 0, k3_n)
+        cold[(index, pql)] = dt
+        log(f"serve: {pql} over index {index} = {want} (K3 +{k3_n}, "
+            f"{dt * 1e3:.1f} ms)")
+    index, pql, want, k3_n = mm_cases[0]
+    warm = [check(index, pql, want, 0, k3_n) for _ in range(20)]
+    log(f"serve: {pql} over {N_SHARDS} shards on {card}: cold "
+        f"{cold[(index, pql)] * 1e3:.3f} ms, warm p50 "
+        f"{statistics.median(warm) * 1e3:.3f} ms over {len(warm)} queries")
+
+    # Store into a new field h, read back; ClearRow, read back
+    stored = total(lambda p: p & G1)
+    readback = "Count(Intersect(Row(h=1), Row(f=1)))"
+    t0 = time.perf_counter()
+    got, _ = query("b", "Store(Intersect(Row(f=1), Row(g=1)), h=1)", 0, 0)
+    wall = time.perf_counter() - t0
+    if got["results"] != [True]:
+        raise AssertionError(f"Store: {got}")
+    dt = check("b", readback, stored, 1, 0)
+    log(f"serve: Store(Intersect(Row(f=1), Row(g=1)), h=1) over {N_SHARDS} "
+        f"shards: wall {wall * 1e3:.1f} ms on {card}; then {readback} = "
+        f"{stored} (one K1 launch, {dt * 1e3:.1f} ms)")
+    t0 = time.perf_counter()
+    got, _ = query("b", "ClearRow(h=1)", 0, 0)
+    wall = time.perf_counter() - t0
+    if got["results"] != [True]:
+        raise AssertionError(f"ClearRow: {got}")
+    dt = check("b", readback, 0, 1, 0)
+    log(f"serve: ClearRow(h=1): wall {wall * 1e3:.1f} ms; then {readback} "
+        f"= 0 (one K1 launch, {dt * 1e3:.1f} ms)")
+
+    # import-roaring into a new field r, shard 0
+    http(srv.uri, "/index/b/field/r", "{}")
+    rng = np.random.default_rng(SEED)
+    r_cols = {r: np.sort(rng.choice(SHARD_WIDTH, 50, replace=False))
+              for r in (1, 2)}
+    blob = serialize(Bitmap.from_bits(
+        [r * SHARD_WIDTH + int(c) for r, cs in r_cols.items() for c in cs]))
+    st, _, body = http_raw(srv.uri, "POST",
+                           "/index/b/field/r/import-roaring/0", blob)
+    if st != 200 or json.loads(body) != {"changed": 100}:
+        raise AssertionError(f"import-roaring: {st} {body[:200]}")
+    want = len(np.union1d(r_cols[1], r_cols[2]))
+    check("b", "Count(Union(Row(r=1), Row(r=2)))", want, 1, 0)
+    log(f"serve: import-roaring of 100 bits into b's r, shard 0, then "
+        f"Count(Union(Row(r=1), Row(r=2))) = {want} (one K1 launch)")
+
+    # GET /export of f, shard 0 (not a shard an earlier Set wrote)
+    t0 = time.perf_counter()
+    st, ctype, body = http_raw(srv.uri, "GET",
+                               "/export?index=b&field=f&shard=0")
+    dt = time.perf_counter() - t0
+    want = csv_lines({r: plane_columns(
+        planes[("f", r)] if b_rows[r] is None else b_rows[r][0], 0)
+        for r in b_rows})
+    if st != 200 or ctype != "text/csv" \
+            or body.decode().splitlines() != want:
+        raise AssertionError(f"export: {st} {ctype} {body[:200]}")
+    log(f"serve: GET /export index b field f shard 0 = numpy: {len(want)} "
+        f"lines, {len(body)} bytes in {dt * 1e3:.1f} ms")
+
+    # DELETE h, re-create it, import other bits: only they count
+    st, _, body = http_raw(srv.uri, "DELETE", "/index/b/field/h")
+    if st != 200:
+        raise AssertionError(f"DELETE field h: {st} {body[:200]}")
+    http(srv.uri, "/index/b/field/h", "{}")
+    cols = [5, 3 * SHARD_WIDTH + 7, (N_SHARDS - 1) * SHARD_WIDTH + 9]
+    http(srv.uri, "/index/b/field/h/import",
+         json.dumps({"rowIDs": [1, 1, 2], "columnIDs": cols}))
+    check("b", "Count(Union(Row(h=1), Row(h=2)))", 3, 1, 0)
+    log("serve: DELETE field h, re-create, import 3 bits, then "
+        "Count(Union(Row(h=1), Row(h=2))) = 3 (one K1 launch, no stale "
+        "stack)")
+
+    # row and column attributes, columnAttrs=true
+    http(srv.uri, "/index/b/query",
+         f'SetRowAttrs(h, 1, color="red") SetColumnAttrs({cols[1]}, '
+         f'name="x")')
+    got, _ = query("b", "Row(h=1)", 0, 0, "?columnAttrs=true")
+    want = {"results": [{"attrs": {"color": "red"}, "columns": cols[:2]}],
+            "columnAttrs": [{"id": cols[1], "attrs": {"name": "x"}}]}
+    if got != want:
+        raise AssertionError(f"columnAttrs: {got} != {want}")
+    log(f"serve: Row(h=1)?columnAttrs=true = {json.dumps(got)}")
+
+    # keyed index: import with row and column keys, Row, TopN, export
+    http(srv.uri, "/index/kx", json.dumps({"options": {"keys": True}}))
+    http(srv.uri, "/index/kx/field/kf",
+         json.dumps({"options": {"keys": True}}))
+    http(srv.uri, "/index/kx/field/kf/import", json.dumps({
+        "rowKeys": ["red", "blue", "red", "green"],
+        "columnKeys": ["c1", "c2", "c3", "c4"]}))
+    for pql, want, k3_n in (
+            ('Row(kf="red")', {"attrs": {}, "columns": [],
+                               "keys": ["c1", "c3"]}, 0),
+            ("TopN(kf)", [{"id": 0, "count": 2, "key": "red"},
+                          {"id": 0, "count": 1, "key": "blue"},
+                          {"id": 0, "count": 1, "key": "green"}], 1)):
+        check("kx", pql, want, 0, k3_n)
+    st, _, body = http_raw(srv.uri, "GET",
+                           "/export?index=kx&field=kf&shard=0")
+    want = ["red,c1", "red,c3", "blue,c2", "green,c4"]
+    if st != 200 or body.decode().splitlines() != want:
+        raise AssertionError(f"keyed export: {st} {body[:200]}")
+    log("serve: keyed index kx: import by keys, Row, TopN and export = "
+        "expected")
+    st, _, body = http_raw(srv.uri, "DELETE", "/index/kx")
+    if st != 200:
+        raise AssertionError(f"DELETE index kx: {st} {body[:200]}")
+    log(f"serve: launches on the PQL/HTTP surface path: K1 "
+        f"{k1.count_expr.launches}, K3 {k3.row_counts.launches}")
 
 
 def serve_bsi_path(srv, k1, k3, k5, br, card):
@@ -1901,7 +2174,7 @@ def main():
             serve_coalescer(srv, co_dir, card)
             launches["count_expr_batch"] = k1.count_expr_batch.launches
             reset_counters(mods)  # the TopN/GroupBy path's run starts here
-            serve_topn_path(srv, k3, k4, tg, card)
+            tg_set = serve_topn_path(srv, k3, k4, tg, card)
             launches["row_counts"] = k3.row_counts.launches
             launches["pairwise_counts"] = k4.pairwise_counts.launches
             reset_counters(mods)  # the BSI path's run starts here
@@ -1916,6 +2189,14 @@ def main():
             errs["count_blocks"] = max(errs["count_blocks"], err)
             del served
             time_analyze(torch, planes, comp, card)
+            reset_counters(mods)  # the PQL/HTTP surface path starts here
+            t0 = time.perf_counter()
+            serve_pql_surface(srv, k1, k3, planes, comp, tg, set_at, tg_set,
+                              card)
+            log(f"serve: PQL/HTTP surface phase in "
+                f"{time.perf_counter() - t0:.1f} s")
+            launches["count_expr"] += k1.count_expr.launches
+            launches["row_counts"] += k3.row_counts.launches
         finally:
             srv.stop()
     finally:

@@ -1,5 +1,5 @@
-"""PQL executor: stacked Count/TopN/GroupBy/Sum/Min/Max, Rows, bitmap
-calls, writes.
+"""PQL executor: stacked Count/TopN/GroupBy/Sum/Min/Max/MinRow/MaxRow,
+Rows, bitmap calls, Options, writes.
 
 Reference: executor.go (Execute :113, executeCall :274, executeCount
 :1790, executeTopN :930, executeRows :1280, executeGroupBy :1098,
@@ -22,18 +22,24 @@ executeSum :331, executeBitmapCallShard :651). The port's slice:
   express, count shard by shard instead — on the device all the same.
 - Rows lists row ids from the host fragments.
 - Bitmap calls evaluate shard by shard on the device and return a Row;
-  a condition Row is one K5 launch per shard.
-- Set and Clear write through the host fragments; the next query patches
-  the cached stacks in place.
+  a condition Row is one K5 launch per shard. Inside a Count or a filter
+  over two or more shards, Shift is a leaf of the stacked tree: its
+  child evaluated over every shard, shifted within each shard.
+- MinRow and MaxRow walk the field's rows in direction order, one K3
+  chunk at a time, and stop at the first chunk with a non-zero count.
+- Options narrows the shard list and sets result options for its child.
+- Set, Clear, ClearRow, Store, SetRowAttrs and SetColumnAttrs write
+  through the host fragments and attribute stores; the next query
+  patches the cached stacks in place. Store evaluates its child over
+  every shard at once and fetches the [S, W] result in one copy.
 - `execute_batch` (the query-batch route) and `launch_batch` /
   `resolve_batch` (the query coalescer) run lists of single-call reads:
   batchable Counts and bitmap trees as batched launches grouped by
   signature, with one fetch for the whole batch; every other member
   takes the per-query path.
 
-Every other call raises a clear "not yet ported" error. Per-shard work
-fans over the shared worker pool and reduces IN SHARD ORDER, so every
-worker count gives identical results.
+Per-shard work fans over the shared worker pool and reduces IN SHARD
+ORDER, so every worker count gives identical results.
 """
 
 import math
@@ -41,7 +47,7 @@ import math
 import numpy as np
 import torch
 
-from ..core.field import FIELD_TYPE_INT, FIELD_TYPE_TIME
+from ..core.field import FIELD_TYPE_INT, FIELD_TYPE_TIME, FieldOptions
 from ..core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT, BSI_SIGN_BIT
 from ..core.row import Row
 from ..core import timeq
@@ -68,16 +74,44 @@ class FieldNotFound(ExecError):
     pass
 
 
-class NotPortedError(ExecError):
-    """A PQL call or argument shape the port does not serve yet."""
-
-
 class ExecOptions:
-    def __init__(self, exclude_columns=False, exclude_row_attrs=False,
-                 remote=False):
+    def __init__(self, exclude_columns=False, column_attrs=False,
+                 exclude_row_attrs=False, remote=False):
         self.exclude_columns = exclude_columns
+        self.column_attrs = column_attrs
         self.exclude_row_attrs = exclude_row_attrs
         self.remote = remote
+
+
+def unwrap_options(call, opt, shards=None):
+    """(inner_call, merged_opt, shards) through nested Options() wrappers
+    (reference: executeOptionsCall executor.go:244). Each level takes
+    exactly one child; `shards` narrows the shard list (the innermost
+    level wins), the flags override the caller's options, and any other
+    argument is an error."""
+    while call.name == "Options":
+        if len(call.children) != 1:
+            raise ExecError("Options() takes exactly one query")
+        merged = ExecOptions(
+            exclude_columns=opt.exclude_columns,
+            column_attrs=opt.column_attrs,
+            exclude_row_attrs=opt.exclude_row_attrs, remote=opt.remote)
+        for key, value in call.args.items():
+            if key == "shards":
+                if not isinstance(value, list):
+                    raise ExecError("Options(): shards must be a list")
+                shards = [int(s) for s in value]
+            elif key == "excludeColumns":
+                merged.exclude_columns = bool(value)
+            elif key == "columnAttrs":
+                merged.column_attrs = bool(value)
+            elif key == "excludeRowAttrs":
+                merged.exclude_row_attrs = bool(value)
+            else:
+                raise ExecError(f"Options(): unknown arg {key!r}")
+        opt = merged
+        call = call.children[0]
+    return call, opt, shards
 
 
 def uint_arg(call, key):
@@ -142,10 +176,18 @@ def fragment_topn_candidates(frag, use_cache=True):
     return frag.row_ids()
 
 
-#: calls this slice of the port executes
+#: bitmap calls: each evaluates to a Row (validate_bitmap_call,
+#: bitmap_call_shard)
+BITMAP_CALLS = frozenset((
+    "Row", "Range", "Intersect", "Union", "Difference", "Xor", "Not",
+    "Shift", "All"))
+
+#: every call the port executes: the handler table of `execute_call`
+#: and the bitmap calls, as in the TPU package
 PORTED_CALLS = frozenset((
-    "Count", "TopN", "Rows", "GroupBy", "Sum", "Min", "Max", "Set", "Clear",
-    "Row", "Range", "Intersect", "Union", "Difference", "Xor", "Not", "All"))
+    "Sum", "Min", "Max", "MinRow", "MaxRow", "Count", "TopN", "Rows",
+    "GroupBy", "Options", "Set", "Clear", "ClearRow", "Store",
+    "SetRowAttrs", "SetColumnAttrs")) | BITMAP_CALLS
 
 
 class Executor:
@@ -188,21 +230,26 @@ class Executor:
 
     def execute_call(self, idx, call, shards, opt):
         handler = {
+            "Sum": self._exec_sum,
+            "Min": self._exec_min,
+            "Max": self._exec_max,
+            "MinRow": self._exec_min_row,
+            "MaxRow": self._exec_max_row,
             "Count": self._exec_count,
             "TopN": self._exec_topn,
             "Rows": self._exec_rows,
             "GroupBy": self._exec_group_by,
-            "Sum": self._exec_sum,
-            "Min": self._exec_min,
-            "Max": self._exec_max,
+            "Options": self._exec_options,
             "Set": self._exec_set,
             "Clear": self._exec_clear,
+            "ClearRow": self._exec_clear_row,
+            "Store": self._exec_store,
+            "SetRowAttrs": self._exec_set_row_attrs,
+            "SetColumnAttrs": self._exec_set_column_attrs,
         }.get(call.name)
         if handler is not None:
             return handler(idx, call, shards, opt)
-        if call.name not in PORTED_CALLS:
-            raise NotPortedError(
-                f"{call.name}() is not yet ported to pilosa_tpu_torch")
+        # default: bitmap call (unknown names fail its validation)
         return self._exec_bitmap_call(idx, call, shards, opt)
 
     def _call_shards(self, idx, shards):
@@ -384,13 +431,8 @@ class Executor:
                 next(iter(call.args))
             if idx.field(field_name) is None:
                 raise FieldNotFound(f"field not found: {field_name}")
-        known = {"Row", "Range", "Intersect", "Union", "Difference", "Xor",
-                 "Not", "Shift", "All"}
-        if name not in known:
+        if name not in BITMAP_CALLS:
             raise ExecError(f"unknown call: {name}")
-        if name not in PORTED_CALLS:
-            raise NotPortedError(
-                f"{name}() is not yet ported to pilosa_tpu_torch")
         for child in call.children:
             self.validate_bitmap_call(idx, child)
 
@@ -487,10 +529,17 @@ class Executor:
             if child is None:
                 return exists
             return bitplane.difference(exists, child)
+        if name == "Shift":
+            n = int(call.args.get("n", 1))
+            child = self.bitmap_call_shard(idx, call.children[0], shard)
+            if child is None:
+                return None
+            # within the shard: bits past its last column drop (reference
+            # Row.Shift shifts within segments)
+            return bitplane.shift(child, n)
         if name == "All":
             return self._existence_plane(idx, shard)
-        raise NotPortedError(
-            f"{name}() is not yet ported to pilosa_tpu_torch")
+        raise ExecError(f"unknown call: {name}")
 
     def _existence_plane(self, idx, shard):
         field = idx.existence_field()
@@ -750,6 +799,93 @@ class Executor:
             reducer=lambda out, vc: out.larger(vc) if is_max
             else out.smaller(vc),
             initial=ValCount())
+
+    def _exec_min_row(self, idx, call, shards, opt):
+        """(reference: executeMinRow executor.go:380 + fragment.minRow)"""
+        return self._minmax_row(idx, call, shards, is_max=False)
+
+    def _exec_max_row(self, idx, call, shards, opt):
+        return self._minmax_row(idx, call, shards, is_max=True)
+
+    def _minmax_row(self, idx, call, shards, is_max):
+        """Pair(row, count) of the lowest (highest) row of the field whose
+        count under the optional filter is non-zero, its count summed over
+        every shard; Pair(0, 0) when there is none. Over two or more
+        shards the field's rows are walked in direction order one K3
+        chunk at a time, stopping at the first chunk with a non-zero
+        count; fewer shards, or a filter the stacked path can't express,
+        scan shard by shard as the TPU package does. Both give the TPU
+        package's merge: the extreme row non-empty in some shard, summed
+        over the shards where it is non-empty."""
+        from .stacked import MIN_SHARDS
+
+        field = self._set_field(idx, call)
+        filter_call = self._agg_filter_call(idx, call)
+        shard_list = self._call_shards(idx, shards)
+        if len(shard_list) >= MIN_SHARDS:
+            best = self._minmax_row_stacked(idx, field, filter_call,
+                                            tuple(shard_list), is_max)
+            if best is not None:
+                return best
+
+        def shard_best(shard):
+            """This shard's first non-empty row in direction order."""
+            view = field.view(VIEW_STANDARD)
+            frag = view.fragment(shard) if view else None
+            if frag is None:
+                return None
+            filt = None
+            if filter_call is not None:
+                filt = self.bitmap_call_shard(idx, filter_call, shard)
+                if filt is None:
+                    return None
+            for row_id in (reversed(frag.row_ids()) if is_max
+                           else frag.row_ids()):
+                plane = bitplane.to_device(frag.row_plane(row_id),
+                                           self.device)
+                if filt is not None:
+                    plane = bitplane.intersect(plane, filt)
+                cnt = int(bitplane.popcount(plane))
+                if cnt > 0:
+                    return (row_id, cnt)
+            return None
+
+        def merge(best, cand):
+            if cand is None:
+                return best
+            row_id, cnt = cand
+            if best is None or (is_max and row_id > best[0]) or \
+                    (not is_max and row_id < best[0]):
+                return (row_id, cnt)
+            if row_id == best[0]:
+                return (row_id, best[1] + cnt)
+            return best
+
+        best = shard_map_reduce(shard_list, shard_best, reducer=merge)
+        if best is None:
+            return Pair(0, 0)
+        return Pair(best[0], best[1])
+
+    def _minmax_row_stacked(self, idx, field, filter_call, shards, is_max):
+        """The stacked MinRow/MaxRow walk, or None to fall back."""
+        covered, filt = self._stacked.filter_stack(idx, filter_call, shards)
+        if not covered:
+            return None
+        rows = self._candidate_rows(field, shards, None, False,
+                                    VIEW_STANDARD)
+        if is_max:
+            rows.reverse()
+        chunk_size = self._stacked.row_chunk_size(shards)
+        for i in range(0, len(rows), chunk_size):
+            chunk = rows[i:i + chunk_size]
+            counts = self._stacked.row_counts(idx, field.name, chunk, filt,
+                                              shards)
+            if counts is None:
+                return None
+            for row_id in chunk:
+                if counts[row_id] > 0:
+                    return Pair(row_id, counts[row_id])
+        return Pair(0, 0)
 
     def _set_field(self, idx, call):
         field_name = call.args.get("field") or call.args.get("_field")
@@ -1228,6 +1364,13 @@ class Executor:
                 totals[group] = totals.get(group, 0) + c
         return totals
 
+    # -------------------------------------------------------------- Options
+
+    def _exec_options(self, idx, call, shards, opt):
+        """(reference: executeOptionsCall executor.go:244)"""
+        inner, new_opt, shards = unwrap_options(call, opt, shards)
+        return self.execute_call(idx, inner, shards, new_opt)
+
     # ---------------------------------------------------------------- writes
 
     def _exec_set(self, idx, call, shards, opt):
@@ -1272,6 +1415,91 @@ class Executor:
         else:
             row_id = int(value)
         return bool(field.clear_bit(row_id, col))
+
+    def _exec_clear_row(self, idx, call, shards, opt):
+        """(reference: executeClearRow executor.go:1825)"""
+        field_name = call.field_arg()
+        field = idx.field(field_name)
+        if field is None:
+            raise FieldNotFound(f"field not found: {field_name}")
+        row_id = int(call.args[field_name])
+        zeros = np.zeros(WORDS_PER_ROW, dtype=np.uint32)
+        changed = False
+        shard_list = self._call_shards(idx, shards)
+        # every non-BSI view, so time views stay consistent with the
+        # standard view (reference: executeClearRowShard walks f.views())
+        for view_name, view in list(field.views.items()):
+            if view_name.startswith("bsig_"):
+                continue
+
+            def clear_shard(shard, view=view):
+                frag = view.fragment(shard)
+                if frag is None:
+                    return False
+                return bool(frag.set_row_plane(row_id, zeros))
+
+            changed |= any(shard_map_reduce(shard_list, clear_shard))
+        return changed
+
+    def _exec_store(self, idx, call, shards, opt):
+        """(reference: executeSetRow executor.go:1900) Store(child, f=row):
+        the child evaluated over every shard, then written shard by shard
+        in shard order (the fragment dict of the view must not race)."""
+        if len(call.children) != 1:
+            raise ExecError("Store() takes exactly one row query")
+        field_name = call.field_arg()
+        field = idx.field(field_name)
+        if field is None:
+            # the reference creates the field on demand for Store
+            field = idx.create_field(field_name, FieldOptions())
+        row_id = int(call.args[field_name])
+        view = field.create_view_if_not_exists(VIEW_STANDARD)
+        shard_list = self._call_shards(idx, shards)
+        planes = self._store_planes(idx, call.children[0], shard_list)
+        changed = False
+        for shard, host in zip(shard_list, planes):
+            frag = view.create_fragment_if_not_exists(shard)
+            changed |= bool(frag.set_row_plane(row_id, host))
+        return changed
+
+    def _store_planes(self, idx, child, shard_list):
+        """Host uint32 plane of `child` per shard of `shard_list`: over two
+        or more shards ONE [S, W] evaluation (filter_stack) and ONE copy
+        to the host; otherwise shard by shard."""
+        from .stacked import MIN_SHARDS
+
+        if len(shard_list) >= MIN_SHARDS:
+            covered, stack = self._stacked.filter_stack(
+                idx, child, tuple(shard_list))
+            if covered:
+                # a copy: on the CPU the fetch may alias a cached leaf
+                return np.array(bitplane.to_host(stack))
+
+        def gather_shard(shard):
+            plane = self.bitmap_call_shard(idx, child, shard)
+            return (np.zeros(WORDS_PER_ROW, dtype=np.uint32)
+                    if plane is None else bitplane.to_host(plane))
+
+        return shard_map_reduce(shard_list, gather_shard)
+
+    def _exec_set_row_attrs(self, idx, call, shards, opt):
+        field = idx.field(call.args["_field"])
+        if field is None:
+            raise FieldNotFound(f"field not found: {call.args['_field']}")
+        if field.row_attr_store is None:
+            raise ExecError("row attributes not configured")
+        row_id = int(call.args["_row"])
+        attrs = {k: v for k, v in call.args.items() if not k.startswith("_")}
+        field.row_attr_store.set_attrs(row_id, attrs)
+        return None
+
+    def _exec_set_column_attrs(self, idx, call, shards, opt):
+        if idx.column_attr_store is None:
+            raise ExecError("column attributes not configured")
+        col = self._require_col(call)
+        attrs = {k: v for k, v in call.args.items() if not k.startswith("_")}
+        idx.column_attr_store.set_attrs(col, attrs)
+        return None
 
     def _require_col(self, call):
         col = call.args.get("_col")

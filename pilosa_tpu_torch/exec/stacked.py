@@ -72,6 +72,7 @@ from ..core.field import FIELD_TYPE_INT, FIELD_TYPE_TIME
 from ..core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT, BSI_SIGN_BIT
 from ..core.index import EXISTENCE_FIELD_NAME
 from ..core.view import VIEW_STANDARD
+from ..ops import bitplane as _bitplane
 from ..ops import containers as _containers
 from ..ops.bsi import bsi_plane_counts, max_unsigned, min_unsigned
 from ..ops.count_expr import tree_eval
@@ -280,10 +281,11 @@ def intern_time_leaf(idx, field_name, row_id, args, leaves):
     return ("leaf", leaves[key])
 
 
-def tree_signature(idx, call, leaves, leaf, bsi_leaf=None, time_leaf=None):
+def tree_signature(idx, call, leaves, leaf, bsi_leaf=None, time_leaf=None,
+                   shift_leaf=None):
     """THE coverage walk for the stacked path: turns a bitmap call tree
     into an operator signature over leaf slots, or None when any shape
-    isn't expressible (Shift, keys, ...).
+    isn't expressible (keys, a negative Shift, ...).
     `leaf(idx, field_name, row_id, leaves)` decides row-leaf eligibility
     and interns the slot.
     `bsi_leaf(idx, field_name, cond, leaves)` (optional) covers BSI
@@ -292,7 +294,10 @@ def tree_signature(idx, call, leaves, leaf, bsi_leaf=None, time_leaf=None):
     `time_leaf(idx, field_name, row_id, args, leaves)` (optional) covers
     time-range rows Row(t=1, from=..., to=...) as a union over the
     quantum-view cover (reference: viewsByTimeRange time.go:91); None
-    declines time ranges entirely."""
+    declines time ranges entirely.
+    `shift_leaf(idx, call, leaves)` (optional) covers Shift(child, n=k)
+    as one leaf: the child tree, evaluated over every shard and shifted
+    within each shard; None declines Shift entirely."""
     name = call.name
     if name in ("Row", "Range"):
         if "from" in call.args or "to" in call.args:
@@ -325,7 +330,8 @@ def tree_signature(idx, call, leaves, leaf, bsi_leaf=None, time_leaf=None):
         return leaf(idx, field_name, row_id, leaves)
     if name in _OPS and call.children:
         subs = tuple(
-            tree_signature(idx, c, leaves, leaf, bsi_leaf, time_leaf)
+            tree_signature(idx, c, leaves, leaf, bsi_leaf, time_leaf,
+                           shift_leaf)
             for c in call.children)
         if any(s is None for s in subs):
             return None
@@ -334,13 +340,16 @@ def tree_signature(idx, call, leaves, leaf, bsi_leaf=None, time_leaf=None):
             and idx.options.track_existence \
             and idx.field(EXISTENCE_FIELD_NAME) is not None:
         child = tree_signature(idx, call.children[0], leaves, leaf,
-                               bsi_leaf, time_leaf)
+                               bsi_leaf, time_leaf, shift_leaf)
         if child is None:
             return None
         exists = leaf(idx, EXISTENCE_FIELD_NAME, 0, leaves)
         if exists is None:
             return None
         return ("-", (exists, child))
+    if name == "Shift" and len(call.children) == 1 \
+            and shift_leaf is not None:
+        return shift_leaf(idx, call, leaves)
     return None
 
 
@@ -434,11 +443,31 @@ class StackedEvaluator:
             leaves[key] = len(leaves)
         return ("leaf", leaves[key])
 
+    def _shift_leaf(self, idx, call, leaves):
+        """Shift-leaf eligibility: a non-negative integer n and a child
+        tree the stacked path covers. The key carries n, the child's
+        signature and its leaf keys in slot order, so `_leaf_containers`
+        rebuilds the child from the key alone and identical Shifts share
+        one slot. A negative n declines: the per-shard route raises."""
+        n = call.args.get("n", 1)
+        if isinstance(n, bool) or not isinstance(n, int) or n < 0:
+            return None
+        sub_leaves = {}
+        sub_sig = self.signature(idx, call.children[0], sub_leaves)
+        if sub_sig is None or not sub_leaves:
+            return None
+        sub_keys = tuple(k for k, _ in sorted(sub_leaves.items(),
+                                              key=lambda kv: kv[1]))
+        key = ("shift", n, sub_sig, sub_keys)
+        if key not in leaves:
+            leaves[key] = len(leaves)
+        return ("leaf", leaves[key])
+
     def signature(self, idx, call, leaves):
         """Tree signature with leaf slots, or None (use the per-shard
         path)."""
         return tree_signature(idx, call, leaves, self._leaf, self._bsi_leaf,
-                              intern_time_leaf)
+                              intern_time_leaf, self._shift_leaf)
 
     # -- stack cache ---------------------------------------------------------
 
@@ -949,23 +978,54 @@ class StackedEvaluator:
         sig = self.signature(idx, call, leaves)
         if sig is None or not leaves:
             return None
-        ordered = sorted(leaves.items(), key=lambda kv: kv[1])
+        ordered = [k for k, _ in sorted(leaves.items(), key=lambda kv: kv[1])]
+        stacks = self._leaf_containers(idx, ordered, shards)
+        if stacks is None:
+            return None
+        return sig, stacks
+
+    def _leaf_containers(self, idx, keys, shards):
+        """Containers of the leaf `keys` over `shards`, in order, or None
+        when a leaf's field vanished. Row leaves come from the leaf pool;
+        condition masks, time unions and Shift planes are fresh [S, W]
+        planes, wrapped without copying like any dense leaf and never
+        pooled."""
         stacks = []
-        for key, _slot in ordered:
+        for key in keys:
             if key[0] == "row":
-                stacks.append(self.leaf_stack(idx, key[1], key[2], shards))
+                s = self.leaf_stack(idx, key[1], key[2], shards)
+                if s is None:
+                    return None
+                stacks.append(s)
                 continue
             if key[0] == "bsicond":
                 s = self.bsi_condition_stack(idx, key, shards)
+            elif key[0] == "shift":
+                s = self.shift_stack(idx, key, shards)
             else:
                 s = self.time_row_stack(idx, key, shards)
-            # condition masks and time unions are fresh [S, W] planes:
-            # wrap them without copying, like any dense leaf
-            stacks.append(None if s is None else
-                          _containers.dense_container(s))
-        if any(s is None for s in stacks):
+            if s is None:
+                return None
+            stacks.append(_containers.dense_container(s))
+        return stacks
+
+    def shift_stack(self, idx, key, shards):
+        """[S, W] plane of a Shift leaf: its child tree evaluated over
+        every shard (`plane_program`, torch elementwise ops over the
+        child's leaves), then each shard's row shifted by n within that
+        shard (`bitplane.shift`: bits past a shard's last column drop,
+        as on the per-shard route). None when a child leaf vanished."""
+        _, n, sub_sig, sub_keys = key
+        conts = self._leaf_containers(idx, sub_keys, shards)
+        if conts is None:
             return None
-        return sig, stacks
+        csig = tuple(c.csig for c in conts)
+        with self._lock:
+            self.dispatches += 1
+        with self._dispatch_lock:
+            plane = _containers.plane_program(
+                sub_sig, csig, _containers.flatten(conts))
+            return _bitplane.shift(plane, n)
 
     def try_count(self, idx, call_child, shards):
         """Count(call_child) over `shards` in one launch, or None when

@@ -4,7 +4,9 @@ A "plane" is one row of one shard: SHARD_WIDTH bits packed little-endian
 into uint32 words, held as an int32 tensor of shape [WORDS_PER_ROW] (the
 bit patterns are the uint32 words'). A "stack" is [R, WORDS_PER_ROW].
 
-These serve the per-shard fallback of Count and the bitmap calls. Counts
+These serve the per-shard fallback of Count and the bitmap calls, and
+`shift` serves Shift on both routes: a plane [W] per shard, or a stack
+[S, W] whose rows shift each within its own shard. Counts
 are exact int64 totals (the TPU package split them into hi/lo int32
 halves because its device ran without 64-bit integers).
 """
@@ -12,7 +14,7 @@ halves because its device ran without 64-bit integers).
 import numpy as np
 import torch
 
-from ..shardwidth import SHARD_WIDTH, WORDS_PER_ROW
+from ..shardwidth import SHARD_WIDTH, WORD_BITS, WORDS_PER_ROW
 from .count_expr import popcount_total, popcount_words
 
 __all__ = [
@@ -22,6 +24,7 @@ __all__ = [
     "xor",
     "popcount",
     "popcount_rows",
+    "shift",
     "plane_from_columns",
     "columns_from_plane",
     "to_device",
@@ -43,6 +46,33 @@ def difference(a, b):
 
 def xor(a, b):
     return a ^ b
+
+
+def shift(a, n=1):
+    """Shift every plane of `a` ([W] or [S, W]) toward higher column ids
+    by n bits (reference: Row.Shift row.go:241). Each row is one shard:
+    bits shifted past its last column are dropped, never carried into
+    the next shard (the TPU package's per-shard semantics), so n of a
+    shard width or more gives an empty plane. int32 `>>` sign-extends,
+    so the carry is masked after the shift."""
+    n = int(n)
+    if n < 0:
+        raise ValueError(
+            "shift supports non-negative n only (toward higher columns)")
+    if n == 0:
+        return a
+    width = a.shape[-1]
+    word_shift, bit_shift = divmod(n, WORD_BITS)
+    out = torch.zeros_like(a)
+    if word_shift >= width:
+        return out
+    out[..., word_shift:] = a[..., :width - word_shift]
+    if bit_shift:
+        carry = torch.zeros_like(out)
+        carry[..., 1:] = (out[..., :-1] >> (WORD_BITS - bit_shift)) \
+            & ((1 << bit_shift) - 1)
+        out = (out << bit_shift) | carry
+    return out
 
 
 def popcount(a):

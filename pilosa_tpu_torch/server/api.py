@@ -1,11 +1,16 @@
 """API facade (reference: api.go): between the HTTP transport and the
 holder/executor. Single node; wire shapes follow the TPU package's.
+Index and field DDL (create, delete, apply a schema), bit, value and
+roaring imports (with row and column keys), CSV export, cache
+recalculation and the column attribute sets of a query's Row results.
 
 With a coalesce window (`API(coalesce_window=...)`, `server
 --coalesce-window`), concurrent batchable queries fuse into batched
 launches through the QueryCoalescer; window 0, the default, builds none
 and every query takes the per-query path."""
 
+import csv
+import io
 import random
 import threading
 
@@ -17,6 +22,7 @@ from ..core.field import (
     FIELD_TYPE_SET,
     FIELD_TYPE_TIME,
 )
+from ..core.index import IndexOptions
 from ..exec import ExecOptions, Executor
 from ..pql import parse
 from ..shardwidth import SHARD_WIDTH
@@ -451,6 +457,17 @@ class API:
         except IndexError_ as e:
             raise ApiError(str(e)) from e
 
+    def delete_index(self, name):
+        """(reference: api.DeleteIndex, single node). Device stacks of the
+        deleted index stay in their pools until evicted; a re-created
+        index never reads them, as its fragments' uids differ."""
+        from ..core.holder import HolderError
+
+        try:
+            self.holder.delete_index(name)
+        except HolderError as e:
+            raise NotFoundError(str(e)) from e
+
     def create_field(self, index_name, field_name, options=None):
         from ..core.index import IndexError_
 
@@ -464,6 +481,35 @@ class API:
                 raise ConflictError(str(e)) from e
             raise ApiError(str(e)) from e
 
+    def delete_field(self, index_name, field_name):
+        """(reference: api.DeleteField, single node)"""
+        from ..core.index import IndexError_
+
+        idx = self.holder.index(index_name)
+        if idx is None:
+            raise NotFoundError(f"index not found: {index_name}")
+        try:
+            idx.delete_field(field_name)
+        except IndexError_ as e:
+            raise NotFoundError(str(e)) from e
+
+    def apply_schema(self, schema):
+        """Create every index and field of a schema in the camelCase wire
+        shape that are missing (reference: handlePostSchema)."""
+        for idx_desc in schema.get("indexes", []):
+            opts = idx_desc.get("options", {})
+            idx = self.holder.create_index(
+                idx_desc["name"],
+                options=IndexOptions(
+                    keys=bool(opts.get("keys", False)),
+                    track_existence=bool(opts.get("trackExistence", True))),
+                if_not_exists=True)
+            for f_desc in idx_desc.get("fields", []):
+                idx.create_field(
+                    f_desc["name"],
+                    options=field_options_from_json(f_desc.get("options")),
+                    if_not_exists=True)
+
     def _field(self, index_name, field_name):
         idx = self.holder.index(index_name)
         if idx is None:
@@ -473,10 +519,40 @@ class API:
             raise NotFoundError(f"field not found: {field_name}")
         return field
 
+    def _translate_import_keys(self, index_name, field_name,
+                               row_keys, column_keys):
+        """String keys -> ids for a bulk import (reference: api.Import key
+        translation api.go:920-1000). Returns (row_ids, column_ids) for
+        whichever key lists were given. Both options are checked before
+        either list translates: translation allocates ids for good, so a
+        rejected import must leave no new keys behind."""
+        idx = self.holder.index(index_name)
+        field = idx.field(field_name)
+        if column_keys is not None and not idx.options.keys:
+            raise ApiError(f"index {index_name} does not use column keys")
+        if row_keys is not None and not field.options.keys:
+            raise ApiError(f"field {field_name} does not use row keys")
+        row_ids = column_ids = None
+        if column_keys is not None:
+            column_ids = list(
+                idx.translate_store.translate_keys(column_keys))
+        if row_keys is not None:
+            row_ids = list(field.translate_store.translate_keys(row_keys))
+        return row_ids, column_ids
+
     def import_bits(self, index_name, field_name, row_ids, column_ids,
-                    timestamps=None, clear=False):
-        """(reference: api.Import api.go:920, single node)"""
+                    timestamps=None, clear=False, row_keys=None,
+                    column_keys=None):
+        """(reference: api.Import api.go:920, single node; string keys
+        translate to ids first)"""
         field = self._field(index_name, field_name)
+        if row_keys is not None or column_keys is not None:
+            t_rows, t_cols = self._translate_import_keys(
+                index_name, field_name, row_keys, column_keys)
+            if t_rows is not None:
+                row_ids = t_rows
+            if t_cols is not None:
+                column_ids = t_cols
         changed = field.import_bits(
             row_ids, column_ids, timestamps=timestamps, clear=clear)
         if not clear:
@@ -484,14 +560,97 @@ class API:
         return changed
 
     def import_values(self, index_name, field_name, column_ids, values,
-                      clear=False):
+                      clear=False, column_keys=None):
         """Bulk BSI values (reference: api.ImportValue api.go:1035, single
         node). clear=True removes the listed columns' values."""
         field = self._field(index_name, field_name)
+        if column_keys is not None:
+            _, column_ids = self._translate_import_keys(
+                index_name, field_name, None, column_keys)
         changed = field.import_values(column_ids, values, clear=clear)
         if not clear:
             self.holder.index(index_name).add_existence(column_ids)
         return changed
+
+    def import_roaring(self, index_name, field_name, shard, data,
+                       clear=False, view="standard"):
+        """Merge a serialized roaring blob of row * SHARD_WIDTH + offset
+        positions into one shard of one view (reference: api.ImportRoaring
+        api.go:368, single node). Returns the number of bits changed."""
+        field = self._field(index_name, field_name)
+        v = field.create_view_if_not_exists(view)
+        frag = v.create_fragment_if_not_exists(int(shard))
+        return frag.import_roaring(data, clear=clear)
+
+    def export_csv(self, index_name, field_name, shard):
+        """(reference: api.ExportCSV api.go:500) row,col lines for one
+        shard of the standard view, ids translated back to keys on keyed
+        fields and indexes (api.go:538-557), so an export re-imports
+        losslessly."""
+        idx = self.holder.index(index_name)
+        field = self._field(index_name, field_name)
+        view = field.view()
+        frag = view.fragment(int(shard)) if view else None
+        buf = io.StringIO()
+        writer = csv.writer(buf)
+        if frag is None:
+            return buf.getvalue()
+
+        def batch_translate(store, ids, what):
+            """Batched id->key that fails loudly: a silently empty cell
+            would break the export->import round trip."""
+            out = {}
+            for id_, key in zip(ids, store.translate_ids(ids)):
+                if key is None:
+                    raise ApiError(
+                        f"translating {what} id {id_} failed: key not "
+                        "found")
+                out[id_] = key
+            return out
+
+        row_ids = frag.row_ids()
+        row_out = {r: r for r in row_ids}
+        if field.options.keys:
+            row_out = batch_translate(field.translate_store, row_ids, "row")
+        col_memo = {}
+        for row_id in row_ids:
+            cols = [int(c) for c in frag.row_columns(row_id)]
+            if idx.options.keys:
+                missing = [c for c in cols if c not in col_memo]
+                if missing:
+                    col_memo.update(batch_translate(
+                        idx.translate_store, missing, "column"))
+                for col in cols:
+                    writer.writerow([row_out[row_id], col_memo[col]])
+            else:
+                for col in cols:
+                    writer.writerow([row_out[row_id], col])
+        return buf.getvalue()
+
+    def recalculate_caches(self):
+        """(reference: api.RecalculateCaches) rebuild every fragment's
+        TopN rank cache."""
+        self.holder.recalculate_caches()
+
+    def column_attr_sets(self, index_name, results):
+        """{"id", "attrs"} of every column of the Row results that has
+        attributes, in column order (reference: QueryResponse
+        ColumnAttrSets, filled when a query asks for columnAttrs)."""
+        from ..core.row import Row
+
+        idx = self.holder.index(index_name)
+        if idx is None or idx.column_attr_store is None:
+            return []
+        cols = set()
+        for r in results:
+            if isinstance(r, Row):
+                cols.update(int(c) for c in r.columns())
+        out = []
+        for c in sorted(cols):
+            attrs = idx.column_attr_store.attrs(c)
+            if attrs:
+                out.append({"id": c, "attrs": attrs})
+        return out
 
     def schema(self):
         """Public schema in the reference's camelCase wire shape."""

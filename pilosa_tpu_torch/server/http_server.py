@@ -1,7 +1,9 @@
 """HTTP transport (reference: http/handler.go).
 
-Stdlib ThreadingHTTPServer + a regex router over the port's slice of the
-reference's REST surface, with the TPU package's JSON wire shapes.
+Stdlib ThreadingHTTPServer + a regex router over the reference's public
+single-node REST surface, with the TPU package's JSON wire shapes. The
+protobuf wire is not served: a body sent as application/x-protobuf gets
+415.
 """
 
 import json
@@ -41,6 +43,15 @@ class Request:
         return json.loads(self.body.decode("utf-8"))
 
 
+class RawResponse:
+    """A non-JSON response body (CSV export)."""
+    __slots__ = ("body", "content_type")
+
+    def __init__(self, body, content_type):
+        self.body = body
+        self.content_type = content_type
+
+
 class PilosaHTTPServer:
     """Owns the listening socket and the route table. `port=0` binds an
     ephemeral port; `self.port` holds the bound one after start()."""
@@ -51,10 +62,14 @@ class PilosaHTTPServer:
         self.port = port
         self.routes = [
             Route("GET", r"/", self._home),
+            Route("GET", r"/index", self._get_schema),
             Route("POST", r"/index/(?P<index>[^/]+)", self._post_index),
             Route("GET", r"/index/(?P<index>[^/]+)", self._get_index),
+            Route("DELETE", r"/index/(?P<index>[^/]+)", self._delete_index),
             Route("POST", r"/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)",
                   self._post_field),
+            Route("DELETE", r"/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)",
+                  self._delete_field),
             Route("POST", r"/index/(?P<index>[^/]+)/query",
                   self._post_query,
                   args=("shards", "columnAttrs", "excludeRowAttrs",
@@ -64,8 +79,19 @@ class PilosaHTTPServer:
             Route("POST",
                   r"/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import",
                   self._post_import, args=("clear",)),
+            Route("POST",
+                  r"/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)"
+                  r"/import-roaring/(?P<shard>[0-9]+)",
+                  self._post_import_roaring, args=("view", "clear")),
+            Route("GET", r"/export", self._get_export,
+                  args=("index", "field", "shard")),
             Route("GET", r"/schema", self._get_schema),
+            Route("POST", r"/schema", self._post_schema),
             Route("GET", r"/status", self._get_status),
+            Route("GET", r"/healthz", self._get_healthz),
+            Route("GET", r"/info", self._get_info),
+            Route("GET", r"/version", self._get_version),
+            Route("POST", r"/recalculate-caches", self._recalculate_caches),
             Route("GET", r"/debug/batching", self._get_debug_batching),
         ]
         self._httpd = None
@@ -81,8 +107,26 @@ class PilosaHTTPServer:
     def _get_schema(self, req):
         return self.api.schema()
 
+    def _post_schema(self, req):
+        self.api.apply_schema(req.json())
+        return None
+
     def _get_status(self, req):
         return self.api.status()
+
+    def _get_healthz(self, req):
+        """Liveness: the process is up and serving HTTP."""
+        return {"status": "ok"}
+
+    def _get_info(self, req):
+        return self.api.info()
+
+    def _get_version(self, req):
+        return {"version": self.api.info()["version"]}
+
+    def _recalculate_caches(self, req):
+        self.api.recalculate_caches()
+        return None
 
     def _post_index(self, req):
         body = req.json() or {}
@@ -98,11 +142,19 @@ class PilosaHTTPServer:
             raise NotFoundError("index not found")
         return {"name": idx.name, "options": idx.options.to_dict()}
 
+    def _delete_index(self, req):
+        self.api.delete_index(req.params["index"])
+        return {"success": True}
+
     def _post_field(self, req):
         body = req.json() or {}
         options = field_options_from_json(body.get("options"))
         self.api.create_field(req.params["index"], req.params["field"],
                               options)
+        return {"success": True}
+
+    def _delete_field(self, req):
+        self.api.delete_field(req.params["index"], req.params["field"])
         return {"success": True}
 
     def _post_query(self, req):
@@ -114,14 +166,19 @@ class PilosaHTTPServer:
         def flag(name):
             return req.query.get(name, ["false"])[0] == "true"
 
-        if flag("columnAttrs"):
-            raise ApiError("columnAttrs is not yet ported")
+        column_attrs = flag("columnAttrs")
         options = ExecOptions(
             exclude_columns=flag("excludeColumns"),
+            column_attrs=column_attrs,
             exclude_row_attrs=flag("excludeRowAttrs"))
         results = self.api.query(req.params["index"], pql, shards=shards,
                                  options=options)
-        return {"results": [result_to_json(r) for r in results]}
+        out = {"results": [result_to_json(r) for r in results]}
+        if column_attrs:
+            # reference: QueryResponse "columnAttrs" JSON field
+            out["columnAttrs"] = self.api.column_attr_sets(
+                req.params["index"], results)
+        return out
 
     def _post_query_batch(self, req):
         """Batched query endpoint: a JSON list of PQL strings executed as
@@ -167,7 +224,7 @@ class PilosaHTTPServer:
         if "values" in body:
             changed = self.api.import_values(
                 index, field, body.get("columnIDs", []), body["values"],
-                clear=clear)
+                clear=clear, column_keys=body.get("columnKeys"))
         else:
             timestamps = body.get("timestamps")
             if timestamps is not None:
@@ -176,8 +233,28 @@ class PilosaHTTPServer:
             changed = self.api.import_bits(
                 index, field, body.get("rowIDs", []),
                 body.get("columnIDs", []), timestamps=timestamps,
-                clear=clear)
+                clear=clear, row_keys=body.get("rowKeys"),
+                column_keys=body.get("columnKeys"))
         return {"changed": changed}
+
+    def _post_import_roaring(self, req):
+        """The body is one serialized roaring bitmap of row * SHARD_WIDTH
+        + offset positions for shard {shard} of `view`."""
+        changed = self.api.import_roaring(
+            req.params["index"], req.params["field"],
+            int(req.params["shard"]), req.body,
+            clear=req.query.get("clear", ["false"])[0] == "true",
+            view=req.query.get("view", ["standard"])[0])
+        return {"changed": changed}
+
+    def _get_export(self, req):
+        index = req.query.get("index", [None])[0]
+        field = req.query.get("field", [None])[0]
+        shard = req.query.get("shard", ["0"])[0]
+        if not index or not field:
+            raise ApiError("index and field query params required")
+        csv_text = self.api.export_csv(index, field, int(shard))
+        return RawResponse(csv_text.encode(), "text/csv")
 
     # -- transport -----------------------------------------------------------
 
@@ -193,7 +270,7 @@ class PilosaHTTPServer:
             def _dispatch(self):
                 server.dispatch(self)
 
-            do_GET = do_POST = _dispatch
+            do_GET = do_POST = do_DELETE = _dispatch
 
         class _Server(ThreadingHTTPServer):
             daemon_threads = True
@@ -225,7 +302,10 @@ class PilosaHTTPServer:
         query = parse_qs(parsed.query)
         length = int(handler.headers.get("Content-Length", 0))
         body = handler.rfile.read(length) if length else b""
+        protobuf = handler.headers.get("Content-Type", "").startswith(
+            "application/x-protobuf")
         status, payload = 404, {"error": "not found"}
+        out_type = "application/json"
         extra_headers = None  # e.g. Retry-After on a 503
         for route in self.routes:
             if route.method != handler.command:
@@ -240,18 +320,29 @@ class PilosaHTTPServer:
                         "error": "invalid query params: "
                                  + ", ".join(sorted(unknown))}
                     break
+            if protobuf:
+                status, payload = 415, {
+                    "error": "application/x-protobuf bodies are not "
+                             "served; send JSON (or PQL text to a query "
+                             "route)"}
+                break
             try:
-                status, payload = 200, route.fn(
-                    Request(m.groupdict(), query, body))
+                result = route.fn(Request(m.groupdict(), query, body))
+                if isinstance(result, RawResponse):
+                    status, payload, out_type = (
+                        200, result.body, result.content_type)
+                else:
+                    status, payload = 200, result
             except ApiError as e:
                 status, payload = e.status, {"error": str(e)}
                 extra_headers = e.headers
             except Exception as e:  # internal error
                 status, payload = 500, {"error": str(e)}
             break
-        data = json.dumps(payload).encode()
+        data = payload if isinstance(payload, bytes) \
+            else json.dumps(payload).encode()
         handler.send_response(status)
-        handler.send_header("Content-Type", "application/json")
+        handler.send_header("Content-Type", out_type)
         handler.send_header("Content-Length", str(len(data)))
         for name, value in (extra_headers or {}).items():
             handler.send_header(name, value)
