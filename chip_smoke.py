@@ -100,6 +100,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      a cold leaf build split into upload, the chooser's `analyze` on the
      card (its counts checked against numpy) and the host builder, for
      a dense, a sparse and a run-length leaf;
+   - command-line tools and durable imports (serve_tools): a second
+     server, `python -m pilosa_tpu_torch server --device cuda --config
+     <toml>` (max-op-n 10000, [storage] fsync "always") as a child
+     process over a fresh data directory, takes a CSV `import` of
+     1,000,000 (row, column) records (rows 1-4, columns over all 954
+     shards, seed 3) and 100,000 int values; a fault point armed over
+     POST /debug/faultpoints kills it at import.post-append (rc 86), and
+     its restart replays the one record; Counts and a Sum there against
+     numpy; `backup` of index b from the first server and `restore` of
+     its field f into the child (the cut: on an H100's host the whole
+     index's restore takes 44-50 s), three Counts equal to the first server's and numpy's;
+     `backup` of the imported index from the child and `restore` into
+     the first server, three Counts each one K1 launch there; `export`
+     against the CSV; then, the child stopped, `check` on every fragment
+     file of its directory and `inspect` on one; walls, records/s, tar
+     bytes and fragments/s;
    each path runs with every launch counter set to 0 just before it and
    read just after; cold latency of each first query and warm HTTP p50s.
 
@@ -113,6 +129,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tarfile
 import tempfile
 import threading
 import time
@@ -144,6 +161,9 @@ COMP_SEED = 5
 SPARSE_BLOCKS = 24  # non-empty 128-word blocks per shard of f=10, f=11, g=10
 SHARED_BLOCKS = 12  # of them shared by f=10 and g=10 in every shard
 RUN_BITS = (1 << 20) // 200  # bits per run of f=20 and g=20, two per shard
+TOOLS_RECORDS = 1_000_000  # (row, column) records of the CLI import
+TOOLS_VALUES = 100_000  # int values of the CLI import
+ROOT = os.path.dirname(os.path.abspath(__file__))
 K2_NBS = (0, 1, 7, 8, 33, 32768, 131072)
 K2_ID_SPACE = 1 << 21  # block ids drawn below the sentinel 2^30
 # (op, allow_eq) of tests/test_pallas.py's BSI range cases
@@ -1791,6 +1811,353 @@ def serve_pql_surface(srv, k1, k3, planes, comp, tg, set_at, tg_set, card):
         f"{k1.count_expr.launches}, K3 {k3.row_counts.launches}")
 
 
+def cli(*argv, timeout=600):
+    """`python -m pilosa_tpu_torch <argv>` from the checkout, as a user
+    runs it; returns (wall seconds, stdout). A non-zero exit raises."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pilosa_tpu_torch", *argv],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(argv[:2])}: rc {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return wall, proc.stdout
+
+
+class ServerProcess:
+    """`python -m pilosa_tpu_torch server` as a child process on a fixed
+    port and data directory, its output in `log_path`."""
+
+    def __init__(self, argv, port, log_path):
+        self.argv = list(argv)
+        self.port = port
+        self.uri = f"http://127.0.0.1:{port}"
+        self.log_path = log_path
+        self.proc = None
+        self.mark = 0  # where the log of the running process starts
+
+    def start(self, timeout=300):
+        """Spawn and wait for the "listening" line; returns (seconds from
+        spawn to that line, the line)."""
+        with open(self.log_path, "a") as out:
+            mark = self.mark = out.tell()
+            t0 = time.perf_counter()
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "pilosa_tpu_torch", "server",
+                 *self.argv, "--bind", f"127.0.0.1:{self.port}"],
+                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+        while time.perf_counter() - t0 < timeout:
+            for line in self.log()[mark:].splitlines():
+                if line.startswith("listening on "):
+                    return time.perf_counter() - t0, line
+            if self.proc.poll() is not None:
+                raise AssertionError(f"server exited rc "
+                                     f"{self.proc.returncode}: "
+                                     f"{self.log()[-2000:]}")
+            time.sleep(0.05)
+        raise AssertionError(f"server not up in {timeout} s: "
+                             f"{self.log()[-2000:]}")
+
+    def log(self):
+        with open(self.log_path) as f:
+            return f.read()
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def concurrently(*fns):
+    """Run each function in a thread of its own; returns their results
+    in order and re-raises the first error."""
+    results, errors = [None] * len(fns), []
+
+    def run(i, fn):
+        try:
+            results[i] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, fn))
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+def timed(fn, *args, **kwargs):
+    """(seconds, result) of one call."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return time.perf_counter() - t0, out
+
+
+def serve_tools(srv, k1, planes, comp, card):
+    """The command line and the durable imports against a second server,
+    a `python -m pilosa_tpu_torch server` child on the card over a fresh
+    data directory (max-op-n 10000, fsync always): a CSV `import` of
+    TOOLS_RECORDS (row, column) bits and TOOLS_VALUES values; a clean
+    restart (its shutdown checkpoints the oplog), then a crash at
+    import.post-append and a restart that replays that one record;
+    `backup` of index b from `srv` and `restore` of its field f into the
+    child, `backup` of the imported index from the child and `restore`
+    into `srv`; `export`, then, with the child stopped, `check` on every
+    fragment file of its directory and `inspect` on one. Every answer
+    against numpy, and K1's launches on `srv` +1 per Count. Steps that
+    touch different processes run at once (the b backup beside the
+    clean restart; the b restore into the child beside the imported
+    index's backup and restore; the child's shutdown beside the Counts
+    on `srv`; `check` in four processes); each line says so, and every
+    line carries the seconds since the phase began."""
+    from pilosa_tpu_torch.server import Client
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    device = srv.api.device.type
+    work = tempfile.mkdtemp(prefix="pilosa-torch-smoke-tools-")
+    t_phase = time.perf_counter()
+
+    def tlog(msg):
+        log(f"tools: [{time.perf_counter() - t_phase:.1f} s] {msg}")
+
+    try:
+        config = os.path.join(work, "tools.toml")
+        with open(config, "w") as f:
+            f.write('max-op-n = 10000\n\n[storage]\nfsync = "always"\n')
+        data = os.path.join(work, "data")
+        child = ServerProcess(
+            ["--device", device, "--config", config, "--data-dir", data],
+            free_port(), os.path.join(work, "server.log"))
+        try:
+            boot, line = child.start()
+            if f"(device {device}" not in line:
+                raise AssertionError(f"child server: {line!r}")
+            tlog(f"child server {line!r} in {boot:.2f} s")
+            c = Client(child.uri, timeout=600)
+
+            # CSV import of set bits and int values over the CLI
+            rng = np.random.default_rng(SEED)
+            n_cols = N_SHARDS * SHARD_WIDTH
+            rows = rng.integers(1, 5, TOOLS_RECORDS)
+            cols = rng.integers(0, n_cols, TOOLS_RECORDS)
+            f_csv = os.path.join(work, "f.csv")
+            with open(f_csv, "w") as f:
+                f.write("".join(f"{r},{c_}\n" for r, c_ in
+                                zip(rows.tolist(), cols.tolist())))
+            # one value per column of the first TOOLS_VALUES column ids,
+            # in a random order: the ids key translation hands out
+            v_cols = rng.permutation(TOOLS_VALUES)
+            v_vals = rng.integers(0, 1_000_001, TOOLS_VALUES)
+            v_csv = os.path.join(work, "v.csv")
+            with open(v_csv, "w") as f:
+                f.write("".join(f"{c_},{v}\n" for c_, v in
+                                zip(v_cols.tolist(), v_vals.tolist())))
+            # one request: the server's cost grows with the containers a
+            # request touches, and 100,000 records already touch most of
+            # them
+            wall, out = cli("import", "--host", child.uri, "--index", "imp",
+                            "--field", "f", "--create", "--batch-size",
+                            str(TOOLS_RECORDS), f_csv)
+            tlog(f"import of {TOOLS_RECORDS} (row, column) records into "
+                 f"imp/f over {N_SHARDS} shards: {wall:.2f} s, "
+                 f"{TOOLS_RECORDS / wall:.0f} records/s ({out.strip()}); "
+                 f"fsync always; card {card}")
+            wall, out = cli("import", "--host", child.uri, "--index", "imp",
+                            "--field", "v", "--create", "--field-type",
+                            "int", "--min", "0", "--max", "1000000", v_csv)
+            tlog(f"import of {TOOLS_VALUES} values into imp/v: {wall:.2f} "
+                 f"s, {TOOLS_VALUES / wall:.0f} records/s")
+
+            # a clean stop checkpoints the log, so the next boot replays
+            # nothing; beside it, index b's backup from srv
+            def restart():
+                child.stop()
+                return child.start()
+
+            b_tar = os.path.join(work, "b.tar")
+            (boot, _), (wall_b, out) = concurrently(
+                restart, lambda: cli("backup", "--host", srv.uri, "--index",
+                                     "b", "--output", b_tar))
+            if "oplog: replayed" in child.log()[child.mark:]:
+                raise AssertionError(f"replay after a clean stop: "
+                                     f"{child.log()[-2000:]}")
+            n_frags = int(out.split(", ")[1].split()[0])
+            tlog(f"clean stop and restart, nothing replayed, in {boot:.2f} "
+                 f"s (spawn to listening); beside it, backup of index b "
+                 f"({N_SHARDS} shards) from the first server: {wall_b:.2f} "
+                 f"s, {os.path.getsize(b_tar)} bytes, {n_frags} fragments, "
+                 f"{n_frags / wall_b:.1f} fragments/s; card {card}")
+
+            # a crash between the oplog append and the apply, on the card
+            sets = {r: set(cols[rows == r].tolist()) for r in range(1, 5)}
+            crash_col = n_cols - 1
+            while crash_col in sets[1]:
+                crash_col -= 1
+            c._request("POST", "/debug/faultpoints", json.dumps(
+                {"arm": "import.post-append=exit"}).encode())
+            try:
+                c.import_bits("imp", "f", [1], [crash_col])
+            except Exception:  # the server died mid-request: no ack
+                pass
+            else:
+                raise AssertionError("import at import.post-append=exit "
+                                     "was acknowledged")
+            rc = child.proc.wait(timeout=60)
+            if rc != 86:
+                raise AssertionError(f"child exited rc {rc}, not 86")
+            boot, line = child.start()
+            if "oplog: replayed 1 record(s)" not in child.log()[child.mark:]:
+                raise AssertionError(f"no replay: {child.log()[-2000:]}")
+            tlog(f"crash at import.post-append (rc 86), restart with "
+                 f"replay of 1 record in {boot:.2f} s (spawn to listening)")
+            sets[1].add(crash_col)
+            want = {
+                "Count(Row(f=1))": len(sets[1]),
+                "Count(Intersect(Row(f=1), Row(f=2)))":
+                    len(sets[1] & sets[2]),
+                "Sum(field=v)": {"value": int(v_vals.sum()),
+                                 "count": TOOLS_VALUES},
+            }
+            for pql, w in want.items():
+                dt, got = timed(c.query, "imp", pql)
+                if got["results"][0] != w:
+                    raise AssertionError(f"child {pql}: {got} != {w}")
+                tlog(f"child {pql} = {w} (numpy, the replayed bit "
+                     f"included; {dt * 1e3:.1f} ms)")
+
+            # The restore into the child is cut to index b's field f (the
+            # archive's other fields' fragments dropped; the schema kept):
+            # on an H100's host the whole index takes 44-50 s to restore,
+            # which with two boots of the child passes the phase's 150 s.
+            # Beside it, the imported index's backup from the child and
+            # restore into srv.
+            bf_tar = os.path.join(work, "b_f.tar")
+            with tarfile.open(b_tar) as src, tarfile.open(bf_tar, "w") as dst:
+                for m in src:
+                    if m.name == "schema.json" or m.name.startswith("b/f/"):
+                        dst.addfile(m, src.extractfile(m))
+            os.unlink(b_tar)
+            with tarfile.open(bf_tar) as t:
+                n_f = len(t.getmembers()) - 1
+            imp_tar = os.path.join(work, "imp.tar")
+
+            def imp_round_trip():
+                back = cli("backup", "--host", child.uri, "--index", "imp",
+                           "--output", imp_tar)
+                return back, cli("restore", "--host", srv.uri, "--input",
+                                 imp_tar)
+
+            (wall_r, _), ((wall_ib, out), (wall_ir, _)) = concurrently(
+                lambda: cli("restore", "--host", child.uri, "--input",
+                            bf_tar), imp_round_trip)
+            tlog(f"restore of index b's field f ({n_f} fragments, "
+                 f"{os.path.getsize(bf_tar)} bytes) into the child (fsync "
+                 f"always): {wall_r:.2f} s, {n_f / wall_r:.1f} fragments/s; "
+                 f"beside it, imp backed up from the child in {wall_ib:.2f} "
+                 f"s ({os.path.getsize(imp_tar)} bytes; {out.strip()}) and "
+                 f"restored into the first server in {wall_ir:.2f} s")
+            os.unlink(bf_tar)
+            # + 1: the Count path's Set (f=1) and the compressed path's
+            # (f=10), each of a bit that was clear
+            b_want = {
+                "Count(Row(f=1))": N_SHARDS * popcount(planes[("f", 1)]) + 1,
+                "Count(Row(f=10))": popcount(comp[("f", 10)]) + 1,
+                "Count(Row(f=20))": popcount(comp[("f", 20)]),
+            }
+            for pql, w in b_want.items():
+                here = http(srv.uri, "/index/b/query", pql)["results"][0]
+                dt, there = timed(c.query, "b", pql)
+                if not here == there["results"][0] == w:
+                    raise AssertionError(f"{pql}: first server {here}, "
+                                         f"restored {there}, numpy {w}")
+                tlog(f"restored b: {pql} = {w} (first server and numpy; "
+                     f"{dt * 1e3:.1f} ms cold in the child)")
+            unions = {
+                "Count(Union(Row(f=1), Row(f=2)))": len(sets[1] | sets[2]),
+                "Count(Intersect(Row(f=1), Union(Row(f=2), Row(f=3))))":
+                    len(sets[1] & (sets[2] | sets[3])),
+                "Count(Union(Row(f=1), Row(f=2), Row(f=3), Row(f=4)))":
+                    len(set().union(*sets.values())),
+            }
+            for pql, w in unions.items():
+                there = c.query("imp", pql)["results"][0]
+                if there != w:
+                    raise AssertionError(f"child {pql}: {there} != {w}")
+
+            # export of imp/f over the CLI
+            wall, out = cli("export", "--host", child.uri, "--index", "imp",
+                            "--field", "f")
+            n_bits = sum(len(s) for s in sets.values())
+            if len(out.splitlines()) != n_bits:
+                raise AssertionError(f"export: {len(out.splitlines())} "
+                                     f"lines, {n_bits} distinct bits")
+            tlog(f"export of imp/f: {n_bits} lines (the CSV's distinct "
+                 f"bits and the replayed one) in {wall:.2f} s")
+
+            # the restored imp on srv (one K1 launch a Count), beside the
+            # child's shutdown
+            def restored_imp():
+                for pql, w in unions.items():
+                    before = k1.count_expr.launches
+                    dt, here = timed(http, srv.uri, "/index/imp/query", pql)
+                    if k1.count_expr.launches != before + 1:
+                        raise AssertionError(
+                            f"{pql}: K1 launches moved by "
+                            f"{k1.count_expr.launches - before}, not 1")
+                    if here["results"][0] != w:
+                        raise AssertionError(f"{pql}: restored {here}, "
+                                             f"child and numpy {w}")
+                    tlog(f"restored imp: {pql} = {w} (child and numpy; one "
+                         f"K1 launch; {dt * 1e3:.1f} ms)")
+                here = http(srv.uri, "/index/imp/query",
+                            "Sum(field=v)")["results"][0]
+                if here != want["Sum(field=v)"]:
+                    raise AssertionError(f"restored Sum(field=v): {here}")
+
+            concurrently(child.stop, restored_imp)
+        finally:
+            child.stop()
+        frags = [os.path.join(root, fn)
+                 for root, _, files in os.walk(data)
+                 for fn in files if fn.isdigit()]
+        t0 = time.perf_counter()
+        outs = concurrently(*[
+            (lambda part=frags[i::4]: cli("check", *part)[1])
+            for i in range(4)])
+        wall = time.perf_counter() - t0
+        if sum(o.count(": ok") for o in outs) != len(frags):
+            raise AssertionError(f"check: {[o[-500:] for o in outs]}")
+        one = os.path.join(data, "imp", "f", "views", "standard",
+                           "fragments", "0")
+        _, out = cli("inspect", one)
+        if "row 1:" not in out:
+            raise AssertionError(f"inspect: {out[-2000:]}")
+        tlog(f"check of {len(frags)} fragment files of the stopped child "
+             f"(four processes): all ok in {wall:.2f} s; inspect {one}: "
+             f"{out.splitlines()[2]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    tlog(f"phase done; K1 launches on the first server "
+         f"{k1.count_expr.launches}; card {card}")
+
+
 def serve_bsi_path(srv, k1, k3, k5, br, card):
     """BASELINE config 4 over HTTP, every result against numpy."""
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
@@ -2197,6 +2564,9 @@ def main():
                 f"{time.perf_counter() - t0:.1f} s")
             launches["count_expr"] += k1.count_expr.launches
             launches["row_counts"] += k3.row_counts.launches
+            reset_counters(mods)  # the command-line tools' run starts here
+            serve_tools(srv, k1, planes, comp, card)
+            launches["count_expr"] += k1.count_expr.launches
         finally:
             srv.stop()
     finally:

@@ -1,20 +1,57 @@
-"""Command line: `python -m pilosa_tpu_torch server [--bind H:P]
-[--data-dir D] [--device cuda|cpu] [--container-repr auto|dense|sparse|rle]
-[--coalesce-window DURATION] [--coalesce-max-queue N]`.
+"""Command line (reference: cmd/ + ctl/ — cobra commands):
+`python -m pilosa_tpu_torch <command>`.
+
+Subcommands mirror the TPU package's single-node ones (reference:
+cmd/root.go:71-78): server, import, backup, restore, export, inspect,
+check, holder, generate-config, and config (prints the EFFECTIVE merged
+configuration). Config comes from a TOML file, PILOSA_TPU_* env vars and
+flags, in that order of precedence (reference: server/config.go).
 
 The server opens the data directory (a `pilosa_tpu` data directory opens
-as is: the roaring fragment files are the interchange format), serves
-the HTTP API until SIGINT/SIGTERM, then closes the holder. It runs on
-`cuda` unless `--device cpu` is given, and exits with an error when no
-CUDA device is present and the CPU was not asked for.
+as is: the roaring fragment files and the oplog records are the
+interchange format), replays what its write-ahead oplog holds unapplied,
+serves the HTTP API until SIGINT/SIGTERM, then closes the holder and the
+log. It runs on `cuda` unless `--device cpu` is given, and exits with an
+error when no CUDA device is present and the CPU was not asked for.
+`holder`, `inspect` and `check` read files only and touch no device.
 """
 
 import argparse
+import json
 import os
 import re
 import signal
 import sys
 import threading
+
+DEFAULT_CONFIG = {
+    "bind": "127.0.0.1:10101",
+    "data-dir": "~/.pilosa_tpu_torch",
+    "max-op-n": 10000,
+    "cluster": {"coordinator": True, "nodes": []},
+    "anti-entropy": {"interval": "10m"},
+}
+
+
+def load_config(path=None):
+    """TOML file < env < flags (reference: server/config.go)."""
+    config = json.loads(json.dumps(DEFAULT_CONFIG))  # deep copy
+    if path:
+        try:
+            import tomllib  # 3.11+
+        except ImportError:
+            try:
+                import tomli as tomllib
+            except ImportError:
+                raise SystemExit(
+                    "--config requires tomllib (Python 3.11+) or tomli")
+        with open(path, "rb") as f:
+            config.update(tomllib.load(f))
+    if os.environ.get("PILOSA_TPU_BIND"):
+        config["bind"] = os.environ["PILOSA_TPU_BIND"]
+    if os.environ.get("PILOSA_TPU_DATA_DIR"):
+        config["data-dir"] = os.environ["PILOSA_TPU_DATA_DIR"]
+    return config
 
 
 def parse_duration(s):
@@ -31,40 +68,61 @@ def parse_duration(s):
     return sum(float(n) * units[u] for n, u in parts)
 
 
-def _parser():
-    p = argparse.ArgumentParser(prog="pilosa_tpu_torch")
-    sub = p.add_subparsers(dest="cmd", required=True)
-    s = sub.add_parser("server", help="serve the HTTP API")
-    s.add_argument("--bind", default="127.0.0.1:10101",
-                   help="host:port to listen on (port 0 = ephemeral)")
-    s.add_argument("--data-dir", default="~/.pilosa_tpu_torch")
-    s.add_argument("--device", default="cuda",
-                   help="torch device for the query path (cuda or cpu)")
-    s.add_argument("--container-repr", default=None,
-                   choices=["auto", "dense", "sparse", "rle"],
-                   help="leaf container representation: auto (default, or "
-                        "PILOSA_TPU_CONTAINER_REPR) picks dense/block-sparse/"
-                        "run-length per fragment by measured density; dense "
-                        "forces plain planes; sparse/rle force one "
-                        "compressed form where eligible")
-    s.add_argument("--coalesce-window", type=parse_duration, default=0.0,
-                   help="query coalescer window (e.g. 1ms): concurrent "
-                        "batchable queries arriving within it fuse into "
-                        "batched launches (default 0 = off: every query "
-                        "takes the per-query path)")
-    s.add_argument("--coalesce-max-queue", type=int, default=256,
-                   help="coalesce queue cap: past it, queries get 503 + "
-                        "Retry-After instead of an unbounded wait")
-    return p
+def _toml_value(v):
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (int, float)):
+        return str(v)
+    if isinstance(v, list):
+        return "[" + ", ".join(_toml_value(x) for x in v) + "]"
+    if isinstance(v, dict):  # inline table (e.g. [[cluster.nodes]] entries)
+        inner = ", ".join(f"{k} = {_toml_value(v[k])}" for k in sorted(v))
+        return "{" + inner + "}"
+    return json.dumps(str(v))
+
+
+def _apply_server_flags(config, args):
+    """Fold server-command flags into a loaded config — the single merge
+    used by `server`, `config` and `holder`, so what `config` prints is
+    exactly what `server` runs with (reference: cmd/root.go setAllConfig
+    does this once via viper for every subcommand)."""
+    for flag in ("bind", "data_dir", "device", "max_writes_per_request",
+                 "coalesce_window", "coalesce_max_queue", "container_repr"):
+        val = getattr(args, flag, None)
+        if val is not None:
+            config[flag.replace("_", "-")] = val
+    # Durability knobs live in [storage] — ONE fsync policy shared by the
+    # write-ahead oplog and the fragment WALs (a split policy would make
+    # the documented durability level a lie at whichever layer is weaker).
+    if getattr(args, "fsync", None) is not None \
+            or getattr(args, "no_oplog", False) \
+            or getattr(args, "oplog_segment_bytes", None) is not None:
+        storage = config.get("storage")
+        if not isinstance(storage, dict):
+            storage = config["storage"] = {}
+        if getattr(args, "fsync", None) is not None:
+            storage["fsync"] = args.fsync
+        if getattr(args, "no_oplog", False):
+            storage["oplog"] = False
+        if getattr(args, "oplog_segment_bytes", None) is not None:
+            storage["oplog-segment-bytes"] = args.oplog_segment_bytes
+    return config
+
+
+# -- server -------------------------------------------------------------------
 
 
 class Server:
-    """A started server: holder + API + HTTP transport."""
+    """A started server: holder + API + HTTP transport, and the oplog
+    when the server keeps one. `replayed` counts the records the boot
+    replay applied."""
 
-    def __init__(self, holder, api, http):
+    def __init__(self, holder, api, http, oplog=None, replayed=0):
         self.holder = holder
         self.api = api
         self.http = http
+        self.oplog = oplog
+        self.replayed = replayed
 
     @property
     def uri(self):
@@ -72,51 +130,575 @@ class Server:
 
     def stop(self):
         self.http.stop()
+        # AFTER the transport: in-flight handlers blocked on the
+        # coalescer wake with 503 instead of hanging the shutdown
         self.api.close()
         self.holder.close()
+        if self.oplog is not None:
+            # AFTER holder.close(): fragments are synced and closed, so
+            # the shutdown checkpoint can bless everything applied
+            self.oplog.close()
 
 
 def start_server(argv):
     """Parse `server` flags (without the subcommand word), open the
-    holder and start the HTTP server; returns a Server."""
+    holder and the oplog, replay the oplog and start the HTTP server;
+    returns a Server."""
     from .core import Holder
     from .device import resolve_device
     from .ops import containers
     from .server import API, PilosaHTTPServer
+    from .storage import oplog as oplog_mod
+    from .utils import faultpoints
+    from .utils.logger import StandardLogger
 
     args = _parser().parse_args(["server", *argv])
-    device = resolve_device(args.device)
+    config = _apply_server_flags(load_config(args.config), args)
+    device = resolve_device(config.get("device", "cuda"))
     # module state of ops/containers: applied before the holder opens, so
     # a bad mode fails at start, not at the first query
-    containers.configure(args.container_repr)
-    host, _, port = args.bind.rpartition(":")
-    holder = Holder(os.path.expanduser(args.data_dir)).open()
+    containers.configure(config.get("container-repr"))
+    host, _, port = str(config["bind"]).rpartition(":")
+    data_dir = os.path.expanduser(config["data-dir"])
+
+    # Durability: fault points arm from the env BEFORE any fsync/replay
+    # code runs (a crash harness must be able to hit boot-time points),
+    # and the node-wide fsync policy is set BEFORE fragments open so the
+    # very first appended op already honors it.
+    faultpoints.configure_from_env()
+    storage_cfg = config.get("storage", {}) if isinstance(
+        config.get("storage", {}), dict) else {}
+    oplog_mod.set_fsync_policy(
+        storage_cfg.get("fsync", "never"),
+        interval=storage_cfg.get("fsync-interval"))
+
+    holder = Holder(data_dir, max_op_n=config.get("max-op-n")).open()
+    oplog = None
     try:
+        if storage_cfg.get("oplog", True):
+            seg_bytes = storage_cfg.get("oplog-segment-bytes")
+            oplog = oplog_mod.OpLog(
+                os.path.join(data_dir, oplog_mod.OPLOG_DIR),
+                segment_max_bytes=int(seg_bytes) if seg_bytes
+                else oplog_mod.DEFAULT_SEGMENT_BYTES,
+                logger=StandardLogger()).open()
+        cw = config.get("coalesce-window")
         api = API(holder, device=device,
-                  coalesce_window=args.coalesce_window,
-                  coalesce_max_queue=args.coalesce_max_queue)
+                  coalesce_window=parse_duration(str(cw)) if cw else 0.0,
+                  coalesce_max_queue=int(config.get("coalesce-max-queue",
+                                                    256)),
+                  max_writes_per_request=int(
+                      config.get("max-writes-per-request", 0)),
+                  oplog=oplog)
+        # Crash recovery BEFORE serving: re-apply acked writes the previous
+        # process died holding, so the first query already sees them.
+        replayed = api.replay_oplog()
         http = PilosaHTTPServer(api, host=host or "127.0.0.1",
-                                port=int(port)).start()
+                                port=int(port or 10101)).start()
     except BaseException:
         holder.close()
+        if oplog is not None:
+            oplog.close()
         raise
-    return Server(holder, api, http)
+    return Server(holder, api, http, oplog=oplog, replayed=replayed)
 
 
-def main(argv=None):
-    argv = list(sys.argv[1:] if argv is None else argv)
-    args = _parser().parse_args(argv)
-    if args.cmd != "server":  # pragma: no cover — argparse enforces
-        return 2
+def cmd_server(argv):
     try:
-        srv = start_server(argv[1:])
+        srv = start_server(argv)
     except RuntimeError as e:
         print(f"pilosa_tpu_torch: {e}", file=sys.stderr)
         return 1
-    print(f"listening on {srv.uri} (device {srv.api.device})", flush=True)
+    if srv.replayed:
+        print(f"oplog: replayed {srv.replayed} record(s) after unclean "
+              "shutdown", flush=True)
+    print(f"listening on {srv.uri} (device {srv.api.device}, data: "
+          f"{srv.holder.path})", flush=True)
     done = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: done.set())
     done.wait()
     srv.stop()
     return 0
+
+
+# -- tools --------------------------------------------------------------------
+
+
+def cmd_import(args):
+    """CSV bulk import via the HTTP API (reference: ctl/import.go)."""
+    import csv as csv_mod
+
+    from .server import Client
+
+    client = Client(args.host)
+    if args.create:
+        try:
+            client.create_index(args.index)
+        except Exception:
+            pass
+        try:
+            options = {}
+            if args.field_type == "int":
+                options = {"type": "int", "min": args.min, "max": args.max}
+            elif args.field_type == "time":
+                options = {"type": "time", "timeQuantum": args.time_quantum}
+            client.create_field(args.index, args.field, options)
+        except Exception:
+            pass
+
+    # keyed imports: detect row/column keys from the live schema like the
+    # reference (ctl/import.go useRowKeys/useColumnKeys from field/index
+    # options). A FAILED schema fetch aborts loudly — guessing "unkeyed"
+    # could import numeric-looking keys as raw ids onto wrong columns.
+    use_row_keys = use_col_keys = False
+    try:
+        schema = client.schema()
+    except Exception as e:
+        raise SystemExit(f"import: cannot fetch schema from {args.host}: {e}")
+    for idx_desc in schema.get("indexes", []):
+        if idx_desc["name"] != args.index:
+            continue
+        use_col_keys = bool(
+            idx_desc.get("options", {}).get("keys", False))
+        for f_desc in idx_desc.get("fields", []):
+            if f_desc["name"] == args.field:
+                use_row_keys = bool(
+                    f_desc.get("options", {}).get("keys", False))
+
+    rows, cols, values, stamps = [], [], [], []
+    total = 0
+    source = open(args.file) if args.file != "-" else sys.stdin
+    try:
+        reader = csv_mod.reader(source)
+        for rnum, record in enumerate(reader, 1):
+            if not record:
+                continue
+            try:
+                if args.field_type == "int":
+                    cols.append(record[0] if use_col_keys
+                                else int(record[0]))
+                    values.append(int(record[1]))
+                else:
+                    rows.append(record[0] if use_row_keys
+                                else int(record[0]))
+                    cols.append(record[1] if use_col_keys
+                                else int(record[1]))
+                    # optional 3rd column: timestamp — TIME fields only
+                    # (reference format "2006-01-02T15:04",
+                    # ctl/import.go:234); other field types ignore extra
+                    # columns
+                    stamps.append(
+                        record[2] if args.field_type == "time"
+                        and len(record) > 2 and record[2] else None)
+            except (ValueError, IndexError) as e:
+                raise SystemExit(
+                    f"import: invalid record on line {rnum}: "
+                    f"{record!r} ({e})")
+            if len(cols) >= args.batch_size:
+                total += _flush_import(client, args, rows, cols, values,
+                                       stamps, use_row_keys, use_col_keys)
+                rows, cols, values, stamps = [], [], [], []
+        if cols:
+            total += _flush_import(client, args, rows, cols, values,
+                                   stamps, use_row_keys, use_col_keys)
+    finally:
+        if source is not sys.stdin:
+            source.close()
+    print(f"imported: {total} changed bits")
+    return 0
+
+
+def _flush_import(client, args, rows, cols, values, stamps,
+                  use_row_keys, use_col_keys):
+    # Client treats None key lists as absent, so the keys-vs-ids split is
+    # one conditional per axis
+    column_keys = cols if use_col_keys else None
+    if args.field_type == "int":
+        out = client.import_values(args.index, args.field, cols, values,
+                                   column_keys=column_keys)
+    else:
+        timestamps = stamps if any(s is not None for s in stamps) else None
+        out = client.import_bits(
+            args.index, args.field, rows, cols, timestamps=timestamps,
+            row_keys=rows if use_row_keys else None,
+            column_keys=column_keys)
+    return out.get("changed", 0) if isinstance(out, dict) else 0
+
+
+def cmd_backup(args):
+    """Archive an index (schema + every fragment's roaring blob) from a
+    live server into a tar file (reference: fragment.WriteTo tar archives
+    fragment.go:2436-2607 + ctl backup tooling)."""
+    import io
+    import tarfile
+
+    from .server import Client
+
+    def make_client(url):
+        return Client(url, tls_skip_verify=args.tls_skip_verify,
+                      ca_cert=args.tls_ca)
+
+    client = make_client(args.host)
+    schema = client.schema()
+    indexes = [i for i in schema.get("indexes", [])
+               if args.index is None or i["name"] == args.index]
+    if args.index is not None and not indexes:
+        raise SystemExit(f"index not found: {args.index}")
+
+    # Internal fragment endpoints are node-local; on a cluster, walk every
+    # node so shards held only by peers are captured too (a single-node
+    # backup of a cluster would otherwise be silently partial).
+    clients = [client]
+    for node in client.nodes():
+        uri = node.get("uri")
+        if uri and uri.rstrip("/") != client.base_url:
+            clients.append(make_client(uri))
+
+    def add(tar, name, data):
+        info = tarfile.TarInfo(name)
+        info.size = len(data)
+        tar.addfile(info, io.BytesIO(data))
+
+    # Write to a temp name and publish only on success so a refused or
+    # crashed backup never leaves a plausible-looking partial archive at
+    # --output (same temp+rename discipline as fragment snapshots).
+    tmp_out = args.output + ".partial"
+    n_frags = 0
+    unreachable = []
+    with tarfile.open(tmp_out, "w") as tar:
+        add(tar, "schema.json",
+            json.dumps({"indexes": indexes}).encode())
+        for idx in indexes:
+            iname = idx["name"]
+            seen = set()
+            for c in clients:
+                # a node can fail at ANY of the three fetches; every
+                # failure routes through the same unreachable gate
+                try:
+                    shards = c.index_shards(iname).get("shards", [])
+                    for shard in shards:
+                        frags = c.shard_fragments(
+                            iname, shard).get("fragments", [])
+                        for frag in frags:
+                            name = (f"{iname}/{frag['field']}"
+                                    f"/{frag['view']}/{shard}")
+                            if name in seen:
+                                continue
+                            data = c.fragment_data(
+                                iname, frag["field"], frag["view"], shard)
+                            seen.add(name)
+                            add(tar, name, data)
+                            n_frags += 1
+                except Exception as e:
+                    unreachable.append(f"{c.base_url} ({e})")
+    if unreachable:
+        # An unreachable node may hold shards no replica covers; there is
+        # no way to verify coverage without it, so don't pretend the
+        # archive is complete (reference behavior: backups are node-exact).
+        print(f"warning: node(s) unreachable during backup: "
+              f"{sorted(set(unreachable))}; archive may be missing their "
+              f"exclusively-held shards", file=sys.stderr)
+        if not args.allow_partial:
+            os.unlink(tmp_out)
+            raise SystemExit(
+                "refusing to write a possibly-partial backup "
+                "(pass --allow-partial to accept)")
+    os.replace(tmp_out, args.output)
+    print(f"backed up {len(indexes)} index(es), {n_frags} fragment(s) "
+          f"to {args.output}")
+    return 0
+
+
+def cmd_restore(args):
+    """Restore a backup tar into a live server: schema first, then each
+    fragment via the import-roaring fast path (reference: fragment.ReadFrom
+    + api.ImportRoaring api.go:368)."""
+    import tarfile
+
+    from .server import Client
+
+    client = Client(args.host, tls_skip_verify=args.tls_skip_verify,
+                    ca_cert=args.tls_ca)
+    n_frags = 0
+    with tarfile.open(args.input) as tar:
+        schema_member = tar.getmember("schema.json")
+        schema = json.loads(tar.extractfile(schema_member).read())
+        client._request("POST", "/schema", json.dumps(schema).encode())
+        for member in tar.getmembers():
+            if member.name == "schema.json" or not member.isfile():
+                continue
+            index, field, view, shard = member.name.split("/")
+            client.import_roaring(
+                index, field, int(shard), tar.extractfile(member).read(),
+                view=view)
+            n_frags += 1
+    print(f"restored {n_frags} fragment(s) from {args.input}")
+    return 0
+
+
+def cmd_export(args):
+    """(reference: ctl/export.go)"""
+    from .server import Client
+
+    client = Client(args.host)
+    shards = range(args.shards) if args.shards else None
+    if shards is None:
+        status = client._request("GET", "/internal/shards/max")
+        max_shard = status.get("standard", {}).get(args.index, 0)
+        shards = range(max_shard + 1)
+    for shard in shards:
+        sys.stdout.write(client.export_csv(args.index, args.field, shard))
+    return 0
+
+
+def cmd_inspect(args):
+    """Dump fragment bit counts from a data file (reference:
+    ctl/inspect.go)."""
+    from .roaring import deserialize
+
+    with open(args.path, "rb") as f:
+        data = f.read()
+    bitmap, flags, ops = deserialize(data)
+    print(f"file: {args.path}")
+    print(f"flags: {flags}  ops-replayed: {ops}")
+    print(f"containers: {len(bitmap.keys())}  bits: {bitmap.count()}")
+    from .shardwidth import CONTAINERS_PER_SHARD
+
+    rows = {}
+    for key in bitmap.keys():
+        row = key // CONTAINERS_PER_SHARD
+        rows[row] = rows.get(row, 0) + bitmap.containers[key].n
+    for row in sorted(rows):
+        print(f"  row {row}: {rows[row]} bits")
+    return 0
+
+
+def cmd_check(args):
+    """Consistency-check fragment files (reference: ctl/check.go)."""
+    from .roaring import FormatError, deserialize
+
+    failed = 0
+    for path in args.paths:
+        try:
+            with open(path, "rb") as f:
+                bitmap, _, _ = deserialize(f.read())
+            for key in bitmap.keys():
+                c = bitmap.containers[key]
+                if c.n != c._count():
+                    raise FormatError(
+                        f"container {key}: cardinality mismatch")
+            print(f"{path}: ok")
+        except Exception as e:
+            failed += 1
+            print(f"{path}: FAILED — {e}")
+    return 1 if failed else 0
+
+
+def cmd_config(args):
+    """Print the EFFECTIVE merged configuration — file < env < flags — as
+    TOML (reference: cmd/root.go:71-78 registers ctl/config.go, whose Run
+    marshals the fully-populated server.Config that viper merged from all
+    three sources). `generate-config` prints defaults; this prints what
+    the server would actually run with."""
+    config = _apply_server_flags(load_config(args.config), args)
+    from .shardwidth import EXPONENT
+
+    config.setdefault("shard-width-exponent", EXPONENT)
+    scalars = {k: v for k, v in config.items() if not isinstance(v, dict)}
+    tables = {k: v for k, v in config.items() if isinstance(v, dict)}
+    for key in sorted(scalars):
+        print(f"{key} = {_toml_value(scalars[key])}")
+    for name in sorted(tables):
+        print()
+        print(f"[{name}]")
+        for key in sorted(tables[name]):
+            print(f"{key} = {_toml_value(tables[name][key])}")
+    return 0
+
+
+def cmd_holder(args):
+    """Open the data directory, load everything, shut down (reference:
+    cmd/server.go:33-57 newHolderCmd — 'only useful for diagnostic use':
+    proves the on-disk state loads cleanly and shows what is in it)."""
+    from .core import Holder
+
+    config = _apply_server_flags(load_config(args.config), args)
+    data_dir = os.path.expanduser(config["data-dir"])
+    if not os.path.isdir(data_dir):
+        # a diagnostic must not create (and then bless) a mistyped path
+        print(f"holder: data directory does not exist: {data_dir}",
+              file=sys.stderr)
+        return 1
+    holder = Holder(data_dir).open()
+    try:
+        n_frags = sum(1 for _ in holder._all_fragments())
+        print(f"holder loaded: {data_dir}")
+        print(f"indexes: {len(holder.indexes)}  "
+              f"fields: {sum(len(i.fields) for i in holder.indexes.values())}  "
+              f"fragments: {n_frags}")
+        for idx in sorted(holder.indexes.values(), key=lambda i: i.name):
+            fields = ", ".join(
+                f"{f.name}({f.type})"
+                for f in sorted(idx.fields.values(), key=lambda f: f.name))
+            print(f"  {idx.name}: {fields}")
+    finally:
+        holder.close()
+    return 0
+
+
+def cmd_generate_config(args):
+    """(reference: ctl/generate_config.go) Print default TOML config."""
+    print('bind = "127.0.0.1:10101"')
+    print(f'data-dir = "{DEFAULT_CONFIG["data-dir"]}"')
+    print("max-op-n = 10000")
+    print()
+    print("[cluster]")
+    print("coordinator = true")
+    print("nodes = []")
+    print()
+    print('[anti-entropy]')
+    print('interval = "10m"')
+    return 0
+
+
+# -- parsers ------------------------------------------------------------------
+
+
+def _server_flags(p):
+    """The server's flags; `config` takes the same ones, so it prints
+    what `server` would run with."""
+    p.add_argument("--config", default=None,
+                   help="TOML config file (flags and PILOSA_TPU_BIND / "
+                        "PILOSA_TPU_DATA_DIR override it)")
+    p.add_argument("--bind", default=None,
+                   help="host:port to listen on (port 0 = ephemeral; "
+                        "default 127.0.0.1:10101)")
+    p.add_argument("--data-dir", default=None,
+                   help="data directory (default ~/.pilosa_tpu_torch)")
+    p.add_argument("--device", default=None,
+                   help="torch device for the query path (cuda, the "
+                        "default, or cpu)")
+    p.add_argument("--container-repr", default=None,
+                   choices=["auto", "dense", "sparse", "rle"],
+                   help="leaf container representation: auto (default, or "
+                        "PILOSA_TPU_CONTAINER_REPR) picks dense/block-sparse/"
+                        "run-length per fragment by measured density; dense "
+                        "forces plain planes; sparse/rle force one "
+                        "compressed form where eligible")
+    p.add_argument("--coalesce-window", default=None,
+                   help="query coalescer window (e.g. 1ms): concurrent "
+                        "batchable queries arriving within it fuse into "
+                        "batched launches (default 0 = off: every query "
+                        "takes the per-query path)")
+    p.add_argument("--coalesce-max-queue", type=int, default=None,
+                   help="coalesce queue cap: past it, queries get 503 + "
+                        "Retry-After instead of an unbounded wait "
+                        "(default 256)")
+    p.add_argument("--max-writes-per-request", type=int, default=None,
+                   help="reject queries with more than this many write "
+                        "calls (reference: max-writes-per-request); "
+                        "<=0 disables")
+    p.add_argument("--fsync", default=None,
+                   choices=["always", "interval", "never"],
+                   help="durability fsync policy for the write-ahead "
+                        "oplog AND fragment WALs ([storage] fsync; "
+                        "default never): always = fsync before every "
+                        "ack, interval = background fsync every ~50ms, "
+                        "never = OS flush only")
+    p.add_argument("--no-oplog", action="store_true", default=False,
+                   help="disable the durable write-ahead oplog "
+                        "([storage] oplog = false): acked writes held "
+                        "only in memory are lost on crash")
+    p.add_argument("--oplog-segment-bytes", type=int, default=None,
+                   help="oplog segment rotation size in bytes "
+                        "([storage] oplog-segment-bytes; default 64MiB); "
+                        "rotation also triggers a checkpoint")
+
+
+def _parser():
+    parser = argparse.ArgumentParser(
+        prog="pilosa_tpu_torch",
+        description="the bitmap index on PyTorch and CUDA")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("server", help="serve the HTTP API")
+    _server_flags(p)
+
+    p = sub.add_parser("import", help="bulk-import CSV data")
+    p.add_argument("--host", default="http://127.0.0.1:10101")
+    p.add_argument("--index", required=True)
+    p.add_argument("--field", required=True)
+    p.add_argument("--create", action="store_true",
+                   help="create index/field if missing")
+    p.add_argument("--field-type", default="set",
+                   choices=["set", "int", "time"])
+    p.add_argument("--min", type=int, default=0)
+    p.add_argument("--max", type=int, default=(1 << 31) - 1)
+    p.add_argument("--time-quantum", default="YMD")
+    p.add_argument("--batch-size", type=int, default=100_000)
+    p.add_argument("file", help="CSV path or - for stdin")
+    p.set_defaults(fn=cmd_import)
+
+    def add_tls_flags(p):
+        p.add_argument("--tls-skip-verify", action="store_true",
+                       help="accept any server certificate")
+        p.add_argument("--tls-ca", default=None,
+                       help="PEM CA bundle for https servers")
+
+    p = sub.add_parser("backup", help="archive index data from a server")
+    p.add_argument("--host", default="http://127.0.0.1:10101")
+    p.add_argument("--index", default=None,
+                   help="index to back up (default: all)")
+    p.add_argument("--output", required=True, help="tar file to write")
+    p.add_argument("--allow-partial", action="store_true",
+                   help="write the archive even when some cluster nodes "
+                        "are unreachable")
+    add_tls_flags(p)
+    p.set_defaults(fn=cmd_backup)
+
+    p = sub.add_parser("restore", help="restore a backup tar into a server")
+    p.add_argument("--host", default="http://127.0.0.1:10101")
+    p.add_argument("--input", required=True, help="tar file to read")
+    add_tls_flags(p)
+    p.set_defaults(fn=cmd_restore)
+
+    p = sub.add_parser("export", help="export a field as CSV")
+    p.add_argument("--host", default="http://127.0.0.1:10101")
+    p.add_argument("--index", required=True)
+    p.add_argument("--field", required=True)
+    p.add_argument("--shards", type=int, default=None)
+    p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("inspect", help="inspect a fragment data file")
+    p.add_argument("path")
+    p.set_defaults(fn=cmd_inspect)
+
+    p = sub.add_parser("check", help="consistency-check fragment files")
+    p.add_argument("paths", nargs="+")
+    p.set_defaults(fn=cmd_check)
+
+    p = sub.add_parser("generate-config", help="print default config TOML")
+    p.set_defaults(fn=cmd_generate_config)
+
+    p = sub.add_parser(
+        "holder", help="open the data directory, load it, shut down "
+                       "(diagnostic)")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--config", default=None)
+    p.set_defaults(fn=cmd_holder)
+
+    p = sub.add_parser(
+        "config", help="print the effective merged config as TOML "
+                       "(file < env < flags)")
+    _server_flags(p)
+    p.set_defaults(fn=cmd_config)
+    return parser
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
+    if args.command == "server":
+        return cmd_server(argv[1:])
+    return args.fn(args)

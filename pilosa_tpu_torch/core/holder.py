@@ -10,6 +10,7 @@ import queue
 import shutil
 import threading
 
+from ..storage.oplog import OPLOG_DIR
 from .field import FieldOptions
 from .index import Index, IndexOptions, validate_name
 
@@ -93,7 +94,8 @@ class Holder:
             self.snapshot_queue.start()
         for name in sorted(os.listdir(self.path)):
             sub = os.path.join(self.path, name)
-            if os.path.isdir(sub):
+            # the server's write-ahead log lives beside the indexes
+            if os.path.isdir(sub) and name != OPLOG_DIR:
                 self._new_index(name).open()
         if self.cache_flush_interval > 0:
             self._flush_stop = threading.Event()
@@ -223,6 +225,9 @@ class Holder:
     def create_index(self, name, options=None, if_not_exists=False):
         """(reference: Holder.CreateIndex holder.go:379)"""
         validate_name(name)
+        if name == OPLOG_DIR:
+            raise HolderError(
+                f"index name {name!r} is reserved for the write-ahead log")
         with self._lock:
             existing = self.indexes.get(name)
             if existing is not None:

@@ -138,6 +138,14 @@ def uint_arg_or_none(call, key):
     return val if has else None
 
 
+def check_write_limit(query, max_writes):
+    """(reference: executor.Execute executor.go:135 + ErrTooManyWrites)"""
+    if max_writes and max_writes > 0:
+        n = sum(1 for c in query.calls if c.writes())
+        if n > max_writes:
+            raise ExecError("too many write commands")
+
+
 def groupby_previous(call, n_children):
     """Validated GroupBy `previous` list cursor, or None when absent: one
     non-negative row id per Rows child, naming the last group a prior page
@@ -192,12 +200,15 @@ PORTED_CALLS = frozenset((
 
 class Executor:
     """Single-node executor over a Holder, on `device` (default cuda;
-    raises when CUDA is absent and the CPU was not asked for)."""
+    raises when CUDA is absent and the CPU was not asked for). A query
+    with more than `max_writes_per_request` write calls is refused
+    (<= 0: no limit)."""
 
-    def __init__(self, holder, device=None):
+    def __init__(self, holder, device=None, max_writes_per_request=0):
         from .stacked import StackedEvaluator
 
         self.holder = holder
+        self.max_writes_per_request = max_writes_per_request
         self.device = resolve_device(device)
         self._stacked = StackedEvaluator(self.device)
 
@@ -215,6 +226,7 @@ class Executor:
         if isinstance(query, str):
             query = parse(query)
         opt = options or ExecOptions()
+        check_write_limit(query, self.max_writes_per_request)
 
         # Key translation happens only on the coordinating node (reference:
         # executor.go:2610).
@@ -305,6 +317,7 @@ class Executor:
                     if q is None:
                         q = parsed_cache[query] = parse(query)
                     query = e["query"] = q
+                check_write_limit(query, self.max_writes_per_request)
                 call = query.calls[0] if len(query.calls) == 1 else None
                 if call is None or call.name not in self.BATCHABLE_CALLS:
                     e["fallback"] = True  # execute() translates it

@@ -7,12 +7,22 @@ recalculation and the column attribute sets of a query's Row results.
 With a coalesce window (`API(coalesce_window=...)`, `server
 --coalesce-window`), concurrent batchable queries fuse into batched
 launches through the QueryCoalescer; window 0, the default, builds none
-and every query takes the per-query path."""
+and every query takes the per-query path.
 
+With a write-ahead oplog (`API(oplog=...)`, on by default in `server`),
+every bit, value and roaring import is appended to the log before it is
+applied and acknowledged, and `replay_oplog()` re-applies at boot what a
+crash left unapplied. Records are the TPU package's: a log written by
+either package replays in the other."""
+
+import array
+import base64
 import csv
 import io
 import random
 import threading
+
+import numpy as np
 
 from ..core import FieldOptions
 from ..core.field import (
@@ -26,6 +36,7 @@ from ..core.index import IndexOptions
 from ..exec import ExecOptions, Executor
 from ..pql import parse
 from ..shardwidth import SHARD_WIDTH
+from ..utils import faultpoints
 from .. import __version__
 
 
@@ -64,6 +75,39 @@ def shed_reject(site, message, retry_after):
     err = ServiceUnavailableError(message, retry_after=ra)
     err.headers["X-Pilosa-Shed"] = site
     raise err
+
+
+#: oplog binary-list type codes -> array.array typecodes ('I' is only
+#: u4 where the platform says so; the log is node-local, so the machine
+#: that wrote a record is the machine that replays it)
+_OPLOG_DT = {"u4": "I", "u8": "Q", "i8": "q"}
+_U4_OK = array.array("I").itemsize == 4
+
+
+def _oplog_pack_ints(v):
+    """base64-of-packed-ints record field for an id/value list, or None
+    when ``v`` isn't an int list (keys, mixed). Tries u4 first — the
+    common case for row ids and per-shard column ids — then i8;
+    ndarrays pack through numpy without a Python-object round trip."""
+    if isinstance(v, np.ndarray):
+        if v.dtype.kind == "u":
+            b = np.ascontiguousarray(v, dtype="<u8").tobytes()
+            return {"__b": base64.b64encode(b).decode(), "dt": "u8"}
+        if v.dtype.kind == "i":
+            b = np.ascontiguousarray(v, dtype="<i8").tobytes()
+            return {"__b": base64.b64encode(b).decode(), "dt": "i8"}
+        return None
+    if _U4_OK:
+        try:
+            b = array.array("I", v).tobytes()
+            return {"__b": base64.b64encode(b).decode(), "dt": "u4"}
+        except (OverflowError, TypeError, ValueError):
+            pass
+    try:
+        b = array.array("q", v).tobytes()
+        return {"__b": base64.b64encode(b).decode(), "dt": "i8"}
+    except (OverflowError, TypeError, ValueError):
+        return None
 
 
 def field_options_from_json(opts):
@@ -339,13 +383,33 @@ class QueryCoalescer:
 
 
 class API:
-    """Holds the holder and the port's Executor on `device`, and the
-    query coalescer when `coalesce_window` > 0."""
+    """Holds the holder and the port's Executor on `device`, the query
+    coalescer when `coalesce_window` > 0, and the write-ahead oplog when
+    one is given."""
 
     def __init__(self, holder, device=None, coalesce_window=0.0,
-                 coalesce_max_queue=256):
+                 coalesce_max_queue=256, max_writes_per_request=0,
+                 oplog=None, logger=None):
+        from ..utils.logger import StandardLogger
+
         self.holder = holder
-        self.executor = Executor(holder, device=device)
+        self.executor = Executor(
+            holder, device=device,
+            max_writes_per_request=max_writes_per_request)
+        # Durable write-ahead oplog (storage/oplog.py): when set, every
+        # import appends its record BEFORE any ack path can return, and
+        # replay_oplog() re-applies unapplied records at boot. None (the
+        # default, and what in-process test harnesses use) keeps the
+        # pre-oplog behavior exactly.
+        self.oplog = oplog
+        # replay_lsn: the original record's LSN while a boot replay is
+        # re-running an import through the normal path (no re-append —
+        # the record already stands; apply-marking reuses its LSN)
+        self._oplog_tls = threading.local()
+        self._oplog_ckpt_lock = threading.Lock()
+        if oplog is not None:
+            oplog.on_rotate = self._oplog_rotate_checkpoint
+        self.logger = logger if logger is not None else StandardLogger()
         # window 0 — the default — builds no coalescer: every query takes
         # the per-query path
         self.coalesce_window = float(coalesce_window or 0.0)
@@ -541,46 +605,219 @@ class API:
         return row_ids, column_ids
 
     def import_bits(self, index_name, field_name, row_ids, column_ids,
-                    timestamps=None, clear=False, row_keys=None,
-                    column_keys=None):
+                    timestamps=None, clear=False, remote=False,
+                    row_keys=None, column_keys=None):
         """(reference: api.Import api.go:920, single node; string keys
-        translate to ids first)"""
+        translate to ids first). The record reaches the oplog before the
+        apply, with the keys as given; `remote` is carried for the TPU
+        package's record shape and means nothing on one node."""
         field = self._field(index_name, field_name)
-        if row_keys is not None or column_keys is not None:
-            t_rows, t_cols = self._translate_import_keys(
-                index_name, field_name, row_keys, column_keys)
-            if t_rows is not None:
-                row_ids = t_rows
-            if t_cols is not None:
-                column_ids = t_cols
-        changed = field.import_bits(
-            row_ids, column_ids, timestamps=timestamps, clear=clear)
-        if not clear:
+        kwargs = dict(index_name=index_name, field_name=field_name,
+                      row_ids=row_ids, column_ids=column_ids,
+                      timestamps=timestamps, clear=clear,
+                      remote=remote, row_keys=row_keys,
+                      column_keys=column_keys)
+        lsn = self._oplog_append("bits", kwargs)
+        faultpoints.reached("import.post-append")
+        try:
+            if row_keys is not None or column_keys is not None:
+                t_rows, t_cols = self._translate_import_keys(
+                    index_name, field_name, row_keys, column_keys)
+                if t_rows is not None:
+                    row_ids = t_rows
+                if t_cols is not None:
+                    column_ids = t_cols
+            changed = field.import_bits(
+                row_ids, column_ids, timestamps=timestamps, clear=clear)
+            # the columns exist after a clear import too, as in the TPU
+            # package (a cleared bit is still a column that was written)
             self.holder.index(index_name).add_existence(column_ids)
-        return changed
+            faultpoints.reached("import.pre-ack")
+            return changed
+        finally:
+            # an exception here means NO ack went out, so the record
+            # needs no replay guarantee — mark it applied either way so
+            # one failed import can't pin the checkpoint watermark
+            # forever (a process crash skips this; that's the point)
+            self._oplog_applied(lsn)
 
     def import_values(self, index_name, field_name, column_ids, values,
-                      clear=False, column_keys=None):
+                      remote=False, column_keys=None, clear=False):
         """Bulk BSI values (reference: api.ImportValue api.go:1035, single
         node). clear=True removes the listed columns' values."""
         field = self._field(index_name, field_name)
-        if column_keys is not None:
-            _, column_ids = self._translate_import_keys(
-                index_name, field_name, None, column_keys)
-        changed = field.import_values(column_ids, values, clear=clear)
-        if not clear:
-            self.holder.index(index_name).add_existence(column_ids)
-        return changed
+        kwargs = dict(index_name=index_name, field_name=field_name,
+                      column_ids=column_ids, values=values,
+                      remote=remote, column_keys=column_keys,
+                      clear=clear)
+        lsn = self._oplog_append("values", kwargs)
+        faultpoints.reached("import.post-append")
+        try:
+            if column_keys is not None:
+                _, column_ids = self._translate_import_keys(
+                    index_name, field_name, None, column_keys)
+            changed = field.import_values(column_ids, values, clear=clear)
+            if not clear:
+                self.holder.index(index_name).add_existence(column_ids)
+            faultpoints.reached("import.pre-ack")
+            return changed
+        finally:
+            self._oplog_applied(lsn)
 
     def import_roaring(self, index_name, field_name, shard, data,
-                       clear=False, view="standard"):
+                       clear=False, view="standard", remote=False):
         """Merge a serialized roaring blob of row * SHARD_WIDTH + offset
         positions into one shard of one view (reference: api.ImportRoaring
         api.go:368, single node). Returns the number of bits changed."""
         field = self._field(index_name, field_name)
-        v = field.create_view_if_not_exists(view)
-        frag = v.create_fragment_if_not_exists(int(shard))
-        return frag.import_roaring(data, clear=clear)
+        shard = int(shard)
+        lsn = self._oplog_append("roaring", dict(
+            index_name=index_name, field_name=field_name, shard=shard,
+            data=data, clear=clear, view=view, remote=remote))
+        faultpoints.reached("import.post-append")
+        try:
+            v = field.create_view_if_not_exists(view)
+            frag = v.create_fragment_if_not_exists(shard)
+            changed = frag.import_roaring(data, clear=clear)
+            faultpoints.reached("import.pre-ack")
+            return changed
+        finally:
+            self._oplog_applied(lsn)
+
+    # -- durable oplog (storage/oplog.py) ------------------------------------
+
+    def _oplog_append(self, kind, kwargs):
+        """Append one import's record BEFORE any apply/ack step; returns
+        its LSN (None when no oplog is attached). A boot replay
+        re-entering the import path reuses the original record's LSN
+        instead of re-appending."""
+        if self.oplog is None:
+            return None
+        replay_lsn = getattr(self._oplog_tls, "replay_lsn", None)
+        if replay_lsn is not None:
+            return replay_lsn
+        return self.oplog.append(self._oplog_encode(kind, kwargs))
+
+    def _oplog_applied(self, lsn):
+        """The write at ``lsn`` finished its synchronous apply (or was
+        counted as dropped): advance the applied watermark."""
+        if lsn is not None and self.oplog is not None:
+            self.oplog.mark_applied(lsn)
+
+    @staticmethod
+    def _oplog_encode(kind, kwargs):
+        """JSON-safe record for one import call, captured PRE-translation
+        (keys replay through the durable translate stores and get the
+        same ids) with datetimes as wire strings and roaring blobs as
+        base64. Numeric id/value lists ride as base64 of packed
+        fixed-width ints (:func:`_oplog_pack_ints`) — this sits on the
+        ack path, and at import batch sizes that serializes ~2x faster
+        and smaller than a JSON int list of the same data."""
+        rec = {"kind": kind}
+        for k, v in kwargs.items():
+            if v is None or isinstance(v, (bool, int, float, str)):
+                rec[k] = v
+            elif k == "timestamps":
+                from ..core.timeq import TIME_FORMAT
+
+                rec[k] = [t if (t is None or isinstance(t, str))
+                          else t.strftime(TIME_FORMAT) for t in v]
+            elif k == "data":
+                rec[k] = base64.b64encode(bytes(v)).decode()
+            else:
+                packed = _oplog_pack_ints(v)
+                if packed is None:  # key lists (strings), mixed lists
+                    rec[k] = np.asarray(v).tolist()
+                else:
+                    rec[k] = packed
+        return rec
+
+    @staticmethod
+    def _oplog_decode_kwargs(record):
+        """Invert :meth:`_oplog_encode`'s binary list packing (replay
+        path only — cold)."""
+        kw = {}
+        for k, v in record.items():
+            if k == "kind":
+                continue
+            if isinstance(v, dict) and "__b" in v:
+                arr = array.array(_OPLOG_DT[v.get("dt", "i8")])
+                arr.frombytes(base64.b64decode(v["__b"]))
+                v = arr.tolist()
+            kw[k] = v
+        return kw
+
+    def _apply_oplog_record(self, record):
+        """Replay one decoded record through the NORMAL import path (so
+        key translation and existence tracking behave exactly like the
+        original call did)."""
+        kind = record.get("kind")
+        kw = self._oplog_decode_kwargs(record)
+        if kind == "bits":
+            ts = kw.get("timestamps")
+            if ts is not None:
+                from ..core import timeq
+
+                kw["timestamps"] = [
+                    timeq.parse_time(t) if t else None for t in ts]
+            return self.import_bits(**kw)
+        if kind == "values":
+            return self.import_values(**kw)
+        if kind == "roaring":
+            kw["data"] = base64.b64decode(kw["data"])
+            return self.import_roaring(**kw)
+        raise ApiError(f"unknown oplog record kind: {kind!r}")
+
+    def replay_oplog(self):
+        """Boot-time crash recovery: re-apply every record past the last
+        checkpoint, in LSN (== arrival) order. Idempotent — set-bit
+        records re-set already-set bits, BSI value records replay
+        last-write-wins — so records that were applied (even fsynced)
+        before the crash converge to the pre-crash state. Returns the
+        number of records applied. Call BEFORE serving."""
+        if self.oplog is None:
+            return 0
+
+        def apply(lsn, record):
+            self._oplog_tls.replay_lsn = lsn
+            try:
+                self._apply_oplog_record(record)
+            finally:
+                self._oplog_tls.replay_lsn = None
+
+        applied, failed = self.holder.replay_oplog(
+            self.oplog, apply, logger=self.logger)
+        if applied:
+            # everything replayed is in fragment WALs now; make it
+            # durable and move the checkpoint so the NEXT restart
+            # replays only what this boot couldn't finish
+            self.holder.sync_fragments()
+            self.oplog.checkpoint()
+        return applied
+
+    def _oplog_rotate_checkpoint(self, _sealed_last_lsn):
+        """Segment rotation is the checkpoint trigger that keeps the log
+        bounded: fsync every fragment (making all applied records
+        durable BELOW the log) then checkpoint at the applied watermark,
+        dropping fully-applied sealed segments. Runs on its own thread —
+        the append that tripped the rotation must not wait out a full
+        fragment fsync sweep — and the non-blocking lock collapses
+        back-to-back rotations into one sweep."""
+        if not self._oplog_ckpt_lock.acquire(blocking=False):
+            return
+
+        def run():
+            try:
+                self.holder.sync_fragments()
+                self.oplog.checkpoint()
+            except Exception as e:  # noqa: BLE001 — retried at next rotate
+                self.logger.printf(
+                    "oplog checkpoint after rotation failed: %s", e)
+            finally:
+                self._oplog_ckpt_lock.release()
+
+        threading.Thread(target=run, daemon=True,
+                         name="oplog-checkpoint").start()
 
     def export_csv(self, index_name, field_name, shard):
         """(reference: api.ExportCSV api.go:500) row,col lines for one
@@ -675,6 +912,69 @@ class API:
 
     def info(self):
         return {"shardWidth": SHARD_WIDTH, "version": __version__}
+
+    def shards_max(self):
+        out = {}
+        for name, idx in self.holder.indexes.items():
+            shards = idx.available_shards()
+            out[name] = shards[-1] if shards else 0
+        return {"standard": out}
+
+    def hosts(self):
+        return [{"id": "local", "isCoordinator": True}]
+
+    # -- node internals: backup, export and restore read fragments here ------
+
+    def index_shards(self, index_name):
+        idx = self.holder.index(index_name)
+        if idx is None:
+            raise NotFoundError(f"index not found: {index_name}")
+        return {"shards": idx.available_shards()}
+
+    def _fragment(self, index_name, field_name, view_name, shard):
+        field = self._field(index_name, field_name)
+        view = field.view(view_name)
+        frag = view.fragment(int(shard)) if view else None
+        if frag is None:
+            raise NotFoundError(
+                f"fragment not found: {index_name}/{field_name}/"
+                f"{view_name}/{shard}")
+        return frag
+
+    def shard_fragments(self, index_name, shard):
+        """Every (field, view) fragment present for a shard on this node
+        (the views are data-dependent, so a reader can't know them)."""
+        idx = self.holder.index(index_name)
+        if idx is None:
+            raise NotFoundError(f"index not found: {index_name}")
+        shard = int(shard)
+        out = []
+        for field in idx.fields.values():
+            for vname, view in field.views.items():
+                if view.fragment(shard) is not None:
+                    out.append({"field": field.name, "view": vname})
+        return {"fragments": out}
+
+    def fragment_blocks(self, index_name, field_name, view_name, shard):
+        """(reference: /internal/fragment/blocks handler.go:300)"""
+        frag = self._fragment(index_name, field_name, view_name, shard)
+        return {"blocks": [{"id": bid, "checksum": chk.hex()}
+                           for bid, chk in frag.blocks()]}
+
+    def fragment_block_data(self, index_name, field_name, view_name, shard,
+                            block):
+        frag = self._fragment(index_name, field_name, view_name, shard)
+        rows, cols = frag.block_data(int(block))
+        return {"rowIDs": [int(r) for r in rows],
+                "columnIDs": [int(c) for c in cols]}
+
+    def fragment_data(self, index_name, field_name, view_name, shard):
+        """Whole fragment as a serialized roaring blob (reference:
+        /internal/fragment/data)."""
+        from ..roaring import serialize
+
+        frag = self._fragment(index_name, field_name, view_name, shard)
+        return serialize(frag.storage)
 
     def status(self):
         nodes = [{"id": "local", "uri": {"scheme": "http"},

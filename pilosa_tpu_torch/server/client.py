@@ -1,0 +1,357 @@
+"""HTTP client (reference: http/client.go InternalClient).
+
+Used by applications and the CLI's import, export, backup and restore
+commands. stdlib urllib; no external deps. It speaks the JSON wire of
+the port's server and of the TPU package's alike.
+
+Resilience: every request takes an optional per-request deadline, and
+idempotent requests (GETs, DELETEs, and the import paths — set-bit and
+roaring imports re-apply cleanly, BSI values are last-write-wins) retry
+transient failures with bounded, jittered exponential backoff. A 503
+with ``Retry-After`` (readiness gating, resize-queue overflow) is always
+retryable — the server has explicitly promised the request will work
+later — and the advertised delay is honored up to the backoff cap."""
+
+import json
+import random
+import threading
+import time
+import urllib.error
+import urllib.request
+
+# -- HTTP data-plane byte accounting ------------------------------------
+# Response bytes of node-to-node REMOTE query fan-out — the cluster's
+# HTTP DATA plane (result payloads), as opposed to control traffic.
+# Process-wide (every Client instance counts).
+_data_plane_lock = threading.Lock()
+_data_plane_bytes = 0
+
+
+def _note_data_plane(n):
+    global _data_plane_bytes
+    with _data_plane_lock:
+        _data_plane_bytes += int(n)
+
+
+def data_plane_bytes():
+    with _data_plane_lock:
+        return _data_plane_bytes
+
+
+def reset_data_plane_bytes():
+    """Bench/test isolation."""
+    global _data_plane_bytes
+    with _data_plane_lock:
+        _data_plane_bytes = 0
+
+
+class ClientError(Exception):
+    def __init__(self, status, message):
+        super().__init__(f"HTTP {status}: {message}")
+        self.status = status
+
+
+class DeadlineExceeded(ClientError):
+    """The per-request deadline expired before a successful response
+    (status 0: the failure is client-side, no HTTP status exists)."""
+
+    def __init__(self, message):
+        super().__init__(0, message)
+
+
+class Client:
+    def __init__(self, base_url, timeout=30, tls_skip_verify=False,
+                 ca_cert=None, retries=2, backoff=0.1, backoff_max=2.0,
+                 deadline=None):
+        """tls_skip_verify / ca_cert: https trust options (reference:
+        tls.skip-verify / tls.ca-certificate server config).
+
+        retries: extra attempts for retryable failures (0 disables);
+        backoff/backoff_max: jittered exponential backoff bounds, also
+        the cap on an honored ``Retry-After``; deadline: default
+        per-request wall-clock budget in seconds across ALL attempts
+        (None = no deadline; per-attempt socket timeout still applies)."""
+        self.base_url = base_url.rstrip("/")
+        self.timeout = timeout
+        self.retries = retries
+        self.backoff = backoff
+        self.backoff_max = backoff_max
+        self.deadline = deadline
+        self._ssl_context = None
+        if base_url.startswith("https"):
+            import ssl
+
+            if tls_skip_verify:
+                ctx = ssl.create_default_context()
+                ctx.check_hostname = False
+                ctx.verify_mode = ssl.CERT_NONE
+                self._ssl_context = ctx
+            elif ca_cert:
+                self._ssl_context = ssl.create_default_context(
+                    cafile=ca_cert)
+
+    def _request(self, method, path, body=None,
+                 content_type="application/json", idempotent=None,
+                 deadline=None, headers=None):
+        """idempotent: may network-level failures be retried? (an HTTP
+        503 is retried regardless — the server rejected the request
+        before doing work). Defaults to True for GET/DELETE.
+        headers: extra request headers sent on every attempt (e.g. the
+        forwarded X-Request-Deadline on cluster fan-out)."""
+        if idempotent is None:
+            idempotent = method in ("GET", "DELETE")
+        if deadline is None:
+            deadline = self.deadline
+        deadline_at = None if deadline is None else \
+            time.monotonic() + deadline
+        attempt = 0
+        while True:
+            retry_after = None
+            try:
+                return self._request_once(method, path, body, content_type,
+                                          deadline_at, headers)
+            except ClientError as e:
+                if e.status != 503 or attempt >= self.retries:
+                    raise
+                retry_after = getattr(e, "retry_after", None)
+            except (urllib.error.URLError, TimeoutError, OSError):
+                # includes socket.timeout and connection refused/reset;
+                # non-idempotent requests may have partially executed
+                if not idempotent or attempt >= self.retries:
+                    raise
+            delay = min(self.backoff_max,
+                        self.backoff * (2 ** attempt))
+            delay *= random.uniform(0.5, 1.0)  # jitter: decorrelate peers
+            if retry_after is not None:
+                # the server knows better than our backoff curve, but
+                # never wait longer than the configured cap
+                delay = min(max(delay, retry_after), self.backoff_max)
+            if deadline_at is not None and \
+                    time.monotonic() + delay >= deadline_at:
+                raise DeadlineExceeded(
+                    f"deadline exceeded after {attempt + 1} attempt(s): "
+                    f"{method} {path}")
+            time.sleep(delay)
+            attempt += 1
+
+    def _request_once(self, method, path, body, content_type, deadline_at,
+                      headers=None):
+        timeout = self.timeout
+        if deadline_at is not None:
+            remaining = deadline_at - time.monotonic()
+            if remaining <= 0:
+                raise DeadlineExceeded(
+                    f"deadline exceeded: {method} {path}")
+            timeout = min(timeout, remaining)
+        req = urllib.request.Request(
+            self.base_url + path, data=body, method=method)
+        if body is not None:
+            req.add_header("Content-Type", content_type)
+        if headers:
+            for k, v in headers.items():
+                req.add_header(k, v)
+        try:
+            with urllib.request.urlopen(
+                    req, timeout=timeout,
+                    context=self._ssl_context) as resp:
+                data = resp.read()
+                ctype = resp.headers.get("Content-Type", "")
+        except urllib.error.HTTPError as e:
+            try:
+                message = json.loads(e.read().decode()).get("error", str(e))
+            except Exception:
+                message = str(e)
+            err = ClientError(e.code, message)
+            ra = e.headers.get("Retry-After") if e.headers else None
+            if ra is not None:
+                try:
+                    err.retry_after = float(ra)
+                except ValueError:
+                    pass
+            # which shedding site rejected us (admission, coalesce,
+            # ingest, resize_queue) — lets the cluster layer tell an
+            # OVERLOADED peer from an unready/dead one
+            shed = e.headers.get("X-Pilosa-Shed") if e.headers else None
+            if shed is not None:
+                err.shed = shed
+            raise err from e
+        if "/query" in path and "remote=true" in path:
+            # JSON-wire remote fan-out: result bytes over HTTP
+            _note_data_plane(len(data))
+        if ctype.startswith("application/json"):
+            return json.loads(data.decode()) if data else None
+        return data
+
+    # -- schema --------------------------------------------------------------
+
+    def create_index(self, name, keys=False, track_existence=True):
+        return self._request("POST", f"/index/{name}", json.dumps({
+            "options": {"keys": keys, "trackExistence": track_existence},
+        }).encode())
+
+    def delete_index(self, name):
+        return self._request("DELETE", f"/index/{name}")
+
+    def create_field(self, index, field, options=None):
+        return self._request(
+            "POST", f"/index/{index}/field/{field}",
+            json.dumps({"options": options or {}}).encode())
+
+    def delete_field(self, index, field):
+        return self._request("DELETE", f"/index/{index}/field/{field}")
+
+    def schema(self):
+        return self._request("GET", "/schema")
+
+    # -- queries -------------------------------------------------------------
+
+    @staticmethod
+    def _query_headers(deadline, query_class):
+        """X-Request-Deadline / X-Query-Class headers (None when
+        neither is set). `deadline` is a RELATIVE budget in seconds —
+        the receiving edge re-anchors it against its own clock, so
+        coordinator/peer clock skew never corrupts the deadline."""
+        headers = {}
+        if deadline is not None:
+            headers["X-Request-Deadline"] = f"{float(deadline):.6f}"
+        if query_class is not None:
+            headers["X-Query-Class"] = query_class
+        return headers or None
+
+    def query(self, index, pql, shards=None, remote=False,
+              exclude_row_attrs=False, exclude_columns=False,
+              deadline=None, query_class=None):
+        """(reference: InternalClient.QueryNode http/client.go:268; remote
+        marks node-to-node fan-out requests that must not re-fan-out;
+        deadline: remaining budget in seconds, sent as X-Request-Deadline
+        and bounding local retries; query_class: admission class
+        forwarded as X-Query-Class)"""
+        path = f"/index/{index}/query"
+        params = []
+        if shards is not None:
+            params.append("shards=" + ",".join(str(s) for s in shards))
+        if remote:
+            params.append("remote=true")
+        if exclude_row_attrs:
+            params.append("excludeRowAttrs=true")
+        if exclude_columns:
+            params.append("excludeColumns=true")
+        if params:
+            path += "?" + "&".join(params)
+        return self._request(
+            "POST", path, pql.encode(), content_type="text/plain",
+            deadline=deadline,
+            headers=self._query_headers(deadline, query_class))
+
+    # -- imports -------------------------------------------------------------
+
+    def import_bits(self, index, field, row_ids, column_ids,
+                    timestamps=None, clear=False, remote=False,
+                    row_keys=None, column_keys=None, deadline=None):
+        """idempotent=True: re-setting a set bit is a no-op, so a retry
+        after an ambiguous network failure cannot corrupt anything."""
+        path = f"/index/{index}/field/{field}/import"
+        params = []
+        if clear:
+            params.append("clear=true")
+        if remote:
+            params.append("remote=true")
+        if params:
+            path += "?" + "&".join(params)
+        body = {}
+        if row_keys is not None:
+            body["rowKeys"] = list(row_keys)
+        else:
+            body["rowIDs"] = [int(r) for r in row_ids]
+        if column_keys is not None:
+            body["columnKeys"] = list(column_keys)
+        else:
+            body["columnIDs"] = [int(c) for c in column_ids]
+        if timestamps is not None:
+            body["timestamps"] = timestamps
+        return self._request("POST", path, json.dumps(body).encode(),
+                             idempotent=True, deadline=deadline)
+
+    def import_values(self, index, field, column_ids, values, remote=False,
+                      column_keys=None, clear=False, deadline=None):
+        """idempotent=True: replaying the same value assignment is
+        last-write-wins over itself."""
+        path = f"/index/{index}/field/{field}/import"
+        params = [p for p, on in (("remote=true", remote),
+                                  ("clear=true", clear)) if on]
+        if params:
+            path += "?" + "&".join(params)
+        body = {"values": [int(v) for v in values]}
+        if column_keys is not None:
+            body["columnKeys"] = list(column_keys)
+        else:
+            body["columnIDs"] = [int(c) for c in column_ids]
+        return self._request("POST", path, json.dumps(body).encode(),
+                             idempotent=True, deadline=deadline)
+
+    def import_roaring(self, index, field, shard, data, clear=False,
+                       view="standard", remote=False, deadline=None):
+        path = (f"/index/{index}/field/{field}/import-roaring/{shard}"
+                f"?view={view}")
+        if clear:
+            path += "&clear=true"
+        if remote:
+            path += "&remote=true"
+        return self._request(
+            "POST", path, data, content_type="application/octet-stream",
+            idempotent=True, deadline=deadline)
+
+    # -- misc ----------------------------------------------------------------
+
+    def status(self):
+        return self._request("GET", "/status")
+
+    def info(self):
+        return self._request("GET", "/info")
+
+    # -- debug / observability -----------------------------------------------
+
+    def debug_oplog(self):
+        """The peer's durable-oplog summary (segments, checkpoint,
+        replay lag); {"enabled": False} when the node runs without one."""
+        return self._request("GET", "/debug/oplog")
+
+    def export_csv(self, index, field, shard):
+        data = self._request(
+            "GET", f"/export?index={index}&field={field}&shard={shard}")
+        return data.decode() if isinstance(data, bytes) else data
+
+    def nodes(self):
+        return self._request("GET", "/internal/nodes")
+
+    # -- node-to-node internals (reference: http/client.go internal paths) ---
+
+    def index_shards(self, index):
+        """Available shards on this node (reference: availableShards
+        gossip; here an internal endpoint)."""
+        return self._request("GET", f"/internal/index/{index}/shards")
+
+    def shard_fragments(self, index, shard):
+        """(field, view) fragments a node holds for one shard (backup's
+        discovery: the views are data-dependent)."""
+        return self._request(
+            "GET", f"/internal/index/{index}/shard/{shard}/fragments")
+
+    def fragment_blocks(self, index, field, view, shard):
+        """(reference: /internal/fragment/blocks handler.go:300)"""
+        return self._request(
+            "GET", f"/internal/fragment/blocks?index={index}&field={field}"
+                   f"&view={view}&shard={shard}")
+
+    def fragment_block_data(self, index, field, view, shard, block):
+        """(reference: /internal/fragment/block/data)"""
+        return self._request(
+            "GET", f"/internal/fragment/block/data?index={index}"
+                   f"&field={field}&view={view}&shard={shard}&block={block}")
+
+    def fragment_data(self, index, field, view, shard):
+        """Whole serialized fragment (reference: /internal/fragment/data,
+        http/client.go:742)."""
+        return self._request(
+            "GET", f"/internal/fragment/data?index={index}&field={field}"
+                   f"&view={view}&shard={shard}")

@@ -1,9 +1,11 @@
 """HTTP transport (reference: http/handler.go).
 
 Stdlib ThreadingHTTPServer + a regex router over the reference's public
-single-node REST surface, with the TPU package's JSON wire shapes. The
-protobuf wire is not served: a body sent as application/x-protobuf gets
-415.
+single-node REST surface, the node internals that backup, export and
+restore read (/internal/...), and the durability debug routes
+(/debug/oplog, /debug/faultpoints), with the TPU package's JSON wire
+shapes. The protobuf wire is not served: a body sent as
+application/x-protobuf gets 415.
 """
 
 import json
@@ -15,6 +17,7 @@ from urllib.parse import parse_qs, urlparse
 from ..core import timeq
 from ..core.index import IndexOptions
 from ..exec import ExecOptions
+from ..utils import faultpoints
 from .api import ApiError, NotFoundError, field_options_from_json, \
     result_to_json
 
@@ -92,7 +95,26 @@ class PilosaHTTPServer:
             Route("GET", r"/info", self._get_info),
             Route("GET", r"/version", self._get_version),
             Route("POST", r"/recalculate-caches", self._recalculate_caches),
+            Route("GET", r"/internal/shards/max", self._get_shards_max),
+            Route("GET", r"/internal/nodes", self._get_nodes),
+            Route("GET", r"/internal/index/(?P<index>[^/]+)/shards",
+                  self._get_index_shards),
+            Route("GET",
+                  r"/internal/index/(?P<index>[^/]+)/shard/(?P<shard>[0-9]+)"
+                  r"/fragments",
+                  self._get_shard_fragments),
+            Route("GET", r"/internal/fragment/blocks",
+                  self._get_fragment_blocks,
+                  args=("index", "field", "view", "shard")),
+            Route("GET", r"/internal/fragment/block/data",
+                  self._get_fragment_block_data),
+            Route("GET", r"/internal/fragment/data",
+                  self._get_fragment_data,
+                  args=("index", "field", "view", "shard")),
             Route("GET", r"/debug/batching", self._get_debug_batching),
+            Route("GET", r"/debug/oplog", self._get_debug_oplog),
+            Route("GET", r"/debug/faultpoints", self._get_faultpoints),
+            Route("POST", r"/debug/faultpoints", self._post_faultpoints),
         ]
         self._httpd = None
         self._thread = None
@@ -246,6 +268,74 @@ class PilosaHTTPServer:
             clear=req.query.get("clear", ["false"])[0] == "true",
             view=req.query.get("view", ["standard"])[0])
         return {"changed": changed}
+
+    def _get_shards_max(self, req):
+        return self.api.shards_max()
+
+    def _get_nodes(self, req):
+        return self.api.hosts()
+
+    def _get_index_shards(self, req):
+        return self.api.index_shards(req.params["index"])
+
+    def _get_shard_fragments(self, req):
+        return self.api.shard_fragments(
+            req.params["index"], req.params["shard"])
+
+    def _q1(self, req, key, default=None):
+        return req.query.get(key, [default])[0]
+
+    def _get_fragment_blocks(self, req):
+        return self.api.fragment_blocks(
+            self._q1(req, "index"), self._q1(req, "field"),
+            self._q1(req, "view", "standard"), self._q1(req, "shard", "0"))
+
+    def _get_fragment_block_data(self, req):
+        return self.api.fragment_block_data(
+            self._q1(req, "index"), self._q1(req, "field"),
+            self._q1(req, "view", "standard"), self._q1(req, "shard", "0"),
+            self._q1(req, "block", "0"))
+
+    def _get_fragment_data(self, req):
+        data = self.api.fragment_data(
+            self._q1(req, "index"), self._q1(req, "field"),
+            self._q1(req, "view", "standard"), self._q1(req, "shard", "0"))
+        return RawResponse(data, "application/octet-stream")
+
+    def _get_debug_oplog(self, req):
+        """Durable-oplog summary: segments, checkpoint, replay lag."""
+        oplog = self.api.oplog
+        if oplog is None:
+            return {"enabled": False,
+                    "hint": "node started without a write-ahead oplog "
+                            "(storage oplog=false or no data dir)"}
+        out = oplog.summary()
+        out["enabled"] = True
+        return out
+
+    def _get_faultpoints(self, req):
+        """Armed fault points + hit counters (crash-test introspection)."""
+        return faultpoints.snapshot()
+
+    def _post_faultpoints(self, req):
+        """Arm/disarm fault points on a live server. Body:
+        ``{"arm": "<spec>" | ["<spec>", ...], "disarm": "<name>"|"all"}``
+        (spec grammar in utils/faultpoints.py). Test-only surface — it
+        mutates process behavior, so it is part of the debug namespace,
+        not the public API."""
+        body = json.loads(req.body.decode() or "{}")
+        disarm = body.get("disarm")
+        if disarm is not None:
+            faultpoints.disarm(None if disarm == "all" else disarm)
+        arm = body.get("arm")
+        if arm is not None:
+            specs = arm if isinstance(arm, list) else [arm]
+            try:
+                for spec in specs:
+                    faultpoints.arm(spec)
+            except ValueError as e:
+                raise ApiError(str(e)) from e
+        return faultpoints.snapshot()
 
     def _get_export(self, req):
         index = req.query.get("index", [None])[0]

@@ -58,6 +58,10 @@ FSYNC_MODES = ("always", "interval", "never")
 
 _CHECKPOINT = "CHECKPOINT"
 
+#: the log's directory under a server's data directory; the holder
+#: opens no index there and reserves the name
+OPLOG_DIR = "oplog"
+
 
 class OpLogError(Exception):
     pass

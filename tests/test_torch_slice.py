@@ -266,14 +266,22 @@ assert not bad, bad
     assert "LOADED []" in proc.stdout
 
 
+#: modules that must exist and be scanned: the command line with its
+#: tools, the client and the logger the oplog writes through
+REQUIRED_SOURCES = ("cli.py", "server/client.py", "utils/logger.py",
+                    "storage/oplog.py", "server/api.py")
+
+
 def test_port_sources_import_no_jax_or_reference():
     pkg = os.path.join(REPO, "pilosa_tpu_torch")
     offenders = []
+    scanned = set()
     for root, _, files in os.walk(pkg):
         for name in files:
             if not name.endswith((".py", ".cu", ".cuh")):
                 continue
             path = os.path.join(root, name)
+            scanned.add(os.path.relpath(path, pkg))
             with open(path, encoding="utf-8") as f:
                 for n, line in enumerate(f, 1):
                     text = line.replace("pilosa_tpu_torch", "")
@@ -282,6 +290,56 @@ def test_port_sources_import_no_jax_or_reference():
                             or "from pilosa_tpu " in text):
                         offenders.append(f"{path}:{n}: {line.strip()}")
     assert offenders == []
+    assert set(REQUIRED_SOURCES) <= scanned
+
+
+_BLOCKER = """
+import sys
+
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "pilosa_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Block())
+"""
+
+
+def test_file_tools_run_with_jax_blocked(tmp_path):
+    """`python -m pilosa_tpu_torch check|inspect|holder` over a data
+    directory the port wrote, with jax, jaxlib and pilosa_tpu blocked
+    from import (a sitecustomize that refuses them)."""
+    from pilosa_tpu_torch.core import Holder as TorchHolder
+
+    data = str(tmp_path / "data")
+    h = TorchHolder(data, use_snapshot_queue=False).open()
+    h.create_index("i").create_field("f").import_bits(
+        [1, 1, 2], [3, SHARD_WIDTH + 4, 5])
+    h.close()
+    frag = os.path.join(data, "i", "f", "views", "standard", "fragments",
+                        "0")
+    assert os.path.isfile(frag)
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_BLOCKER)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = f"{site}{os.pathsep}{REPO}"
+    probe = subprocess.run(
+        [sys.executable, "-c", "import jax"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=60)
+    assert probe.returncode != 0 and "blocked: jax" in probe.stderr
+    for argv, want in ((["check", frag], f"{frag}: ok"),
+                       (["inspect", frag], "row 1: 1 bits"),
+                       (["holder", "--data-dir", data], "i: _exists(set), "
+                                                        "f(set)")):
+        proc = subprocess.run(
+            [sys.executable, "-m", "pilosa_tpu_torch", *argv], cwd=REPO,
+            env=env, capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert want in proc.stdout, proc.stdout
 
 
 def test_row_results_are_row_objects(pair):
