@@ -91,6 +91,19 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      range; then an import of 1,000 values and a Set whose next Sum and
      Count read them back through an in-place patch of the BSI stack;
      K5, K1 and K3 must move by exactly what each query launches;
+   - observability (serve_observe, after the BSI path; the server runs
+     with --watchdog-deadline 60s): per path, the Count of
+     Intersect(Row(f=2), Row(g=2)) over index b (K1), config 3's
+     TopN(f, n=10) (K3) and config 4's Jan+Feb Sum (K3), 20 ?profile=true
+     warm queries give the host split (medians of client wall, the
+     server's http_request_seconds, the profile's root span,
+     executor.Execute, lock wait, each dispatch phase, kernel wall) and
+     one torch.profiler trace of 10 warm queries the card's busy share
+     and its longest operations; then /metrics must carry
+     device_memory_bytes{device="cuda:0"} > 0, /debug/dispatch's count
+     family must have grown by exactly the phase's K1 launches, the
+     flight recorder must hold dispatch.start/end pairs and the watchdog
+     must not have tripped;
    - compressed path (the auto chooser over index b): Counts over the
      sparse rows (K2), the run-length rows (torch sums), a union and a
      dense-with-sparse intersection (densify + K1), each launch delta
@@ -125,6 +138,7 @@ last line is {"ok": true, "device": {...}}.
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -2277,6 +2291,229 @@ def serve_bsi_path(srv, k1, k3, k5, br, card):
             f"{len(warm[name])} queries")
     log(f"serve: launches on the BSI path: K5 {k5.bsi_range_mask.launches}, "
         f"K1 {k1.count_expr.launches}, K3 {k3.row_counts.launches}")
+    return sum_pql, want  # the Sum and its numpy answer after the writes
+
+
+OBSERVE_PROFILED = 20  # ?profile=true warm queries per path
+OBSERVE_TRACED = 10  # warm queries per path under one torch.profiler trace
+
+
+def _walk_spans(node):
+    yield node
+    for child in node["children"]:
+        yield from _walk_spans(child)
+
+
+def _device_busy(torch, fn, n, counter):
+    """(device ms, wall ms, ops, launches) of `n` calls of fn under one
+    torch.profiler (CUPTI) trace: every device operation's time (kernels,
+    memsets, copies) summed, over the wall of the n calls and a final
+    sync; ops lists (name, count, ms) of every operation, longest first;
+    launches is how far `counter` (a kernel wrapper's launch count)
+    moved meanwhile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    before = counter.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [(e.key, e.count, (getattr(e, "device_time_total", 0.0)
+                             or getattr(e, "cuda_time_total", 0.0)) / 1e3)
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ops.sort(key=lambda o: -o[2])
+    return sum(o[2] for o in ops), wall * 1e3, ops, \
+        counter.launches - before
+
+
+def _dispatch_pairs(events):
+    """Check the ring's dispatch.start / dispatch.end events pair up per
+    kernel family, in order; returns the number of complete pairs."""
+    open_, pairs = {}, 0
+    for e in events:
+        if e["kind"] == "dispatch.start":
+            open_[e["tags"]["kernel"]] = open_.get(e["tags"]["kernel"], 0) + 1
+        elif e["kind"] == "dispatch.end":
+            k = e["tags"]["kernel"]
+            if open_.get(k, 0) > 0:  # the ring may have cut a start off
+                open_[k] -= 1
+                pairs += 1
+    if any(open_.values()):
+        raise AssertionError(f"flight recorder: dispatches never ended: "
+                             f"{open_}")
+    return pairs
+
+
+def serve_observe(srv, torch, k1, k3, planes, tg, tg_set, bsi_sum, card):
+    """The observability phase over the served Count (index b, K1),
+    config 3's TopN (index tg, K3) and config 4's Sum (index br, K3),
+    through HTTP on the main server (started with --watchdog-deadline):
+    per path, 20 ?profile=true warm queries give the host split of a warm
+    query (client wall, the profile's root span, executor.Execute, the
+    dispatch lock wait, each dispatch phase, kernel wall) as medians,
+    and one torch.profiler trace of 10 warm queries the device's busy
+    share. Checks: every answer against numpy, /metrics carries the
+    card's memory gauge, /debug/dispatch's count family grew by exactly
+    the K1 launches of the phase, the flight recorder holds
+    dispatch.start/end pairs, and the watchdog never tripped."""
+    from pilosa_tpu_torch.utils import flightrec
+    from pilosa_tpu_torch.utils.stats import registry_of
+
+    want_count = N_SHARDS * popcount(planes[("f", 2)] & planes[("g", 2)])
+    want_topn = [dict(p) for p in topn_expect(tg)["TopN(f, n=10)"]]
+    for p in want_topn:
+        if p["id"] == tg_set[0]:
+            p["count"] += 1
+    sum_pql, want_sum = bsi_sum
+    # (name, index, query, numpy answer, the launch counter of its
+    # kernel, that kernel's names in a trace)
+    k1_names = ("count_chain_kernel", "count_tree_kernel")
+    paths = (("Count", "b", "Count(Intersect(Row(f=2), Row(g=2)))",
+              want_count, k1.count_expr, k1_names),
+             ("TopN", "tg", "TopN(f, n=10)", want_topn, k3.row_counts,
+              ("row_counts_kernel",)),
+             ("Sum", "br", sum_pql, want_sum, k3.row_counts,
+              ("row_counts_kernel",)))
+    wd = flightrec.get_watchdog()
+    if wd is None:
+        raise AssertionError("observe: the server runs no watchdog")
+
+    def count_lock_waits():
+        phases = http(srv.uri, "/debug/dispatch")["phases"]
+        return phases.get("count", {}).get("lock_wait", {}).get("count", 0)
+
+    k1_before, lw_before = k1.count_expr.launches, count_lock_waits()
+    reg = registry_of(srv.http.stats)
+    report = {}
+    for name, index, pql, want, counter, knames in paths:
+        path = f"/index/{index}/query"
+
+        def run(query_path=path, pql=pql, want=want):
+            t = time.perf_counter()
+            out = http(srv.uri, query_path, pql)
+            dt = time.perf_counter() - t
+            if out["results"][0] != want:
+                raise AssertionError(f"observe: {pql}: "
+                                     f"{out['results'][0]} != {want}")
+            return out, dt
+
+        for _ in range(5):  # warm-up
+            run()
+        plain = [run()[1] for _ in range(OBSERVE_PROFILED)]
+        key = ("http_request_seconds", (
+            ("method", "POST"), ("route", "/index/(?P<index>[^/]+)/query"),
+            ("status", "200")))
+        time.sleep(0.05)  # the last request's timing lands after its reply
+        h0 = reg.timing_summary("http_request_seconds").get(key, (0, 0.0))
+        rows = []
+        for _ in range(OBSERVE_PROFILED):
+            out, dt = run(path + "?profile=true")
+            prof = out["profile"]
+            tags = prof["tags"]
+            execute = [s["duration"] for s in _walk_spans(prof["spans"])
+                       if s["name"] == "executor.Execute"]
+            phases = {k[len("phase_"):-len("_seconds")]: v
+                      for k, v in tags.items() if k.startswith("phase_")}
+            if abs(sum(phases.values()) - tags["kernel_wall_seconds"]) \
+                    > 1e-9:
+                raise AssertionError(f"observe: {pql}: phases {phases} do "
+                                     f"not sum to the kernel wall")
+            rows.append({"http_client": dt, "api_query": prof["duration"],
+                         "executor": execute[0],
+                         "lock_wait": tags["dispatch_lock_wait_seconds"],
+                         "kernel_wall": tags["kernel_wall_seconds"],
+                         "launches": tags["locked_dispatches"],
+                         **{f"phase_{k}": v for k, v in phases.items()}})
+        time.sleep(0.05)
+        h1 = reg.timing_summary("http_request_seconds")[key]
+        med = {k: statistics.median(r.get(k, 0.0) for r in rows)
+               for k in rows[0]}
+        med["http_server_mean"] = (h1[1] - h0[1]) / (h1[0] - h0[0])
+        med["http_client_unprofiled"] = statistics.median(plain)
+        dev_ms, wall_ms, ops, launched = _device_busy(
+            torch, run, OBSERVE_TRACED, counter)
+        # the trace may hold fewer of the kernel's launches than its
+        # wrapper counted; then the kernel's mean time per traced launch
+        # stands in for the launches the trace lacks
+        kern = [(c, ms) for k, c, ms in ops if any(n in k for n in knames)]
+        caught = sum(c for c, _ in kern)
+        kern_ms = sum(ms for _, ms in kern)
+        scaled_ms = dev_ms - kern_ms + (kern_ms / caught * launched
+                                        if caught else 0.0)
+        med["device_ms"], med["trace_wall_ms"] = dev_ms, wall_ms
+        med["busy_share"] = dev_ms / wall_ms
+        med["kernel_launches"], med["kernel_launches_traced"] = \
+            launched, caught
+        med["busy_share_scaled"] = scaled_ms / wall_ms
+        report[name] = med
+        ms = {k: v * 1e3 for k, v in med.items()
+              if k not in ("launches", "busy_share", "device_ms",
+                           "trace_wall_ms", "kernel_launches",
+                           "kernel_launches_traced", "busy_share_scaled")}
+        log(f"observe: {name} {pql} over index {index} on {card}, medians "
+            f"of {OBSERVE_PROFILED} ?profile=true warm queries (ms): HTTP "
+            f"request (client wall) {ms['http_client']:.3f} "
+            f"[server http_request_seconds mean "
+            f"{ms['http_server_mean']:.3f}; unprofiled client wall "
+            f"{ms['http_client_unprofiled']:.3f}]; api query (profile "
+            f"root) {ms['api_query']:.3f}; executor.Execute "
+            f"{ms['executor']:.3f}; dispatch_lock_wait "
+            f"{ms['lock_wait']:.4f}; "
+            + "; ".join(f"{k} {v:.4f}" for k, v in sorted(ms.items())
+                        if k.startswith("phase_"))
+            + f"; kernel_wall {ms['kernel_wall']:.4f} over "
+            f"{med['launches']:.0f} locked launches; so HTTP + transport "
+            f"{ms['http_client'] - ms['api_query']:.3f}, parse + API "
+            f"{ms['api_query'] - ms['executor']:.3f}, executor host "
+            f"{ms['executor'] - ms['kernel_wall'] - ms['lock_wait']:.3f}")
+        log(f"observe: {name} device busy share on {card}: "
+            f"{dev_ms:.3f} ms of device operations over {wall_ms:.3f} ms "
+            f"wall of {OBSERVE_TRACED} warm queries (one torch.profiler "
+            f"trace) = {100 * med['busy_share']:.2f} %; the trace holds "
+            f"{caught} of the {launched} launches its kernel's wrapper "
+            f"counted, so with each missing launch at the traced mean: "
+            f"{scaled_ms:.3f} ms = {100 * med['busy_share_scaled']:.2f} %; "
+            "longest: "
+            + "; ".join(f"{k[:60]} x{c} {ms:.3f} ms" for k, c, ms in ops[:4]))
+
+    k1_moved = k1.count_expr.launches - k1_before
+    lw_moved = count_lock_waits() - lw_before
+    if lw_moved != k1_moved or k1_moved < OBSERVE_PROFILED:
+        raise AssertionError(f"observe: /debug/dispatch count family grew "
+                             f"by {lw_moved}, K1 launched {k1_moved}")
+    text = urllib.request.urlopen(srv.uri + "/metrics", timeout=60).read()
+    deadline = time.time() + 30
+    while True:  # the runtime sampler runs every 10 s
+        m = re.search(rb'^pilosa_tpu_device_memory_bytes\{device="cuda:0"\}'
+                      rb" (\S+)$", text, re.M)
+        if m or time.time() > deadline:
+            break
+        time.sleep(1)
+        text = urllib.request.urlopen(srv.uri + "/metrics",
+                                      timeout=60).read()
+    if not m or float(m.group(1)) <= 0:
+        raise AssertionError("observe: /metrics has no "
+                             'device_memory_bytes{device="cuda:0"} > 0')
+    ring = http(srv.uri, "/debug/flightrecorder?limit=400")["events"]
+    pairs = _dispatch_pairs(ring)
+    if pairs < 1:
+        raise AssertionError("observe: no dispatch.start/end pair in the "
+                             "flight recorder")
+    stalls = [e for e in http(srv.uri, "/debug/flightrecorder")["events"]
+              if e["kind"] == "watchdog.stall"]
+    if wd.stalls or stalls or b"pilosa_tpu_watchdog_stalls" in text:
+        raise AssertionError(f"observe: the watchdog tripped: {stalls[:3]}")
+    log(f"observe: checks passed: count family +{lw_moved} lock waits = "
+        f"K1 +{k1_moved} launches; device_memory_bytes{{cuda:0}} "
+        f"{float(m.group(1)):.0f}; {pairs} dispatch.start/end pairs in the "
+        f"last 400 events; watchdog ({wd.deadline:.0f} s) stalls 0")
+    log("observe-json: " + json.dumps(
+        {"card": card, "paths": report}, sort_keys=True))
 
 
 def serve_compressed_path(srv, k1, k2, planes, comp, set_at, card):
@@ -2525,7 +2762,8 @@ def main():
         shutil.copytree(os.path.join(tmp, "tg"), os.path.join(co_dir, "tg"))
         t0 = time.perf_counter()
         srv = start_server(["--bind", "127.0.0.1:0", "--data-dir", tmp,
-                            "--device", "cuda"])
+                            "--device", "cuda", "--watchdog-deadline",
+                            "60s"])
         log(f"serve: server up at {srv.uri} in "
             f"{time.perf_counter() - t0:.1f} s (holder open)")
         try:
@@ -2545,8 +2783,15 @@ def main():
             launches["row_counts"] = k3.row_counts.launches
             launches["pairwise_counts"] = k4.pairwise_counts.launches
             reset_counters(mods)  # the BSI path's run starts here
-            serve_bsi_path(srv, k1, k3, k5, br, card)
+            bsi_sum = serve_bsi_path(srv, k1, k3, k5, br, card)
             launches["bsi_range"] = k5.bsi_range_mask.launches
+            reset_counters(mods)  # the observability phase starts here
+            t0 = time.perf_counter()
+            serve_observe(srv, torch, k1, k3, planes, tg, tg_set, bsi_sum,
+                          card)
+            log(f"observe: phase in {time.perf_counter() - t0:.1f} s")
+            launches["count_expr"] += k1.count_expr.launches
+            launches["row_counts"] += k3.row_counts.launches
             reset_counters(mods)  # the compressed path's run starts here
             served = serve_compressed_path(srv, k1, k2, planes, comp, set_at,
                                            card)

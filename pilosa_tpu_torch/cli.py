@@ -11,8 +11,16 @@ The server opens the data directory (a `pilosa_tpu` data directory opens
 as is: the roaring fragment files and the oplog records are the
 interchange format), replays what its write-ahead oplog holds unapplied,
 serves the HTTP API until SIGINT/SIGTERM, then closes the holder and the
-log. It runs on `cuda` unless `--device cpu` is given, and exits with an
-error when no CUDA device is present and the CPU was not asked for.
+log. Observability comes up with it, under the TPU package's flags and
+config keys: the stats backend (`--stats`, `--statsd-host`), span
+retention (`--tracing`), histogram exemplars (`--metrics-exemplars`),
+the slow-query log (`--long-query-time`), the flight recorder
+(`--flight-recorder-size`) and its stall watchdog
+(`--watchdog-deadline`), the worker pool's size (`--workers`), the
+runtime sampler, and a SIGTERM handler that dumps the flight recorder
+and then runs the clean stop. It runs on `cuda` unless `--device cpu` is
+given, and exits with an error when no CUDA device is present and the
+CPU was not asked for.
 `holder`, `inspect` and `check` read files only and touch no device.
 """
 
@@ -87,7 +95,10 @@ def _apply_server_flags(config, args):
     exactly what `server` runs with (reference: cmd/root.go setAllConfig
     does this once via viper for every subcommand)."""
     for flag in ("bind", "data_dir", "device", "max_writes_per_request",
-                 "coalesce_window", "coalesce_max_queue", "container_repr"):
+                 "coalesce_window", "coalesce_max_queue", "container_repr",
+                 "long_query_time", "tracing", "workers",
+                 "flight_recorder_size", "watchdog_deadline",
+                 "metrics_exemplars"):
         val = getattr(args, flag, None)
         if val is not None:
             config[flag.replace("_", "-")] = val
@@ -113,22 +124,33 @@ def _apply_server_flags(config, args):
 
 
 class Server:
-    """A started server: holder + API + HTTP transport, and the oplog
-    when the server keeps one. `replayed` counts the records the boot
-    replay applied."""
+    """A started server: holder + API + HTTP transport, the oplog when the
+    server keeps one, and the runtime sampler. `replayed` counts the
+    records the boot replay applied; `watchdog` is the stall watchdog
+    this server started (None without --watchdog-deadline)."""
 
-    def __init__(self, holder, api, http, oplog=None, replayed=0):
+    def __init__(self, holder, api, http, oplog=None, replayed=0,
+                 runtime_monitor=None, watchdog=None):
         self.holder = holder
         self.api = api
         self.http = http
         self.oplog = oplog
         self.replayed = replayed
+        self.runtime_monitor = runtime_monitor
+        self.watchdog = watchdog
 
     @property
     def uri(self):
         return self.http.uri
 
     def stop(self):
+        from .utils import flightrec
+
+        if self.watchdog is not None \
+                and flightrec.get_watchdog() is self.watchdog:
+            flightrec.stop_watchdog()
+        if self.runtime_monitor is not None:
+            self.runtime_monitor.stop()
         self.http.stop()
         # AFTER the transport: in-flight handlers blocked on the
         # coalescer wake with 503 instead of hanging the shutdown
@@ -149,12 +171,17 @@ def start_server(argv):
     from .ops import containers
     from .server import API, PilosaHTTPServer
     from .storage import oplog as oplog_mod
-    from .utils import faultpoints
+    from .utils import faultpoints, flightrec, tracing, workpool
+    from .utils import stats as stats_mod
     from .utils.logger import StandardLogger
 
     args = _parser().parse_args(["server", *argv])
     config = _apply_server_flags(load_config(args.config), args)
     device = resolve_device(config.get("device", "cuda"))
+    # Size the shared host-work pool before anything can submit to it
+    # (default min(32, cpu); workers=1 == serial execution).
+    if config.get("workers") is not None:
+        workpool.configure(int(config["workers"]))
     # module state of ops/containers: applied before the holder opens, so
     # a bad mode fails at start, not at the first query
     containers.configure(config.get("container-repr"))
@@ -183,24 +210,65 @@ def start_server(argv):
                 else oplog_mod.DEFAULT_SEGMENT_BYTES,
                 logger=StandardLogger()).open()
         cw = config.get("coalesce-window")
+        lqt = config.get("long-query-time")
         api = API(holder, device=device,
                   coalesce_window=parse_duration(str(cw)) if cw else 0.0,
                   coalesce_max_queue=int(config.get("coalesce-max-queue",
                                                     256)),
                   max_writes_per_request=int(
                       config.get("max-writes-per-request", 0)),
-                  oplog=oplog)
+                  oplog=oplog,
+                  long_query_time=parse_duration(str(lqt)) if lqt else None)
         # Crash recovery BEFORE serving: re-apply acked writes the previous
         # process died holding, so the first query already sees them.
         replayed = api.replay_oplog()
-        http = PilosaHTTPServer(api, host=host or "127.0.0.1",
-                                port=int(port or 10101)).start()
     except BaseException:
         holder.close()
         if oplog is not None:
             oplog.close()
         raise
-    return Server(holder, api, http, oplog=oplog, replayed=replayed)
+    # Metrics backend + runtime sampler (reference: server.go:419 stats
+    # selection; server.go:813 monitorRuntime).
+    stats = stats_mod.build_stats(
+        getattr(args, "stats", None) or config.get("stats"),
+        statsd_host=getattr(args, "statsd_host", None)
+        or config.get("statsd-host"))
+    runtime_monitor = stats_mod.RuntimeMonitor(
+        stats, interval=parse_duration(
+            config.get("metric-poll-interval", "10s"))).start()
+    # Flight recorder (on by default: a bounded ring) and the stall
+    # watchdog (only with a deadline). The SIGTERM dump is installed by
+    # cmd_server, after its clean-stop handler, so it chains to it.
+    frs = config.get("flight-recorder-size")
+    if frs is not None:
+        flightrec.configure(int(frs))
+    watchdog = None
+    wd_deadline = config.get("watchdog-deadline")
+    if wd_deadline:
+        watchdog = flightrec.configure_watchdog(
+            parse_duration(str(wd_deadline)), logger=StandardLogger())
+    # Span retention (GET /debug/traces): "memory" keeps a bounded ring;
+    # the default nop tracer allocates no spans (profiles work either way)
+    if config.get("tracing") == "memory":
+        tracing.set_tracer(tracing.InMemoryTracer(
+            max_spans=int(config.get("trace-max-spans", 10000))))
+    if config.get("metrics-exemplars"):
+        stats_mod.configure_exemplars(
+            True, registry=stats_mod.registry_of(stats))
+    try:
+        http = PilosaHTTPServer(api, host=host or "127.0.0.1",
+                                port=int(port or 10101), stats=stats).start()
+    except BaseException:
+        if watchdog is not None:
+            flightrec.stop_watchdog()
+        runtime_monitor.stop()
+        api.close()
+        holder.close()
+        if oplog is not None:
+            oplog.close()
+        raise
+    return Server(holder, api, http, oplog=oplog, replayed=replayed,
+                  runtime_monitor=runtime_monitor, watchdog=watchdog)
 
 
 def cmd_server(argv):
@@ -217,6 +285,13 @@ def cmd_server(argv):
     done = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: done.set())
+    # AFTER the clean-stop handler: the crash handler's SIGTERM dump
+    # chains to the handler it finds, so a SIGTERM dumps the flight
+    # recorder and still stops cleanly (the oplog's shutdown checkpoint)
+    from .utils import flightrec
+    from .utils.logger import StandardLogger
+
+    flightrec.install_crash_handler(logger=StandardLogger())
     done.wait()
     srv.stop()
     return 0
@@ -614,6 +689,36 @@ def _server_flags(p):
                    help="oplog segment rotation size in bytes "
                         "([storage] oplog-segment-bytes; default 64MiB); "
                         "rotation also triggers a checkpoint")
+    p.add_argument("--long-query-time", default=None,
+                   help="log queries slower than this duration "
+                        "(e.g. 500ms, 2s); disabled when unset")
+    p.add_argument("--stats", default=None,
+                   choices=["local", "statsd", "none"],
+                   help="metrics backend (default local registry; statsd "
+                        "also emits UDP datagrams)")
+    p.add_argument("--tracing", default=None,
+                   choices=["none", "memory"],
+                   help="span retention: memory keeps a bounded ring of "
+                        "finished spans served at /debug/traces "
+                        "(default none: nop tracer, zero overhead)")
+    p.add_argument("--statsd-host", default=None,
+                   help="statsd host:port (default 127.0.0.1:8125)")
+    p.add_argument("--workers", type=int, default=None,
+                   help="host-side worker pool size for per-shard fan-out "
+                        "(default min(32, cpu), env PILOSA_TPU_WORKERS; "
+                        "1 = serial execution)")
+    p.add_argument("--flight-recorder-size", type=int, default=None,
+                   help="flight-recorder ring capacity in events "
+                        "(default 2048; 0 disables recording)")
+    p.add_argument("--watchdog-deadline", default=None,
+                   help="stall watchdog deadline (e.g. 30s, 2m): dump "
+                        "stacks + recorder tail when a dispatch or query "
+                        "runs past it; disabled when unset")
+    p.add_argument("--metrics-exemplars", action="store_true",
+                   default=None,
+                   help="keep one recent trace id per timing-histogram "
+                        "bucket and expose it in OpenMetrics exemplar "
+                        "syntax on /metrics")
 
 
 def _parser():

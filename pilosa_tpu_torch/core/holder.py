@@ -173,6 +173,8 @@ class Holder:
         is logged and counted, not fatal — one poisoned record must not
         keep the node from booting (same stance as torn-tail
         truncation). Returns ``(applied, failed)``."""
+        from ..utils import flightrec
+
         applied = failed = 0
         first = last = None
         for lsn, record in oplog.replay():
@@ -194,6 +196,8 @@ class Holder:
                 # not pin the checkpoint (they were counted above)
                 oplog.mark_applied(lsn)
         if applied or failed:
+            flightrec.record("oplog.replay", first_lsn=first, last_lsn=last,
+                             applied=applied, failed=failed)
             if logger is not None:
                 logger.printf(
                     "oplog replay: %d applied, %d failed (lsn %s..%s)",

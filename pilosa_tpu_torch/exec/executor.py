@@ -40,9 +40,15 @@ executeSum :331, executeBitmapCallShard :651). The port's slice:
 
 Per-shard work fans over the shared worker pool and reduces IN SHARD
 ORDER, so every worker count gives identical results.
+
+Every query runs under an `executor.Execute` span with one
+`executor.execute{Call}` span per call, times each call into
+`query_op_seconds{op}`, and with a query profile active adds its
+stacked-counter deltas to the profile (the TPU package's names).
 """
 
 import math
+import time
 
 import numpy as np
 import torch
@@ -58,10 +64,14 @@ from ..ops import bsi as bsi_ops
 from ..ops.row_counts import row_counts as _row_counts_kernel
 from ..pql import Call, Condition, parse
 from ..shardwidth import SHARD_WIDTH, WORDS_PER_ROW
+from ..utils import profile as profile_mod
+from ..utils import tracing
+from ..utils.stats import global_stats
 from ..utils.workpool import shard_map_reduce
 from .bsicond import BsiConditionError, apply_bsi_condition, \
     bsi_condition_plan
 from .result import FieldRow, GroupCount, Pair, RowIdentifiers, ValCount
+from .stacked import note_batch_size
 
 _TOPN_STACK_CHUNK = 256  # rows per device stack on the per-shard path
 
@@ -76,11 +86,13 @@ class FieldNotFound(ExecError):
 
 class ExecOptions:
     def __init__(self, exclude_columns=False, column_attrs=False,
-                 exclude_row_attrs=False, remote=False):
+                 exclude_row_attrs=False, remote=False, profile=False):
         self.exclude_columns = exclude_columns
         self.column_attrs = column_attrs
         self.exclude_row_attrs = exclude_row_attrs
         self.remote = remote
+        # ?profile=true: the API begins a QueryProfile for this query
+        self.profile = profile
 
 
 def unwrap_options(call, opt, shards=None):
@@ -215,6 +227,11 @@ class Executor:
     def stacked_stats(self):
         return self._stacked.cache_stats()
 
+    def dispatch_phase_stats(self):
+        """Per-kernel dispatch-phase decomposition (see
+        StackedEvaluator.dispatch_phases)."""
+        return {"phases": self._stacked.dispatch_phases()}
+
     # ------------------------------------------------------------------ API
 
     def execute(self, index_name, query, shards=None, options=None):
@@ -234,8 +251,44 @@ class Executor:
             from .translate import translate_calls, translate_results
 
             translate_calls(idx, query.calls)
-        results = [self.execute_call(idx, call, shards, opt)
-                   for call in query.calls]
+
+        # Per-query stacked-counter deltas for the profile when one is
+        # active: the before/after cache_stats diff attributes launches,
+        # cache traffic and upload bytes to THIS query (the evaluator is
+        # shared, so concurrent queries can bleed into each other's
+        # deltas; exact when queries are serialized).
+        prof = profile_mod.current()
+        before = self._stacked.cache_stats() if prof is not None else None
+        # a previous query's batch stamp must not leak into this query's
+        # batch= attribution (a take-last thread-local, reset per query)
+        note_batch_size(0)
+        results = []
+        with tracing.start_span("executor.Execute",
+                                index=index_name) as span:
+            for call in query.calls:
+                t_call = time.perf_counter()
+                with tracing.start_span(f"executor.execute{call.name}"):
+                    results.append(self.execute_call(idx, call, shards, opt))
+                # per-PQL-op latency histogram (the global registry, which
+                # /metrics resolves to)
+                global_stats.timing("query_op_seconds",
+                                    time.perf_counter() - t_call,
+                                    {"op": call.name})
+            if span is not None:
+                span.set_tag("calls", len(query.calls))
+        if prof is not None:
+            after = self._stacked.cache_stats()
+            prof.set_tag("shards_touched",
+                         len(self._call_shards(idx, shards)))
+            for key, tag in (("dispatches", "dispatches"),
+                             ("pairwise_dispatches", "pairwise_dispatches"),
+                             ("pairwise_syncs", "pairwise_syncs"),
+                             ("hits", "cache_hits"),
+                             ("misses", "cache_misses")):
+                prof.add(tag, after[key] - before[key])
+            prof.add("bytes_materialized",
+                     (after["planes_uploaded"] - before["planes_uploaded"])
+                     * WORDS_PER_ROW * 4)
         if not opt.remote:
             results = translate_results(idx, query.calls, results)
         return results

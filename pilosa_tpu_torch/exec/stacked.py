@@ -41,7 +41,18 @@ patched in place, re-uploading only the changed shards' planes (at
 SHARD_WIDTH = 2^20 a 954-shard leaf stack is 125 MB).
 
 Every launch and every in-place patch holds one process-wide dispatch
-lock. Concurrent queries are batched, as in the TPU package:
+lock, taken through `_locked_dispatch`, which attributes each launch to a
+kernel family (`count`, `filter`, `row_counts`, `pairwise`, `sum`,
+`minmax`, `bsi_condition`, `time_union`, the batched entries
+`count_batched` / `plane_batched`, and the port's own `shift` and
+`patch`): lock wait and the phases marked under the lock, flight-recorder
+`dispatch.start` / `dispatch.end` events, a watchdog op, and with a query
+profile active a `stacked.kernel` span. The port fetches results OUTSIDE
+the lock (a host sync under it would serialize every concurrent query
+behind a device round trip); `_timed_sync` times each such fetch as its
+family's `sync` phase, so the phases of a family still sum to its wall
+(GET /debug/dispatch). Concurrent queries are batched, as in the TPU
+package:
 
 - Counts go through a GroupCommit (`_count_commit`): the first thread to
   arrive leads and drains every Count queued meanwhile, groups them by
@@ -80,6 +91,10 @@ from ..ops.pairwise import pairwise_counts_stack as _pairwise_kernel
 from ..ops.row_counts import row_counts as _row_counts_kernel
 from ..pql import Condition
 from ..shardwidth import WORDS_PER_ROW
+from ..utils import flightrec as _flightrec
+from ..utils import profile as _profile
+from ..utils import tracing as _tracing
+from ..utils.stats import global_stats, new_series, observe
 from .bsicond import (
     BsiConditionError,
     apply_bsi_condition,
@@ -126,6 +141,193 @@ def batch_bucket(n):
         if n <= b:
             return b
     return BATCH_BUCKETS[-1]
+
+
+#: process-wide dispatch-phase aggregate, folded in lockstep with each
+#: evaluator's own table: the bare flightrec debug server serves it at
+#: GET /debug/dispatch without a handle on any evaluator. The one lock
+#: below also guards every evaluator's `_kernels` / `_dispatch_phases`
+#: and the registry series next to it, so a launch's bookkeeping takes
+#: one lock.
+_GLOBAL_PHASES = {}
+_GLOBAL_PHASES_LOCK = threading.Lock()
+
+#: the dispatch families' registry series, process-wide like the TPU
+#: package's: `kernel_seconds{kernel}` and `dispatch_phase_seconds{kernel,
+#: phase}` timings and `kernel_bytes_in/out{kernel}` counters. Launches
+#: fold into them under _GLOBAL_PHASES_LOCK, and the global registry adds
+#: them to its exposition at scrape time (_dispatch_series is its source)
+#: rather than taking its own lock for each of a launch's five to seven
+#: observations.
+_SERIES = {}  # (kind, phase or None) -> series
+_COUNTERS = {}  # registry key -> bytes
+
+
+def _series(kind, phase=None):
+    """The registry series `kernel_seconds{kernel}`, or with a phase
+    `dispatch_phase_seconds{kernel,phase}` (caller holds
+    _GLOBAL_PHASES_LOCK)."""
+    series = _SERIES.get((kind, phase))
+    if series is None:
+        series = _SERIES[(kind, phase)] = new_series()
+    return series
+
+
+def _dispatch_series():
+    """The registry's scrape-time source: copies of _COUNTERS, _SERIES."""
+    with _GLOBAL_PHASES_LOCK:
+        series = {}
+        for (kind, phase), v in _SERIES.items():
+            key = ("kernel_seconds", (("kernel", kind),)) if phase is None \
+                else ("dispatch_phase_seconds",
+                      (("kernel", kind), ("phase", phase)))
+            series[key] = [v[0], v[1], list(v[2]), v[3]]
+        return dict(_COUNTERS), series
+
+
+global_stats.add_source(_dispatch_series)
+
+
+def global_dispatch_phases():
+    """{kernel: {phase: {count, seconds}}} across every evaluator in the
+    process (utils/flightrec._DebugHandler)."""
+    with _GLOBAL_PHASES_LOCK:
+        return {k: {p: dict(v) for p, v in fam.items()}
+                for k, fam in _GLOBAL_PHASES.items()}
+
+
+def reset_global_dispatch_phases():
+    """Pristine module aggregates (tests)."""
+    with _GLOBAL_PHASES_LOCK:
+        _GLOBAL_PHASES.clear()
+        _SERIES.clear()
+        _COUNTERS.clear()
+
+
+#: dispatch-phase taxonomy (GET /debug/dispatch): lock_wait is measured by
+#: _locked_dispatch itself; dispatch_ack (the launch calls returned) and,
+#: where a site blocks under the lock, sync are marked inside the lock;
+#: sync is also the phase _timed_sync records for a fetch made after the
+#: lock is released. The TPU package's transfer_in and compile phases do
+#: not occur: uploads run outside the lock, and kernels are built before
+#: their first launch.
+DISPATCH_PHASES = ("lock_wait", "dispatch_ack", "sync")
+
+
+class _PhaseClock:
+    """Phase marks within one locked dispatch. `mark(phase)` attributes
+    the time since the previous mark (or lock acquisition) to `phase`;
+    _locked_dispatch folds any residual into the last mark on exit so the
+    per-phase seconds sum EXACTLY to the dispatch wall."""
+
+    __slots__ = ("_t", "phases")
+
+    def __init__(self, t1):
+        self._t = t1
+        self.phases = []
+
+    def mark(self, phase):
+        now = time.perf_counter()
+        self.phases.append([phase, now - self._t])
+        self._t = now
+
+
+class _LockedDispatch:
+    """StackedEvaluator._locked_dispatch's context manager (a class, not
+    a generator: it runs around every launch)."""
+
+    __slots__ = ("ev", "kind", "nbytes_in", "nbytes_out", "prof", "token",
+                 "t0", "t1", "ph", "span_cm", "span")
+
+    def __init__(self, ev, kind, nbytes_in, nbytes_out):
+        self.ev = ev
+        self.kind = kind
+        self.nbytes_in = nbytes_in
+        self.nbytes_out = nbytes_out
+
+    def __enter__(self):
+        kind = self.kind
+        self.prof = _profile.current()
+        _flightrec.record("dispatch.start", kernel=kind)
+        self.token = _flightrec.watch_begin("dispatch." + kind)
+        self.t0 = time.perf_counter()
+        try:
+            self.ev._dispatch_lock.acquire()
+        except BaseException:
+            _flightrec.watch_end(self.token)
+            raise
+        self.t1 = time.perf_counter()
+        self.ph = _PhaseClock(self.t1)
+        self.span_cm = None
+        if self.prof is not None:
+            self.span_cm = _tracing.start_span("stacked.kernel", op=kind)
+            self.span = self.span_cm.__enter__()
+            if self.span is not None:
+                self.span.set_tag("lock_wait_seconds",
+                                  round(self.t1 - self.t0, 6))
+        return self.ph
+
+    def __exit__(self, exc_type, exc, tb):
+        ph = self.ph
+        try:
+            if self.span_cm is not None:
+                if self.span is not None and exc_type is None:
+                    for phase, dt in ph.phases:
+                        self.span.set_tag(f"phase_{phase}_seconds",
+                                          round(dt, 6))
+                self.span_cm.__exit__(exc_type, exc, tb)
+            t2 = time.perf_counter()
+        finally:
+            self.ev._dispatch_lock.release()
+            _flightrec.watch_end(self.token)
+        if exc_type is not None:
+            return False
+        kind, t1 = self.kind, self.t1
+        wait, wall = t1 - self.t0, t2 - t1
+        # fold the residual (span bookkeeping, unmarked tails) into the
+        # last phase so the phases sum exactly to the dispatch wall; a
+        # site that never marked attributes its whole wall in one piece
+        if ph.phases:
+            ph.phases[-1][1] += t2 - ph._t
+        else:
+            ph.phases.append(["dispatch_ack", wall])
+        phases = [("lock_wait", wait)] + [tuple(p) for p in ph.phases]
+        self.ev._note(kind, phases, wall, self.nbytes_in, self.nbytes_out)
+        _flightrec.record("dispatch.end", kernel=kind,
+                          lock_wait_seconds=round(wait, 6),
+                          kernel_wall_seconds=round(wall, 6))
+        prof = self.prof
+        if prof is not None:
+            prof.add("dispatch_lock_wait_seconds", wait)
+            prof.add("kernel_wall_seconds", wall)
+            prof.add("locked_dispatches", 1)
+            for phase, dt in phases[1:]:  # lock_wait counted above
+                prof.add(f"phase_{phase}_seconds", dt)
+        return False
+
+
+class _TimedSync:
+    """StackedEvaluator._timed_sync's context manager."""
+
+    __slots__ = ("ev", "kind", "t0")
+
+    def __init__(self, ev, kind):
+        self.ev = ev
+        self.kind = kind
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None:
+            return False
+        dt = time.perf_counter() - self.t0
+        self.ev._note(self.kind, (("sync", dt),), dt, launch=False)
+        prof = _profile.current()
+        if prof is not None:
+            prof.add("kernel_wall_seconds", dt)
+            prof.add("phase_sync_seconds", dt)
+        return False
 
 
 #: thread-local batch attribution: the batch paths stamp how many queries
@@ -363,6 +565,9 @@ class StackedEvaluator:
         self._pools = {"leaf": OrderedDict(), "rows": OrderedDict()}
         self._pool_bytes = {"leaf": 0, "rows": 0}
         self._pool_evictions = {"leaf": 0, "rows": 0}
+        # {(pool name, cause): evictions}, cause "budget" or "invalidate";
+        # the pool names are the TPU package's ("stack" is the leaf pool)
+        self.pool_evictions = {}
         self._lock = threading.Lock()
         self._dispatch_lock = _DISPATCH_LOCK
         # counters: launches (tests assert the stacked path ran), cache
@@ -384,8 +589,12 @@ class StackedEvaluator:
         self.batch_dispatches = 0
         self.batched_queries = 0
         self.batch_fetches = 0
-        # device bytes resident per (pool, index, field)
+        # device bytes resident per (pool, index, field, repr)
         self._hbm_ledger = {}
+        # per-kernel-family attribution: {kind: {count, seconds, bytes_in,
+        # bytes_out}} and {kind: {phase: {count, seconds}}}
+        self._kernels = {}
+        self._dispatch_phases = {}
 
     def cache_stats(self):
         with self._lock:
@@ -408,6 +617,9 @@ class StackedEvaluator:
                     "batch_dispatches": self.batch_dispatches,
                     "batched_queries": self.batched_queries,
                     "batch_fetches": self.batch_fetches,
+                    "evictions_by_cause": {
+                        f"{p}.{c}": n
+                        for (p, c), n in sorted(self.pool_evictions.items())},
                     "device": str(self.device)}
 
     def _place(self, host_stack):
@@ -518,15 +730,35 @@ class StackedEvaluator:
             self.misses += 1
         return None
 
-    def _ledger_add(self, key, delta):
-        """Move the per-(pool, index, field) byte ledger in lockstep with
-        the pool byte counter (caller holds self._lock)."""
-        lkey = (self._pool_of(key), key[1], key[2])
+    @staticmethod
+    def _pool_name(pool):
+        """The TPU package's name of a pool in metrics and events."""
+        return "stack" if pool == "leaf" else pool
+
+    def _ledger_add(self, key, delta, repr_kind="dense"):
+        """Move the per-(pool, index, field, repr) byte ledger in lockstep
+        with the pool byte counter (caller holds self._lock), and its
+        `hbm_stack_bytes` gauge with it: puts and evictions are cache-fill
+        events, not the per-query hot path."""
+        pool = self._pool_of(key)
+        lkey = (pool, key[1], key[2], repr_kind)
         new = self._hbm_ledger.get(lkey, 0) + delta
         if new <= 0:
             self._hbm_ledger.pop(lkey, None)
+            new = 0
         else:
             self._hbm_ledger[lkey] = new
+        global_stats.gauge("hbm_stack_bytes", new, {
+            "index": key[1], "field": key[2],
+            "pool": self._pool_name(pool), "repr": repr_kind})
+
+    def _count_eviction(self, pool_name, cause, n=1):
+        """Per-pool, cause-tagged eviction counters (caller holds
+        self._lock); exported as stacked_evictions_total{pool,cause}."""
+        k = (pool_name, cause)
+        self.pool_evictions[k] = self.pool_evictions.get(k, 0) + n
+        global_stats.count("stacked_evictions", n,
+                           {"pool": pool_name, "cause": cause})
 
     @staticmethod
     def _budget(pool):
@@ -534,28 +766,66 @@ class StackedEvaluator:
 
     def _cache_put(self, key, gens, value, nbytes, stamp=None):
         pool = self._pool_of(key)
+        pool_name = self._pool_name(pool)
         entries = self._pools[pool]
+        repr_kind = _containers.kind_of(value)
+        evicted_keys = []
         with self._lock:
             old = entries.pop(key, None)
             if old is not None:
                 self._pool_bytes[pool] -= old[2]
-                self._ledger_add(key, -old[2])
+                self._ledger_add(key, -old[2], _containers.kind_of(old[1]))
             entries[key] = [gens, value, nbytes, stamp]
             self._pool_bytes[pool] += nbytes
-            self._ledger_add(key, nbytes)
+            self._ledger_add(key, nbytes, repr_kind)
             while self._pool_bytes[pool] > self._budget(pool) \
                     and len(entries) > 1:
                 ekey, evicted = entries.popitem(last=False)
                 self._pool_bytes[pool] -= evicted[2]
-                self._ledger_add(ekey, -evicted[2])
+                self._ledger_add(ekey, -evicted[2],
+                                 _containers.kind_of(evicted[1]))
                 self._pool_evictions[pool] += 1
+                self._count_eviction(pool_name, "budget")
+                evicted_keys.append((ekey, evicted[2]))
+        _flightrec.record("cache.put", pool=pool_name, index=key[1],
+                          field=key[2], bytes=nbytes, repr=repr_kind)
+        for ekey, ebytes in evicted_keys:
+            _flightrec.record("cache.evict", pool=pool_name, index=ekey[1],
+                              field=ekey[2], bytes=ebytes, cause="budget")
+
+    def invalidate(self):
+        """Drop every cached stack of both pools; the ledger gauges go to
+        zero (a scraper must see the flush), each dropped entry counts as
+        an `invalidate` eviction, and one `cache.invalidate` event
+        records the flush."""
+        with self._lock:
+            n_stack = len(self._pools["leaf"])
+            n_rows = len(self._pools["rows"])
+            for pool in self._pools:
+                self._pools[pool].clear()
+                self._pool_bytes[pool] = 0
+            for (pool, index, field, repr_kind) in list(self._hbm_ledger):
+                global_stats.gauge("hbm_stack_bytes", 0, {
+                    "index": index, "field": field,
+                    "pool": self._pool_name(pool), "repr": repr_kind})
+            self._hbm_ledger.clear()
+            if n_stack:
+                self._count_eviction("stack", "invalidate", n_stack)
+            if n_rows:
+                self._count_eviction("rows", "invalidate", n_rows)
+        if n_stack or n_rows:
+            _flightrec.record("cache.invalidate", stack_entries=n_stack,
+                              rows_entries=n_rows)
 
     def hbm_ledger(self, pool="leaf"):
         """{(index, field): resident device bytes} of one pool; sums to
         that pool's byte counter."""
+        out = {}
         with self._lock:
-            return {(k[1], k[2]): v for k, v in self._hbm_ledger.items()
-                    if k[0] == pool}
+            for (p, index, field, _), v in self._hbm_ledger.items():
+                if p == pool:
+                    out[(index, field)] = out.get((index, field), 0) + v
+        return out
 
     def _stale_entry(self, key, gens):
         """The cached entry for `key` whose shard set matches `gens`
@@ -586,7 +856,8 @@ class StackedEvaluator:
         block = self._host_rows(view, row_ids, [shards[j] for j in changed])
         value, nbytes = stale[1], stale[2]
         cols = torch.tensor(changed, dtype=torch.long, device=self.device)
-        with self._dispatch_lock:
+        with self._locked_dispatch("patch", nbytes_in=block.nbytes,
+                                   nbytes_out=block.nbytes) as ph:
             if isinstance(value, _containers.Container):
                 if value.kind != "dense":
                     # a compressed leaf has no per-shard planes to copy
@@ -599,8 +870,10 @@ class StackedEvaluator:
             else:
                 stack = value  # an [R, S, W] rows chunk or BSI stack
             stack.index_copy_(1, cols, self._place(block))
+            ph.mark("dispatch_ack")
         with self._lock:
             self.patches += 1
+        global_stats.count("stacked_patches", 1, {"path": "read"})
         self._cache_put(key, gens, value, nbytes, stamp)
         return value
 
@@ -727,8 +1000,14 @@ class StackedEvaluator:
         planes, sign, exists = data
         with self._lock:
             self.dispatches += 1
-        with self._dispatch_lock:
-            return apply_bsi_condition(plan, planes, sign, exists)
+        with self._locked_dispatch(
+                "bsi_condition",
+                nbytes_in=(planes.numel() + sign.numel()
+                           + exists.numel()) * 4,
+                nbytes_out=sign.numel() * 4) as ph:
+            out = apply_bsi_condition(plan, planes, sign, exists)
+            ph.mark("dispatch_ack")
+            return out
 
     def time_row_stack(self, idx, key, shards):
         """[S, W] union of one row across the quantum-view cover (the
@@ -754,10 +1033,15 @@ class StackedEvaluator:
             return stacks[0]
         with self._lock:
             self.dispatches += 1
-        with self._dispatch_lock:
-            return tree_eval(("|", tuple(("leaf", i)
-                                         for i in range(len(stacks)))),
-                             stacks)
+        with self._locked_dispatch(
+                "time_union",
+                nbytes_in=sum(s.numel() for s in stacks) * 4,
+                nbytes_out=stacks[0].numel() * 4) as ph:
+            out = tree_eval(("|", tuple(("leaf", i)
+                                        for i in range(len(stacks)))),
+                            stacks)
+            ph.mark("dispatch_ack")
+            return out
 
     def _host_rows(self, view, row_ids, shards):
         """Host [R, S, W] uint32 gather of rows over shards. The per-shard
@@ -793,18 +1077,122 @@ class StackedEvaluator:
         return max(
             1, CHUNK_BYTES // (self._padded_len(shards) * WORDS_PER_ROW * 4))
 
+    # -- dispatch attribution (GET /debug/dispatch) ---------------------------
+
+    def _locked_dispatch(self, kind, nbytes_in=0, nbytes_out=0):
+        """Context manager holding the process-wide dispatch lock around
+        one launch.
+
+        Always on (a few dict and deque operations beside a launch):
+        per-family wall and bytes (`kernel_seconds{kernel}` histograms),
+        `dispatch.start` / `dispatch.end` flight-recorder events, and a
+        watchdog op covering the lock wait and hold. With a QueryProfile
+        active it also opens a `stacked.kernel` span (op=kind) and adds
+        this query's lock wait, kernel wall and phases to the profile.
+
+        Yields a _PhaseClock: sites mark "dispatch_ack" once the launch
+        calls return (and "sync" where they block under the lock). The
+        result fetch that follows OUTSIDE the lock is timed by
+        `_timed_sync` under the same family."""
+        return _LockedDispatch(self, kind, nbytes_in, nbytes_out)
+
+    def _timed_sync(self, kind):
+        """Context manager timing a device->host fetch made after the
+        dispatch lock was released as the `sync` phase of family `kind`:
+        it joins the family's wall (so its phases still sum to that wall)
+        and, with a profile active, the query's kernel wall and
+        phase_sync_seconds. The lock is not held, so concurrent queries
+        launch meanwhile."""
+        return _TimedSync(self, kind)
+
+    def _note(self, kind, phases, wall, nbytes_in=0, nbytes_out=0,
+              launch=True):
+        """Fold one locked dispatch (`launch`: its wall, bytes and
+        phases, lock_wait first) or one fetch after it (a lone sync
+        phase) into the family's tables, the process-wide aggregate and
+        the registry series, under one lock. With exemplars on, the
+        registry takes the observations itself, so each keeps its
+        trace id."""
+        exemplars = global_stats._exemplars_on
+        with _GLOBAL_PHASES_LOCK:
+            k = self._kernels.get(kind)
+            if k is None:
+                k = self._kernels[kind] = {
+                    "count": 0, "seconds": 0.0,
+                    "bytes_in": 0, "bytes_out": 0}
+            k["seconds"] += wall
+            fam = self._dispatch_phases.get(kind)
+            if fam is None:
+                fam = self._dispatch_phases[kind] = {}
+                _GLOBAL_PHASES.setdefault(kind, {})
+            gfam = _GLOBAL_PHASES[kind]
+            for phase, dt in phases:
+                for table in (fam, gfam):
+                    p = table.get(phase)
+                    if p is None:
+                        p = table[phase] = {"count": 0, "seconds": 0.0}
+                    p["count"] += 1
+                    p["seconds"] += dt
+                if not exemplars:
+                    observe(_series(kind, phase), dt)
+            if launch:
+                k["count"] += 1
+                k["bytes_in"] += nbytes_in
+                k["bytes_out"] += nbytes_out
+                if not exemplars:
+                    observe(_series(kind), wall)
+                    tags = (("kernel", kind),)
+                    if nbytes_in:
+                        key = ("kernel_bytes_in", tags)
+                        _COUNTERS[key] = _COUNTERS.get(key, 0.0) + nbytes_in
+                    if nbytes_out:
+                        key = ("kernel_bytes_out", tags)
+                        _COUNTERS[key] = _COUNTERS.get(key, 0.0) + nbytes_out
+        if exemplars:
+            for phase, dt in phases:
+                global_stats.timing("dispatch_phase_seconds", dt,
+                                    {"kernel": kind, "phase": phase})
+            if launch:
+                tags = {"kernel": kind}
+                global_stats.timing("kernel_seconds", wall, tags)
+                if nbytes_in:
+                    global_stats.count("kernel_bytes_in", nbytes_in, tags)
+                if nbytes_out:
+                    global_stats.count("kernel_bytes_out", nbytes_out,
+                                       tags)
+
+    def dispatch_phases(self):
+        """{kernel: {phase: {count, seconds}}} snapshot — the round-trip
+        decomposition behind GET /debug/dispatch. Phase seconds other
+        than lock_wait sum to the family's wall (`kernel_walls`) by
+        construction; lock_wait counts one per locked dispatch."""
+        with _GLOBAL_PHASES_LOCK:
+            return {k: {p: dict(v) for p, v in fam.items()}
+                    for k, fam in self._dispatch_phases.items()}
+
+    def kernel_walls(self):
+        """{kernel: {count, seconds, bytes_in, bytes_out}}: locked
+        dispatches per family and their wall, the fetches timed by
+        `_timed_sync` included."""
+        with _GLOBAL_PHASES_LOCK:
+            return {k: dict(v) for k, v in self._kernels.items()}
+
     # -- evaluation ----------------------------------------------------------
 
     def _count_fn(self, sig, stacks):
         """Tree -> exact int count over all shards: one count program
         over the leaves' containers (K2 for sparse leaves, torch sums for
         rle ones, else K1 over the densified tree) under the dispatch
-        lock, then one host sync."""
+        lock, then one host sync after it."""
         flat = _containers.flatten(stacks)
         csig = tuple(c.csig for c in stacks)
-        with self._dispatch_lock:
+        with self._locked_dispatch(
+                "count", nbytes_in=sum(c.nbytes for c in stacks),
+                nbytes_out=8) as ph:
             total = _containers.count_program(sig, csig, flat)
-        return int(total)
+            ph.mark("dispatch_ack")
+        with self._timed_sync("count"):
+            return int(total)
 
     #: Counts a GroupCommit leader counts in one launch at most (the TPU
     #: package's MAX_COUNT_BATCH)
@@ -846,10 +1234,16 @@ class StackedEvaluator:
                 chunk = positions[i:i + self.MAX_COUNT_BATCH]
                 flats = [_containers.flatten(payloads[pos][1])
                          for pos in chunk]
-                with self._dispatch_lock:
+                with self._locked_dispatch(
+                        "count",
+                        nbytes_in=sum(c.nbytes for pos in chunk
+                                      for c in payloads[pos][1]),
+                        nbytes_out=8 * len(chunk)) as ph:
                     out = _containers.count_program_batch(sig, csig, flats)
+                    ph.mark("dispatch_ack")
                 outs.append((chunk, out))
-        vals = torch.cat([out for _, out in outs]).tolist()  # ONE fetch
+        with self._timed_sync("count"):
+            vals = torch.cat([out for _, out in outs]).tolist()  # ONE fetch
         results = [None] * len(payloads)
         i = 0
         for chunk, _ in outs:
@@ -895,6 +1289,7 @@ class StackedEvaluator:
         launched = []
         for (kind, sig, _gsig), positions in groups.items():
             csig = tuple(c.csig for c in items[positions[0]][2])
+            kname = "count_batched" if kind == "count" else "plane_batched"
             for i in range(0, len(positions), BATCH_BUCKETS[-1]):
                 chunk = positions[i:i + BATCH_BUCKETS[-1]]
                 flats = [_containers.flatten(items[pos][2]) for pos in chunk]
@@ -902,13 +1297,24 @@ class StackedEvaluator:
                     self.dispatches += 1
                     self.batch_dispatches += 1
                     self.batched_queries += len(chunk)
-                with self._dispatch_lock:
+                bucket = batch_bucket(len(chunk))
+                _flightrec.record("batch.dispatch", kernel=kname,
+                                  queries=len(chunk), bucket=bucket)
+                global_stats.count("batch_dispatch_total", 1, {
+                    "kernel": kname, "bucket": str(bucket)})
+                # batch-size histogram: occupancy per batched launch
+                global_stats.timing("coalesce_batch_size", float(len(chunk)))
+                nbytes_in = sum(c.nbytes for pos in chunk
+                                for c in items[pos][2])
+                with self._locked_dispatch(kname,
+                                           nbytes_in=nbytes_in) as ph:
                     if kind == "count":
                         out = _containers.count_program_batch(
                             sig, csig, flats)
                     else:
                         out = [_containers.plane_program(sig, csig, flat)
                                for flat in flats]
+                    ph.mark("dispatch_ack")
                 launched.append((kind, chunk, out))
         return self._copy_to_host(launched)
 
@@ -950,8 +1356,13 @@ class StackedEvaluator:
         are exact Python ints, plane results host [S, W] uint32 arrays
         (row j = the j-th shard the stacks were gathered over)."""
         launched, counts_h, planes_h, event = handle
-        if event is not None:
-            event.synchronize()
+        if event is not None and launched:
+            # the one event stands behind every launch of the handle; its
+            # wait is the sync of the family launched last
+            kname = "count_batched" if launched[-1][0] == "count" \
+                else "plane_batched"
+            with self._timed_sync(kname):
+                event.synchronize()
         with self._lock:
             self.batch_fetches += 1
         counts = counts_h.tolist()
@@ -1022,10 +1433,14 @@ class StackedEvaluator:
         csig = tuple(c.csig for c in conts)
         with self._lock:
             self.dispatches += 1
-        with self._dispatch_lock:
+        with self._locked_dispatch(
+                "shift", nbytes_in=sum(c.nbytes for c in conts),
+                nbytes_out=conts[0].shape[0] * WORDS_PER_ROW * 4) as ph:
             plane = _containers.plane_program(
                 sub_sig, csig, _containers.flatten(conts))
-            return _bitplane.shift(plane, n)
+            out = _bitplane.shift(plane, n)
+            ph.mark("dispatch_ack")
+            return out
 
     def try_count(self, idx, call_child, shards):
         """Count(call_child) over `shards` in one launch, or None when
@@ -1061,9 +1476,12 @@ class StackedEvaluator:
         with self._lock:
             self.dispatches += 1
         csig = tuple(c.csig for c in stacks)
-        with self._dispatch_lock:
+        with self._locked_dispatch(
+                "filter", nbytes_in=sum(c.nbytes for c in stacks),
+                nbytes_out=stacks[0].shape[0] * WORDS_PER_ROW * 4) as ph:
             out = _containers.plane_program(sig, csig,
                                             _containers.flatten(stacks))
+            ph.mark("dispatch_ack")
         return True, out
 
     def row_counts(self, idx, field_name, row_ids, filt, shards,
@@ -1091,17 +1509,24 @@ class StackedEvaluator:
                 return None
             with self._lock:
                 self.dispatches += 1
-            with self._dispatch_lock:
+            n_in = stack.numel() * 4 + (0 if filt is None
+                                        else filt.numel() * 4)
+            with self._locked_dispatch("row_counts", nbytes_in=n_in,
+                                       nbytes_out=8 * len(chunk)) as ph:
                 counts = _row_counts_kernel(
                     stack.reshape(len(chunk), -1), flat_filt)
+                ph.mark("dispatch_ack")
                 if not cache and self.device.type == "cuda":
                     # Transient chunks: finish before the next one is
                     # built, so peak device memory stays ~CHUNK_BYTES.
                     del stack
                     torch.cuda.current_stream(self.device).synchronize()
+                    ph.mark("sync")
             pending.append((chunk, counts))
         if pending:
-            vals = self._fetch(torch.cat([c for _, c in pending])).tolist()
+            with self._timed_sync("row_counts"):
+                vals = self._fetch(
+                    torch.cat([c for _, c in pending])).tolist()
             k = 0
             for chunk, _ in pending:
                 for row_id in chunk:
@@ -1143,12 +1568,18 @@ class StackedEvaluator:
                 with self._lock:
                     self.dispatches += 1
                     self.pairwise_dispatches += 1
-                with self._dispatch_lock:
+                n_in = (a_stack.numel() + b_stack.numel()
+                        + (0 if filt is None else filt.numel())) * 4
+                with self._locked_dispatch(
+                        "pairwise", nbytes_in=n_in,
+                        nbytes_out=8 * len(a_chunk) * len(b_chunk)) as ph:
                     counts = _pairwise_kernel(a_stack, b_stack, filt)
+                    ph.mark("dispatch_ack")
                 # ONE host fetch for the whole [tile, tile] matrix (it
                 # also bounds transient tiles' device memory), shared with
                 # concurrent queries through the group commit
-                totals = self._fetch(counts)
+                with self._timed_sync("pairwise"):
+                    totals = self._fetch(counts)
                 with self._lock:
                     self.pairwise_syncs += 1
                 for x, y in zip(*np.nonzero(totals)):
@@ -1183,9 +1614,15 @@ class StackedEvaluator:
         depth = planes.shape[0]
         with self._lock:
             self.dispatches += 1
-        with self._dispatch_lock:
+        n_in = (planes.numel() + sign.numel() + exists.numel()
+                + (0 if filt is None else filt.numel())) * 4
+        with self._locked_dispatch("sum", nbytes_in=n_in,
+                                   nbytes_out=8 * (2 * depth + 1)) as ph:
             pos, neg, count = bsi_plane_counts(planes, sign, exists, filt)
-        vals = self._fetch(torch.cat([pos, neg, count.reshape(1)])).tolist()
+            ph.mark("dispatch_ack")
+        with self._timed_sync("sum"):
+            vals = self._fetch(
+                torch.cat([pos, neg, count.reshape(1)])).tolist()
         total = 0
         for i in range(depth):
             total += (vals[i] - vals[depth + i]) << i
@@ -1209,7 +1646,9 @@ class StackedEvaluator:
         planes, sign, exists, filt = data
         with self._lock:
             self.dispatches += 1
-        with self._dispatch_lock:
+        n_in = (planes.numel() + sign.numel() + exists.numel()
+                + (0 if filt is None else filt.numel())) * 4
+        with self._locked_dispatch("minmax", nbytes_in=n_in) as ph:
             consider = exists if filt is None else exists & filt
             pos = consider & ~sign
             neg = consider & sign
@@ -1227,8 +1666,11 @@ class StackedEvaluator:
             final = torch.where(use_neg, f_neg, f_pos)
             count = _row_counts_kernel(final.reshape(1, -1))
             flags = torch.stack([has_pos | has_neg, use_neg])
-        vals = self._fetch(torch.cat([flags.to(torch.int64),
-                                      bits.to(torch.int64), count])).tolist()
+            ph.mark("dispatch_ack")
+        with self._timed_sync("minmax"):
+            vals = self._fetch(torch.cat([
+                flags.to(torch.int64), bits.to(torch.int64),
+                count])).tolist()
         if not vals[0]:
             return None, 0
         mag = sum(b << i for i, b in enumerate(vals[2:-1]))

@@ -9,6 +9,12 @@ With a coalesce window (`API(coalesce_window=...)`, `server
 launches through the QueryCoalescer; window 0, the default, builds none
 and every query takes the per-query path.
 
+Every query runs under an `api.Query` span and a watchdog op; with
+`?profile=true` or a slow-query threshold (`API(long_query_time=...)`,
+`server --long-query-time`) it also runs under a QueryProfile, and a
+query slower than the threshold logs one `SLOW QUERY` line (the TPU
+package's format) and a `query.slow` flight-recorder event.
+
 With a write-ahead oplog (`API(oplog=...)`, on by default in `server`),
 every bit, value and roaring import is appended to the log before it is
 applied and acknowledged, and `replay_oplog()` re-applies at boot what a
@@ -17,10 +23,12 @@ either package replays in the other."""
 
 import array
 import base64
+import contextlib
 import csv
 import io
 import random
 import threading
+import time
 
 import numpy as np
 
@@ -36,7 +44,9 @@ from ..core.index import IndexOptions
 from ..exec import ExecOptions, Executor
 from ..pql import parse
 from ..shardwidth import SHARD_WIDTH
-from ..utils import faultpoints
+from ..utils import faultpoints, flightrec, tracing
+from ..utils import profile as profile_mod
+from ..utils.stats import global_stats
 from .. import __version__
 
 
@@ -66,11 +76,14 @@ class ServiceUnavailableError(ApiError):
                 "Retry-After": str(max(1, int(round(retry_after))))}
 
 
-def shed_reject(site, message, retry_after):
-    """THE 503 rejection path of a load-shedding site: one jitter rule
-    (x1.0-1.25, so synchronized client retries decorrelate) and the
-    `X-Pilosa-Shed` header naming the site, which tells a shedding node
-    from a dead one."""
+def shed_reject(site, message, retry_after, qclass=None):
+    """THE 503 rejection path of a load-shedding site: one shared
+    `rejections_total{site,class}` counter, one jitter rule (x1.0-1.25,
+    so synchronized client retries decorrelate) and the `X-Pilosa-Shed`
+    header naming the site, which tells a shedding node from a dead
+    one."""
+    global_stats.count("rejections_total", 1,
+                       {"site": site, "class": qclass or "none"})
     ra = max(1.0, float(retry_after)) * random.uniform(1.0, 1.25)
     err = ServiceUnavailableError(message, retry_after=ra)
     err.headers["X-Pilosa-Shed"] = site
@@ -212,17 +225,20 @@ class QueryCoalescer:
         batched result. Returns (results, batch_size); re-raises the
         member's own error (a batchmate's failure is not ours)."""
         m = {"index": index_name, "query": query, "event": threading.Event(),
-             "results": None, "error": None, "batch": 0}
+             "t0": time.monotonic(), "results": None, "error": None,
+             "batch": 0}
         with self._cond:
             if self._closed:
                 raise ServiceUnavailableError(
                     "query coalescer shut down", retry_after=1)
             if len(self._queue) >= self.max_queue:
                 self.rejected += 1
+                global_stats.count("batch_rejected_total", 1)
                 shed_reject(
                     "coalesce",
                     f"coalesce queue full ({self.max_queue}); shed load "
-                    "or raise --coalesce-max-queue", 1)
+                    "or raise --coalesce-max-queue", 1,
+                    qclass="interactive")
             self._queue.append(m)
             if self._thread is None:
                 self._start_thread_locked()
@@ -330,6 +346,10 @@ class QueryCoalescer:
                                             timeout=self.window)
                     members += self._pop_members()
                 for index_name, group in self._group(members).items():
+                    now = time.monotonic()
+                    for m in group:
+                        global_stats.timing(
+                            "coalesce_wait_seconds", now - m["t0"])
                     try:
                         handle, state = ex.launch_batch(
                             index_name, [m["query"] for m in group])
@@ -342,6 +362,8 @@ class QueryCoalescer:
                         n = len(group)
                         self.max_occupancy = max(self.max_occupancy, n)
                         self.batch_hist[n] = self.batch_hist.get(n, 0) + 1
+                    flightrec.record("batch.coalesce", index=index_name,
+                                     queries=len(group))
                     launched.append((handle, state, group))
                 # double buffer: batch N+1 is in flight; NOW resolve N
                 for handle, state, group in pending:
@@ -389,7 +411,7 @@ class API:
 
     def __init__(self, holder, device=None, coalesce_window=0.0,
                  coalesce_max_queue=256, max_writes_per_request=0,
-                 oplog=None, logger=None):
+                 oplog=None, logger=None, long_query_time=None):
         from ..utils.logger import StandardLogger
 
         self.holder = holder
@@ -410,6 +432,9 @@ class API:
         if oplog is not None:
             oplog.on_rotate = self._oplog_rotate_checkpoint
         self.logger = logger if logger is not None else StandardLogger()
+        # slow-query threshold in seconds (reference: long-query-time);
+        # None disables the log and the profiling it implies
+        self.long_query_time = long_query_time
         # window 0 — the default — builds no coalescer: every query takes
         # the per-query path
         self.coalesce_window = float(coalesce_window or 0.0)
@@ -438,15 +463,39 @@ class API:
             routed = self._try_coalesce(index_name, pql, shards, options)
             if routed is not None:
                 return routed[0]
+        # Profile when the request asked (?profile=true) or a slow-query
+        # threshold is configured, so a slow query's log line carries the
+        # full span tree, not just its total.
+        prof = None
+        if not (options is not None and options.remote) and (
+                (options is not None and options.profile)
+                or self.long_query_time is not None):
+            prof = profile_mod.begin(
+                index_name, pql if isinstance(pql, str) else str(pql),
+                slow_threshold=self.long_query_time)
+        t0 = time.monotonic()
+        # watchdog coverage for the WHOLE query, not only its launches
+        wtoken = flightrec.watch_begin("query", index=index_name)
         try:
-            query = parse(pql) if isinstance(pql, str) else pql
-            return self.executor.execute(
-                index_name, query, shards=shards,
-                options=options or ExecOptions())
+            # with a profile, adopt its root span so every span below, the
+            # stacked kernel launches included, joins its trace
+            with (tracing.with_span(prof.root) if prof is not None
+                  else contextlib.nullcontext()):
+                with tracing.start_span("api.Query", index=index_name):
+                    query = parse(pql) if isinstance(pql, str) else pql
+                    results = self.executor.execute(
+                        index_name, query, shards=shards,
+                        options=options or ExecOptions())
         except ApiError:
             raise
         except Exception as e:
             raise ApiError(str(e)) from e
+        finally:
+            flightrec.watch_end(wtoken)
+            if prof is not None:
+                prof.finish()
+        self._log_slow_query(index_name, pql, time.monotonic() - t0, prof)
+        return results
 
     def _try_coalesce(self, index_name, pql, shards, options):
         """Route one query through the coalescer when eligible. Returns a
@@ -456,7 +505,7 @@ class API:
         if shards is not None or not isinstance(pql, str):
             return None
         o = options
-        if o is not None and (o.remote or o.exclude_columns
+        if o is not None and (o.remote or o.profile or o.exclude_columns
                               or o.exclude_row_attrs):
             return None
         try:
@@ -467,13 +516,81 @@ class API:
         if call is None or call.writes() \
                 or call.name not in self.executor.BATCHABLE_CALLS:
             return None
+        t0 = time.monotonic()
+        wtoken = flightrec.watch_begin("query", index=index_name)
         try:
-            results, _ = self._coalescer.submit(index_name, query)
+            # the span is the handler's whole wait: queue time, the
+            # batched launch and the split of its results
+            with tracing.start_span("coalesce.wait", index=index_name):
+                results, bsize = self._coalescer.submit(index_name, query)
         except ApiError:
             raise
         except Exception as e:
             raise ApiError(str(e)) from e
+        finally:
+            flightrec.watch_end(wtoken)
+        self._log_slow_query(index_name, pql, time.monotonic() - t0,
+                             batch=bsize)
         return (results,)
+
+    def _log_slow_query(self, index_name, pql, elapsed, prof=None,
+                        batch=None):
+        """Slow-query log (reference: LongQueryTime api.go:1157), in the
+        TPU package's format. With a profile in hand the line carries the
+        full span tree and counters as JSON (`profile=` stays the LAST
+        field). batch= is the batched-launch occupancy the query rode (1
+        = solo). The port has no workload fingerprints, whole-plan fusion
+        or planner yet: fingerprint= is "-" and plan= "-" (the TPU
+        package's values for a query without either) and fused= 0 (its
+        value for a query that ran interpreted)."""
+        if (self.long_query_time is None
+                or elapsed <= self.long_query_time):
+            return
+        import json as _json
+
+        from ..exec.stacked import last_batch_size
+
+        q = pql if isinstance(pql, str) else str(pql)
+        fp = "-"
+        if batch is None:
+            batch = last_batch_size()
+        batch = max(1, int(batch))
+        fused = 0
+        flightrec.record("query.slow", index=index_name,
+                         seconds=round(elapsed, 3), pql=q[:200],
+                         fingerprint=fp, batch=batch, fused=fused)
+        if prof is not None:
+            plan = prof.tag("plan_summary")
+            if not plan:
+                strategies = prof.tag("strategies")
+                plan = ",".join(
+                    f"{s.get('op', '?')}={s.get('strategy', '?')}"
+                    for s in strategies) if strategies else "-"
+            self.logger.printf(
+                "%.03fs SLOW QUERY index=%s %s trace=%s fingerprint=%s "
+                "batch=%d fused=%d plan=%s profile=%s", elapsed,
+                index_name, q[:500], prof.root.trace_id, fp, batch,
+                fused, plan, _json.dumps(prof.to_dict()))
+        else:
+            self.logger.printf(
+                "%.03fs SLOW QUERY index=%s %s fingerprint=%s "
+                "batch=%d fused=%d",
+                elapsed, index_name, q[:500], fp, batch, fused)
+
+    def debug_trace(self, trace_id):
+        """GET /debug/traces/{trace_id}: this node's spans of one trace
+        (the per-node trace index plus the InMemoryTracer ring when one
+        is installed) and their tree. Peers' spans join with the cluster
+        layer."""
+        local = tracing.get_trace(trace_id)
+        tracer = tracing.get_tracer()
+        if hasattr(tracer, "to_dicts"):
+            seen = {s["spanID"] for s in local}
+            local += [s for s in tracer.to_dicts()
+                      if s.get("traceID") == trace_id
+                      and s.get("spanID") not in seen]
+        return {"traceID": trace_id, "found": bool(local),
+                "spans": local, "tree": tracing.assemble_tree(local)}
 
     def query_batch(self, index_name, pqls, shards=None):
         """Execute a list of PQL queries as batched launches (the POST

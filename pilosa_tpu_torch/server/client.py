@@ -136,6 +136,8 @@ class Client:
 
     def _request_once(self, method, path, body, content_type, deadline_at,
                       headers=None):
+        from ..utils import tracing
+
         timeout = self.timeout
         if deadline_at is not None:
             remaining = deadline_at - time.monotonic()
@@ -150,6 +152,8 @@ class Client:
         if headers:
             for k, v in headers.items():
                 req.add_header(k, v)
+        for k, v in tracing.inject_headers().items():
+            req.add_header(k, v)  # the caller's trace context (client inject)
         try:
             with urllib.request.urlopen(
                     req, timeout=timeout,
@@ -220,12 +224,13 @@ class Client:
 
     def query(self, index, pql, shards=None, remote=False,
               exclude_row_attrs=False, exclude_columns=False,
-              deadline=None, query_class=None):
+              profile=False, deadline=None, query_class=None):
         """(reference: InternalClient.QueryNode http/client.go:268; remote
         marks node-to-node fan-out requests that must not re-fan-out;
-        deadline: remaining budget in seconds, sent as X-Request-Deadline
-        and bounding local retries; query_class: admission class
-        forwarded as X-Query-Class)"""
+        profile asks the server to return the query's span-tree profile
+        alongside the results; deadline: remaining budget in seconds,
+        sent as X-Request-Deadline and bounding local retries;
+        query_class: admission class forwarded as X-Query-Class)"""
         path = f"/index/{index}/query"
         params = []
         if shards is not None:
@@ -236,6 +241,8 @@ class Client:
             params.append("excludeRowAttrs=true")
         if exclude_columns:
             params.append("excludeColumns=true")
+        if profile:
+            params.append("profile=true")
         if params:
             path += "?" + "&".join(params)
         return self._request(
@@ -315,6 +322,17 @@ class Client:
         """The peer's durable-oplog summary (segments, checkpoint,
         replay lag); {"enabled": False} when the node runs without one."""
         return self._request("GET", "/debug/oplog")
+
+    def debug_dispatch(self):
+        """The peer's per-kernel dispatch-phase decomposition."""
+        return self._request("GET", "/debug/dispatch")
+
+    def debug_flightrecorder(self, limit=None):
+        """The peer's flight-recorder tail."""
+        path = "/debug/flightrecorder"
+        if limit is not None:
+            path += f"?limit={int(limit)}"
+        return self._request("GET", path)
 
     def export_csv(self, index, field, shard):
         data = self._request(

@@ -2,22 +2,31 @@
 
 Stdlib ThreadingHTTPServer + a regex router over the reference's public
 single-node REST surface, the node internals that backup, export and
-restore read (/internal/...), and the durability debug routes
-(/debug/oplog, /debug/faultpoints), with the TPU package's JSON wire
-shapes. The protobuf wire is not served: a body sent as
-application/x-protobuf gets 415.
+restore read (/internal/...), and the debug surface (GET /debug lists
+it): metrics (/metrics, /debug/vars), query profiles (?profile=true,
+/debug/queries), traces, the flight recorder, the dispatch-phase split,
+thread dumps and a sampling profiler, batching, the oplog and fault
+points, with the TPU package's JSON wire shapes. Every request runs
+under a span continued from its trace headers and is timed into
+`http_request_seconds{route,method,status}`. The protobuf wire is not
+served: a body sent as application/x-protobuf gets 415.
 """
 
 import json
 import re
+import sys
 import threading
+import time
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 from ..core import timeq
 from ..core.index import IndexOptions
 from ..exec import ExecOptions
-from ..utils import faultpoints
+from ..utils import faultpoints, flightrec, tracing, workpool
+from ..utils import profile as profile_mod
+from ..utils.stats import global_stats, registry_of
 from .api import ApiError, NotFoundError, field_options_from_json, \
     result_to_json
 
@@ -25,6 +34,8 @@ from .api import ApiError, NotFoundError, field_options_from_json, \
 class Route:
     def __init__(self, method, pattern, fn, args=None):
         self.method = method
+        # the raw pattern doubles as the route's metrics label: bounded
+        # cardinality, unlike raw request paths
         self.pattern = pattern
         self.regex = re.compile("^" + pattern + "$")
         self.fn = fn
@@ -59,10 +70,14 @@ class PilosaHTTPServer:
     """Owns the listening socket and the route table. `port=0` binds an
     ephemeral port; `self.port` holds the bound one after start()."""
 
-    def __init__(self, api, host="127.0.0.1", port=10101):
+    def __init__(self, api, host="127.0.0.1", port=10101, stats=None):
         self.api = api
         self.host = host
         self.port = port
+        # the configured metrics sink; the global registry stays the
+        # default so /metrics always has data
+        self.stats = stats if stats is not None else global_stats
+        self._profiler = None
         self.routes = [
             Route("GET", r"/", self._home),
             Route("GET", r"/index", self._get_schema),
@@ -76,7 +91,7 @@ class PilosaHTTPServer:
             Route("POST", r"/index/(?P<index>[^/]+)/query",
                   self._post_query,
                   args=("shards", "columnAttrs", "excludeRowAttrs",
-                        "excludeColumns")),
+                        "excludeColumns", "profile")),
             Route("POST", r"/index/(?P<index>[^/]+)/query-batch",
                   self._post_query_batch, args=("shards",)),
             Route("POST",
@@ -111,10 +126,25 @@ class PilosaHTTPServer:
             Route("GET", r"/internal/fragment/data",
                   self._get_fragment_data,
                   args=("index", "field", "view", "shard")),
+            Route("GET", r"/metrics", self._get_metrics),
+            Route("GET", r"/debug", self._get_debug_index),
+            Route("GET", r"/debug/vars", self._get_debug_vars),
+            Route("GET", r"/debug/queries", self._get_debug_queries),
+            Route("GET", r"/debug/traces", self._get_debug_traces),
+            Route("GET", r"/debug/traces/(?P<trace_id>[^/?]+)",
+                  self._get_debug_trace, args=("local",)),
+            Route("GET", r"/debug/flightrecorder",
+                  self._get_flightrecorder, args=("limit",)),
+            Route("GET", r"/debug/dispatch", self._get_debug_dispatch),
             Route("GET", r"/debug/batching", self._get_debug_batching),
             Route("GET", r"/debug/oplog", self._get_debug_oplog),
             Route("GET", r"/debug/faultpoints", self._get_faultpoints),
             Route("POST", r"/debug/faultpoints", self._post_faultpoints),
+            Route("GET", r"/debug/threads", self._get_threads),
+            Route("GET", r"/debug/pprof/goroutine", self._get_threads),
+            Route("POST", r"/debug/pprof/profile/start",
+                  self._profile_start),
+            Route("POST", r"/debug/pprof/profile/stop", self._profile_stop),
         ]
         self._httpd = None
         self._thread = None
@@ -189,13 +219,18 @@ class PilosaHTTPServer:
             return req.query.get(name, ["false"])[0] == "true"
 
         column_attrs = flag("columnAttrs")
+        want_profile = flag("profile")
         options = ExecOptions(
             exclude_columns=flag("excludeColumns"),
             column_attrs=column_attrs,
-            exclude_row_attrs=flag("excludeRowAttrs"))
+            exclude_row_attrs=flag("excludeRowAttrs"),
+            profile=want_profile)
         results = self.api.query(req.params["index"], pql, shards=shards,
                                  options=options)
         out = {"results": [result_to_json(r) for r in results]}
+        if want_profile:
+            # api.query stashed the finished profile on this thread
+            out["profile"] = profile_mod.take_last()
         if column_attrs:
             # reference: QueryResponse "columnAttrs" JSON field
             out["columnAttrs"] = self.api.column_attr_sets(
@@ -337,6 +372,128 @@ class PilosaHTTPServer:
                 raise ApiError(str(e)) from e
         return faultpoints.snapshot()
 
+    # -- observability -------------------------------------------------------
+
+    def _get_metrics(self, req):
+        return RawResponse(registry_of(self.stats).prometheus_text().encode(),
+                           "text/plain; version=0.0.4")
+
+    def _get_debug_vars(self, req):
+        """expvar-style JSON metrics (reference: /debug/vars route
+        http/handler.go:281), plus the stacked-evaluator cache counters
+        and the worker pool."""
+        out = json.loads(registry_of(self.stats).expvar_json())
+        out["stacked"] = self.api.executor.stacked_stats()
+        out["workpool"] = workpool.get_pool().stats()
+        return RawResponse(json.dumps(out).encode(), "application/json")
+
+    def _get_debug_queries(self, req):
+        """Recent query profiles, newest first (the bounded ring every
+        profiled query — ?profile=true or long-query-time — lands in)."""
+        return profile_mod.recent()
+
+    def _get_debug_traces(self, req):
+        """Dump of the retained span ring when an InMemoryTracer is
+        installed (--tracing memory); tells you how to enable it when
+        the zero-overhead nop default is active."""
+        tracer = tracing.get_tracer()
+        index_stats = tracing.trace_index().stats()
+        if isinstance(tracer, tracing.InMemoryTracer):
+            return {"enabled": True, "maxSpans": tracer.max_spans,
+                    "traceIndex": index_stats,
+                    "spans": tracer.to_dicts()}
+        return {"enabled": False, "spans": [],
+                "traceIndex": index_stats,
+                "hint": "run the server with --tracing memory to retain "
+                        "spans; profiled queries land in the trace index "
+                        "either way (GET /debug/traces/{trace_id})"}
+
+    def _get_debug_trace(self, req):
+        """One trace's spans and their tree. ?local=true, the TPU
+        package's peer fetch, is accepted: one node serves its own spans
+        either way."""
+        return self.api.debug_trace(req.params["trace_id"])
+
+    def _get_flightrecorder(self, req):
+        """The black-box event ring: the last N things this process did
+        (dispatches, cache churn, stalls...). ?limit= bounds the tail."""
+        limit = self._q1(req, "limit")
+        return flightrec.snapshot(limit=int(limit) if limit else None)
+
+    def _get_debug_dispatch(self, req):
+        """Per-kernel dispatch-phase decomposition: where each family's
+        launches and fetches go (lock_wait / dispatch_ack / sync)."""
+        return self.api.executor.dispatch_phase_stats()
+
+    #: every debug endpoint the port serves, with a one-line description
+    DEBUG_ENDPOINTS = {
+        "/debug/vars": "expvar-style counters, gauges, and p50/p99 "
+                       "timing summaries",
+        "/debug/queries": "recent per-query profiles (span tree + "
+                          "dispatch/lock/cache counters), newest first",
+        "/debug/traces": "retained raw spans (needs --tracing memory) + "
+                         "trace-index stats",
+        "/debug/traces/{trace_id}": "ONE trace's spans and their tree",
+        "/debug/dispatch": "dispatch-phase decomposition (lock_wait / "
+                           "dispatch_ack / sync)",
+        "/debug/batching": "query coalescer: queue depth, batch "
+                           "occupancy histogram, rejects, batched-launch "
+                           "counters",
+        "/debug/oplog": "write-ahead oplog: LSNs, checkpoint, fsync "
+                        "policy, segment state",
+        "/debug/flightrecorder": "black-box event ring (dispatches, "
+                                 "cache churn, stalls)",
+        "/debug/faultpoints": "fault-injection points (GET state, POST "
+                              "to arm)",
+        "/debug/threads": "all-thread stack dump (text)",
+        "/debug/pprof/goroutine": "all-thread stack dump",
+        "/debug/pprof/profile/start": "POST: start a sampling profile of "
+                                      "every thread",
+        "/debug/pprof/profile/stop": "POST: stop it; frames, hottest "
+                                     "first (text)",
+    }
+
+    def _get_debug_index(self, req):
+        """GET /debug: enumerate every debug endpoint."""
+        return {"endpoints": [
+            {"path": path, "description": desc}
+            for path, desc in sorted(self.DEBUG_ENDPOINTS.items())]}
+
+    def _get_threads(self, req):
+        """Stack dump of every live thread (the goroutine-dump analog)."""
+        frames = sys._current_frames()
+        names = {t.ident: t.name for t in threading.enumerate()}
+        out = []
+        for ident, frame in frames.items():
+            out.append(f"thread {names.get(ident, '?')} ({ident}):")
+            out.extend(line.rstrip()
+                       for line in traceback.format_stack(frame))
+            out.append("")
+        return RawResponse("\n".join(out).encode(), "text/plain")
+
+    _profiler_lock = threading.Lock()
+
+    def _profile_start(self, req):
+        """Begin a sampling CPU profile of ALL threads (cProfile is
+        per-thread and would only see the handler thread that started it;
+        a sampler over sys._current_frames covers the whole serving
+        path)."""
+        interval = float(self._q1(req, "interval", "0.01"))
+        with self._profiler_lock:
+            if self._profiler is not None:
+                raise ApiError("profile already running")
+            self._profiler = _SamplingProfiler(interval).start()
+        return None
+
+    def _profile_stop(self, req):
+        """Stop profiling and return sampled frames, hottest first."""
+        with self._profiler_lock:
+            prof = self._profiler
+            if prof is None:
+                raise ApiError("no profile running")
+            self._profiler = None
+        return RawResponse(prof.stop().encode(), "text/plain")
+
     def _get_export(self, req):
         index = req.query.get("index", [None])[0]
         field = req.query.get("field", [None])[0]
@@ -374,6 +531,10 @@ class PilosaHTTPServer:
         return self
 
     def stop(self):
+        with self._profiler_lock:
+            prof, self._profiler = self._profiler, None
+        if prof is not None:
+            prof.stop()
         if self._httpd:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -394,15 +555,20 @@ class PilosaHTTPServer:
         body = handler.rfile.read(length) if length else b""
         protobuf = handler.headers.get("Content-Type", "").startswith(
             "application/x-protobuf")
+        t0 = time.perf_counter()
         status, payload = 404, {"error": "not found"}
         out_type = "application/json"
         extra_headers = None  # e.g. Retry-After on a 503
+        matched = None  # Route whose pattern labels this request's metrics
+        trace_id = None  # histogram-exemplar link; the span ends before
+        # the timing below is recorded, so capture its id inside the with
         for route in self.routes:
             if route.method != handler.command:
                 continue
             m = route.regex.match(path)
             if m is None:
                 continue
+            matched = route
             if route.args is not None:
                 unknown = set(query) - route.args
                 if unknown:
@@ -416,25 +582,104 @@ class PilosaHTTPServer:
                              "served; send JSON (or PQL text to a query "
                              "route)"}
                 break
-            try:
-                result = route.fn(Request(m.groupdict(), query, body))
-                if isinstance(result, RawResponse):
-                    status, payload, out_type = (
-                        200, result.body, result.content_type)
-                else:
-                    status, payload = 200, result
-            except ApiError as e:
-                status, payload = e.status, {"error": str(e)}
-                extra_headers = e.headers
-            except Exception as e:  # internal error
-                status, payload = 500, {"error": str(e)}
+            # continue a caller's trace from its headers (reference:
+            # http/handler.go:321 extractTracing middleware)
+            with tracing.span_from_headers(
+                    f"http.{handler.command} {path}", handler.headers,
+                    method=handler.command) as span:
+                try:
+                    result = route.fn(Request(m.groupdict(), query, body))
+                    if isinstance(result, RawResponse):
+                        status, payload, out_type = (
+                            200, result.body, result.content_type)
+                    else:
+                        status, payload = 200, result
+                except ApiError as e:
+                    status, payload = e.status, {"error": str(e)}
+                    extra_headers = e.headers
+                except Exception as e:  # internal error
+                    status, payload = 500, {"error": str(e)}
+                if span is not None:
+                    span.set_tag("status", status)
+                    trace_id = span.trace_id
             break
         data = payload if isinstance(payload, bytes) \
             else json.dumps(payload).encode()
-        handler.send_response(status)
-        handler.send_header("Content-Type", out_type)
-        handler.send_header("Content-Length", str(len(data)))
-        for name, value in (extra_headers or {}).items():
-            handler.send_header(name, value)
-        handler.end_headers()
-        handler.wfile.write(data)
+        # Per-route/per-status request metrics, tagged with the matched
+        # route PATTERN (raw paths are unbounded label values). The
+        # finally counts every response: 400s, 404s ("unmatched"), 500s,
+        # even a write that died on a closed socket.
+        try:
+            handler.send_response(status)
+            handler.send_header("Content-Type", out_type)
+            handler.send_header("Content-Length", str(len(data)))
+            for name, value in (extra_headers or {}).items():
+                handler.send_header(name, value)
+            handler.end_headers()
+            handler.wfile.write(data)
+        finally:
+            tags = {"route": matched.pattern if matched else "unmatched",
+                    "method": handler.command, "status": str(status)}
+            self.stats.timing("http_request_seconds",
+                              time.perf_counter() - t0, tags,
+                              trace_id=trace_id)
+            if status >= 400:
+                self.stats.count("http_errors", 1, tags)
+            if status >= 500:
+                flightrec.record("http.5xx", route=tags["route"],
+                                 method=handler.command, status=status)
+
+
+class _SamplingProfiler:
+    """Wall-clock stack sampler across every thread (py-spy style).
+    `self` = samples where the frame is the leaf; `cum` = samples where it
+    appears anywhere in a stack."""
+
+    def __init__(self, interval=0.01):
+        self.interval = max(interval, 0.001)
+        self.self_counts = {}
+        self.cum_counts = {}
+        self.n_samples = 0
+        self._stop_evt = threading.Event()
+        self._thread = None
+
+    def _sample(self):
+        me = threading.get_ident()
+        for ident, frame in sys._current_frames().items():
+            if ident == me:
+                continue
+            self.n_samples += 1
+            leaf = True
+            seen = set()
+            while frame is not None:
+                code = frame.f_code
+                key = f"{code.co_filename}:{frame.f_lineno} {code.co_name}"
+                if leaf:
+                    self.self_counts[key] = self.self_counts.get(key, 0) + 1
+                    leaf = False
+                if key not in seen:  # count recursion once per stack
+                    seen.add(key)
+                    self.cum_counts[key] = self.cum_counts.get(key, 0) + 1
+                frame = frame.f_back
+
+    def _run(self):
+        while not self._stop_evt.wait(self.interval):
+            self._sample()
+
+    def start(self):
+        self._thread = threading.Thread(
+            target=self._run, name="pilosa-profiler", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop_evt.set()
+        self._thread.join(timeout=5)
+        lines = [f"samples: {self.n_samples} "
+                 f"(interval {self.interval * 1000:.0f}ms)",
+                 "", "self  cum   frame"]
+        ranked = sorted(self.self_counts.items(),
+                        key=lambda kv: -kv[1])[:50]
+        for key, n in ranked:
+            lines.append(f"{n:>5} {self.cum_counts.get(key, 0):>5} {key}")
+        return "\n".join(lines) + "\n"

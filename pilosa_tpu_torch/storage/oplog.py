@@ -18,7 +18,7 @@ appends to BEFORE any ack can return:
     whose effects are known durable below the log (fragments fsynced);
     whole segments at or below it are deleted;
   - torn-tail recovery: a short/corrupt record at open TRUNCATES the log
-    there instead of failing boot —
+    there (flightrec ``oplog.truncated_tail``) instead of failing boot —
     a torn record was never acked, because the append path returns only
     after the full record hit the OS;
   - applied watermark: appends are acked after a synchronous apply, and
@@ -44,7 +44,8 @@ import threading
 import time
 import zlib
 
-from ..utils import faultpoints
+from ..utils import faultpoints, flightrec
+from ..utils.stats import global_stats
 
 #: record header: payload length, crc32(payload), lsn
 _HEADER = struct.Struct("<IIQ")
@@ -100,11 +101,14 @@ def fsync_file(f, stat_name=None):
     a concurrently-closed file (snapshot rename, shutdown): durability
     of a closed-and-replaced file is the replacer's problem."""
     faultpoints.reached("oplog.fsync")
+    t0 = time.monotonic()
     try:
         f.flush()
         os.fsync(f.fileno())
     except (ValueError, OSError):
         return
+    if stat_name is not None:
+        global_stats.timing(stat_name, time.monotonic() - t0)
 
 
 def after_append(f, stat_name="fragment_fsync_seconds"):
@@ -206,10 +210,14 @@ class OpLog:
                 with open(seg_path, "r+b") as f:
                     f.truncate(good_bytes)
                 self._truncated_tail += 1
+                flightrec.record("oplog.truncated_tail", segment=name,
+                                 kept_bytes=good_bytes)
                 self._log("oplog: torn tail in %s — truncated to %d "
                           "bytes", name, good_bytes)
                 for later in names[i + 1:]:
                     os.unlink(os.path.join(self.path, later))
+                    flightrec.record("oplog.truncated_tail",
+                                     segment=later, kept_bytes=0)
                     self._log("oplog: dropped segment %s after torn "
                               "tail", later)
             if good_bytes == 0 and first is None:
@@ -295,6 +303,8 @@ class OpLog:
             self._appends += 1
             if seg["bytes"] >= self.segment_max_bytes:
                 rotated_last = self._rotate()
+        global_stats.count("oplog_appends_total")
+        global_stats.gauge("oplog_bytes", self._total_bytes)
         if rotated_last is not None and self.on_rotate is not None:
             # outside the lock: the hook fsyncs fragments + checkpoints,
             # neither of which should serialize concurrent appends
@@ -309,6 +319,8 @@ class OpLog:
         self._file.close()
         last = seg["last_lsn"]
         self._new_segment()
+        flightrec.record("oplog.rotate", sealed=seg["name"],
+                         last_lsn=last, bytes=seg["bytes"])
         return last
 
     def _new_segment(self):
@@ -444,7 +456,7 @@ class OpLog:
         with self._lock:
             self._total_bytes = sum(s["bytes"] for s in self._segments)
             total = self._total_bytes
-        return total
+        global_stats.gauge("oplog_bytes", total)
 
     @property
     def last_lsn(self):

@@ -267,9 +267,20 @@ assert not bad, bad
 
 
 #: modules that must exist and be scanned: the command line with its
-#: tools, the client and the logger the oplog writes through
+#: tools, the client and the logger the oplog writes through, and the
+#: observability modules every layer imports
 REQUIRED_SOURCES = ("cli.py", "server/client.py", "utils/logger.py",
-                    "storage/oplog.py", "server/api.py")
+                    "storage/oplog.py", "server/api.py", "utils/tracing.py",
+                    "utils/stats.py", "utils/profile.py",
+                    "utils/flightrec.py", "utils/workpool.py")
+
+#: modules a client tool imports: none may load torch at import
+LIGHT_MODULES = ("pilosa_tpu_torch.utils.tracing",
+                 "pilosa_tpu_torch.utils.stats",
+                 "pilosa_tpu_torch.utils.profile",
+                 "pilosa_tpu_torch.utils.flightrec",
+                 "pilosa_tpu_torch.utils.workpool",
+                 "pilosa_tpu_torch.server")
 
 
 def test_port_sources_import_no_jax_or_reference():
@@ -307,11 +318,44 @@ class _Block:
 sys.meta_path.insert(0, _Block())
 """
 
+#: runs `python -m pilosa_tpu_torch <argv>` in this process, then reports
+#: whether torch was loaded
+_TOOL = """
+import runpy, sys
+sys.argv = ["pilosa_tpu_torch", *sys.argv[1:]]
+code = 0
+try:
+    runpy.run_module("pilosa_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    code = e.code or 0
+print("TORCH LOADED", "torch" in sys.modules)
+sys.exit(code)
+"""
+
+
+def test_observability_modules_load_no_torch():
+    """Importing the observability modules and the server package (what
+    the client tools import) loads neither torch nor jax."""
+    code = ("import importlib, sys\n"
+            f"for m in {LIGHT_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'pilosa_tpu'))\n"
+            "print('LOADED', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout
+
 
 def test_file_tools_run_with_jax_blocked(tmp_path):
     """`python -m pilosa_tpu_torch check|inspect|holder` over a data
     directory the port wrote, with jax, jaxlib and pilosa_tpu blocked
-    from import (a sitecustomize that refuses them)."""
+    from import (a sitecustomize that refuses them); then the client
+    tool `export` against a port server over a copy of it, which must
+    leave torch unloaded too."""
     from pilosa_tpu_torch.core import Holder as TorchHolder
 
     data = str(tmp_path / "data")
@@ -340,6 +384,21 @@ def test_file_tools_run_with_jax_blocked(tmp_path):
             env=env, capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, proc.stdout + proc.stderr
         assert want in proc.stdout, proc.stdout
+    served = str(tmp_path / "served")
+    shutil.copytree(data, served)
+    srv = start_server(["--bind", "127.0.0.1:0", "--data-dir", served,
+                        "--device", "cpu"])
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", _TOOL, "export", "--host", srv.uri,
+             "--index", "i", "--field", "f", "--shards", "2"], cwd=REPO,
+            env=env, capture_output=True, text=True, timeout=120)
+    finally:
+        srv.stop()
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert sorted(proc.stdout.splitlines()[:-1]) == \
+        sorted(["1,3", f"1,{SHARD_WIDTH + 4}", "2,5"])
+    assert "TORCH LOADED False" in proc.stdout
 
 
 def test_row_results_are_row_objects(pair):
