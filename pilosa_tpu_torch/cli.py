@@ -18,9 +18,16 @@ the slow-query log (`--long-query-time`), the flight recorder
 (`--flight-recorder-size`) and its stall watchdog
 (`--watchdog-deadline`), the worker pool's size (`--workers`), the
 runtime sampler, and a SIGTERM handler that dumps the flight recorder
-and then runs the clean stop. It runs on `cuda` unless `--device cpu` is
-given, and exits with an error when no CUDA device is present and the
-CPU was not asked for.
+and then runs the clean stop. Health comes up with it too: the
+device-link canary prober behind /readyz (`--device-probe-interval`,
+`--device-probe-deadline`), postmortem bundles (`--incident-dir`,
+`--incident-max`), latency objectives (`--slo`,
+`--slo-burn-threshold`) and the opt-in diagnostics phone-home
+(`[diagnostics]` enabled + endpoint in the config file). With
+`--tls-certificate`/`--tls-key` it serves HTTPS and SIGHUP reloads the
+pair; `--allowed-origins` turns on CORS. It runs on `cuda` unless
+`--device cpu` is given, and exits with an error when no CUDA device is
+present and the CPU was not asked for.
 `holder`, `inspect` and `check` read files only and touch no device.
 """
 
@@ -98,10 +105,29 @@ def _apply_server_flags(config, args):
                  "coalesce_window", "coalesce_max_queue", "container_repr",
                  "long_query_time", "tracing", "workers",
                  "flight_recorder_size", "watchdog_deadline",
-                 "metrics_exemplars"):
+                 "metrics_exemplars", "incident_dir", "incident_max",
+                 "device_probe_interval", "device_probe_deadline",
+                 "slo", "slo_burn_threshold"):
         val = getattr(args, flag, None)
         if val is not None:
             config[flag.replace("_", "-")] = val
+    # TLS and CORS live in config sub-tables ([tls], [handler]); fold the
+    # flags into those tables so `config` prints them where the server
+    # reads them (reference: server/config.go TLS + handler sections).
+    if getattr(args, "tls_certificate", None) is not None \
+            or getattr(args, "tls_key", None) is not None:
+        tls = config.get("tls")
+        if not isinstance(tls, dict):
+            tls = config["tls"] = {}
+        if getattr(args, "tls_certificate", None) is not None:
+            tls["certificate"] = args.tls_certificate
+        if getattr(args, "tls_key", None) is not None:
+            tls["key"] = args.tls_key
+    if getattr(args, "allowed_origins", None) is not None:
+        handler = config.get("handler")
+        if not isinstance(handler, dict):
+            handler = config["handler"] = {}
+        handler["allowed-origins"] = args.allowed_origins
     # Durability knobs live in [storage] — ONE fsync policy shared by the
     # write-ahead oplog and the fragment WALs (a split policy would make
     # the documented durability level a lie at whichever layer is weaker).
@@ -126,11 +152,14 @@ def _apply_server_flags(config, args):
 class Server:
     """A started server: holder + API + HTTP transport, the oplog when the
     server keeps one, and the runtime sampler. `replayed` counts the
-    records the boot replay applied; `watchdog` is the stall watchdog
-    this server started (None without --watchdog-deadline)."""
+    records the boot replay applied; `watchdog`, `prober`, `incidents`
+    and `diagnostics` are the stall watchdog, device-link prober,
+    incident manager and diagnostics loop this server started (None when
+    not configured)."""
 
     def __init__(self, holder, api, http, oplog=None, replayed=0,
-                 runtime_monitor=None, watchdog=None):
+                 runtime_monitor=None, watchdog=None, prober=None,
+                 incidents=None, diagnostics=None):
         self.holder = holder
         self.api = api
         self.http = http
@@ -138,14 +167,25 @@ class Server:
         self.replayed = replayed
         self.runtime_monitor = runtime_monitor
         self.watchdog = watchdog
+        self.prober = prober
+        self.incidents = incidents
+        self.diagnostics = diagnostics
 
     @property
     def uri(self):
         return self.http.uri
 
     def stop(self):
-        from .utils import flightrec
+        from .utils import devhealth, flightrec, incident
 
+        if self.diagnostics is not None:
+            self.diagnostics.stop()
+        if self.prober is not None \
+                and devhealth.get_prober() is self.prober:
+            devhealth.stop()
+        if self.incidents is not None \
+                and incident.get_manager() is self.incidents:
+            incident.stop()
         if self.watchdog is not None \
                 and flightrec.get_watchdog() is self.watchdog:
             flightrec.stop_watchdog()
@@ -171,7 +211,8 @@ def start_server(argv):
     from .ops import containers
     from .server import API, PilosaHTTPServer
     from .storage import oplog as oplog_mod
-    from .utils import faultpoints, flightrec, tracing, workpool
+    from .utils import devhealth, faultpoints, flightrec, incident, tracing
+    from .utils import workload, workpool
     from .utils import stats as stats_mod
     from .utils.logger import StandardLogger
 
@@ -255,10 +296,80 @@ def start_server(argv):
     if config.get("metrics-exemplars"):
         stats_mod.configure_exemplars(
             True, registry=stats_mod.registry_of(stats))
+    # SLO objectives: error-budget burn over the timing histograms.
+    # Accepts a repeated --slo flag (list) or a comma-separated string
+    # from the config file; a bad spec fails the boot.
+    slo_cfg = config.get("slo")
+    if slo_cfg:
+        items = [slo_cfg] if isinstance(slo_cfg, str) else slo_cfg
+        specs = [spec.strip() for item in items
+                 for spec in str(item).split(",") if spec.strip()]
+        burn = config.get("slo-burn-threshold")
+        workload.configure_slo(
+            specs, burn_threshold=float(burn) if burn is not None else None,
+            logger=StandardLogger())
+    # Incident autopsy: anomaly-triggered postmortem bundles (devhealth
+    # DOWN, watchdog stall, SLO burn, deadline storms, SIGTERM). Without
+    # --incident-dir every hook site is one module-global check.
+    incidents = None
+    inc_dir = config.get("incident-dir")
+    if inc_dir:
+        inc_max = config.get("incident-max")
+        incidents = incident.configure(
+            str(inc_dir),
+            max_incidents=int(inc_max) if inc_max is not None
+            else incident.DEFAULT_MAX_INCIDENTS,
+            logger=StandardLogger())
+        # a bundle surface that lives on an instance, not a module
+        incidents.register_collector(
+            "oplog", lambda: (dict(oplog.summary(), enabled=True)
+                              if oplog is not None else {"enabled": False}))
+    # Device-link prober: a canary launch on the executor's device every
+    # interval drives /readyz and the query fail-fast gate. Off unless
+    # an interval is set: then the module launches nothing.
+    prober = None
+    probe_interval = config.get("device-probe-interval")
+    if probe_interval:
+        probe_deadline = config.get("device-probe-deadline")
+        prober = devhealth.configure(
+            interval=parse_duration(str(probe_interval)),
+            deadline=parse_duration(str(probe_deadline))
+            if probe_deadline else devhealth.DEFAULT_DEADLINE,
+            logger=StandardLogger(), device=device)
+    # Diagnostics phone-home: opt-in only, and only with an explicit
+    # endpoint (reference: diagnostics.go + server.go:760).
+    diagnostics = None
+    diag_cfg = config.get("diagnostics", {})
+    if isinstance(diag_cfg, dict) and diag_cfg.get("enabled") \
+            and diag_cfg.get("endpoint"):
+        from .server.diagnostics import Diagnostics
+
+        diagnostics = Diagnostics(
+            api, diag_cfg["endpoint"],
+            interval=parse_duration(diag_cfg.get("interval", "1h")),
+            logger=StandardLogger()).start()
+    # TLS + CORS come from the MERGED config only, so `config` output is
+    # exactly what runs here (reference: handler.allowed-origins
+    # server/config.go:75).
+    tls_cfg = config.get("tls", {}) if isinstance(
+        config.get("tls", {}), dict) else {}
+    origins = config.get("handler", {}).get("allowed-origins", []) \
+        if isinstance(config.get("handler", {}), dict) else []
+    if isinstance(origins, str):  # scalar TOML value / comma-joined flag
+        origins = origins.split(",")
+    origins = [o.strip() for o in origins if o.strip()]
     try:
-        http = PilosaHTTPServer(api, host=host or "127.0.0.1",
-                                port=int(port or 10101), stats=stats).start()
+        http = PilosaHTTPServer(
+            api, host=host or "127.0.0.1", port=int(port or 10101),
+            stats=stats, tls_cert=tls_cfg.get("certificate"),
+            tls_key=tls_cfg.get("key"), allowed_origins=origins).start()
     except BaseException:
+        if diagnostics is not None:
+            diagnostics.stop()
+        if prober is not None:
+            devhealth.stop()
+        if incidents is not None:
+            incident.stop()
         if watchdog is not None:
             flightrec.stop_watchdog()
         runtime_monitor.stop()
@@ -268,7 +379,9 @@ def start_server(argv):
             oplog.close()
         raise
     return Server(holder, api, http, oplog=oplog, replayed=replayed,
-                  runtime_monitor=runtime_monitor, watchdog=watchdog)
+                  runtime_monitor=runtime_monitor, watchdog=watchdog,
+                  prober=prober, incidents=incidents,
+                  diagnostics=diagnostics)
 
 
 def cmd_server(argv):
@@ -285,6 +398,20 @@ def cmd_server(argv):
     done = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: done.set())
+    if srv.http.tls_cert:
+        # SIGHUP rotates the TLS keypair without a restart (reference:
+        # keypairReloader server/tlsconfig.go:68-90); a bad new keypair
+        # keeps the old one serving
+        def reload_tls(signum, frame):
+            try:
+                srv.http.reload_tls()
+                print("SIGHUP: reloaded TLS certificate and key",
+                      flush=True)
+            except Exception as e:  # noqa: BLE001 — report, keep serving
+                print(f"SIGHUP: keeping old TLS keypair "
+                      f"(reload failed: {e})", flush=True)
+
+        signal.signal(signal.SIGHUP, reload_tls)
     # AFTER the clean-stop handler: the crash handler's SIGTERM dump
     # chains to the handler it finds, so a SIGTERM dumps the flight
     # recorder and still stops cleanly (the oplog's shutdown checkpoint)
@@ -718,7 +845,40 @@ def _server_flags(p):
                    default=None,
                    help="keep one recent trace id per timing-histogram "
                         "bucket and expose it in OpenMetrics exemplar "
-                        "syntax on /metrics")
+                        "syntax on /metrics and in /debug/slo")
+    p.add_argument("--tls-certificate", default=None,
+                   help="PEM certificate file; serves HTTPS when set "
+                        "(SIGHUP reloads it and the key)")
+    p.add_argument("--tls-key", default=None, help="PEM key file")
+    p.add_argument("--allowed-origins", default=None,
+                   help="comma-separated CORS origins browsers may query "
+                        "from ('*' allows all); no CORS headers when unset")
+    p.add_argument("--device-probe-interval", default=None,
+                   help="device-link canary probe interval (e.g. 1s, "
+                        "500ms): a canary launch on the query device "
+                        "drives the LIVE/DEGRADED/DOWN readiness state at "
+                        "/readyz and /debug/device; disabled when unset")
+    p.add_argument("--device-probe-deadline", default=None,
+                   help="per-canary deadline (e.g. 5s) before a probe "
+                        "counts as a device-link failure (default 5s)")
+    p.add_argument("--incident-dir", default=None,
+                   help="directory for anomaly-triggered postmortem "
+                        "bundles (flightrec dump, thread stacks, /debug "
+                        "snapshots) written on devhealth DOWN, watchdog "
+                        "stall, SLO burn, deadline storms, and SIGTERM; "
+                        "served at /debug/incidents; disabled when unset")
+    p.add_argument("--incident-max", type=int, default=None,
+                   help="retained incident bundles before the oldest is "
+                        "deleted (default 16)")
+    p.add_argument("--slo", action="append", default=None,
+                   help="latency objective as name=threshold@quantile "
+                        "(e.g. query=50ms@p99); repeatable. Tracked as "
+                        "multi-window error-budget burn at /debug/slo "
+                        "and slo_burn_rate gauges")
+    p.add_argument("--slo-burn-threshold", type=float, default=None,
+                   help="burn-rate multiple that must be exceeded in "
+                        "BOTH the fast and slow windows before "
+                        "slo.burn_alert fires (default 6.0)")
 
 
 def _parser():

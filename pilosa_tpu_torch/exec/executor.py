@@ -44,7 +44,13 @@ ORDER, so every worker count gives identical results.
 Every query runs under an `executor.Execute` span with one
 `executor.execute{Call}` span per call, times each call into
 `query_op_seconds{op}`, and with a query profile active adds its
-stacked-counter deltas to the profile (the TPU package's names).
+stacked-counter deltas to the profile (the TPU package's names). Every
+non-remote query is fingerprinted into the workload table with its
+counter deltas and the strategies its decision points took
+(utils/workload.py), and Row leaves evaluated shard by shard bump the
+fragment heat ledger as cache probes do. A request deadline
+(`ExecOptions.deadline`) is checked between calls and before every
+launch.
 """
 
 import math
@@ -66,12 +72,14 @@ from ..pql import Call, Condition, parse
 from ..shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 from ..utils import profile as profile_mod
 from ..utils import tracing
+from ..utils import workload as workload_mod
 from ..utils.stats import global_stats
 from ..utils.workpool import shard_map_reduce
 from .bsicond import BsiConditionError, apply_bsi_condition, \
     bsi_condition_plan
 from .result import FieldRow, GroupCount, Pair, RowIdentifiers, ValCount
-from .stacked import note_batch_size
+from .stacked import DeadlineExceededError, last_batch_size, \
+    note_batch_size, set_thread_deadline
 
 _TOPN_STACK_CHUNK = 256  # rows per device stack on the per-shard path
 
@@ -93,6 +101,9 @@ class ExecOptions:
         self.remote = remote
         # ?profile=true: the API begins a QueryProfile for this query
         self.profile = profile
+        # absolute time.monotonic() deadline of the request (the API sets
+        # it from X-Request-Deadline); None: unbounded
+        self.deadline = None
 
 
 def unwrap_options(call, opt, shards=None):
@@ -227,6 +238,10 @@ class Executor:
     def stacked_stats(self):
         return self._stacked.cache_stats()
 
+    def hbm_stats(self, top=50):
+        """HBM ledger snapshot (see StackedEvaluator.hbm_snapshot)."""
+        return self._stacked.hbm_snapshot(top=top)
+
     def dispatch_phase_stats(self):
         """Per-kernel dispatch-phase decomposition (see
         StackedEvaluator.dispatch_phases)."""
@@ -252,43 +267,79 @@ class Executor:
 
             translate_calls(idx, query.calls)
 
-        # Per-query stacked-counter deltas for the profile when one is
-        # active: the before/after cache_stats diff attributes launches,
-        # cache traffic and upload bytes to THIS query (the evaluator is
-        # shared, so concurrent queries can bleed into each other's
-        # deltas; exact when queries are serialized).
+        # Per-query stacked-counter deltas: the before/after diff
+        # attributes launches, cache traffic and upload bytes to THIS
+        # query — for the profile when one is active, and for the
+        # always-on workload fingerprint table on every non-remote query
+        # (the evaluator is shared, so concurrent queries can bleed into
+        # each other's deltas; exact when queries are serialized).
         prof = profile_mod.current()
+        wctx = None if opt.remote else workload_mod.begin_query(
+            idx.name, query)
+        wl_before = self._stacked.counters() if wctx is not None else None
         before = self._stacked.cache_stats() if prof is not None else None
         # a previous query's batch stamp must not leak into this query's
         # batch= attribution (a take-last thread-local, reset per query)
         note_batch_size(0)
         results = []
-        with tracing.start_span("executor.Execute",
-                                index=index_name) as span:
-            for call in query.calls:
-                t_call = time.perf_counter()
-                with tracing.start_span(f"executor.execute{call.name}"):
-                    results.append(self.execute_call(idx, call, shards, opt))
-                # per-PQL-op latency histogram (the global registry, which
-                # /metrics resolves to)
-                global_stats.timing("query_op_seconds",
-                                    time.perf_counter() - t_call,
-                                    {"op": call.name})
-            if span is not None:
-                span.set_tag("calls", len(query.calls))
-        if prof is not None:
-            after = self._stacked.cache_stats()
-            prof.set_tag("shards_touched",
-                         len(self._call_shards(idx, shards)))
-            for key, tag in (("dispatches", "dispatches"),
-                             ("pairwise_dispatches", "pairwise_dispatches"),
-                             ("pairwise_syncs", "pairwise_syncs"),
-                             ("hits", "cache_hits"),
-                             ("misses", "cache_misses")):
-                prof.add(tag, after[key] - before[key])
-            prof.add("bytes_materialized",
-                     (after["planes_uploaded"] - before["planes_uploaded"])
-                     * WORDS_PER_ROW * 4)
+        t_query = time.perf_counter()
+        # Deadline propagation: arm the dispatch-boundary thread-local for
+        # this query (the stacked evaluator refuses expired work before
+        # taking the dispatch lock) and check between top-level calls.
+        # None: both checks are no-ops.
+        deadline = opt.deadline
+        if deadline is not None:
+            set_thread_deadline(deadline)
+        try:
+            with tracing.start_span("executor.Execute",
+                                    index=index_name) as span:
+                for call in query.calls:
+                    if deadline is not None \
+                            and time.monotonic() >= deadline:
+                        raise DeadlineExceededError(
+                            "request deadline expired between calls")
+                    t_call = time.perf_counter()
+                    with tracing.start_span(f"executor.execute{call.name}"):
+                        results.append(
+                            self.execute_call(idx, call, shards, opt))
+                    # per-PQL-op latency histogram (the global registry,
+                    # which /metrics resolves to)
+                    global_stats.timing("query_op_seconds",
+                                        time.perf_counter() - t_call,
+                                        {"op": call.name})
+                if span is not None:
+                    span.set_tag("calls", len(query.calls))
+            if prof is not None:
+                after = self._stacked.cache_stats()
+                prof.set_tag("shards_touched",
+                             len(self._call_shards(idx, shards)))
+                for key, tag in (("dispatches", "dispatches"),
+                                 ("pairwise_dispatches",
+                                  "pairwise_dispatches"),
+                                 ("pairwise_syncs", "pairwise_syncs"),
+                                 ("hits", "cache_hits"),
+                                 ("misses", "cache_misses")):
+                    prof.add(tag, after[key] - before[key])
+                prof.add("bytes_materialized",
+                         (after["planes_uploaded"]
+                          - before["planes_uploaded"])
+                         * WORDS_PER_ROW * 4)
+        finally:
+            if deadline is not None:
+                set_thread_deadline(None)
+            # even a failed query records its shape — a recurring error
+            # shape is exactly what the workload view should surface
+            if wctx is not None:
+                wl_after = self._stacked.counters()
+                workload_mod.end_query(
+                    wctx, time.perf_counter() - t_query, deltas={
+                        "dispatches": wl_after[0] - wl_before[0],
+                        "cache_hits": wl_after[1] - wl_before[1],
+                        "cache_misses": wl_after[2] - wl_before[2],
+                        "bytes_materialized":
+                            (wl_after[3] - wl_before[3])
+                            * WORDS_PER_ROW * 4,
+                    })
         if not opt.remote:
             results = translate_results(idx, query.calls, results)
         return results
@@ -321,6 +372,23 @@ class Executor:
         if shards is not None:
             return list(shards)
         return idx.available_shards()
+
+    def _bump_fallback_heat(self, idx, call):
+        """Shard-by-shard accesses feed the fragment heat ledger too: a
+        working set that never enters the stacked path must still look
+        hot (the stacked cache probes cover the cached path). One bump
+        per Row/Range leaf per query — demand frequency, not shard
+        fan-out."""
+        if call.name in ("Row", "Range") and call.args:
+            from ..pql.ast import is_reserved_arg
+
+            field_name = next(
+                (k for k in call.args if not is_reserved_arg(k)), None)
+            if field_name is not None \
+                    and idx.field(field_name) is not None:
+                workload_mod.heat_bump(idx.name, field_name, VIEW_STANDARD)
+        for child in call.children:
+            self._bump_fallback_heat(idx, child)
 
     # --------------------------------------------------- batched execution
 
@@ -362,7 +430,8 @@ class Executor:
             # it, never from e["query"], which execute() would translate
             # again
             e = {"query": query, "raw": query, "error": None, "item": None,
-                 "fallback": False, "call": None, "kind": None}
+                 "fallback": False, "call": None, "kind": None,
+                 "wctx": None, "deltas": None, "t0": time.perf_counter()}
             entries.append(e)
             try:
                 if isinstance(query, str):
@@ -389,17 +458,40 @@ class Executor:
                 else:
                     tree, kind = call, "plane"
                 self.validate_bitmap_call(idx, tree)
+                if kind == "plane":
+                    self._bump_fallback_heat(idx, call)
+                wctx = workload_mod.begin_query(idx.name, query)
+                e["wctx"] = wctx
+                wl_before = self._stacked.counters()
                 gathered = self._stacked.gather_for_batch(
                     idx, tree, shard_list)
                 if gathered is None:
+                    # not stack-coverable: the per-query path opens (and
+                    # records) its own context
+                    workload_mod.abort_query(wctx)
+                    e["wctx"] = None
                     e["fallback"] = True
                     continue
+                wl_after = self._stacked.counters()
+                # gather-side deltas now, the launch at resolve: a batched
+                # launch serves the whole batch, so resolve_batch charges
+                # each launch to exactly ONE of the members that rode it
+                e["deltas"] = {
+                    "dispatches": 0,
+                    "cache_hits": wl_after[1] - wl_before[1],
+                    "cache_misses": wl_after[2] - wl_before[2],
+                    "bytes_materialized":
+                        (wl_after[3] - wl_before[3]) * WORDS_PER_ROW * 4,
+                }
                 e["call"] = call
                 e["kind"] = kind
                 sig, stacks = gathered
                 e["item"] = len(items)
                 items.append((kind, sig, stacks))
             except Exception as exc:  # noqa: BLE001 — per-query isolation
+                if e["wctx"] is not None:
+                    workload_mod.abort_query(e["wctx"])
+                    e["wctx"] = None
                 e["error"] = exc
         handle = []
         if items:
@@ -429,8 +521,10 @@ class Executor:
             except Exception as exc:  # noqa: BLE001 — the riders' error
                 batch_error = exc
         out = []
+        charged = set()  # batched launches already attributed to a member
         for e in entries:
             query = e["query"]
+            wctx = e["wctx"]
             try:
                 if e["error"] is not None:
                     raise e["error"]
@@ -443,7 +537,10 @@ class Executor:
                     continue
                 if batch_error is not None:
                     raise batch_error
-                val, bsize = resolved[e["item"]]
+                val, bsize, seq = resolved[e["item"]]
+                if seq not in charged:
+                    charged.add(seq)
+                    e["deltas"]["dispatches"] = 1
                 if e["kind"] == "count":
                     results = [val]
                 else:
@@ -461,8 +558,18 @@ class Executor:
                     results = [row]
                 if not opt.remote:
                     results = translate_results(idx, query.calls, results)
+                # strategy + batch attribution on the member's own context
+                # (the thread-local points at the LAST member begun, so
+                # write through the entry's handle)
+                wctx.strategies.append(f"{e['call'].name}=stacked-batched")
+                wctx.batch = bsize
+                workload_mod.end_query(
+                    wctx, time.perf_counter() - e["t0"],
+                    deltas=e["deltas"])
                 out.append((results, None, bsize))
             except Exception as exc:  # noqa: BLE001 — per-query isolation
+                if wctx is not None:
+                    workload_mod.abort_query(wctx)
                 out.append((None, exc, 0))
         return out
 
@@ -504,6 +611,7 @@ class Executor:
 
     def _exec_bitmap_call(self, idx, call, shards, opt):
         self.validate_bitmap_call(idx, call)
+        self._bump_fallback_heat(idx, call)
         shard_list = self._call_shards(idx, shards)
         per_shard = shard_map_reduce(
             shard_list, lambda shard: self.bitmap_call_shard(idx, call, shard))
@@ -725,7 +833,14 @@ class Executor:
         # in one launch on generation-cached [S, W] stacks.
         fast = self._stacked.try_count(idx, call.children[0], shard_list)
         if fast is not None:
+            # how many concurrent queries shared the launch (GroupCommit
+            # stamps it on this thread)
+            n = last_batch_size() or 1
+            workload_mod.note_strategy("Count", "stacked")
+            if n > 1:
+                workload_mod.note_batch(n)
             return fast
+        workload_mod.note_strategy("Count", "per-shard")
 
         def count_shard(shard):
             plane = self.bitmap_call_shard(idx, call.children[0], shard)
@@ -770,8 +885,10 @@ class Executor:
         # back when the filter tree isn't stack-coverable).
         fast = self._stacked.try_sum(idx, field, filter_call, shard_list)
         if fast is not None:
+            workload_mod.note_strategy("Sum", "stacked-sum")
             total, count = fast
             return ValCount(total + opts.base * count, count)
+        workload_mod.note_strategy("Sum", "per-shard")
 
         def sum_shard(shard):
             data = self._bsi_planes(field, shard)
@@ -851,11 +968,14 @@ class Executor:
         filter_call = self._agg_filter_call(idx, call)
         fast = self._stacked.try_minmax(idx, field, filter_call,
                                         shard_list, is_max)
+        op_name = "Max" if is_max else "Min"
         if fast is not None:
+            workload_mod.note_strategy(op_name, "stacked-minmax")
             mag, count = fast
             if mag is None:
                 return ValCount()
             return ValCount(mag + field.options.base, count)
+        workload_mod.note_strategy(op_name, "per-shard")
         # Ordered reduce: larger/smaller tie-breaking is order-sensitive,
         # so the pool's shard-order reduction is what keeps every worker
         # count bit-identical to the serial loop.
@@ -1134,10 +1254,15 @@ class Executor:
                     idx, field.name, candidates, filt, shard_list,
                     view_name)
                 if totals is not None:
+                    if call is not None:
+                        workload_mod.note_strategy(call.name,
+                                                   "stacked-row-counts")
                     if restrict_ids is not None:
                         for r in restrict_ids:
                             totals.setdefault(int(r), 0)
                     return totals
+        if call is not None:
+            workload_mod.note_strategy(call.name, "per-shard-chunked")
 
         # Fallback: per-shard chunks, but over the SAME global candidate
         # set as the fast path (union across fragments), so both paths
@@ -1290,8 +1415,13 @@ class Executor:
         totals = self._group_by_stacked(
             idx, fields, child_rows, filter_call, shard_list)
         if totals is None:
+            workload_mod.note_strategy("GroupBy", "per-shard")
             totals = self._group_by_per_shard(
                 idx, fields, child_rows, filter_call, shard_list)
+        elif len(fields) == 1:
+            workload_mod.note_strategy("GroupBy", "stacked-row-counts")
+        else:
+            workload_mod.note_strategy("GroupBy", "stacked-pairwise")
         if previous is not None:
             prev_t = tuple(previous)
             totals = {g: c for g, c in totals.items() if g > prev_t}

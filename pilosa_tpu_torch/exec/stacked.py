@@ -94,6 +94,7 @@ from ..shardwidth import WORDS_PER_ROW
 from ..utils import flightrec as _flightrec
 from ..utils import profile as _profile
 from ..utils import tracing as _tracing
+from ..utils import workload as _workload
 from ..utils.stats import global_stats, new_series, observe
 from .bsicond import (
     BsiConditionError,
@@ -127,6 +128,29 @@ _OPS = {"Intersect": "&", "Union": "|", "Difference": "-", "Xor": "^"}
 
 #: serializes every device launch and in-place stack patch in the process
 _DISPATCH_LOCK = threading.Lock()
+
+
+class DeadlineExceededError(Exception):
+    """The request's deadline lapsed mid-query — raised at the dispatch
+    boundary BEFORE the launch, so expired work never holds the dispatch
+    lock. server/api.py maps it to 504."""
+
+
+_deadline_tls = threading.local()
+
+
+def set_thread_deadline(at):
+    """Arm (or with None, clear) this thread's request deadline — an
+    absolute time.monotonic() instant. Checked before each dispatch-lock
+    acquisition; the executor sets it around each query's call loop."""
+    _deadline_tls.at = at
+
+
+def _check_thread_deadline():
+    at = getattr(_deadline_tls, "at", None)
+    if at is not None and time.monotonic() >= at:
+        raise DeadlineExceededError(
+            "request deadline expired before dispatch")
 
 #: padding buckets of the TPU package's batched programs (it pads a batch
 #: up to the next one, repeating query 0, to bound its compiled programs).
@@ -246,6 +270,7 @@ class _LockedDispatch:
         self.nbytes_out = nbytes_out
 
     def __enter__(self):
+        _check_thread_deadline()
         kind = self.kind
         self.prof = _profile.current()
         _flightrec.record("dispatch.start", kernel=kind)
@@ -345,6 +370,33 @@ def last_batch_size():
     """Batch size stamped by the last batched launch on THIS thread (0
     when the thread never rode one)."""
     return getattr(_BATCH_TLS, "size", 0)
+
+
+def _device_memory():
+    """Per-card memory headroom from torch, or None. Read only when CUDA
+    is ALREADY initialized in this process (a snapshot must never be
+    what initializes the card): bytes the allocator holds for tensors,
+    bytes it has reserved, the card's total and free memory, and the
+    headroom — free memory plus what the allocator reserved but no
+    tensor uses."""
+    try:
+        if not torch.cuda.is_initialized():
+            return None
+        out = []
+        for i in range(torch.cuda.device_count()):
+            mem = torch.cuda.memory_stats(i)
+            free, total = torch.cuda.mem_get_info(i)
+            in_use = int(mem.get("allocated_bytes.all.current", 0))
+            reserved = int(mem.get("reserved_bytes.all.current", 0))
+            out.append({"device": f"cuda:{i}", "platform": "cuda",
+                        "bytes_in_use": in_use,
+                        "bytes_reserved": reserved,
+                        "bytes_limit": int(total),
+                        "bytes_free": int(free),
+                        "headroom_bytes": int(free) + reserved - in_use})
+        return out or None
+    except Exception:  # noqa: BLE001 — a card gone or no CUDA build
+        return None
 
 
 class GroupCommit:
@@ -561,7 +613,8 @@ class StackedEvaluator:
         # two byte-budgeted LRU pools, picked by _pool_of(key): "leaf"
         # (Count leaves, [S, W] Containers, and BSI [D+2, S, W] stacks)
         # and "rows" (TopN/GroupBy row chunks and time-view rows,
-        # [R, S, W] tensors); entry = [gens, value, nbytes, stamp]
+        # [R, S, W] tensors); entry = [gens, value, nbytes, stamp,
+        # last-hit time]
         self._pools = {"leaf": OrderedDict(), "rows": OrderedDict()}
         self._pool_bytes = {"leaf": 0, "rows": 0}
         self._pool_evictions = {"leaf": 0, "rows": 0}
@@ -595,6 +648,14 @@ class StackedEvaluator:
         # bytes_out}} and {kind: {phase: {count, seconds}}}
         self._kernels = {}
         self._dispatch_phases = {}
+
+    def counters(self):
+        """(dispatches, hits, misses, planes_uploaded) — the per-query
+        delta source of the workload table: a bare tuple read, since it
+        runs twice per query."""
+        with self._lock:
+            return (self.dispatches, self.hits, self.misses,
+                    self.planes_uploaded)
 
     def cache_stats(self):
         with self._lock:
@@ -701,6 +762,18 @@ class StackedEvaluator:
         share the leaf pool."""
         return "rows" if key[0] == "rows" else "leaf"
 
+    @staticmethod
+    def _heat_key(key):
+        """(index, field, view) for the fragment heat ledger. Leaf and
+        rows stacks cache the standard view (rows keys carry the actual
+        view name at key[3] — time-quantum views differ); BSI stacks
+        cache the field's BSI bit planes."""
+        if key[0] == "rows":
+            return key[1], key[2], key[3]
+        if key[0] == "bsi":
+            return key[1], key[2], "bsi"
+        return key[1], key[2], VIEW_STANDARD
+
     def _cache_get_fast(self, key, stamp):
         """O(1) hit check via the view-level (uid, mutations) stamp: a
         match proves no fragment of the view changed since the put, so
@@ -710,9 +783,16 @@ class StackedEvaluator:
             hit = entries.get(key)
             if hit is not None and hit[3] == stamp:
                 entries.move_to_end(key)
+                hit[4] = time.time()  # last-hit age for /debug/hbm
                 self.hits += 1
-                return hit[1]
-        return None
+                hit = hit[1]
+            else:
+                hit = None
+        if hit is not None:
+            # heat rides every probe that RESOLVED here (outside the
+            # evaluator lock: the ledger has its own)
+            _workload.heat_bump(*self._heat_key(key))
+        return hit
 
     def _cache_get(self, key, gens, stamp=None):
         """Second-level check: exact per-shard generations. A hit
@@ -725,10 +805,16 @@ class StackedEvaluator:
                 entries.move_to_end(key)
                 if stamp is not None:
                     hit[3] = stamp
+                hit[4] = time.time()
                 self.hits += 1
-                return hit[1]
-            self.misses += 1
-        return None
+                hit = hit[1]
+            else:
+                self.misses += 1
+                hit = None
+        # misses bump too: demand for an absent fragment is precisely
+        # what makes it an admission candidate in /debug/heat
+        _workload.heat_bump(*self._heat_key(key))
+        return hit
 
     @staticmethod
     def _pool_name(pool):
@@ -775,7 +861,7 @@ class StackedEvaluator:
             if old is not None:
                 self._pool_bytes[pool] -= old[2]
                 self._ledger_add(key, -old[2], _containers.kind_of(old[1]))
-            entries[key] = [gens, value, nbytes, stamp]
+            entries[key] = [gens, value, nbytes, stamp, time.time()]
             self._pool_bytes[pool] += nbytes
             self._ledger_add(key, nbytes, repr_kind)
             while self._pool_bytes[pool] > self._budget(pool) \
@@ -826,6 +912,62 @@ class StackedEvaluator:
                 if p == pool:
                     out[(index, field)] = out.get((index, field), 0) + v
         return out
+
+    def hbm_snapshot(self, top=50):
+        """What is resident on the device and for whom (GET /debug/hbm):
+        per-(index, field, pool) byte attribution from the repr-keyed
+        ledger, the resident entries ranked by bytes with last-hit age,
+        eviction causes, and the card's headroom from torch. Pools carry
+        the TPU package's names ("stack" is the leaf pool). `total_bytes`
+        is EXACTLY the two pools' byte counters (the ledger moves in
+        lockstep under the same lock)."""
+        now = time.time()
+        entries = []
+        with self._lock:
+            for pool, entries_of in self._pools.items():
+                for key, entry in entries_of.items():
+                    entries.append({
+                        "pool": self._pool_name(pool),
+                        "kind": key[0],
+                        "index": key[1],
+                        "field": key[2],
+                        "bytes": entry[2],
+                        "repr": _containers.kind_of(entry[1]),
+                        "last_hit_age_seconds": round(now - entry[4], 3),
+                        "key": repr(key),
+                    })
+            agg = {}
+            by_repr = {}
+            for (p, i, f, r), b in self._hbm_ledger.items():
+                k = (i, f, self._pool_name(p))
+                agg[k] = agg.get(k, 0) + b
+                by_repr[r] = by_repr.get(r, 0) + b
+            snap = {
+                "total_bytes": sum(self._pool_bytes.values()),
+                "stack_bytes": self._pool_bytes["leaf"],
+                "stack_entries": len(self._pools["leaf"]),
+                "stack_budget_bytes": MAX_STACK_BYTES,
+                "rows_stack_bytes": self._pool_bytes["rows"],
+                "rows_stack_entries": len(self._pools["rows"]),
+                "rows_stack_budget_bytes": MAX_ROWS_STACK_BYTES,
+                "by_index_field": [
+                    {"index": i, "field": f, "pool": p, "bytes": b}
+                    for (i, f, p), b in sorted(
+                        agg.items(), key=lambda kv: -kv[1])],
+                "by_index_field_repr": [
+                    {"index": i, "field": f, "pool": self._pool_name(p),
+                     "repr": r, "bytes": b}
+                    for (p, i, f, r), b in sorted(
+                        self._hbm_ledger.items(), key=lambda kv: -kv[1])],
+                "by_repr": by_repr,
+                "evictions": {
+                    f"{p}.{c}": n
+                    for (p, c), n in sorted(self.pool_evictions.items())},
+            }
+        entries.sort(key=lambda e: -e["bytes"])
+        snap["entries"] = entries[:top]
+        snap["device_memory"] = _device_memory()
+        return snap
 
     def _stale_entry(self, key, gens):
         """The cached entry for `key` whose shard set matches `gens`
@@ -1352,9 +1494,10 @@ class StackedEvaluator:
 
     def resolve_query_batch(self, handle):
         """Wait for the ONE copy `launch_query_batch` enqueued and split
-        it. Returns {item position: (result, batch size)}: count results
-        are exact Python ints, plane results host [S, W] uint32 arrays
-        (row j = the j-th shard the stacks were gathered over)."""
+        it. Returns {item position: (result, batch size, launch)}: count
+        results are exact Python ints, plane results host [S, W] uint32
+        arrays (row j = the j-th shard the stacks were gathered over);
+        `launch` numbers the batched launch the item rode."""
         launched, counts_h, planes_h, event = handle
         if event is not None and launched:
             # the one event stands behind every launch of the handle; its
@@ -1370,13 +1513,13 @@ class StackedEvaluator:
             else planes_h.numpy().view(np.uint32)
         results = {}
         i = j = 0
-        for kind, chunk in launched:
+        for seq, (kind, chunk) in enumerate(launched):
             for pos in chunk:
                 if kind == "count":
-                    results[pos] = (counts[i], len(chunk))
+                    results[pos] = (counts[i], len(chunk), seq)
                     i += 1
                 else:
-                    results[pos] = (planes[j], len(chunk))
+                    results[pos] = (planes[j], len(chunk), seq)
                     j += 1
         return results
 

@@ -13,7 +13,13 @@ Every query runs under an `api.Query` span and a watchdog op; with
 `?profile=true` or a slow-query threshold (`API(long_query_time=...)`,
 `server --long-query-time`) it also runs under a QueryProfile, and a
 query slower than the threshold logs one `SLOW QUERY` line (the TPU
-package's format) and a `query.slow` flight-recorder event.
+package's format, with the query's workload fingerprint) and a
+`query.slow` flight-recorder event. While the device-link prober says
+DOWN (utils/devhealth.py) a query is refused at once with 503 and
+Retry-After; a request deadline (`X-Request-Deadline`) that expires
+before or during the query answers 504, and a storm of those triggers
+an incident bundle (utils/incident.py). Each finished query ticks the
+SLO engine (utils/workload.py).
 
 With a write-ahead oplog (`API(oplog=...)`, on by default in `server`),
 every bit, value and roaring import is appended to the log before it is
@@ -42,10 +48,13 @@ from ..core.field import (
 )
 from ..core.index import IndexOptions
 from ..exec import ExecOptions, Executor
+from ..exec.stacked import DeadlineExceededError
 from ..pql import parse
 from ..shardwidth import SHARD_WIDTH
-from ..utils import faultpoints, flightrec, tracing
+from ..utils import devhealth, faultpoints, flightrec, tracing
+from ..utils import incident as incident_mod
 from ..utils import profile as profile_mod
+from ..utils import workload as workload_mod
 from ..utils.stats import global_stats
 from .. import __version__
 
@@ -62,6 +71,12 @@ class NotFoundError(ApiError):
 
 class ConflictError(ApiError):
     status = 409
+
+
+class GatewayTimeoutError(ApiError):
+    """504: the request's deadline (X-Request-Deadline) expired before
+    or during execution; nothing past the expiry point was dispatched."""
+    status = 504
 
 
 class ServiceUnavailableError(ApiError):
@@ -452,10 +467,37 @@ class API:
         """The executor the coalescer drains into."""
         return self.executor
 
-    def query(self, index_name, pql, shards=None, options=None):
-        """(reference: api.Query api.go:135)"""
+    def query(self, index_name, pql, shards=None, options=None,
+              deadline=None):
+        """(reference: api.Query api.go:135)
+
+        `deadline` — absolute time.monotonic() instant parsed from
+        `X-Request-Deadline` at the HTTP edge (None = unbounded); checked
+        here and before each launch."""
         if self.holder.index(index_name) is None:
             raise NotFoundError(f"index not found: {index_name}")
+        # Expired on arrival: drop BEFORE any launch can start — the
+        # client already gave up, so executing is pure waste.
+        if deadline is not None and time.monotonic() >= deadline:
+            flightrec.record("query.rejected", index=index_name,
+                             reason="deadline_expired")
+            incident_mod.note_deadline_expiry()
+            raise GatewayTimeoutError(
+                "request deadline expired before execution")
+        # Device-link fail-fast: with the link DOWN a query would wedge
+        # behind the dispatch lock until the watchdog fires; reject in
+        # microseconds instead. DEGRADED still serves — hysteresis keeps
+        # one flaky probe from shedding load.
+        if devhealth.is_down():
+            retry = devhealth.retry_after_seconds()
+            flightrec.record("query.rejected", index=index_name,
+                             reason="device_link_down")
+            raise ServiceUnavailableError(
+                "device link DOWN (canary probes failing); "
+                f"retry in {retry:.0f}s", retry_after=retry)
+        if deadline is not None:
+            options = options or ExecOptions()
+            options.deadline = deadline
         # coalescer routing: batchable single-call reads with default
         # options fuse with concurrent arrivals into one batched launch;
         # ineligible queries (and window 0) take the per-query path
@@ -488,6 +530,11 @@ class API:
                         options=options or ExecOptions())
         except ApiError:
             raise
+        except DeadlineExceededError as e:
+            flightrec.record("query.rejected", index=index_name,
+                             reason="deadline_expired_mid_query")
+            incident_mod.note_deadline_expiry()
+            raise GatewayTimeoutError(str(e)) from e
         except Exception as e:
             raise ApiError(str(e)) from e
         finally:
@@ -495,6 +542,9 @@ class API:
             if prof is not None:
                 prof.finish()
         self._log_slow_query(index_name, pql, time.monotonic() - t0, prof)
+        # SLO tick: with objectives configured, serving traffic alone
+        # keeps burn rates fresh and fires alerts (rate-limited inside)
+        workload_mod.maybe_sample_slo()
         return results
 
     def _try_coalesce(self, index_name, pql, shards, options):
@@ -506,7 +556,8 @@ class API:
             return None
         o = options
         if o is not None and (o.remote or o.profile or o.exclude_columns
-                              or o.exclude_row_attrs):
+                              or o.exclude_row_attrs
+                              or o.deadline is not None):
             return None
         try:
             query = parse(pql)
@@ -529,20 +580,28 @@ class API:
             raise ApiError(str(e)) from e
         finally:
             flightrec.watch_end(wtoken)
+        # the member's fingerprint: its workload record was made on the
+        # coalescer thread, so this thread's last_fingerprint() is stale
         self._log_slow_query(index_name, pql, time.monotonic() - t0,
-                             batch=bsize)
+                             batch=bsize,
+                             fp=workload_mod.fingerprint(index_name,
+                                                         query)[0])
+        workload_mod.maybe_sample_slo()
         return (results,)
 
     def _log_slow_query(self, index_name, pql, elapsed, prof=None,
-                        batch=None):
+                        batch=None, fp=None):
         """Slow-query log (reference: LongQueryTime api.go:1157), in the
         TPU package's format. With a profile in hand the line carries the
         full span tree and counters as JSON (`profile=` stays the LAST
-        field). batch= is the batched-launch occupancy the query rode (1
-        = solo). The port has no workload fingerprints, whole-plan fusion
-        or planner yet: fingerprint= is "-" and plan= "-" (the TPU
-        package's values for a query without either) and fused= 0 (its
-        value for a query that ran interpreted)."""
+        field). fingerprint= is the query's workload fingerprint (the
+        coalesced path passes its member's; the executor just finished a
+        direct query on THIS thread, so its fingerprint is in take-last
+        position), so slow lines of one shape grep together. batch= is
+        the batched-launch occupancy the query rode (1 = solo). The port
+        has no whole-plan fusion or planner yet: plan= is "-" (the TPU
+        package's value for a query without strategy notes) and fused= 0
+        (its value for a query that ran interpreted)."""
         if (self.long_query_time is None
                 or elapsed <= self.long_query_time):
             return
@@ -551,7 +610,8 @@ class API:
         from ..exec.stacked import last_batch_size
 
         q = pql if isinstance(pql, str) else str(pql)
-        fp = "-"
+        if fp is None:
+            fp = workload_mod.last_fingerprint() or "-"
         if batch is None:
             batch = last_batch_size()
         batch = max(1, int(batch))
@@ -599,6 +659,11 @@ class API:
         per-query error isolation, like the coalescer's."""
         if self.holder.index(index_name) is None:
             raise NotFoundError(f"index not found: {index_name}")
+        if devhealth.is_down():
+            retry = devhealth.retry_after_seconds()
+            raise ServiceUnavailableError(
+                "device link DOWN (canary probes failing); "
+                f"retry in {retry:.0f}s", retry_after=retry)
         return self.executor.execute_batch(
             index_name, list(pqls), shards=shards)
 
@@ -1094,8 +1159,35 @@ class API:
         return serialize(frag.storage)
 
     def status(self):
+        """The node's state, with the `observability` roll-up of this
+        node under "local" (totals only: the full views live at
+        /debug/hbm, /debug/dispatch, /debug/device, /debug/workload,
+        /debug/heat and /debug/slo)."""
         nodes = [{"id": "local", "uri": {"scheme": "http"},
                   "isCoordinator": True, "state": "READY"}]
         return {"state": "NORMAL", "nodes": nodes, "replicaN": 1,
-                "localShardWidth": SHARD_WIDTH}
+                "localShardWidth": SHARD_WIDTH,
+                "observability": {"local": self._node_observability()}}
+
+    def _node_observability(self):
+        """Compact local HBM + kernel + device-link + workload summary
+        (the TPU package's block without its planner's `plans`)."""
+        hbm = self.executor.hbm_stats(top=0)
+        walls = self.executor._stacked.kernel_walls()
+        out = {
+            "hbm": {k: hbm[k] for k in (
+                "total_bytes", "stack_bytes", "stack_entries",
+                "rows_stack_bytes", "rows_stack_entries")},
+            "kernels": {
+                kind: {"count": v["count"],
+                       "seconds": round(v["seconds"], 6)}
+                for kind, v in sorted(walls.items())},
+            "device_link": devhealth.summary(),
+            "workload": workload_mod.table().summary(),
+            "heat": workload_mod.heat().summary(),
+            "slo": workload_mod.slo().summary(),
+        }
+        if self.oplog is not None:
+            out["oplog"] = self.oplog.summary(compact=True)
+        return out
 

@@ -2,7 +2,10 @@
 
 Used by applications and the CLI's import, export, backup and restore
 commands. stdlib urllib; no external deps. It speaks the JSON wire of
-the port's server and of the TPU package's alike.
+the port's server and of the TPU package's alike, and the protobuf wire
+of stock Pilosa clients (`query_proto`, `import_bits_proto`,
+`import_values_proto`, `import_roaring_proto`) through the port's
+hand-written codec (numpy, no torch).
 
 Resilience: every request takes an optional per-request deadline, and
 idempotent requests (GETs, DELETEs, and the import paths — set-bit and
@@ -221,6 +224,90 @@ class Client:
         if query_class is not None:
             headers["X-Query-Class"] = query_class
         return headers or None
+
+    def query_proto(self, index, pql, shards=None, remote=False,
+                    exclude_row_attrs=False, exclude_columns=False,
+                    deadline=None, query_class=None):
+        """Query over the protobuf data plane (reference:
+        InternalClient.QueryNode posts proto QueryRequests). Returns
+        (results, err). deadline: remaining budget in seconds, sent as
+        X-Request-Deadline AND bounding local retries."""
+        from .. import encoding
+
+        body = encoding.encode_query_request(
+            pql, shards=shards, remote=remote,
+            exclude_row_attrs=exclude_row_attrs,
+            exclude_columns=exclude_columns)
+        data = self._request(
+            "POST", f"/index/{index}/query", body,
+            content_type=encoding.CONTENT_TYPE_PROTOBUF,
+            deadline=deadline,
+            headers=self._query_headers(deadline, query_class))
+        if remote and isinstance(data, (bytes, bytearray)):
+            _note_data_plane(len(data))
+        return encoding.decode_query_response(data)
+
+    def _import_proto(self, path, message, clear, deadline):
+        """POST one protobuf import message; returns the ImportResponse's
+        Err ("" on success). Idempotent, like the JSON imports."""
+        from ..encoding import CONTENT_TYPE_PROTOBUF, wire
+
+        if clear:
+            path += ("&" if "?" in path else "?") + "clear=true"
+        data = self._request(
+            "POST", path, message.SerializeToString(),
+            content_type=CONTENT_TYPE_PROTOBUF, idempotent=True,
+            deadline=deadline)
+        return wire.ImportResponse.FromString(data).Err
+
+    def import_bits_proto(self, index, field, row_ids, column_ids,
+                          timestamps=None, clear=False, row_keys=None,
+                          column_keys=None, deadline=None):
+        """A stock client's ImportRequest (reference: handlePostImport
+        http/handler.go:1076): ids as arrays or lists, timestamps as unix
+        nanoseconds (0 = none). Returns the response's Err."""
+        from ..encoding import wire
+
+        msg = wire.ImportRequest(Index=index, Field=field)
+        msg.RowIDs.extend(row_ids if row_keys is None else [])
+        msg.ColumnIDs.extend(column_ids if column_keys is None else [])
+        if timestamps is not None:
+            msg.Timestamps.extend(timestamps)
+        if row_keys is not None:
+            msg.RowKeys.extend(row_keys)
+        if column_keys is not None:
+            msg.ColumnKeys.extend(column_keys)
+        return self._import_proto(f"/index/{index}/field/{field}/import",
+                                  msg, clear, deadline)
+
+    def import_values_proto(self, index, field, column_ids, values,
+                            clear=False, column_keys=None, deadline=None):
+        """A stock client's ImportValueRequest for an int field. Returns
+        the response's Err."""
+        from ..encoding import wire
+
+        msg = wire.ImportValueRequest(Index=index, Field=field)
+        msg.ColumnIDs.extend(column_ids if column_keys is None else [])
+        msg.Values.extend(values)
+        if column_keys is not None:
+            msg.ColumnKeys.extend(column_keys)
+        return self._import_proto(f"/index/{index}/field/{field}/import",
+                                  msg, clear, deadline)
+
+    def import_roaring_proto(self, index, field, shard, views, clear=False,
+                             deadline=None):
+        """A stock client's ImportRoaringRequest: `views` maps a view
+        name ("" or "standard" for the standard view) to one serialized
+        roaring blob of row * SHARD_WIDTH + offset positions. Returns the
+        response's Err."""
+        from ..encoding import wire
+
+        msg = wire.ImportRoaringRequest(Clear=clear)
+        for name, data in views.items():
+            msg.views.add(Name=name, Data=data)
+        return self._import_proto(
+            f"/index/{index}/field/{field}/import-roaring/{shard}", msg,
+            False, deadline)
 
     def query(self, index, pql, shards=None, remote=False,
               exclude_row_attrs=False, exclude_columns=False,

@@ -6,12 +6,23 @@ restore read (/internal/...), and the debug surface (GET /debug lists
 it): metrics (/metrics, /debug/vars), query profiles (?profile=true,
 /debug/queries), traces, the flight recorder, the dispatch-phase split,
 thread dumps and a sampling profiler, batching, the oplog and fault
-points, with the TPU package's JSON wire shapes. Every request runs
-under a span continued from its trace headers and is timed into
-`http_request_seconds{route,method,status}`. The protobuf wire is not
-served: a body sent as application/x-protobuf gets 415.
+points, device health (/readyz, /debug/device), the workload table,
+fragment heat, SLO burn, the HBM ledger and incident bundles, with the
+TPU package's JSON wire shapes. Every request runs under a span
+continued from its trace headers and is timed into
+`http_request_seconds{route,method,status}`.
+
+A body sent as application/x-protobuf to the query, import and
+import-roaring routes is decoded with the hand-written codec of
+`encoding/` (QueryRequest, ImportRequest / ImportValueRequest by field
+type, ImportRoaringRequest) and answered in protobuf, as the reference
+serves stock Pilosa clients. With `tls_cert`/`tls_key` the listener
+serves HTTPS (`reload_tls` swaps the pair in place, keeping the last
+good one on a bad rotation); with `allowed_origins` it answers CORS
+preflights and adds Access-Control-Allow-Origin to matching requests.
 """
 
+import datetime
 import json
 import re
 import sys
@@ -21,14 +32,42 @@ import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from .. import encoding
 from ..core import timeq
+from ..core.field import FIELD_TYPE_INT
 from ..core.index import IndexOptions
+from ..encoding import wire
 from ..exec import ExecOptions
-from ..utils import faultpoints, flightrec, tracing, workpool
+from ..utils import devhealth, faultpoints, flightrec, incident, tracing
+from ..utils import workload, workpool
 from ..utils import profile as profile_mod
 from ..utils.stats import global_stats, registry_of
-from .api import ApiError, NotFoundError, field_options_from_json, \
-    result_to_json
+from .api import ApiError, GatewayTimeoutError, NotFoundError, \
+    ServiceUnavailableError, field_options_from_json, result_to_json
+
+
+def parse_deadline(raw, now=None):
+    """`X-Request-Deadline` header -> seconds of budget remaining.
+
+    Accepts a bare number (seconds, e.g. "0.25"), a duration with units
+    ("250ms", "2s", "1m30s"), or "@<unix-seconds>" for an absolute epoch
+    deadline. Zero or negative means expired on arrival (the query
+    answers 504 without launching anything). Raises ValueError on
+    anything unparseable (the request answers 400)."""
+    s = str(raw).strip()
+    if not s:
+        raise ValueError("empty deadline")
+    if s.startswith("@"):
+        if now is None:
+            now = time.time()
+        return float(s[1:]) - now
+    try:
+        return float(s)
+    except ValueError:
+        pass
+    from ..cli import parse_duration
+
+    return float(parse_duration(s))
 
 
 class Route:
@@ -44,12 +83,20 @@ class Route:
 
 
 class Request:
-    __slots__ = ("params", "query", "body")
+    __slots__ = ("params", "query", "body", "content_type", "headers")
 
-    def __init__(self, params, query, body):
+    def __init__(self, params, query, body, content_type="", headers=None):
         self.params = params
         self.query = query
         self.body = body
+        self.content_type = content_type
+        # the raw http.client message (dict-like, case-insensitive) —
+        # None in tests that build Requests by hand
+        self.headers = headers
+
+    @property
+    def protobuf(self):
+        return self.content_type.startswith(encoding.CONTENT_TYPE_PROTOBUF)
 
     def json(self):
         if not self.body:
@@ -58,7 +105,7 @@ class Request:
 
 
 class RawResponse:
-    """A non-JSON response body (CSV export)."""
+    """A non-JSON response body (CSV export, protobuf)."""
     __slots__ = ("body", "content_type")
 
     def __init__(self, body, content_type):
@@ -68,15 +115,26 @@ class RawResponse:
 
 class PilosaHTTPServer:
     """Owns the listening socket and the route table. `port=0` binds an
-    ephemeral port; `self.port` holds the bound one after start()."""
+    ephemeral port; `self.port` holds the bound one after start().
+    `tls_cert`/`tls_key` (PEM files) serve HTTPS; `allowed_origins` (a
+    list, "*" for any) turns on CORS."""
 
-    def __init__(self, api, host="127.0.0.1", port=10101, stats=None):
+    def __init__(self, api, host="127.0.0.1", port=10101, stats=None,
+                 tls_cert=None, tls_key=None, allowed_origins=None):
         self.api = api
         self.host = host
         self.port = port
         # the configured metrics sink; the global registry stays the
         # default so /metrics always has data
         self.stats = stats if stats is not None else global_stats
+        # TLS (reference: server/tlsconfig.go; config tls.certificate/key)
+        self.tls_cert = tls_cert
+        self.tls_key = tls_key
+        self._tls_ctx = None
+        self._tls_last_good = None
+        # CORS (reference: http/handler.go:83-91 OptHandlerAllowedOrigins):
+        # origins allowed to hit the API from a browser; "*" allows all
+        self.allowed_origins = list(allowed_origins or [])
         self._profiler = None
         self.routes = [
             Route("GET", r"/", self._home),
@@ -107,6 +165,7 @@ class PilosaHTTPServer:
             Route("POST", r"/schema", self._post_schema),
             Route("GET", r"/status", self._get_status),
             Route("GET", r"/healthz", self._get_healthz),
+            Route("GET", r"/readyz", self._get_readyz),
             Route("GET", r"/info", self._get_info),
             Route("GET", r"/version", self._get_version),
             Route("POST", r"/recalculate-caches", self._recalculate_caches),
@@ -136,6 +195,17 @@ class PilosaHTTPServer:
             Route("GET", r"/debug/flightrecorder",
                   self._get_flightrecorder, args=("limit",)),
             Route("GET", r"/debug/dispatch", self._get_debug_dispatch),
+            Route("GET", r"/debug/device", self._get_debug_device,
+                  args=("limit",)),
+            Route("GET", r"/debug/hbm", self._get_debug_hbm, args=("top",)),
+            Route("GET", r"/debug/workload", self._get_debug_workload,
+                  args=("top",)),
+            Route("GET", r"/debug/heat", self._get_debug_heat,
+                  args=("top",)),
+            Route("GET", r"/debug/slo", self._get_debug_slo),
+            Route("GET", r"/debug/incidents", self._get_debug_incidents),
+            Route("GET", r"/debug/incidents/(?P<incident_id>[^/?]+)",
+                  self._get_debug_incident),
             Route("GET", r"/debug/batching", self._get_debug_batching),
             Route("GET", r"/debug/oplog", self._get_debug_oplog),
             Route("GET", r"/debug/faultpoints", self._get_faultpoints),
@@ -167,8 +237,22 @@ class PilosaHTTPServer:
         return self.api.status()
 
     def _get_healthz(self, req):
-        """Liveness: the process is up and serving HTTP."""
+        """Liveness: the process is up and serving HTTP. Deliberately
+        ignores the device link — a wedged card needs draining
+        (/readyz), not a restart loop."""
         return {"status": "ok"}
+
+    def _get_readyz(self, req):
+        """Readiness, gated on the device-link prober: LIVE, DEGRADED,
+        and DISABLED (no prober configured) serve; DOWN answers 503 +
+        Retry-After so load balancers drain the node until canary
+        probes recover."""
+        state = devhealth.state()
+        if state == devhealth.DOWN:
+            raise ServiceUnavailableError(
+                f"not ready: device link {state}",
+                retry_after=devhealth.retry_after_seconds())
+        return {"status": "ok", "device_link": state}
 
     def _get_info(self, req):
         return self.api.info()
@@ -209,7 +293,62 @@ class PilosaHTTPServer:
         self.api.delete_field(req.params["index"], req.params["field"])
         return {"success": True}
 
+    @staticmethod
+    def _deadline(req):
+        """Absolute time.monotonic() deadline from the request's
+        `X-Request-Deadline` header, or None; a malformed value is a
+        400."""
+        raw = req.headers.get("X-Request-Deadline") \
+            if req.headers is not None else None
+        if raw is None:
+            return None
+        try:
+            remaining = parse_deadline(raw)
+        except ValueError as e:
+            raise ApiError(
+                f"invalid X-Request-Deadline {raw!r}: {e}") from e
+        return time.monotonic() + remaining
+
+    @staticmethod
+    def _decode(cls, req):
+        """One protobuf message of `cls` from the request body; a body
+        that is not one is a 400."""
+        try:
+            return cls.FromString(req.body)
+        except wire.DecodeError as e:
+            raise ApiError(f"invalid {cls.__name__} body: {e}") from e
+
+    def _post_query_proto(self, req, deadline):
+        """The protobuf data plane, wire-compatible with the reference's
+        QueryRequest/QueryResponse (encoding/proto/proto.go): query
+        errors (a missing index too) travel in-band in
+        QueryResponse.Err; an unready node (503) and a lapsed deadline
+        (504) stay HTTP-visible."""
+        q = self._decode(wire.QueryRequest, req)
+        options = ExecOptions(
+            remote=q.Remote, column_attrs=q.ColumnAttrs,
+            exclude_row_attrs=q.ExcludeRowAttrs,
+            exclude_columns=q.ExcludeColumns)
+        try:
+            results = self.api.query(
+                req.params["index"], q.Query, shards=list(q.Shards) or None,
+                options=options, deadline=deadline)
+            attr_sets = self.api.column_attr_sets(
+                req.params["index"], results) if q.ColumnAttrs else None
+            body = encoding.encode_query_response(
+                results, column_attr_sets=attr_sets)
+        except (ServiceUnavailableError, GatewayTimeoutError):
+            # the status code and Retry-After must reach the client; an
+            # embedded error string would lose them
+            raise
+        except ApiError as e:
+            body = encoding.encode_query_response([], err=str(e))
+        return RawResponse(body, encoding.CONTENT_TYPE_PROTOBUF)
+
     def _post_query(self, req):
+        deadline = self._deadline(req)
+        if req.protobuf:
+            return self._post_query_proto(req, deadline)
         pql = req.body.decode("utf-8")
         shards = None
         if "shards" in req.query:
@@ -226,7 +365,7 @@ class PilosaHTTPServer:
             exclude_row_attrs=flag("excludeRowAttrs"),
             profile=want_profile)
         results = self.api.query(req.params["index"], pql, shards=shards,
-                                 options=options)
+                                 options=options, deadline=deadline)
         out = {"results": [result_to_json(r) for r in results]}
         if want_profile:
             # api.query stashed the finished profile on this thread
@@ -272,8 +411,41 @@ class PilosaHTTPServer:
         batched-launch counters."""
         return self.api.batching_stats()
 
+    def _post_import_proto(self, req, clear):
+        """A stock client's protobuf import (reference: handlePostImport
+        http/handler.go:1076): ImportValueRequest for an int field,
+        ImportRequest otherwise, timestamps in unix NANOseconds;
+        answered with ImportResponse bytes. Failures answer a non-proto
+        error body with a non-200 status, as the reference does. Ids and
+        values go to the API as the decoder's numpy arrays."""
+        index, field = req.params["index"], req.params["field"]
+        fld = self.api._field(index, field)  # 404 on unknown
+        if fld.type == FIELD_TYPE_INT:
+            msg = self._decode(wire.ImportValueRequest, req)
+            self.api.import_values(
+                index, field, msg.ColumnIDs.array, msg.Values.array,
+                clear=clear, column_keys=list(msg.ColumnKeys) or None)
+        else:
+            msg = self._decode(wire.ImportRequest, req)
+            timestamps = None
+            if msg.Timestamps.array.any():
+                timestamps = [
+                    datetime.datetime.fromtimestamp(
+                        ts / 1e9, datetime.timezone.utc).replace(
+                            tzinfo=None) if ts else None
+                    for ts in msg.Timestamps]
+            self.api.import_bits(
+                index, field, msg.RowIDs.array, msg.ColumnIDs.array,
+                timestamps=timestamps, clear=clear,
+                row_keys=list(msg.RowKeys) or None,
+                column_keys=list(msg.ColumnKeys) or None)
+        return RawResponse(wire.ImportResponse(Err="").SerializeToString(),
+                           encoding.CONTENT_TYPE_PROTOBUF)
+
     def _post_import(self, req):
         clear = req.query.get("clear", ["false"])[0] == "true"
+        if req.protobuf:
+            return self._post_import_proto(req, clear)
         body = req.json()
         if body is None:
             raise ApiError("import requires a JSON body")
@@ -296,7 +468,21 @@ class PilosaHTTPServer:
 
     def _post_import_roaring(self, req):
         """The body is one serialized roaring bitmap of row * SHARD_WIDTH
-        + offset positions for shard {shard} of `view`."""
+        + offset positions for shard {shard} of `view` — or, sent as
+        application/x-protobuf, an ImportRoaringRequest with one blob per
+        view (an empty view name is the standard view), answered with
+        ImportResponse bytes (reference: handlePostImportRoaring
+        http/handler.go)."""
+        if req.protobuf:
+            msg = self._decode(wire.ImportRoaringRequest, req)
+            for v in msg.views:
+                self.api.import_roaring(
+                    req.params["index"], req.params["field"],
+                    int(req.params["shard"]), v.Data, clear=msg.Clear,
+                    view=v.Name or "standard")
+            return RawResponse(
+                wire.ImportResponse(Err="").SerializeToString(),
+                encoding.CONTENT_TYPE_PROTOBUF)
         changed = self.api.import_roaring(
             req.params["index"], req.params["field"],
             int(req.params["shard"]), req.body,
@@ -425,6 +611,55 @@ class PilosaHTTPServer:
         launches and fetches go (lock_wait / dispatch_ack / sync)."""
         return self.api.executor.dispatch_phase_stats()
 
+    def _get_debug_device(self, req):
+        """Device-link health: the prober's state machine plus the full
+        canary sample ring (?limit= bounds the ring; 0 = summary only)."""
+        limit = self._q1(req, "limit")
+        return devhealth.snapshot(
+            limit=int(limit) if limit is not None else None)
+
+    def _get_debug_hbm(self, req):
+        """HBM ledger: resident stack-cache bytes per (index, field,
+        pool), entries ranked by bytes + last-hit age, eviction causes,
+        and the card's memory headroom."""
+        return self.api.executor.hbm_stats(
+            top=int(self._q1(req, "top", "50")))
+
+    def _get_debug_workload(self, req):
+        """Query fingerprint table: top-K shapes by frequency, total
+        wall, and misestimate rate (utils/workload.py). ?top=0 returns
+        counters only."""
+        return workload.table().snapshot(top=int(self._q1(req, "top", "20")))
+
+    def _get_debug_heat(self, req):
+        """Fragment heat cross-referenced against the HBM ledger:
+        hot-but-not-resident (admission candidates) and
+        resident-but-cold (eviction candidates)."""
+        return workload.heat().report(
+            self.api.executor.hbm_stats(top=0),
+            top=int(self._q1(req, "top", "50")))
+
+    def _get_debug_slo(self, req):
+        """SLO objectives with fast/slow-window error-budget burn rates
+        (empty objectives list when no --slo is configured)."""
+        return workload.slo().snapshot()
+
+    def _get_debug_incidents(self, req):
+        """Postmortem bundle listing: trigger counters + every retained
+        bundle's metadata ({"enabled": false} without --incident-dir)."""
+        return incident.snapshot()
+
+    def _get_debug_incident(self, req):
+        """One postmortem bundle with its files inlined."""
+        mgr = incident.get_manager()
+        if mgr is None:
+            raise NotFoundError(
+                "incident bundles disabled (start with --incident-dir)")
+        out = mgr.get(req.params["incident_id"])
+        if out is None:
+            raise NotFoundError("no such incident bundle")
+        return out
+
     #: every debug endpoint the port serves, with a one-line description
     DEBUG_ENDPOINTS = {
         "/debug/vars": "expvar-style counters, gauges, and p50/p99 "
@@ -436,6 +671,20 @@ class PilosaHTTPServer:
         "/debug/traces/{trace_id}": "ONE trace's spans and their tree",
         "/debug/dispatch": "dispatch-phase decomposition (lock_wait / "
                            "dispatch_ack / sync)",
+        "/debug/hbm": "HBM ledger: resident stack-cache bytes per "
+                      "(index, field, pool) + device headroom",
+        "/debug/device": "device-link health: canary probe state "
+                         "machine, RTT samples, transitions",
+        "/debug/workload": "query fingerprint table: per-shape counts, "
+                           "p50/p99, strategies, misestimates",
+        "/debug/heat": "fragment heat vs HBM residency: admission and "
+                       "eviction candidates",
+        "/debug/slo": "SLO objectives and multi-window error-budget "
+                      "burn rates",
+        "/debug/incidents": "anomaly-triggered postmortem bundles "
+                            "(flightrec + stacks + debug snapshots), "
+                            "newest first; /debug/incidents/{id} inlines "
+                            "one bundle",
         "/debug/batching": "query coalescer: queue depth, batch "
                            "occupancy histogram, rejects, batched-launch "
                            "counters",
@@ -517,18 +766,78 @@ class PilosaHTTPServer:
             def _dispatch(self):
                 server.dispatch(self)
 
-            do_GET = do_POST = do_DELETE = _dispatch
+            do_GET = do_POST = do_DELETE = do_OPTIONS = _dispatch
 
         class _Server(ThreadingHTTPServer):
             daemon_threads = True
             request_queue_size = 128
 
         self._httpd = _Server((self.host, self.port), Handler)
+        if self.tls_cert:
+            import ssl
+
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(self.tls_cert, self.tls_key)
+            self._tls_ctx = ctx
+            self._stash_keypair()
+            # Defer the handshake to the per-connection worker thread
+            # (first read); a handshake in accept() would let one stalled
+            # client block ALL new connections.
+            self._httpd.socket = ctx.wrap_socket(
+                self._httpd.socket, server_side=True,
+                do_handshake_on_connect=False)
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="pilosa-http", daemon=True)
         self._thread.start()
         return self
+
+    def reload_tls(self):
+        """Re-read the certificate/key files into the live TLS context:
+        new handshakes serve the new keypair, existing connections are
+        untouched (reference: keypairReloader server/tlsconfig.go:68-90,
+        which reloads on SIGHUP; the CLI wires SIGHUP to this method).
+        Raises on a bad keypair, keeping the old one serving.
+
+        load_cert_chain mutates the context in stages (cert chain, then
+        key, then pair check), so a half-bad rotation could strand the
+        LIVE context with new-cert/old-key. So the files are validated in
+        a scratch context first, and if the live load still fails (a
+        file changed between the two loads), the stashed last-good PEMs
+        go back into the live context."""
+        if not self.tls_cert or self._tls_ctx is None:
+            raise RuntimeError("TLS not enabled on this server")
+        import ssl
+
+        scratch = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        scratch.load_cert_chain(self.tls_cert, self.tls_key)
+        try:
+            self._tls_ctx.load_cert_chain(self.tls_cert, self.tls_key)
+        except Exception:
+            self._restore_last_good_keypair()
+            raise
+        self._stash_keypair()
+
+    def _stash_keypair(self):
+        with open(self.tls_cert, "rb") as f:
+            cert_pem = f.read()
+        with open(self.tls_key, "rb") as f:
+            key_pem = f.read()
+        self._tls_last_good = (cert_pem, key_pem)
+
+    def _restore_last_good_keypair(self):
+        import tempfile
+
+        if not self._tls_last_good:
+            return
+        cert_pem, key_pem = self._tls_last_good
+        with tempfile.NamedTemporaryFile(suffix=".pem") as cf, \
+                tempfile.NamedTemporaryFile(suffix=".key") as kf:
+            cf.write(cert_pem)
+            cf.flush()
+            kf.write(key_pem)
+            kf.flush()
+            self._tls_ctx.load_cert_chain(cf.name, kf.name)
 
     def stop(self):
         with self._profiler_lock:
@@ -545,7 +854,22 @@ class PilosaHTTPServer:
 
     @property
     def uri(self):
-        return f"http://{self.host}:{self.port}"
+        scheme = "https" if self.tls_cert else "http"
+        return f"{scheme}://{self.host}:{self.port}"
+
+    def _cors_origin(self, handler):
+        """The Access-Control-Allow-Origin value for this request, or None
+        (reference: http/handler.go:83-91 OptHandlerAllowedOrigins wraps
+        the router in gorilla handlers.CORS; absent the option, no CORS
+        headers are emitted and browsers refuse cross-origin reads)."""
+        if not self.allowed_origins:
+            return None
+        origin = handler.headers.get("Origin")
+        if origin is None:
+            return None
+        if "*" in self.allowed_origins:
+            return "*"
+        return origin if origin in self.allowed_origins else None
 
     def dispatch(self, handler):
         parsed = urlparse(handler.path)
@@ -553,8 +877,22 @@ class PilosaHTTPServer:
         query = parse_qs(parsed.query)
         length = int(handler.headers.get("Content-Length", 0))
         body = handler.rfile.read(length) if length else b""
-        protobuf = handler.headers.get("Content-Type", "").startswith(
-            "application/x-protobuf")
+        cors = self._cors_origin(handler)
+        if handler.command == "OPTIONS":
+            # Preflight: answer with the allowed surface, no body.
+            handler.send_response(200 if cors else 403)
+            if self.allowed_origins:
+                # response varies by Origin -> shared caches must key on it
+                handler.send_header("Vary", "Origin")
+            if cors:
+                handler.send_header("Access-Control-Allow-Origin", cors)
+                handler.send_header("Access-Control-Allow-Methods",
+                                    "GET, POST, DELETE, OPTIONS")
+                handler.send_header("Access-Control-Allow-Headers",
+                                    "Content-Type")
+            handler.send_header("Content-Length", "0")
+            handler.end_headers()
+            return
         t0 = time.perf_counter()
         status, payload = 404, {"error": "not found"}
         out_type = "application/json"
@@ -576,19 +914,16 @@ class PilosaHTTPServer:
                         "error": "invalid query params: "
                                  + ", ".join(sorted(unknown))}
                     break
-            if protobuf:
-                status, payload = 415, {
-                    "error": "application/x-protobuf bodies are not "
-                             "served; send JSON (or PQL text to a query "
-                             "route)"}
-                break
+            req = Request(m.groupdict(), query, body,
+                          handler.headers.get("Content-Type", ""),
+                          headers=handler.headers)
             # continue a caller's trace from its headers (reference:
             # http/handler.go:321 extractTracing middleware)
             with tracing.span_from_headers(
                     f"http.{handler.command} {path}", handler.headers,
                     method=handler.command) as span:
                 try:
-                    result = route.fn(Request(m.groupdict(), query, body))
+                    result = route.fn(req)
                     if isinstance(result, RawResponse):
                         status, payload, out_type = (
                             200, result.body, result.content_type)
@@ -615,6 +950,10 @@ class PilosaHTTPServer:
             handler.send_header("Content-Length", str(len(data)))
             for name, value in (extra_headers or {}).items():
                 handler.send_header(name, value)
+            if self.allowed_origins:
+                handler.send_header("Vary", "Origin")
+            if cors:
+                handler.send_header("Access-Control-Allow-Origin", cors)
             handler.end_headers()
             handler.wfile.write(data)
         finally:

@@ -38,8 +38,15 @@ Event kinds the port records:
   workpool.*   pool saturation (every worker busy with a queue backlog)
   oplog.*      write-ahead log rotation, tail truncation, boot replay
   query.slow   queries past --long-query-time
+  query.rejected  queries refused before they ran (device link DOWN,
+                  request deadline expired)
   http.5xx     handler failures
   watchdog.*   stall trips
+  devhealth.transition  device-link state changes (utils/devhealth.py)
+  slo.burn_alert  error-budget burn over threshold in BOTH windows
+                  (utils/workload.py SloEngine; edge-triggered)
+  incident.*   postmortem bundles triggered and written
+                (utils/incident.py)
 """
 
 import collections
@@ -57,11 +64,6 @@ import traceback
 from .stats import global_stats
 
 DEFAULT_RING_SIZE = 2048
-
-#: the device-link state a watchdog stall event carries; the TPU package
-#: reads it from its prober (utils/devhealth.py), which the port does not
-#: run yet and which that package reports as DISABLED when off
-DEVICE_LINK_DISABLED = "DISABLED"
 
 _log = logging.getLogger("pilosa_tpu_torch.flightrec")
 
@@ -298,10 +300,12 @@ class Watchdog:
         overdue = now - op.start
         tags = {"kind": op.kind}
         global_stats.count("watchdog_stalls", 1, tags)
-        # the TPU package splits "stall" by its device-link prober's
-        # state; the port runs no prober yet, which that package reports
-        # as DISABLED
-        link_state = DEVICE_LINK_DISABLED
+        # the device-link state splits "stall" into its two causes at a
+        # glance: DOWN/DEGRADED = a wedged card, LIVE = lock contention or
+        # genuinely slow work (lazy import — devhealth imports stats too)
+        from . import devhealth as _devhealth
+
+        link_state = _devhealth.state()
         evt = dict(op.tags, kind=op.kind, thread=op.thread,
                    running_seconds=round(overdue, 3),
                    deadline_seconds=op.deadline,
@@ -313,6 +317,13 @@ class Watchdog:
             "(deadline %.3fs) device_link=%s tags=%s\n%s\n%s",
             op.kind, op.thread, overdue, op.deadline, link_state, op.tags,
             _recorder.format_tail(), format_all_stacks())
+        from . import incident as _incident
+
+        # evt's "kind" is the stalled OP's kind — rename so it cannot
+        # collide with the trigger kind parameter
+        _incident.maybe_trigger(
+            "watchdog_stall",
+            **{("op" if k == "kind" else k): v for k, v in evt.items()})
 
     def open_ops(self, now=None):
         """Snapshot of every in-flight op (incident bundles + debug):
@@ -406,6 +417,14 @@ def install_crash_handler(logger=None):
             dump(logger, reason="SIGTERM")
         except Exception:  # noqa: BLE001 — never mask the shutdown
             pass
+        try:
+            # synchronous: the process is dying, there is no later
+            from . import incident as _incident
+
+            _incident.maybe_trigger("fatal_signal", sync=True,
+                                    signal="SIGTERM")
+        except Exception:  # noqa: BLE001 — never mask the shutdown
+            pass
         if callable(prev) and prev not in (signal.SIG_IGN, signal.SIG_DFL):
             prev(signum, frame)
         else:
@@ -424,7 +443,13 @@ def install_crash_handler(logger=None):
 class _DebugHandler(http.server.BaseHTTPRequestHandler):
     def do_GET(self):  # noqa: N802 — BaseHTTPRequestHandler API
         path = self.path.split("?", 1)[0]
-        if path == "/debug/flightrecorder":
+        if path == "/debug/device":
+            # a supervisor reads the prober through this same bare port
+            # to diagnose (and fast-abort on) a dead device
+            from . import devhealth as _devhealth
+
+            body = json.dumps(_devhealth.snapshot(limit=8)).encode()
+        elif path == "/debug/flightrecorder":
             body = json.dumps(snapshot()).encode()
         elif path == "/debug/dispatch":
             # process-wide dispatch-phase aggregate: which phase
@@ -434,6 +459,12 @@ class _DebugHandler(http.server.BaseHTTPRequestHandler):
 
             body = json.dumps(
                 {"phases": global_dispatch_phases()}).encode()
+        elif path == "/debug/incidents":
+            # the newest postmortem bundle's path for a failed run's
+            # record
+            from . import incident as _incident
+
+            body = json.dumps(_incident.snapshot()).encode()
         else:
             self.send_error(404)
             return

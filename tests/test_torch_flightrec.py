@@ -10,9 +10,11 @@ real Count, the /debug/flightrecorder route, the http.5xx event, the
 bare debug server, the runtime sampler's scrape-time age gauge and the
 SIGTERM dump. Differential: the same seeded event sequence recorded by
 both packages' rings gives equal snapshots once timestamps are dropped,
-and a synthetic stall gives the same event. Left for later steps:
-/debug/hbm, /debug/kernels (XLA cost analysis) and /status's
-observability block.
+and a synthetic stall gives the same event. Also ported: the HBM
+snapshot after a query, /debug/hbm (its total equal to the pools' byte
+counters; no headroom on the CPU, where no card is initialized) and
+/status's observability block; and a watchdog trip writes an incident
+bundle. Left for a later step: /debug/kernels (XLA cost analysis).
 """
 
 import json
@@ -414,6 +416,83 @@ def _warm_query(c):
     c.query("dbg", "Set(3, f=11)")
     c.query("dbg", f"Set({SHARD_WIDTH + 5}, f=11)")  # a second shard
     c.query("dbg", "Count(Row(f=11))")
+
+
+def test_hbm_snapshot_entries_after_query(tmp_path):
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+
+    holder = Holder(str(tmp_path)).open()
+    try:
+        idx = holder.create_index("hb")
+        idx.create_field("f")
+        idx.field("f").import_bits(
+            np.array([2, 2], dtype=np.uint64),
+            np.array([1, SHARD_WIDTH + 7], dtype=np.uint64))
+        ex = Executor(holder, device="cpu")
+        ex.execute("hb", "Count(Row(f=2))")
+        snap = ex._stacked.hbm_snapshot()
+        assert snap["total_bytes"] > 0
+        assert snap["total_bytes"] == \
+            snap["stack_bytes"] + snap["rows_stack_bytes"]
+        stats_ = ex.stacked_stats()
+        assert snap["total_bytes"] == stats_["bytes"] + stats_["rows_bytes"]
+        entry = snap["entries"][0]
+        assert entry["index"] == "hb" and entry["field"] == "f"
+        assert entry["bytes"] > 0 and entry["pool"] == "stack"
+        assert entry["last_hit_age_seconds"] >= 0
+        assert snap["by_index_field"][0]["index"] == "hb"
+        assert sum(r["bytes"] for r in snap["by_index_field"]) \
+            == snap["total_bytes"]
+        assert snap["device_memory"] is None  # no card initialized
+    finally:
+        holder.close()
+
+
+def test_debug_hbm_endpoint(server):
+    c = Client(server.uri)
+    _warm_query(c)
+    snap = c._request("GET", "/debug/hbm?top=3")
+    assert snap["total_bytes"] == \
+        snap["stack_bytes"] + snap["rows_stack_bytes"]
+    assert snap["total_bytes"] > 0
+    assert len(snap["entries"]) <= 3
+    assert snap["entries"][0]["index"] == "dbg"
+    assert "evictions" in snap and "device_memory" in snap
+
+
+def test_status_carries_local_observability(server):
+    c = Client(server.uri)
+    _warm_query(c)
+    node = c.status()["observability"]["local"]
+    assert node["hbm"]["total_bytes"] > 0
+    assert "count" in node["kernels"]
+    assert node["kernels"]["count"]["count"] >= 1
+    assert "oplog" in node  # the server keeps a write-ahead oplog
+
+
+def test_watchdog_trip_writes_incident_bundle(tmp_path):
+    """A stalled op trips the watchdog, and the trip writes a
+    watchdog_stall bundle naming the op, with the open-op table."""
+    from pilosa_tpu_torch.utils import incident
+
+    mgr = incident.configure(str(tmp_path / "inc"), min_interval=0.0)
+    try:
+        wd = flightrec.Watchdog(deadline=0.01, logger=CaptureLogger())
+        token = wd.begin_op("dispatch.count", index="i")
+        time.sleep(0.03)
+        wd.check()
+        deadline = time.time() + 5
+        while not mgr.list() and time.time() < deadline:
+            time.sleep(0.02)
+        wd.end_op(token)
+        (meta,) = mgr.list()
+        assert meta["kind"] == "watchdog_stall"
+        assert meta["trigger"]["op"] == "dispatch.count"
+        assert meta["trigger"]["device_link_state"] == "DISABLED"
+        assert "open_ops.json" in meta["files"]
+    finally:
+        incident.stop()
 
 
 def test_debug_flightrecorder_endpoint(server):

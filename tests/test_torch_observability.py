@@ -564,10 +564,12 @@ def test_debug_routes(tmp_path):
                      "/debug/dispatch", "/debug/flightrecorder",
                      "/debug/threads", "/debug/pprof/goroutine",
                      "/debug/batching", "/debug/oplog",
-                     "/debug/faultpoints"):
+                     "/debug/faultpoints", "/debug/hbm", "/debug/device",
+                     "/debug/workload", "/debug/heat", "/debug/slo",
+                     "/debug/incidents"):
             assert path in listed
             c._request("GET", path)  # every listed GET route answers
-        assert "/debug/hbm" not in listed  # not served by the port yet
+        assert "/debug/kernels" not in listed  # not served by the port yet
         threads = c._request("GET", "/debug/threads").decode()
         assert "pilosa-http" in threads
         c._request("POST", "/debug/pprof/profile/start?interval=0.001",

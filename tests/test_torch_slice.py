@@ -267,12 +267,17 @@ assert not bad, bad
 
 
 #: modules that must exist and be scanned: the command line with its
-#: tools, the client and the logger the oplog writes through, and the
-#: observability modules every layer imports
+#: tools, the client and the logger the oplog writes through, the
+#: observability and health modules every layer imports, and the wire
+#: codec
 REQUIRED_SOURCES = ("cli.py", "server/client.py", "utils/logger.py",
                     "storage/oplog.py", "server/api.py", "utils/tracing.py",
                     "utils/stats.py", "utils/profile.py",
-                    "utils/flightrec.py", "utils/workpool.py")
+                    "utils/flightrec.py", "utils/workpool.py",
+                    "utils/devhealth.py", "utils/incident.py",
+                    "utils/workload.py", "server/diagnostics.py",
+                    "encoding/__init__.py", "encoding/serializer.py",
+                    "encoding/wire.py")
 
 #: modules a client tool imports: none may load torch at import
 LIGHT_MODULES = ("pilosa_tpu_torch.utils.tracing",
@@ -280,7 +285,12 @@ LIGHT_MODULES = ("pilosa_tpu_torch.utils.tracing",
                  "pilosa_tpu_torch.utils.profile",
                  "pilosa_tpu_torch.utils.flightrec",
                  "pilosa_tpu_torch.utils.workpool",
-                 "pilosa_tpu_torch.server")
+                 "pilosa_tpu_torch.utils.devhealth",
+                 "pilosa_tpu_torch.utils.incident",
+                 "pilosa_tpu_torch.utils.workload",
+                 "pilosa_tpu_torch.encoding",
+                 "pilosa_tpu_torch.server",
+                 "pilosa_tpu_torch.server.diagnostics")
 
 
 def test_port_sources_import_no_jax_or_reference():
@@ -298,7 +308,11 @@ def test_port_sources_import_no_jax_or_reference():
                     text = line.replace("pilosa_tpu_torch", "")
                     if ("import jax" in text or "from jax" in text
                             or "pilosa_tpu." in text
-                            or "from pilosa_tpu " in text):
+                            or "from pilosa_tpu " in text
+                            or "google.protobuf" in text
+                            or "import google" in text
+                            or "from google" in text
+                            or "pilosa_pb2" in text):
                         offenders.append(f"{path}:{n}: {line.strip()}")
     assert offenders == []
     assert set(REQUIRED_SOURCES) <= scanned
@@ -310,7 +324,8 @@ import sys
 
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "pilosa_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "pilosa_tpu") \
+                or name.startswith("google.protobuf"):
             raise ImportError("blocked: " + name)
         return None
 
@@ -334,13 +349,15 @@ sys.exit(code)
 
 
 def test_observability_modules_load_no_torch():
-    """Importing the observability modules and the server package (what
-    the client tools import) loads neither torch nor jax."""
+    """Importing the observability and health modules, the wire codec
+    and the server package (what the client tools import) loads neither
+    torch, jax nor a protobuf runtime."""
     code = ("import importlib, sys\n"
             f"for m in {LIGHT_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('torch', 'jax', 'jaxlib', 'pilosa_tpu'))\n"
+            "('torch', 'jax', 'jaxlib', 'pilosa_tpu') "
+            "or m.startswith('google.protobuf'))\n"
             "print('LOADED', bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -352,10 +369,11 @@ def test_observability_modules_load_no_torch():
 
 def test_file_tools_run_with_jax_blocked(tmp_path):
     """`python -m pilosa_tpu_torch check|inspect|holder` over a data
-    directory the port wrote, with jax, jaxlib and pilosa_tpu blocked
-    from import (a sitecustomize that refuses them); then the client
-    tool `export` against a port server over a copy of it, which must
-    leave torch unloaded too."""
+    directory the port wrote, with jax, jaxlib, pilosa_tpu and the
+    protobuf runtime (google.protobuf) blocked from import (a sitecustomize
+    that refuses them); then the client tool `export` and a client on
+    the protobuf wire (query_proto, import_bits_proto) against a port
+    server over a copy of it, which must leave torch unloaded too."""
     from pilosa_tpu_torch.core import Holder as TorchHolder
 
     data = str(tmp_path / "data")
@@ -388,17 +406,33 @@ def test_file_tools_run_with_jax_blocked(tmp_path):
     shutil.copytree(data, served)
     srv = start_server(["--bind", "127.0.0.1:0", "--data-dir", served,
                         "--device", "cpu"])
+    wire_client = f"""
+import sys
+from pilosa_tpu_torch.server import Client
+c = Client({{uri!r}})
+assert c.import_bits_proto("i", "f", [7], [{SHARD_WIDTH + 9}]) == ""
+results, err = c.query_proto("i", "Count(Row(f=1)) Row(f=7) TopN(f, n=1)")
+assert err is None, err
+assert results[:2] == [2, {{{{"columns": [{SHARD_WIDTH + 9}]}}}}], results
+assert (results[2][0].id, results[2][0].count) == (1, 2), results
+print("TORCH LOADED", "torch" in sys.modules)
+"""
     try:
         proc = subprocess.run(
             [sys.executable, "-c", _TOOL, "export", "--host", srv.uri,
              "--index", "i", "--field", "f", "--shards", "2"], cwd=REPO,
             env=env, capture_output=True, text=True, timeout=120)
+        wire_proc = subprocess.run(
+            [sys.executable, "-c", wire_client.format(uri=srv.uri)],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     finally:
         srv.stop()
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert sorted(proc.stdout.splitlines()[:-1]) == \
         sorted(["1,3", f"1,{SHARD_WIDTH + 4}", "2,5"])
     assert "TORCH LOADED False" in proc.stdout
+    assert wire_proc.returncode == 0, wire_proc.stdout + wire_proc.stderr
+    assert "TORCH LOADED False" in wire_proc.stdout
 
 
 def test_row_results_are_row_objects(pair):
