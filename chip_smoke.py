@@ -148,6 +148,23 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      b/f and b/g hot and resident, /debug/hbm's total equals the pools'
      byte counters with headroom from torch, and /status carries the
      observability roll-up; an `ops-json:` line has every number;
+   - streaming ingest, the planner and the adaptive engine
+     (serve_ingest_plan, last): `?explain=true` on the headline Count,
+     config 3's TopN and GroupBy and config 4's Sum moves no launch
+     counter; `?explain=analyze` answers them right with dispatch
+     estimates equal to the launches made; /debug/kernels declares K1's
+     bound bytes at S = 954 with two leaves; then an API with a 250 ms
+     ingest merge interval over the main server's holder: imports into f
+     rows 1-2 (dense) and f=10 (sparse) of index b serve the pre-merge
+     answers while pending (stale serves, no read-path patch), equal
+     numpy after the merge with one K1 launch a Count, f=10 stays sparse
+     with an overlay term (densify + K1, not K2) until writes past
+     OVERLAY_MAX_TERMS rebuild it; the warm headline Count's p50/p99
+     while an importer writes f=1 every 50 ms, engine off (read-path
+     repair) and on, in turns; 300 values imported into br's v fold the
+     same way; last a GroupBy over tg with --adaptive on answers as off,
+     records its tile decision and launches K4 at that tile; an
+     `ingest-json:` line has the numbers;
    each path runs with every launch counter set to 0 just before it and
    read just after; cold latency of each first query and warm HTTP p50s.
 
@@ -2682,7 +2699,10 @@ def serve_bsi_path(srv, k1, k3, k5, br, card):
             f"{len(warm[name])} queries")
     log(f"serve: launches on the BSI path: K5 {k5.bsi_range_mask.launches}, "
         f"K1 {k1.count_expr.launches}, K3 {k3.row_counts.launches}")
-    return sum_pql, want  # the Sum and its numpy answer after the writes
+    # the Sum and its numpy answer after the writes, and the columns and
+    # values written
+    return {"sum": (sum_pql, want), "cols": np.append(cols, col),
+            "vals": vals}
 
 
 OBSERVE_PROFILED = 20  # ?profile=true warm queries per path
@@ -3078,6 +3098,402 @@ def time_analyze(torch, planes, comp, card):
             f"{t3 - t2:.4f} s")
 
 
+INGEST_INTERVAL = 0.25  # seconds: the --ingest-merge-interval 250ms engine
+TAX_QUERIES = 250  # warm Counts per side and round of the read-tax A/B
+TAX_ROUNDS = 2  # rounds of (engine off, engine on)
+TAX_WRITE_EVERY = 0.05  # seconds between the importer's writes
+
+
+def _pct_ms(xs, q):
+    return sorted(xs)[min(len(xs) - 1, int(q * len(xs)))] * 1e3
+
+
+def serve_ingest_plan(srv, k1, k2, k3, k4, k5, planes, comp, set_at, tg,
+                      tg_set, br, card):
+    """The streaming ingest engine, the planner and the adaptive engine
+    on the card, over index b (954 shards), tg and br, every answer
+    against numpy:
+
+    - plan: `?explain=true` on the headline Count, config 3's TopN and
+      GroupBy and config 4's Sum leaves every launch counter where it
+      was; `?explain=analyze` answers right and its dispatch estimates
+      equal the launches made; /debug/kernels declares K1's bound bytes
+      at S = 954 with two leaves;
+    - ingest: an API and HTTP server over the main server's holder with
+      a 250 ms merge interval (what `--ingest-merge-interval 250ms`
+      builds): while imports into f rows 1-2 (dense) and f=10 (sparse)
+      are pending, reads serve the pre-merge answer (stale serves up,
+      read-path patches flat); after the merge every answer equals the
+      written state, K1 launches once a Count, f=10 stays sparse with an
+      overlay term, and writes past OVERLAY_MAX_TERMS rebuild it; values
+      imported into br's v fold the same way;
+    - the read tax: warm Count p50/p99 while an importer writes every
+      50 ms, engine off (read-path repair) and on, in turns;
+    - adaptive: a GroupBy over tg with the engine on answers as off,
+      records its tile decision and launches K4 at that tile.
+
+    Returns the numbers it printed."""
+    from pilosa_tpu_torch.exec import adaptive, ingest
+    from pilosa_tpu_torch.ops import containers
+    from pilosa_tpu_torch.server.api import API
+    from pilosa_tpu_torch.server.http_server import PilosaHTTPServer
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    out = {}
+    W = WORDS_PER_ROW
+
+    def launches():
+        return (k1.count_expr.launches, k1.count_expr_batch.launches,
+                k2_launches(k2), k3.row_counts.launches,
+                k4.pairwise_counts.launches, k5.bsi_range_mask.launches)
+
+    # -- the planner over the main server ---------------------------------
+    f1 = np.tile(planes[("f", 1)], (N_SHARDS, 1))
+    f1[set_at[0], set_at[1]] |= np.uint32(1)  # the Count path's Set
+    f2 = np.tile(planes[("f", 2)], (N_SHARDS, 1))
+    g1 = np.tile(planes[("g", 1)], (N_SHARDS, 1))
+    f10 = comp[("f", 10)].copy()
+    s3 = N_SHARDS // 3  # the compressed path's Set
+    f10[s3, int(np.nonzero(comp[("f", 10)][s3] == 0)[0][0])] |= \
+        np.uint32(1)
+    headline = "Count(Intersect(Row(f=1), Row(g=1)))"
+    expect_tg = topn_expect(tg)
+    topn = [dict(p) for p in expect_tg["TopN(f, n=10)"]]
+    for p in topn:
+        if p["id"] == tg_set[0]:
+            p["count"] += 1  # the TopN path's Set
+    sum_pql, sum_want = br["sum"]
+    plan_cases = (
+        ("b", headline, popcount(f1 & g1)),
+        ("tg", "TopN(f, n=10)", topn),
+        ("tg", "GroupBy(Rows(a), Rows(b))",
+         expect_tg["GroupBy(Rows(a), Rows(b))"]),
+        ("br", sum_pql, sum_want))
+    ev = srv.api.executor._stacked
+    for index, pql, want in plan_cases:
+        before = launches() + (ev.dispatches,)
+        plan = http(srv.uri, f"/index/{index}/query?explain=true", pql)
+        if plan["results"] != [] or launches() + (ev.dispatches,) != before:
+            raise AssertionError(f"explain=true {pql}: launched "
+                                 f"{before} -> {launches()}")
+        est = plan["plan"]["calls"][0]["estimate"]
+        t0 = time.perf_counter()
+        ana = http(srv.uri, f"/index/{index}/query?explain=analyze", pql)
+        dt = time.perf_counter() - t0
+        moved = [a - b for a, b in zip(launches(), before)]
+        top = ana["plan"]["calls"][0]
+        kern = top["estimate"].get("kernels", {})
+        want_moved = [kern.get("count", 0), 0, 0,
+                      kern.get("row_counts", 0) + 3 * kern.get("sum", 0),
+                      kern.get("pairwise", 0), kern.get("bsi_condition", 0)]
+        if ana["results"] != [want]:
+            raise AssertionError(f"explain=analyze {pql}: "
+                                 f"{ana['results']} != {want}")
+        if top["actual"]["dispatches"] != top["estimate"]["dispatches"] \
+                or moved != want_moved:
+            raise AssertionError(
+                f"explain=analyze {pql}: dispatches {top['actual']} vs "
+                f"estimate {top['estimate']}; launches (K1, K1b, K2, K3, "
+                f"K4, K5) moved {moved}, not {want_moved}")
+        log(f"plan: {index} {pql[:50]}: strategy {top['strategy']}, "
+            f"estimate {est['dispatches']} dispatch(es) {est.get('kernels')}"
+            f" ({est.get('cost_source')}), zero launches planning; analyze "
+            f"{dt * 1e3:.1f} ms, actual {top['actual']['dispatches']} "
+            f"dispatch(es), launches {moved}")
+    compiled = http(srv.uri, "/debug/kernels")["compiled"]
+    k1_cost = [c["cost"] for c in compiled
+               if c["family"] == "count" and c["kernel"] == "count_expr"
+               and c["key"].endswith(f"(2, {N_SHARDS}, {W}))")]
+    bound = 2 * N_SHARDS * W * 4 + 8
+    if not k1_cost or k1_cost[0]["bytes accessed"] != bound \
+            or "optimal_seconds" not in k1_cost[0]:
+        raise AssertionError(f"/debug/kernels K1 at S={N_SHARDS}: "
+                             f"{k1_cost}")
+    log(f"plan: /debug/kernels declares K1 at S={N_SHARDS}, 2 leaves: "
+        f"{k1_cost[0]['bytes accessed']} bytes, optimal "
+        f"{k1_cost[0]['optimal_seconds'] * 1e6:.2f} us; "
+        f"{len(compiled)} launched shapes declared")
+    out["k1_declared_bytes"] = k1_cost[0]["bytes accessed"]
+
+    # -- the ingest engine over index b -------------------------------------
+    def serve(api):
+        return PilosaHTTPServer(api, host="127.0.0.1", port=0).start()
+
+    def read_patches():
+        return global_stats._counters.get(
+            ("stacked_patches", (("path", "read"),)), 0)
+
+    api_on = API(srv.holder, device=srv.api.device,
+                 ingest_interval=INGEST_INTERVAL)
+    api_off = API(srv.holder, device=srv.api.device)
+    on, off = serve(api_on), serve(api_off)
+    eng = api_on.ingest
+    try:
+        def count(uri, pql, want, k1_step=1, k2_step=0):
+            before = launches()
+            t0 = time.perf_counter()
+            got = http(uri, "/index/b/query", pql)["results"][0]
+            dt = time.perf_counter() - t0
+            moved = (launches()[0] - before[0], launches()[2] - before[2])
+            if got != want or moved != (k1_step, k2_step):
+                raise AssertionError(
+                    f"{pql}: {got} (numpy {want}); K1, K2 moved {moved}, "
+                    f"not {(k1_step, k2_step)}")
+            return dt
+
+        def answers():
+            return {"Count(Row(f=1))": popcount(f1),
+                    "Count(Row(f=2))": popcount(f2),
+                    "Count(Intersect(Row(f=1), Row(f=2)))":
+                        popcount(f1 & f2),
+                    headline: popcount(f1 & g1)}
+
+        def wait_merge(merges0, timeout=60):
+            deadline = time.time() + timeout
+            while True:
+                dbg = http(on.uri, "/debug/ingest")
+                if dbg["merges"] > merges0 \
+                        and dbg["pending"]["entries"] == 0:
+                    return dbg
+                if time.time() > deadline:
+                    raise AssertionError(f"no merge: {dbg}")
+                time.sleep(INGEST_INTERVAL / 5)
+
+        def f10_entry():
+            for e in http(on.uri, "/debug/hbm?top=100")["entries"]:
+                if e["kind"] == "leaf" and e["field"] == "f" \
+                        and e["key"].startswith("('leaf', 'b', 'f', 10,"):
+                    return e
+            raise AssertionError("f=10 is not resident")
+
+        def write(field, pairs, truth):
+            """Import (row, column) pairs; the truth planes take them."""
+            http(on.uri, f"/index/b/field/{field}/import", json.dumps({
+                "rowIDs": [r for r, _ in pairs],
+                "columnIDs": [c for _, c in pairs]}))
+            for r, c in pairs:
+                shard, off_ = divmod(c, SHARD_WIDTH)
+                truth[r][shard, off_ // 32] |= np.uint32(1 << (off_ % 32))
+
+        t_phase = time.perf_counter()
+        want = answers()
+        for pql, w in want.items():
+            count(on.uri, pql, w)  # cold: builds the engine side's leaves
+        count(on.uri, "Count(Row(f=10))", popcount(f10), 0, 1)
+        if f10_entry()["repr"] != "sparse":
+            raise AssertionError(f"f=10 resident as {f10_entry()}")
+        # the merge must not run before the pending reads below: the
+        # admission ladder's shed hook holds the interval merge off
+        eng.set_shed_probe(lambda: True)
+        rng = np.random.default_rng(SEED + 13)
+        truth = {1: f1, 2: f2, 10: f10}
+        pairs = []
+        for row in (1, 2):
+            for shard in (5, 6, 7):  # 3 of 954 shards drift
+                for off_ in rng.choice(SHARD_WIDTH, 8, replace=False):
+                    pairs.append((row, shard * SHARD_WIDTH + int(off_)))
+        stale0, read0 = api_on.executor._stacked.stale_serves, read_patches()
+        d0 = http(on.uri, "/debug/ingest")
+        write("f", pairs, truth)
+        ten = [(10, 9 * SHARD_WIDTH + int(o))
+               for o in rng.choice(SHARD_WIDTH, 8, replace=False)]
+        write("f", ten, truth)
+        pend = http(on.uri, "/debug/ingest")["pending"]
+        for pql, w in want.items():  # the pre-merge answers
+            count(on.uri, pql, w)
+        stale = api_on.executor._stacked.stale_serves - stale0
+        if stale < len(want) or read_patches() != read0:
+            raise AssertionError(f"pending: {stale} stale serves, read "
+                                 f"patches {read0} -> {read_patches()}")
+        log(f"ingest: {len(pairs) + len(ten)} bits imported into f rows 1-2"
+            f" (shards 5-7) and f=10 (shard 9); pending {pend}; "
+            f"{len(want)} Counts served the pre-merge answers ({stale} "
+            f"stale serves, read-path patches unmoved)")
+        eng.set_shed_probe(None)
+        dbg = wait_merge(d0["merges"])
+        out["merge_wall_ms"] = dbg["last_merge"]["wall_seconds"] * 1e3
+        if dbg["scatter_entries"] <= d0["scatter_entries"] \
+                or dbg["overlay_entries"] <= d0["overlay_entries"]:
+            raise AssertionError(f"merge: {d0} -> {dbg}")
+        want = answers()
+        for pql, w in want.items():
+            count(on.uri, pql, w)
+        e = f10_entry()
+        if e["repr"] != "sparse" or e.get("overlay_terms") != 1:
+            raise AssertionError(f"f=10 after the merge: {e}")
+        count(on.uri, "Count(Row(f=10))", popcount(f10), 1, 0)
+        log(f"ingest: merged in {out['merge_wall_ms']:.3f} ms "
+            f"({dbg['last_merge']['entries']} entries; scatter entries "
+            f"{d0['scatter_entries']} -> {dbg['scatter_entries']}, overlay "
+            f"entries {d0['overlay_entries']} -> {dbg['overlay_entries']}) "
+            f"on {card}; every Count equals numpy with one K1 launch; f=10 "
+            f"stays sparse with {e['overlay_terms']} overlay term "
+            f"({e['bytes']} bytes) and counts by densify + K1, not K2")
+        # OVERLAY_MAX_TERMS more single-shard writes to f=10: terms 2 to
+        # OVERLAY_MAX_TERMS, then one past the budget: a rebuild
+        for i in range(containers.OVERLAY_MAX_TERMS):
+            m0 = http(on.uri, "/debug/ingest")["merges"]
+            write("f", [(10, (20 + i) * SHARD_WIDTH + int(o)) for o in
+                        rng.choice(SHARD_WIDTH, 4, replace=False)], truth)
+            dbg = wait_merge(m0)
+        e = f10_entry()
+        if dbg["rebuilt_entries"] < 1 or e.get("overlay_terms"):
+            raise AssertionError(f"past {containers.OVERLAY_MAX_TERMS} "
+                                 f"terms: {dbg}, f=10 {e}")
+        k2_step = 1 if e["repr"] == "sparse" else 0
+        count(on.uri, "Count(Row(f=10))", popcount(f10), 1 - k2_step,
+              k2_step)
+        log(f"ingest: {containers.OVERLAY_MAX_TERMS} more writes to "
+            f"f=10: rebuilt ({dbg['rebuilt_entries']} rebuilt entries, "
+            f"last merge {dbg['last_merge']['wall_seconds'] * 1e3:.1f} ms "
+            f"with the {N_SHARDS}-shard host gather), now {e['repr']}, "
+            f"Count(Row(f=10)) = {popcount(f10)}")
+
+        # -- the read tax: engine off (read-path repair) and on ---------
+        tax_pql = headline
+        cols = []
+        first = N_SHARDS // 2
+        for shard in range(first, first + 8):  # under half of S drifts
+            zero = np.nonzero(f1[shard] == 0)[0]
+            cols.append([shard * SHARD_WIDTH + int(w) * 32
+                         for w in zero[:200]])
+        lat = {"off": [], "on": []}
+        stale_on = patches_off = 0
+        for rnd in range(TAX_ROUNDS):
+            for side, srv_, api in (("off", off, api_off),
+                                    ("on", on, api_on)):
+                eng.flush()
+                count(srv_.uri, tax_pql, popcount(f1 & g1))  # warm
+                stop = threading.Event()
+                written = []
+
+                def importer():
+                    i = 0
+                    while not stop.is_set() and i < 8 * 25:
+                        c = cols[i % 8][(rnd * 2 + (side == "on")) * 25
+                                        + i // 8]
+                        http(srv_.uri, "/index/b/field/f/import",
+                             json.dumps({"rowIDs": [1], "columnIDs": [c]}))
+                        written.append(c)
+                        i += 1
+                        stop.wait(TAX_WRITE_EVERY)
+
+                st = api.executor._stacked
+                s0, p0 = st.stale_serves, st.patches
+                th = threading.Thread(target=importer, daemon=True)
+                th.start()
+                try:
+                    for _ in range(TAX_QUERIES):
+                        t0 = time.perf_counter()
+                        http(srv_.uri, "/index/b/query", tax_pql)
+                        lat[side].append(time.perf_counter() - t0)
+                finally:
+                    stop.set()
+                    th.join(timeout=30)
+                stale_on += st.stale_serves - s0 if side == "on" else 0
+                patches_off += st.patches - p0 if side == "off" else 0
+                for c in written:
+                    shard, off_ = divmod(c, SHARD_WIDTH)
+                    f1[shard, off_ // 32] |= np.uint32(1 << (off_ % 32))
+                eng.flush()
+                count(srv_.uri, tax_pql, popcount(f1 & g1))
+        for side in ("off", "on"):
+            out[f"tax_{side}_p50_ms"] = _pct_ms(lat[side], 0.50)
+            out[f"tax_{side}_p99_ms"] = _pct_ms(lat[side], 0.99)
+        log(f"ingest: warm {tax_pql} over {N_SHARDS} shards while an "
+            f"importer writes f=1 every {TAX_WRITE_EVERY * 1e3:.0f} ms, "
+            f"{TAX_ROUNDS} rounds x {TAX_QUERIES} queries a side on {card}: "
+            f"engine off (read-path repair, {patches_off} patches) p50 "
+            f"{out['tax_off_p50_ms']:.3f} ms p99 {out['tax_off_p99_ms']:.3f}"
+            f" ms; engine on ({INGEST_INTERVAL * 1e3:.0f} ms merges, "
+            f"{stale_on} stale serves) p50 {out['tax_on_p50_ms']:.3f} ms "
+            f"p99 {out['tax_on_p99_ms']:.3f} ms")
+
+        # -- values into br's v through the engine ----------------------
+        bcols, bvals = br["cols"], br["vals"]
+        thr = 500_000
+        range_pql = f"Count(Row(v > {thr}))"
+
+        def brq(pql):
+            return http(on.uri, "/index/br/query", pql)["results"][0]
+
+        before = launches()
+        if brq(range_pql) != int(np.sum(bvals > thr)):
+            raise AssertionError(f"{range_pql} before the import")
+        eng.set_shed_probe(lambda: True)
+        sel = np.arange(7 * BR_VALUES_PER_SHARD, 7 * BR_VALUES_PER_SHARD
+                        + 300)  # 300 values of shard 7
+        new = rng.integers(0, 1 << 20, sel.size)
+        m0 = http(on.uri, "/debug/ingest")["merges"]
+        http(on.uri, "/index/br/field/v/import", json.dumps(
+            {"columnIDs": bcols[sel].tolist(), "values": new.tolist()}))
+        pending = brq(range_pql)
+        old = int(np.sum(bvals > thr))
+        bvals = bvals.copy()
+        bvals[sel] = new
+        eng.set_shed_probe(None)
+        wait_merge(m0)
+        got = brq(range_pql)
+        if pending != old or got != int(np.sum(bvals > thr)):
+            raise AssertionError(f"{range_pql}: pending {pending} (pre "
+                                 f"{old}), merged {got} (numpy "
+                                 f"{int(np.sum(bvals > thr))})")
+        moved = [a - b for a, b in zip(launches(), before)]
+        log(f"ingest: 300 values into br's v (shard 7): {range_pql} = "
+            f"{old} while pending, {got} after the merge (numpy); "
+            f"launches (K1, K1b, K2, K3, K4, K5) {moved}")
+    finally:
+        for s_ in (on, off):
+            s_.stop()
+        api_on.close()
+        api_off.close()
+    if ingest.mode() != "off":
+        raise AssertionError("an ingest engine outlived its API")
+
+    # -- the adaptive engine over tg ----------------------------------------
+    api_ad = API(srv.holder, device=srv.api.device)
+    ad = serve(api_ad)
+    try:
+        gb = "GroupBy(Rows(a), Rows(b))"
+        gb_want = expect_tg[gb]
+        # engine off first: the answer off gives, and its row chunks
+        # resident (a cold build is priced as an upload)
+        if http(ad.uri, "/index/tg/query", gb)["results"] != [gb_want]:
+            raise AssertionError(f"{gb} with the adaptive engine off")
+        adaptive.configure(mode="on")
+        for i in range(3):
+            b4 = k4.pairwise_counts.launches
+            res = http(ad.uri, "/index/tg/query?profile=true", gb)
+            notes = [n for n in res["profile"]["tags"].get("strategies", [])
+                     if n.get("op") == "GroupBy"]
+            if res["results"] != [gb_want] or not notes \
+                    or notes[-1]["strategy"] != "stacked-pairwise":
+                raise AssertionError(f"adaptive {gb}: {res['results']} "
+                                     f"(numpy {gb_want}); notes {notes}")
+            tile = notes[-1]["tile"][0]
+            want_k4 = -(-5 // tile) * -(-4 // tile)
+            if k4.pairwise_counts.launches - b4 != want_k4:
+                raise AssertionError(
+                    f"adaptive {gb}: K4 launched "
+                    f"{k4.pairwise_counts.launches - b4} times, not "
+                    f"{want_k4} at tile {tile}")
+        opt = http(ad.uri, "/debug/optimizer")
+        tiles = opt["decisions"]["tile"]
+        if sum(tiles.values()) < 3:
+            raise AssertionError(f"/debug/optimizer tiles: {tiles}")
+        log(f"adaptive: {gb} over {TG_SHARDS} shards with --adaptive on "
+            f"equals numpy (and off) 3 times; tile decisions {tiles}, K4 "
+            f"at tile {tile} ({want_k4} launch(es) a query); "
+            f"{notes[-1].get('tile_chosen_by', '')}")
+    finally:
+        adaptive.reset()
+        ad.stop()
+        api_ad.close()
+    log(f"ingest/plan: phase in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -3175,7 +3591,8 @@ def main():
             launches["row_counts"] = k3.row_counts.launches
             launches["pairwise_counts"] = k4.pairwise_counts.launches
             reset_counters(mods)  # the BSI path's run starts here
-            bsi_sum = serve_bsi_path(srv, k1, k3, k5, br, card)
+            bsi_state = serve_bsi_path(srv, k1, k3, k5, br, card)
+            bsi_sum = bsi_state["sum"]
             launches["bsi_range"] = k5.bsi_range_mask.launches
             reset_counters(mods)  # the observability phase starts here
             t0 = time.perf_counter()
@@ -3210,6 +3627,16 @@ def main():
             launches["count_expr"] += k1.count_expr.launches
             launches["row_counts"] += k3.row_counts.launches
             launches["pairwise_counts"] += k4.pairwise_counts.launches
+            reset_counters(mods)  # the ingest and planner phase starts here
+            ingest_plan = serve_ingest_plan(
+                srv, k1, k2, k3, k4, k5, planes, comp, set_at, tg, tg_set,
+                bsi_state, card)
+            log("ingest-json: " + json.dumps(ingest_plan))
+            launches["count_expr"] += k1.count_expr.launches
+            launches["count_blocks"] += k2_launches(k2)
+            launches["row_counts"] += k3.row_counts.launches
+            launches["pairwise_counts"] += k4.pairwise_counts.launches
+            launches["bsi_range"] += k5.bsi_range_mask.launches
         finally:
             srv.stop()
     finally:

@@ -25,7 +25,12 @@ device-link canary prober behind /readyz (`--device-probe-interval`,
 `--slo-burn-threshold`) and the opt-in diagnostics phone-home
 (`[diagnostics]` enabled + endpoint in the config file). With
 `--tls-certificate`/`--tls-key` it serves HTTPS and SIGHUP reloads the
-pair; `--allowed-origins` turns on CORS. It runs on `cuda` unless
+pair; `--allowed-origins` turns on CORS. `--ingest-merge-interval`
+starts the streaming ingest engine (imports fold into the resident
+stacks once an interval, off the read path); `--adaptive off|on|shadow`
+the adaptive engine (priced strategies, K4 tiles, heat-scored
+eviction); `--plan-ring-size` and `--explain-misestimate-factor` size
+and tune the EXPLAIN ANALYZE ring. It runs on `cuda` unless
 `--device cpu` is given, and exits with an error when no CUDA device is
 present and the CPU was not asked for.
 `holder`, `inspect` and `check` read files only and touch no device.
@@ -107,7 +112,9 @@ def _apply_server_flags(config, args):
                  "flight_recorder_size", "watchdog_deadline",
                  "metrics_exemplars", "incident_dir", "incident_max",
                  "device_probe_interval", "device_probe_deadline",
-                 "slo", "slo_burn_threshold"):
+                 "slo", "slo_burn_threshold", "plan_ring_size",
+                 "explain_misestimate_factor", "adaptive",
+                 "ingest_merge_interval"):
         val = getattr(args, flag, None)
         if val is not None:
             config[flag.replace("_", "-")] = val
@@ -226,6 +233,26 @@ def start_server(argv):
     # module state of ops/containers: applied before the holder opens, so
     # a bad mode fails at start, not at the first query
     containers.configure(config.get("container-repr"))
+    # EXPLAIN ANALYZE plan retention + misestimate threshold, and the
+    # adaptive engine's mode (exec/plan.py, exec/adaptive.py module
+    # state; a bad mode fails at start)
+    prs = config.get("plan-ring-size")
+    emf = config.get("explain-misestimate-factor")
+    cw = config.get("coalesce-window")
+    coalesce_window = parse_duration(str(cw)) if cw else 0.0
+    if prs is not None or emf is not None or coalesce_window > 0:
+        from .exec import plan as plan_mod
+
+        plan_mod.configure(
+            ring_size=int(prs) if prs is not None else None,
+            misestimate_factor=float(emf) if emf is not None else None,
+            coalesce_window=coalesce_window if coalesce_window > 0
+            else None)
+    amode = config.get("adaptive")
+    if amode is not None:
+        from .exec import adaptive as adaptive_mod
+
+        adaptive_mod.configure(mode=str(amode))
     host, _, port = str(config["bind"]).rpartition(":")
     data_dir = os.path.expanduser(config["data-dir"])
 
@@ -252,6 +279,8 @@ def start_server(argv):
                 logger=StandardLogger()).open()
         cw = config.get("coalesce-window")
         lqt = config.get("long-query-time")
+        # streaming ingest engine: interval 0 — the default — builds none
+        imi = config.get("ingest-merge-interval")
         api = API(holder, device=device,
                   coalesce_window=parse_duration(str(cw)) if cw else 0.0,
                   coalesce_max_queue=int(config.get("coalesce-max-queue",
@@ -259,7 +288,8 @@ def start_server(argv):
                   max_writes_per_request=int(
                       config.get("max-writes-per-request", 0)),
                   oplog=oplog,
-                  long_query_time=parse_duration(str(lqt)) if lqt else None)
+                  long_query_time=parse_duration(str(lqt)) if lqt else None,
+                  ingest_interval=parse_duration(str(imi)) if imi else 0.0)
         # Crash recovery BEFORE serving: re-apply acked writes the previous
         # process died holding, so the first query already sees them.
         replayed = api.replay_oplog()
@@ -385,9 +415,18 @@ def start_server(argv):
 
 
 def cmd_server(argv):
+    # SIGHUP stays blocked while the server boots: the listener accepts
+    # connections before its reload handler is installed below, and a
+    # SIGHUP sent in that window would take the default action (or be
+    # dropped where the parent ignores SIGHUP) instead of reloading.
+    # Blocked, it stays pending and reaches the handler at the unblock.
+    # Threads started during the boot inherit the mask, so the signal
+    # can only land on the main thread, where Python runs its handlers.
+    signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGHUP})
     try:
         srv = start_server(argv)
     except RuntimeError as e:
+        signal.pthread_sigmask(signal.SIG_UNBLOCK, {signal.SIGHUP})
         print(f"pilosa_tpu_torch: {e}", file=sys.stderr)
         return 1
     if srv.replayed:
@@ -412,6 +451,7 @@ def cmd_server(argv):
                       f"(reload failed: {e})", flush=True)
 
         signal.signal(signal.SIGHUP, reload_tls)
+    signal.pthread_sigmask(signal.SIG_UNBLOCK, {signal.SIGHUP})
     # AFTER the clean-stop handler: the crash handler's SIGTERM dump
     # chains to the handler it finds, so a SIGTERM dumps the flight
     # recorder and still stops cleanly (the oplog's shutdown checkpoint)
@@ -797,6 +837,30 @@ def _server_flags(p):
                    help="coalesce queue cap: past it, queries get 503 + "
                         "Retry-After instead of an unbounded wait "
                         "(default 256)")
+    p.add_argument("--ingest-merge-interval", default=None,
+                   help="streaming ingest merge interval (e.g. 250ms): "
+                        "import deltas buffer host-side (still "
+                        "oplog-durable at ack) and fold into the resident "
+                        "device stacks in one in-place merge per "
+                        "interval; reads serve the pre-merge stacks "
+                        "meanwhile (default 0 = off: reads repair their "
+                        "stacks)")
+    p.add_argument("--adaptive", default=None,
+                   choices=["off", "on", "shadow"],
+                   help="adaptive execution engine: on prices "
+                        "stacked-vs-per-shard, the GroupBy K4 tile, and "
+                        "cache eviction through the calibrated cost model "
+                        "+ fragment heat; shadow computes and logs "
+                        "decisions without acting; off (default) keeps "
+                        "the static paths")
+    p.add_argument("--plan-ring-size", type=int, default=None,
+                   help="retained misestimated EXPLAIN ANALYZE plans "
+                        "(GET /debug/plans; default 128)")
+    p.add_argument("--explain-misestimate-factor", type=float,
+                   default=None,
+                   help="flag a plan node when actual cost deviates from "
+                        "the estimate by more than this factor in either "
+                        "direction (default 3.0)")
     p.add_argument("--max-writes-per-request", type=int, default=None,
                    help="reject queries with more than this many write "
                         "calls (reference: max-writes-per-request); "

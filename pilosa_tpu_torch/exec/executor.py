@@ -41,6 +41,13 @@ executeSum :331, executeBitmapCallShard :651). The port's slice:
 Per-shard work fans over the shared worker pool and reduces IN SHARD
 ORDER, so every worker count gives identical results.
 
+`?explain=true` (ExecOptions.explain "plan") builds the plan tree of
+exec/plan.py from host metadata and runs nothing; "analyze" runs each
+call and grafts its measured counters onto its plan node. With the
+adaptive engine on (exec/adaptive.py) each stacked decision point prices
+the stacked path against the per-shard one, GroupBy prices its K4 tile,
+and `maybe_proactive_admit` builds hot fragments' stacks in idle windows.
+
 Every query runs under an `executor.Execute` span with one
 `executor.execute{Call}` span per call, times each call into
 `query_op_seconds{op}`, and with a query profile active adds its
@@ -54,6 +61,7 @@ launch.
 """
 
 import math
+import threading
 import time
 
 import numpy as np
@@ -75,6 +83,7 @@ from ..utils import tracing
 from ..utils import workload as workload_mod
 from ..utils.stats import global_stats
 from ..utils.workpool import shard_map_reduce
+from . import adaptive as adaptive_mod
 from .bsicond import BsiConditionError, apply_bsi_condition, \
     bsi_condition_plan
 from .result import FieldRow, GroupCount, Pair, RowIdentifiers, ValCount
@@ -94,13 +103,18 @@ class FieldNotFound(ExecError):
 
 class ExecOptions:
     def __init__(self, exclude_columns=False, column_attrs=False,
-                 exclude_row_attrs=False, remote=False, profile=False):
+                 exclude_row_attrs=False, remote=False, profile=False,
+                 explain=None):
         self.exclude_columns = exclude_columns
         self.column_attrs = column_attrs
         self.exclude_row_attrs = exclude_row_attrs
         self.remote = remote
         # ?profile=true: the API begins a QueryProfile for this query
         self.profile = profile
+        # None (execute normally), "plan" (?explain=true: build the plan
+        # tree, execute NOTHING), or "analyze" (?explain=analyze: execute
+        # and graft actual costs onto the plan) — see exec/plan.py
+        self.explain = explain
         # absolute time.monotonic() deadline of the request (the API sets
         # it from X-Request-Deadline); None: unbounded
         self.deadline = None
@@ -118,7 +132,8 @@ def unwrap_options(call, opt, shards=None):
         merged = ExecOptions(
             exclude_columns=opt.exclude_columns,
             column_attrs=opt.column_attrs,
-            exclude_row_attrs=opt.exclude_row_attrs, remote=opt.remote)
+            exclude_row_attrs=opt.exclude_row_attrs, remote=opt.remote,
+            explain=getattr(opt, "explain", None))
         for key, value in call.args.items():
             if key == "shards":
                 if not isinstance(value, list):
@@ -234,6 +249,11 @@ class Executor:
         self.max_writes_per_request = max_writes_per_request
         self.device = resolve_device(device)
         self._stacked = StackedEvaluator(self.device)
+        # ?explain=analyze strategy capture: decision points append the
+        # path they actually took to `notes` (set per top-level call by
+        # explain_analyze_call; every strategy choice runs on the calling
+        # thread, so a thread-local cannot observe another query's calls)
+        self._explain_tls = threading.local()
 
     def stacked_stats(self):
         return self._stacked.cache_stats()
@@ -241,6 +261,10 @@ class Executor:
     def hbm_stats(self, top=50):
         """HBM ledger snapshot (see StackedEvaluator.hbm_snapshot)."""
         return self._stacked.hbm_snapshot(top=top)
+
+    def kernel_stats(self, include_costs=True):
+        """Per-kernel attribution (see StackedEvaluator.kernels_snapshot)."""
+        return self._stacked.kernels_snapshot(include_costs=include_costs)
 
     def dispatch_phase_stats(self):
         """Per-kernel dispatch-phase decomposition (see
@@ -267,6 +291,20 @@ class Executor:
 
             translate_calls(idx, query.calls)
 
+        explain = getattr(opt, "explain", None)
+        if explain == "plan":
+            # EXPLAIN without ANALYZE: build the annotated plan tree from
+            # host-side metadata only and execute NOTHING — the launch
+            # counters must not move (tests pin the delta at 0)
+            from . import plan as plan_mod
+
+            nodes = plan_mod.Planner(self).plan_query(
+                idx, query.calls, shards, opt)
+            plan_mod.stash(plan_mod.envelope(
+                idx.name, "plan", nodes,
+                shards=len(self._call_shards(idx, shards))))
+            return []
+
         # Per-query stacked-counter deltas: the before/after diff
         # attributes launches, cache traffic and upload bytes to THIS
         # query — for the profile when one is active, and for the
@@ -281,6 +319,7 @@ class Executor:
         # a previous query's batch stamp must not leak into this query's
         # batch= attribution (a take-last thread-local, reset per query)
         note_batch_size(0)
+        plan_nodes = [] if explain == "analyze" else None
         results = []
         t_query = time.perf_counter()
         # Deadline propagation: arm the dispatch-boundary thread-local for
@@ -299,14 +338,30 @@ class Executor:
                         raise DeadlineExceededError(
                             "request deadline expired between calls")
                     t_call = time.perf_counter()
+                    self._explain_tls.last = None
                     with tracing.start_span(f"executor.execute{call.name}"):
-                        results.append(
-                            self.execute_call(idx, call, shards, opt))
+                        if plan_nodes is None:
+                            results.append(
+                                self.execute_call(idx, call, shards, opt))
+                        else:
+                            result, node = self.explain_analyze_call(
+                                idx, call, shards, opt)
+                            results.append(result)
+                            plan_nodes.append(node)
+                    call_wall = time.perf_counter() - t_call
                     # per-PQL-op latency histogram (the global registry,
                     # which /metrics resolves to)
-                    global_stats.timing("query_op_seconds",
-                                        time.perf_counter() - t_call,
+                    global_stats.timing("query_op_seconds", call_wall,
                                         {"op": call.name})
+                    if adaptive_mod.enabled():
+                        # observed per-shard fallback walls calibrate the
+                        # engine's est_fallback side (shadow learns too)
+                        last = getattr(self._explain_tls, "last", None)
+                        if last is not None and last[0] == call.name \
+                                and last[1].startswith("per-shard"):
+                            adaptive_mod.observe_fallback(
+                                call.name, call_wall,
+                                len(self._call_shards(idx, shards)))
                 if span is not None:
                     span.set_tag("calls", len(query.calls))
             if prof is not None:
@@ -340,9 +395,235 @@ class Executor:
                             (wl_after[3] - wl_before[3])
                             * WORDS_PER_ROW * 4,
                     })
+
+        if plan_nodes is not None:
+            from . import plan as plan_mod
+
+            env = plan_mod.envelope(
+                idx.name, "analyze", plan_nodes,
+                shards=len(self._call_shards(idx, shards)),
+                trace_id=prof.root.trace_id if prof is not None else None)
+            plan_mod.stash(env)
+            if prof is not None:
+                prof.set_tag("plan_summary", plan_mod.summary(plan_nodes))
+            # only misestimated plans earn a ring slot: the ring is the
+            # triage queue for cost-model drift, not a second query log
+            if any(n.misestimates for n in plan_nodes):
+                plan_mod.record(
+                    env,
+                    fingerprint=wctx.fingerprint
+                    if wctx is not None else None)
+
         if not opt.remote:
             results = translate_results(idx, query.calls, results)
         return results
+
+    def explain_analyze_call(self, idx, call, shards, opt):
+        """One ?explain=analyze step: build the call's plan node FIRST
+        (so estimates can't peek at the outcome), execute it while
+        capturing strategy notes + stacked-counter and per-kernel-family
+        deltas, then graft the actuals and flag misestimates. Returns
+        (result, PlanNode)."""
+        from . import plan as plan_mod
+
+        node = plan_mod.Planner(self).plan_call(idx, call, shards, opt)
+        notes = self._explain_tls.notes = []
+        before = self._stacked.cache_stats()
+        kern_before = self._stacked.kernel_profile()
+        phases_before = self._stacked.dispatch_phases()
+        t0 = time.perf_counter()
+        try:
+            result = self.execute_call(idx, call, shards, opt)
+        finally:
+            self._explain_tls.notes = None
+        wall = time.perf_counter() - t0
+        plan_mod.graft_actual(
+            node, wall, before, self._stacked.cache_stats(),
+            kern_before, self._stacked.kernel_profile(), strategies=notes,
+            phases_before=phases_before,
+            phases_after=self._stacked.dispatch_phases())
+        return result, node
+
+    def _note_strategy(self, op, strategy, **detail):
+        """Record the strategy a decision point ACTUALLY took. Feeds the
+        analyze grafting (thread-local notes), the workload fingerprint
+        table's per-shape strategy distribution (always on), and, when a
+        profile is active, the profile's `strategies` tag — which is
+        what SLOW QUERY lines print, so a wedge can be triaged from logs
+        alone."""
+        workload_mod.note_strategy(op, strategy)
+        # last (op, strategy) taken on THIS thread — execute()'s per-call
+        # timing reads it to attribute fallback walls to the adaptive
+        # engine's per-shard calibration
+        self._explain_tls.last = (op, strategy)
+        notes = getattr(self._explain_tls, "notes", None)
+        prof = profile_mod.current()
+        if notes is None and prof is None:
+            return  # nothing else listening: stay off the hot path
+        entry = {"op": op, "strategy": strategy}
+        entry.update(detail)
+        if notes is not None:
+            notes.append(entry)
+        if prof is not None:
+            prof.note("strategies", entry)
+
+    # ------------------------------------------------------------ adaptive
+
+    def _adaptive_decide(self, op, idx, cover_call, shard_list, kernels,
+                         extra_missing_bytes=0):
+        """Stacked-vs-fallback pricing for one ELIGIBLE decision point.
+        Mirrors the planner's kernel map for the op (exec/plan.py builds
+        the same {family: n} before pricing), so the plan path and the
+        execute path reach the same decision from the same calibration.
+        Returns None when the engine is off or the static gates already
+        force the choice — a None means "behave exactly as before"."""
+        from .stacked import MIN_SHARDS
+
+        if not adaptive_mod.enabled():
+            return None
+        if len(shard_list) < MIN_SHARDS:
+            return None
+        kernels = dict(kernels)
+        missing = int(extra_missing_bytes)
+        if cover_call is not None:
+            # side-effect-free residency walk (no stacks built, no heat)
+            probe = self._stacked.residency_probe(
+                idx, cover_call, tuple(shard_list))
+            if not probe.get("covered"):
+                return None
+            for family, n in probe.get("extra_kernels", {}).items():
+                kernels[family] = kernels.get(family, 0) + n
+            missing += int(probe.get("missing_bytes", 0))
+        return adaptive_mod.decide_strategy(
+            op, kernels, len(shard_list), missing, stacked=self._stacked)
+
+    @staticmethod
+    def _chosen_detail(dec):
+        """EXPLAIN detail for a priced decision (empty when static)."""
+        return {} if dec is None else {"chosen_by": dec.chosen_by}
+
+    @staticmethod
+    def _fallback_chosen(dec):
+        """True when an acting engine priced the per-shard path cheaper."""
+        return dec is not None and dec.act and dec.strategy == "fallback"
+
+    def _bsi_missing_bytes(self, idx, field, shard_list):
+        """Upload bytes a cold BSI stack build would pay — the planner's
+        (depth + 2) planes pricing (_plan_bsi_agg); 0 without a probe
+        when the adaptive engine is off (nothing prices them)."""
+        if not adaptive_mod.enabled():
+            return 0
+        st = tuple(shard_list)
+        if self._stacked.bsi_stack_resident(idx, field.name, st):
+            return 0
+        plane = self._stacked._padded_len(st) * WORDS_PER_ROW * 4
+        return (field.options.bit_depth + 2) * plane
+
+    def _row_counts_decision(self, idx, field, call, candidates,
+                             filter_call, shard_list, view_name):
+        """Adaptive pricing for the chunked row-counts gate (TopN /
+        single-field GroupBy) — the planner's _plan_topn kernel map."""
+        if call is None or not adaptive_mod.enabled():
+            return None
+        st = tuple(shard_list)
+        chunk = self._stacked.row_chunk_size(st)
+        n_chunks = -(-len(candidates) // chunk) if candidates else 0
+        kernels = {}
+        if n_chunks:
+            kernels["row_counts"] = n_chunks
+        if filter_call is not None:
+            kernels["filter"] = 1
+        missing_rows = 0
+        plane = self._stacked._padded_len(st) * WORDS_PER_ROW * 4
+        for i in range(0, len(candidates), chunk):
+            part = tuple(candidates[i:i + chunk])
+            if not self._stacked.rows_chunk_resident(
+                    idx, field.name, part, st, view_name):
+                missing_rows += len(part)
+        return self._adaptive_decide(
+            call.name, idx, filter_call, shard_list, kernels,
+            extra_missing_bytes=missing_rows * plane)
+
+    def maybe_proactive_admit(self, max_rows=None, max_bytes=None):
+        """Bounded proactive admission of hot_but_not_resident fragments
+        — called from idle windows (the coalescer drain loop between
+        batches) so demand heat translates into residency BEFORE the
+        next query pays the cold build. Skips entirely when the adaptive
+        engine is off or a launch is in flight (admission must never
+        queue behind — or ahead of — real serving traffic). Returns the
+        number of fragments admitted (shadow: candidates counted, none
+        built)."""
+        if not adaptive_mod.enabled():
+            return 0
+        st_eval = self._stacked
+        if st_eval._dispatch_lock.locked():
+            return 0
+        max_rows = adaptive_mod.ADMIT_MAX_ROWS if max_rows is None \
+            else int(max_rows)
+        max_bytes = adaptive_mod.ADMIT_MAX_BYTES if max_bytes is None \
+            else int(max_bytes)
+        try:
+            report = workload_mod.heat().report(
+                st_eval.hbm_snapshot(top=0), top=8)
+        except Exception:  # noqa: BLE001 — admission is best effort
+            return 0
+        candidates = report.get("hot_but_not_resident") or []
+        if not candidates:
+            return 0
+        adaptive_mod.note_admission_round()
+        admitted = rows_built = bytes_built = 0
+        for cand in candidates:
+            if rows_built >= max_rows or bytes_built >= max_bytes:
+                break
+            idx = self.holder.index(cand["index"])
+            field = idx.field(cand["field"]) if idx is not None else None
+            if field is None:
+                continue
+            if not adaptive_mod.acting():
+                adaptive_mod.note_admission(cand["index"], cand["field"],
+                                            0, 0, shadow=True)
+                continue
+            shard_list = self._call_shards(idx, None)
+            if not shard_list:
+                continue
+            st = tuple(shard_list)
+            plane_bytes = st_eval._padded_len(st) * WORDS_PER_ROW * 4
+            frag_rows = frag_bytes = 0
+            if field.type == FIELD_TYPE_INT:
+                if st_eval.bsi_stack(idx, field.name, st) is None:
+                    continue
+                frag_rows = field.options.bit_depth + 2
+                frag_bytes = frag_rows * plane_bytes
+            else:
+                view = field.view(VIEW_STANDARD)
+                if view is None:
+                    continue
+                row_ids = sorted({r for shard in st
+                                  for frag in (view.fragment(shard),)
+                                  if frag is not None
+                                  for r in frag.row_ids()})
+                budget_rows = min(len(row_ids), max_rows - rows_built)
+                for row_id in row_ids[:budget_rows]:
+                    if bytes_built + frag_bytes >= max_bytes:
+                        break
+                    if st_eval.leaf_stack(idx, field.name, row_id,
+                                          st) is None:
+                        break
+                    frag_rows += 1
+                    frag_bytes += plane_bytes
+                if frag_rows == 0:
+                    continue
+            rows_built += frag_rows
+            bytes_built += frag_bytes
+            admitted += 1
+            # converge /debug/heat: the fragment is resident now, so its
+            # heat drops to the hot threshold and the candidate list
+            # stops re-recommending it
+            workload_mod.heat().note_admitted(cand["index"], cand["field"])
+            adaptive_mod.note_admission(cand["index"], cand["field"],
+                                        frag_rows, frag_bytes)
+            global_stats.count("stacked_admissions", 1, {"cause": "heat"})
+        return admitted
 
     def execute_call(self, idx, call, shards, opt):
         handler = {
@@ -829,18 +1110,23 @@ class Executor:
             raise ExecError("Count() takes exactly one row query")
         self.validate_bitmap_call(idx, call.children[0])
         shard_list = self._call_shards(idx, shards)
+        dec = self._adaptive_decide("Count", idx, call.children[0],
+                                    shard_list, {"count": 1})
         # Fast path: coverable Row/set-op trees evaluate over ALL shards
         # in one launch on generation-cached [S, W] stacks.
-        fast = self._stacked.try_count(idx, call.children[0], shard_list)
+        fast = None if self._fallback_chosen(dec) \
+            else self._stacked.try_count(idx, call.children[0], shard_list)
         if fast is not None:
             # how many concurrent queries shared the launch (GroupCommit
             # stamps it on this thread)
             n = last_batch_size() or 1
-            workload_mod.note_strategy("Count", "stacked")
+            self._note_strategy("Count", "stacked", batch=n,
+                                **self._chosen_detail(dec))
             if n > 1:
                 workload_mod.note_batch(n)
             return fast
-        workload_mod.note_strategy("Count", "per-shard")
+        self._note_strategy("Count", "per-shard",
+                            **self._chosen_detail(dec))
 
         def count_shard(shard):
             plane = self.bitmap_call_shard(idx, call.children[0], shard)
@@ -881,14 +1167,23 @@ class Executor:
         depth = opts.bit_depth
         shard_list = self._call_shards(idx, shards)
         filter_call = self._agg_filter_call(idx, call)
+        kernels = {"sum": 1}
+        if filter_call is not None:
+            kernels["filter"] = 1
+        dec = self._adaptive_decide(
+            "Sum", idx, filter_call, shard_list, kernels,
+            extra_missing_bytes=self._bsi_missing_bytes(
+                idx, field, shard_list))
         # Fast path: K3 over the stacked BSI planes of every shard (falls
         # back when the filter tree isn't stack-coverable).
-        fast = self._stacked.try_sum(idx, field, filter_call, shard_list)
+        fast = None if self._fallback_chosen(dec) \
+            else self._stacked.try_sum(idx, field, filter_call, shard_list)
         if fast is not None:
-            workload_mod.note_strategy("Sum", "stacked-sum")
+            self._note_strategy("Sum", "stacked-sum",
+                                **self._chosen_detail(dec))
             total, count = fast
             return ValCount(total + opts.base * count, count)
-        workload_mod.note_strategy("Sum", "per-shard")
+        self._note_strategy("Sum", "per-shard", **self._chosen_detail(dec))
 
         def sum_shard(shard):
             data = self._bsi_planes(field, shard)
@@ -965,17 +1260,27 @@ class Executor:
         # Fast path: the narrowing bit-plane walk runs ONCE over stacked
         # [D, S, W] planes (globally — identical result to the per-shard
         # merge) instead of once per shard.
-        filter_call = self._agg_filter_call(idx, call)
-        fast = self._stacked.try_minmax(idx, field, filter_call,
-                                        shard_list, is_max)
         op_name = "Max" if is_max else "Min"
+        filter_call = self._agg_filter_call(idx, call)
+        kernels = {"minmax": 1}
+        if filter_call is not None:
+            kernels["filter"] = 1
+        dec = self._adaptive_decide(
+            op_name, idx, filter_call, shard_list, kernels,
+            extra_missing_bytes=self._bsi_missing_bytes(
+                idx, field, shard_list))
+        fast = None if self._fallback_chosen(dec) \
+            else self._stacked.try_minmax(idx, field, filter_call,
+                                          shard_list, is_max)
         if fast is not None:
-            workload_mod.note_strategy(op_name, "stacked-minmax")
+            self._note_strategy(op_name, "stacked-minmax",
+                                **self._chosen_detail(dec))
             mag, count = fast
             if mag is None:
                 return ValCount()
             return ValCount(mag + field.options.base, count)
-        workload_mod.note_strategy(op_name, "per-shard")
+        self._note_strategy(op_name, "per-shard",
+                            **self._chosen_detail(dec))
         # Ordered reduce: larger/smaller tie-breaking is order-sensitive,
         # so the pool's shard-order reduction is what keeps every worker
         # count bit-identical to the serial loop.
@@ -1244,25 +1549,32 @@ class Executor:
         filter_call = call.children[0] \
             if (call is not None and call.children) else None
 
+        dec = None
         if len(shard_list) >= MIN_SHARDS:
             covered, filt = self._stacked.filter_stack(
                 idx, filter_call, tuple(shard_list))
             if covered:
                 candidates = self._candidate_rows(
                     field, shard_list, restrict_ids, use_cache, view_name)
-                totals = self._stacked.row_counts(
-                    idx, field.name, candidates, filt, shard_list,
-                    view_name)
+                dec = self._row_counts_decision(
+                    idx, field, call, candidates, filter_call,
+                    shard_list, view_name)
+                totals = None if self._fallback_chosen(dec) \
+                    else self._stacked.row_counts(
+                        idx, field.name, candidates, filt, shard_list,
+                        view_name)
                 if totals is not None:
                     if call is not None:
-                        workload_mod.note_strategy(call.name,
-                                                   "stacked-row-counts")
+                        self._note_strategy(call.name,
+                                            "stacked-row-counts",
+                                            **self._chosen_detail(dec))
                     if restrict_ids is not None:
                         for r in restrict_ids:
                             totals.setdefault(int(r), 0)
                     return totals
         if call is not None:
-            workload_mod.note_strategy(call.name, "per-shard-chunked")
+            self._note_strategy(call.name, "per-shard-chunked",
+                                **self._chosen_detail(dec))
 
         # Fallback: per-shard chunks, but over the SAME global candidate
         # set as the fast path (union across fragments), so both paths
@@ -1412,16 +1724,28 @@ class Executor:
             lo = previous[0] + (1 if len(child_rows) == 1 else 0)
             child_rows[0] = [r for r in child_rows[0] if r >= lo]
 
-        totals = self._group_by_stacked(
+        dec, tile_dec, tile = self._group_by_decision(
             idx, fields, child_rows, filter_call, shard_list)
+        totals = None if self._fallback_chosen(dec) \
+            else self._group_by_stacked(
+                idx, fields, child_rows, filter_call, shard_list,
+                tile=tile)
         if totals is None:
-            workload_mod.note_strategy("GroupBy", "per-shard")
+            self._note_strategy("GroupBy", "per-shard",
+                                **self._chosen_detail(dec))
             totals = self._group_by_per_shard(
                 idx, fields, child_rows, filter_call, shard_list)
         elif len(fields) == 1:
-            workload_mod.note_strategy("GroupBy", "stacked-row-counts")
+            self._note_strategy("GroupBy", "stacked-row-counts",
+                                **self._chosen_detail(dec))
         else:
-            workload_mod.note_strategy("GroupBy", "stacked-pairwise")
+            shown = tile if tile is not None \
+                else self._stacked.row_chunk_size(tuple(shard_list))
+            detail = self._chosen_detail(dec)
+            if tile_dec is not None:
+                detail["tile_chosen_by"] = tile_dec.chosen_by
+            self._note_strategy("GroupBy", "stacked-pairwise",
+                                tile=[shown, shown], **detail)
         if previous is not None:
             prev_t = tuple(previous)
             totals = {g: c for g, c in totals.items() if g > prev_t}
@@ -1441,12 +1765,59 @@ class Executor:
             out = out[offset:]
         return out
 
+    def _group_by_decision(self, idx, fields, child_rows, filter_call,
+                           shard_list):
+        """(strategy decision, tile decision, tile override) for one
+        GroupBy — the planner's _plan_group_by kernel map. The tile
+        override is None unless the engine is acting AND chose a
+        non-static shape."""
+        if not adaptive_mod.enabled():
+            return None, None, None
+        st = tuple(shard_list)
+        chunk = self._stacked.row_chunk_size(st)
+        plane = self._stacked._padded_len(st) * WORDS_PER_ROW * 4
+        # the planner prices cold row-chunk uploads the same way
+        # (_plan_group_by's _missing_row_chunks loop) — keep the two
+        # sides' est_stacked in agreement
+        missing = 0
+        for field, rows in zip(fields, child_rows):
+            for i in range(0, len(rows), chunk):
+                part = tuple(rows[i:i + chunk])
+                if not self._stacked.rows_chunk_resident(
+                        idx, field.name, part, st, VIEW_STANDARD):
+                    missing += len(part) * plane
+        if len(fields) == 1:
+            n = -(-len(child_rows[0]) // chunk) if child_rows[0] else 0
+            dec = self._adaptive_decide(
+                "GroupBy", idx, filter_call, shard_list,
+                {"row_counts": n} if n else {},
+                extra_missing_bytes=missing)
+            return dec, None, None
+        a_rows, b_rows = child_rows[-2], child_rows[-1]
+        outer = 1
+        for rows in child_rows[:-2]:
+            outer *= max(1, len(rows))
+        tile_dec = adaptive_mod.decide_tile(
+            chunk, len(a_rows), len(b_rows), outer=outer) \
+            if a_rows and b_rows else None
+        tile = tile_dec.tile if (tile_dec is not None and tile_dec.act
+                                 and tile_dec.tile != chunk) else None
+        t = tile if tile is not None else chunk
+        pairwise = (-(-len(a_rows) // t)) * (-(-len(b_rows) // t)) \
+            * outer if a_rows and b_rows else 0
+        dec = self._adaptive_decide(
+            "GroupBy", idx, filter_call, shard_list,
+            {"pairwise": pairwise} if pairwise else {},
+            extra_missing_bytes=missing)
+        return dec, tile_dec, tile
+
     def _group_by_stacked(self, idx, fields, child_rows, filter_call,
-                          shard_list):
+                          shard_list, tile=None):
         """Thin layer over the stacked kernels: the innermost TWO levels
         are one tiled cross-product count matrix
         (StackedEvaluator.pairwise_counts — one K4 launch and one host
-        fetch per tile pair); outer levels walk row combinations as
+        fetch per tile pair, at `tile` when the adaptive engine chose
+        one); outer levels walk row combinations as
         [S, W] device intersections in chunks; a single-field GroupBy
         counts its rows with K3. Returns None to fall back (too few
         shards, a filter the stacked path can't express, or a field/view
@@ -1479,7 +1850,7 @@ class Executor:
             if level == len(fields) - 2:
                 groups = self._stacked.pairwise_counts(
                     idx, a_field.name, a_rows, b_field.name, b_rows,
-                    plane, shards)
+                    plane, shards, tile=tile)
                 if groups is None:
                     return False
                 for pair, c in groups.items():

@@ -38,7 +38,13 @@ the fragments' write-generation counters (fragment.generation — bumped
 by every mutation), so a stale stack never serves a query. A view-level
 (uid, mutations) stamp makes the hit check O(1); a drifted entry is
 patched in place, re-uploading only the changed shards' planes (at
-SHARD_WIDTH = 2^20 a 954-shard leaf stack is 125 MB).
+SHARD_WIDTH = 2^20 a 954-shard leaf stack is 125 MB). With a streaming
+ingest engine (exec/ingest.py) a drifted entry whose every changed shard
+is covered by a pending delta serves as it stands (`_serve_stale`), and
+the engine's interval merge folds the drift in place (`merge_swap`); a
+compressed leaf then takes an overlay term instead of decaying to dense.
+Over budget, a pool evicts its least recently used entry, or under
+`--adaptive on` its lowest heat x rebuild-cost entry (`_pop_victim`).
 
 Every launch and every in-place patch holds one process-wide dispatch
 lock, taken through `_locked_dispatch`, which attributes each launch to a
@@ -96,6 +102,8 @@ from ..utils import profile as _profile
 from ..utils import tracing as _tracing
 from ..utils import workload as _workload
 from ..utils.stats import global_stats, new_series, observe
+from . import adaptive as _adaptive
+from . import ingest as _ingest
 from .bsicond import (
     BsiConditionError,
     apply_bsi_condition,
@@ -648,6 +656,16 @@ class StackedEvaluator:
         # bytes_out}} and {kind: {phase: {count, seconds}}}
         self._kernels = {}
         self._dispatch_phases = {}
+        # launched kernel shapes per family: (family, kernel, shape) ->
+        # the wrapper's declared-cost arguments, noted at the launch
+        # site; their costs are computed on the first GET /debug/kernels
+        # and cached in _kernel_costs (the planner's third price source)
+        self._fn_specs = {}
+        self._kernel_costs = {}
+        self._count_spec_keys = set()
+        # streaming ingest: reads served from a stale entry whose drift
+        # is covered by pending ingest deltas (exec/ingest.py)
+        self.stale_serves = 0
 
     def counters(self):
         """(dispatches, hits, misses, planes_uploaded) — the per-query
@@ -663,6 +681,7 @@ class StackedEvaluator:
                     "misses": self.misses,
                     "evictions": self._pool_evictions["leaf"],
                     "patches": self.patches,
+                    "stale_serves": self.stale_serves,
                     "planes_uploaded": self.planes_uploaded,
                     "entries": len(self._pools["leaf"]),
                     "bytes": self._pool_bytes["leaf"],
@@ -850,6 +869,32 @@ class StackedEvaluator:
     def _budget(pool):
         return MAX_STACK_BYTES if pool == "leaf" else MAX_ROWS_STACK_BYTES
 
+    def _pop_victim(self, entries):
+        """One over-budget victim of a pool (caller holds self._lock).
+        Least recently used when the adaptive engine is off; the lowest
+        heat x cost benefit score when on — which may be the entry just
+        inserted, making the score an admission filter too; shadow
+        scores, counts the divergence, and still evicts LRU. Heat reads
+        are decayed point lookups in the workload ledger (its own lock —
+        the ledger never calls back into this module, so the ordering is
+        one-way)."""
+        amode = _adaptive.cache_mode()
+        lru_key = next(iter(entries))
+        if amode == "off":
+            ekey = lru_key
+        else:
+            heat = _workload.heat()
+            best = _adaptive.select_victim(
+                [(k, heat.value(*self._heat_key(k)), e[2])
+                 for k, e in entries.items()])
+            if amode == "on":
+                ekey = best
+                _adaptive.note_eviction("benefit")
+            else:
+                ekey = lru_key
+                _adaptive.note_eviction("lru", diverged=best != lru_key)
+        return ekey, entries.pop(ekey)
+
     def _cache_put(self, key, gens, value, nbytes, stamp=None):
         pool = self._pool_of(key)
         pool_name = self._pool_name(pool)
@@ -866,7 +911,7 @@ class StackedEvaluator:
             self._ledger_add(key, nbytes, repr_kind)
             while self._pool_bytes[pool] > self._budget(pool) \
                     and len(entries) > 1:
-                ekey, evicted = entries.popitem(last=False)
+                ekey, evicted = self._pop_victim(entries)
                 self._pool_bytes[pool] -= evicted[2]
                 self._ledger_add(ekey, -evicted[2],
                                  _containers.kind_of(evicted[1]))
@@ -878,6 +923,47 @@ class StackedEvaluator:
         for ekey, ebytes in evicted_keys:
             _flightrec.record("cache.evict", pool=pool_name, index=ekey[1],
                               field=ekey[2], bytes=ebytes, cause="budget")
+
+    def merge_swap(self, key, old_entry, gens, value, nbytes):
+        """Install an ingest merge's result over the exact entry it was
+        planned from (identity compare — a concurrent rebuild or
+        eviction wins and the merge result is dropped). The entry
+        updates IN PLACE under the lock; the stamp resets to None so the
+        next read revalidates with one gens walk instead of trusting a
+        view stamp that predates the merge. Returns True on install."""
+        pool = self._pool_of(key)
+        with self._lock:
+            cur = self._pools[pool].get(key)
+            if cur is not old_entry:
+                return False
+            old_bytes = cur[2]
+            old_kind = _containers.kind_of(cur[1])
+            cur[0] = gens
+            cur[1] = value
+            cur[2] = nbytes
+            cur[3] = None
+            cur[4] = time.time()
+            self._pool_bytes[pool] += nbytes - old_bytes
+            self._ledger_add(key, -old_bytes, old_kind)
+            self._ledger_add(key, nbytes, _containers.kind_of(value))
+        self._note_patch("merge")
+        return True
+
+    def merge_drop(self, key, old_entry):
+        """Evict an entry the ingest merge decided not to fold (too
+        drifted, vanished field): the next read rebuilds cold. Identity
+        compare like merge_swap. Returns True when dropped."""
+        pool = self._pool_of(key)
+        with self._lock:
+            cur = self._pools[pool].get(key)
+            if cur is not old_entry:
+                return False
+            self._pools[pool].pop(key)
+            self._pool_bytes[pool] -= cur[2]
+            self._pool_evictions[pool] += 1
+            self._ledger_add(key, -cur[2], _containers.kind_of(cur[1]))
+            self._count_eviction(self._pool_name(pool), "ingest")
+        return True
 
     def invalidate(self):
         """Drop every cached stack of both pools; the ledger gauges go to
@@ -926,7 +1012,7 @@ class StackedEvaluator:
         with self._lock:
             for pool, entries_of in self._pools.items():
                 for key, entry in entries_of.items():
-                    entries.append({
+                    e = {
                         "pool": self._pool_name(pool),
                         "kind": key[0],
                         "index": key[1],
@@ -935,7 +1021,14 @@ class StackedEvaluator:
                         "repr": _containers.kind_of(entry[1]),
                         "last_hit_age_seconds": round(now - entry[4], 3),
                         "key": repr(key),
-                    })
+                    }
+                    if isinstance(entry[1], _containers.Container):
+                        ratio = entry[1].meta.get("ratio")
+                        if ratio is not None:
+                            e["compression_ratio"] = ratio
+                        if entry[1].overlay:
+                            e["overlay_terms"] = entry[1].overlay
+                    entries.append(e)
             agg = {}
             by_repr = {}
             for (p, i, f, r), b in self._hbm_ledger.items():
@@ -966,6 +1059,7 @@ class StackedEvaluator:
             }
         entries.sort(key=lambda e: -e["bytes"])
         snap["entries"] = entries[:top]
+        snap["container_fragments"] = _containers.fragment_ledger()
         snap["device_memory"] = _device_memory()
         return snap
 
@@ -978,24 +1072,58 @@ class StackedEvaluator:
                 return None
             return entry
 
-    @staticmethod
-    def _changed_shards(old_gens, gens):
-        """Stack rows whose (uid, generation) drifted, or None when a
-        patch isn't worthwhile (nothing changed, or more than half the
-        shards — a scatter past that costs about as much as a rebuild)."""
+    def _changed_shards(self, old_gens, gens, shards, rows=1):
+        """Stack row indices whose (uid, generation) drifted, or None
+        when a patch isn't worthwhile. The cutoff is the static
+        half-the-shards rule (a copy past it costs about as much as a
+        rebuild) — except under --adaptive on, where the cost model
+        prices upload vs on-device copy bytes (exec/adaptive.decide_patch)
+        and typically patches up to ~7/8 drift."""
         changed = [j for j, (o, n) in enumerate(zip(old_gens, gens))
                    if o != n]
-        if not changed or len(changed) * 2 > len(gens):
+        if not changed:
+            return None
+        if _adaptive.acting():
+            if not _adaptive.decide_patch(len(changed), len(shards), rows,
+                                          WORDS_PER_ROW * 4):
+                return None
+        elif len(changed) * 2 > len(shards):
             return None
         return changed
+
+    def _note_patch(self, path):
+        """Count one incremental stack patch, tagged by where it ran:
+        "read" = the in-query repair, "merge" = the ingest engine's
+        interval fold. Exported as stacked_patches_total{path} so the two
+        are distinguishable on /metrics (the ingest tests assert the
+        read-path count stays flat while deltas are pending)."""
+        with self._lock:
+            self.patches += 1
+        global_stats.count("stacked_patches", 1, {"path": path})
+
+    def _serve_stale(self, key, view, shards, stale, gens):
+        """True when a stale entry may serve AS-IS because every drifted
+        shard is covered by a pending ingest delta (exec/ingest.py) — the
+        interval merge folds the drift off the read path; staleness is
+        bounded by the merge interval. One list check when no ingest
+        engine is active (the default)."""
+        if not _ingest.covers_pending(key[1], key[2], view.name, shards,
+                                      stale[0], gens):
+            return False
+        with self._lock:
+            self.stale_serves += 1
+        global_stats.count("stacked_stale_serves", 1)
+        return True
 
     def _patch(self, key, stale, gens, stamp, view, row_ids, shards):
         """Re-gather only the drifted shards of a cached stack and copy
         them into it in place, or None when a patch isn't worthwhile."""
-        changed = self._changed_shards(stale[0], gens)
+        changed = self._changed_shards(stale[0], gens, shards,
+                                       rows=len(row_ids))
         if changed is None:
             return None
-        block = self._host_rows(view, row_ids, [shards[j] for j in changed])
+        block = self._host_rows(view, row_ids, [shards[j] for j in changed],
+                                pad=False)
         value, nbytes = stale[1], stale[2]
         cols = torch.tensor(changed, dtype=torch.long, device=self.device)
         with self._locked_dispatch("patch", nbytes_in=block.nbytes,
@@ -1013,9 +1141,7 @@ class StackedEvaluator:
                 stack = value  # an [R, S, W] rows chunk or BSI stack
             stack.index_copy_(1, cols, self._place(block))
             ph.mark("dispatch_ack")
-        with self._lock:
-            self.patches += 1
-        global_stats.count("stacked_patches", 1, {"path": "read"})
+        self._note_patch("read")
         self._cache_put(key, gens, value, nbytes, stamp)
         return value
 
@@ -1043,12 +1169,16 @@ class StackedEvaluator:
         # instead of re-uploading the whole [S, W] stack for one set_bit.
         stale = self._stale_entry(key, gens)
         if stale is not None:
+            if self._serve_stale(key, view, shards, stale, gens):
+                return stale[1]
             patched = self._patch(key, stale, gens, stamp, view, [row_id],
                                   shards)
             if patched is not None:
                 return patched
         host = self._host_rows(view, [row_id], shards)
-        cont = _containers.build(host[0], self.device)
+        cont = _containers.build(
+            host[0], self.device,
+            fragment=(idx.name, field_name, VIEW_STANDARD, row_id))
         self._cache_put(key, gens, cont, cont.nbytes, stamp)
         return cont
 
@@ -1084,6 +1214,8 @@ class StackedEvaluator:
         if cache:
             stale = self._stale_entry(key, gens)
             if stale is not None:
+                if self._serve_stale(key, view, shards, stale, gens):
+                    return stale[1]
                 patched = self._patch(key, stale, gens, stamp, view,
                                       row_ids, shards)
                 if patched is not None:
@@ -1142,6 +1274,8 @@ class StackedEvaluator:
         planes, sign, exists = data
         with self._lock:
             self.dispatches += 1
+        self._note_spec("bsi_condition", "bsi_range_mask",
+                        (planes.shape[0], sign.numel()))
         with self._locked_dispatch(
                 "bsi_condition",
                 nbytes_in=(planes.numel() + sign.numel()
@@ -1185,14 +1319,17 @@ class StackedEvaluator:
             ph.mark("dispatch_ack")
             return out
 
-    def _host_rows(self, view, row_ids, shards):
-        """Host [R, S, W] uint32 gather of rows over shards. The per-shard
-        gathers fan out over the shared worker pool: each task fills its
-        own out[:, j] column, and the numpy copies release the GIL."""
+    def _host_rows(self, view, row_ids, shards, pad=True):
+        """Host [R, S, W] uint32 gather of rows over shards (pad=False
+        skips the padding of the shard axis to `_padded_len` — patch and
+        merge gathers address existing stack rows directly; one device
+        pads nothing either way). The per-shard gathers fan out over the
+        shared worker pool: each task fills its own out[:, j] column, and
+        the numpy copies release the GIL."""
         from ..utils.workpool import get_pool
 
-        out = np.zeros((len(row_ids), len(shards), WORDS_PER_ROW),
-                       dtype=np.uint32)
+        n = self._padded_len(shards) if pad else len(shards)
+        out = np.zeros((len(row_ids), n, WORDS_PER_ROW), dtype=np.uint32)
 
         def gather_column(j):
             frag = view.fragment(shards[j])
@@ -1328,6 +1465,7 @@ class StackedEvaluator:
         lock, then one host sync after it."""
         flat = _containers.flatten(stacks)
         csig = tuple(c.csig for c in stacks)
+        self._note_count_specs("count", sig, csig, flat)
         with self._locked_dispatch(
                 "count", nbytes_in=sum(c.nbytes for c in stacks),
                 nbytes_out=8) as ph:
@@ -1376,6 +1514,8 @@ class StackedEvaluator:
                 chunk = positions[i:i + self.MAX_COUNT_BATCH]
                 flats = [_containers.flatten(payloads[pos][1])
                          for pos in chunk]
+                self._note_count_specs("count", sig, csig, flats[0],
+                                       batch=len(flats))
                 with self._locked_dispatch(
                         "count",
                         nbytes_in=sum(c.nbytes for pos in chunk
@@ -1448,6 +1588,9 @@ class StackedEvaluator:
                 global_stats.timing("coalesce_batch_size", float(len(chunk)))
                 nbytes_in = sum(c.nbytes for pos in chunk
                                 for c in items[pos][2])
+                if kind == "count":
+                    self._note_count_specs(kname, sig, csig, flats[0],
+                                           batch=len(flats))
                 with self._locked_dispatch(kname,
                                            nbytes_in=nbytes_in) as ph:
                     if kind == "count":
@@ -1654,6 +1797,8 @@ class StackedEvaluator:
                 self.dispatches += 1
             n_in = stack.numel() * 4 + (0 if filt is None
                                         else filt.numel() * 4)
+            self._note_spec("row_counts", "row_counts",
+                            (len(chunk), stack[0].numel(), filt is not None))
             with self._locked_dispatch("row_counts", nbytes_in=n_in,
                                        nbytes_out=8 * len(chunk)) as ph:
                 counts = _row_counts_kernel(
@@ -1678,7 +1823,7 @@ class StackedEvaluator:
         return out
 
     def pairwise_counts(self, idx, a_field, a_rows, b_field, b_rows, filt,
-                        shards, view_name=VIEW_STANDARD):
+                        shards, view_name=VIEW_STANDARD, tile=None):
         """{(a_row, b_row): count > 0} of the two-field GroupBy cross
         product: counts[i, j] = popcount(a_rows[i] & b_rows[j] & filt)
         summed over `shards`. Both fields' row stacks come from the rows
@@ -1686,13 +1831,18 @@ class StackedEvaluator:
         any chunk); each (A-tile, B-tile) pair's count matrix is ONE
         launch of K4 and ONE host fetch. Replaces the TPU package's
         `pairwise_counts_hi_lo` + host `pairwise_counts`
-        (pilosa_tpu/ops/bitplane.py:238-285). Returns None when a
-        field/view vanished mid-query (caller falls back)."""
+        (pilosa_tpu/ops/bitplane.py:238-285). `tile` overrides the static
+        CHUNK_BYTES-derived tile (the adaptive tile decision); with the
+        adaptive engine on, per-launch walls feed its per-tile EWMA.
+        Returns None when a field/view vanished mid-query (caller falls
+        back)."""
         shards = tuple(shards)
         out = {}
         if not a_rows or not b_rows:
             return out
-        tile = self.row_chunk_size(shards)
+        if tile is None or tile < 1:
+            tile = self.row_chunk_size(shards)
+        observe = _adaptive.enabled()
         row_bytes = self._padded_len(shards) * WORDS_PER_ROW * 4
         cache_a = len(a_rows) * row_bytes <= MAX_ROWS_STACK_BYTES
         cache_b = len(b_rows) * row_bytes <= MAX_ROWS_STACK_BYTES
@@ -1713,11 +1863,22 @@ class StackedEvaluator:
                     self.pairwise_dispatches += 1
                 n_in = (a_stack.numel() + b_stack.numel()
                         + (0 if filt is None else filt.numel())) * 4
+                self._note_spec(
+                    "pairwise", "pairwise_counts",
+                    (len(a_chunk), len(b_chunk),
+                     a_stack[0].numel(), filt is not None))
+                t_disp = time.perf_counter() if observe else 0.0
                 with self._locked_dispatch(
                         "pairwise", nbytes_in=n_in,
                         nbytes_out=8 * len(a_chunk) * len(b_chunk)) as ph:
                     counts = _pairwise_kernel(a_stack, b_stack, filt)
                     ph.mark("dispatch_ack")
+                if observe:
+                    # calibrate the per-launch wall at the NOMINAL tile —
+                    # ragged last tiles blend in, which is fine: the
+                    # model prices whole shapes, not single tiles
+                    _adaptive.observe_pairwise(
+                        tile, time.perf_counter() - t_disp)
                 # ONE host fetch for the whole [tile, tile] matrix (it
                 # also bounds transient tiles' device memory), shared with
                 # concurrent queries through the group commit
@@ -1759,6 +1920,10 @@ class StackedEvaluator:
             self.dispatches += 1
         n_in = (planes.numel() + sign.numel() + exists.numel()
                 + (0 if filt is None else filt.numel())) * 4
+        # bsi_plane_counts: K3 over the planes with the positive and with
+        # the negative consider mask, then over the consider mask alone
+        self._note_spec("sum", "row_counts", (depth, sign.numel(), True))
+        self._note_spec("sum", "row_counts", (1, sign.numel(), False))
         with self._locked_dispatch("sum", nbytes_in=n_in,
                                    nbytes_out=8 * (2 * depth + 1)) as ph:
             pos, neg, count = bsi_plane_counts(planes, sign, exists, filt)
@@ -1791,6 +1956,7 @@ class StackedEvaluator:
             self.dispatches += 1
         n_in = (planes.numel() + sign.numel() + exists.numel()
                 + (0 if filt is None else filt.numel())) * 4
+        self._note_spec("minmax", "row_counts", (1, sign.numel(), False))
         with self._locked_dispatch("minmax", nbytes_in=n_in) as ph:
             consider = exists if filt is None else exists & filt
             pos = consider & ~sign
@@ -1818,3 +1984,243 @@ class StackedEvaluator:
             return None, 0
         mag = sum(b << i for i, b in enumerate(vals[2:-1]))
         return (-mag if vals[1] else mag), vals[-1]
+
+    # -- declared kernel costs (GET /debug/kernels) ---------------------------
+
+    def _note_spec(self, family, kernel, args):
+        """Note one launched kernel shape of a dispatch family: `args`
+        are the wrapper's declared-cost arguments (ops/*: `*_cost`). One
+        dict probe per launch; the cost itself is computed on the first
+        GET /debug/kernels, never on the serving path."""
+        key = (family, kernel, args)
+        if key not in self._fn_specs:
+            self._fn_specs[key] = args
+
+    def _note_count_specs(self, family, sig, csig, flat, batch=1):
+        """Note the kernels a count program launches for one tree over
+        these containers (`containers.count_kernels`: K1, its batched
+        entry, K2's two entries, or none for the run-length sums)."""
+        shapes = tuple(tuple(a.shape) for a in flat)
+        seen = (family, sig, csig, shapes, batch)
+        if seen in self._count_spec_keys:
+            return
+        self._count_spec_keys.add(seen)
+        for kernel, args in _containers.count_kernels(sig, csig, shapes,
+                                                      batch):
+            self._note_spec(family, kernel, args)
+
+    def kernel_profile(self):
+        """Per-family dispatch counters snapshot ({family: {count,
+        seconds, bytes_in, bytes_out}}) — the cost model's "measured"
+        source and the analyze path's before/after delta basis."""
+        return self.kernel_walls()
+
+    def kernels_snapshot(self, include_costs=True):
+        """Per-kernel-family attribution (counts, wall seconds, bytes
+        in/out from _locked_dispatch) plus, per launched kernel shape,
+        the wrapper's declared cost: bytes accessed (each input read
+        once, the output written once), K4's POPC count, and on a CUDA
+        device the bound in seconds (`optimal_seconds`) — the port's
+        stand-in for the TPU package's XLA cost_analysis."""
+        snap = {"kernels": self.kernel_walls()}
+        if include_costs:
+            snap["compiled"] = self._kernel_cost_list()
+        return snap
+
+    def _kernel_cost_list(self):
+        from ..ops import declared_cost
+
+        specs = list(self._fn_specs.items())
+        out = []
+        for key, args in specs:
+            cost = self._kernel_costs.get(key)
+            if cost is None:
+                cost = declared_cost(key[1], args, self.device)
+                with self._lock:
+                    self._kernel_costs[key] = cost
+            out.append({"family": key[0], "kernel": key[1],
+                        "key": repr(key), "cost": cost})
+        out.sort(key=lambda e: e["key"])
+        return out
+
+    # -- plan-mode introspection (exec/plan.py) ------------------------------
+    #
+    # EXPLAIN mirrors the strategy gates WITHOUT executing: everything
+    # below is host-only (schema lookups, fragment generation walks, pool
+    # membership under the lock) and side-effect free — no LRU bumps, no
+    # hit/miss counters, no stack builds, no launches. The acceptance
+    # contract for ?explain=true is a launch-counter delta of zero.
+
+    def _probe(self, key, idx, field_name, view_name):
+        """Presence + freshness of one pool entry with NO side effects
+        (see _probe_entry)."""
+        return self._probe_entry(key, idx, field_name, view_name)[0]
+
+    def _probe_entry(self, key, idx, field_name, view_name):
+        """(resident, resident_bytes, repr) of one pool entry with NO
+        side effects. Mirrors _cache_get_fast/_cache_get validation
+        (view stamp first, per-shard generation walk second) but never
+        touches LRU order, last-hit stamps, or the hit/miss counters —
+        a plan must not distort the telemetry it is trying to explain.
+        bytes/repr are the RESIDENT entry's (compressed container bytes
+        for compressed leaf stacks); (0, "dense") when absent."""
+        field = idx.field(field_name)
+        view = field.view(view_name) if field is not None else None
+        if view is None:
+            return False, 0, "dense"
+        pool = self._pools[self._pool_of(key)]
+        with self._lock:
+            hit = pool.get(key)
+            if hit is None:
+                return False, 0, "dense"
+            if hit[3] == (view.uid, view.mutations):
+                return True, hit[2], _containers.kind_of(hit[1])
+        # stamp drifted: fall back to the exact generation walk (done
+        # outside the pool lock — it touches fragment containers)
+        gens = self._fragment_gens(view, key[-1])
+        with self._lock:
+            hit = pool.get(key)
+            if hit is not None and hit[0] == gens:
+                return True, hit[2], _containers.kind_of(hit[1])
+            return False, 0, "dense"
+
+    def rows_chunk_resident(self, idx, field_name, row_chunk, shards,
+                            view_name=VIEW_STANDARD):
+        """Would rows_stack() serve this chunk from the rows pool?"""
+        key = ("rows", idx.name, field_name, view_name, tuple(row_chunk),
+               tuple(shards))
+        return self._probe(key, idx, field_name, view_name)
+
+    def bsi_stack_resident(self, idx, field_name, shards):
+        """Would bsi_stack() serve this field's plane stack from HBM?"""
+        field = idx.field(field_name)
+        if field is None:
+            return False
+        key = ("bsi", idx.name, field_name, field.options.bit_depth,
+               tuple(shards))
+        return self._probe(key, idx, field_name, field.bsi_view_name())
+
+    def residency_probe(self, idx, call, shards):
+        """Host-only coverage + device residency of a bitmap call tree:
+
+        {covered, leaves, resident, resident_bytes, missing_bytes,
+         extra_kernels, repr_counts, compressed_bytes}
+
+        covered mirrors _gather's verdict (same signature walk); per
+        interned leaf the probe reports whether its device stack(s) are
+        already resident and how many bytes a cold build would upload.
+        extra_kernels counts launches _gather itself would make on top
+        of the consumer's own kernel (bsi_condition masks, time_union
+        folds, shift planes) so estimates don't undercount."""
+        shards = tuple(shards)
+        out = {"covered": False, "leaves": 0, "resident": 0,
+               "resident_bytes": 0, "missing_bytes": 0,
+               "extra_kernels": {}, "repr_counts": {},
+               "compressed_bytes": 0}
+        leaves = {}
+        sig = self.signature(idx, call, leaves)
+        if sig is None or not leaves:
+            return out
+        out["covered"] = True
+        out["leaves"] = len(leaves)
+        plane = self._padded_len(shards) * WORDS_PER_ROW * 4
+        for key in leaves:
+            # per-leaf representation + compressed-bytes estimate for
+            # the cost model: actual container bytes when resident, the
+            # fragment ledger's last-build record when not (the chooser
+            # is deterministic in the data, so the last build predicts
+            # the next), dense otherwise. resident/missing_bytes keep
+            # their dense meaning — they price the HOST gather a cold
+            # build pays, which is dense either way.
+            resident, nbytes, ckind, cbytes = self._probe_leaf(
+                idx, key, shards, plane, out)
+            rc = out["repr_counts"]
+            rc[ckind] = rc.get(ckind, 0) + 1
+            out["compressed_bytes"] += cbytes if cbytes is not None \
+                else nbytes
+            if resident:
+                out["resident"] += 1
+                out["resident_bytes"] += nbytes
+            else:
+                out["missing_bytes"] += nbytes
+        return out
+
+    def _probe_leaf(self, idx, key, shards, plane, out):
+        """(resident, cold_bytes, repr, compressed bytes or None) of one
+        interned leaf key."""
+        if key[0] == "bsicond":
+            return self._probe_bsicond(idx, key, shards, plane, out) \
+                + ("dense", None)
+        if key[0] == "timerow":
+            return self._probe_timerow(idx, key, shards, plane, out) \
+                + ("dense", None)
+        if key[0] == "shift":
+            return self._probe_shift(idx, key, shards, plane, out) \
+                + ("dense", plane)
+        _, field_name, row_id = key
+        leaf_key = ("leaf", idx.name, field_name, row_id, shards)
+        resident, ebytes, ekind = self._probe_entry(
+            leaf_key, idx, field_name, VIEW_STANDARD)
+        if resident:
+            return True, plane, ekind, ebytes
+        est = _containers.fragment_estimate(
+            idx.name, field_name, VIEW_STANDARD, row_id)
+        if est is not None:
+            return False, plane, est["repr"], est["bytes"]
+        return False, plane, "dense", None
+
+    def _probe_bsicond(self, idx, key, shards, plane, out):
+        """(resident, cold_bytes) of one condition leaf; counts the
+        bsi_condition launch the gather would add."""
+        _, field_name, op, vals = key
+        field = idx.field(field_name)
+        if field is None:
+            return False, 0
+        try:
+            plan = bsi_condition_plan(
+                field.options, condition_from_key(op, vals))
+        except BsiConditionError:
+            return False, 0
+        if plan[0] == "empty":
+            return True, 0  # constant zeros, nothing uploaded
+        if plan[0] == "notnull":
+            return self.rows_chunk_resident(
+                idx, field_name, (BSI_EXISTS_BIT,), shards,
+                view_name=field.bsi_view_name()), plane
+        ek = out["extra_kernels"]
+        ek["bsi_condition"] = ek.get("bsi_condition", 0) + 1
+        depth = field.options.bit_depth
+        return (self.bsi_stack_resident(idx, field_name, shards),
+                (depth + 2) * plane)
+
+    def _probe_timerow(self, idx, key, shards, plane, out):
+        """(resident, cold_bytes) of one time-range leaf: one cached
+        single-row chunk per locally-present quantum view, plus a
+        time_union launch when more than one contributes."""
+        _, field_name, row_id, views = key
+        field = idx.field(field_name)
+        if field is None:
+            return False, 0
+        present = [v for v in views if field.view(v) is not None]
+        if len(present) > 1:
+            ek = out["extra_kernels"]
+            ek["time_union"] = ek.get("time_union", 0) + 1
+        resident = all(
+            self.rows_chunk_resident(idx, field_name, (row_id,), shards,
+                                     view_name=v)
+            for v in present)
+        return resident, len(present) * plane
+
+    def _probe_shift(self, idx, key, shards, plane, out):
+        """(resident, cold_bytes) of one Shift leaf (the port's own leaf
+        kind): its child leaves, probed like any leaf, plus the shift
+        launch the gather would add."""
+        ek = out["extra_kernels"]
+        ek["shift"] = ek.get("shift", 0) + 1
+        resident, nbytes = True, 0
+        for sub in key[3]:
+            r, b, _, _ = self._probe_leaf(idx, sub, shards, plane, out)
+            resident = resident and r
+            nbytes += b
+        return resident, nbytes
+

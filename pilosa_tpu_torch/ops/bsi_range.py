@@ -29,6 +29,7 @@ from . import cuda_build
 __all__ = [
     "OPS",
     "MAX_DEPTH",
+    "bsi_range_cost",
     "bsi_range_mask",
     "bsi_range_mask_reference",
     "compare_planes",
@@ -169,3 +170,11 @@ def bsi_range_mask(op, planes, sign, exists, pbits, neg_pred, allow_eq):
 
 #: K5 launches since the last reset (read by chip_smoke.py)
 bsi_range_mask.launches = 0
+
+
+def bsi_range_cost(depth, t, device=None):
+    """K5's declared cost over D magnitude planes of T words plus sign
+    and exists: every plane read once, the [T] mask written
+    (cuda_build.declared_cost)."""
+    return cuda_build.declared_cost((depth + 3) * t * 4, device)
+

@@ -22,12 +22,23 @@ counts (`analyze`) are taken on the device from the uploaded dense
 stack: a cold leaf pays a few elementwise launches, not a host scan of
 the whole stack.
 
+A compressed leaf absorbs the streaming ingest merge's writes as
+overlay terms (`with_overlay`): full replacement [K, W] planes of the
+K drifted shards, parked after its base arrays and applied in append
+order whenever it densifies, so it keeps its form between merges. The
+chooser's picks are noted per leaf in a module ledger keyed (index,
+field, view, row) that the planner's cost model, /debug/hbm's
+compression ratios and /debug/heat's admission pricing read; the
+adaptive engine may force a field dense at its next build
+(`set_repr_override`).
+
 `count_program` counts a tree over containers without densifying where
 it can: a single sparse leaf and a pure-`&` tree of sparse leaves go to
 K2 (ops/count_blocks.py), rle leaves to torch sums of run lengths and
-overlaps, and anything else densifies its leaves on the device and goes
-to K1 (ops/count_expr.py). `plane_program` densifies every leaf and
-evaluates the tree. Every count is an exact int64 0-d tensor.
+overlaps, and anything else — a leaf with overlay terms included —
+densifies its leaves on the device and goes to K1 (ops/count_expr.py).
+`plane_program` densifies every leaf and evaluates the tree. Every
+count is an exact int64 0-d tensor.
 """
 
 import os
@@ -50,22 +61,30 @@ from .count_expr import count_expr, count_expr_batch, popcount_total, \
 __all__ = [
     "BLOCK_WORDS",
     "Container",
+    "OVERLAY_MAX_TERMS",
     "analyze",
     "build",
     "choose",
     "configure",
     "container_to_dense",
+    "count_kernels",
     "count_program",
     "dense_container",
+    "field_estimate",
     "flat_arity",
     "flatten",
+    "fragment_estimate",
+    "fragment_ledger",
     "from_host",
     "kind_of",
     "norm_csig",
+    "overlay_rows",
     "plane_program",
     "repr_mode",
+    "reset_ledger",
     "to_dense",
     "unflatten",
+    "with_overlay",
 ]
 
 #: auto-chooser caps: rle only pays off when the run count is small, and
@@ -86,6 +105,13 @@ AUTO_COMPRESS_FLOOR = int(os.environ.get(
 
 _ARITY = {"dense": 1, "sparse": 2, "rle": 3}
 _MODES = ("auto", "dense", "sparse", "rle")
+
+#: max pending-delta overlay terms a compressed container accumulates
+#: before the ingest merge forces a full rebuild (repr re-chosen from
+#: the measured density). Each term adds to the leaf's densify work, so
+#: the cap bounds it (the TPU package's value, where each term is also a
+#: program variant to compile).
+OVERLAY_MAX_TERMS = 4
 
 _MODE_LOCK = threading.Lock()
 _MODE = os.environ.get("PILOSA_TPU_CONTAINER_REPR", "auto")
@@ -113,6 +139,121 @@ def repr_mode():
     return _MODE
 
 
+# ------------------------------------------------------------------ ledger
+#
+# Per-leaf representation ledger: what the chooser last picked for each
+# built leaf — keyed (index, field, view[, leaf]) since different rows
+# of one fragment pick independently. Read by exec/plan.py (compressed
+# bytes_touched estimates for non-resident leaves), /debug/hbm
+# (compression ratios), and utils/workload.py (admission candidates
+# priced by compressed bytes). Writes happen at stack-build time only —
+# never on the per-query hot path.
+
+_LEDGER_LOCK = threading.Lock()
+_LEDGER = {}
+
+
+def _ledger_note(fragment, kind, nbytes, dense_bytes, density):
+    if fragment is None:
+        return
+    entry = {
+        "repr": kind,
+        "bytes": int(nbytes),
+        "dense_bytes": int(dense_bytes),
+        "ratio": round(dense_bytes / nbytes, 3) if nbytes else 1.0,
+        "density": round(float(density), 6),
+    }
+    with _LEDGER_LOCK:
+        _LEDGER[tuple(fragment)] = entry
+
+
+def fragment_estimate(index, field, view, leaf=None):
+    """Build-ledger estimate for one leaf of an (index, field, view)
+    fragment: the exact record when `leaf` (e.g. a row id) was built
+    before, else the per-leaf mean over every leaf of the fragment with
+    the most common repr (different rows of one fragment legitimately
+    pick different representations). None when never built."""
+    with _LEDGER_LOCK:
+        if leaf is not None:
+            e = _LEDGER.get((index, field, view, leaf))
+            if e is not None:
+                return dict(e)
+        entries = [e for k, e in _LEDGER.items()
+                   if k[:3] == (index, field, view)]
+    if not entries:
+        return None
+    n = len(entries)
+    kinds = {}
+    for e in entries:
+        kinds[e["repr"]] = kinds.get(e["repr"], 0) + 1
+    bytes_mean = sum(e["bytes"] for e in entries) // n
+    dense_mean = sum(e["dense_bytes"] for e in entries) // n
+    return {"repr": max(sorted(kinds), key=lambda k: kinds[k]),
+            "bytes": bytes_mean,
+            "dense_bytes": dense_mean,
+            "ratio": round(dense_mean / bytes_mean, 3)
+            if bytes_mean else 1.0,
+            "density": round(
+                sum(e["density"] for e in entries) / n, 6)}
+
+
+def field_estimate(index, field):
+    """Aggregate over every built leaf for the /debug/heat admission
+    join (heat is summed at (index, field) there too — the sum prices
+    re-admitting the field's whole built working set): {bytes,
+    dense_bytes, ratio, reprs} or None."""
+    total = dense = 0
+    kinds = set()
+    with _LEDGER_LOCK:
+        for k, e in _LEDGER.items():
+            if k[0] == index and k[1] == field:
+                total += e["bytes"]
+                dense += e["dense_bytes"]
+                kinds.add(e["repr"])
+    if not kinds:
+        return None
+    return {"bytes": total, "dense_bytes": dense,
+            "ratio": round(dense / total, 3) if total else 1.0,
+            "reprs": sorted(kinds)}
+
+
+def fragment_ledger():
+    """Snapshot for /debug surfaces: {"index/field/view": entry}."""
+    with _LEDGER_LOCK:
+        return {"/".join(map(str, k)): dict(e) for k, e in _LEDGER.items()}
+
+
+def reset_ledger():
+    with _LEDGER_LOCK:
+        _LEDGER.clear()
+        _REPR_OVERRIDES.clear()
+
+
+# Per-(index, field) representation overrides from the adaptive layer's
+# misestimate feedback: a fragment whose container_repr plan repeatedly
+# reads MORE bytes than the dense scan it displaced gets forced dense at
+# its next rebuild. Consulted in build() only under auto mode — forced
+# --container-repr modes are the operator's word and win.
+_REPR_OVERRIDES = {}  # (index, field) -> kind
+
+
+def set_repr_override(index, field, kind):
+    if kind not in _ARITY:
+        raise ValueError(f"unknown container repr: {kind!r}")
+    with _LEDGER_LOCK:
+        _REPR_OVERRIDES[(index, field)] = kind
+
+
+def repr_override(index, field):
+    with _LEDGER_LOCK:
+        return _REPR_OVERRIDES.get((index, field))
+
+
+def repr_overrides():
+    with _LEDGER_LOCK:
+        return {f"{i}/{f}": k for (i, f), k in _REPR_OVERRIDES.items()}
+
+
 # --------------------------------------------------------------- container
 
 
@@ -121,25 +262,39 @@ class Container:
     three representations. `arrays` are the int32 device tensors (arity
     by kind: dense 1, sparse 2, rle 3); `shape` is the logical dense
     [S, W]; `nbytes` the device bytes actually held (what the leaf pool
-    charges)."""
+    charges); `meta` the chooser's analysis (dense_bytes, density,
+    ratio) for /debug/hbm.
 
-    __slots__ = ("kind", "shape", "arrays", "nbytes")
+    `overlay` counts pending-delta overlay terms parked after the base
+    arrays by the streaming ingest merge (exec/ingest.py): each term is
+    an (idx [K] int32, planes [K, W]) pair of full replacement row
+    planes, applied in append order after densifying — so a compressed
+    fragment absorbs write churn without decaying to dense between
+    merges. Dense containers never carry one (their writes copy in
+    place)."""
 
-    def __init__(self, kind, shape, arrays, nbytes):
+    __slots__ = ("kind", "shape", "arrays", "nbytes", "meta", "overlay")
+
+    def __init__(self, kind, shape, arrays, nbytes, meta=None, overlay=0):
         if kind not in _ARITY:
             raise ValueError(f"unknown container repr: {kind!r}")
         self.kind = kind
         self.shape = tuple(shape)
         self.arrays = tuple(arrays)
         self.nbytes = int(nbytes)
+        self.meta = meta or {}
+        self.overlay = int(overlay)
 
     @property
     def csig(self):
         """Signature of the container in a program: dense is ("dense",)
         (its size is read off the array); compressed kinds carry S,
-        which their component shapes don't determine."""
+        which their component shapes don't determine, plus the overlay
+        term count when deltas are parked (a different flat arity)."""
         if self.kind == "dense":
             return ("dense",)
+        if self.overlay:
+            return (self.kind, self.shape[0], self.overlay)
         return (self.kind, self.shape[0])
 
     @property
@@ -158,7 +313,8 @@ def kind_of(arrays):
 def dense_container(stack):
     """Wrap an existing [S, W] device stack without copying."""
     nbytes = stack.numel() * stack.element_size()
-    return Container("dense", tuple(stack.shape), (stack,), nbytes)
+    return Container("dense", tuple(stack.shape), (stack,), nbytes,
+                     {"dense_bytes": nbytes, "ratio": 1.0})
 
 
 def flatten(containers):
@@ -167,7 +323,9 @@ def flatten(containers):
 
 
 def flat_arity(csig):
-    return sum(_ARITY[entry[0]] for entry in csig)
+    return sum(_ARITY[entry[0]]
+               + 2 * (entry[2] if len(entry) > 2 else 0)
+               for entry in norm_csig(csig))
 
 
 def norm_csig(csig):
@@ -180,14 +338,21 @@ def norm_csig(csig):
 
 def unflatten(csig, flat):
     """Inverse of flatten: [(kind, arrays, S)], S = -1 for dense (read
-    off the array)."""
+    off the array), or [(kind, arrays, S, ((oidx, oplanes), ...))] for
+    entries whose csig carries overlay terms."""
     out, i = [], 0
     for entry in norm_csig(csig):
         kind = entry[0]
         n = _ARITY[kind]
-        out.append((kind, tuple(flat[i:i + n]),
-                    entry[1] if len(entry) > 1 else -1))
+        cont = (kind, tuple(flat[i:i + n]),
+                entry[1] if len(entry) > 1 else -1)
         i += n
+        terms = entry[2] if len(entry) > 2 else 0
+        if terms:
+            cont = cont + (tuple((flat[i + 2 * t], flat[i + 2 * t + 1])
+                                 for t in range(terms)),)
+            i += 2 * terms
+        out.append(cont)
     if i != len(flat):
         raise ValueError(f"{len(flat)} tensors for a signature of {i}")
     return out
@@ -356,19 +521,36 @@ def _rle_host(stack):
     return run_shard, run_start, run_end
 
 
-def build(host_stack, device, mode=None):
+def build(host_stack, device, mode=None, fragment=None):
     """One leaf stack placed on `device`: the dense stack goes up first
     and is analyzed there; a leaf the chooser compresses is then built on
-    the host (`_sparse_host`, `_rle_host`) and placed in its stead."""
+    the host (`_sparse_host`, `_rle_host`) and placed in its stead. Under
+    auto a per-field override (`set_repr_override`) wins over the
+    chooser. `fragment` — (index, field, view, row) — records the choice
+    in the ledger."""
     host_stack = np.ascontiguousarray(host_stack, dtype=np.uint32)
     s, w = host_stack.shape
     dense = from_host("dense", (s, w), (host_stack,), device)
-    kind = choose(analyze(dense.arrays[0]), s, w, mode)
+    info = analyze(dense.arrays[0])
+    kind = choose(info, s, w, mode)
+    if ((mode or repr_mode()) == "auto" and fragment is not None
+            and len(fragment) >= 2):
+        override = repr_override(fragment[0], fragment[1])
+        if override is not None:
+            kind = override
     if kind == "dense":
-        return dense
-    host = _sparse_host(host_stack) if kind == "sparse" \
-        else _rle_host(host_stack)
-    return from_host(kind, (s, w), host, device)
+        cont = dense
+    else:
+        host = _sparse_host(host_stack) if kind == "sparse" \
+            else _rle_host(host_stack)
+        cont = from_host(kind, (s, w), host, device)
+    cont.meta = {"dense_bytes": info["dense_bytes"],
+                 "density": round(info["density"], 6),
+                 "ratio": round(info["dense_bytes"] / cont.nbytes, 3)
+                 if cont.nbytes else 1.0}
+    _ledger_note(fragment, kind, cont.nbytes, info["dense_bytes"],
+                 info["density"])
+    return cont
 
 
 # ------------------------------------------------ counts and intersections
@@ -458,20 +640,34 @@ def rle_to_dense(run_shard, run_start, run_end, s, w):
     return dense.view(s, w)
 
 
+def _has_overlay(cont):
+    return len(cont) > 3 and cont[3]
+
+
 def to_dense(cont):
     """Dense [S, W] view of an unflattened (kind, arrays, S) container —
-    identity for dense."""
-    kind, arrays, s = cont
+    identity for dense. Pending-delta overlay terms copy in append order
+    after the base densifies: each term's planes are full replacements
+    gathered from the authoritative host fragment, so later terms
+    override earlier ones."""
+    kind, arrays, s = cont[0], cont[1], cont[2]
     if kind == "dense":
-        return arrays[0]
-    if kind == "sparse":
-        return sparse_to_dense(arrays[0], arrays[1], s, WORDS_PER_ROW)
-    return rle_to_dense(arrays[0], arrays[1], arrays[2], s, WORDS_PER_ROW)
+        dense = arrays[0]
+    elif kind == "sparse":
+        dense = sparse_to_dense(arrays[0], arrays[1], s, WORDS_PER_ROW)
+    else:
+        dense = rle_to_dense(arrays[0], arrays[1], arrays[2], s,
+                             WORDS_PER_ROW)
+    if _has_overlay(cont):
+        for oidx, oplanes in cont[3]:
+            dense.index_copy_(0, oidx.long(), oplanes)
+    return dense
 
 
 def container_to_dense(cont):
-    """Dense [S, W] of a Container object (the write path's decay)."""
-    return to_dense((cont.kind, cont.arrays, cont.shape[0]))
+    """Dense [S, W] of a Container object, overlay applied (the
+    read-path patch's decay)."""
+    return to_dense(unflatten((cont.csig,), cont.arrays)[0])
 
 
 # ---------------------------------------------------------------- programs
@@ -479,11 +675,14 @@ def container_to_dense(cont):
 
 def _count_container(cont):
     kind, arrays = cont[0], cont[1]
-    if kind == "sparse":
-        return sparse_count(*arrays)
-    if kind == "rle":
-        return rle_count(*arrays)
-    return count_expr(("leaf", 0), [arrays[0]])
+    if not _has_overlay(cont):
+        if kind == "sparse":
+            return sparse_count(*arrays)
+        if kind == "rle":
+            return rle_count(*arrays)
+    # overlay terms replace whole planes, so the compressed direct counts
+    # can't subtract what they cover: densify (exact) and count with K1
+    return count_expr(("leaf", 0), [to_dense(cont)])
 
 
 def _pure_intersect_leaves(sig):
@@ -508,10 +707,12 @@ def _count_route(sig, conts):
     (strategy 2), "rle_and" (strategy 3), or "k1" — one K1 launch over the
     densified tree (a single dense leaf, or strategy 4)."""
     if sig[0] == "leaf":
-        kind = conts[sig[1]][0]
-        return "k1" if kind == "dense" else kind
+        cont = conts[sig[1]]
+        return "k1" if cont[0] == "dense" or _has_overlay(cont) \
+            else cont[0]
     leaf_ids = _pure_intersect_leaves(sig)
-    if leaf_ids is not None and len(leaf_ids) >= 2:
+    if (leaf_ids is not None and len(leaf_ids) >= 2
+            and not any(_has_overlay(conts[i]) for i in leaf_ids)):
         kinds = {conts[i][0] for i in leaf_ids}
         if kinds == {"sparse"}:
             return "sparse_and"
@@ -520,6 +721,41 @@ def _count_route(sig, conts):
             if a[1][0].shape[0] * b[1][0].shape[0] <= MAX_RLE_PAIR:
                 return "rle_and"
     return "k1"
+
+
+class _Shaped:
+    """A stand-in for a tensor that has only a shape (count_kernels)."""
+
+    __slots__ = ("shape",)
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+
+def count_kernels(sig, csig, shapes, batch=1):
+    """The hand-written kernels `count_program` (batch 1) or one group of
+    `count_program_batch` launches for one tree, from the signature and
+    the shapes of its flattened args alone: [(kernel, cost args)] as
+    `ops.declared_cost` takes them. A batch of K1 members is one launch
+    of the batched entry; other members launch one by one; the
+    run-length sums launch nothing hand-written."""
+    conts = unflatten(csig, [_Shaped(s) for s in shapes])
+    route = _count_route(sig, conts)
+    if route == "k1":
+        first = conts[0]
+        s = first[1][0].shape[0] if first[0] == "dense" else first[2]
+        if batch > 1:
+            return [("count_expr_batch",
+                     (batch, len(conts), s, WORDS_PER_ROW))]
+        return [("count_expr", (len(conts), s, WORDS_PER_ROW))]
+    if route == "sparse":
+        return [("count_blocks", (conts[sig[1]][1][1].shape[0],))]
+    if route == "sparse_and":
+        leaf_ids = _pure_intersect_leaves(sig)
+        return [("count_and_blocks",
+                 (conts[leaf_ids[0]][1][0].shape[0],
+                  conts[leaf_ids[-1]][1][0].shape[0]))]
+    return []
 
 
 def count_program(sig, csig, flat):
@@ -534,6 +770,9 @@ def count_program(sig, csig, flat):
     3. pure-& pair of small rle  -> pairwise interval overlap
     4. anything else             -> every leaf densified on the device,
                                     one K1 launch over the dense tree
+
+    A leaf with overlay terms never takes 1-3: it densifies (its terms
+    copied over the base) and counts with K1.
 
     All four give the same exact total."""
     conts = unflatten(csig, flat)
@@ -582,3 +821,32 @@ def plane_program(sig, csig, flat):
     args — filter stacks must come out as the exact planes, so every
     leaf densifies first."""
     return tree_eval(sig, [to_dense(c) for c in unflatten(csig, flat)])
+
+
+# -------------------------------------------------------- ingest overlay
+
+
+def with_overlay(cont, device, oidx, oplanes):
+    """New Container with one more pending-delta overlay term appended
+    after `cont`'s arrays: `oidx` [K] stack-row indices (int32) and
+    `oplanes` [K, W] full replacement planes (uint32 words), placed on
+    `device` as int32 tensors. The base representation is untouched —
+    this is how the interval merge folds writes into a sparse/rle
+    fragment without decaying it to dense."""
+    oidx = np.require(np.asarray(oidx, dtype=np.int32),
+                      requirements=("C", "W"))
+    oplanes = np.require(np.asarray(oplanes, dtype=np.uint32),
+                         requirements=("C", "W")).view(np.int32)
+    arrays = cont.arrays + (torch.from_numpy(oidx).to(device),
+                            torch.from_numpy(oplanes).to(device))
+    nbytes = cont.nbytes + int(oidx.nbytes + oplanes.nbytes)
+    return Container(cont.kind, cont.shape, arrays, nbytes,
+                     dict(cont.meta), overlay=cont.overlay + 1)
+
+
+def overlay_rows(cont):
+    """Total stack rows covered by a Container's overlay terms (the
+    merge's rebuild-threshold input; counts duplicates across terms)."""
+    base = _ARITY[cont.kind]
+    return sum(int(cont.arrays[base + 2 * t].shape[0])
+               for t in range(cont.overlay))

@@ -35,8 +35,10 @@ __all__ = [
     "SPARSE_SENTINEL",
     "align_blocks",
     "count_and_blocks",
+    "count_and_blocks_cost",
     "count_and_blocks_reference",
     "count_blocks",
+    "count_blocks_cost",
     "count_blocks_reference",
 ]
 
@@ -180,3 +182,22 @@ def count_and_blocks(ids_a, blocks_a, ids_b, blocks_b):
 #: K2 launches since the last reset, per entry (chip_smoke.py sums them)
 count_blocks.launches = 0
 count_and_blocks.launches = 0
+
+
+def count_blocks_cost(nb, device=None):
+    """count_blocks' declared cost over [NB, 128] blocks: every block
+    read once, one int64 written (cuda_build.declared_cost)."""
+    return cuda_build.declared_cost(nb * BLOCK_WORDS * 4 + 8, device)
+
+
+def count_and_blocks_cost(na, nb, matched=None, device=None):
+    """count_and_blocks' declared cost for id lists of NA and NB
+    entries: both id lists read once, the blocks of both sides whose ids
+    match (padding never matches), one int64 written. `matched` is the
+    data's count of matching ids, which the shapes alone cannot see:
+    without it the cost declares the most, min(NA, NB)."""
+    if matched is None:
+        matched = min(na, nb)
+    return cuda_build.declared_cost(
+        (na + nb) * 4 + 2 * matched * BLOCK_WORDS * 4 + 8, device)
+

@@ -40,7 +40,9 @@ __all__ = [
     "compile_program",
     "count_expr",
     "count_expr_batch",
+    "count_expr_batch_cost",
     "count_expr_batch_reference",
+    "count_expr_cost",
     "count_expr_reference",
     "count_expr_stack",
     "fit_tree",
@@ -355,6 +357,12 @@ def count_expr(sig, stacks):
 count_expr.launches = 0
 
 
+def count_expr_cost(n_leaves, s, w, device=None):
+    """K1's declared cost for one launch over `n_leaves` [S, W] stacks:
+    each leaf read once, one int64 written (cuda_build.declared_cost)."""
+    return cuda_build.declared_cost(n_leaves * s * w * 4 + 8, device)
+
+
 def count_expr_stack(first, rest, ops):
     """`count_expr_stack` of the TPU package: Σ popcount of the chain
     `ops` folded left-to-right over (first, *rest)."""
@@ -448,3 +456,11 @@ def count_expr_batch(sig, stacks_per_member):
 #: launches of the batched entry since the last reset (read by
 #: chip_smoke.py)
 count_expr_batch.launches = 0
+
+
+def count_expr_batch_cost(b, n_leaves, s, w, device=None):
+    """The batched entry's declared cost for B members of `n_leaves`
+    [S, W] stacks each: every member's leaves and its row of the [B, n]
+    int64 pointer table read once, B int64 totals written."""
+    return cuda_build.declared_cost(
+        b * n_leaves * (s * w * 4 + 8) + 8 * b, device)

@@ -23,6 +23,14 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: the card the declared costs' `optimal_seconds` are stated for: an
+#: NVIDIA H100 80GB HBM3 — its memory rate (bytes/s, NVIDIA data sheet)
+#: and its POPC issue rate (16 results per SM per clock, CUDA C
+#: Programming Guide, cc 9.0, x 132 SMs x 1.98 GHz)
+COST_CARD = "NVIDIA H100 80GB HBM3"
+HBM_BYTES_PER_SECOND = 3.35e12
+POPC_PER_SECOND = 16 * 132 * 1.98e9
+
 _lock = threading.Lock()
 _libs = {}
 #: per-kernel build record: {name: {"seconds", "cached", "log"}}
@@ -100,3 +108,25 @@ def count_launch(wrapper):
     the worker pool), and `+= 1` on an attribute is not atomic."""
     with _launch_lock:
         wrapper.launches += 1
+
+
+def declared_cost(nbytes, device=None, popc=None):
+    """The cost a kernel wrapper declares for one launch, pure host
+    arithmetic on its shapes (the port's stand-in for XLA's
+    cost_analysis): `bytes accessed` — each input read once and the
+    output written once, as PERF.md counts a kernel's bound — and, for
+    K4, its `popc` count. `optimal_seconds`, the bound (the larger of
+    bytes over COST_CARD's memory rate and POPCs over its issue rate),
+    is declared only for a CUDA device; on the CPU it is absent, as
+    XLA's is there."""
+    cost = {"bytes accessed": int(nbytes)}
+    seconds = nbytes / HBM_BYTES_PER_SECOND
+    if popc is not None:
+        cost["popc"] = int(popc)
+        seconds = max(seconds, popc / POPC_PER_SECOND)
+    dev = getattr(device, "type", device)
+    if dev is not None and str(dev).startswith("cuda"):
+        cost["optimal_seconds"] = seconds
+        cost["card"] = COST_CARD
+    return cost
+

@@ -26,6 +26,7 @@ from . import cuda_build
 from .count_expr import popcount_words
 
 __all__ = [
+    "pairwise_cost",
     "pairwise_counts",
     "pairwise_counts_reference",
     "pairwise_counts_stack",
@@ -156,3 +157,13 @@ def pairwise_counts_stack(a, b, filt=None):
     t = int(a.shape[1]) * int(a.shape[2])
     return pairwise_counts(a.reshape(r1, t), b.reshape(r2, t),
                            None if filt is None else filt.reshape(t))
+
+
+def pairwise_cost(r1, r2, t, has_filter, device=None):
+    """K4's declared cost for [R1, T] and [R2, T] row stacks (and a [T]
+    filter when `has_filter`): both stacks and the filter read once, the
+    [R1, R2] int64 matrix written, and R1·R2·T POPCs; its bound is the
+    larger of the two times (cuda_build.declared_cost)."""
+    nbytes = (r1 + r2 + bool(has_filter)) * t * 4 + r1 * r2 * 8
+    return cuda_build.declared_cost(nbytes, device, popc=r1 * r2 * t)
+

@@ -25,6 +25,7 @@ from .count_expr import popcount_words
 
 __all__ = [
     "row_counts",
+    "row_counts_cost",
     "row_counts_reference",
     "topn_counts_stack",
 ]
@@ -121,3 +122,12 @@ def topn_counts_stack(rows, filter_plane, k):
     vals, idx = torch.sort(row_counts(rows, filter_plane), descending=True,
                            stable=True)
     return vals[:k], idx[:k]
+
+
+def row_counts_cost(r, n_words, has_filter, device=None):
+    """K3's declared cost over [R, N] rows (with an [N] filter when
+    `has_filter`): every row and the filter read once, R int64 counts
+    written (cuda_build.declared_cost)."""
+    return cuda_build.declared_cost(
+        (r + bool(has_filter)) * n_words * 4 + 8 * r, device)
+

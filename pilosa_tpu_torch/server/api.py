@@ -25,7 +25,18 @@ With a write-ahead oplog (`API(oplog=...)`, on by default in `server`),
 every bit, value and roaring import is appended to the log before it is
 applied and acknowledged, and `replay_oplog()` re-applies at boot what a
 crash left unapplied. Records are the TPU package's: a log written by
-either package replays in the other."""
+either package replays in the other.
+
+With an ingest merge interval (`API(ingest_interval=...)`, `server
+--ingest-merge-interval`), imports also buffer their deltas in a
+streaming ingest engine (exec/ingest.py) that folds them into the
+resident stacks once an interval, off the read path; a buffer past its
+high-water mark refuses an import with 503 and Retry-After before the
+oplog append. Interval 0, the default, builds no engine.
+
+`?explain=true|analyze` plans a query (exec/plan.py); `?explain=analyze`
+and `--long-query-time` profile it, and its SLOW QUERY line carries the
+plan summary."""
 
 import array
 import base64
@@ -336,6 +347,17 @@ class QueryCoalescer:
         pending = []  # [(handle, state, members)] launched, unresolved
         while True:
             with self._cond:
+                idle = not self._queue and not pending and not self._closed
+            if idle:
+                # idle dispatch-lock window: bounded proactive admission
+                # of hot_but_not_resident fragments (exec/adaptive) —
+                # exception-guarded and a no-op with the engine off, so
+                # serving can never wedge on an admission failure
+                try:
+                    ex.maybe_proactive_admit()
+                except Exception:  # noqa: BLE001 — best effort
+                    pass
+            with self._cond:
                 while not self._queue and not pending \
                         and not self._closed:
                     self._cond.wait()
@@ -426,7 +448,9 @@ class API:
 
     def __init__(self, holder, device=None, coalesce_window=0.0,
                  coalesce_max_queue=256, max_writes_per_request=0,
-                 oplog=None, logger=None, long_query_time=None):
+                 oplog=None, logger=None, long_query_time=None,
+                 ingest_interval=0.0, ingest_max_rows=None,
+                 ingest_max_bytes=None):
         from ..utils.logger import StandardLogger
 
         self.holder = holder
@@ -458,6 +482,18 @@ class API:
         if self.coalesce_window > 0:
             self._coalescer = QueryCoalescer(
                 self, self.coalesce_window, self.coalesce_max_queue)
+        # Streaming ingest engine (exec/ingest.py): interval 0 — the
+        # default — never constructs one, so the import path is a single
+        # `is None` check and every read repairs its stacks as before.
+        # (The admission ladder's merge-shed probe waits for the port of
+        # server/admission.py.)
+        self.ingest = None
+        if float(ingest_interval or 0.0) > 0:
+            from ..exec.ingest import IngestEngine
+
+            self.ingest = IngestEngine(
+                self, float(ingest_interval),
+                max_rows=ingest_max_rows, max_bytes=ingest_max_bytes)
 
     @property
     def device(self):
@@ -511,6 +547,8 @@ class API:
         prof = None
         if not (options is not None and options.remote) and (
                 (options is not None and options.profile)
+                or (options is not None
+                    and getattr(options, "explain", None) == "analyze")
                 or self.long_query_time is not None):
             prof = profile_mod.begin(
                 index_name, pql if isinstance(pql, str) else str(pql),
@@ -555,8 +593,8 @@ class API:
         if shards is not None or not isinstance(pql, str):
             return None
         o = options
-        if o is not None and (o.remote or o.profile or o.exclude_columns
-                              or o.exclude_row_attrs
+        if o is not None and (o.remote or o.profile or o.explain
+                              or o.exclude_columns or o.exclude_row_attrs
                               or o.deadline is not None):
             return None
         try:
@@ -598,10 +636,11 @@ class API:
         coalesced path passes its member's; the executor just finished a
         direct query on THIS thread, so its fingerprint is in take-last
         position), so slow lines of one shape grep together. batch= is
-        the batched-launch occupancy the query rode (1 = solo). The port
-        has no whole-plan fusion or planner yet: plan= is "-" (the TPU
-        package's value for a query without strategy notes) and fused= 0
-        (its value for a query that ran interpreted)."""
+        the batched-launch occupancy the query rode (1 = solo). plan= is
+        the analyze plan's summary (`!` marks a misestimated op), else
+        the strategies the decision points noted ("-" without any). The
+        port has no whole-plan fusion yet: fused= is 0 (the TPU package's
+        value for a query that ran interpreted)."""
         if (self.long_query_time is None
                 or elapsed <= self.long_query_time):
             return
@@ -686,9 +725,14 @@ class API:
         }
 
     def close(self):
-        """Stop the query coalescer: its blocked waiters get a 503
-        instead of hanging on a daemon thread that dies with the process.
-        Idempotent; a deployment without a coalescer no-ops."""
+        """Release serving-side background state — the ingest merge
+        engine (final flush drains buffered deltas and releases any
+        group-committed oplog watermarks) and the query coalescer,
+        whose blocked waiters get a 503 instead of hanging on a daemon
+        thread that dies with the process. Idempotent; default
+        deployments (no engine, no coalescer) no-op."""
+        if self.ingest is not None:
+            self.ingest.close()
         if self._coalescer is not None:
             self._coalescer.close()
 
@@ -794,6 +838,9 @@ class API:
         apply, with the keys as given; `remote` is carried for the TPU
         package's record shape and means nothing on one node."""
         field = self._field(index_name, field_name)
+        n_points = (len(column_ids) if column_ids is not None
+                    else len(column_keys or ()))
+        self._ingest_admit(n_points, 16 * n_points)
         kwargs = dict(index_name=index_name, field_name=field_name,
                       row_ids=row_ids, column_ids=column_ids,
                       timestamps=timestamps, clear=clear,
@@ -814,6 +861,11 @@ class API:
             # the columns exist after a clear import too, as in the TPU
             # package (a cleared bit is still a column that was written)
             self.holder.index(index_name).add_existence(column_ids)
+            if self.ingest is not None:
+                self._ingest_record(
+                    index_name, field,
+                    self._ingest_shard_rows(column_ids),
+                    16 * len(column_ids))
             faultpoints.reached("import.pre-ack")
             return changed
         finally:
@@ -821,13 +873,16 @@ class API:
             # needs no replay guarantee — mark it applied either way so
             # one failed import can't pin the checkpoint watermark
             # forever (a process crash skips this; that's the point)
-            self._oplog_applied(lsn)
+            self._oplog_applied_or_defer(lsn)
 
     def import_values(self, index_name, field_name, column_ids, values,
                       remote=False, column_keys=None, clear=False):
         """Bulk BSI values (reference: api.ImportValue api.go:1035, single
         node). clear=True removes the listed columns' values."""
         field = self._field(index_name, field_name)
+        n_points = (len(column_ids) if column_ids is not None
+                    else len(column_keys or ()))
+        self._ingest_admit(n_points, 16 * n_points)
         kwargs = dict(index_name=index_name, field_name=field_name,
                       column_ids=column_ids, values=values,
                       remote=remote, column_keys=column_keys,
@@ -841,10 +896,15 @@ class API:
             changed = field.import_values(column_ids, values, clear=clear)
             if not clear:
                 self.holder.index(index_name).add_existence(column_ids)
+            if self.ingest is not None:
+                self._ingest_record(
+                    index_name, field,
+                    self._ingest_shard_rows(column_ids),
+                    16 * len(column_ids), existence=not clear)
             faultpoints.reached("import.pre-ack")
             return changed
         finally:
-            self._oplog_applied(lsn)
+            self._oplog_applied_or_defer(lsn)
 
     def import_roaring(self, index_name, field_name, shard, data,
                        clear=False, view="standard", remote=False):
@@ -853,6 +913,7 @@ class API:
         api.go:368, single node). Returns the number of bits changed."""
         field = self._field(index_name, field_name)
         shard = int(shard)
+        self._ingest_admit(1, len(data))
         lsn = self._oplog_append("roaring", dict(
             index_name=index_name, field_name=field_name, shard=shard,
             data=data, clear=clear, view=view, remote=remote))
@@ -861,10 +922,14 @@ class API:
             v = field.create_view_if_not_exists(view)
             frag = v.create_fragment_if_not_exists(shard)
             changed = frag.import_roaring(data, clear=clear)
+            if self.ingest is not None:
+                self._ingest_record(
+                    index_name, field, {shard: 1}, len(data),
+                    existence=False)
             faultpoints.reached("import.pre-ack")
             return changed
         finally:
-            self._oplog_applied(lsn)
+            self._oplog_applied_or_defer(lsn)
 
     # -- durable oplog (storage/oplog.py) ------------------------------------
 
@@ -885,6 +950,65 @@ class API:
         counted as dropped): advance the applied watermark."""
         if lsn is not None and self.oplog is not None:
             self.oplog.mark_applied(lsn)
+
+    def _oplog_applied_or_defer(self, lsn):
+        """Like _oplog_applied, but under fsync=interval with the ingest
+        engine active the watermark advance group-commits at the next
+        merge instead of per record (bounded by the oplog's gap set; a
+        crash before the flush replays the records, which is safe —
+        they applied to host fragments idempotently)."""
+        ing = self.ingest
+        if ing is not None and ing.defer_applied(lsn):
+            return
+        self._oplog_applied(lsn)
+
+    # -- streaming ingest (exec/ingest.py) ------------------------------------
+
+    def _ingest_admit(self, rows, nbytes):
+        """503 + Retry-After back-pressure when the delta buffer is past
+        its high-water mark — checked BEFORE the oplog append so a
+        rejected import leaves no record behind."""
+        ing = self.ingest
+        if ing is None:
+            return
+        retry = ing.admit(rows, nbytes)
+        if retry is not None:
+            shed_reject(
+                "ingest",
+                "ingest delta buffer full; merge in progress",
+                retry, qclass="batch")
+
+    def _ingest_record(self, index_name, field, shard_rows, nbytes,
+                       existence=True):
+        """Buffer one applied import's deltas (incl. the index's
+        existence field, which add_existence just wrote — roaring
+        imports skip it, they never touch existence)."""
+        ing = self.ingest
+        if ing is None or not shard_rows:
+            return
+        ing.record(index_name, field, shard_rows, nbytes)
+        if not existence:
+            return
+        idx = self.holder.index(index_name)
+        ef = idx.existence_field() if idx is not None else None
+        if ef is not None and ef is not field:
+            ing.record(index_name, ef, shard_rows, nbytes)
+
+    @staticmethod
+    def _ingest_shard_rows(column_ids):
+        """{shard: landed rows} for the ingest buffer's accounting."""
+        cols = np.asarray(column_ids, dtype=np.uint64)
+        if cols.size == 0:
+            return {}
+        shards, counts = np.unique(cols // np.uint64(SHARD_WIDTH),
+                                   return_counts=True)
+        return {int(s): int(n) for s, n in zip(shards, counts)}
+
+    def ingest_stats(self):
+        """GET /debug/ingest payload ({"enabled": False} when off)."""
+        if self.ingest is None:
+            return {"enabled": False, "interval_seconds": 0.0}
+        return self.ingest.snapshot()
 
     @staticmethod
     def _oplog_encode(kind, kwargs):
@@ -1170,8 +1294,10 @@ class API:
                 "observability": {"local": self._node_observability()}}
 
     def _node_observability(self):
-        """Compact local HBM + kernel + device-link + workload summary
-        (the TPU package's block without its planner's `plans`)."""
+        """Compact local HBM + kernel + plans + device-link + workload
+        summary (the TPU package's block)."""
+        from ..exec import plan as plan_mod
+
         hbm = self.executor.hbm_stats(top=0)
         walls = self.executor._stacked.kernel_walls()
         out = {
@@ -1182,6 +1308,7 @@ class API:
                 kind: {"count": v["count"],
                        "seconds": round(v["seconds"], 6)}
                 for kind, v in sorted(walls.items())},
+            "plans": plan_mod.stats(),
             "device_link": devhealth.summary(),
             "workload": workload_mod.table().summary(),
             "heat": workload_mod.heat().summary(),

@@ -311,11 +311,15 @@ class Client:
 
     def query(self, index, pql, shards=None, remote=False,
               exclude_row_attrs=False, exclude_columns=False,
-              profile=False, deadline=None, query_class=None):
+              profile=False, explain=None, deadline=None,
+              query_class=None):
         """(reference: InternalClient.QueryNode http/client.go:268; remote
         marks node-to-node fan-out requests that must not re-fan-out;
         profile asks the server to return the query's span-tree profile
-        alongside the results; deadline: remaining budget in seconds,
+        alongside the results; explain="plan" returns the annotated plan
+        WITHOUT executing, explain="analyze" executes and returns the
+        plan with actual costs grafted on; deadline: remaining budget in
+        seconds,
         sent as X-Request-Deadline and bounding local retries;
         query_class: admission class forwarded as X-Query-Class)"""
         path = f"/index/{index}/query"
@@ -330,6 +334,8 @@ class Client:
             params.append("excludeColumns=true")
         if profile:
             params.append("profile=true")
+        if explain:
+            params.append(f"explain={explain}")
         if params:
             path += "?" + "&".join(params)
         return self._request(
@@ -413,6 +419,20 @@ class Client:
     def debug_dispatch(self):
         """The peer's per-kernel dispatch-phase decomposition."""
         return self._request("GET", "/debug/dispatch")
+
+    def debug_kernels(self, costs=True):
+        """The peer's per-family kernel attribution; costs=False skips
+        the declared costs of the launched kernel shapes."""
+        path = "/debug/kernels" + ("" if costs else "?costs=false")
+        return self._request("GET", path)
+
+    def debug_plans(self, limit=None):
+        """The peer's retained (misestimated) EXPLAIN ANALYZE plans +
+        misestimate counters; limit=0 fetches counters only."""
+        path = "/debug/plans"
+        if limit is not None:
+            path += f"?limit={int(limit)}"
+        return self._request("GET", path)
 
     def debug_flightrecorder(self, limit=None):
         """The peer's flight-recorder tail."""

@@ -7,8 +7,12 @@ it): metrics (/metrics, /debug/vars), query profiles (?profile=true,
 /debug/queries), traces, the flight recorder, the dispatch-phase split,
 thread dumps and a sampling profiler, batching, the oplog and fault
 points, device health (/readyz, /debug/device), the workload table,
-fragment heat, SLO burn, the HBM ledger and incident bundles, with the
-TPU package's JSON wire shapes. Every request runs under a span
+fragment heat, SLO burn, the HBM ledger, incident bundles, the
+kernels' declared costs (/debug/kernels), misestimated plans
+(/debug/plans), the adaptive engine (/debug/optimizer) and the ingest
+engine (/debug/ingest), with the TPU package's JSON wire shapes. A
+query's `?explain=true|plan|analyze` returns its plan tree beside the
+results (exec/plan.py). Every request runs under a span
 continued from its trace headers and is timed into
 `http_request_seconds{route,method,status}`.
 
@@ -149,7 +153,7 @@ class PilosaHTTPServer:
             Route("POST", r"/index/(?P<index>[^/]+)/query",
                   self._post_query,
                   args=("shards", "columnAttrs", "excludeRowAttrs",
-                        "excludeColumns", "profile")),
+                        "excludeColumns", "profile", "explain")),
             Route("POST", r"/index/(?P<index>[^/]+)/query-batch",
                   self._post_query_batch, args=("shards",)),
             Route("POST",
@@ -198,6 +202,12 @@ class PilosaHTTPServer:
             Route("GET", r"/debug/device", self._get_debug_device,
                   args=("limit",)),
             Route("GET", r"/debug/hbm", self._get_debug_hbm, args=("top",)),
+            Route("GET", r"/debug/kernels", self._get_debug_kernels,
+                  args=("costs",)),
+            Route("GET", r"/debug/plans", self._get_debug_plans,
+                  args=("limit",)),
+            Route("GET", r"/debug/optimizer", self._get_debug_optimizer),
+            Route("GET", r"/debug/ingest", self._get_debug_ingest),
             Route("GET", r"/debug/workload", self._get_debug_workload,
                   args=("top",)),
             Route("GET", r"/debug/heat", self._get_debug_heat,
@@ -359,14 +369,31 @@ class PilosaHTTPServer:
 
         column_attrs = flag("columnAttrs")
         want_profile = flag("profile")
+        # ?explain=true|plan plans without executing; ?explain=analyze
+        # executes and grafts actual costs (see exec/plan.py)
+        explain = None
+        raw_explain = req.query.get("explain", [None])[0]
+        if raw_explain is not None:
+            explain = {"true": "plan", "plan": "plan",
+                       "analyze": "analyze",
+                       "false": None}.get(raw_explain.lower(), "bad")
+            if explain == "bad":
+                raise ApiError(
+                    f"explain must be true|plan|analyze, "
+                    f"got {raw_explain!r}")
         options = ExecOptions(
             exclude_columns=flag("excludeColumns"),
             column_attrs=column_attrs,
             exclude_row_attrs=flag("excludeRowAttrs"),
-            profile=want_profile)
+            profile=want_profile, explain=explain)
         results = self.api.query(req.params["index"], pql, shards=shards,
                                  options=options, deadline=deadline)
         out = {"results": [result_to_json(r) for r in results]}
+        if explain is not None:
+            from ..exec import plan as plan_mod
+
+            # the executor stashed this thread's plan envelope
+            out["plan"] = plan_mod.take_last()
         if want_profile:
             # api.query stashed the finished profile on this thread
             out["profile"] = profile_mod.take_last()
@@ -625,6 +652,39 @@ class PilosaHTTPServer:
         return self.api.executor.hbm_stats(
             top=int(self._q1(req, "top", "50")))
 
+    def _get_debug_kernels(self, req):
+        """Per-kernel-family attribution + the declared cost of every
+        launched kernel shape (?costs=false skips the costs)."""
+        return self.api.executor.kernel_stats(
+            include_costs=self._q1(req, "costs", "true") != "false")
+
+    def _get_debug_plans(self, req):
+        """Misestimated EXPLAIN ANALYZE plans, newest first (the ring
+        exec/plan.py retains when actual cost deviates from the estimate
+        past the configured factor), plus the cumulative flag counters.
+        ?limit=0 returns counters only."""
+        from ..exec import plan as plan_mod
+
+        limit = self._q1(req, "limit")
+        out = dict(plan_mod.stats())
+        out["plans"] = plan_mod.recent(
+            limit=int(limit) if limit is not None else None)
+        return out
+
+    def _get_debug_optimizer(self, req):
+        """Adaptive execution engine state: mode, per-kernel-family
+        calibration with sources (ewma|cost_analysis|default), strategy/
+        tile/cache/admission decision counters, and the recent-decision
+        ring (exec/adaptive.py)."""
+        from ..exec import adaptive
+
+        return adaptive.snapshot(stacked=self.api.executor._stacked)
+
+    def _get_debug_ingest(self, req):
+        """Streaming ingest engine: delta buffer depth, merge counters,
+        deferred oplog watermarks ({"enabled": false} when off)."""
+        return self.api.ingest_stats()
+
     def _get_debug_workload(self, req):
         """Query fingerprint table: top-K shapes by frequency, total
         wall, and misestimate rate (utils/workload.py). ?top=0 returns
@@ -673,6 +733,15 @@ class PilosaHTTPServer:
                            "dispatch_ack / sync)",
         "/debug/hbm": "HBM ledger: resident stack-cache bytes per "
                       "(index, field, pool) + device headroom",
+        "/debug/kernels": "per-kernel-family dispatch counts, wall, and "
+                          "declared costs",
+        "/debug/plans": "misestimated EXPLAIN ANALYZE plans, deduped "
+                        "per query fingerprint, newest first",
+        "/debug/optimizer": "adaptive execution engine: calibration "
+                            "sources, decision counters, recent "
+                            "decisions",
+        "/debug/ingest": "streaming ingest engine: delta buffer depth, "
+                         "merge counters, deferred oplog watermarks",
         "/debug/device": "device-link health: canary probe state "
                          "machine, RTT samples, transitions",
         "/debug/workload": "query fingerprint table: per-shape counts, "

@@ -357,12 +357,25 @@ class HeatLedger:
 
     @staticmethod
     def _price_admission(index, field, heat):
-        """One hot_but_not_resident candidate. The TPU package prices it
-        by the container ledger's compressed bytes of the fragment's last
-        build (`containers.field_estimate`); the port keeps no fragment
-        ledger yet, so every candidate lists unpriced, as a fragment
-        never built does there."""
-        return {"index": index, "field": field, "heat": round(heat, 4)}
+        """One hot_but_not_resident candidate, priced by what admission
+        would ACTUALLY cost on the device: the container ledger's
+        compressed bytes from the fragment's last build (the chooser is
+        deterministic in the data, so the last build predicts the
+        next). Fragments never built carry no estimate — the candidate
+        still lists, unpriced."""
+        e = {"index": index, "field": field, "heat": round(heat, 4)}
+        try:
+            from ..ops import containers
+
+            est = containers.field_estimate(index, field)
+        except Exception:  # pragma: no cover - observability only
+            est = None
+        if est is not None:
+            e["est_bytes"] = est["bytes"]
+            e["est_dense_bytes"] = est["dense_bytes"]
+            e["compression_ratio"] = est["ratio"]
+            e["reprs"] = est["reprs"]
+        return e
 
     def _export_gauges(self, hottest):
         """fragment_heat gauges for the current top-N; keys that fell

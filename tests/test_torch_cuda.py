@@ -541,3 +541,58 @@ def test_analyze_on_card_matches_cpu(cuda, pattern):
     assert got.kind == want.kind and got.nbytes == want.nbytes
     for a, b in zip(got.arrays, want.arrays):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_ingest_merge_and_overlay_on_card(cuda, tmp_path):
+    """The streaming ingest merge on CUDA stacks: a dense leaf copied in
+    place and a sparse leaf given an overlay term, both still on the
+    card; Counts equal the host bits, and the overlay leaf counts with
+    K1 (densified), not K2. The planner's declared costs carry the
+    card's bound."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.ops import containers
+    from pilosa_tpu_torch.server.api import API
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    floor, mode = containers.AUTO_COMPRESS_FLOOR, containers.repr_mode()
+    containers.AUTO_COMPRESS_FLOOR = 0
+    containers.configure("auto")
+    holder = Holder(str(tmp_path), use_snapshot_queue=False).open()
+    api = API(holder, device="cuda", ingest_interval=3600.0)
+    try:
+        api.create_index("i")
+        api.create_field("i", "f")
+        rng = np.random.default_rng(3)
+        dense = [s * SHARD_WIDTH + int(c) for s in range(4)
+                 for c in rng.choice(SHARD_WIDTH, 20000, replace=False)]
+        sparse = [s * SHARD_WIDTH + 5 * k for s in range(4)
+                  for k in range(40)]
+        api.import_bits("i", "f", [1] * len(dense), dense)
+        api.import_bits("i", "f", [2] * len(sparse), sparse)
+        api.ingest.flush()
+        ex = api.executor
+        assert ex.execute("i", "Count(Row(f=1))") == [len(dense)]
+        assert ex.execute("i", "Count(Row(f=2))") == [len(sparse)]
+        pool = ex._stacked._pools["leaf"]
+        kinds = {k[3]: e[1].kind for k, e in pool.items()}
+        assert kinds == {1: "dense", 2: "sparse"}
+        api.import_bits("i", "f", [1, 2], [1, 2 * SHARD_WIDTH + 7])
+        api.ingest.flush()
+        assert api.ingest.scatter_entries >= 1
+        assert api.ingest.overlay_entries == 1
+        leaves = {k[3]: e[1] for k, e in pool.items()}
+        assert leaves[2].kind == "sparse" and leaves[2].overlay == 1
+        assert all(a.is_cuda for c in leaves.values() for a in c.arrays)
+        before = (k1.count_expr.launches, k2.count_blocks.launches)
+        assert ex.execute("i", "Count(Row(f=1))") == [len(dense) + 1]
+        assert ex.execute("i", "Count(Row(f=2))") == [len(sparse) + 1]
+        assert (k1.count_expr.launches - before[0],
+                k2.count_blocks.launches - before[1]) == (2, 0)
+        costs = ex.kernel_stats()["compiled"]
+        assert costs and all("optimal_seconds" in c["cost"] for c in costs)
+    finally:
+        api.close()
+        holder.close()
+        containers.AUTO_COMPRESS_FLOOR = floor
+        containers.configure(mode)

@@ -6,11 +6,10 @@ with hysteresis, a wedged canary's timeout handling, the lock-wait /
 pure-RTT split, continuous probing, the zero-launch guarantee when the
 module is never configured, readiness gating (/readyz and the query
 fail-fast 503 with Retry-After), /status's device_link roll-up,
-/debug/device, the dispatch-phase decomposition (GET /debug/dispatch
-and a profiled query's phase tags, which stand in for the reference's
-EXPLAIN ANALYZE actuals until the port has a planner), the watchdog's
-device_link_state tag and the bare flightrec debug server's
-/debug/device.
+/debug/device, the dispatch-phase decomposition (GET /debug/dispatch,
+a profiled query's phase tags and the EXPLAIN ANALYZE actuals'
+phase_seconds), the watchdog's device_link_state tag and the bare
+flightrec debug server's /debug/device.
 
 Beside them: the same scripted canary sequence of ok, failed and
 timed-out samples, stepped through `probe_once()` in both packages,
@@ -424,6 +423,25 @@ def test_profile_carries_phase_attribution(server):
     assert all(v >= 0 for v in ph.values())
     assert sum(v for k, v in ph.items() if k != "lock_wait") == \
         pytest.approx(tags["kernel_wall_seconds"], rel=0.05, abs=1e-4)
+
+
+def test_explain_analyze_carries_phase_attribution(server):
+    from pilosa_tpu_torch.exec import plan as plan_mod
+    from pilosa_tpu_torch.exec.executor import ExecOptions
+
+    srv, c = server
+    _warm_stacked(c)
+    srv.api.query("dh", "Count(Row(f=11))",
+                  options=ExecOptions(explain="analyze"))
+    env = plan_mod.take_last()
+    actual = env["calls"][0]["actual"]
+    ph = actual.get("phase_seconds")
+    assert ph, "analyze grafted no per-phase attribution"
+    assert "sync" in ph or "dispatch_ack" in ph
+    assert all(v >= 0 for v in ph.values())
+    # the decomposition nets out against the actual kernel wall
+    assert sum(v for k, v in ph.items() if k != "lock_wait") == \
+        pytest.approx(actual["kernel_wall_seconds"], rel=0.05, abs=1e-4)
 
 
 # ------------------------------------------------------ flightrec satellite

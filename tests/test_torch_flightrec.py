@@ -13,8 +13,9 @@ both packages' rings gives equal snapshots once timestamps are dropped,
 and a synthetic stall gives the same event. Also ported: the HBM
 snapshot after a query, /debug/hbm (its total equal to the pools' byte
 counters; no headroom on the CPU, where no card is initialized) and
-/status's observability block; and a watchdog trip writes an incident
-bundle. Left for a later step: /debug/kernels (XLA cost analysis).
+/status's observability block; a watchdog trip writes an incident
+bundle; and /debug/kernels with its declared kernel costs (the port's
+stand-in for the TPU package's XLA cost analysis).
 """
 
 import json
@@ -395,6 +396,14 @@ def test_dispatch_instruments_kernels(tmp_path):
         assert end["tags"]["kernel"] == "count"
         assert end["tags"]["kernel_wall_seconds"] >= 0
         assert end["tags"]["lock_wait_seconds"] >= 0
+        # the declared costs: computed on request, cached, never raise
+        st = ex._stacked
+        assert st.kernels_snapshot(include_costs=False)["kernels"] \
+            == kernels
+        compiled = st.kernels_snapshot()["compiled"]
+        assert isinstance(compiled, list) and compiled
+        assert all("family" in c and "cost" in c for c in compiled)
+        assert compiled == st.kernels_snapshot()["compiled"]
     finally:
         holder.close()
 
@@ -459,6 +468,16 @@ def test_debug_hbm_endpoint(server):
     assert len(snap["entries"]) <= 3
     assert snap["entries"][0]["index"] == "dbg"
     assert "evictions" in snap and "device_memory" in snap
+
+
+def test_debug_kernels_endpoint(server):
+    c = Client(server.uri)
+    _warm_query(c)
+    snap = c.debug_kernels(costs=False)
+    assert "count" in snap["kernels"]
+    assert "compiled" not in snap
+    full = c.debug_kernels()
+    assert isinstance(full.get("compiled"), list)
 
 
 def test_status_carries_local_observability(server):

@@ -566,10 +566,10 @@ def test_debug_routes(tmp_path):
                      "/debug/batching", "/debug/oplog",
                      "/debug/faultpoints", "/debug/hbm", "/debug/device",
                      "/debug/workload", "/debug/heat", "/debug/slo",
-                     "/debug/incidents"):
+                     "/debug/incidents", "/debug/kernels", "/debug/plans",
+                     "/debug/optimizer", "/debug/ingest"):
             assert path in listed
             c._request("GET", path)  # every listed GET route answers
-        assert "/debug/kernels" not in listed  # not served by the port yet
         threads = c._request("GET", "/debug/threads").decode()
         assert "pilosa-http" in threads
         c._request("POST", "/debug/pprof/profile/start?interval=0.001",
@@ -714,10 +714,10 @@ def pair(tmp_path):
 DIFF_PQL = ["Count(Intersect(Row(a=1), Row(b=2)))", "TopN(a, n=3)",
             "GroupBy(Rows(a), Rows(b))", "Count(Row(a=3))"]
 
-#: profile tags of the TPU package's that come with later steps: the
-#: planner's strategy notes, and compile (a JAX program's first call;
-#: the port's kernels are built before their first launch)
-LATER_TAGS = {"strategies", "phase_compile_seconds"}
+#: profile tags of the TPU package's that the port does not write:
+#: compile (a JAX program's first call; the port's kernels are built
+#: before their first launch)
+LATER_TAGS = {"phase_compile_seconds"}
 
 
 def _span_names(prof):

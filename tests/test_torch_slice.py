@@ -220,9 +220,10 @@ def test_http_end_to_end(pair, tmp_path):
 
 def test_subprocess_loads_no_jax(tmp_path):
     """The port serves Counts over dense, block-sparse and run-length
-    leaves, a query batch and a coalesced query with neither JAX nor any
-    pilosa_tpu module loaded (a subprocess: this test process has JAX
-    loaded already)."""
+    leaves, a query batch, a coalesced query, a stale serve and merge of
+    the streaming ingest engine and an adaptive EXPLAIN ANALYZE with
+    neither JAX nor any pilosa_tpu module loaded (a subprocess: this
+    test process has JAX loaded already)."""
     code = f"""
 import sys
 from pilosa_tpu_torch.cli import start_server
@@ -251,6 +252,17 @@ capi = API(srv.holder, device="cpu", coalesce_window=0.001)
 assert capi.query("i", pql) == [1]
 assert capi.batching_stats()["coalescer"]["coalesced_queries"] == 1
 capi.close()
+from pilosa_tpu_torch.exec import ExecOptions, adaptive
+iapi = API(srv.holder, device="cpu", ingest_interval=3600.0)
+assert iapi.query("i", "Count(Row(f=1))") == [3]
+iapi.import_bits("i", "f", [1], [3])
+assert iapi.query("i", "Count(Row(f=1))") == [3]  # pending: stale serve
+iapi.ingest.flush()
+adaptive.configure(mode="on")
+assert iapi.query("i", "Count(Row(f=1))",
+                  options=ExecOptions(explain="analyze")) == [4]
+adaptive.reset()
+iapi.close()
 srv.stop()
 assert "pilosa_tpu_torch.ops.count_blocks" in sys.modules
 bad = sorted(m for m in sys.modules
@@ -268,8 +280,8 @@ assert not bad, bad
 
 #: modules that must exist and be scanned: the command line with its
 #: tools, the client and the logger the oplog writes through, the
-#: observability and health modules every layer imports, and the wire
-#: codec
+#: observability and health modules every layer imports, the wire
+#: codec, and the ingest engine, the adaptive engine and the planner
 REQUIRED_SOURCES = ("cli.py", "server/client.py", "utils/logger.py",
                     "storage/oplog.py", "server/api.py", "utils/tracing.py",
                     "utils/stats.py", "utils/profile.py",
@@ -277,9 +289,11 @@ REQUIRED_SOURCES = ("cli.py", "server/client.py", "utils/logger.py",
                     "utils/devhealth.py", "utils/incident.py",
                     "utils/workload.py", "server/diagnostics.py",
                     "encoding/__init__.py", "encoding/serializer.py",
-                    "encoding/wire.py")
+                    "encoding/wire.py", "exec/ingest.py",
+                    "exec/adaptive.py", "exec/plan.py")
 
-#: modules a client tool imports: none may load torch at import
+#: modules a client tool imports, and the ingest engine, the adaptive
+#: engine and the planner: none may load torch at import
 LIGHT_MODULES = ("pilosa_tpu_torch.utils.tracing",
                  "pilosa_tpu_torch.utils.stats",
                  "pilosa_tpu_torch.utils.profile",
@@ -290,7 +304,10 @@ LIGHT_MODULES = ("pilosa_tpu_torch.utils.tracing",
                  "pilosa_tpu_torch.utils.workload",
                  "pilosa_tpu_torch.encoding",
                  "pilosa_tpu_torch.server",
-                 "pilosa_tpu_torch.server.diagnostics")
+                 "pilosa_tpu_torch.server.diagnostics",
+                 "pilosa_tpu_torch.exec.ingest",
+                 "pilosa_tpu_torch.exec.adaptive",
+                 "pilosa_tpu_torch.exec.plan")
 
 
 def test_port_sources_import_no_jax_or_reference():

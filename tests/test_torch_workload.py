@@ -2,10 +2,10 @@
 package's, on the CPU: query fingerprints and the per-shape table, the
 fragment heat ledger joined against the HBM ledger, and SLO burn.
 
-`tests/test_workload.py` ported to the port's executor and server (its
-plan-ring dedupe test waits for the planner; the misestimate
-attribution is held here at the workload API, and the cluster roll-up
-as the single node's /status roll-up). Beside them:
+`tests/test_workload.py` ported to the port's executor and server (the
+cluster roll-up as the single node's /status roll-up; the misestimate
+attribution at the workload API and through the planner's analyze).
+Beside them:
 
 - `fingerprint(index, query)` gives the same (fingerprint, shape) in
   both packages for a corpus of 120 PQL queries covering every call of
@@ -135,9 +135,36 @@ def test_table_bounded_lru_eviction():
     assert "fp2" in kept and "fp3" not in kept
 
 
-def test_misestimates_attribute_to_fingerprint():
+def test_plan_ring_dedupes_by_fingerprint():
+    """Repeats of one misestimated shape hold ONE ring slot with a
+    repeat count; anonymous records keep plain ring semantics."""
+    from pilosa_tpu_torch.exec import plan as plan_mod
+
+    plan_mod.clear_recent()
+    try:
+        for i in range(3):
+            plan_mod.record({"index": "i", "seq": i}, fingerprint="abcd")
+        got = plan_mod.recent()
+        assert len(got) == 1
+        assert got[0]["repeat_count"] == 3
+        assert got[0]["fingerprint"] == "abcd"
+        assert got[0]["seq"] == 2  # latest plan wins the slot
+        assert plan_mod.stats()["repeats_collapsed"] == 2
+        plan_mod.record({"index": "i"}, fingerprint="efgh")
+        assert [p.get("fingerprint") for p in plan_mod.recent()] \
+            == ["efgh", "abcd"]
+    finally:
+        plan_mod.clear_recent()
+
+
+def test_misestimates_attribute_to_fingerprint(env, monkeypatch):
     """A misestimate noted while a query's context is open counts
-    against that fingerprint and ranks it in by_misestimate_rate."""
+    against that fingerprint and ranks it in by_misestimate_rate; a
+    wildly wrong cost estimate of the planner's analyze counts against
+    the in-flight query's fingerprint AND dedupes its retained plans."""
+    from pilosa_tpu_torch.exec import plan as plan_mod
+    from pilosa_tpu_torch.exec.executor import ExecOptions
+
     ctx = workload.begin_query("i", parse("Count(Row(a=1))"))
     workload.note_misestimate()
     workload.note_misestimate()
@@ -149,6 +176,26 @@ def test_misestimates_attribute_to_fingerprint():
     assert entry["misestimate_rate"] == 1.0
     assert entry["count"] == 2
     assert workload.last_fingerprint() == entry["fingerprint"]
+
+    workload.reset()
+    plan_mod.clear_recent()
+    _, e = env
+    monkeypatch.setattr(plan_mod.CostModel, "dispatch_seconds",
+                        lambda self, family: (100.0, "default"))
+    try:
+        for row in (1, 2):
+            e.execute("i", f"Count(Row(a={row}))",
+                      options=ExecOptions(explain="analyze"))
+        entry = workload.table().snapshot(top=5)["by_misestimate_rate"][0]
+        assert entry["misestimates"] >= 2
+        assert entry["misestimate_rate"] > 0
+        # both analyze runs share one fingerprint -> one retained plan
+        plans = plan_mod.recent()
+        assert len(plans) == 1
+        assert plans[0]["repeat_count"] == 2
+        assert plans[0]["fingerprint"] == entry["fingerprint"]
+    finally:
+        plan_mod.clear_recent()
 
 
 # ------------------------------------------------------------------- heat
