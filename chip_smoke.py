@@ -7,9 +7,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi);
 2. build: every kernel of the served paths (K1 count_expr and its
-   batched entry, K2 count_blocks, K3 row_counts, K4 pairwise_counts, K5
-   bsi_range), one nvcc per source, all started together, from the
-   checkout; registers and spills from ptxas;
+   batched and multi-tree entries, K2 count_blocks, K3 row_counts, K4
+   pairwise_counts, K5 bsi_range), one nvcc per source, all started
+   together, from the checkout; registers and spills from ptxas, per
+   kernel function;
 3. kernels: each kernel against its plain PyTorch version on the card —
    exact equality on every case:
    - K1 at S in {0, 1, 7, 954}, 1 to 6 leaves, every op and nested trees;
@@ -33,6 +34,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    - K1's batched entry (`count_expr_batch`) at B in {1, 2, 3, 4, 5, 17,
      32, 64} at S = 10, chain, tree and 17-leaf programs, members that
      share leaves and members that do not, and S = 0 (no launch);
+   - K1's multi-tree entry (`count_expr_multi`) at n in {1, 2, 5, 17, 64}
+     members of mixed programs (chain, tree, a lone leaf, a 17-slot
+     Union fitted past K1's limits) at S in {0, 1, 7, 954}, members that
+     share leaves and (below S = 954) members that do not;
    and times per launch beside each bound and the plain version's time:
    K1 at S = 954 with two leaves; K3 at the served TopN shape
    [100, 10 x 32768], at [1, 954 x 32768] with a filter and at Sum's
@@ -46,7 +51,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    batched entry at B = 4 x 2 leaves x S = 954 beside four single K1
    launches on the same members, and at B = 64 x 2 leaves x S = 10, over
    every device operation of a call (memset and pointer-table copy
-   included);
+   included); the multi-tree entry at the served fused query's two K1
+   members (a 2-leaf chain and a 2-leaf union at S = 954), L2 flushed,
+   beside the same members as two single K1 launches;
 4. data, in one data directory, written through the port's Holder:
    - index tg, BASELINE config 3 at bench_suite.bench_topn_groupby's
      chip shape (10 shards; field f with 100 rows of 100000/(r+1)+100
@@ -149,7 +156,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      byte counters with headroom from torch, and /status carries the
      observability roll-up; an `ops-json:` line has every number;
    - streaming ingest, the planner and the adaptive engine
-     (serve_ingest_plan, last): `?explain=true` on the headline Count,
+     (serve_ingest_plan): `?explain=true` on the headline Count,
      config 3's TopN and GroupBy and config 4's Sum moves no launch
      counter; `?explain=analyze` answers them right with dispatch
      estimates equal to the launches made; /debug/kernels declares K1's
@@ -165,6 +172,20 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      same way; last a GroupBy over tg with --adaptive on answers as off,
      records its tile decision and launches K4 at that tile; an
      `ingest-json:` line has the numbers;
+   - whole-plan fusion and admission control (serve_fusion_admission,
+     last, on servers of their own over the same holder): a 5-call
+     Count (dense chain, dense union, sparse leaf, sparse pair,
+     run-length pair) over index b with --fusion on --fusion-min-hits 2
+     runs interpreted twice, builds its program, then every run is one
+     fused dispatch (one multi-tree K1 launch, no single K1 launch, two
+     K2 launches); /debug/fusion, ?explain=true (no launch, nodes
+     fused), SLOW QUERY fused=5, and the warm p50 fused against
+     --fusion off in turns; with --admission on the headline Count's
+     warm p50 against admission off in turns, a GroupBy burst over tg
+     shed with 503 + Retry-After + X-Pilosa-Shed: admission, a deadline
+     lapsing in the admission queue answering 504 with no launch,
+     X-Query-Class: bogus answering 400, /debug/admission and /status's
+     admission block; a `fusion-json:` line has the numbers;
    each path runs with every launch counter set to 0 just before it and
    read just after; cold latency of each first query and warm HTTP p50s.
 
@@ -204,9 +225,9 @@ BR_DATES = ("2019-01-15T00:00", "2019-02-15T00:00", "2019-03-15T00:00")
 BR_JAN_FEB = 'from="2019-01-01T00:00", to="2019-03-01T00:00"'
 KERNELS = ("count_expr", "row_counts", "pairwise_counts", "bsi_range",
            "count_blocks")
-# the kernels line's entries: one per source, and K1's batched entry,
-# which lives in count_expr.cu
-ENTRIES = KERNELS + ("count_expr_batch",)
+# the kernels line's entries: one per source, and K1's batched and
+# multi-tree entries, which live in count_expr.cu
+ENTRIES = KERNELS + ("count_expr_batch", "count_expr_multi")
 COMP_SEED = 5
 SPARSE_BLOCKS = 24  # non-empty 128-word blocks per shard of f=10, f=11, g=10
 SHARED_BLOCKS = 12  # of them shared by f=10 and g=10 in every shard
@@ -346,6 +367,14 @@ def kernel_ms(torch, fn, reps, kernel, cold_l2=False):
     return ms, call_ms, "profiler" + (", L2 flushed" if cold_l2 else "")
 
 
+def _demangle(symbol):
+    """The plain name of a C++ mangled kernel symbol (_Z<len><name>...)."""
+    m = re.match(r"_Z(\d+)", symbol)
+    if not m:
+        return symbol
+    return symbol[m.end():m.end() + int(m.group(1))]
+
+
 def build_kernels(cuda_build):
     """One nvcc per kernel source, all started together; then load."""
     errors = []
@@ -368,9 +397,14 @@ def build_kernels(cuda_build):
         cuda_build.load(name)
         info = cuda_build.build_info[name]
         log(f"build: {name}: nvcc {info['seconds']:.2f} s")
+        fn = "?"
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build: {name}: {line.strip()}")
+            # ptxas names each function before its registers and spills
+            m = re.search(r"(?:entry function '|properties for )(\w+)", line)
+            if m:
+                fn = _demangle(m.group(1))
+            elif "registers" in line or "spill" in line:
+                log(f"build: {name}: {fn}: {line.strip()}")
     log(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
 
 
@@ -550,6 +584,137 @@ def check_k1_batch(torch, k1, words, card):
                       "bound_ms": bound_ms, "bound_by": "bytes"}
         del leaves, members
         torch.cuda.empty_cache()
+    return max_err, timing
+
+
+K1M_SIZES = (1, 2, 5, 17, 64)
+K1M_POOL = 24  # leaves each multi-tree case draws its members from
+
+
+def _multi_sigs(k1):
+    """The multi-tree entry's member kinds: chains, nested trees, a lone
+    leaf and a 17-slot Union past K1's limits (fitted per member)."""
+    return [k1.chain_signature(2, "&"), k1.chain_signature(4, "|-^"),
+            ("|", (("&", (("leaf", 0), ("leaf", 1))),
+                   ("-", (("leaf", 2), ("leaf", 3))))),
+            ("leaf", 0), k1.chain_signature(3, "^&"),
+            ("^", (("leaf", 5), ("|", (("leaf", 1), ("&", (("leaf", 2),
+                                                            ("leaf", 4))))))),
+            ("|", tuple(("leaf", i) for i in range(17)))]
+
+
+def multi_bytes(k1, sigs, members, s, words):
+    """Bytes K1's multi-tree entry must move for these members: every
+    member's leaves read once, its descriptor, code and leaf pointers
+    read once, one int64 total written per member."""
+    leaves = sum(len(m) for m in members)
+    codes = sum(len(k1.compile_program(sig)) for sig in sigs)
+    return (leaves * s * words * 4 + 4 * k1.MULTI_DESC * len(sigs) + codes
+            + 8 * leaves + 8 * len(sigs))
+
+
+def check_k1_multi(torch, k1, words, card):
+    """K1's multi-tree entry against its plain version on the card: n in
+    K1M_SIZES members of mixed programs (chain, tree, a lone leaf, a
+    Union fitted past K1's limits) at S in {0, 1, 7, N_SHARDS}, members
+    that share leaves and (but at S = N_SHARDS) members that do not,
+    exact; then timed at the served 5-call query's two K1 members (the
+    2-leaf chain of Intersect(Row(f=1), Row(g=1)) and the 2-leaf union of
+    Union(Row(f=2), Row(g=2))) at S = N_SHARDS, L2 flushed, beside the
+    same members as two single K1 launches. Returns (max_abs_err, timing
+    dict at the served members)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    kinds = _multi_sigs(k1)
+    max_err = n_cases = 0
+    for s in (0, 1, 7, N_SHARDS):
+        pool = torch.randint(-(1 << 31), (1 << 31) - 1,
+                             (K1M_POOL, s, words), dtype=torch.int32,
+                             device=dev, generator=gen)
+        if s:
+            pool[:, :, 0] = -1                # 0xFFFFFFFF
+            pool[:, :, 1] = -(1 << 31)        # 0x80000000
+            pool[:, s // 2, 2:6] = torch.tensor(
+                [-1, -(1 << 31), 0, (1 << 31) - 1], dtype=torch.int32,
+                device=dev)
+        leaves = [pool[i] for i in range(K1M_POOL)]
+        for n in K1M_SIZES:
+            for shared in (True, False) if s < N_SHARDS else (True,):
+                sigs = [kinds[q % len(kinds)] for q in range(n)]
+                slots = [max(k1._leaf_slots(sig, {})) + 1 for sig in sigs]
+                if shared:
+                    members = [[leaves[(3 * q + i) % K1M_POOL]
+                                for i in range(k)]
+                               for q, k in enumerate(slots)]
+                else:
+                    own = torch.randint(
+                        -(1 << 31), (1 << 31) - 1, (sum(slots), s, words),
+                        dtype=torch.int32, device=dev, generator=gen)
+                    members, off = [], 0
+                    for k in slots:
+                        members.append([own[off + i] for i in range(k)])
+                        off += k
+                before = k1.count_expr_multi.launches
+                got = k1.count_expr_multi(sigs, members)
+                torch.cuda.synchronize()
+                want = k1.count_expr_multi_reference(sigs, members)
+                step = k1.count_expr_multi.launches - before
+                if step != (1 if s else 0):
+                    raise AssertionError(
+                        f"multi-tree K1 at n={n} S={s}: {step} launches")
+                err = int((got - want).abs().max())
+                max_err = max(max_err, err)
+                n_cases += 1
+                if err or got.shape != (n,):
+                    raise AssertionError(
+                        f"multi-tree K1 != plain at n={n} S={s} shared="
+                        f"{shared}: {got.tolist()} vs {want.tolist()}")
+        del leaves, pool
+        torch.cuda.empty_cache()
+    log(f"kernels: multi-tree K1 == plain on {n_cases} cases (n in "
+        f"{list(K1M_SIZES)} members of chain, tree, lone-leaf and fitted "
+        f"17-slot programs; S in 0,1,7,{N_SHARDS}; shared and own leaves; "
+        f"S = 0 without a launch)")
+
+    sigs = [k1.chain_signature(2, "&"), k1.chain_signature(2, "|")]
+    four = torch.randint(-(1 << 31), (1 << 31) - 1, (4, N_SHARDS, words),
+                         dtype=torch.int32, device=dev, generator=gen)
+    members = [[four[0], four[1]], [four[2], four[3]]]
+    nbytes = multi_bytes(k1, sigs, members, N_SHARDS, words)
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    junk = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    prog = k1.MultiProgram()
+
+    def multi():
+        junk.fill_(1)
+        return k1.count_expr_multi(sigs, members, program=prog)
+
+    def singles():
+        junk.fill_(1)
+        return [k1.count_expr(sig, m) for sig, m in zip(sigs, members)]
+
+    all_ms, kernel_only, names = traced_call_ms(torch, multi, 20,
+                                                "count_multi_kernel")
+    single_ms = traced_call_ms(torch, singles, 20, "count_chain_kernel")
+    call_ms = time_cuda(
+        torch, lambda: k1.count_expr_multi(sigs, members, program=prog), 20)
+    plain_ms = time_cuda(
+        torch, lambda: k1.count_expr_multi_reference(sigs, members), 5)
+    log(f"kernels: multi-tree K1 at the served members (2-leaf chain + "
+        f"2-leaf union, S={N_SHARDS}, {nbytes} bytes), L2 flushed: "
+        f"{all_ms * 1e3:.2f} us device per call over {sorted(set(names))} "
+        f"({kernel_only * 1e3:.2f} us in the kernel; {bound_ms / all_ms:.0%} "
+        f"of the bound), {call_ms * 1e3:.2f} us per call by events; the "
+        f"same members as 2 single K1 launches: {single_ms[0] * 1e3:.2f} us "
+        f"device ({single_ms[1] * 1e3:.2f} us in the kernels); bound "
+        f"{bound_ms * 1e3:.2f} us at 3.35 TB/s; plain {plain_ms * 1e3:.2f} "
+        f"us; card {card}")
+    timing = {"ms": all_ms, "kernel_ms": kernel_only,
+              "single_ms": single_ms[0], "call_ms": call_ms,
+              "plain_ms": plain_ms, "bytes": nbytes, "bound_ms": bound_ms,
+              "bound_by": "bytes"}
+    del four, members, junk
+    torch.cuda.empty_cache()
     return max_err, timing
 
 
@@ -3491,6 +3656,323 @@ def serve_ingest_plan(srv, k1, k2, k3, k4, k5, planes, comp, set_at, tg,
         ad.stop()
         api_ad.close()
     log(f"ingest/plan: phase in {time.perf_counter() - t_phase:.1f} s")
+    return out, {"f1": f1, "f2": f2, "f10": f10}
+
+
+FUSION_QUERY = ("Count(Intersect(Row(f=1), Row(g=1))) "
+                "Count(Union(Row(f=2), Row(g=2))) "
+                "Count(Row(f=10)) "
+                "Count(Intersect(Row(f=10), Row(g=10))) "
+                "Count(Intersect(Row(f=20), Row(g=20)))")
+FUSION_MIN_HITS = 2  # --fusion-min-hits of the fused server
+AB_QUERIES = 100  # warm queries a side and round of each A/B
+AB_ROUNDS = 2  # rounds of each A/B, the side that goes first alternating
+ADMISSION_CAPACITY = 2000.0  # --admission-capacity of the A/B server
+SHED_CAPACITY = 1.0  # --admission-capacity of the shedding server
+SHED_BURST = 24  # GroupBy queries of the shedding burst, from 8 threads
+
+
+def serve_fusion_admission(srv, k1, k2, k4, planes, comp, truth, tg, card):
+    """Whole-plan fusion and admission control on the card, over index b
+    (954 shards) and tg, every answer against numpy, on servers of their
+    own over the main server's holder (the state the earlier phases
+    left: `truth` holds f rows 1, 2 and 10 as serve_ingest_plan wrote
+    them):
+
+    - fusion: an API built as `--fusion on --fusion-min-hits 2` builds
+      serves FUSION_QUERY (a dense chain, a dense union, a sparse leaf, a
+      sparse pair, a run-length pair): its first two runs are interpreted
+      (a cold fingerprint builds no program), the third builds the
+      program (the `compile` dispatch), and every run from then on is
+      ONE fused dispatch: exactly one launch of K1's multi-tree entry, no
+      single K1 launch and two K2 launches; /debug/fusion shows the one
+      program with its hits and compile_ms; `?explain=true` launches
+      nothing and marks every node fused; the SLOW QUERY line says
+      fused=5; then the warm p50 of the query fused against the same
+      query interpreted (--fusion off), in turns;
+    - admission: an API built as `--admission on --admission-capacity
+      2000` against the fused server's API with admission off: the warm
+      headline Count's p50, in turns; an API built as `--admission on
+      --admission-capacity 1 --admission-queue-depth 2
+      --admission-queue-timeout 2s`: a burst of GroupBy(Rows(a),
+      Rows(b)) over tg from 8 threads sheds with 503, Retry-After and
+      X-Pilosa-Shed: admission, K4 launching once for each query served;
+      a Count whose X-Request-Deadline lapses in the admission queue
+      answers 504 with every launch counter flat; X-Query-Class: bogus
+      answers 400; /debug/admission and /status's admission block.
+
+    Returns the numbers it printed."""
+    from pilosa_tpu_torch.exec import ExecOptions, fusion
+    from pilosa_tpu_torch.pql import parse
+    from pilosa_tpu_torch.server.api import API
+    from pilosa_tpu_torch.server.http_server import PilosaHTTPServer
+    from pilosa_tpu_torch.utils.logger import CaptureLogger
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    f1, f2, f10 = truth["f1"], truth["f2"], truth["f10"]
+    g1 = np.tile(planes[("g", 1)], (N_SHARDS, 1))
+    g2 = np.tile(planes[("g", 2)], (N_SHARDS, 1))
+    g10, f20, g20 = comp[("g", 10)], comp[("f", 20)], comp[("g", 20)]
+    want = [popcount(f1 & g1), popcount(f2 | g2), popcount(f10),
+            popcount(f10 & g10), popcount(f20 & g20)]
+    headline = "Count(Intersect(Row(f=1), Row(g=1)))"
+
+    def launches():
+        return (k1.count_expr_multi.launches, k1.count_expr.launches,
+                k2_launches(k2), k4.pairwise_counts.launches)
+
+    def serve(api):
+        return PilosaHTTPServer(api, host="127.0.0.1", port=0).start()
+
+    def query(uri, pql, want_, path="/index/b/query"):
+        got = http(uri, path, pql)["results"]
+        if got != want_:
+            raise AssertionError(f"{pql[:60]}: {got} (numpy {want_})")
+
+    def moved(before):
+        return tuple(a - b for a, b in zip(launches(), before))
+
+    def ab(sides, pql, want_):
+        """Warm client walls of `pql` per side, AB_ROUNDS rounds of
+        AB_QUERIES queries a side, the first side alternating. `sides`
+        maps a name to (uri, setup) — setup runs before the side's
+        round."""
+        lat = {name: [] for name in sides}
+        order = list(sides)
+        for rnd in range(AB_ROUNDS):
+            for name in order if rnd % 2 == 0 else order[::-1]:
+                uri, setup = sides[name]
+                setup()
+                query(uri, pql, want_)  # warm
+                for _ in range(AB_QUERIES):
+                    t0 = time.perf_counter()
+                    http(uri, "/index/b/query", pql)
+                    lat[name].append(time.perf_counter() - t0)
+        return {name: _pct_ms(v, 0.50) for name, v in lat.items()}
+
+    # -- whole-plan fusion -------------------------------------------------
+    fusion.reset()
+    fusion.configure(mode="on", min_hits=FUSION_MIN_HITS)
+    api_f = API(srv.holder, device=srv.api.device)
+    fsrv = serve(api_f)
+    try:
+        steps = []
+        for i in range(2):  # cold fingerprint: interpreted
+            before = launches()
+            t0 = time.perf_counter()
+            query(fsrv.uri, FUSION_QUERY, want)
+            steps.append((moved(before), time.perf_counter() - t0))
+        dec = fusion.decision_counts()
+        if dec["interpreted_cold"] != 2 or fusion.snapshot()["entries"] \
+                or any(m != (0, 2, 2, 0) for m, _ in steps):
+            raise AssertionError(f"cold runs: {steps}, decisions {dec}")
+        before = launches()
+        t0 = time.perf_counter()
+        query(fsrv.uri, FUSION_QUERY, want)  # the program's build
+        build_ms = (time.perf_counter() - t0) * 1e3
+        if moved(before) != (1, 0, 2, 0):
+            raise AssertionError(f"building run launched {moved(before)}")
+        warm = []
+        for _ in range(10):
+            before = launches()
+            query(fsrv.uri, FUSION_QUERY, want)
+            warm.append(moved(before))
+        if any(m != (1, 0, 2, 0) for m in warm):
+            raise AssertionError(f"warm fused runs launched {warm}")
+        snap = http(fsrv.uri, "/debug/fusion")
+        prog = snap["programs"][0] if snap["programs"] else {}
+        if snap["entries"] != 1 or prog.get("calls") != 5 \
+                or prog.get("hits") != 11 or not prog.get("compile_ms"):
+            raise AssertionError(f"/debug/fusion: {snap}")
+        fam = api_f.executor._stacked.dispatch_phases().get("fused", {})
+        out["compile_ms"] = prog["compile_ms"]
+        log(f"fusion: {FUSION_QUERY} over {N_SHARDS} shards = {want} "
+            f"(numpy); runs 1-2 interpreted (cold fingerprint; K1 2, K2 2 "
+            f"each, {steps[0][1] * 1e3:.1f} and {steps[1][1] * 1e3:.1f} ms),"
+            f" run 3 built the program in {build_ms:.1f} ms (compile_ms "
+            f"{prog['compile_ms']}), runs 4-13 one fused dispatch each: "
+            f"multi-tree K1 1, single K1 0, K2 2; /debug/fusion: "
+            f"{snap['entries']} program, {prog['hits']} hits, decisions "
+            f"{snap['decisions']}; fused phases {sorted(fam)}; card {card}")
+
+        before = launches()
+        plan = http(fsrv.uri, "/index/b/query?explain=true", FUSION_QUERY)
+        anns = [n["annotations"] for n in plan["plan"]["calls"]]
+        if plan["results"] != [] or moved(before) != (0, 0, 0, 0) \
+                or not all(a.get("fused") is True
+                           and a.get("fusion_program") == "cached"
+                           for a in anns):
+            raise AssertionError(f"explain=true: {moved(before)}, {anns}")
+        log(f"fusion: ?explain=true launched nothing and marked all "
+            f"{len(anns)} nodes fused (program cached, fingerprint "
+            f"{anns[0]['fusion_fingerprint']})")
+
+        slow = CaptureLogger()
+        api_f.logger, api_f.long_query_time = slow, 0.0
+        query(fsrv.uri, FUSION_QUERY, want)
+        api_f.logger, api_f.long_query_time = srv.api.logger, None
+        line = [ln for ln in slow.lines if "SLOW QUERY" in ln][-1]
+        if " fused=5 " not in line:
+            raise AssertionError(f"SLOW QUERY line: {line}")
+        log(f"fusion: SLOW QUERY line carries fused=5: "
+            f"{line.split(' plan=')[0][-60:]}")
+
+        def side(mode):
+            return lambda: fusion.configure(mode=mode)
+
+        before = launches()
+        p50 = ab({"on": (fsrv.uri, side("on")),
+                  "off": (fsrv.uri, side("off"))}, FUSION_QUERY, want)
+        fusion.configure(mode="on")
+        out["fused_p50_ms"], out["interpreted_p50_ms"] = p50["on"], p50["off"]
+        log(f"fusion: warm {FUSION_QUERY[:40]}... p50 fused "
+            f"{p50['on']:.3f} ms vs interpreted (--fusion off) "
+            f"{p50['off']:.3f} ms ({p50['on'] / p50['off']:.3f}x), "
+            f"{AB_ROUNDS} rounds x {AB_QUERIES} queries a side in turns, "
+            f"one server; launches over the A/B (multi, K1, K2, K4) "
+            f"{moved(before)}; card {card}")
+        n_on = n_off = AB_ROUNDS * (AB_QUERIES + 1)
+        if moved(before) != (n_on, 2 * n_off, 2 * (n_on + n_off), 0):
+            raise AssertionError(f"A/B launches {moved(before)}")
+
+        # -- admission ---------------------------------------------------
+        fusion.configure(mode="off")
+        api_a = API(srv.holder, device=srv.api.device, admission="on",
+                    admission_capacity=ADMISSION_CAPACITY)
+        asrv = serve(api_a)
+        try:
+            want_h = [popcount(f1 & g1)]
+            query(asrv.uri, headline, want_h)  # cold: this API's leaves
+            p50 = ab({"off": (fsrv.uri, lambda: None),
+                      "on": (asrv.uri, lambda: None)}, headline, want_h)
+            snap = http(asrv.uri, "/debug/admission")
+            cls = snap["classes"]["interactive"]
+            out["admission_off_p50_ms"] = p50["off"]
+            out["admission_on_p50_ms"] = p50["on"]
+            if cls["rejected"] or cls["expired_dropped"]:
+                raise AssertionError(f"the A/B was shed: {snap}")
+            # the gate's own host work: the planner's price of the query
+            # (no launch), called as _admit_query calls it
+            before = launches()
+            parsed, walls = parse(headline), []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                api_a._admission.price(api_a.executor,
+                                       srv.holder.index("b"), parsed,
+                                       None, ExecOptions())
+                walls.append(time.perf_counter() - t0)
+            if moved(before) != (0, 0, 0, 0):
+                raise AssertionError(f"price() launched {moved(before)}")
+            out["price_p50_ms"] = _pct_ms(walls, 0.50)
+            log(f"admission: warm {headline} p50 admission off "
+                f"{p50['off']:.3f} ms vs on (capacity "
+                f"{ADMISSION_CAPACITY:g} ms/s) {p50['on']:.3f} ms "
+                f"({p50['on'] / p50['off']:.3f}x), {AB_ROUNDS} rounds x "
+                f"{AB_QUERIES} queries a side in turns; admitted "
+                f"{cls['admitted']}, queued {cls['queued_total']}, "
+                f"calibration {snap['calibration']}; the price alone "
+                f"(the planner, no launch) p50 {out['price_p50_ms']:.3f} ms "
+                f"over 20 calls; card {card}")
+        finally:
+            asrv.stop()
+            api_a.close()
+
+        api_s = API(srv.holder, device=srv.api.device, admission="on",
+                    admission_capacity=SHED_CAPACITY,
+                    admission_queue_depth=2, admission_queue_timeout=2.0)
+        ssrv = serve(api_s)
+        try:
+            gb = "GroupBy(Rows(a), Rows(b))"
+            gb_want = topn_expect(tg)[gb]
+            answers = []
+            lock = threading.Lock()
+            before = launches()
+
+            def one():
+                st, hd, body = _status_headers(ssrv.uri, "/index/tg/query",
+                                               gb, method="POST")
+                with lock:
+                    answers.append((st, hd, body))
+
+            threads = [threading.Thread(target=one) for _ in range(SHED_BURST)]
+            t0 = time.perf_counter()
+            for i, t in enumerate(threads):
+                t.start()
+                if i % 8 == 7:
+                    time.sleep(0.01)
+            for t in threads:
+                t.join(timeout=60)
+            burst_s = time.perf_counter() - t0
+            ok = [a for a in answers if a[0] == 200]
+            shed = [a for a in answers if a[0] == 503]
+            if len(answers) != SHED_BURST or not ok or not shed \
+                    or len(ok) + len(shed) != SHED_BURST:
+                raise AssertionError(
+                    f"burst: {[a[0] for a in answers]}")
+            for st, hd, body in ok:
+                if json.loads(body)["results"] != [gb_want]:
+                    raise AssertionError(f"{gb}: {body[:200]}")
+            for st, hd, body in shed:
+                if hd.get("X-Pilosa-Shed") != "admission" \
+                        or float(hd.get("Retry-After", 0)) < 1:
+                    raise AssertionError(f"shed answer {dict(hd)}")
+            if moved(before)[3] != len(ok):
+                raise AssertionError(f"K4 launched {moved(before)[3]} "
+                                     f"times for {len(ok)} answers")
+            out["burst_served"], out["burst_shed"] = len(ok), len(shed)
+            log(f"admission: a burst of {SHED_BURST} {gb} over tg from 8 "
+                f"threads at capacity {SHED_CAPACITY:g} ms/s, queue depth "
+                f"2, queue timeout 2 s: {len(ok)} served (numpy; K4 "
+                f"{moved(before)[3]}), {len(shed)} shed with 503, "
+                f"Retry-After {shed[0][1].get('Retry-After')} and "
+                f"X-Pilosa-Shed: admission, in {burst_s:.2f} s")
+
+            # a dry interactive bucket, as a steady overload leaves it:
+            # the Count must wait in the queue, where its deadline lapses
+            adm = api_s._admission
+            with adm._lock:
+                bucket = adm.buckets["interactive"]
+                bucket.refill(time.monotonic())
+                bucket.tokens = 0.0
+            before = launches()
+            t0 = time.perf_counter()
+            st, _, body = _status_headers(
+                ssrv.uri, "/index/b/query", headline, method="POST",
+                headers={"X-Request-Deadline": "200ms"})
+            waited = time.perf_counter() - t0
+            snap = http(ssrv.uri, "/debug/admission")
+            if st != 504 or moved(before) != (0, 0, 0, 0) \
+                    or snap["classes"]["interactive"]["expired_dropped"] < 1:
+                raise AssertionError(f"deadline in queue: {st} {body[:200]}"
+                                     f" launches {moved(before)}")
+            log(f"admission: {headline} with X-Request-Deadline 200ms on a "
+                f"dry bucket: 504 after {waited * 1e3:.0f} ms in the queue "
+                f"({json.loads(body)['error'][:60]}), launch counters flat")
+            st, _, body = _status_headers(
+                ssrv.uri, "/index/b/query", headline, method="POST",
+                headers={"X-Query-Class": "bogus"})
+            if st != 400 or b"X-Query-Class" not in body:
+                raise AssertionError(f"X-Query-Class bogus: {st} {body}")
+            status = http(ssrv.uri, "/status")
+            rolled = status["observability"]["local"]["admission"]
+            if rolled["state"] != "NORMAL" or not rolled["rejected"]:
+                raise AssertionError(f"/status admission: {rolled}")
+            classes = {c: {k: v[k] for k in ("admitted", "rejected",
+                                              "expired_dropped")}
+                       for c, v in snap["classes"].items()}
+            log(f"admission: X-Query-Class: bogus answered 400; "
+                f"/debug/admission state {snap['state']}, classes "
+                f"{classes}; /status admission {rolled}")
+        finally:
+            ssrv.stop()
+            api_s.close()
+    finally:
+        fsrv.stop()
+        api_f.close()
+        fusion.reset()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"fusion/admission: phase in {out['seconds']:.1f} s")
     return out
 
 
@@ -3539,6 +4021,8 @@ def main():
     errs["count_blocks"] = check_k2(torch, k2, card)
     errs["count_expr_batch"], timings["count_expr_batch"] = check_k1_batch(
         torch, k1, WORDS_PER_ROW, card)
+    errs["count_expr_multi"], timings["count_expr_multi"] = check_k1_multi(
+        torch, k1, WORDS_PER_ROW, card)
     log(f"kernels: {list(ENTRIES)}")
 
     mods = {"count_expr": k1.count_expr, "row_counts": k3.row_counts,
@@ -3546,7 +4030,8 @@ def main():
             "bsi_range": k5.bsi_range_mask,
             "count_blocks": k2.count_blocks,
             "count_and_blocks": k2.count_and_blocks,
-            "count_expr_batch": k1.count_expr_batch}
+            "count_expr_batch": k1.count_expr_batch,
+            "count_expr_multi": k1.count_expr_multi}
     launches = {}
     tmp = tempfile.mkdtemp(prefix="pilosa-torch-smoke-")
     co_dir = tempfile.mkdtemp(prefix="pilosa-torch-smoke-co-")
@@ -3628,7 +4113,7 @@ def main():
             launches["row_counts"] += k3.row_counts.launches
             launches["pairwise_counts"] += k4.pairwise_counts.launches
             reset_counters(mods)  # the ingest and planner phase starts here
-            ingest_plan = serve_ingest_plan(
+            ingest_plan, truth = serve_ingest_plan(
                 srv, k1, k2, k3, k4, k5, planes, comp, set_at, tg, tg_set,
                 bsi_state, card)
             log("ingest-json: " + json.dumps(ingest_plan))
@@ -3637,6 +4122,14 @@ def main():
             launches["row_counts"] += k3.row_counts.launches
             launches["pairwise_counts"] += k4.pairwise_counts.launches
             launches["bsi_range"] += k5.bsi_range_mask.launches
+            reset_counters(mods)  # the fusion and admission phase starts
+            fa = serve_fusion_admission(srv, k1, k2, k4, planes, comp,
+                                        truth, tg, card)
+            log("fusion-json: " + json.dumps(fa))
+            launches["count_expr_multi"] = k1.count_expr_multi.launches
+            launches["count_expr"] += k1.count_expr.launches
+            launches["count_blocks"] += k2_launches(k2)
+            launches["pairwise_counts"] += k4.pairwise_counts.launches
         finally:
             srv.stop()
     finally:
@@ -3653,13 +4146,17 @@ def main():
                "bsi_range": "pilosa_tpu/ops/pallas_kernels.py:493",
                "count_blocks": "pilosa_tpu/ops/pallas_kernels.py:235",
                "count_expr_batch": "pilosa_tpu/ops/pallas_kernels.py:141, "
-                                   "vmapped by pilosa_tpu/exec/stacked.py:1620"}
+                                   "vmapped by pilosa_tpu/exec/stacked.py:1620",
+               "count_expr_multi": "pilosa_tpu/ops/pallas_kernels.py:141, "
+                                   "traced per call by pilosa_tpu/exec/"
+                                   "stacked.py:1452 (fused_count_fn)"}
     log(card)
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": "pilosa_tpu_torch/csrc/"
-                  f"{'count_expr' if name == 'count_expr_batch' else name}.cu",
+                  f"{'count_expr' if name.startswith('count_expr') else name}"
+                  ".cu",
         "replaces": sources[name],
         "launches": launches[name],
         "max_abs_err": errs[name],

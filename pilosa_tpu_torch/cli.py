@@ -30,7 +30,12 @@ starts the streaming ingest engine (imports fold into the resident
 stacks once an interval, off the read path); `--adaptive off|on|shadow`
 the adaptive engine (priced strategies, K4 tiles, heat-scored
 eviction); `--plan-ring-size` and `--explain-misestimate-factor` size
-and tune the EXPLAIN ANALYZE ring. It runs on `cuda` unless
+and tune the EXPLAIN ANALYZE ring; `--fusion off|on|shadow` (with
+`--fusion-cache-size`, `--fusion-min-hits`) whole-plan fusion, a
+multi-Count query as one fused dispatch; `--admission on` (with
+`--admission-capacity`, `--admission-queue-depth`,
+`--admission-queue-timeout`) the admission controller and its
+degradation ladder. It runs on `cuda` unless
 `--device cpu` is given, and exits with an error when no CUDA device is
 present and the CPU was not asked for.
 `holder`, `inspect` and `check` read files only and touch no device.
@@ -114,7 +119,10 @@ def _apply_server_flags(config, args):
                  "device_probe_interval", "device_probe_deadline",
                  "slo", "slo_burn_threshold", "plan_ring_size",
                  "explain_misestimate_factor", "adaptive",
-                 "ingest_merge_interval"):
+                 "fusion", "fusion_cache_size", "fusion_min_hits",
+                 "ingest_merge_interval",
+                 "admission", "admission_capacity",
+                 "admission_queue_depth", "admission_queue_timeout"):
         val = getattr(args, flag, None)
         if val is not None:
             config[flag.replace("_", "-")] = val
@@ -253,6 +261,21 @@ def start_server(argv):
         from .exec import adaptive as adaptive_mod
 
         adaptive_mod.configure(mode=str(amode))
+    # Whole-plan fusion (exec/fusion.py module state): "on" serves an
+    # eligible query's every top-level Count as ONE fused dispatch,
+    # its program cached by workload fingerprint; "shadow" counts what
+    # would fuse without building anything; the default "off" keeps the
+    # per-call loop. Applied here so a bad mode fails at start.
+    fmode = config.get("fusion")
+    fcache = config.get("fusion-cache-size")
+    fhits = config.get("fusion-min-hits")
+    if fmode is not None or fcache is not None or fhits is not None:
+        from .exec import fusion as fusion_mod
+
+        fusion_mod.configure(
+            mode=str(fmode) if fmode is not None else None,
+            cache_size=int(fcache) if fcache is not None else None,
+            min_hits=int(fhits) if fhits is not None else None)
     host, _, port = str(config["bind"]).rpartition(":")
     data_dir = os.path.expanduser(config["data-dir"])
 
@@ -281,6 +304,10 @@ def start_server(argv):
         lqt = config.get("long-query-time")
         # streaming ingest engine: interval 0 — the default — builds none
         imi = config.get("ingest-merge-interval")
+        # admission control: off — the default — builds no controller
+        adm_cap = config.get("admission-capacity")
+        adm_qd = config.get("admission-queue-depth")
+        adm_qt = config.get("admission-queue-timeout")
         api = API(holder, device=device,
                   coalesce_window=parse_duration(str(cw)) if cw else 0.0,
                   coalesce_max_queue=int(config.get("coalesce-max-queue",
@@ -289,7 +316,12 @@ def start_server(argv):
                       config.get("max-writes-per-request", 0)),
                   oplog=oplog,
                   long_query_time=parse_duration(str(lqt)) if lqt else None,
-                  ingest_interval=parse_duration(str(imi)) if imi else 0.0)
+                  ingest_interval=parse_duration(str(imi)) if imi else 0.0,
+                  admission=str(config.get("admission", "off")).lower(),
+                  admission_capacity=float(adm_cap) if adm_cap else None,
+                  admission_queue_depth=int(adm_qd) if adm_qd else None,
+                  admission_queue_timeout=parse_duration(str(adm_qt))
+                  if adm_qt else None)
         # Crash recovery BEFORE serving: re-apply acked writes the previous
         # process died holding, so the first query already sees them.
         replayed = api.replay_oplog()
@@ -350,10 +382,11 @@ def start_server(argv):
             max_incidents=int(inc_max) if inc_max is not None
             else incident.DEFAULT_MAX_INCIDENTS,
             logger=StandardLogger())
-        # a bundle surface that lives on an instance, not a module
+        # bundle surfaces that live on instances, not modules
         incidents.register_collector(
             "oplog", lambda: (dict(oplog.summary(), enabled=True)
                               if oplog is not None else {"enabled": False}))
+        incidents.register_collector("admission", api.admission_stats)
     # Device-link prober: a canary launch on the executor's device every
     # interval drives /readyz and the query fail-fast gate. Off unless
     # an interval is set: then the module launches nothing.
@@ -853,6 +886,44 @@ def _server_flags(p):
                         "+ fragment heat; shadow computes and logs "
                         "decisions without acting; off (default) keeps "
                         "the static paths")
+    p.add_argument("--fusion", default=None,
+                   choices=["off", "on", "shadow"],
+                   help="whole-plan fusion: on serves an eligible "
+                        "query's every top-level Count as ONE fused "
+                        "dispatch (K1's multi-tree entry for the dense "
+                        "trees), its program cached by workload "
+                        "fingerprint (a cold fingerprint never builds "
+                        "one); shadow counts what would fuse without "
+                        "building; off (default) keeps the per-call loop")
+    p.add_argument("--fusion-cache-size", type=int, default=None,
+                   help="bounded LRU of fused programs per process "
+                        "(default 64); eviction drops the program table, "
+                        "so re-entry rebuilds it")
+    p.add_argument("--fusion-min-hits", type=int, default=None,
+                   help="completed queries a workload fingerprint needs "
+                        "before its first fused program build "
+                        "(default 2); raise it when /debug/fusion shows "
+                        "builds outnumbering cache hits")
+    p.add_argument("--admission", default=None,
+                   choices=["off", "on"],
+                   help="cost-aware admission control + degradation "
+                        "ladder: classifies queries (X-Query-Class / "
+                        "PQL shape), prices them through the EXPLAIN "
+                        "cost model, debits per-class token buckets, "
+                        "queues bounded past capacity, and degrades "
+                        "NORMAL->SHED_BATCH->STALE_OK->LIFEBOAT on SLO "
+                        "burn / device health; off (default) admits "
+                        "everything")
+    p.add_argument("--admission-capacity", type=float, default=None,
+                   help="admission token refill rate in device-ms per "
+                        "second (default 1000 = one device's worth); "
+                        "split interactive/batch/internal 60/30/10")
+    p.add_argument("--admission-queue-depth", type=int, default=None,
+                   help="bounded admission queue per class: past it, "
+                        "queries get 503 + Retry-After (default 64)")
+    p.add_argument("--admission-queue-timeout", default=None,
+                   help="max time a query waits for admission tokens "
+                        "before 503 (e.g. 5s; default 5s)")
     p.add_argument("--plan-ring-size", type=int, default=None,
                    help="retained misestimated EXPLAIN ANALYZE plans "
                         "(GET /debug/plans; default 128)")

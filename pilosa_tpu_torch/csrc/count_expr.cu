@@ -90,10 +90,13 @@ __device__ __forceinline__ void block_reduce_add(unsigned long long total,
     if (threadIdx.x < K1_MAX_PROG) s_code[threadIdx.x] = prog.code[threadIdx.x];   \
     __syncthreads()
 
-__global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS_PER_SM)
-count_chain_kernel(Leaves leaves, Program prog, int prog_len, long long n_vec,
-                   unsigned long long* out) {
-    K1_STAGE_PARAMS();
+// The chain loop: one accumulator per vector, K1_ILP vectors in flight per
+// thread per step; the program is L0 L1 op L2 op ... in shared memory.
+// Returns this thread's popcount over its grid-stride share of the words
+// (the x dimension of the grid strides; y, where used, picks a member).
+__device__ __forceinline__ unsigned long long chain_total(
+    const uint4* const* s_ptr, const uint8_t* s_code, int prog_len,
+    long long n_vec) {
     unsigned long long total = 0;
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long base = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -121,7 +124,14 @@ count_chain_kernel(Leaves leaves, Program prog, int prog_len, long long n_vec,
         #pragma unroll
         for (int u = 0; u < K1_ILP; ++u) total += popc4(acc[u]);
     }
-    block_reduce_add(total, out);
+    return total;
+}
+
+__global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS_PER_SM)
+count_chain_kernel(Leaves leaves, Program prog, int prog_len, long long n_vec,
+                   unsigned long long* out) {
+    K1_STAGE_PARAMS();
+    block_reduce_add(chain_total(s_ptr, s_code, prog_len, n_vec), out);
 }
 
 // Register stack: named slots behind a switch on the (uniform) depth.
@@ -149,10 +159,11 @@ count_chain_kernel(Leaves leaves, Program prog, int prog_len, long long n_vec,
         default: (out) = r7; break;                    \
     }
 
-__global__ void __launch_bounds__(K1_THREADS)
-count_tree_kernel(Leaves leaves, Program prog, int prog_len, long long n_vec,
-                  unsigned long long* out) {
-    K1_STAGE_PARAMS();
+// The register-stack loop for any other tree, one vector per thread per
+// step; same contract as chain_total.
+__device__ __forceinline__ unsigned long long tree_total(
+    const uint4* const* s_ptr, const uint8_t* s_code, int prog_len,
+    long long n_vec) {
     unsigned long long total = 0;
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -177,7 +188,14 @@ count_tree_kernel(Leaves leaves, Program prog, int prog_len, long long n_vec,
         }
         total += popc4(r0);
     }
-    block_reduce_add(total, out);
+    return total;
+}
+
+__global__ void __launch_bounds__(K1_THREADS)
+count_tree_kernel(Leaves leaves, Program prog, int prog_len, long long n_vec,
+                  unsigned long long* out) {
+    K1_STAGE_PARAMS();
+    block_reduce_add(tree_total(s_ptr, s_code, prog_len, n_vec), out);
 }
 
 // One full wave: as many blocks as can be resident at once, so every
@@ -270,33 +288,8 @@ count_chain_batch_kernel(const long long* table, int n_leaves, Program prog,
                          int prog_len, long long n_vec,
                          unsigned long long* out) {
     K1B_STAGE_PARAMS();
-    unsigned long long total = 0;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long base = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         base < n_vec; base += stride * K1_ILP) {
-        uint4 acc[K1_ILP];
-        const uint4* p0 = s_ptr[s_code[0]];
-        #pragma unroll
-        for (int u = 0; u < K1_ILP; ++u) {
-            const long long i = base + u * stride;
-            acc[u] = i < n_vec ? __ldcs(p0 + i) : make_uint4(0, 0, 0, 0);
-        }
-        for (int pc = 1; pc < prog_len; pc += 2) {
-            const uint4* p = s_ptr[s_code[pc]];
-            const int op = s_code[pc + 1];
-            uint4 v[K1_ILP];
-            #pragma unroll
-            for (int u = 0; u < K1_ILP; ++u) {
-                const long long i = base + u * stride;
-                v[u] = i < n_vec ? __ldcs(p + i) : make_uint4(0, 0, 0, 0);
-            }
-            #pragma unroll
-            for (int u = 0; u < K1_ILP; ++u) acc[u] = combine(op, acc[u], v[u]);
-        }
-        #pragma unroll
-        for (int u = 0; u < K1_ILP; ++u) total += popc4(acc[u]);
-    }
-    block_reduce_add(total, out + blockIdx.y);
+    block_reduce_add(chain_total(s_ptr, s_code, prog_len, n_vec),
+                     out + blockIdx.y);
 }
 
 __global__ void __launch_bounds__(K1_THREADS)
@@ -304,31 +297,8 @@ count_tree_batch_kernel(const long long* table, int n_leaves, Program prog,
                         int prog_len, long long n_vec,
                         unsigned long long* out) {
     K1B_STAGE_PARAMS();
-    unsigned long long total = 0;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < n_vec; i += stride) {
-        uint4 r0, r1, r2, r3, r4, r5, r6, r7;
-        r0 = r1 = r2 = r3 = r4 = r5 = r6 = r7 = make_uint4(0, 0, 0, 0);
-        int sp = 0;
-        for (int pc = 0; pc < prog_len; ++pc) {
-            const int c = s_code[pc];
-            if (c < K1_MAX_LEAVES) {
-                const uint4 v = __ldcs(s_ptr[c] + i);
-                K1_SET(sp, v);
-                ++sp;
-            } else {
-                uint4 a, b;
-                K1_GET(sp - 1, b);
-                K1_GET(sp - 2, a);
-                const uint4 v = combine(c, a, b);
-                K1_SET(sp - 2, v);
-                --sp;
-            }
-        }
-        total += popc4(r0);
-    }
-    block_reduce_add(total, out + blockIdx.y);
+    block_reduce_add(tree_total(s_ptr, s_code, prog_len, n_vec),
+                     out + blockIdx.y);
 }
 
 // Plain C entry point, bound with ctypes. `table` is a device [n_members,
@@ -370,5 +340,85 @@ extern "C" int count_expr_batch_launch(const unsigned char* code, int code_len,
                                   K1_THREADS, 0, s>>>(
             tab, n_leaves, prog, code_len, n_vec, o);
     }
+    return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K1's multi-tree entry: n trees of DIFFERENT programs, each over its own
+// leaves, in one launch.
+//
+// Replaces the TPU package's whole-plan fusion program `fused_count_fn`
+// (pilosa_tpu/exec/stacked.py:1452), which traces every top-level Count of a
+// query through `containers.count_program`, and so through K1's function
+// (`count_expr_stack`, pilosa_tpu/ops/pallas_kernels.py:141, body
+// `_count_expr_kernel` :85), into one XLA program.
+//
+// Member m has its own postfix program and leaves. A program table on the
+// device holds, per member, one descriptor of K1M_DESC int32 (code offset,
+// code length, leaf offset, leaf count, chain flag), then every member's
+// code bytes; a second device array holds every member's int64 leaf
+// pointers, concatenated. The grid is (blocks per member, n): a resident
+// wave's blocks split evenly over the members. Each block stages its own
+// member's code and pointers in shared memory (runtime-indexed kernel
+// parameters would sit in local memory, ROADMAP trap 6), runs K1's chain
+// loop or its register-stack loop over that member's words (the branch is
+// uniform per block), and adds its block sum into out[m] with one 64-bit
+// atomicAdd.
+//
+// Bound: memory, as K1: every member's leaf words read once (a leaf shared
+// by two members is read once by each), plus the table and the n totals.
+
+#define K1M_DESC 5
+
+__global__ void __launch_bounds__(K1_THREADS)
+count_multi_kernel(const int* table, int n_members, const long long* ptrs,
+                   long long n_vec, unsigned long long* out) {
+    __shared__ const uint4* s_ptr[K1_MAX_LEAVES];
+    __shared__ uint8_t s_code[K1_MAX_PROG];
+    __shared__ int s_desc[K1M_DESC];
+    const int m = blockIdx.y;
+    if (threadIdx.x < K1M_DESC)
+        s_desc[threadIdx.x] = table[m * K1M_DESC + threadIdx.x];
+    __syncthreads();
+    const int code_len = s_desc[1], n_leaves = s_desc[3];
+    const uint8_t* codes =
+        reinterpret_cast<const uint8_t*>(table + n_members * K1M_DESC);
+    if ((int)threadIdx.x < n_leaves)
+        s_ptr[threadIdx.x] =
+            reinterpret_cast<const uint4*>(ptrs[s_desc[2] + threadIdx.x]);
+    if ((int)threadIdx.x < code_len) s_code[threadIdx.x] = codes[s_desc[0] + threadIdx.x];
+    __syncthreads();
+    const unsigned long long total =
+        s_desc[4] ? chain_total(s_ptr, s_code, code_len, n_vec)
+                  : tree_total(s_ptr, s_code, code_len, n_vec);
+    block_reduce_add(total, out + m);
+}
+
+// Plain C entry point, bound with ctypes. `table` is the device program
+// table of `n_members` members (K1M_DESC int32 each, then the code bytes;
+// every code length 1..K1_MAX_PROG, every leaf count 1..K1_MAX_LEAVES,
+// checked on the host when the table is built); `ptrs` the device int64
+// leaf pointers, each to [n_words] words (16-byte aligned, n_words a
+// multiple of 4, the same for every member). Zeroes `out` (n_members
+// uint64) and launches on `stream`. Returns cudaGetLastError().
+extern "C" int count_expr_multi_launch(const void* table, int n_members,
+                                       const void* ptrs, long long n_words,
+                                       void* out, void* stream) {
+    if (n_members < 1 || n_members > 65535 || n_words % 4 != 0)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err = cudaMemsetAsync(
+        out, 0, (size_t)n_members * sizeof(unsigned long long), s);
+    if (err != cudaSuccess) return (int)err;
+    const long long n_vec = n_words / 4;
+    if (n_vec == 0) return (int)cudaGetLastError();
+    const long long want = (n_vec + K1_THREADS - 1) / K1_THREADS;
+    static const int cap = k1_grid(count_multi_kernel);
+    long long per = cap / n_members;
+    per = per < 1 ? 1 : (per > want ? want : per);
+    count_multi_kernel<<<dim3((unsigned)per, (unsigned)n_members), K1_THREADS,
+                         0, s>>>((const int*)table, n_members,
+                                 (const long long*)ptrs, n_vec,
+                                 (unsigned long long*)out);
     return (int)cudaGetLastError();
 }

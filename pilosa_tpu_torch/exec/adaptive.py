@@ -411,8 +411,7 @@ def observe_fuse_compile(wall_seconds):
 
 
 def decide_fuse(n_calls, fp_hits, cached, stacked=None):
-    """(No caller yet: whole-plan fusion, exec/fusion.py, is not ported.)
-    Price fused (one dispatch + compile amortized over the
+    """Price fused (one dispatch + compile amortized over the
     fingerprint's observed frequency) vs interpreted (one count
     dispatch per top-level call). `cached`: a live program means the
     compile is sunk and fused strictly dominates. Returns None when

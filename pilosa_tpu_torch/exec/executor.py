@@ -47,6 +47,10 @@ call and grafts its measured counters onto its plan node. With the
 adaptive engine on (exec/adaptive.py) each stacked decision point prices
 the stacked path against the per-shard one, GroupBy prices its K4 tile,
 and `maybe_proactive_admit` builds hot fragments' stacks in idle windows.
+With whole-plan fusion on (exec/fusion.py) a query whose every top-level
+call is a Count runs as ONE fused dispatch (`fusion.maybe_execute`,
+before the per-call loop); `?explain=analyze` grafts that dispatch onto
+the first plan node (`_fused_analyze`).
 
 Every query runs under an `executor.Execute` span with one
 `executor.execute{Call}` span per call, times each call into
@@ -84,6 +88,7 @@ from ..utils import workload as workload_mod
 from ..utils.stats import global_stats
 from ..utils.workpool import shard_map_reduce
 from . import adaptive as adaptive_mod
+from . import fusion as fusion_mod
 from .bsicond import BsiConditionError, apply_bsi_condition, \
     bsi_condition_plan
 from .result import FieldRow, GroupCount, Pair, RowIdentifiers, ValCount
@@ -317,8 +322,10 @@ class Executor:
         wl_before = self._stacked.counters() if wctx is not None else None
         before = self._stacked.cache_stats() if prof is not None else None
         # a previous query's batch stamp must not leak into this query's
-        # batch= attribution (a take-last thread-local, reset per query)
+        # batch= attribution; same for the whole-plan fused= stamp (both
+        # take-last thread-locals, reset per query)
         note_batch_size(0)
+        fusion_mod.note_fused(0)
         plan_nodes = [] if explain == "analyze" else None
         results = []
         t_query = time.perf_counter()
@@ -332,36 +339,54 @@ class Executor:
         try:
             with tracing.start_span("executor.Execute",
                                     index=index_name) as span:
-                for call in query.calls:
-                    if deadline is not None \
-                            and time.monotonic() >= deadline:
-                        raise DeadlineExceededError(
-                            "request deadline expired between calls")
-                    t_call = time.perf_counter()
-                    self._explain_tls.last = None
-                    with tracing.start_span(f"executor.execute{call.name}"):
-                        if plan_nodes is None:
-                            results.append(
-                                self.execute_call(idx, call, shards, opt))
-                        else:
-                            result, node = self.explain_analyze_call(
-                                idx, call, shards, opt)
-                            results.append(result)
-                            plan_nodes.append(node)
-                    call_wall = time.perf_counter() - t_call
-                    # per-PQL-op latency histogram (the global registry,
-                    # which /metrics resolves to)
-                    global_stats.timing("query_op_seconds", call_wall,
-                                        {"op": call.name})
-                    if adaptive_mod.enabled():
-                        # observed per-shard fallback walls calibrate the
-                        # engine's est_fallback side (shadow learns too)
-                        last = getattr(self._explain_tls, "last", None)
-                        if last is not None and last[0] == call.name \
-                                and last[1].startswith("per-shard"):
-                            adaptive_mod.observe_fallback(
-                                call.name, call_wall,
-                                len(self._call_shards(idx, shards)))
+                # Whole-plan fusion: an eligible multi-call query runs as
+                # ONE fused dispatch (exec/fusion.py); None → the per-call
+                # loop, as without fusion
+                fused_results = None
+                if fusion_mod.enabled():
+                    if plan_nodes is None:
+                        fused_results = fusion_mod.maybe_execute(
+                            self, idx, query, shards, opt)
+                    else:
+                        fused_results = self._fused_analyze(
+                            idx, query, shards, opt, plan_nodes)
+                if fused_results is not None:
+                    results = fused_results
+                else:
+                    for call in query.calls:
+                        if deadline is not None \
+                                and time.monotonic() >= deadline:
+                            raise DeadlineExceededError(
+                                "request deadline expired between calls")
+                        t_call = time.perf_counter()
+                        self._explain_tls.last = None
+                        with tracing.start_span(
+                                f"executor.execute{call.name}"):
+                            if plan_nodes is None:
+                                results.append(self.execute_call(
+                                    idx, call, shards, opt))
+                            else:
+                                result, node = self.explain_analyze_call(
+                                    idx, call, shards, opt)
+                                results.append(result)
+                                plan_nodes.append(node)
+                        call_wall = time.perf_counter() - t_call
+                        # per-PQL-op latency histogram (the global
+                        # registry, which /metrics resolves to)
+                        global_stats.timing("query_op_seconds", call_wall,
+                                            {"op": call.name})
+                        if adaptive_mod.enabled():
+                            # observed per-shard fallback walls calibrate
+                            # the engine's est_fallback side (shadow
+                            # learns too)
+                            last = getattr(self._explain_tls, "last",
+                                           None)
+                            if last is not None \
+                                    and last[0] == call.name \
+                                    and last[1].startswith("per-shard"):
+                                adaptive_mod.observe_fallback(
+                                    call.name, call_wall,
+                                    len(self._call_shards(idx, shards)))
                 if span is not None:
                     span.set_tag("calls", len(query.calls))
             if prof is not None:
@@ -443,6 +468,50 @@ class Executor:
             phases_before=phases_before,
             phases_after=self._stacked.dispatch_phases())
         return result, node
+
+    def _fused_analyze(self, idx, query, shards, opt, plan_nodes):
+        """?explain=analyze over the fused path: build EVERY top-level
+        plan node first (so estimates can't peek at the outcome), then
+        run the whole query as one fused dispatch, then graft the single
+        dispatch's actuals — the whole-query delta lands on the first
+        node and the rest graft a zero delta, so the summed per-node
+        `dispatches` actuals equal the real total. Returns the results
+        list, or None when the query didn't fuse — the caller's analyze
+        loop then builds its own nodes (the ones made here are
+        discarded)."""
+        from . import plan as plan_mod
+
+        nodes = plan_mod.Planner(self).plan_query(
+            idx, query.calls, shards, opt)
+        notes = self._explain_tls.notes = []
+        before = self._stacked.cache_stats()
+        kern_before = self._stacked.kernel_profile()
+        phases_before = self._stacked.dispatch_phases()
+        t0 = time.perf_counter()
+        try:
+            results = fusion_mod.maybe_execute(
+                self, idx, query, shards, opt)
+        finally:
+            self._explain_tls.notes = None
+        if results is None:
+            return None
+        wall = time.perf_counter() - t0
+        after = self._stacked.cache_stats()
+        kern_after = self._stacked.kernel_profile()
+        phases_after = self._stacked.dispatch_phases()
+        for i, node in enumerate(nodes):
+            if i == 0:
+                plan_mod.graft_actual(
+                    node, wall, before, after, kern_before, kern_after,
+                    strategies=notes, phases_before=phases_before,
+                    phases_after=phases_after)
+            else:
+                # later calls rode the first node's dispatch: zero delta
+                plan_mod.graft_actual(node, 0.0, after, after,
+                                      kern_after, kern_after,
+                                      strategies=notes)
+        plan_nodes.extend(nodes)
+        return results
 
     def _note_strategy(self, op, strategy, **detail):
         """Record the strategy a decision point ACTUALLY took. Feeds the

@@ -34,9 +34,8 @@ default. Every estimate carries its source so a reader knows how much to
 trust it.
 
 This module is the TPU package's `exec/plan.py`, copied whole; it reads
-host metadata only, so nothing in it changed but the fusion annotation
-(whole-plan fusion is not ported yet) and the Options wrapper's option
-copy (the port's ExecOptions carries no shard list).
+host metadata only, so nothing in it changed but the Options wrapper's
+option copy (the port's ExecOptions carries no shard list).
 """
 
 import threading
@@ -373,11 +372,31 @@ class Planner:
         return nodes
 
     def _annotate_fusion(self, idx, calls, nodes):
-        """Whole-plan fusion annotation: the TPU package marks every
-        node `fused` when serving would run the whole query as one
-        program (exec/fusion.py). The port has no whole-plan fusion yet,
-        so no plan is fused and this adds nothing."""
-        return
+        """Whole-plan fusion annotation (host metadata only — the plan
+        path's zero-dispatch contract holds): when fusion is enabled
+        and every top-level call is a stacked-covered Count, serving
+        would run the whole query as ONE fused dispatch (exec/fusion.py),
+        so each node gains `fused: true` plus the program-cache key
+        status for the query's workload fingerprint (cached = a program
+        table is live; uncompiled = the first admitted execution would
+        build and upload it)."""
+        from ..pql.ast import Query
+        from ..utils import workload
+        from . import fusion
+
+        if not fusion.enabled() or not calls:
+            return
+        if any(c.name != "Count" or len(c.children) != 1
+               for c in calls):
+            return
+        if any(n.strategy != "stacked" for n in nodes):
+            return
+        fp, _ = workload.fingerprint(idx.name, Query(list(calls)))
+        status = fusion.cache_status(fp)
+        for n in nodes:
+            n.annotations["fused"] = True
+            n.annotations["fusion_fingerprint"] = fp
+            n.annotations["fusion_program"] = status
 
     def plan_call(self, idx, call, shards, opt):
         handler = {

@@ -69,6 +69,13 @@ package:
   plain one-launch path.
 - TopN, GroupBy, Sum, Min and Max share their result fetches through a
   second GroupCommit (`_fetch_commit`).
+- Whole-plan fusion (exec/fusion.py) runs a query's every top-level
+  Count as ONE locked dispatch (`fused_count`, family `fused`): the
+  calls that end in K1 ride one launch of K1's multi-tree entry
+  (`containers.count_program_multi` -> `count_expr_multi`), the others
+  their own count programs, and one fetch through `_fetch_commit`
+  returns every total. The "program" cached under the fusion key is the
+  multi entry's device-resident program table, kept in `_fn_specs`.
 - The query coalescer and the query-batch route (server/api.py) run
   `launch_query_batch` / `resolve_query_batch`: batched Counts and plane
   trees, grouped by (kind, signature, component shapes), launched
@@ -91,6 +98,7 @@ from ..core.index import EXISTENCE_FIELD_NAME
 from ..core.view import VIEW_STANDARD
 from ..ops import bitplane as _bitplane
 from ..ops import containers as _containers
+from ..ops import count_expr as _count_expr
 from ..ops.bsi import bsi_plane_counts, max_unsigned, min_unsigned
 from ..ops.count_expr import tree_eval
 from ..ops.pairwise import pairwise_counts_stack as _pairwise_kernel
@@ -240,10 +248,12 @@ def reset_global_dispatch_phases():
 #: _locked_dispatch itself; dispatch_ack (the launch calls returned) and,
 #: where a site blocks under the lock, sync are marked inside the lock;
 #: sync is also the phase _timed_sync records for a fetch made after the
-#: lock is released. The TPU package's transfer_in and compile phases do
-#: not occur: uploads run outside the lock, and kernels are built before
-#: their first launch.
-DISPATCH_PHASES = ("lock_wait", "dispatch_ack", "sync")
+#: lock is released. compile labels the first fused dispatch of a program
+#: key (`fused_count`): the port compiles nothing at run time, so its
+#: "compile" is that dispatch, the building and upload of the multi-tree
+#: entry's program table included. The TPU package's transfer_in phase
+#: does not occur: uploads run outside the lock.
+DISPATCH_PHASES = ("lock_wait", "compile", "dispatch_ack", "sync")
 
 
 class _PhaseClock:
@@ -659,13 +669,18 @@ class StackedEvaluator:
         # launched kernel shapes per family: (family, kernel, shape) ->
         # the wrapper's declared-cost arguments, noted at the launch
         # site; their costs are computed on the first GET /debug/kernels
-        # and cached in _kernel_costs (the planner's third price source)
+        # and cached in _kernel_costs (the planner's third price source);
+        # beside them, under ("fused", plans), whole-plan fusion's
+        # programs (count_expr.MultiProgram), which its LRU evicts
         self._fn_specs = {}
         self._kernel_costs = {}
         self._count_spec_keys = set()
         # streaming ingest: reads served from a stale entry whose drift
         # is covered by pending ingest deltas (exec/ingest.py)
         self.stale_serves = 0
+        # whole-plan fusion: queries whose every top-level Count rode
+        # ONE fused dispatch (exec/fusion.py)
+        self.fused_dispatches = 0
 
     def counters(self):
         """(dispatches, hits, misses, planes_uploaded) — the per-query
@@ -697,6 +712,7 @@ class StackedEvaluator:
                     "batch_dispatches": self.batch_dispatches,
                     "batched_queries": self.batched_queries,
                     "batch_fetches": self.batch_fetches,
+                    "fused_dispatches": self.fused_dispatches,
                     "evictions_by_cause": {
                         f"{p}.{c}": n
                         for (p, c), n in sorted(self.pool_evictions.items())},
@@ -1474,6 +1490,39 @@ class StackedEvaluator:
         with self._timed_sync("count"):
             return int(total)
 
+    def fused_count(self, plans, stacks_per_call):
+        """A whole query's Count calls as ONE locked dispatch + one
+        group-committed fetch (exec/fusion.py; the TPU package's
+        `fused_count`). `plans` is a tuple of (sig, csig) per top-level
+        call; the trees need not share a signature. Returns (counts,
+        key, compiled): per-call host ints in call order, the program's
+        key in `_fn_specs` (fusion's LRU eviction pops it), and whether
+        THIS call built the program: the first on a key, whose dispatch
+        is the `compile` phase. The program is the multi-tree entry's
+        count_expr.MultiProgram, its device table uploaded by that first
+        dispatch."""
+        key = ("fused", plans)
+        with self._lock:
+            program = self._fn_specs.get(key)
+            compiled = program is None
+            if compiled:
+                program = self._fn_specs[key] = _count_expr.MultiProgram()
+            self.dispatches += 1
+            self.fused_dispatches += 1
+        flats = [_containers.flatten(stacks) for stacks in stacks_per_call]
+        self._note_fused_specs(plans, flats)
+        with self._locked_dispatch(
+                "fused",
+                nbytes_in=sum(c.nbytes for stacks in stacks_per_call
+                              for c in stacks),
+                nbytes_out=8 * len(plans)) as ph:
+            out = _containers.count_program_multi(plans, flats,
+                                                  program=program)
+            ph.mark("compile" if compiled else "dispatch_ack")
+        with self._timed_sync("fused"):
+            counts = [int(v) for v in self._fetch(out)]
+        return counts, key, compiled
+
     #: Counts a GroupCommit leader counts in one launch at most (the TPU
     #: package's MAX_COUNT_BATCH)
     MAX_COUNT_BATCH = 32
@@ -2009,6 +2058,17 @@ class StackedEvaluator:
                                                       batch):
             self._note_spec(family, kernel, args)
 
+    def _note_fused_specs(self, plans, flats):
+        """Note the kernels one fused dispatch launches
+        (`containers.count_kernels_multi`), once per plan and shapes."""
+        shapes = tuple(tuple(tuple(a.shape) for a in flat) for flat in flats)
+        seen = ("fused", plans, shapes)
+        if seen in self._count_spec_keys:
+            return
+        self._count_spec_keys.add(seen)
+        for kernel, args in _containers.count_kernels_multi(plans, shapes):
+            self._note_spec("fused", kernel, args)
+
     def kernel_profile(self):
         """Per-family dispatch counters snapshot ({family: {count,
         seconds, bytes_in, bytes_out}}) — the cost model's "measured"
@@ -2030,7 +2090,10 @@ class StackedEvaluator:
     def _kernel_cost_list(self):
         from ..ops import declared_cost
 
-        specs = list(self._fn_specs.items())
+        # launched shapes only: the fused programs kept beside them are
+        # not cost arguments
+        specs = [(k, a) for k, a in list(self._fn_specs.items())
+                 if isinstance(a, tuple)]
         out = []
         for key, args in specs:
             cost = self._kernel_costs.get(key)

@@ -6,14 +6,15 @@ from . import bitplane, containers, count_expr
 
 def declared_cost(kernel, args, device=None):
     """The declared cost of one launch of `kernel` (a wrapper's name:
-    count_expr, count_expr_batch, count_blocks, count_and_blocks,
-    row_counts, pairwise_counts, bsi_range_mask) with its cost
-    arguments `args` (see each module's `*_cost`)."""
+    count_expr, count_expr_batch, count_expr_multi, count_blocks,
+    count_and_blocks, row_counts, pairwise_counts, bsi_range_mask) with
+    its cost arguments `args` (see each module's `*_cost`)."""
     from . import bsi_range, count_blocks, pairwise, row_counts
 
     fn = {
         "count_expr": count_expr.count_expr_cost,
         "count_expr_batch": count_expr.count_expr_batch_cost,
+        "count_expr_multi": count_expr.count_expr_multi_cost,
         "count_blocks": count_blocks.count_blocks_cost,
         "count_and_blocks": count_blocks.count_and_blocks_cost,
         "row_counts": row_counts.row_counts_cost,

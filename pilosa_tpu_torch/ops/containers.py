@@ -37,8 +37,10 @@ it can: a single sparse leaf and a pure-`&` tree of sparse leaves go to
 K2 (ops/count_blocks.py), rle leaves to torch sums of run lengths and
 overlaps, and anything else — a leaf with overlay terms included —
 densifies its leaves on the device and goes to K1 (ops/count_expr.py).
-`plane_program` densifies every leaf and evaluates the tree. Every
-count is an exact int64 0-d tensor.
+`count_program_multi` counts a whole query's trees (whole-plan fusion):
+every member that would end in K1 rides ONE launch of K1's multi-tree
+entry, the others their own `count_program`. `plane_program` densifies
+every leaf and evaluates the tree. Every count is an exact int64.
 """
 
 import os
@@ -55,8 +57,8 @@ from .count_blocks import (
     count_and_blocks,
     count_blocks,
 )
-from .count_expr import count_expr, count_expr_batch, popcount_total, \
-    tree_eval
+from .count_expr import count_expr, count_expr_batch, count_expr_multi, \
+    popcount_total, tree_eval
 
 __all__ = [
     "BLOCK_WORDS",
@@ -68,7 +70,9 @@ __all__ = [
     "configure",
     "container_to_dense",
     "count_kernels",
+    "count_kernels_multi",
     "count_program",
+    "count_program_multi",
     "dense_container",
     "field_estimate",
     "flat_arity",
@@ -814,6 +818,55 @@ def count_program_batch(sig, csig, flats):
         for j, i in enumerate(k1):
             out[i] = vals[j]
     return torch.stack(out)
+
+
+def count_program_multi(plans, flats_per_call, program=None):
+    """[n_calls] int64 counts of a whole query's Count trees, each over
+    its own flattened container args, equal to `count_program` call by
+    call (the TPU package's `fused_count_fn` body). `plans` holds one
+    (sig, csig) per call. Each call keeps its own `count_program` route:
+    the calls whose route is "k1" (dense leaves, overlay-carrying ones,
+    anything densified) are counted by ONE launch of K1's multi-tree
+    entry (`count_expr_multi`) whatever their number, the others (K2, the
+    run-length sums) by their own `count_program`. `program`, a
+    count_expr.MultiProgram, keeps the multi entry's program table
+    between calls."""
+    conts = [unflatten(csig, flat)
+             for (_sig, csig), flat in zip(plans, flats_per_call)]
+    k1 = [i for i, (sig, _csig) in enumerate(plans)
+          if _count_route(sig, conts[i]) == "k1"]
+    out = [None if i in k1 else count_program(sig, csig, flats_per_call[i])
+           for i, (sig, csig) in enumerate(plans)]
+    if k1:
+        vals = count_expr_multi(
+            [plans[i][0] for i in k1],
+            [[to_dense(c) for c in conts[i]] for i in k1], program=program)
+        if len(k1) == len(plans):
+            return vals
+        for j, i in enumerate(k1):
+            out[i] = vals[j]
+    return torch.stack(out)
+
+
+def count_kernels_multi(plans, shapes_per_call):
+    """The hand-written kernels one `count_program_multi` launches, from
+    the plans and the shapes of each call's flattened args alone, as
+    `count_kernels` gives them: one launch of the multi-tree entry for
+    the K1 calls (its cost args: each call's leaf count, S and W), then
+    the other calls' own."""
+    out, leaf_counts, s = [], [], None
+    for (sig, csig), shapes in zip(plans, shapes_per_call):
+        conts = unflatten(csig, [_Shaped(x) for x in shapes])
+        if _count_route(sig, conts) == "k1":
+            first = conts[0]
+            s = first[1][0].shape[0] if first[0] == "dense" else first[2]
+            leaf_counts.append(len(conts))
+        else:
+            out.extend(count_kernels(sig, csig, shapes))
+    if leaf_counts:
+        out.insert(0, ("count_expr_multi",
+                       (tuple(leaf_counts), s, WORDS_PER_ROW)))
+    return out
 
 
 def plane_program(sig, csig, flat):

@@ -23,6 +23,13 @@ each over its own leaves, counted in one launch into a [B] int64 tensor
 (the counterpart of the TPU package's vmapped batch count programs,
 pilosa_tpu/exec/stacked.py:1424, :1620). Its plain version is
 `count_expr_batch_reference`.
+
+`count_expr_multi` is K1's multi-tree entry: n members, each with its own
+signature and leaves, counted in one launch into an [n] int64 tensor (the
+counterpart of the TPU package's whole-plan fusion program
+`fused_count_fn`, pilosa_tpu/exec/stacked.py:1452). Its program table
+(`MultiProgram`) is built on the host and copied to the device once per
+member list; its plain version is `count_expr_multi_reference`.
 """
 
 import ctypes
@@ -36,6 +43,7 @@ __all__ = [
     "MAX_LEAVES",
     "MAX_PROGRAM",
     "MAX_STACK",
+    "MultiProgram",
     "chain_signature",
     "compile_program",
     "count_expr",
@@ -43,6 +51,9 @@ __all__ = [
     "count_expr_batch_cost",
     "count_expr_batch_reference",
     "count_expr_cost",
+    "count_expr_multi",
+    "count_expr_multi_cost",
+    "count_expr_multi_reference",
     "count_expr_reference",
     "count_expr_stack",
     "fit_tree",
@@ -464,3 +475,168 @@ def count_expr_batch_cost(b, n_leaves, s, w, device=None):
     int64 pointer table read once, B int64 totals written."""
     return cuda_build.declared_cost(
         b * n_leaves * (s * w * 4 + 8) + 8 * b, device)
+
+
+def count_expr_multi_reference(sigs, stacks_per_member):
+    """The plain version of K1's multi-tree entry: one
+    `count_expr_reference` per member, as an [n] int64 tensor."""
+    return torch.stack([count_expr_reference(sig, stacks)
+                        for sig, stacks in zip(sigs, stacks_per_member)])
+
+
+#: int32 words of one member's descriptor in the multi-tree program table
+#: (K1M_DESC in csrc/count_expr.cu)
+MULTI_DESC = 5
+
+
+def _is_chain(code):
+    """True for L0 L1 op L2 op ... (csrc/count_expr.cu's is_chain)."""
+    if len(code) % 2 == 0 or code[0] >= MAX_LEAVES:
+        return False
+    return all((k % 2 == 1) == (code[k] < MAX_LEAVES)
+               for k in range(1, len(code)))
+
+
+class MultiProgram:
+    """The program table of K1's multi-tree entry for one list of member
+    signatures (each within K1's limits): per member MULTI_DESC int32 —
+    code offset, code length, leaf offset, leaf count, chain flag — then
+    every member's postfix code bytes, zero-padded to whole int32 words.
+    `bind` builds it on the host (again only when the signatures change);
+    `table` copies it to a device once and keeps the copy, so a cached
+    program costs a launch only its leaf pointers."""
+
+    __slots__ = ("sigs", "n_leaves", "host", "_tables")
+
+    def __init__(self):
+        self.sigs = None
+        self.n_leaves = None
+        self.host = None
+        self._tables = {}
+
+    def bind(self, sigs, n_leaves):
+        sigs, n_leaves = tuple(sigs), tuple(int(n) for n in n_leaves)
+        if sigs == self.sigs and n_leaves == self.n_leaves:
+            return self
+        desc, codes, leaf_off = [], b"", 0
+        for sig, n in zip(sigs, n_leaves):
+            if not 1 <= n <= MAX_LEAVES:
+                raise ValueError(f"member of {n} leaves outside "
+                                 f"1..{MAX_LEAVES}")
+            code = compile_program(sig)
+            desc.extend((len(codes), len(code), leaf_off, n,
+                         int(_is_chain(code))))
+            codes += code
+            leaf_off += n
+        codes += bytes(-len(codes) % 4)
+        self.host = torch.cat([
+            torch.tensor(desc, dtype=torch.int32),
+            torch.frombuffer(bytearray(codes), dtype=torch.int32)])
+        self.sigs, self.n_leaves = sigs, n_leaves
+        self._tables = {}
+        return self
+
+    def table(self, device):
+        """The table on `device`, copied there on first use."""
+        t = self._tables.get(str(device))
+        if t is None:
+            t = self.host.pin_memory().to(device, non_blocking=True)
+            self._tables[str(device)] = t
+        return t
+
+
+@functools.lru_cache(maxsize=None)
+def _multi_kernel_fn():
+    """The multi-tree C entry point of csrc/count_expr.cu."""
+    fn = cuda_build.load("count_expr").count_expr_multi_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    return fn
+
+
+def _launch_multi(program, members):
+    fn = _multi_kernel_fn()
+    first = members[0][0]
+    for stacks in members:
+        for s in stacks:
+            if not s.is_contiguous():
+                raise ValueError("leaf stacks must be contiguous")
+            if s.data_ptr() % 16:
+                raise ValueError("leaf stacks must be 16-byte aligned")
+    if first.shape[1] % 4:
+        raise ValueError("words per shard must be a multiple of 4")
+    dev = first.device
+    table = program.table(dev)
+    # the leaf pointers, copied from pinned memory without a wait: the
+    # host allocator keeps the pinned buffer until the copy has run
+    ptrs = torch.tensor([s.data_ptr() for stacks in members for s in stacks],
+                        dtype=torch.int64).pin_memory().to(
+                            dev, non_blocking=True)
+    out = torch.empty((len(members),), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(table.data_ptr(), len(members), ptrs.data_ptr(), first.numel(),
+             out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"count_expr_multi kernel launch failed: CUDA error {err}")
+    cuda_build.count_launch(count_expr_multi)
+    return out
+
+
+def count_expr_multi(sigs, stacks_per_member, program=None):
+    """[n] int64 tensor of Σ popcount(sigs[i](stacks_per_member[i])): n
+    trees that need not share a signature or a leaf count, each over its
+    own stacks. `fit_tree` runs per member first. Every stack of every
+    member must share one [S, W] shape, dtype and device. CPU stacks take
+    the plain version; CUDA stacks launch the multi-tree kernel once (an
+    empty stack returns zeros without a launch). `program`, a
+    MultiProgram, keeps the program table between calls (it is rebound
+    when the fitted signatures differ)."""
+    sigs = list(sigs)
+    if len(sigs) != len(stacks_per_member):
+        raise ValueError(f"{len(sigs)} signatures for "
+                         f"{len(stacks_per_member)} members")
+    if not sigs:
+        raise ValueError("count_expr_multi needs at least one member")
+    members = [_check_stacks(sig, stacks)
+               for sig, stacks in zip(sigs, stacks_per_member)]
+    first = members[0][0]
+    for stacks in members:
+        s = stacks[0]
+        if s.shape != first.shape or s.dtype != first.dtype \
+                or s.device != first.device:
+            raise ValueError(
+                f"members' leaf stacks must share one [S, W] shape, dtype "
+                f"and device: {tuple(s.shape)} {s.dtype} {s.device} vs "
+                f"{tuple(first.shape)} {first.dtype} {first.device}")
+    fitted = [fit_tree(sig, stacks) for sig, stacks in zip(sigs, members)]
+    fsigs = [f[0] for f in fitted]
+    members = [f[1] for f in fitted]
+    dev = first.device
+    if dev.type == "cpu":
+        return count_expr_multi_reference(fsigs, members)
+    if dev.type != "cuda":
+        raise ValueError(f"count_expr_multi: unsupported device {dev}")
+    if first.shape[0] == 0:
+        return torch.zeros((len(members),), dtype=torch.int64, device=dev)
+    program = (program if program is not None else MultiProgram()).bind(
+        fsigs, [len(m) for m in members])
+    return _launch_multi(program, members)
+
+
+#: launches of the multi-tree entry since the last reset (read by
+#: chip_smoke.py)
+count_expr_multi.launches = 0
+
+
+def count_expr_multi_cost(leaf_counts, s, w, device=None):
+    """The multi-tree entry's declared cost for members of `leaf_counts`
+    [S, W] stacks each: every member's leaves read once, its descriptor
+    (MULTI_DESC int32), its code (2n - 1 bytes for n leaf slots each
+    used once) and its leaf pointers read once, one int64 total written
+    per member."""
+    n, leaves = len(leaf_counts), sum(leaf_counts)
+    return cuda_build.declared_cost(
+        leaves * s * w * 4 + 4 * MULTI_DESC * n
+        + sum(2 * k - 1 for k in leaf_counts) + 8 * leaves + 8 * n, device)

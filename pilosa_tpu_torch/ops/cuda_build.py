@@ -110,6 +110,14 @@ def count_launch(wrapper):
         wrapper.launches += 1
 
 
+def is_device_failure(exc):
+    """True for a failure of the card itself: a kernel wrapper's failed
+    launch ("... kernel launch failed: CUDA error N") or an error torch
+    raises from a CUDA call ("CUDA error: ..."). Fallback paths that
+    swallow other errors must let these through."""
+    return isinstance(exc, RuntimeError) and "CUDA error" in str(exc)
+
+
 def declared_cost(nbytes, device=None, popc=None):
     """The cost a kernel wrapper declares for one launch, pure host
     arithmetic on its shapes (the port's stand-in for XLA's

@@ -36,7 +36,18 @@ oplog append. Interval 0, the default, builds no engine.
 
 `?explain=true|analyze` plans a query (exec/plan.py); `?explain=analyze`
 and `--long-query-time` profile it, and its SLOW QUERY line carries the
-plan summary."""
+plan summary and how many of its calls rode one fused dispatch
+(`fused=`, exec/fusion.py).
+
+With `API(admission="on")` (`server --admission on`) every query passes
+an admission controller (server/admission.py) before it can launch: it
+is classified (`X-Query-Class` or its PQL shape), priced through the
+planner's cost model (no launch), and admitted against its class's
+token bucket, queued in a bounded FIFO, or shed with 503, Retry-After
+and `X-Pilosa-Shed: admission`; a deadline that lapses in the queue
+answers 504. The controller's degradation ladder holds the ingest
+engine's interval merges off from SHED_BATCH up and marks responses
+stale from STALE_OK up."""
 
 import array
 import base64
@@ -450,7 +461,9 @@ class API:
                  coalesce_max_queue=256, max_writes_per_request=0,
                  oplog=None, logger=None, long_query_time=None,
                  ingest_interval=0.0, ingest_max_rows=None,
-                 ingest_max_bytes=None):
+                 ingest_max_bytes=None, admission="off",
+                 admission_capacity=None, admission_queue_depth=None,
+                 admission_queue_timeout=None):
         from ..utils.logger import StandardLogger
 
         self.holder = holder
@@ -485,8 +498,6 @@ class API:
         # Streaming ingest engine (exec/ingest.py): interval 0 — the
         # default — never constructs one, so the import path is a single
         # `is None` check and every read repairs its stacks as before.
-        # (The admission ladder's merge-shed probe waits for the port of
-        # server/admission.py.)
         self.ingest = None
         if float(ingest_interval or 0.0) > 0:
             from ..exec.ingest import IngestEngine
@@ -494,6 +505,28 @@ class API:
             self.ingest = IngestEngine(
                 self, float(ingest_interval),
                 max_rows=ingest_max_rows, max_bytes=ingest_max_bytes)
+        # Admission control + degradation ladder (server/admission.py):
+        # "off" — the default — never constructs a controller, so the
+        # query path's only residue is one `is None` check.
+        if admission not in ("off", "on"):
+            raise ValueError(
+                f"admission must be on|off, got {admission!r}")
+        self._admission = None
+        if admission == "on":
+            from . import admission as admission_mod
+
+            self._admission = admission_mod.AdmissionController(
+                capacity_ms_per_s=admission_capacity,
+                queue_depth=admission_mod.DEFAULT_QUEUE_DEPTH
+                if admission_queue_depth is None else admission_queue_depth,
+                queue_timeout=admission_mod.DEFAULT_QUEUE_TIMEOUT
+                if admission_queue_timeout is None
+                else admission_queue_timeout,
+                logger=self.logger)
+            if self.ingest is not None:
+                # degradation-ladder shed policy for interval merges
+                # (overflow-forced merges still run)
+                self.ingest.set_shed_probe(self._admission.shed_merges)
 
     @property
     def device(self):
@@ -504,12 +537,14 @@ class API:
         return self.executor
 
     def query(self, index_name, pql, shards=None, options=None,
-              deadline=None):
+              deadline=None, query_class=None):
         """(reference: api.Query api.go:135)
 
         `deadline` — absolute time.monotonic() instant parsed from
         `X-Request-Deadline` at the HTTP edge (None = unbounded); checked
-        here and before each launch."""
+        here, at admission queue pop and before each launch.
+        `query_class` — the validated `X-Query-Class` header value (None
+        = classify from the PQL shape)."""
         if self.holder.index(index_name) is None:
             raise NotFoundError(f"index not found: {index_name}")
         # Expired on arrival: drop BEFORE any launch can start — the
@@ -531,9 +566,66 @@ class API:
             raise ServiceUnavailableError(
                 "device link DOWN (canary probes failing); "
                 f"retry in {retry:.0f}s", retry_after=retry)
+        # Admission gate (server/admission.py): classify, price via the
+        # cost model (no launch), debit the class's token bucket —
+        # queueing bounded-FIFO in front of the dispatch lock when dry,
+        # shedding with 503 + Retry-After past the bound. Remote legs are
+        # not re-admitted: their coordinator already paid for the query.
+        ticket = None
+        adm = self._admission
+        if adm is not None and not (options is not None
+                                    and options.remote):
+            ticket = self._admit_query(
+                adm, index_name, pql, shards, options, deadline,
+                query_class)
         if deadline is not None:
             options = options or ExecOptions()
             options.deadline = deadline
+        t_admitted = time.monotonic()
+        try:
+            return self._query_admitted(
+                index_name, pql, shards, options, deadline)
+        finally:
+            if ticket is not None:
+                adm.note_done(ticket, time.monotonic() - t_admitted)
+
+    def _admit_query(self, adm, index_name, pql, shards, options,
+                     deadline, query_class):
+        """Price + admit one query; translates the controller's
+        exceptions onto the shared rejection paths: a deadline that
+        lapsed in the queue is 504 (and counts toward a deadline
+        storm), a shed is `shed_reject("admission", ...)`. Parse errors
+        fall through unadmitted so the query path reports them as the
+        usual 400."""
+        from . import admission as admission_mod
+
+        try:
+            parsed = parse(pql) if isinstance(pql, str) else pql
+        except Exception:  # noqa: BLE001 — the query path owns the 400
+            return None
+        qclass = admission_mod.classify(header=query_class, query=parsed)
+        is_write = any(c.writes() for c in parsed.calls)
+        cost_ms = adm.price(self.executor, self.holder.index(index_name),
+                            parsed, shards, options or ExecOptions())
+        try:
+            return adm.admit(qclass, cost_ms, deadline=deadline,
+                             is_write=is_write)
+        except admission_mod.Expired as e:
+            flightrec.record("query.rejected", index=index_name,
+                             reason="deadline_expired_in_queue")
+            incident_mod.note_deadline_expiry()
+            raise GatewayTimeoutError(str(e)) from e
+        except admission_mod.Rejected as e:
+            flightrec.record("query.rejected", index=index_name,
+                             reason="admission", qclass=e.qclass,
+                             state=adm.state)
+            shed_reject("admission", str(e), e.retry_after,
+                        qclass=e.qclass)
+
+    def _query_admitted(self, index_name, pql, shards, options,
+                        deadline=None):
+        """The query path past the admission gate (all of it when
+        admission is off)."""
         # coalescer routing: batchable single-call reads with default
         # options fuse with concurrent arrivals into one batched launch;
         # ineligible queries (and window 0) take the per-query path
@@ -638,9 +730,11 @@ class API:
         position), so slow lines of one shape grep together. batch= is
         the batched-launch occupancy the query rode (1 = solo). plan= is
         the analyze plan's summary (`!` marks a misestimated op), else
-        the strategies the decision points noted ("-" without any). The
-        port has no whole-plan fusion yet: fused= is 0 (the TPU package's
-        value for a query that ran interpreted)."""
+        the strategies the decision points noted ("-" without any).
+        fused= is how many top-level calls rode ONE fused dispatch
+        (exec/fusion.py), 0 when the query ran interpreted; a coalesced
+        member (its fp passed in) ran on the coalescer thread, which
+        never fuses whole plans, so it reports 0."""
         if (self.long_query_time is None
                 or elapsed <= self.long_query_time):
             return
@@ -648,13 +742,16 @@ class API:
 
         from ..exec.stacked import last_batch_size
 
+        from ..exec import fusion as fusion_mod
+
         q = pql if isinstance(pql, str) else str(pql)
+        coalesced = fp is not None
         if fp is None:
             fp = workload_mod.last_fingerprint() or "-"
         if batch is None:
             batch = last_batch_size()
         batch = max(1, int(batch))
-        fused = 0
+        fused = 0 if coalesced else fusion_mod.last_fused()
         flightrec.record("query.slow", index=index_name,
                          seconds=round(elapsed, 3), pql=q[:200],
                          fingerprint=fp, batch=batch, fused=fused)
@@ -724,13 +821,31 @@ class API:
             "count_batched_queries": st["count_batched_queries"],
         }
 
+    def admission_stats(self):
+        """GET /debug/admission: the controller's full snapshot — ladder
+        state + transition history, per-class token buckets and queue
+        occupancy, calibration factor ({"enabled": False} when off)."""
+        if self._admission is None:
+            return {"enabled": False}
+        return self._admission.snapshot()
+
+    def serving_stale(self):
+        """True when the degradation ladder is at STALE_OK or worse —
+        the HTTP layer marks query responses with "stale": true so
+        clients know reads may lag the ingest staleness bound."""
+        return self._admission is not None \
+            and self._admission.serving_stale()
+
     def close(self):
-        """Release serving-side background state — the ingest merge
+        """Release serving-side background state — the admission
+        controller (its queued waiters get a 503), the ingest merge
         engine (final flush drains buffered deltas and releases any
         group-committed oplog watermarks) and the query coalescer,
         whose blocked waiters get a 503 instead of hanging on a daemon
         thread that dies with the process. Idempotent; default
-        deployments (no engine, no coalescer) no-op."""
+        deployments (no controller, engine or coalescer) no-op."""
+        if self._admission is not None:
+            self._admission.close()
         if self.ingest is not None:
             self.ingest.close()
         if self._coalescer is not None:
@@ -1314,6 +1429,8 @@ class API:
             "heat": workload_mod.heat().summary(),
             "slo": workload_mod.slo().summary(),
         }
+        if self._admission is not None:
+            out["admission"] = self._admission.summary()
         if self.oplog is not None:
             out["oplog"] = self.oplog.summary(compact=True)
         return out

@@ -9,10 +9,14 @@ thread dumps and a sampling profiler, batching, the oplog and fault
 points, device health (/readyz, /debug/device), the workload table,
 fragment heat, SLO burn, the HBM ledger, incident bundles, the
 kernels' declared costs (/debug/kernels), misestimated plans
-(/debug/plans), the adaptive engine (/debug/optimizer) and the ingest
-engine (/debug/ingest), with the TPU package's JSON wire shapes. A
-query's `?explain=true|plan|analyze` returns its plan tree beside the
-results (exec/plan.py). Every request runs under a span
+(/debug/plans), the adaptive engine (/debug/optimizer), the ingest
+engine (/debug/ingest), whole-plan fusion (/debug/fusion) and the
+admission controller (/debug/admission), with the TPU package's JSON
+wire shapes. A query's `?explain=true|plan|analyze` returns its plan
+tree beside the results (exec/plan.py); its `X-Request-Deadline` and
+`X-Query-Class` headers reach the API's deadline checks and admission
+gate, and a response served while the degradation ladder allows stale
+reads says `"stale": true`. Every request runs under a span
 continued from its trace headers and is timed into
 `http_request_seconds{route,method,status}`.
 
@@ -46,32 +50,10 @@ from ..utils import devhealth, faultpoints, flightrec, incident, tracing
 from ..utils import workload, workpool
 from ..utils import profile as profile_mod
 from ..utils.stats import global_stats, registry_of
+from .admission import CLASSES as QUERY_CLASSES
+from .admission import parse_deadline
 from .api import ApiError, GatewayTimeoutError, NotFoundError, \
     ServiceUnavailableError, field_options_from_json, result_to_json
-
-
-def parse_deadline(raw, now=None):
-    """`X-Request-Deadline` header -> seconds of budget remaining.
-
-    Accepts a bare number (seconds, e.g. "0.25"), a duration with units
-    ("250ms", "2s", "1m30s"), or "@<unix-seconds>" for an absolute epoch
-    deadline. Zero or negative means expired on arrival (the query
-    answers 504 without launching anything). Raises ValueError on
-    anything unparseable (the request answers 400)."""
-    s = str(raw).strip()
-    if not s:
-        raise ValueError("empty deadline")
-    if s.startswith("@"):
-        if now is None:
-            now = time.time()
-        return float(s[1:]) - now
-    try:
-        return float(s)
-    except ValueError:
-        pass
-    from ..cli import parse_duration
-
-    return float(parse_duration(s))
 
 
 class Route:
@@ -208,6 +190,8 @@ class PilosaHTTPServer:
                   args=("limit",)),
             Route("GET", r"/debug/optimizer", self._get_debug_optimizer),
             Route("GET", r"/debug/ingest", self._get_debug_ingest),
+            Route("GET", r"/debug/fusion", self._get_debug_fusion),
+            Route("GET", r"/debug/admission", self._get_debug_admission),
             Route("GET", r"/debug/workload", self._get_debug_workload,
                   args=("top",)),
             Route("GET", r"/debug/heat", self._get_debug_heat,
@@ -304,20 +288,31 @@ class PilosaHTTPServer:
         return {"success": True}
 
     @staticmethod
-    def _deadline(req):
-        """Absolute time.monotonic() deadline from the request's
-        `X-Request-Deadline` header, or None; a malformed value is a
-        400."""
-        raw = req.headers.get("X-Request-Deadline") \
-            if req.headers is not None else None
-        if raw is None:
-            return None
-        try:
-            remaining = parse_deadline(raw)
-        except ValueError as e:
-            raise ApiError(
-                f"invalid X-Request-Deadline {raw!r}: {e}") from e
-        return time.monotonic() + remaining
+    def _admission_headers(req):
+        """(absolute time.monotonic() deadline, query class) from the
+        request's `X-Request-Deadline` and `X-Query-Class` headers, each
+        None when absent. A malformed value is a 400 at the edge; an
+        already-negative budget still parses (api.query answers it with
+        504)."""
+        hdrs = req.headers
+        qclass = None
+        raw = hdrs.get("X-Query-Class") if hdrs is not None else None
+        if raw is not None:
+            qclass = raw.strip().lower()
+            if qclass not in QUERY_CLASSES:
+                raise ApiError(
+                    "X-Query-Class must be interactive|batch|internal, "
+                    f"got {raw!r}")
+        deadline = None
+        raw = hdrs.get("X-Request-Deadline") if hdrs is not None else None
+        if raw is not None:
+            try:
+                remaining = parse_deadline(raw)
+            except ValueError as e:
+                raise ApiError(
+                    f"invalid X-Request-Deadline {raw!r}: {e}") from e
+            deadline = time.monotonic() + remaining
+        return deadline, qclass
 
     @staticmethod
     def _decode(cls, req):
@@ -328,7 +323,7 @@ class PilosaHTTPServer:
         except wire.DecodeError as e:
             raise ApiError(f"invalid {cls.__name__} body: {e}") from e
 
-    def _post_query_proto(self, req, deadline):
+    def _post_query_proto(self, req, deadline, qclass):
         """The protobuf data plane, wire-compatible with the reference's
         QueryRequest/QueryResponse (encoding/proto/proto.go): query
         errors (a missing index too) travel in-band in
@@ -342,7 +337,7 @@ class PilosaHTTPServer:
         try:
             results = self.api.query(
                 req.params["index"], q.Query, shards=list(q.Shards) or None,
-                options=options, deadline=deadline)
+                options=options, deadline=deadline, query_class=qclass)
             attr_sets = self.api.column_attr_sets(
                 req.params["index"], results) if q.ColumnAttrs else None
             body = encoding.encode_query_response(
@@ -356,9 +351,9 @@ class PilosaHTTPServer:
         return RawResponse(body, encoding.CONTENT_TYPE_PROTOBUF)
 
     def _post_query(self, req):
-        deadline = self._deadline(req)
+        deadline, qclass = self._admission_headers(req)
         if req.protobuf:
-            return self._post_query_proto(req, deadline)
+            return self._post_query_proto(req, deadline, qclass)
         pql = req.body.decode("utf-8")
         shards = None
         if "shards" in req.query:
@@ -387,8 +382,13 @@ class PilosaHTTPServer:
             exclude_row_attrs=flag("excludeRowAttrs"),
             profile=want_profile, explain=explain)
         results = self.api.query(req.params["index"], pql, shards=shards,
-                                 options=options, deadline=deadline)
+                                 options=options, deadline=deadline,
+                                 query_class=qclass)
         out = {"results": [result_to_json(r) for r in results]}
+        if self.api.serving_stale():
+            # degradation ladder at STALE_OK+: reads may lag the ingest
+            # staleness bound — marked so clients can tell
+            out["stale"] = True
         if explain is not None:
             from ..exec import plan as plan_mod
 
@@ -680,6 +680,20 @@ class PilosaHTTPServer:
 
         return adaptive.snapshot(stacked=self.api.executor._stacked)
 
+    def _get_debug_fusion(self, req):
+        """Whole-plan fusion state: mode + knobs, the bounded program
+        ledger (per-entry compile ms / hits / age) and the
+        fuse-vs-interpret decision counters (exec/fusion.py)."""
+        from ..exec import fusion
+
+        return fusion.snapshot()
+
+    def _get_debug_admission(self, req):
+        """Admission controller snapshot: ladder state + transitions,
+        per-class token buckets and queues, calibration
+        ({"enabled": false} when --admission off)."""
+        return self.api.admission_stats()
+
     def _get_debug_ingest(self, req):
         """Streaming ingest engine: delta buffer depth, merge counters,
         deferred oplog watermarks ({"enabled": false} when off)."""
@@ -742,6 +756,13 @@ class PilosaHTTPServer:
                             "decisions",
         "/debug/ingest": "streaming ingest engine: delta buffer depth, "
                          "merge counters, deferred oplog watermarks",
+        "/debug/fusion": "whole-plan fusion: mode, program cache "
+                         "(fingerprint / compile-ms / hits / last-hit "
+                         "age), evictions, fuse-vs-interpret decision "
+                         "counters",
+        "/debug/admission": "admission controller: degradation-ladder "
+                            "state + transitions, per-class token "
+                            "buckets, queue occupancy, rejections",
         "/debug/device": "device-link health: canary probe state "
                          "machine, RTT samples, transitions",
         "/debug/workload": "query fingerprint table: per-shape counts, "

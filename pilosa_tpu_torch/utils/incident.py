@@ -315,6 +315,10 @@ def _default_collectors():
         from . import workload
         return workload.slo().snapshot()
 
+    def fusion():
+        from ..exec import fusion as _fusion
+        return _fusion.snapshot()
+
     def queries():
         from . import profile
         return {"recent": profile.recent()[:16]}
@@ -329,7 +333,8 @@ def _default_collectors():
 
     return {"device": device, "dispatch": dispatch,
             "workload": workload_, "heat": heat, "slo": slo,
-            "queries": queries, "open_ops": open_ops, "traces": traces}
+            "fusion": fusion, "queries": queries,
+            "open_ops": open_ops, "traces": traces}
 
 
 # -- module singleton (the flightrec/devhealth pattern) ----------------------

@@ -201,3 +201,104 @@ def test_batch_empty_stacks_and_mismatched_members():
     with pytest.raises(ValueError, match="at least one member"):
         k1.count_expr_batch(sig, [])
     assert k1.count_expr_batch.launches == 0
+
+
+# ------------------------------------------------- K1's multi-tree entry
+
+
+MULTI_SIGS = [BATCH_SIGS[k] for k in sorted(BATCH_SIGS)] + NESTED
+
+
+def _multi_members(rng, n, s):
+    """n members cycling through every signature kind (chain, tree, a
+    single leaf, a 17-slot Union past K1's limits), drawing their leaves
+    from one small pool so neighbours share some leaves."""
+    pool = [_stack(rng, s) for _ in range(20)]
+    sigs, members = [], []
+    for q in range(n):
+        sig = MULTI_SIGS[q % len(MULTI_SIGS)]
+        slots = max(k1._leaf_slots(sig, {})) + 1
+        sigs.append(sig)
+        members.append([pool[(3 * q + i) % len(pool)] for i in range(slots)])
+    return sigs, members
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 17])
+def test_multi_reference_matches_jax_per_member(n):
+    """count_expr_multi (the plain version on the CPU) and
+    count_expr_multi_reference against the TPU package, member by
+    member: Pallas `count_expr_stack` in interpret mode for each chain
+    member, its `_tree_eval` + popcount for the others. Exact."""
+    rng = np.random.default_rng(700 + n)
+    sigs, members = _multi_members(rng, n, 3)
+    want = []
+    for sig, m in zip(sigs, members):
+        want.append(_jax_count(sig, m))
+        chain = sig[0] != "leaf" and len(sig[1]) == 2 \
+            and all(c[0] == "leaf" for c in sig[1])
+        if chain:
+            assert int(pk.count_expr_stack(m[0], m[1:], (sig[0],))) == \
+                want[-1]
+    stacks = [[_t(p) for p in m] for m in members]
+    ref = k1.count_expr_multi_reference(sigs, stacks)
+    got = k1.count_expr_multi(sigs, stacks)
+    assert ref.dtype == got.dtype == torch.int64
+    assert ref.shape == got.shape == (n,)
+    assert ref.tolist() == got.tolist() == want
+    assert k1.count_expr_multi.launches == 0  # CPU tensors never launch
+
+
+def test_multi_empty_stacks_and_bad_members():
+    sigs = [k1.chain_signature(2, "&"), ("leaf", 0), NESTED[0]]
+    empty = torch.zeros((0, WORDS_PER_ROW), dtype=torch.int32)
+    assert k1.count_expr_multi(
+        sigs, [[empty, empty], [empty], [empty] * 4]).tolist() == [0, 0, 0]
+    a = torch.zeros((2, WORDS_PER_ROW), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shape"):
+        k1.count_expr_multi(sigs[:2], [[a, a], [a[:1]]])
+    with pytest.raises(TypeError, match="dtype"):
+        k1.count_expr_multi(sigs[:2], [[a, a], [a.to(torch.int64)]])
+    with pytest.raises(ValueError, match="no stack"):
+        k1.count_expr_multi(sigs[:1], [[a]])
+    with pytest.raises(ValueError, match="signatures"):
+        k1.count_expr_multi(sigs, [[a, a]])
+    with pytest.raises(ValueError, match="at least one member"):
+        k1.count_expr_multi([], [])
+    assert k1.count_expr_multi.launches == 0
+
+
+def test_multi_program_table_layout():
+    """MultiProgram's table: per member (code offset, code length, leaf
+    offset, leaf count, chain flag) as int32, then the postfix codes —
+    what csrc/count_expr.cu's count_multi_kernel reads. The chain flag
+    follows the kernel's is_chain; a fitted 17-slot member comes back
+    within the limits."""
+    rng = np.random.default_rng(5)
+    sigs, members = _multi_members(rng, 6, 1)
+    fitted = [k1.fit_tree(sig, [_t(p) for p in m])
+              for sig, m in zip(sigs, members)]
+    fsigs = [f[0] for f in fitted]
+    counts = [len(f[1]) for f in fitted]
+    assert max(counts) <= k1.MAX_LEAVES
+    prog = k1.MultiProgram().bind(fsigs, counts)
+    host = prog.host.numpy()
+    d = k1.MULTI_DESC
+    desc = host[:d * len(fsigs)].reshape(len(fsigs), d)
+    codes = host[d * len(fsigs):].tobytes()
+    leaf_off = code_off = 0
+    for row, sig, n in zip(desc, fsigs, counts):
+        code = k1.compile_program(sig)
+        assert list(row) == [code_off, len(code), leaf_off, n,
+                             int(k1._is_chain(code))]
+        assert codes[code_off:code_off + len(code)] == code
+        code_off += len(code)
+        leaf_off += n
+    assert len(codes) == code_off + (-code_off % 4)
+    # the same signatures rebind nothing; others rebuild the table
+    assert prog.bind(fsigs, counts).host is prog.host
+    old = prog.host
+    assert prog.bind(fsigs[:2], counts[:2]).host is not old
+    assert k1._is_chain(k1.compile_program(k1.chain_signature(3, "&|")))
+    assert not k1._is_chain(k1.compile_program(NESTED[0]))
+    with pytest.raises(ValueError, match="leaves"):
+        k1.MultiProgram().bind([("leaf", 0)], [0])

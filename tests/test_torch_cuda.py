@@ -1,5 +1,5 @@
-"""K1 (and its batched entry), K2, K3, K4 and K5 on the card: each CUDA
-kernel against its plain PyTorch version.
+"""K1 (and its batched and multi-tree entries), K2, K3, K4 and K5 on the
+card: each CUDA kernel against its plain PyTorch version.
 
 Imports only torch and the port, so it runs on a machine without JAX:
 
@@ -130,6 +130,65 @@ def test_batch_kernel_matches_plain(cuda, sig, b, shared):
     want = k1.count_expr_batch_reference(sig, members)
     assert got.dtype == torch.int64 and got.shape == (b,)
     assert got.tolist() == want.tolist()
+
+
+MULTI_SIGS = BATCH_SIGS
+
+
+def _multi(n, s, device, shared):
+    """n members cycling through MULTI_SIGS (chain, tree, a single leaf,
+    a tree past K1's limits), from one pool: with `shared` neighbours
+    share leaves, else every member has leaves of its own."""
+    sigs = [MULTI_SIGS[q % len(MULTI_SIGS)] for q in range(n)]
+    slots = [max(k1._leaf_slots(sig, {})) + 1 for sig in sigs]
+    size = max(slots) + n if shared else sum(slots)
+    pool = _stacks(size, s, seed=n * 100 + s, device=device)
+    members, off = [], 0
+    for q, k in enumerate(slots):
+        if shared:
+            members.append([pool[(q + i) % size] for i in range(k)])
+        else:
+            members.append(pool[off:off + k])
+            off += k
+    return sigs, members
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("s", [1, 7, 33])
+@pytest.mark.parametrize("n", [1, 2, 5, 17, 64])
+def test_multi_kernel_matches_plain(cuda, n, s, shared):
+    """K1's multi-tree entry against its plain version: members of
+    different programs (chain, tree, a single leaf, fitted past K1's
+    limits), shared and own leaves; one launch per call, and a kept
+    program table reused by the next call."""
+    sigs, members = _multi(n, s, cuda, shared)
+    prog = k1.MultiProgram()
+    before = k1.count_expr_multi.launches
+    got = k1.count_expr_multi(sigs, members, program=prog)
+    again = k1.count_expr_multi(sigs, members, program=prog)
+    torch.cuda.synchronize()
+    assert k1.count_expr_multi.launches == before + 2
+    want = k1.count_expr_multi_reference(sigs, members)
+    assert got.dtype == torch.int64 and got.shape == (n,)
+    assert got.tolist() == again.tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+def test_multi_kernel_empty_and_misaligned(cuda):
+    sigs = [k1.chain_signature(2, "&"), ("leaf", 0)]
+    empty = torch.zeros((0, WORDS_PER_ROW), dtype=torch.int32, device=cuda)
+    before = k1.count_expr_multi.launches
+    out = k1.count_expr_multi(sigs, [[empty, empty], [empty]])
+    assert out.tolist() == [0, 0] and out.device.type == "cuda"
+    assert k1.count_expr_multi.launches == before  # S = 0: no launch
+    a = _stacks(2, 2, seed=1, device=cuda)
+    base = torch.zeros(2 * WORDS_PER_ROW + 4, dtype=torch.int32,
+                       device=cuda)
+    misaligned = base[1:1 + 2 * WORDS_PER_ROW].view(2, WORDS_PER_ROW)
+    with pytest.raises(ValueError, match="aligned"):
+        k1.count_expr_multi(sigs, [[a[0], a[1]], [misaligned]])
+    assert k1.count_expr_multi.launches == before
 
 
 @pytest.mark.cuda

@@ -481,6 +481,9 @@ BOUND_BYTES = [
     ("count_expr", (2, 954, W), 250_085_384),
     ("count_expr_batch", (4, 2, 954, W), 1_000_341_600),
     ("count_expr_batch", (64, 2, 10, W), 167_773_696),
+    # the multi-tree entry at the served 5-call query's two K1 members
+    # (a 2-leaf chain and a 2-leaf union) at S = 954
+    ("count_expr_multi", ((2, 2), 954, W), 500_170_846),
     ("count_blocks", (32768,), 16_777_224),
     ("count_blocks", (131072,), 67_108_872),
     ("row_counts", (100, 10 * W, False), 131_072_800),

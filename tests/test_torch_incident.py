@@ -12,8 +12,8 @@ GET /debug/traces/{trace_id}.
 
 Beside them:
 - a bundle's sections equal the TPU package's for the same trigger,
-  minus its `fusion` and `spmd` collectors (whole-plan fusion and the
-  SPMD plane are not in the port);
+  minus its `spmd` collector (the SPMD plane is not in the port; the
+  `fusion` collector came with whole-plan fusion);
 - `X-Request-Deadline` already expired answers 504 without a launch,
   and a storm of them writes a `deadline_storm` bundle; a deadline that
   lapses between a query's calls answers 504 too;
@@ -269,7 +269,7 @@ def test_bundle_sections_equal_reference_minus_fusion_and_spmd(tmp_path):
         (meta,) = mgr.list()
         assert meta["trigger"] == {"note": "same"}
         files.append(set(meta["files"]))
-    assert files[1] == files[0] - {"fusion.json", "spmd.json"}
+    assert files[1] == files[0] - {"spmd.json"}
     assert {"fusion.json", "spmd.json"} <= files[0]
 
 

@@ -281,7 +281,8 @@ assert not bad, bad
 #: modules that must exist and be scanned: the command line with its
 #: tools, the client and the logger the oplog writes through, the
 #: observability and health modules every layer imports, the wire
-#: codec, and the ingest engine, the adaptive engine and the planner
+#: codec, the ingest engine, the adaptive engine, the planner, whole-plan
+#: fusion and admission control
 REQUIRED_SOURCES = ("cli.py", "server/client.py", "utils/logger.py",
                     "storage/oplog.py", "server/api.py", "utils/tracing.py",
                     "utils/stats.py", "utils/profile.py",
@@ -290,10 +291,12 @@ REQUIRED_SOURCES = ("cli.py", "server/client.py", "utils/logger.py",
                     "utils/workload.py", "server/diagnostics.py",
                     "encoding/__init__.py", "encoding/serializer.py",
                     "encoding/wire.py", "exec/ingest.py",
-                    "exec/adaptive.py", "exec/plan.py")
+                    "exec/adaptive.py", "exec/plan.py", "exec/fusion.py",
+                    "server/admission.py")
 
 #: modules a client tool imports, and the ingest engine, the adaptive
-#: engine and the planner: none may load torch at import
+#: engine, the planner, whole-plan fusion and admission control: none
+#: may load torch at import
 LIGHT_MODULES = ("pilosa_tpu_torch.utils.tracing",
                  "pilosa_tpu_torch.utils.stats",
                  "pilosa_tpu_torch.utils.profile",
@@ -307,7 +310,9 @@ LIGHT_MODULES = ("pilosa_tpu_torch.utils.tracing",
                  "pilosa_tpu_torch.server.diagnostics",
                  "pilosa_tpu_torch.exec.ingest",
                  "pilosa_tpu_torch.exec.adaptive",
-                 "pilosa_tpu_torch.exec.plan")
+                 "pilosa_tpu_torch.exec.plan",
+                 "pilosa_tpu_torch.exec.fusion",
+                 "pilosa_tpu_torch.server.admission")
 
 
 def test_port_sources_import_no_jax_or_reference():
