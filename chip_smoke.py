@@ -186,6 +186,27 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      lapsing in the admission queue answering 504 with no launch,
      X-Query-Class: bogus answering 400, /debug/admission and /status's
      admission block; a `fusion-json:` line has the numbers;
+   - the HTTP cluster (serve_cluster, last): BASELINE config 5's HTTP
+     plane, three `python -m pilosa_tpu_torch server --device cuda
+     --cluster-hosts ... --replicas 2` children on the one card (a 5 s
+     anti-entropy interval); index b's rows 1-2 of f and g loaded over
+     all 954 shards through node 0, one import-roaring per field and
+     shard, each routed to both owners, and every shard found on exactly
+     its two owners; the four headline Counts through every node equal
+     numpy, each one count_expr launch on every primary node (each
+     node's /debug/dispatch) with no leg retried; 100 warm Counts through
+     node 0 timed in turns beside the single server, 20 profiled ones
+     split into the coordinator's own leg, the remote legs and the rest;
+     the 43 golden PQL cases (tests/testdata/golden_pql.json) through
+     every node; node 2 paused (SIGSTOP): marked DOWN, the headline
+     Count served by the replicas, a one-bit import into one of its
+     shards, and after SIGCONT that shard's blocks equal on every owner
+     (anti-entropy) and the Count through node 2 reads the bit; keys
+     created through nodes 1 and 2 resolve alike on every node; a fourth
+     node started with --join enters through the coordinator's resize,
+     every node then holds exactly the shards placement gives, and the
+     headline Count through it equals numpy; a `cluster-json:` line has
+     every number and the card's memory;
    each path runs with every launch counter set to 0 just before it and
    read just after; cold latency of each first query and warm HTTP p50s.
 
@@ -3976,6 +3997,470 @@ def serve_fusion_admission(srv, k1, k2, k4, planes, comp, truth, tg, card):
     return out
 
 
+# -- the HTTP cluster (serve_cluster) ------------------------------------------
+
+#: the cluster phase's nodes, replicas and anti-entropy interval
+CLUSTER_NODES = 3
+CLUSTER_REPLICAS = 2
+CLUSTER_ANTI_ENTROPY = "5s"
+#: the device the cluster's children serve on (a CPU rehearsal sets cpu)
+CLUSTER_DEVICE = "cuda"
+CLUSTER_LOAD_THREADS = 6
+CLUSTER_WARM = 100
+CLUSTER_PROFILED = 20
+CLUSTER_DEGRADED = 4  # Counts timed while node 2 is paused
+GOLDEN = os.path.join(ROOT, "tests", "testdata", "golden_pql.json")
+#: the golden index's schema (tests/test_golden_cluster.py's)
+GOLDEN_FIELDS = (("f", {"type": "set"}), ("g", {"type": "set"}),
+                 ("m", {"type": "mutex"}), ("b", {"type": "bool"}),
+                 ("v", {"type": "int", "min": -100, "max": 1000}),
+                 ("t", {"type": "time", "timeQuantum": "YMD"}),
+                 ("kf", {"type": "set", "keys": True}),
+                 ("w", {"type": "set"}))
+
+
+def load_golden(shard_width):
+    """(setup PQL, cases) of tests/testdata/golden_pql.json with its
+    "@S+OFF" column placeholders resolved to S * shard_width + OFF."""
+    with open(GOLDEN) as f:
+        doc = json.load(f)
+
+    def col(shard, off):
+        return int(shard) * shard_width + int(off)
+
+    def resolve(obj):
+        if isinstance(obj, str) and obj.startswith("@"):
+            return col(*obj[1:].split("+"))
+        if isinstance(obj, list):
+            return [resolve(x) for x in obj]
+        if isinstance(obj, dict):
+            return {k: resolve(v) for k, v in obj.items()}
+        return obj
+
+    def resolve_pql(pql):
+        return re.sub(r"@(\d+)\+(\d+)",
+                      lambda m: str(col(m.group(1), m.group(2))), pql)
+
+    cases = []
+    for c in doc["cases"]:
+        whole = "want_all" in c
+        cases.append((c["name"], resolve_pql(c["query"]),
+                      resolve(c["want_all"] if whole else c["want"]), whole))
+    return [resolve_pql(s) for s in doc["setup"]], cases
+
+
+def field_blob(planes, fname, shard_width):
+    """One shard's roaring blob of rows 1 and 2 of `fname` (row * shard
+    width + offset positions): index b repeats its planes in every
+    shard, so one blob serves every shard."""
+    from pilosa_tpu_torch.roaring import Bitmap, serialize
+
+    bm = Bitmap()
+    for row in (1, 2):
+        bits = np.unpackbits(planes[(fname, row)].view(np.uint8),
+                             bitorder="little")
+        bm.add_many(np.nonzero(bits)[0].astype(np.uint64)
+                    + np.uint64(row * shard_width))
+    return serialize(bm)
+
+
+def card_memory():
+    """The card's used memory in MiB (nvidia-smi), or "not measured"
+    where nvidia-smi does not answer."""
+    try:
+        return float(nvidia_smi("memory.used").split()[0])
+    except (OSError, subprocess.SubprocessError, ValueError):
+        return "not measured"
+
+
+def _count_dispatches(client):
+    phases = client._request("GET", "/debug/dispatch")["phases"]
+    return phases.get("count", {}).get("lock_wait", {}).get("count", 0)
+
+
+def _leg_retries(client):
+    return client.status()["cluster"]["leg_retries"]
+
+
+def _profile_split(resp):
+    """(coordinator's own leg, slowest remote leg, rest of the root span)
+    of one profiled fan-out Count, in ms."""
+    prof = resp["profile"]
+    nodes = [s for s in _walk_spans(prof["spans"])
+             if s["name"] == "cluster.mapReduce.node"]
+    local = [s["duration"] for s in nodes if not s["tags"].get("remote")]
+    remote = [s["duration"] for s in nodes if s["tags"].get("remote")]
+    legs = max(local + remote)
+    return (1e3 * (local[0] if local else 0.0),
+            1e3 * (max(remote) if remote else 0.0),
+            1e3 * (prof["duration"] - legs))
+
+
+def serve_cluster(srv, planes, card):
+    """BASELINE config 5's HTTP plane on one card: three `python -m
+    pilosa_tpu_torch server` children with --cluster-hosts, --replicas 2
+    and a 5 s anti-entropy interval, each serving its own shards with the
+    port's kernels. Loads index b (954 shards, rows 1-2 of f and g)
+    through node 0 by import-roaring, checks placement, the headline
+    Counts through every node against numpy with one count launch per
+    Count on every primary node and no leg retry, times warm Counts
+    beside the single server `srv` (in turns), splits profiled ones,
+    runs the 43 golden cases through every node, pauses node 2 (a Count
+    served by the replicas, a one-bit import during the pause repaired
+    by anti-entropy after it resumes), replicates keys, and joins a
+    fourth node through the coordinator's resize. Returns the phase's
+    numbers."""
+    from pilosa_tpu_torch.cluster import Cluster, Node
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.tools.cluster import ProcCluster
+
+    t_phase = time.perf_counter()
+    expect = count_expect(planes)
+    pairs = [q for q in expect if q.startswith("Count(Intersect")]
+    headline = pairs[0]
+    out = {"card": card, "nodes": CLUSTER_NODES,
+           "replicas": CLUSTER_REPLICAS, "shards": N_SHARDS,
+           "anti_entropy": CLUSTER_ANTI_ENTROPY}
+    base = tempfile.mkdtemp(prefix="pilosa-torch-smoke-cluster-")
+    mem_before = card_memory()
+    t0 = time.perf_counter()
+    pc = ProcCluster(
+        CLUSTER_NODES, replica_n=CLUSTER_REPLICAS, device=CLUSTER_DEVICE,
+        config=f'[anti-entropy]\ninterval = "{CLUSTER_ANTI_ENTROPY}"\n',
+        base_dir=base, client_timeout=120)
+    try:
+        pc.wait_ready(timeout=180)
+        out["boot_s"] = time.perf_counter() - t0
+        log(f"cluster: {CLUSTER_NODES} nodes, replicas {CLUSTER_REPLICAS}, "
+            f"NORMAL in {out['boot_s']:.1f} s on {card}")
+        cl = pc.clients
+        cl[0].create_index("b")
+        for fname in ("f", "g"):
+            cl[0].create_field("b", fname)
+
+        # -- load: one import-roaring per (field, shard) through node 0
+        blobs = {f: field_blob(planes, f, SHARD_WIDTH) for f in ("f", "g")}
+        jobs = [(f, s) for s in range(N_SHARDS) for f in ("f", "g")]
+        nbytes = sum(len(blobs[f]) for f, _ in jobs)
+
+        def load(part):
+            from pilosa_tpu_torch.server import Client
+
+            c = Client(f"http://{pc.hosts[0]}", timeout=300)
+            for fname, shard in part:
+                c.import_roaring("b", fname, shard, blobs[fname])
+
+        t0 = time.perf_counter()
+        concurrently(*[(lambda p=jobs[i::CLUSTER_LOAD_THREADS]: load(p))
+                       for i in range(CLUSTER_LOAD_THREADS)])
+        out["load_s"] = time.perf_counter() - t0
+        out["load_mb"] = nbytes / 1e6
+        out["load_mb_per_s"] = out["load_mb"] / out["load_s"]
+        log(f"cluster: loaded b ({N_SHARDS} shards x 2 fields, "
+            f"{len(jobs)} import-roaring requests, {out['load_mb']:.1f} MB) "
+            f"through node 0 in {out['load_s']:.1f} s "
+            f"({out['load_mb_per_s']:.1f} MB/s, each to both owners)")
+
+        # -- placement: every shard on exactly its 2 owners
+        nodes = [Node(h, f"http://{h}") for h in pc.hosts]
+        place = Cluster(nodes=nodes, local_id=pc.hosts[0],
+                        replica_n=CLUSTER_REPLICAS)
+        held = {h: set(c.index_shards("b")["shards"])
+                for h, c in zip(pc.hosts, cl)}
+        for shard in range(N_SHARDS):
+            owners = {n.id for n in place.shard_nodes("b", shard)}
+            have = {h for h, s in held.items() if shard in s}
+            if have != owners or len(owners) != CLUSTER_REPLICAS:
+                raise AssertionError(f"cluster: shard {shard} on {have}, "
+                                     f"placement says {owners}")
+        spot = cl[1]._request("GET", "/internal/fragment/nodes?index=b"
+                                     "&shard=7")
+        if {n["id"] for n in spot} != {n.id for n in
+                                       place.shard_nodes("b", 7)}:
+            raise AssertionError(f"cluster: /internal/fragment/nodes {spot}")
+        primaries = {n.id: len(s) for n, s in
+                     place.shards_by_node("b", range(N_SHARDS)).items()}
+        # the coordinator's placement walk a fan-out Count pays (FNV-1a +
+        # jump hash per shard, host Python), timed on this host
+        t0 = time.perf_counter()
+        for _ in range(20):
+            place.shards_by_node("b", range(N_SHARDS))
+        out["placement_walk_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+        out["held"] = {h: len(s) for h, s in held.items()}
+        out["primary_shards"] = primaries
+        log(f"cluster: shards held {out['held']}, primary {primaries}; "
+            f"placement walk over {N_SHARDS} shards "
+            f"{out['placement_walk_ms']:.3f} ms on this host")
+
+        # -- the headline Counts through every node: numpy, one count
+        # launch per Count on every primary node, no retried leg
+        cold = []
+        for c in cl:
+            for pql in pairs:
+                t0 = time.perf_counter()
+                got = c.query("b", pql)["results"][0]
+                cold.append(time.perf_counter() - t0)
+                if got != expect[pql]:
+                    raise AssertionError(f"cluster: {pql} = {got} via "
+                                         f"{c.base_url}, numpy {expect[pql]}")
+        retries0 = [_leg_retries(c) for c in cl]
+        before = [_count_dispatches(c) for c in cl]
+        for c in cl:
+            for pql in pairs:
+                got = c.query("b", pql)["results"][0]
+                if got != expect[pql]:
+                    raise AssertionError(f"cluster: warm {pql} = {got}")
+        moved = [_count_dispatches(c) - b for c, b in zip(cl, before)]
+        n_counts = len(cl) * len(pairs)
+        for h, m in zip(pc.hosts, moved):
+            if primaries.get(h) and m != n_counts:
+                raise AssertionError(f"cluster: node {h} ran {m} count "
+                                     f"launches for {n_counts} Counts")
+        kernels = set()
+        for c in cl:
+            for e in c._request("GET", "/debug/kernels")["compiled"]:
+                if e["family"] == "count":
+                    kernels.add(e["kernel"])
+        if kernels != {"count_expr"}:
+            raise AssertionError(f"cluster: count kernels {kernels}")
+        if [_leg_retries(c) for c in cl] != retries0 or any(retries0):
+            raise AssertionError("cluster: a fan-out leg was retried")
+        # the first Count through node 0 builds every node's stacks (its
+        # legs reach them all); the rest find them resident
+        out["first_count_ms"] = 1e3 * cold[0]
+        out["cold_ms_p50"] = 1e3 * statistics.median(cold[1:])
+        log(f"cluster: {len(pairs)} headline Counts through each node equal "
+            f"numpy; each Count one count_expr launch on every primary node "
+            f"({moved}); 0 leg retries; the first Count (every node's "
+            f"stacks built) {out['first_count_ms']:.1f} ms, the next "
+            f"{len(cold) - 1} p50 {out['cold_ms_p50']:.1f} ms")
+
+        # -- warm latency beside the single server, in turns
+        def warm(uri, n):
+            ts = []
+            for i in range(n):
+                pql = pairs[i % len(pairs)]
+                t0 = time.perf_counter()
+                http(uri, "/index/b/query", pql)
+                ts.append(time.perf_counter() - t0)
+            return ts
+
+        single_want = http(srv.uri, "/index/b/query", headline)
+        single, clustered = [], []
+        n = CLUSTER_WARM // 2  # CLUSTER_WARM a side, in two turns each
+        for turn in ("single", "cluster", "cluster", "single"):
+            if turn == "single":
+                single += warm(srv.uri, n)
+            else:
+                clustered += warm(f"http://{pc.hosts[0]}", n)
+        if http(srv.uri, "/index/b/query", headline) != single_want:
+            raise AssertionError("cluster: the single server drifted")
+        out["warm_ms"] = {
+            "cluster_p50": 1e3 * _pct(clustered, 50),
+            "cluster_p99": 1e3 * _pct(clustered, 99),
+            "single_p50": 1e3 * _pct(single, 50),
+            "single_p99": 1e3 * _pct(single, 99)}
+        splits = []
+        for i in range(CLUSTER_PROFILED):
+            resp = cl[0].query("b", pairs[i % len(pairs)], profile=True)
+            splits.append(_profile_split(resp))
+        out["profile_ms_p50"] = {
+            "coordinator_leg": statistics.median(s[0] for s in splits),
+            "remote_legs": statistics.median(s[1] for s in splits),
+            "merge_and_rest": statistics.median(s[2] for s in splits)}
+        log(f"cluster: warm headline Count through node 0 p50/p99 "
+            f"{out['warm_ms']['cluster_p50']:.3f}/"
+            f"{out['warm_ms']['cluster_p99']:.3f} ms vs the single server "
+            f"{out['warm_ms']['single_p50']:.3f}/"
+            f"{out['warm_ms']['single_p99']:.3f} ms ({len(clustered)} each, "
+            f"in turns); profiled split p50: own leg "
+            f"{out['profile_ms_p50']['coordinator_leg']:.3f}, remote legs "
+            f"{out['profile_ms_p50']['remote_legs']:.3f}, merge and rest "
+            f"{out['profile_ms_p50']['merge_and_rest']:.3f} ms; {card}")
+
+        # -- the golden suite through every node
+        setup, cases = load_golden(SHARD_WIDTH)
+        cl[0].create_index("gold")
+        for fname, opts in GOLDEN_FIELDS:
+            cl[0].create_field("gold", fname, opts)
+        for pql in setup:
+            cl[0].query("gold", pql)
+        t0 = time.perf_counter()
+        failures = []
+        for i, c in enumerate(cl):
+            for name, pql, want, whole in cases:
+                results = c.query("gold", pql)["results"]
+                got = results if whole else results[0]
+                if got != want:
+                    failures.append(f"{name} via node {i}: {got} != {want}")
+        dt = time.perf_counter() - t0
+        if failures:
+            raise AssertionError("cluster golden: " + "; ".join(failures))
+        out["golden"] = {"cases": len(cases), "nodes": len(cl),
+                         "qps": len(cases) * len(cl) / dt}
+        log(f"cluster: {len(cases)} golden cases through each of "
+            f"{len(cl)} nodes equal their wants ({out['golden']['qps']:.1f} "
+            f"queries/s)")
+
+        # -- failover: node 2 paused, the replicas serve
+        victim = 2
+        victim_id = pc.hosts[victim]
+        retries_before = [_leg_retries(c) for c in cl[:victim]]
+        t_pause = time.perf_counter()
+        pc.pause(victim)
+        try:
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                states = {n["id"]: n["state"]
+                          for n in cl[0].status()["nodes"]}
+                if states.get(victim_id) == "DOWN":
+                    break
+                time.sleep(0.2)
+            else:
+                raise AssertionError("cluster: paused node never DOWN")
+            out["down_detect_s"] = time.perf_counter() - t_pause
+            t0 = time.perf_counter()
+            got = cl[0].query("b", headline)["results"][0]
+            out["failover_cold_ms"] = 1e3 * (time.perf_counter() - t0)
+            if got != expect[headline]:
+                raise AssertionError(f"cluster: degraded {got}")
+            # every query while a peer is DOWN re-probes its shard map
+            # (the TPU package's cluster_shards: 2 s per attempt), so few
+            ts = []
+            for i in range(CLUSTER_DEGRADED):
+                c = cl[i % victim]
+                t0 = time.perf_counter()
+                got = c.query("b", headline)["results"][0]
+                ts.append(time.perf_counter() - t0)
+                if got != expect[headline]:
+                    raise AssertionError(f"cluster: degraded warm {got}")
+            out["failover_warm_p50_ms"] = 1e3 * _pct(ts, 50)
+            # a one-bit write into a shard node 2 owns, during the pause
+            shard = next(s for s in range(N_SHARDS) if victim_id in
+                         {n.id for n in place.shard_nodes("b", s)})
+            word = int(np.nonzero(planes[("f", 1)] == 0)[0][0])
+            col = shard * SHARD_WIDTH + word * 32
+            cl[0].import_bits("b", "f", [1], [col])
+            want_after = expect["Count(Row(f=1))"] + 1
+            if cl[1].query("b", "Count(Row(f=1))")["results"][0] \
+                    != want_after:
+                raise AssertionError("cluster: the write is not served")
+        finally:
+            pc.resume(victim)
+        t_resume = time.perf_counter()
+        owners = [pc.hosts.index(n.id) for n in place.shard_nodes("b", shard)]
+        deadline = time.monotonic() + 6 * 5  # a few anti-entropy rounds
+        while True:
+            try:
+                sums = {i: cl[i].fragment_blocks("b", "f", "standard", shard)
+                        for i in owners}
+                repaired = len({json.dumps(s, sort_keys=True)
+                                for s in sums.values()}) == 1 \
+                    and cl[victim].query("b", "Count(Row(f=1))")[
+                        "results"][0] == want_after
+            except Exception:  # noqa: BLE001 — node 2 still waking
+                repaired = False
+            if repaired or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        if not repaired:
+            raise AssertionError(f"cluster: node 2's shard {shard} not "
+                                 f"repaired {time.perf_counter() - t_resume:.1f}"
+                                 " s after it resumed")
+        out["repair_s"] = time.perf_counter() - t_resume
+        retries_pause = [_leg_retries(c) - r
+                         for c, r in zip(cl[:victim], retries_before)]
+        out["pause_leg_retries"] = retries_pause
+        log(f"cluster: node 2 paused, DOWN after {out['down_detect_s']:.1f} "
+            f"s; headline Count via the replicas cold "
+            f"{out['failover_cold_ms']:.1f} ms, warm p50 "
+            f"{out['failover_warm_p50_ms']:.3f} ms (leg retries during the "
+            f"pause {retries_pause}); a bit written into shard {shard} "
+            f"during the pause reached node 2 by anti-entropy "
+            f"{out['repair_s']:.1f} s after it resumed")
+
+        # -- keys: created through nodes 1 and 2, resolved alike
+        cl[0].create_index("kx", keys=True)
+        cl[0].create_field("kx", "f")
+        cl[1].query("kx", 'Set("colA", f=1)')
+        cl[2].query("kx", 'Set("colB", f=1)')
+        deadline = time.monotonic() + 20
+        while True:
+            feeds = [json.dumps(c._request(
+                "GET", "/internal/translate/data?index=kx&field=&offset=0"),
+                sort_keys=True) for c in cl]
+            # a coordinator translates the merged Row with its own store,
+            # which lags the primary by up to one replication pass
+            rows = [sorted(map(str, c.query("kx", "Row(f=1)")["results"][0]
+                               .get("keys") or [])) for c in cl]
+            if len(set(feeds)) == 1 and rows == [["colA", "colB"]] * 3:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"cluster: keys {rows} {feeds}")
+            time.sleep(0.2)
+        out["keys"] = json.loads(feeds[0])["entries"]
+        log(f"cluster: keys colA (node 1) and colB (node 2) resolve alike "
+            f"on every node: {out['keys']}")
+
+        # -- resize: a fourth node joins through the coordinator
+        held_before = {h: set(c.index_shards("b")["shards"])
+                       for h, c in zip(pc.hosts, cl)}
+        t0 = time.perf_counter()
+        joiner = pc.join(seed=0)
+        pc.wait_ready(timeout=300, nodes=CLUSTER_NODES + 1)
+        coord_id = next(n["id"] for n in cl[0].status()["nodes"]
+                        if n["isCoordinator"])
+        coord = pc.clients[pc.hosts.index(coord_id)]
+        # DONE follows the coordinator's own cleanup of moved fragments
+        while True:
+            job = coord.resize_status()["job"]
+            if job is not None and job["state"] == "DONE":
+                break
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"cluster: resize job {job}")
+            time.sleep(0.2)
+        out["resize_s"] = time.perf_counter() - t0
+        nodes4 = [Node(h, f"http://{h}") for h in pc.hosts]
+        place4 = Cluster(nodes=nodes4, local_id=pc.hosts[0],
+                         replica_n=CLUSTER_REPLICAS)
+        held_after = {h: set(c.index_shards("b")["shards"])
+                      for h, c in zip(pc.hosts, pc.clients)}
+        for h, s in held_after.items():
+            owned = {x for x in range(N_SHARDS)
+                     if place4.owns_shard(h, "b", x)}
+            if s != owned:
+                raise AssertionError(f"cluster: {h} holds {len(s)} shards, "
+                                     f"placement gives {len(owned)}")
+        moved = sum(len(held_after[h] - held_before.get(h, set()))
+                    for h in held_after)
+        out["resize_fragments_moved"] = 2 * moved  # fields f and g
+        got = pc.clients[joiner].query("b", headline)["results"][0]
+        if got != expect[headline]:
+            raise AssertionError(f"cluster: via the joined node {got}")
+        out["joined_shards"] = len(held_after[pc.hosts[joiner]])
+        log(f"cluster: a fourth node joined through the coordinator's "
+            f"resize in {out['resize_s']:.1f} s ({moved} shards of b, "
+            f"{out['resize_fragments_moved']} fragments, moved to new "
+            f"owners); it holds {out['joined_shards']} shards as placement "
+            f"gives and answers the headline Count = numpy")
+        out["memory"] = {"used_mib_before": mem_before,
+                         "used_mib_with_cluster": card_memory(),
+                         "hbm_total_bytes": [
+                             c._request("GET", "/debug/hbm?top=0")
+                             ["total_bytes"] for c in pc.clients]}
+    except BaseException:
+        for i in range(len(pc.procs)):  # each node's log, for the failure
+            log(f"cluster: node {i} log tail:\n{pc.tail(i)}")
+        raise
+    finally:
+        codes = pc.close(timeout=60)
+        pc.remove_dirs()
+    if any(code not in (0, -15) for code in codes):
+        raise AssertionError(f"cluster: a node exited with {codes}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main():
     import torch
 
@@ -4130,6 +4615,11 @@ def main():
             launches["count_expr"] += k1.count_expr.launches
             launches["count_blocks"] += k2_launches(k2)
             launches["pairwise_counts"] += k4.pairwise_counts.launches
+            # the HTTP cluster (last): its nodes are child processes, so
+            # their launches are read from each node's /debug/dispatch
+            reset_counters(mods)
+            cluster = serve_cluster(srv, planes, card)
+            log("cluster-json: " + json.dumps(cluster))
         finally:
             srv.stop()
     finally:

@@ -35,7 +35,14 @@ and tune the EXPLAIN ANALYZE ring; `--fusion off|on|shadow` (with
 multi-Count query as one fused dispatch; `--admission on` (with
 `--admission-capacity`, `--admission-queue-depth`,
 `--admission-queue-timeout`) the admission controller and its
-degradation ladder. It runs on `cuda` unless
+degradation ladder. `--cluster-hosts` (every node's host:port, with
+`--node-id` and `--replicas`) or `--join` (any member's host:port) makes
+it one node of an HTTP cluster: each node serves its own shards on its
+own device, the node a query reaches fans it out and merges, imports
+reach every replica, a health monitor marks peers DOWN and READY, an
+anti-entropy pass (`[anti-entropy] interval`, default 10m) repairs
+replicas, keys replicate from their primary, and a joining node enters
+through the coordinator's resize. It runs on `cuda` unless
 `--device cpu` is given, and exits with an error when no CUDA device is
 present and the CPU was not asked for.
 `holder`, `inspect` and `check` read files only and touch no device.
@@ -111,7 +118,8 @@ def _apply_server_flags(config, args):
     used by `server`, `config` and `holder`, so what `config` prints is
     exactly what `server` runs with (reference: cmd/root.go setAllConfig
     does this once via viper for every subcommand)."""
-    for flag in ("bind", "data_dir", "device", "max_writes_per_request",
+    for flag in ("bind", "data_dir", "device", "cluster_hosts", "node_id",
+                 "replicas", "max_writes_per_request",
                  "coalesce_window", "coalesce_max_queue", "container_repr",
                  "long_query_time", "tracing", "workers",
                  "flight_recorder_size", "watchdog_deadline",
@@ -174,7 +182,7 @@ class Server:
 
     def __init__(self, holder, api, http, oplog=None, replayed=0,
                  runtime_monitor=None, watchdog=None, prober=None,
-                 incidents=None, diagnostics=None):
+                 incidents=None, diagnostics=None, cluster_services=()):
         self.holder = holder
         self.api = api
         self.http = http
@@ -185,6 +193,13 @@ class Server:
         self.prober = prober
         self.incidents = incidents
         self.diagnostics = diagnostics
+        # a cluster node's background loops (translate replication,
+        # anti-entropy, the peer health monitor), stopped in this order
+        self.cluster_services = list(cluster_services)
+
+    @property
+    def cluster(self):
+        return self.api.cluster
 
     @property
     def uri(self):
@@ -206,6 +221,8 @@ class Server:
             flightrec.stop_watchdog()
         if self.runtime_monitor is not None:
             self.runtime_monitor.stop()
+        for service in self.cluster_services:
+            service.stop()
         self.http.stop()
         # AFTER the transport: in-flight handlers blocked on the
         # coalescer wake with 503 instead of hanging the shutdown
@@ -292,7 +309,10 @@ def start_server(argv):
 
     holder = Holder(data_dir, max_op_n=config.get("max-op-n")).open()
     oplog = None
+    services = []
     try:
+        cluster, join_needed = _cluster_from_config(config, args, data_dir,
+                                                    services)
         if storage_cfg.get("oplog", True):
             seg_bytes = storage_cfg.get("oplog-segment-bytes")
             oplog = oplog_mod.OpLog(
@@ -321,11 +341,30 @@ def start_server(argv):
                   admission_capacity=float(adm_cap) if adm_cap else None,
                   admission_queue_depth=int(adm_qd) if adm_qd else None,
                   admission_queue_timeout=parse_duration(str(adm_qt))
-                  if adm_qt else None)
+                  if adm_qt else None,
+                  cluster=cluster)
+        if cluster is not None:  # even single-node: the cluster can grow
+            from .server import Client
+            from .server.syncer import AntiEntropyMonitor, HolderSyncer
+            from .server.translate_sync import TranslateReplicator
+
+            interval = parse_duration(
+                config.get("anti-entropy", {}).get("interval", "10m"))
+            # stopped in list order: replication and repair before the
+            # health monitor they read
+            services.insert(0, AntiEntropyMonitor(
+                HolderSyncer(holder, cluster, Client), interval).start())
+            # BEFORE serving: replica stores must be read-only from the
+            # first request, or a keyed import could allocate ids that
+            # diverge from the primary's
+            services.insert(0, TranslateReplicator(
+                holder, cluster, Client).start())
         # Crash recovery BEFORE serving: re-apply acked writes the previous
         # process died holding, so the first query already sees them.
         replayed = api.replay_oplog()
     except BaseException:
+        for service in services:
+            service.stop()
         holder.close()
         if oplog is not None:
             oplog.close()
@@ -436,15 +475,146 @@ def start_server(argv):
         if watchdog is not None:
             flightrec.stop_watchdog()
         runtime_monitor.stop()
+        for service in services:
+            service.stop()
         api.close()
         holder.close()
         if oplog is not None:
             oplog.close()
         raise
+    if join_needed:
+        _start_join(cluster, "https" if tls_cfg.get("certificate")
+                    else "http")
     return Server(holder, api, http, oplog=oplog, replayed=replayed,
                   runtime_monitor=runtime_monitor, watchdog=watchdog,
                   prober=prober, incidents=incidents,
-                  diagnostics=diagnostics)
+                  diagnostics=diagnostics, cluster_services=services)
+
+
+def _cluster_from_config(config, args, data_dir, services):
+    """The node's Cluster (None on a single node) and whether it must
+    still register with the coordinator. A static host list
+    (`--cluster-hosts`, hosts known up front; reference: gossip seeds
+    server/config.go), OR a dynamic join (`--join`): the cluster is read
+    from a seed node and this node registers through the coordinator's
+    resize flow once it serves (reference: gossip join retry
+    gossip/gossip.go:116-140 + nodeJoin cluster.go:1796). The peer
+    health monitor it starts is appended to `services`."""
+    import time
+
+    hosts = config.get("cluster-hosts")
+    join_target = getattr(args, "join", None) or config.get("join")
+    if join_target and hosts:
+        raise SystemExit("--join and --cluster-hosts are mutually exclusive")
+    if not join_target and not hosts:
+        return None, False
+    from .cluster import Cluster, HealthMonitor, Node
+    from .server import Client
+
+    local_id = config.get("node-id") or config["bind"]
+    if local_id.startswith("http"):
+        local_id = local_id.split("//", 1)[1]
+    join_needed = False
+    if join_target:
+        seed_uri = join_target if join_target.startswith("http") \
+            else f"http://{join_target}"
+        status = None
+        last = None
+        for _ in range(30):  # the seed may still be booting
+            try:
+                status = Client(seed_uri, timeout=5).status()
+                break
+            except Exception as e:  # noqa: BLE001
+                last = e
+                time.sleep(1.0)
+        if status is None:
+            raise SystemExit(
+                f"cannot reach join target {join_target}: {last}")
+        if any(not isinstance(d.get("uri"), str)
+               for d in status.get("nodes", [])):
+            raise SystemExit(
+                f"join target {join_target} is not clustered "
+                "(started without --cluster-hosts)")
+        join_host = local_id.rsplit(":", 1)[0]
+        if join_host in ("0.0.0.0", "::", "") or ":" not in local_id:
+            raise SystemExit(
+                "--join registers this node's id as its reachable URI; "
+                f"{local_id!r} is not reachable — pass --node-id "
+                "host:port with a routable host")
+        nodes = [Node.from_json(d) for d in status["nodes"]]
+        cluster = Cluster(
+            nodes=nodes, local_id=local_id,
+            replica_n=int(status.get("replicaN", 1)), path=data_dir)
+        # The seed's membership is AUTHORITATIVE: a stale on-disk
+        # .topology (e.g. this node was removed while down) must not
+        # shadow it, or we'd skip re-registration and serve with a
+        # divergent ring. A restarted member appears in the seed's list
+        # and skips registration naturally.
+        join_needed = cluster.node(local_id) is None
+        cluster.save_topology()
+    else:
+        host_list = [h.strip() for h in hosts.split(",") if h.strip()]
+        nodes = []
+        for h in host_list:
+            uri = h if h.startswith("http") else f"http://{h}"
+            nodes.append(Node(id=uri.split("//", 1)[1], uri=uri))
+        # node identity: --node-id wins (needed when binding 0.0.0.0),
+        # else derived from --bind
+        if not any(n.id == local_id for n in nodes):
+            raise SystemExit(
+                f"node id {local_id!r} not in --cluster-hosts; pass "
+                f"--node-id matching one of the listed hosts")
+        cluster = Cluster(
+            nodes=nodes, local_id=local_id,
+            replica_n=int(config.get("replicas", 1)), path=data_dir)
+        cluster.load_topology()
+        cluster.save_topology()
+    services.append(HealthMonitor(cluster, Client).start())
+    return cluster, join_needed
+
+
+def _start_join(cluster, scheme):
+    """Register with the coordinator now that this node can serve the
+    resize instruction (schema + streamed fragments land over HTTP).
+    Retries cover a busy coordinator (a resize already in progress), as
+    the reference's join loop does (gossip.go:116-140)."""
+    import time
+
+    from .cluster import Node
+    from .server import Client
+
+    def join():
+        own_uri = f"{scheme}://{cluster.local_id}"
+        for attempt in range(60):
+            coord = cluster.coordinator
+            if coord is not None:
+                try:
+                    Client(coord.uri).resize_add_node(
+                        cluster.local_id, own_uri)
+                    print(f"joined cluster via {coord.id}", flush=True)
+                    return
+                except Exception as e:  # noqa: BLE001
+                    if "already in cluster" in str(e):
+                        return
+            # coordinatorship may have moved since the status snapshot:
+            # refresh membership from any live node
+            if attempt % 5 == 4:
+                for peer in list(cluster.nodes):
+                    try:
+                        st = Client(peer.uri, timeout=5).status()
+                        cluster.nodes = sorted(
+                            (Node.from_json(d) for d in st["nodes"]),
+                            key=lambda n: n.id)
+                        break
+                    except Exception:  # noqa: BLE001
+                        continue
+            time.sleep(2.0)
+        print("ERROR: cluster join did not complete after 120s — this "
+              "node is serving OUTSIDE the cluster (owns no shards; "
+              "writes here are invisible to members). Retry by "
+              "restarting with --join.", flush=True)
+
+    threading.Thread(target=join, daemon=True, name="cluster-join").start()
 
 
 def cmd_server(argv):
@@ -465,8 +635,9 @@ def cmd_server(argv):
     if srv.replayed:
         print(f"oplog: replayed {srv.replayed} record(s) after unclean "
               "shutdown", flush=True)
+    extra = f", cluster of {len(srv.cluster.nodes)}" if srv.cluster else ""
     print(f"listening on {srv.uri} (device {srv.api.device}, data: "
-          f"{srv.holder.path})", flush=True)
+          f"{srv.holder.path}{extra})", flush=True)
     done = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: done.set())
@@ -492,7 +663,12 @@ def cmd_server(argv):
     from .utils.logger import StandardLogger
 
     flightrec.install_crash_handler(logger=StandardLogger())
-    done.wait()
+    # A process-directed signal may land on any thread that does not
+    # block it, and one landing on another thread does not wake a main
+    # thread blocked in an untimed wait: poll, so the main thread runs
+    # its handler within a second (a cluster node has many threads).
+    while not done.wait(1.0):
+        pass
     srv.stop()
     return 0
 
@@ -854,6 +1030,18 @@ def _server_flags(p):
     p.add_argument("--device", default=None,
                    help="torch device for the query path (cuda, the "
                         "default, or cpu)")
+    p.add_argument("--cluster-hosts", default=None,
+                   help="comma-separated host:port list of ALL cluster "
+                        "nodes (static bootstrap); omit for single-node")
+    p.add_argument("--node-id", default=None,
+                   help="this node's id (defaults to host:port of --bind)")
+    p.add_argument("--join", default=None,
+                   help="host:port of ANY existing cluster node: discover "
+                        "the cluster from it and join dynamically via the "
+                        "coordinator's resize flow (mutually exclusive "
+                        "with --cluster-hosts)")
+    p.add_argument("--replicas", type=int, default=None,
+                   help="replication factor (default 1)")
     p.add_argument("--container-repr", default=None,
                    choices=["auto", "dense", "sparse", "rle"],
                    help="leaf container representation: auto (default, or "

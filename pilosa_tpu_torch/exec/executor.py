@@ -181,6 +181,31 @@ def uint_arg_or_none(call, key):
     return val if has else None
 
 
+#: the non-negative integer arguments of each call, checked tree-wide at
+#: a cluster coordinator before it fans a query out
+_UINT_ARGS_BY_CALL = {
+    "TopN": ("n", "threshold", "tanimotoThreshold"),
+    "Rows": ("limit", "previous", "column"),
+    "GroupBy": ("limit", "offset"),
+}
+
+
+def validate_uint_args(call):
+    """Negative-argument rejection for a whole call tree, run at the
+    cluster coordinator (after key translation) so a bad argument fails
+    once, with the local executor's message, instead of once per leg."""
+    for key in _UINT_ARGS_BY_CALL.get(call.name, ()):
+        if key in call.args:
+            uint_arg(call, key)
+    if call.name == "GroupBy" and "previous" in call.args:
+        groupby_previous(call, len(call.children))
+    for child in call.children:
+        validate_uint_args(child)
+    filt = call.args.get("filter")
+    if isinstance(filt, Call):
+        validate_uint_args(filt)
+
+
 def check_write_limit(query, max_writes):
     """(reference: executor.Execute executor.go:135 + ErrTooManyWrites)"""
     if max_writes and max_writes > 0:

@@ -258,7 +258,8 @@ class IngestEngine:
     # -- merge ---------------------------------------------------------------
 
     def _evaluator(self):
-        return getattr(self.api.executor, "_stacked", None)
+        return getattr(getattr(self.api.executor, "local", self.api.executor),
+                       "_stacked", None)
 
     def flush(self):
         """Synchronous drain (tests; close). Serialized with the

@@ -47,7 +47,18 @@ token bucket, queued in a bounded FIFO, or shed with 503, Retry-After
 and `X-Pilosa-Shed: admission`; a deadline that lapses in the queue
 answers 504. The controller's degradation ladder holds the ingest
 engine's interval merges off from SHED_BATCH up and marks responses
-stale from STALE_OK up."""
+stale from STALE_OK up.
+
+With a cluster (`API(cluster=...)`, `server --cluster-hosts` or
+`--join`), queries run through the ClusterExecutor (cluster/executor.py:
+each node's own shards on its own card, the rest over HTTP to their
+owners, merged here) and skip the coalescer; DDL is broadcast to every
+peer; every import routes each shard's slice to all of its replica
+owners, tolerating a lagging replica while one owner took the write
+(anti-entropy repairs the rest); writes that arrive while the cluster
+is RESIZING queue and replay once it is NORMAL again. The node-to-node
+internals behind anti-entropy, key replication, resize and the
+`/status` observability roll-up live here too."""
 
 import array
 import base64
@@ -60,6 +71,7 @@ import time
 
 import numpy as np
 
+from ..cluster.broadcast import MessageType, Serializer
 from ..core import FieldOptions
 from ..core.field import (
     FIELD_TYPE_BOOL,
@@ -453,9 +465,10 @@ class QueryCoalescer:
 
 
 class API:
-    """Holds the holder and the port's Executor on `device`, the query
-    coalescer when `coalesce_window` > 0, and the write-ahead oplog when
-    one is given."""
+    """Holds the holder and the port's Executor on `device` (a
+    ClusterExecutor around it when a cluster is given), the query
+    coalescer when `coalesce_window` > 0 on a single node, and the
+    write-ahead oplog when one is given."""
 
     def __init__(self, holder, device=None, coalesce_window=0.0,
                  coalesce_max_queue=256, max_writes_per_request=0,
@@ -463,13 +476,36 @@ class API:
                  ingest_interval=0.0, ingest_max_rows=None,
                  ingest_max_bytes=None, admission="off",
                  admission_capacity=None, admission_queue_depth=None,
-                 admission_queue_timeout=None):
+                 admission_queue_timeout=None, cluster=None,
+                 client_factory=None):
         from ..utils.logger import StandardLogger
 
         self.holder = holder
-        self.executor = Executor(
-            holder, device=device,
-            max_writes_per_request=max_writes_per_request)
+        self.cluster = cluster
+        self.logger = logger if logger is not None else StandardLogger()
+        # last per-index shard set pushed to peers (gossiped shard map)
+        self._pushed_shards = {}
+        if client_factory is None:
+            from .client import Client as client_factory  # noqa: N813
+        self.client_factory = client_factory
+        if cluster is not None:
+            from ..cluster import ClusterExecutor, ResizeManager
+
+            self.executor = ClusterExecutor(
+                holder, cluster, client_factory, device=device,
+                logger=self.logger,
+                max_writes_per_request=max_writes_per_request)
+            self.resize = ResizeManager(holder, cluster, self.client_factory)
+            # Writes arriving while RESIZING are queued and replayed once
+            # the cluster returns to NORMAL (see import_bits); the resize
+            # manager pings us at every RESIZING->NORMAL transition,
+            # including on followers and aborts.
+            self.resize.on_state_normal = self._drain_resize_writes
+        else:
+            self.executor = Executor(
+                holder, device=device,
+                max_writes_per_request=max_writes_per_request)
+            self.resize = None
         # Durable write-ahead oplog (storage/oplog.py): when set, every
         # import appends its record BEFORE any ack path can return, and
         # replay_oplog() re-applies unapplied records at boot. None (the
@@ -483,16 +519,17 @@ class API:
         self._oplog_ckpt_lock = threading.Lock()
         if oplog is not None:
             oplog.on_rotate = self._oplog_rotate_checkpoint
-        self.logger = logger if logger is not None else StandardLogger()
         # slow-query threshold in seconds (reference: long-query-time);
         # None disables the log and the profiling it implies
         self.long_query_time = long_query_time
         # window 0 — the default — builds no coalescer: every query takes
-        # the per-query path
+        # the per-query path. A cluster coordinator never coalesces: on
+        # the HTTP fan-out the legs are where launches happen, so
+        # coordinator coalescing would only add latency.
         self.coalesce_window = float(coalesce_window or 0.0)
         self.coalesce_max_queue = int(coalesce_max_queue)
         self._coalescer = None
-        if self.coalesce_window > 0:
+        if self.coalesce_window > 0 and cluster is None:
             self._coalescer = QueryCoalescer(
                 self, self.coalesce_window, self.coalesce_max_queue)
         # Streaming ingest engine (exec/ingest.py): interval 0 — the
@@ -527,14 +564,171 @@ class API:
                 # degradation-ladder shed policy for interval merges
                 # (overflow-forced merges still run)
                 self.ingest.set_shed_probe(self._admission.shed_merges)
+        self._resize_writes = []  # queued (kind, kwargs, lsn) while RESIZING
+        self._resize_writes_lock = threading.Lock()
+        self._resize_draining = False  # replay thread active
+        # marks the replay thread itself: ITS imports must apply, not
+        # re-queue (the queue-while-draining rule is for new client
+        # writes, which wait their turn behind the backlog)
+        self._resize_replay_tls = threading.local()
+
+    @property
+    def local_executor(self):
+        """This node's own Executor (the ClusterExecutor's `local` on a
+        cluster): its evaluator, ledgers and launch counters."""
+        return getattr(self.executor, "local", self.executor)
 
     @property
     def device(self):
-        return self.executor.device
+        return self.local_executor.device
 
     def batch_executor(self):
         """The executor the coalescer drains into."""
-        return self.executor
+        return self.local_executor
+
+    # -- cluster state and the resize write queue ----------------------------
+
+    def _validate_state(self):
+        """Most methods are forbidden while RESIZING (reference:
+        api.validate api.go:119 + apimethod_string.go)."""
+        if self.cluster is not None and self.cluster.state == "RESIZING":
+            raise ApiError("cluster is resizing; try again later")
+
+    # Queue cap: past this, imports get the reference's RESIZING rejection
+    # instead (backpressure; a resize should finish long before a client
+    # can push 10k batches).
+    RESIZE_QUEUE_MAX = 10_000
+    # Replay attempts per queued write before it is dropped (transient
+    # peer errors heal; a write is only lost after all retries, counted
+    # in resize_replay_dropped).
+    RESIZE_REPLAY_RETRIES = 3
+
+    #: Retry-After on a full resize queue: one drain pass over a full
+    #: backlog comfortably finishes within this; a still-running resize
+    #: answers the retry with another (cheap) queue append.
+    RESIZE_QUEUE_RETRY_AFTER = 5
+
+    def _queue_resize_write(self, kind, kwargs, lsn=None):
+        """True = the write was queued for post-resize replay (caller
+        returns immediately); False = cluster not resizing, proceed.
+
+        The state re-check happens INSIDE the queue lock, which the drain
+        also holds for its swap: either this append lands before a swap
+        (drained), or the drain already ran — in which case the state is
+        NORMAL here and the write proceeds normally. While a drain is
+        replaying, new writes keep queueing behind it so replay order is
+        arrival order (a stale queued value must not clobber a newer
+        acknowledged one).
+
+        ``lsn``: the write's oplog record (already durable — the append
+        happens before the queue check). The drain marks it applied once
+        the queued write lands, so a crash mid-drain replays the rest of
+        the backlog from the log at next boot instead of dropping it."""
+        if self.cluster is None:
+            return False
+        if getattr(self._resize_replay_tls, "active", False):
+            return False  # the drain's own replay: apply directly
+        if kwargs.get("remote"):
+            # Internal fan-out hop, not a client write: queueing would
+            # replay it LOCALLY on a node the resize may have just
+            # de-ownered. Reject like the reference; the coordinating
+            # node's degraded-write policy reports the failure.
+            self._validate_state()
+            return False
+        with self._resize_writes_lock:
+            if self.cluster.state != "RESIZING" \
+                    and not self._resize_draining:
+                return False
+            if len(self._resize_writes) >= self.RESIZE_QUEUE_MAX:
+                # 503 + Retry-After, not a generic client error: a full
+                # queue is backpressure, and well-behaved clients (our
+                # server/client.py included) back off and retry instead
+                # of treating it as a server bug. The rejected write's
+                # record is marked applied — a 503 promises nothing, and
+                # an eternally-unapplied lsn would pin the checkpoint.
+                self._oplog_applied(lsn)
+                shed_reject(
+                    "resize_queue",
+                    "cluster is resizing; try again later "
+                    "(write queue full)",
+                    self.RESIZE_QUEUE_RETRY_AFTER, qclass="batch")
+            self._resize_writes.append((kind, kwargs, lsn))
+        return True
+
+    def _drain_resize_writes(self):
+        """Replay queued imports after a RESIZING->NORMAL transition
+        (resize completion OR abort): routing now follows the installed
+        topology, so every queued bit lands on its owners. Runs on a
+        background thread — the resize manager calls this while holding
+        its own lock, and replay fans out over HTTP. Loops until the
+        queue is empty so writes arriving mid-drain replay after the
+        backlog, preserving arrival order."""
+        with self._resize_writes_lock:
+            if self._resize_draining or not self._resize_writes:
+                return
+            self._resize_draining = True
+
+        def replay_one(kind, kwargs, lsn):
+            """Apply one queued write with bounded in-place retries.
+            Retrying IN PLACE (not re-queueing at the tail) is load-
+            bearing: replay order is arrival order, and a failed write
+            pushed behind later writes to the same bit could clobber a
+            newer acknowledged value. Only after the retries are
+            exhausted is the write dropped — that is the documented
+            crash-semantics loss, counted in resize_replay_dropped, not
+            a silent one.
+
+            Durability: the queued write's oplog record (``lsn``) is
+            marked applied only here — on success AND on a counted drop
+            (else the checkpoint watermark pins forever on a record no
+            one will ever apply). A crash BEFORE this line leaves the
+            record below the watermark, so boot replay resumes the
+            backlog instead of dropping it."""
+            for attempt in range(self.RESIZE_REPLAY_RETRIES):
+                try:
+                    faultpoints.reached("resize.drain.apply")
+                    if kind == "bits":
+                        self.import_bits(**kwargs)
+                    else:
+                        self.import_values(**kwargs)
+                    self._oplog_applied(lsn)
+                    return
+                except Exception:
+                    where = {k: kwargs[k] for k in
+                             ("index_name", "field_name")}
+                    if attempt + 1 < self.RESIZE_REPLAY_RETRIES:
+                        global_stats.count("resize_replay_retries")
+                        flightrec.record("cluster.replay_retry", kind=kind,
+                                         attempt=attempt + 1, **where)
+                        self.logger.printf(
+                            "resize write replay failed (attempt %d/%d, "
+                            "retrying): %s %r", attempt + 1,
+                            self.RESIZE_REPLAY_RETRIES, kind, where)
+                        time.sleep(0.2 * (2 ** attempt))
+                    else:
+                        global_stats.count("resize_replay_dropped")
+                        flightrec.record("cluster.replay_dropped",
+                                         kind=kind, **where)
+                        self.logger.printf(
+                            "resize write replay DROPPED after %d "
+                            "attempts: %s %r", self.RESIZE_REPLAY_RETRIES,
+                            kind, where)
+                        self._oplog_applied(lsn)  # counted loss, not a wedge
+
+        def replay():
+            self._resize_replay_tls.active = True
+            while True:
+                with self._resize_writes_lock:
+                    queued = self._resize_writes
+                    self._resize_writes = []
+                    if not queued:
+                        self._resize_draining = False
+                        return
+                for kind, kwargs, lsn in queued:
+                    replay_one(kind, kwargs, lsn)
+
+        threading.Thread(target=replay, daemon=True,
+                         name="resize-write-drain").start()
 
     def query(self, index_name, pql, shards=None, options=None,
               deadline=None, query_class=None):
@@ -545,6 +739,7 @@ class API:
         here, at admission queue pop and before each launch.
         `query_class` — the validated `X-Query-Class` header value (None
         = classify from the PQL shape)."""
+        self._validate_state()
         if self.holder.index(index_name) is None:
             raise NotFoundError(f"index not found: {index_name}")
         # Expired on arrival: drop BEFORE any launch can start — the
@@ -666,6 +861,10 @@ class API:
             incident_mod.note_deadline_expiry()
             raise GatewayTimeoutError(str(e)) from e
         except Exception as e:
+            from ..ops.cuda_build import is_device_failure
+
+            if is_device_failure(e):
+                raise  # the card failed: a 500, not a client error
             raise ApiError(str(e)) from e
         finally:
             flightrec.watch_end(wtoken)
@@ -675,6 +874,8 @@ class API:
         # SLO tick: with objectives configured, serving traffic alone
         # keeps burn rates fresh and fires alerts (rate-limited inside)
         workload_mod.maybe_sample_slo()
+        if any(c.writes() for c in query.calls):
+            self._broadcast_shards_if_changed(index_name)
         return results
 
     def _try_coalesce(self, index_name, pql, shards, options):
@@ -773,11 +974,15 @@ class API:
                 "batch=%d fused=%d",
                 elapsed, index_name, q[:500], fp, batch, fused)
 
-    def debug_trace(self, trace_id):
-        """GET /debug/traces/{trace_id}: this node's spans of one trace
-        (the per-node trace index plus the InMemoryTracer ring when one
-        is installed) and their tree. Peers' spans join with the cluster
-        layer."""
+    def debug_trace(self, trace_id, local_only=False):
+        """GET /debug/traces/{trace_id}: one assembled span tree.
+
+        Local spans come from the bounded per-node trace index (plus the
+        InMemoryTracer ring when one is installed). On a cluster
+        coordinator the default form also pulls every peer's slice of
+        the trace (client.debug_trace → the peers' ?local=true form, so
+        the fan-out cannot recurse) and merges it with per-node
+        clock-skew correction — see utils/tracing.estimate_skew."""
         local = tracing.get_trace(trace_id)
         tracer = tracing.get_tracer()
         if hasattr(tracer, "to_dicts"):
@@ -785,14 +990,37 @@ class API:
             local += [s for s in tracer.to_dicts()
                       if s.get("traceID") == trace_id
                       and s.get("spanID") not in seen]
-        return {"traceID": trace_id, "found": bool(local),
-                "spans": local, "tree": tracing.assemble_tree(local)}
+        if local_only or self.cluster is None \
+                or len(self.cluster.nodes) <= 1 \
+                or not hasattr(self.executor, "_client"):
+            return {"traceID": trace_id, "found": bool(local),
+                    "spans": local, "tree": tracing.assemble_tree(local)}
+        remote_by_node = {}
+        with tracing.with_span(None):  # don't trace the assembly fetches
+            for node in list(self.cluster.nodes):
+                if node.id == self.cluster.local_id:
+                    continue
+                try:
+                    resp = self.executor._client(node).debug_trace(trace_id)
+                except Exception:  # noqa: BLE001 — assembly is best-effort
+                    continue
+                spans = (resp or {}).get("spans") or []
+                if spans:
+                    remote_by_node[node.id] = spans
+        merged, skew = tracing.merge_remote_spans(local, remote_by_node)
+        return {"traceID": trace_id, "found": bool(merged),
+                "spans": merged,
+                "nodes": {nid: {"spans": len(remote_by_node[nid]),
+                                "clock_skew_seconds": round(th, 6)}
+                          for nid, th in skew.items()},
+                "tree": tracing.assemble_tree(merged)}
 
     def query_batch(self, index_name, pqls, shards=None):
         """Execute a list of PQL queries as batched launches (the POST
         /index/{i}/query-batch route, the coalescer's executor path).
         Returns (results, error, batch_size) per query in request order —
         per-query error isolation, like the coalescer's."""
+        self._validate_state()
         if self.holder.index(index_name) is None:
             raise NotFoundError(f"index not found: {index_name}")
         if devhealth.is_down():
@@ -800,6 +1028,17 @@ class API:
             raise ServiceUnavailableError(
                 "device link DOWN (canary probes failing); "
                 f"retry in {retry:.0f}s", retry_after=retry)
+        if self.cluster is not None:
+            # cluster coordinators fan out per query; batching happens
+            # on the legs' own launch paths
+            out = []
+            for pql in pqls:
+                try:
+                    out.append((self.query(index_name, pql,
+                                           shards=shards), None, 0))
+                except Exception as exc:  # noqa: BLE001 — per-query
+                    out.append((None, exc, 0))
+            return out
         return self.executor.execute_batch(
             index_name, list(pqls), shards=shards)
 
@@ -812,7 +1051,7 @@ class API:
             co = {"enabled": False,
                   "window_seconds": self.coalesce_window,
                   "max_queue": self.coalesce_max_queue}
-        st = self.executor.stacked_stats()
+        st = self.local_executor.stacked_stats()
         return {
             "coalescer": co,
             "batch_dispatches": st["batch_dispatches"],
@@ -851,43 +1090,63 @@ class API:
         if self._coalescer is not None:
             self._coalescer.close()
 
-    def create_index(self, name, options=None):
+    def create_index(self, name, options=None, remote=False):
+        """(reference: api.CreateIndex; a cluster broadcasts it to every
+        peer, which applies it with remote=True)"""
         from ..core.holder import HolderError
         from ..core.index import IndexError_
 
         try:
-            return self.holder.create_index(name, options=options)
+            idx = self.holder.create_index(
+                name, options=options, if_not_exists=remote)
         except HolderError as e:
             raise ConflictError(str(e)) from e
         except IndexError_ as e:
             raise ApiError(str(e)) from e
+        if not remote:
+            self._broadcast(MessageType.CREATE_INDEX, {
+                "index": name,
+                "options": idx.options.to_dict()})
+        return idx
 
-    def delete_index(self, name):
-        """(reference: api.DeleteIndex, single node). Device stacks of the
-        deleted index stay in their pools until evicted; a re-created
-        index never reads them, as its fragments' uids differ."""
+    def delete_index(self, name, remote=False):
+        """(reference: api.DeleteIndex). Device stacks of the deleted
+        index stay in their pools until evicted; a re-created index never
+        reads them, as its fragments' uids differ."""
         from ..core.holder import HolderError
 
         try:
             self.holder.delete_index(name)
         except HolderError as e:
             raise NotFoundError(str(e)) from e
+        self._pushed_shards.pop(name, None)
+        if self.cluster is not None:
+            self.cluster.drop_remote_index(name)
+        if not remote:
+            self._broadcast(MessageType.DELETE_INDEX, {"index": name})
 
-    def create_field(self, index_name, field_name, options=None):
+    def create_field(self, index_name, field_name, options=None,
+                     remote=False):
         from ..core.index import IndexError_
 
         idx = self.holder.index(index_name)
         if idx is None:
             raise NotFoundError(f"index not found: {index_name}")
         try:
-            return idx.create_field(field_name, options=options)
+            field = idx.create_field(
+                field_name, options=options, if_not_exists=remote)
         except IndexError_ as e:
             if "already exists" in str(e):
                 raise ConflictError(str(e)) from e
             raise ApiError(str(e)) from e
+        if not remote:
+            self._broadcast(MessageType.CREATE_FIELD, {
+                "index": index_name, "field": field_name,
+                "options": field.options.to_dict()})
+        return field
 
-    def delete_field(self, index_name, field_name):
-        """(reference: api.DeleteField, single node)"""
+    def delete_field(self, index_name, field_name, remote=False):
+        """(reference: api.DeleteField)"""
         from ..core.index import IndexError_
 
         idx = self.holder.index(index_name)
@@ -897,6 +1156,92 @@ class API:
             idx.delete_field(field_name)
         except IndexError_ as e:
             raise NotFoundError(str(e)) from e
+        if not remote:
+            self._broadcast(MessageType.DELETE_FIELD, {
+                "index": index_name, "field": field_name})
+
+    def _broadcast(self, msg_type, payload, sync=True):
+        """Schema DDL fans out synchronously to every peer (reference: DDL
+        via SendSync broadcast.go / api.go)."""
+        if self.cluster is None or len(self.cluster.nodes) <= 1:
+            return
+        from ..cluster import HTTPBroadcaster
+
+        b = HTTPBroadcaster(self.cluster, self.client_factory)
+        if sync:
+            b.send_sync(msg_type, payload)
+        else:
+            b.send_async(msg_type, payload)
+
+    def _broadcast_shards_if_changed(self, index_name):
+        """Push this node's per-index available shards to peers when they
+        changed (reference: availableShards gossiped via
+        CreateShardMessage / NodeStatus, cluster.go) so shard discovery
+        reads the pushed map instead of per-query peer GETs."""
+        if self.cluster is None or len(self.cluster.nodes) <= 1:
+            return
+        idx = self.holder.index(index_name)
+        if idx is None:
+            return
+        shards = set(idx.available_shards())
+        if self._pushed_shards.get(index_name) == shards:
+            return
+        self._pushed_shards[index_name] = shards
+        try:
+            self._broadcast(MessageType.CREATE_SHARD, {
+                "index": index_name,
+                "node": self.cluster.local_id,
+                "shards": sorted(shards)}, sync=False)
+        except Exception:  # noqa: BLE001
+            # best-effort: the lazy per-peer seed fetch still converges
+            pass
+
+    def receive_message(self, data):
+        """Handle one control-plane message (reference:
+        server.receiveMessage server.go:569)."""
+        msg_type, payload = Serializer.unmarshal(data)
+        if msg_type == MessageType.CREATE_INDEX:
+            self.create_index(
+                payload["index"],
+                options=IndexOptions.from_dict(payload["options"]),
+                remote=True)
+        elif msg_type == MessageType.DELETE_INDEX:
+            self.delete_index(payload["index"], remote=True)
+        elif msg_type == MessageType.CREATE_FIELD:
+            self.create_field(
+                payload["index"], payload["field"],
+                options=FieldOptions.from_dict(payload["options"]),
+                remote=True)
+        elif msg_type == MessageType.DELETE_FIELD:
+            self.delete_field(payload["index"], payload["field"], remote=True)
+        elif msg_type == MessageType.RECALCULATE_CACHES:
+            self.holder.recalculate_caches()
+        elif msg_type == MessageType.CREATE_SHARD:
+            # a peer pushed its per-index available shards (gossiped
+            # shard map; reference: CreateShardMessage handling)
+            if self.cluster is not None \
+                    and payload.get("node") != self.cluster.local_id:
+                self.cluster.set_remote_shards(
+                    payload["node"], payload["index"],
+                    payload.get("shards", []))
+        elif self.resize is not None and self.resize.receive(
+                msg_type, payload):
+            pass  # resize/cluster-status/coordinator handled
+        elif msg_type == MessageType.NODE_STATE:
+            if self.cluster is not None:
+                self.cluster.set_node_state(
+                    payload["id"], payload["state"])
+        elif msg_type in (MessageType.NODE_EVENT, MessageType.NODE_STATUS,
+                          MessageType.CLUSTER_STATUS,
+                          MessageType.CREATE_VIEW, MessageType.DELETE_VIEW,
+                          MessageType.SET_COORDINATOR,
+                          MessageType.UPDATE_COORDINATOR,
+                          MessageType.RESIZE_INSTRUCTION,
+                          MessageType.RESIZE_INSTRUCTION_COMPLETE):
+            # single-node mode: no resize manager; tolerated
+            pass
+        else:
+            raise ApiError(f"unhandled message type: {msg_type}")
 
     def apply_schema(self, schema):
         """Create every index and field of a schema in the camelCase wire
@@ -945,13 +1290,121 @@ class API:
             row_ids = list(field.translate_store.translate_keys(row_keys))
         return row_ids, column_ids
 
+    def _route_import(self, index_name, shard):
+        """(local_apply, remote_nodes) for one shard's import slice
+        (reference: api.Import forwards to FragmentNodes, all replicas)."""
+        if self.cluster is None or len(self.cluster.nodes) <= 1:
+            return True, []
+        owners = self.cluster.shard_nodes(index_name, shard)
+        local = any(n.id == self.cluster.local_id for n in owners)
+        remotes = [n for n in owners if n.id != self.cluster.local_id]
+        return local, remotes
+
+    def _fan_out_writes(self, jobs, covered_locally, count_shards=(),
+                        index_name=None):
+        """Run remote import forwards (one worker per TARGET NODE, its jobs
+        sequential — bounded like the executor's per-node mapReduce fan-out)
+        and apply the degraded-write policy.
+
+        `jobs`: list of (shard, node, thunk). A forward failure is tolerated
+        as long as the shard reached at least one owner (this node or
+        another replica) — the lagging replica is repaired by anti-entropy
+        (reference: DEGRADED semantics cluster.go:571-583 + fragment
+        syncer). A shard that reached NO owner fails the import.
+
+        `count_shards`: shards NOT applied locally; returns their total
+        logical change count taken from replica responses (replicas report
+        the same count, so max per shard).
+        """
+        from ..cluster.node import NODE_STATE_DOWN
+
+        results, errors, skipped = {}, {}, {}
+        lock = threading.Lock()
+        by_node = {}
+        for shard, node, thunk in jobs:
+            by_node.setdefault(node.id, (node, []))[1].append((shard, thunk))
+
+        def run(node, node_jobs):
+            for shard, thunk in node_jobs:
+                if getattr(node, "state", None) == NODE_STATE_DOWN:
+                    # health monitor flagged the node mid-import: don't
+                    # burn a full timeout per remaining shard (retried
+                    # below only if the shard reaches no other owner)
+                    with lock:
+                        errors[(shard, node.id)] = ApiError(
+                            f"node {node.id} is down")
+                        skipped[(shard, node.id)] = thunk
+                    continue
+                try:
+                    resp = thunk()
+                    with lock:
+                        results[(shard, node.id)] = resp
+                except Exception as e:
+                    with lock:
+                        errors[(shard, node.id)] = e
+
+        threads = [threading.Thread(target=run, args=pair)
+                   for pair in by_node.values()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+        def uncovered():
+            reached = set(covered_locally)
+            reached.update(shard for shard, _ in results)
+            return sorted({s for (s, _) in errors} - reached)
+
+        # A DOWN mark can be a false positive; when a skipped node was a
+        # shard's ONLY owner, attempt the send anyway before failing.
+        for (shard, node_id), thunk in skipped.items():
+            if shard in uncovered():
+                try:
+                    results[(shard, node_id)] = thunk()
+                    del errors[(shard, node_id)]
+                except Exception as e:
+                    errors[(shard, node_id)] = e
+        failed = uncovered()
+        if failed:
+            cause = next(e for (s, _), e in errors.items() if s in failed)
+            raise ApiError(
+                f"import failed: no reachable owner for shards {failed}: "
+                f"{cause}")
+        for (shard, node_id), e in errors.items():
+            self.logger.printf(
+                "import: replica %s unreachable for shard %d (%s); "
+                "anti-entropy will repair", node_id, shard, e)
+        # read-your-writes for shard discovery: this node just confirmed
+        # these shards landed on these peers — record them now instead of
+        # waiting for the peers' async CREATE_SHARD pushes (which can lag
+        # the ack and leave an immediate query missing a fresh shard)
+        if self.cluster is not None and index_name is not None:
+            for (shard, node_id) in results:
+                self.cluster.record_remote_shards(
+                    node_id, index_name, [shard])
+        remote_changed = {s: 0 for s in count_shards}
+        for (shard, _), resp in results.items():
+            if shard in remote_changed and isinstance(resp, dict):
+                remote_changed[shard] = max(
+                    remote_changed[shard], resp.get("changed", 0))
+        return results, sum(remote_changed.values())
+
     def import_bits(self, index_name, field_name, row_ids, column_ids,
                     timestamps=None, clear=False, remote=False,
                     row_keys=None, column_keys=None):
-        """(reference: api.Import api.go:920, single node; string keys
-        translate to ids first). The record reaches the oplog before the
-        apply, with the keys as given; `remote` is carried for the TPU
-        package's record shape and means nothing on one node."""
+        """(reference: api.Import api.go:920; string keys translate to ids
+        first, on the coordinating node). The record reaches the oplog
+        before the apply, with the keys as given. On a cluster each
+        shard's slice goes to every replica owner (remote=True on the
+        forwarded hop, which applies locally).
+
+        During RESIZING the reference rejects imports outright
+        (api.go:101); here they QUEUE and replay once the cluster returns
+        to NORMAL, by the then-installed topology, so completion AND
+        abort both land every bit. The queue is process memory: bounded,
+        and lost on a crash like any unflushed WAL tail (the oplog
+        replays it). Index and field existence is checked BEFORE
+        queueing, so a doomed import 404s now."""
         field = self._field(index_name, field_name)
         n_points = (len(column_ids) if column_ids is not None
                     else len(column_keys or ()))
@@ -963,6 +1416,8 @@ class API:
                       column_keys=column_keys)
         lsn = self._oplog_append("bits", kwargs)
         faultpoints.reached("import.post-append")
+        if self._queue_resize_write("bits", kwargs, lsn=lsn):
+            return 0
         try:
             if row_keys is not None or column_keys is not None:
                 t_rows, t_cols = self._translate_import_keys(
@@ -971,18 +1426,70 @@ class API:
                     row_ids = t_rows
                 if t_cols is not None:
                     column_ids = t_cols
-            changed = field.import_bits(
-                row_ids, column_ids, timestamps=timestamps, clear=clear)
-            # the columns exist after a clear import too, as in the TPU
-            # package (a cleared bit is still a column that was written)
-            self.holder.index(index_name).add_existence(column_ids)
-            if self.ingest is not None:
+            if remote or self.cluster is None \
+                    or len(self.cluster.nodes) <= 1:
+                changed = field.import_bits(
+                    row_ids, column_ids, timestamps=timestamps, clear=clear)
+                # the columns exist after a clear import too, as in the
+                # TPU package (a cleared bit is still a column written)
+                self.holder.index(index_name).add_existence(column_ids)
+                if self.ingest is not None:
+                    self._ingest_record(
+                        index_name, field,
+                        self._ingest_shard_rows(column_ids),
+                        16 * len(column_ids))
+                self._broadcast_shards_if_changed(index_name)
+                faultpoints.reached("import.pre-ack")
+                return changed
+
+            from ..core.timeq import TIME_FORMAT
+
+            row_ids = np.asarray(row_ids, dtype=np.uint64)
+            column_ids = np.asarray(column_ids, dtype=np.uint64)
+            shards = column_ids // np.uint64(SHARD_WIDTH)
+            changed = 0
+            jobs, covered, remote_only = [], set(), set()
+            for shard in np.unique(shards):
+                shard = int(shard)
+                mask = shards == shard
+                local, remotes = self._route_import(index_name, shard)
+                slice_rows = row_ids[mask]
+                slice_cols = column_ids[mask]
+                slice_ts = None
+                if timestamps is not None:
+                    ts_arr = np.asarray(timestamps, dtype=object)
+                    slice_ts = ts_arr[mask].tolist()
+                if local:
+                    changed += field.import_bits(
+                        slice_rows, slice_cols, timestamps=slice_ts,
+                        clear=clear)
+                    self.holder.index(index_name).add_existence(slice_cols)
+                    covered.add(shard)
+                else:
+                    remote_only.add(shard)
+                wire_ts = None
+                if slice_ts is not None:
+                    wire_ts = [
+                        t.strftime(TIME_FORMAT) if t is not None else None
+                        for t in slice_ts]
+                for node in remotes:
+                    jobs.append((shard, node, (
+                        lambda n=node, r=slice_rows, c=slice_cols, w=wire_ts:
+                        self.client_factory(n.uri).import_bits(
+                            index_name, field_name, r.tolist(), c.tolist(),
+                            timestamps=w, clear=clear, remote=True))))
+            if self.ingest is not None and covered:
                 self._ingest_record(
                     index_name, field,
-                    self._ingest_shard_rows(column_ids),
+                    {s: int((shards == np.uint64(s)).sum())
+                     for s in covered},
                     16 * len(column_ids))
+            _, remote_changed = self._fan_out_writes(
+                jobs, covered, count_shards=remote_only,
+                index_name=index_name)
+            self._broadcast_shards_if_changed(index_name)
             faultpoints.reached("import.pre-ack")
-            return changed
+            return changed + remote_changed
         finally:
             # an exception here means NO ack went out, so the record
             # needs no replay guarantee — mark it applied either way so
@@ -992,8 +1499,10 @@ class API:
 
     def import_values(self, index_name, field_name, column_ids, values,
                       remote=False, column_keys=None, clear=False):
-        """Bulk BSI values (reference: api.ImportValue api.go:1035, single
-        node). clear=True removes the listed columns' values."""
+        """Bulk BSI values (reference: api.ImportValue api.go:1035), routed
+        per shard like import_bits. clear=True removes the listed
+        columns' values (OptImportOptionsClear -> field.importValue
+        field.go:1285)."""
         field = self._field(index_name, field_name)
         n_points = (len(column_ids) if column_ids is not None
                     else len(column_keys or ()))
@@ -1004,20 +1513,62 @@ class API:
                       clear=clear)
         lsn = self._oplog_append("values", kwargs)
         faultpoints.reached("import.post-append")
+        if self._queue_resize_write("values", kwargs, lsn=lsn):
+            return 0
         try:
             if column_keys is not None:
                 _, column_ids = self._translate_import_keys(
                     index_name, field_name, None, column_keys)
-            changed = field.import_values(column_ids, values, clear=clear)
-            if not clear:
-                self.holder.index(index_name).add_existence(column_ids)
-            if self.ingest is not None:
+            if remote or self.cluster is None \
+                    or len(self.cluster.nodes) <= 1:
+                changed = field.import_values(column_ids, values, clear=clear)
+                if not clear:
+                    self.holder.index(index_name).add_existence(column_ids)
+                if self.ingest is not None:
+                    self._ingest_record(
+                        index_name, field,
+                        self._ingest_shard_rows(column_ids),
+                        16 * len(column_ids), existence=not clear)
+                self._broadcast_shards_if_changed(index_name)
+                faultpoints.reached("import.pre-ack")
+                return changed
+
+            column_ids = np.asarray(column_ids, dtype=np.uint64)
+            values = np.asarray(values, dtype=np.int64)
+            shards = column_ids // np.uint64(SHARD_WIDTH)
+            changed = 0
+            jobs, covered, remote_only = [], set(), set()
+            for shard in np.unique(shards):
+                shard = int(shard)
+                mask = shards == shard
+                local, remotes = self._route_import(index_name, shard)
+                if local:
+                    changed += field.import_values(
+                        column_ids[mask], values[mask], clear=clear)
+                    if not clear:
+                        self.holder.index(index_name).add_existence(
+                            column_ids[mask])
+                    covered.add(shard)
+                else:
+                    remote_only.add(shard)
+                for node in remotes:
+                    jobs.append((shard, node, (
+                        lambda n=node, c=column_ids[mask], v=values[mask]:
+                        self.client_factory(n.uri).import_values(
+                            index_name, field_name, c.tolist(), v.tolist(),
+                            remote=True, clear=clear))))
+            if self.ingest is not None and covered:
                 self._ingest_record(
                     index_name, field,
-                    self._ingest_shard_rows(column_ids),
+                    {s: int((shards == np.uint64(s)).sum())
+                     for s in covered},
                     16 * len(column_ids), existence=not clear)
+            _, remote_changed = self._fan_out_writes(
+                jobs, covered, count_shards=remote_only,
+                index_name=index_name)
+            self._broadcast_shards_if_changed(index_name)
             faultpoints.reached("import.pre-ack")
-            return changed
+            return changed + remote_changed
         finally:
             self._oplog_applied_or_defer(lsn)
 
@@ -1025,7 +1576,9 @@ class API:
                        clear=False, view="standard", remote=False):
         """Merge a serialized roaring blob of row * SHARD_WIDTH + offset
         positions into one shard of one view (reference: api.ImportRoaring
-        api.go:368, single node). Returns the number of bits changed."""
+        api.go:368). Like bit imports, the blob routes to every replica
+        owner of the shard. Returns the number of bits changed."""
+        self._validate_state()
         field = self._field(index_name, field_name)
         shard = int(shard)
         self._ingest_admit(1, len(data))
@@ -1034,30 +1587,46 @@ class API:
             data=data, clear=clear, view=view, remote=remote))
         faultpoints.reached("import.post-append")
         try:
-            v = field.create_view_if_not_exists(view)
-            frag = v.create_fragment_if_not_exists(shard)
-            changed = frag.import_roaring(data, clear=clear)
-            if self.ingest is not None:
-                self._ingest_record(
-                    index_name, field, {shard: 1}, len(data),
-                    existence=False)
+            local, remotes = (True, []) if remote else \
+                self._route_import(index_name, shard)
+            changed = 0
+            if local:
+                v = field.create_view_if_not_exists(view)
+                frag = v.create_fragment_if_not_exists(shard)
+                changed = frag.import_roaring(data, clear=clear)
+                if self.ingest is not None:
+                    self._ingest_record(
+                        index_name, field, {shard: 1}, len(data),
+                        existence=False)
+            jobs = [(shard, node, (
+                lambda n=node: self.client_factory(n.uri).import_roaring(
+                    index_name, field_name, shard, data, clear=clear,
+                    view=view, remote=True))) for node in remotes]
+            _, remote_changed = self._fan_out_writes(
+                jobs, {shard} if local else set(),
+                count_shards=() if local else {shard},
+                index_name=index_name)
+            self._broadcast_shards_if_changed(index_name)
             faultpoints.reached("import.pre-ack")
-            return changed
+            return changed if local else remote_changed
         finally:
             self._oplog_applied_or_defer(lsn)
 
     # -- durable oplog (storage/oplog.py) ------------------------------------
 
     def _oplog_append(self, kind, kwargs):
-        """Append one import's record BEFORE any apply/ack step; returns
-        its LSN (None when no oplog is attached). A boot replay
+        """Append one import's record BEFORE any queue/apply/ack step;
+        returns its LSN (None when no oplog is attached). A boot replay
         re-entering the import path reuses the original record's LSN
-        instead of re-appending."""
+        instead of re-appending; the resize drain's own replay likewise
+        appends nothing — its queued records already stand in the log."""
         if self.oplog is None:
             return None
         replay_lsn = getattr(self._oplog_tls, "replay_lsn", None)
         if replay_lsn is not None:
             return replay_lsn
+        if getattr(self._resize_replay_tls, "active", False):
+            return None
         return self.oplog.append(self._oplog_encode(kind, kwargs))
 
     def _oplog_applied(self, lsn):
@@ -1287,8 +1856,9 @@ class API:
 
     def recalculate_caches(self):
         """(reference: api.RecalculateCaches) rebuild every fragment's
-        TopN rank cache."""
+        TopN rank cache, here and on every peer."""
         self.holder.recalculate_caches()
+        self._broadcast(MessageType.RECALCULATE_CACHES, {}, sync=False)
 
     def column_attr_sets(self, index_name, results):
         """{"id", "attrs"} of every column of the Row results that has
@@ -1342,6 +1912,8 @@ class API:
         return {"standard": out}
 
     def hosts(self):
+        if self.cluster is not None:
+            return self.cluster.nodes_json()
         return [{"id": "local", "isCoordinator": True}]
 
     # -- node internals: backup, export and restore read fragments here ------
@@ -1351,6 +1923,31 @@ class API:
         if idx is None:
             raise NotFoundError(f"index not found: {index_name}")
         return {"shards": idx.available_shards()}
+
+    def shard_nodes(self, index_name, shard):
+        """Owner nodes of one shard, as node JSON (reference:
+        api.ShardNodes api.go:1086, served by handler.go:311)."""
+        if self.cluster is None:
+            return [{"id": "local", "isCoordinator": True}]
+        return [n.to_json()
+                for n in self.cluster.shard_nodes(index_name, int(shard))]
+
+    def delete_available_shard(self, index_name, field_name, shard):
+        """Forget a remotely-advertised shard for a field (reference:
+        api.DeleteAvailableShard api.go:1266 -> Field.RemoveAvailableShard
+        field.go:513; used when a remote's shard advertisement turns out
+        stale).
+
+        As in the TPU package, availability is tracked per INDEX in the
+        gossiped shard map, not per field as in the reference: the route
+        accepts (and validates) a field name for wire compatibility, but
+        removal drops the shard from every peer's record for the WHOLE
+        index. The next gossip push from the owning node restores it if
+        any field still has data."""
+        self._field(index_name, field_name)  # 404 on unknown index/field
+        if self.cluster is not None:
+            self.cluster.remove_remote_shard(index_name, int(shard))
+        return None
 
     def _fragment(self, index_name, field_name, view_name, shard):
         field = self._field(index_name, field_name)
@@ -1397,24 +1994,182 @@ class API:
         frag = self._fragment(index_name, field_name, view_name, shard)
         return serialize(frag.storage)
 
-    def status(self):
-        """The node's state, with the `observability` roll-up of this
-        node under "local" (totals only: the full views live at
-        /debug/hbm, /debug/dispatch, /debug/device, /debug/workload,
-        /debug/heat and /debug/slo)."""
-        nodes = [{"id": "local", "uri": {"scheme": "http"},
-                  "isCoordinator": True, "state": "READY"}]
-        return {"state": "NORMAL", "nodes": nodes, "replicaN": 1,
-                "localShardWidth": SHARD_WIDTH,
-                "observability": {"local": self._node_observability()}}
+    # -- key replication and attribute anti-entropy --------------------------
+
+    def translate_data(self, index_name, field_name="", offset=0):
+        """Translate-entry feed from a given ID offset (reference:
+        http/translator.go + holder.go:702-880)."""
+        idx = self.holder.index(index_name)
+        if idx is None:
+            raise NotFoundError(f"index not found: {index_name}")
+        if field_name:
+            field = idx.field(field_name)
+            if field is None:
+                raise NotFoundError(f"field not found: {field_name}")
+            store = field.translate_store
+        else:
+            store = idx.translate_store
+        if store is None:
+            return {"entries": []}
+        return {"entries": [e.to_json() for e in store.entries(int(offset))]}
+
+    def translate_keys_create(self, index_name, field_name, keys):
+        """Allocate ids for keys — served by the chain head; a replica
+        receiving this forwards through its own remote_create hook
+        (reference: translate key writes route to the primary,
+        http/handler.go:518-522)."""
+        idx = self.holder.index(index_name)
+        if idx is None:
+            raise NotFoundError(f"index not found: {index_name}")
+        if field_name:
+            field = idx.field(field_name)
+            if field is None:
+                raise NotFoundError(f"field not found: {field_name}")
+            store = field.translate_store
+        else:
+            store = idx.translate_store
+        if store is None:
+            raise ApiError(
+                f"keys not enabled: {index_name}/{field_name or '<index>'}")
+        return {"ids": store.translate_keys(list(keys), create=True)}
+
+    def _attr_store(self, index_name, field_name=""):
+        idx = self.holder.index(index_name)
+        if idx is None:
+            raise NotFoundError(f"index not found: {index_name}")
+        if field_name:
+            field = idx.field(field_name)
+            if field is None:
+                raise NotFoundError(f"field not found: {field_name}")
+            return field.row_attr_store
+        return idx.column_attr_store
+
+    def attr_blocks(self, index_name, field_name=""):
+        """(reference: attr diff api.go:817-891)"""
+        store = self._attr_store(index_name, field_name)
+        if store is None:
+            return {"blocks": []}
+        return {"blocks": [{"id": bid, "checksum": chk}
+                           for bid, chk in store.blocks()]}
+
+    def attr_block_data(self, index_name, field_name="", block=0):
+        store = self._attr_store(index_name, field_name)
+        if store is None:
+            return {"attrs": {}}
+        return {"attrs": {str(id): attrs for id, attrs
+                          in store.block_data(int(block)).items()}}
+
+    def attr_diff(self, index_name, field_name, remote_blocks):
+        """Attrs from every local block that differs from (or is absent
+        in) the caller's checksum list — one round trip of the attr
+        anti-entropy protocol (reference: api.IndexAttrDiff api.go:817 +
+        attrBlocks.Diff attr.go:90; served at
+        /internal/index/{i}/attr/diff and .../field/{f}/attr/diff, which
+        a stock internal client posts to)."""
+        store = self._attr_store(index_name, field_name)  # 404s for us
+        if store is None:
+            return {"attrs": {}}
+        return {"attrs": {str(id): a
+                          for id, a in store.diff(remote_blocks).items()}}
+
+    # -- resize admin (reference: api.go:1193-1267) ---------------------------
+
+    def _resize_manager(self):
+        from ..cluster import ResizeError
+
+        if self.resize is None:
+            raise ApiError("not a cluster")
+        if not self.cluster.is_coordinator():
+            coord = self.cluster.coordinator
+            raise ApiError(
+                f"not the coordinator (coordinator: "
+                f"{coord.id if coord else 'unknown'})")
+        return self.resize, ResizeError
+
+    def resize_add_node(self, node_json):
+        from ..cluster import Node
+
+        mgr, ResizeError = self._resize_manager()
+        node = Node.from_json(node_json)
+        try:
+            return mgr.add_node(node).to_json()
+        except ResizeError as e:
+            raise ApiError(str(e)) from e
+
+    def resize_remove_node(self, node_id):
+        mgr, ResizeError = self._resize_manager()
+        try:
+            return mgr.remove_node(node_id).to_json()
+        except ResizeError as e:
+            raise ApiError(str(e)) from e
+
+    def resize_abort(self):
+        mgr, ResizeError = self._resize_manager()
+        try:
+            return mgr.abort().to_json()
+        except ResizeError as e:
+            raise ApiError(str(e)) from e
+
+    def resize_status(self):
+        if self.resize is None or self.resize.job is None:
+            return {"job": None}
+        return {"job": self.resize.job.to_json()}
+
+    def set_coordinator(self, node_id):
+        """(reference: api.SetCoordinator api.go:1221)"""
+        if self.cluster is None:
+            raise ApiError("not a cluster")
+        if self.cluster.node(node_id) is None:
+            raise ApiError(f"node not in cluster: {node_id}")
+        for n in self.cluster.nodes:
+            n.is_coordinator = (n.id == node_id)
+        self.cluster.save_topology()
+        self._broadcast(MessageType.SET_COORDINATOR, {"id": node_id})
+        return {"coordinator": node_id}
+
+    def status(self, include_remote_observability=False):
+        """The node's (or the cluster's) state, with the `observability`
+        roll-up of this node under its id ("local" on a single node;
+        totals only: the full views live at /debug/hbm, /debug/dispatch,
+        /debug/device, /debug/workload, /debug/heat and /debug/slo). With
+        `include_remote_observability` (?observability=true) a cluster
+        coordinator adds every peer's roll-up, fetched with a short
+        timeout. A cluster node also reports its fan-out counters under
+        `cluster` (`leg_retries`: remote legs re-run on a replica)."""
+        if self.cluster is not None:
+            state = self.cluster.state
+            replica_n = self.cluster.replica_n
+            nodes = self.cluster.nodes_json()
+        else:
+            state, replica_n = "NORMAL", 1
+            nodes = [{"id": "local", "uri": {"scheme": "http"},
+                      "isCoordinator": True, "state": "READY"}]
+        # replicaN lets a --join'ing node inherit the replication factor
+        out = {"state": state, "nodes": nodes, "replicaN": replica_n,
+               "localShardWidth": SHARD_WIDTH}
+        local_id = self.cluster.local_id if self.cluster is not None \
+            else "local"
+        obs = {local_id: self._node_observability()}
+        if include_remote_observability and self.cluster is not None:
+            coord = self.cluster.coordinator
+            if coord is not None and coord.id == self.cluster.local_id:
+                for node in self.cluster.nodes:
+                    if node.id == self.cluster.local_id:
+                        continue
+                    obs[node.id] = self._peer_observability(node)
+        out["observability"] = obs
+        if self.cluster is not None:
+            out["cluster"] = self.executor.stats()
+        return out
 
     def _node_observability(self):
         """Compact local HBM + kernel + plans + device-link + workload
         summary (the TPU package's block)."""
         from ..exec import plan as plan_mod
 
-        hbm = self.executor.hbm_stats(top=0)
-        walls = self.executor._stacked.kernel_walls()
+        local = self.local_executor
+        hbm = local.hbm_stats(top=0)
+        walls = local._stacked.kernel_walls()
         out = {
             "hbm": {k: hbm[k] for k in (
                 "total_bytes", "stack_bytes", "stack_entries",
@@ -1434,4 +2189,77 @@ class API:
         if self.oplog is not None:
             out["oplog"] = self.oplog.summary(compact=True)
         return out
+
+    #: peer observability fetches must never wedge a /status response
+    #: behind a dead node (client default is 30s)
+    OBSERVABILITY_PEER_TIMEOUT = 2
+
+    def _peer_observability(self, node):
+        """One peer's compact summary via its debug endpoints; failures
+        degrade to an error entry instead of failing /status."""
+        try:
+            client = self.client_factory(node.uri)
+            if hasattr(client, "timeout"):
+                client.timeout = self.OBSERVABILITY_PEER_TIMEOUT
+            hbm = client.debug_hbm(top=0)
+            kernels = client.debug_kernels(costs=False).get("kernels", {})
+            out = {
+                "hbm": {k: hbm.get(k) for k in (
+                    "total_bytes", "stack_bytes", "stack_entries",
+                    "rows_stack_bytes", "rows_stack_entries")},
+                "kernels": {
+                    kind: {"count": v.get("count"),
+                           "seconds": round(v.get("seconds", 0.0), 6)}
+                    for kind, v in sorted(kernels.items())},
+            }
+            plans = client.debug_plans(limit=0)
+            out["plans"] = {k: plans.get(k) for k in
+                            ("retained", "misestimates_flagged")}
+            # device-link roll-up: the coordinator's /status answers
+            # "which node's card is failing" without a per-node login
+            dev = client.debug_device(limit=0)
+            out["device_link"] = {k: dev.get(k) for k in
+                                  ("state", "state_since",
+                                   "consecutive_failures", "probes",
+                                   "last")}
+            op = client.debug_oplog()
+            if op.get("enabled"):
+                out["oplog"] = {k: op.get(k) for k in
+                                ("fsync", "last_lsn", "checkpoint_lsn",
+                                 "replay_lag", "unapplied", "segments",
+                                 "truncated_tails")}
+            # workload observatory roll-up (top=0/1: counters, not
+            # rankings — the full views stay on each node's debug
+            # endpoints)
+            wl = client.debug_workload(top=1)
+            out["workload"] = {k: wl.get(k) for k in
+                               ("total_queries", "unique_fingerprints",
+                                "evicted")}
+            top_freq = wl.get("by_frequency") or []
+            out["workload"]["top"] = {
+                k: top_freq[0].get(k)
+                for k in ("fingerprint", "shape", "count")} \
+                if top_freq else None
+            ht = client.debug_heat(top=0)
+            out["heat"] = {
+                "tracked": ht.get("tracked"),
+                "hot_but_not_resident":
+                    ht.get("hot_but_not_resident_total"),
+                "resident_but_cold":
+                    ht.get("resident_but_cold_total")}
+            sl = client.debug_slo()
+            out["slo"] = {
+                "objectives": len(sl.get("objectives") or []),
+                "alerting": [o.get("name")
+                             for o in sl.get("objectives") or []
+                             if o.get("alerting")],
+                "alerts_total": sl.get("alerts_total")}
+            adm = client.debug_admission()
+            if adm.get("enabled"):
+                out["admission"] = {k: adm.get(k) for k in
+                                    ("state", "state_age_seconds",
+                                     "calibration")}
+            return out
+        except Exception as e:  # noqa: BLE001 — degraded, not fatal
+            return {"error": str(e)}
 

@@ -1,8 +1,10 @@
 """HTTP client (reference: http/client.go InternalClient).
 
-Used by applications and the CLI's import, export, backup and restore
-commands. stdlib urllib; no external deps. It speaks the JSON wire of
-the port's server and of the TPU package's alike, and the protobuf wire
+Used by applications, the CLI's import, export, backup and restore
+commands, and the cluster layer's node-to-node calls (fan-out legs,
+replicated imports, control messages, anti-entropy, resize). stdlib
+urllib; no external deps. It speaks the JSON wire of the port's server
+and of the TPU package's alike, and the protobuf wire
 of stock Pilosa clients (`query_proto`, `import_bits_proto`,
 `import_values_proto`, `import_roaring_proto`) through the port's
 hand-written codec (numpy, no torch).
@@ -441,6 +443,61 @@ class Client:
             path += f"?limit={int(limit)}"
         return self._request("GET", path)
 
+    def debug_hbm(self, top=50):
+        """The peer's device-memory ledger (a coordinator's /status
+        roll-up reads this from every peer)."""
+        return self._request("GET", f"/debug/hbm?top={top}")
+
+    def debug_device(self, limit=None):
+        """The peer's device-link health (state machine + canary ring);
+        limit=0 fetches the state summary without the ring."""
+        path = "/debug/device"
+        if limit is not None:
+            path += f"?limit={int(limit)}"
+        return self._request("GET", path)
+
+    def debug_workload(self, top=None):
+        """The peer's per-fingerprint workload table (top-K rankings);
+        top=1 fetches the headline entry only."""
+        path = "/debug/workload"
+        if top is not None:
+            path += f"?top={int(top)}"
+        return self._request("GET", path)
+
+    def debug_heat(self, top=None):
+        """The peer's fragment heat ledger joined against device
+        residency; top=0 fetches totals without the ranked lists."""
+        path = "/debug/heat"
+        if top is not None:
+            path += f"?top={int(top)}"
+        return self._request("GET", path)
+
+    def debug_slo(self):
+        """The peer's SLO burn-rate state (objectives, windows,
+        alerting flags)."""
+        return self._request("GET", "/debug/slo")
+
+    def debug_admission(self):
+        """The peer's admission-controller snapshot (ladder state,
+        token buckets, queue occupancy); {"enabled": False} when the
+        node runs with --admission off."""
+        return self._request("GET", "/debug/admission")
+
+    def debug_trace(self, trace_id, deadline=2.0):
+        """The peer's LOCAL finished spans for one trace id (the
+        cross-node assembly getter: the coordinator merges these into
+        one tree with skew-corrected timestamps). Short default deadline:
+        assembly is best-effort garnish on a finished query, never worth
+        blocking the response on a slow peer."""
+        return self._request(
+            "GET", f"/debug/traces/{trace_id}?local=true",
+            deadline=deadline)
+
+    def debug_incidents(self):
+        """The peer's postmortem-bundle listing ({"enabled": False} when
+        the node runs without --incident-dir)."""
+        return self._request("GET", "/debug/incidents")
+
     def export_csv(self, index, field, shard):
         data = self._request(
             "GET", f"/export?index={index}&field={field}&shard={shard}")
@@ -462,6 +519,13 @@ class Client:
         return self._request(
             "GET", f"/internal/index/{index}/shard/{shard}/fragments")
 
+    def send_message(self, data):
+        """POST a control-plane message (reference: SendMessage
+        http/client.go:1017 -> /internal/cluster/message)."""
+        return self._request(
+            "POST", "/internal/cluster/message", data,
+            content_type="application/octet-stream")
+
     def fragment_blocks(self, index, field, view, shard):
         """(reference: /internal/fragment/blocks handler.go:300)"""
         return self._request(
@@ -480,3 +544,59 @@ class Client:
         return self._request(
             "GET", f"/internal/fragment/data?index={index}&field={field}"
                    f"&view={view}&shard={shard}")
+
+    def translate_entries(self, index, field="", offset=0):
+        """Translate-store replication feed (reference: /internal/translate/
+        data holder.go:702-880)."""
+        return self._request(
+            "GET", f"/internal/translate/data?index={index}&field={field}"
+                   f"&offset={offset}")
+
+    # -- resize admin (reference: /cluster/resize/* api.go:1193-1267) --------
+
+    def resize_add_node(self, node_id, uri):
+        return self._request(
+            "POST", "/cluster/resize/add-node",
+            json.dumps({"id": node_id, "uri": uri}).encode())
+
+    def resize_remove_node(self, node_id):
+        return self._request(
+            "POST", "/cluster/resize/remove-node",
+            json.dumps({"id": node_id}).encode())
+
+    def resize_abort(self):
+        return self._request("POST", "/cluster/resize/abort", b"{}")
+
+    def resize_status(self):
+        return self._request("GET", "/cluster/resize/status")
+
+    def set_coordinator(self, node_id):
+        return self._request(
+            "POST", "/cluster/resize/set-coordinator",
+            json.dumps({"id": node_id}).encode())
+
+    def translate_keys_create(self, index, field, keys):
+        """Allocate key ids on the primary (reference: translate key
+        writes route to primary http/handler.go:518-522)."""
+        return self._request(
+            "POST", "/internal/translate/keys",
+            json.dumps({"index": index, "field": field,
+                        "keys": list(keys)}).encode())
+
+    def attr_blocks(self, index, field=""):
+        """(reference: attr diff endpoints api.go:817-891)"""
+        return self._request(
+            "GET", f"/internal/attr/blocks?index={index}&field={field}")
+
+    def attr_block_data(self, index, field="", block=0):
+        return self._request(
+            "GET", f"/internal/attr/data?index={index}&field={field}"
+                   f"&block={block}")
+
+    def attr_diff(self, index, blocks, field=""):
+        """Post local block checksums, receive attrs from every block the
+        peer has that differs (reference: handler.go:312,315)."""
+        path = f"/internal/index/{index}/attr/diff" if not field else \
+            f"/internal/index/{index}/field/{field}/attr/diff"
+        return self._request(
+            "POST", path, json.dumps({"blocks": blocks}).encode())

@@ -2,7 +2,10 @@
 
 Stdlib ThreadingHTTPServer + a regex router over the reference's public
 single-node REST surface, the node internals that backup, export and
-restore read (/internal/...), and the debug surface (GET /debug lists
+restore read (/internal/...), the cluster's routes (control messages,
+fragment placement, key and attribute replication, /cluster/resize/*;
+`remote=true` marks a peer's fan-out leg or forwarded import), and the
+debug surface (GET /debug lists
 it): metrics (/metrics, /debug/vars), query profiles (?profile=true,
 /debug/queries), traces, the flight recorder, the dispatch-phase split,
 thread dumps and a sampling profiler, batching, the oplog and fault
@@ -124,7 +127,7 @@ class PilosaHTTPServer:
         self._profiler = None
         self.routes = [
             Route("GET", r"/", self._home),
-            Route("GET", r"/index", self._get_schema),
+            Route("GET", r"/index", self._get_indexes),
             Route("POST", r"/index/(?P<index>[^/]+)", self._post_index),
             Route("GET", r"/index/(?P<index>[^/]+)", self._get_index),
             Route("DELETE", r"/index/(?P<index>[^/]+)", self._delete_index),
@@ -134,17 +137,20 @@ class PilosaHTTPServer:
                   self._delete_field),
             Route("POST", r"/index/(?P<index>[^/]+)/query",
                   self._post_query,
-                  args=("shards", "columnAttrs", "excludeRowAttrs",
-                        "excludeColumns", "profile", "explain")),
+                  args=("shards", "remote", "columnAttrs",
+                        "excludeRowAttrs", "excludeColumns", "profile",
+                        "explain")),
             Route("POST", r"/index/(?P<index>[^/]+)/query-batch",
                   self._post_query_batch, args=("shards",)),
             Route("POST",
                   r"/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import",
-                  self._post_import, args=("clear",)),
+                  self._post_import,
+                  args=("clear", "remote", "ignoreKeyCheck")),
             Route("POST",
                   r"/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)"
                   r"/import-roaring/(?P<shard>[0-9]+)",
-                  self._post_import_roaring, args=("view", "clear")),
+                  self._post_import_roaring,
+                  args=("view", "clear", "remote")),
             Route("GET", r"/export", self._get_export,
                   args=("index", "field", "shard")),
             Route("GET", r"/schema", self._get_schema),
@@ -171,6 +177,34 @@ class PilosaHTTPServer:
             Route("GET", r"/internal/fragment/data",
                   self._get_fragment_data,
                   args=("index", "field", "view", "shard")),
+            Route("POST", r"/internal/cluster/message", self._post_message),
+            Route("GET", r"/internal/fragment/nodes",
+                  self._get_fragment_nodes),
+            Route("DELETE",
+                  r"/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)"
+                  r"/remote-available-shards/(?P<shard>[0-9]+)",
+                  self._delete_remote_available_shard),
+            Route("GET", r"/internal/translate/data",
+                  self._get_translate_data),
+            Route("POST", r"/internal/translate/data",
+                  self._post_translate_data),
+            Route("POST", r"/internal/translate/keys",
+                  self._post_translate_keys),
+            Route("GET", r"/internal/attr/blocks", self._get_attr_blocks),
+            Route("GET", r"/internal/attr/data", self._get_attr_block_data),
+            Route("POST", r"/internal/index/(?P<index>[^/]+)/attr/diff",
+                  self._post_index_attr_diff),
+            Route("POST",
+                  r"/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)"
+                  r"/attr/diff",
+                  self._post_field_attr_diff),
+            Route("POST", r"/cluster/resize/add-node", self._resize_add_node),
+            Route("POST", r"/cluster/resize/remove-node",
+                  self._resize_remove_node),
+            Route("POST", r"/cluster/resize/abort", self._resize_abort),
+            Route("GET", r"/cluster/resize/status", self._resize_status),
+            Route("POST", r"/cluster/resize/set-coordinator",
+                  self._set_coordinator),
             Route("GET", r"/metrics", self._get_metrics),
             Route("GET", r"/debug", self._get_debug_index),
             Route("GET", r"/debug/vars", self._get_debug_vars),
@@ -183,7 +217,8 @@ class PilosaHTTPServer:
             Route("GET", r"/debug/dispatch", self._get_debug_dispatch),
             Route("GET", r"/debug/device", self._get_debug_device,
                   args=("limit",)),
-            Route("GET", r"/debug/hbm", self._get_debug_hbm, args=("top",)),
+            Route("GET", r"/debug/hbm", self._get_debug_hbm,
+                  args=("top",)),
             Route("GET", r"/debug/kernels", self._get_debug_kernels,
                   args=("costs",)),
             Route("GET", r"/debug/plans", self._get_debug_plans,
@@ -220,6 +255,9 @@ class PilosaHTTPServer:
                 "version": self.api.info()["version"],
                 "device": str(self.api.device)}
 
+    def _get_indexes(self, req):
+        return self.api.schema()
+
     def _get_schema(self, req):
         return self.api.schema()
 
@@ -228,7 +266,11 @@ class PilosaHTTPServer:
         return None
 
     def _get_status(self, req):
-        return self.api.status()
+        # ?observability=true: a cluster coordinator also gathers every
+        # peer's roll-up (short-timeout client fetches)
+        return self.api.status(
+            include_remote_observability=(
+                self._q1(req, "observability", "false") == "true"))
 
     def _get_healthz(self, req):
         """Liveness: the process is up and serving HTTP. Deliberately
@@ -380,7 +422,7 @@ class PilosaHTTPServer:
             exclude_columns=flag("excludeColumns"),
             column_attrs=column_attrs,
             exclude_row_attrs=flag("excludeRowAttrs"),
-            profile=want_profile, explain=explain)
+            remote=flag("remote"), profile=want_profile, explain=explain)
         results = self.api.query(req.params["index"], pql, shards=shards,
                                  options=options, deadline=deadline,
                                  query_class=qclass)
@@ -438,7 +480,7 @@ class PilosaHTTPServer:
         batched-launch counters."""
         return self.api.batching_stats()
 
-    def _post_import_proto(self, req, clear):
+    def _post_import_proto(self, req, clear, remote=False):
         """A stock client's protobuf import (reference: handlePostImport
         http/handler.go:1076): ImportValueRequest for an int field,
         ImportRequest otherwise, timestamps in unix NANOseconds;
@@ -451,7 +493,8 @@ class PilosaHTTPServer:
             msg = self._decode(wire.ImportValueRequest, req)
             self.api.import_values(
                 index, field, msg.ColumnIDs.array, msg.Values.array,
-                clear=clear, column_keys=list(msg.ColumnKeys) or None)
+                clear=clear, remote=remote,
+                column_keys=list(msg.ColumnKeys) or None)
         else:
             msg = self._decode(wire.ImportRequest, req)
             timestamps = None
@@ -463,7 +506,7 @@ class PilosaHTTPServer:
                     for ts in msg.Timestamps]
             self.api.import_bits(
                 index, field, msg.RowIDs.array, msg.ColumnIDs.array,
-                timestamps=timestamps, clear=clear,
+                timestamps=timestamps, clear=clear, remote=remote,
                 row_keys=list(msg.RowKeys) or None,
                 column_keys=list(msg.ColumnKeys) or None)
         return RawResponse(wire.ImportResponse(Err="").SerializeToString(),
@@ -471,8 +514,10 @@ class PilosaHTTPServer:
 
     def _post_import(self, req):
         clear = req.query.get("clear", ["false"])[0] == "true"
+        # remote=true: a cluster peer's forwarded slice, applied here only
+        remote = req.query.get("remote", ["false"])[0] == "true"
         if req.protobuf:
-            return self._post_import_proto(req, clear)
+            return self._post_import_proto(req, clear, remote)
         body = req.json()
         if body is None:
             raise ApiError("import requires a JSON body")
@@ -480,7 +525,8 @@ class PilosaHTTPServer:
         if "values" in body:
             changed = self.api.import_values(
                 index, field, body.get("columnIDs", []), body["values"],
-                clear=clear, column_keys=body.get("columnKeys"))
+                clear=clear, remote=remote,
+                column_keys=body.get("columnKeys"))
         else:
             timestamps = body.get("timestamps")
             if timestamps is not None:
@@ -489,7 +535,7 @@ class PilosaHTTPServer:
             changed = self.api.import_bits(
                 index, field, body.get("rowIDs", []),
                 body.get("columnIDs", []), timestamps=timestamps,
-                clear=clear, row_keys=body.get("rowKeys"),
+                clear=clear, remote=remote, row_keys=body.get("rowKeys"),
                 column_keys=body.get("columnKeys"))
         return {"changed": changed}
 
@@ -500,13 +546,14 @@ class PilosaHTTPServer:
         view (an empty view name is the standard view), answered with
         ImportResponse bytes (reference: handlePostImportRoaring
         http/handler.go)."""
+        remote = req.query.get("remote", ["false"])[0] == "true"
         if req.protobuf:
             msg = self._decode(wire.ImportRoaringRequest, req)
             for v in msg.views:
                 self.api.import_roaring(
                     req.params["index"], req.params["field"],
                     int(req.params["shard"]), v.Data, clear=msg.Clear,
-                    view=v.Name or "standard")
+                    view=v.Name or "standard", remote=remote)
             return RawResponse(
                 wire.ImportResponse(Err="").SerializeToString(),
                 encoding.CONTENT_TYPE_PROTOBUF)
@@ -514,7 +561,7 @@ class PilosaHTTPServer:
             req.params["index"], req.params["field"],
             int(req.params["shard"]), req.body,
             clear=req.query.get("clear", ["false"])[0] == "true",
-            view=req.query.get("view", ["standard"])[0])
+            view=req.query.get("view", ["standard"])[0], remote=remote)
         return {"changed": changed}
 
     def _get_shards_max(self, req):
@@ -529,6 +576,92 @@ class PilosaHTTPServer:
     def _get_shard_fragments(self, req):
         return self.api.shard_fragments(
             req.params["index"], req.params["shard"])
+
+    # -- cluster internals (control messages, placement, keys, attrs) -------
+
+    def _post_message(self, req):
+        self.api.receive_message(req.body)
+        return None
+
+    def _get_fragment_nodes(self, req):
+        """Owner nodes of one shard (reference: http/handler.go:311
+        handleGetFragmentNodes — a stock internal client resolves fragment
+        placement through this exact path)."""
+        shard = self._q1(req, "shard")
+        if shard is None or not shard.isdigit():
+            raise ApiError("shard should be an unsigned integer")
+        index = self._q1(req, "index")
+        if not index:
+            raise ApiError("index required")
+        return self.api.shard_nodes(index, int(shard))
+
+    def _delete_remote_available_shard(self, req):
+        """(reference: http/handler.go:316 handleDeleteRemoteAvailableShard)"""
+        self.api.delete_available_shard(
+            req.params["index"], req.params["field"],
+            int(req.params["shard"]))
+        return {"success": True}
+
+    def _get_translate_data(self, req):
+        return self.api.translate_data(
+            self._q1(req, "index"), self._q1(req, "field", ""),
+            int(self._q1(req, "offset", "0")))
+
+    def _post_translate_data(self, req):
+        """POST sibling of the GET feed (reference: handler.go routes both
+        methods to handleGetTranslateData): replication readers that carry
+        the cursor in a JSON body instead of the query string."""
+        body = req.json() or {}
+        return self.api.translate_data(
+            body.get("index", ""), body.get("field", ""),
+            int(body.get("offset", 0)))
+
+    def _post_translate_keys(self, req):
+        body = req.json() or {}
+        return self.api.translate_keys_create(
+            body.get("index", ""), body.get("field", ""),
+            body.get("keys", []))
+
+    def _get_attr_blocks(self, req):
+        return self.api.attr_blocks(
+            self._q1(req, "index"), self._q1(req, "field", ""))
+
+    def _get_attr_block_data(self, req):
+        return self.api.attr_block_data(
+            self._q1(req, "index"), self._q1(req, "field", ""),
+            int(self._q1(req, "block", "0")))
+
+    def _post_index_attr_diff(self, req):
+        """(reference: handler.go:312 handlePostIndexAttrDiff)"""
+        body = req.json() or {}
+        return self.api.attr_diff(
+            req.params["index"], "", body.get("blocks", []))
+
+    def _post_field_attr_diff(self, req):
+        """(reference: handler.go:315 handlePostFieldAttrDiff)"""
+        body = req.json() or {}
+        return self.api.attr_diff(
+            req.params["index"], req.params["field"],
+            body.get("blocks", []))
+
+    # -- resize admin (reference: /cluster/resize/* api.go:1193-1267) ---------
+
+    def _resize_add_node(self, req):
+        return self.api.resize_add_node(req.json() or {})
+
+    def _resize_remove_node(self, req):
+        body = req.json() or {}
+        return self.api.resize_remove_node(body.get("id"))
+
+    def _resize_abort(self, req):
+        return self.api.resize_abort()
+
+    def _resize_status(self, req):
+        return self.api.resize_status()
+
+    def _set_coordinator(self, req):
+        body = req.json() or {}
+        return self.api.set_coordinator(body.get("id"))
 
     def _q1(self, req, key, default=None):
         return req.query.get(key, [default])[0]
@@ -596,7 +729,7 @@ class PilosaHTTPServer:
         http/handler.go:281), plus the stacked-evaluator cache counters
         and the worker pool."""
         out = json.loads(registry_of(self.stats).expvar_json())
-        out["stacked"] = self.api.executor.stacked_stats()
+        out["stacked"] = self.api.local_executor.stacked_stats()
         out["workpool"] = workpool.get_pool().stats()
         return RawResponse(json.dumps(out).encode(), "application/json")
 
@@ -622,10 +755,14 @@ class PilosaHTTPServer:
                         "either way (GET /debug/traces/{trace_id})"}
 
     def _get_debug_trace(self, req):
-        """One trace's spans and their tree. ?local=true, the TPU
-        package's peer fetch, is accepted: one node serves its own spans
-        either way."""
-        return self.api.debug_trace(req.params["trace_id"])
+        """One assembled trace: this node's spans merged with every
+        peer's (skew-corrected) unless ?local=true — the local form is
+        what peers serve to the assembling coordinator, so assembly
+        cannot recurse."""
+        local_only = (self._q1(req, "local", "") or "").lower() \
+            in ("1", "true", "yes")
+        return self.api.debug_trace(req.params["trace_id"],
+                                    local_only=local_only)
 
     def _get_flightrecorder(self, req):
         """The black-box event ring: the last N things this process did
@@ -636,7 +773,7 @@ class PilosaHTTPServer:
     def _get_debug_dispatch(self, req):
         """Per-kernel dispatch-phase decomposition: where each family's
         launches and fetches go (lock_wait / dispatch_ack / sync)."""
-        return self.api.executor.dispatch_phase_stats()
+        return self.api.local_executor.dispatch_phase_stats()
 
     def _get_debug_device(self, req):
         """Device-link health: the prober's state machine plus the full
@@ -649,13 +786,13 @@ class PilosaHTTPServer:
         """HBM ledger: resident stack-cache bytes per (index, field,
         pool), entries ranked by bytes + last-hit age, eviction causes,
         and the card's memory headroom."""
-        return self.api.executor.hbm_stats(
+        return self.api.local_executor.hbm_stats(
             top=int(self._q1(req, "top", "50")))
 
     def _get_debug_kernels(self, req):
         """Per-kernel-family attribution + the declared cost of every
         launched kernel shape (?costs=false skips the costs)."""
-        return self.api.executor.kernel_stats(
+        return self.api.local_executor.kernel_stats(
             include_costs=self._q1(req, "costs", "true") != "false")
 
     def _get_debug_plans(self, req):
@@ -678,7 +815,7 @@ class PilosaHTTPServer:
         ring (exec/adaptive.py)."""
         from ..exec import adaptive
 
-        return adaptive.snapshot(stacked=self.api.executor._stacked)
+        return adaptive.snapshot(stacked=self.api.local_executor._stacked)
 
     def _get_debug_fusion(self, req):
         """Whole-plan fusion state: mode + knobs, the bounded program
@@ -710,7 +847,7 @@ class PilosaHTTPServer:
         hot-but-not-resident (admission candidates) and
         resident-but-cold (eviction candidates)."""
         return workload.heat().report(
-            self.api.executor.hbm_stats(top=0),
+            self.api.local_executor.hbm_stats(top=0),
             top=int(self._q1(req, "top", "50")))
 
     def _get_debug_slo(self, req):

@@ -24,8 +24,8 @@ headers that matter (Retry-After, X-Pilosa-Shed) and the same body:
 - pricing goes through the planner and launches nothing.
 
 The reference's three cluster cases (the deadline across a 2-node
-fan-out and the peer overload/unready retries) wait for the port's
-cluster layer.
+fan-out and the peer overload/unready retries) run on a 2-node cluster
+of each package.
 """
 
 import json
@@ -605,3 +605,112 @@ def test_zero_priced_dispatches(tmp_path):
     finally:
         for h in hs.values():
             h.close()
+
+
+# ------------------------------------------------------- cluster fan-out
+
+def _cluster(pkg, index):
+    """A 2-node, replicas-1 cluster of `pkg` (ModHasher: both nodes own
+    shards) with 6 shards of one bit each in `index`."""
+    if pkg.name == "jax":
+        import pilosa_tpu.cluster as cmod
+
+        from tests.harness import ClusterHarness as harness
+    else:
+        import pilosa_tpu_torch.cluster as cmod
+        from pilosa_tpu_torch.tools.cluster import ClusterHarness as harness
+
+    h = harness(2, replica_n=1, hasher=cmod.ModHasher())
+    h[0].client.create_index(index)
+    h[0].client.create_field(index, "f")
+    time.sleep(0.3)  # DDL broadcast settles
+    cols = [s * SHARD_WIDTH + 2 for s in range(6)]
+    h[0].client.import_bits(index, "f", [1] * len(cols), cols)
+    owners = {h[0].cluster.shard_nodes(index, s)[0].id for s in range(6)}
+    assert len(owners) == 2, "ModHasher should use both nodes"
+    return h
+
+
+def test_deadline_survives_cluster_fanout():
+    """A generous deadline rides the whole fan-out and serves; one
+    expired on arrival at the coordinator is a 504 and NO node launches
+    anything — on both packages' clusters."""
+    out = []
+    for p in BOTH:
+        h = _cluster(p, "cd")
+        try:
+            ok = h[0].client.query("cd", "Count(Row(f=1))",
+                                   deadline=30.0)["results"]
+            before = [_dispatches(n.api) for n in h.nodes]
+            status, _, body = _post(
+                f"{h[0].address}/index/cd/query", b"Count(Row(f=1))",
+                {"X-Request-Deadline": "-0.5"})
+            out.append((ok, status, body,
+                        [_dispatches(n.api) for n in h.nodes] == before))
+        finally:
+            h.close()
+    assert out[1] == out[0], (out[1], out[0])
+    assert out[1][0] == [6] and out[1][1] == 504 and out[1][3]
+
+
+def test_peer_overload_retried_same_replica_not_marked_unready():
+    """A peer shedding (503 + X-Pilosa-Shed) past the coordinator's
+    client retries gets ONE same-replica retry from the cluster executor,
+    which serves: `cluster.node_overload` is recorded, never
+    `cluster.node_unready`."""
+    out = []
+    for p in BOTH:
+        h = _cluster(p, "ov")
+        try:
+            peer = h[1]
+            real_query = peer.api.query
+            state = {"shed": 3}
+
+            def flaky_query(*a, real_query=real_query, state=state, p=p,
+                            **kw):
+                if kw.get("options") is not None and kw["options"].remote \
+                        and state["shed"] > 0:
+                    state["shed"] -= 1
+                    p.api.shed_reject("admission", "synthetic overload", 1,
+                                      qclass="interactive")
+                return real_query(*a, **kw)
+
+            peer.api.query = flaky_query
+            resp = h[0].client.query("ov", "Count(Row(f=1))")
+            kinds = [e["kind"] for e in p.flightrec.snapshot()["events"]]
+            out.append((resp["results"], "cluster.node_overload" in kinds,
+                        "cluster.node_unready" in kinds, state["shed"]))
+        finally:
+            h.close()
+    assert out[1] == out[0], (out[1], out[0])
+    assert out[1] == ([6], True, False, 0)
+
+
+def test_peer_unready_503_still_flagged_unready():
+    """A peer answering a plain 503 (its device link DOWN) is flagged
+    `cluster.node_unready`, not overloaded; with replicas 1 its shards
+    have no replica, so the query fails."""
+    out = []
+    for p in BOTH:
+        h = _cluster(p, "ur")
+        try:
+            peer = h[1]
+            real_query = peer.api.query
+
+            def unready_query(*a, real_query=real_query, p=p, **kw):
+                if kw.get("options") is not None and kw["options"].remote:
+                    raise p.api.ServiceUnavailableError(
+                        "device link DOWN", retry_after=5)
+                return real_query(*a, **kw)
+
+            peer.api.query = unready_query
+            with pytest.raises(Exception) as err:
+                h[0].client.query("ur", "Count(Row(f=1))")
+            kinds = [e["kind"] for e in p.flightrec.snapshot()["events"]]
+            out.append((getattr(err.value, "status", None),
+                        "cluster.node_unready" in kinds,
+                        "cluster.node_overload" in kinds))
+        finally:
+            h.close()
+    assert out[1] == out[0], (out[1], out[0])
+    assert out[1][1:] == (True, False)

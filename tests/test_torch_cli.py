@@ -580,3 +580,46 @@ def test_max_writes_per_request(tmp_path):
     finally:
         port.stop()
         ref.close()
+
+
+def test_backup_covers_whole_cluster(tmp_path):
+    """`backup` from one node of a 2-node cluster includes the shards
+    only its peer holds; restored into a single node of the other
+    package, the count is whole. Both directions: the port's cluster to
+    the TPU package's node, the TPU package's cluster to the port's."""
+    from pilosa_tpu_torch.tools.cluster import ClusterHarness
+
+    from tests.harness import ClusterHarness as JaxClusterHarness
+
+    cols = [5, SHARD_WIDTH + 9, 2 * SHARD_WIDTH + 1, 3 * SHARD_WIDTH + 4]
+    for name, harness, backup, restore in (
+            ("port", ClusterHarness, main, jax_main),
+            ("jax", JaxClusterHarness, jax_main, main)):
+        tar_path = str(tmp_path / f"{name}.tar")
+        c = harness(2)
+        try:
+            c[0].client.create_index("bk")
+            c[0].client.create_field("bk", "f")
+            c[0].client.import_bits("bk", "f", [1] * len(cols), cols)
+            assert c[0].client.query(
+                "bk", "Count(Row(f=1))")["results"] == [4]
+            assert backup(["backup", "--host", c[0].address,
+                           "--output", tar_path]) == 0
+        finally:
+            c.close()
+        if restore is main:
+            dst = start_server(["--bind", "127.0.0.1:0", "--data-dir",
+                                str(tmp_path / f"dst-{name}"),
+                                "--device", "cpu"])
+            uri, client, stop = dst.uri, Client(dst.uri), dst.stop
+        else:
+            dst = ServerHarness(data_dir=str(tmp_path / f"dst-{name}"))
+            uri, client, stop = dst.address, dst.client, dst.close
+        try:
+            assert restore(["restore", "--host", uri,
+                            "--input", tar_path]) == 0
+            assert client.query("bk", "Count(Row(f=1))")["results"] == [4]
+            assert sorted(client.query("bk", "Row(f=1)")["results"][0]
+                          ["columns"]) == cols
+        finally:
+            stop()

@@ -14,6 +14,12 @@ and against the TPU package's serializer, on the CPU.
 - `tests/test_encoding.py` ported: the codec's round trips, the wire
   field numbers, and the port server's protobuf query and import routes
   (query, import bits / values / timestamps, import-roaring).
+- Each result type a cluster fan-out leg carries over the protobuf
+  internal wire (TopN pairs with and without keys, a MinRow pair,
+  GroupBy counts, ValCount, RowIdentifiers with and without keys, Rows
+  with and without keys): bytes equal the TPU package's, and the port's
+  decode through `cluster.executor.result_from_json` gives the leg's
+  result back.
 
 Only the tests that hold the codec against `pilosa_pb2` need
 `google.protobuf` and skip without it. Tolerance: exact equality of
@@ -608,3 +614,66 @@ def test_proto_query_route_equals_reference(tmp_path):
     finally:
         port.stop()
         ref.close()
+
+
+def _leg_results(res, row_cls):
+    """One fan-out leg's result of each kind a remote leg decodes, built
+    from package `res` (exec.result) and `row_cls` (core.row.Row)."""
+    keyed = row_cls.from_columns([4, 1 << 20, 3 << 20])
+    keyed.keys = ["a", "b", "c"]
+    return {
+        "pairs": [res.Pair(7, 12), res.Pair(3, 12), res.Pair(9, 1)],
+        "pairs_keyed": [res.Pair(1, 5, key="x"), res.Pair(2, 4, key="y")],
+        "min_row": res.Pair(4, 2),
+        "group_counts": [
+            res.GroupCount([res.FieldRow("f", 1), res.FieldRow("g", 7)], 3),
+            res.GroupCount([res.FieldRow("f", 2),
+                            res.FieldRow("g", 0, row_key="k")], 1)],
+        "val_count": res.ValCount(-17, 5),
+        "row_identifiers": res.RowIdentifiers([1, 5, 9]),
+        "row_identifiers_keyed": res.RowIdentifiers([], keys=["p", "q"]),
+        "row": row_cls.from_columns([0, 2, (5 << 20) + 1]),
+        "row_keyed": keyed,
+    }
+
+
+@pytest.mark.parametrize("kind", [
+    "pairs", "pairs_keyed", "min_row", "group_counts", "val_count",
+    "row_identifiers", "row_identifiers_keyed", "row", "row_keyed"])
+def test_fanout_leg_result_roundtrip(kind):
+    """Each result type a cluster fan-out leg carries over the protobuf
+    internal wire: the port's QueryResponse bytes equal the TPU
+    package's (whose codec is `pilosa_pb2`), and the port's decode,
+    through the cluster executor's `result_from_json`, gives back the
+    result the leg sent."""
+    _pb()
+    import pilosa_tpu.core.row as jax_row
+    import pilosa_tpu.encoding as jencoding
+    import pilosa_tpu.exec.result as jax_result
+    from pilosa_tpu_torch.cluster.executor import result_from_json
+    from pilosa_tpu_torch.core.row import Row
+    from pilosa_tpu_torch.exec import result as port_result
+
+    mine = _leg_results(port_result, Row)[kind]
+    ref = _leg_results(jax_result, jax_row.Row)[kind]
+    blob = encoding.encode_query_response([mine])
+    assert blob == jencoding.encode_query_response([ref])
+    decoded, err = encoding.decode_query_response(blob)
+    assert err is None and len(decoded) == 1
+    got = decoded[0]
+    if isinstance(got, dict):  # proto Rows decode to their wire dict
+        got = result_from_json(got)
+    if isinstance(mine, Row):
+        assert [int(c) for c in got.columns()] == \
+            [int(c) for c in mine.columns()]
+        assert got.keys == mine.keys
+    else:
+        assert got == mine
+    # and the TPU package's decoder reads the same answer
+    jdecoded, jerr = jencoding.decode_query_response(blob)
+    assert jerr is None
+    if isinstance(mine, Row):
+        assert jdecoded[0].get("columns", []) == \
+            [int(c) for c in mine.columns()]
+    else:
+        assert repr(jdecoded[0]) == repr(ref)

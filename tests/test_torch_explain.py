@@ -1,8 +1,8 @@
 """The port's PQL EXPLAIN/ANALYZE (exec/plan.py and its hooks) and the
 kernels' declared costs, against the TPU package's, on the CPU.
 
-Every case of `tests/test_explain.py` but the cluster one (the port has
-no cluster yet) runs on the port (device="cpu"): zero-launch planning,
+Every case of `tests/test_explain.py` runs on the port (device="cpu"),
+the cluster one on a 2-node cluster of each package: zero-launch planning,
 the strategy per op family, the MIN_SHARDS fallback, validation, the
 analyze grafting with exact dispatch estimates, misestimate flagging and
 the /debug/plans ring, the HTTP and SLOW QUERY surfaces and the CLI
@@ -544,3 +544,66 @@ def test_debug_kernels_lists_declared_costs_per_launched_shape(env):
     assert ("bsi_condition", "bsi_range_mask") in by_kernel
     assert all("optimal_seconds" not in c for c in by_kernel.values())
     assert "compiled" not in e.kernel_stats(include_costs=False)
+
+
+def test_cluster_plan_embeds_per_node_subplans():
+    """A 2-node cluster of each package (ModHasher: shards alternate
+    owners, so both the local planner leg and the remote explain leg
+    run): ?explain=true wraps one sub-plan per primary owner and
+    executes nothing; ?explain=analyze executes every leg's analyze and
+    grafts its actuals. The plans' shapes, the per-node shard counts (by
+    the node's place in the sorted ids) and the answers are the TPU
+    package's."""
+    import time
+
+    import pilosa_tpu.cluster as jax_cluster
+    import pilosa_tpu_torch.cluster as torch_cluster
+    from pilosa_tpu_torch.tools.cluster import ClusterHarness
+
+    from tests.harness import ClusterHarness as JaxClusterHarness
+
+    n_shards = 6
+    cols = [s * SHARD_WIDTH + 2 for s in range(n_shards)]
+    out = []
+    for harness, cmod in ((JaxClusterHarness, jax_cluster),
+                          (ClusterHarness, torch_cluster)):
+        h = harness(2, replica_n=1, hasher=cmod.ModHasher())
+        try:
+            h[0].client.create_index("ce")
+            h[0].client.create_field("ce", "f")
+            time.sleep(0.3)  # DDL broadcast settles
+            h[0].client.import_bits("ce", "f", [1] * len(cols), cols)
+            order = [n.id for n in h[0].cluster.nodes]
+            owners = {h[0].cluster.shard_nodes("ce", s)[0].id
+                      for s in range(n_shards)}
+            assert len(owners) == 2, "ModHasher should use both nodes"
+
+            resp = h[0].client.query("ce", "Count(Row(f=1))",
+                                     explain="true")
+            assert resp["results"] == []
+            penv = resp["plan"]
+            top = penv["calls"][0]
+            assert {c["node"] for c in top["children"]} == owners
+            planned = (penv["mode"], top["strategy"], sorted(
+                (order.index(c["node"]), c["shards"], c["plan"]["op"],
+                 c["plan"]["strategy"]) for c in top["children"]))
+
+            resp = h[0].client.query("ce", "Count(Row(f=1))",
+                                     explain="analyze")
+            top = resp["plan"]["calls"][0]
+            assert {c["node"] for c in top["children"]} == owners
+            for c in top["children"]:
+                assert c["plan"]["actual"]["wall_seconds"] > 0
+            assert "misestimates" in resp["plan"]
+            analyzed = (resp["results"], top["strategy"], sorted(
+                (order.index(c["node"]), c["shards"],
+                 c["plan"]["actual"]["dispatches"])
+                for c in top["children"]))
+            out.append((planned, analyzed))
+        finally:
+            h.close()
+    assert out[1] == out[0], (out[1], out[0])
+    planned, analyzed = out[1]
+    assert planned[:2] == ("plan", "cluster-map-reduce")
+    assert sum(c[1] for c in planned[2]) == n_shards
+    assert analyzed[0] == [len(cols)]

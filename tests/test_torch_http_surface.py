@@ -267,3 +267,37 @@ def test_protobuf_body_gets_415(servers, path):
     # nothing was written
     assert p.both("POST", "/index/i/query", "Count(Row(f=0))")[1] \
         == {"results": [0]}
+
+
+def test_delete_remote_available_shard():
+    """DELETE .../remote-available-shards/{shard} forgets a peer's stale
+    shard advertisement (reference: http/handler.go:316 ->
+    api.DeleteAvailableShard), on a 2-node cluster of each package: the
+    same status and body, the same shard map after, and a 404 for an
+    unknown field."""
+    from pilosa_tpu_torch.tools.cluster import ClusterHarness
+
+    from tests.harness import ClusterHarness as JaxClusterHarness
+
+    out = []
+    for harness in (JaxClusterHarness, ClusterHarness):
+        cl = harness(2)
+        try:
+            h = cl[0]
+            h.client.create_index("ras")
+            h.client.create_field("ras", "f", {"type": "set"})
+            peer = cl[1].cluster.local_id
+            h.cluster.record_remote_shards(peer, "ras", {3, 7})
+            before = sorted(h.cluster.remote_available_shards("ras"))
+            ok = _request(h.address, "DELETE", "/internal/index/ras/field/f"
+                          "/remote-available-shards/3")
+            after = sorted(h.cluster.remote_available_shards("ras"))
+            missing = _request(h.address, "DELETE",
+                               "/internal/index/ras/field/nope"
+                               "/remote-available-shards/3")
+            out.append((before, ok[0], json.loads(ok[2]), after,
+                        missing[0]))
+        finally:
+            cl.close()
+    assert out[1] == out[0], (out[1], out[0])
+    assert out[1] == ([3, 7], 200, {"success": True}, [7], 404)

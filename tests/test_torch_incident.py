@@ -1,9 +1,9 @@
 """The port's incident autopsy (utils/incident.py) and the trace and
 exemplar surfaces it links to, on the CPU.
 
-`tests/test_incident.py` ported (its cross-node profile assembly waits
-for the cluster layer; the skew estimate and the merge it rests on are
-ported): postmortem bundles written on devhealth DOWN and on a deadline
+`tests/test_incident.py` ported (the cross-node profile assembly on a
+2-node cluster of each package, beside the skew estimate and the merge
+it rests on): postmortem bundles written on devhealth DOWN and on a deadline
 storm, the refractory period, retention, path traversal, a failing
 collector, the disabled default, /debug/incidents[/{id}] over HTTP,
 trace-index bounds, monotonic span durations, the profile span cap
@@ -455,3 +455,65 @@ def test_sigterm_writes_fatal_signal_bundle(tmp_path):
     assert "oplog.json" in meta["files"]
     with open(inc / bundle / "oplog.json") as f:
         assert json.load(f)["enabled"] is True
+
+
+def test_cross_node_profile_assembly():
+    """A profiled fan-out query through the non-owner of a 2-node cluster
+    returns ONE merged span tree: the coordinator's spans plus the remote
+    leg's server-side spans beneath its `cluster.mapReduce.node` span,
+    with per-node skew tags; /debug/traces/{id} serves the local form to
+    peers and the assembled form to clients. The TPU package's cluster
+    gives the same answer, the same assembly tags and the same remote
+    span names."""
+    pytest.importorskip("jax")
+    from pilosa_tpu_torch.tools.cluster import ClusterHarness
+
+    from tests.harness import ClusterHarness as JaxClusterHarness
+
+    out = []
+    for harness in (JaxClusterHarness, ClusterHarness):
+        ch = harness(2)
+        try:
+            coord = ch.non_owner_of("ti", 0)
+            ch[0].client.create_index("ti")
+            ch[0].client.create_field("ti", "f")
+            ch[0].client.import_bits("ti", "f", [10, 10],
+                                     [5, SHARD_WIDTH + 5])
+            resp = coord.client.query("ti", "Count(Row(f=10))", profile=True)
+            prof = resp["profile"]
+            spans = _flatten(prof["spans"])
+            fanouts = [s for s in spans
+                       if s["name"] == "cluster.mapReduce.node"]
+            remote = [f for f in fanouts if f["tags"].get("remote")]
+            assert len(remote) == 1
+            remote_names = {s["name"] for s in _flatten(remote[0])}
+            assert {"api.Query", "executor.Execute"} <= remote_names
+            assert any(c["name"].startswith("http.POST")
+                       for c in remote[0]["children"])
+            skews = prof["tags"]["clock_skew_seconds"]
+            assert len(skews) == 1
+            # in-process nodes share a clock: the corrected skew is tiny
+            assert abs(next(iter(skews.values()))) < 1.0
+            for s in spans:
+                if s.get("start") is not None:
+                    assert abs(s["start"] - prof["start"]) < 5.0
+            tid = prof["traceID"]
+            local = coord.client.debug_trace(tid)
+            assert local["found"] and local["spans"]
+            full = coord.client._request("GET", f"/debug/traces/{tid}")
+            assert full["found"] and full["tree"]
+            assert len(full["spans"]) >= len(local["spans"])
+            node_info = next(iter(full["nodes"].values()))
+            assert node_info["spans"] > 0
+            assert "clock_skew_seconds" in node_info
+            out.append((resp["results"], len(fanouts),
+                        sorted(k for k in prof["tags"]
+                               if k in ("clock_skew_seconds",
+                                        "remote_spans")),
+                        sorted({"api.Query", "executor.Execute",
+                                "executor.executeCount"} & remote_names),
+                        len(full["nodes"])))
+        finally:
+            ch.close()
+    assert out[1] == out[0], (out[1], out[0])
+    assert out[1][0] == [2]

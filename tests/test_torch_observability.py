@@ -17,8 +17,8 @@ Server level, both packages' servers run in this process (the TPU
 package's through tests/harness.ServerHarness, the port's with
 `--device cpu`), get the same PQL, and must agree on the ?profile=true
 span names, the profile's counter keys, the /metrics metric names and
-the slow-query line's fields (timings excluded). Left for later steps:
-/status's observability block and the cluster fan-out's node spans.
+the slow-query line's fields (timings excluded). On a 2-node cluster of
+each package, a fan-out query's per-node spans and its profile agree.
 """
 
 import json
@@ -824,3 +824,54 @@ def test_obs_cost_tool_prints_every_piece():
     lines = proc.stdout.splitlines()
     assert len(lines) == 8 and all(line.endswith(" us") for line in lines)
     assert lines[5].startswith("locked launch bookkeeping")
+
+
+def _walk_spans(node):
+    out = [node]
+    for c in node.get("children", []):
+        out.extend(_walk_spans(c))
+    return out
+
+
+def test_cluster_fanout_node_spans_and_profile():
+    """A fan-out query through the non-owner of a 2-node cluster gives
+    one `cluster.mapReduce.node` span per target node on the
+    coordinator's trace, and its ?profile=true profile holds them with
+    their timings, on the port's cluster as on the TPU package's."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.tools.cluster import ClusterHarness
+
+    from tests.harness import ClusterHarness as JaxClusterHarness
+
+    out = []
+    for harness, tr in ((JaxClusterHarness, ref_tracing),
+                        (ClusterHarness, tracing)):
+        t = tr.InMemoryTracer()
+        tr.set_tracer(t)
+        c = harness(2)
+        try:
+            c[0].client.create_index("cf")
+            c[0].client.create_field("cf", "f")
+            c[0].client.import_bits("cf", "f", [3, 3], [1, SHARD_WIDTH + 1])
+            non_owner = c.non_owner_of("cf", 0)
+            t.clear()
+            resp = non_owner.client.query("cf", "Count(Row(f=3))",
+                                          profile=True)
+            node_spans = t.find("cluster.mapReduce.node")
+            assert node_spans
+            assert len({s.trace_id for s in node_spans}) == 1
+            assert all(s.duration is not None for s in node_spans)
+            prof = resp["profile"]
+            prof_nodes = [s for s in _walk_spans(prof["spans"])
+                          if s["name"] == "cluster.mapReduce.node"]
+            assert len(prof_nodes) == len(node_spans)
+            assert prof["duration"] >= max(s["duration"]
+                                           for s in prof_nodes)
+            out.append((resp["results"], len(node_spans),
+                        sorted(bool(s.tags.get("remote"))
+                               for s in node_spans)))
+        finally:
+            tr.set_tracer(None)
+            c.close()
+    assert out[1] == out[0], (out[1], out[0])
+    assert out[1][0] == [2] and True in out[1][2]

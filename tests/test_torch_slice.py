@@ -221,8 +221,9 @@ def test_http_end_to_end(pair, tmp_path):
 def test_subprocess_loads_no_jax(tmp_path):
     """The port serves Counts over dense, block-sparse and run-length
     leaves, a query batch, a coalesced query, a stale serve and merge of
-    the streaming ingest engine and an adaptive EXPLAIN ANALYZE with
-    neither JAX nor any pilosa_tpu module loaded (a subprocess: this
+    the streaming ingest engine, an adaptive EXPLAIN ANALYZE and a Count
+    through the non-owner of a 2-node cluster with neither JAX nor any
+    pilosa_tpu module loaded (a subprocess: this
     test process has JAX loaded already)."""
     code = f"""
 import sys
@@ -264,6 +265,15 @@ assert iapi.query("i", "Count(Row(f=1))",
 adaptive.reset()
 iapi.close()
 srv.stop()
+from pilosa_tpu_torch.tools.cluster import ClusterHarness
+c = ClusterHarness(2, replica_n=1)
+c[0].client.create_index("ci")
+c[0].client.create_field("ci", "f")
+c[0].client.import_bits("ci", "f", [1, 1], [5, (1 << 20) + 5])
+assert c.non_owner_of("ci", 0).client.query(
+    "ci", "Count(Row(f=1))")["results"] == [2]
+c.close()
+assert "pilosa_tpu_torch.cluster.executor" in sys.modules
 assert "pilosa_tpu_torch.ops.count_blocks" in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pilosa_tpu"))
@@ -282,7 +292,8 @@ assert not bad, bad
 #: tools, the client and the logger the oplog writes through, the
 #: observability and health modules every layer imports, the wire
 #: codec, the ingest engine, the adaptive engine, the planner, whole-plan
-#: fusion and admission control
+#: fusion, admission control, and the HTTP cluster (placement, messaging,
+#: membership, fan-out, resize, anti-entropy, key replication)
 REQUIRED_SOURCES = ("cli.py", "server/client.py", "utils/logger.py",
                     "storage/oplog.py", "server/api.py", "utils/tracing.py",
                     "utils/stats.py", "utils/profile.py",
@@ -292,7 +303,12 @@ REQUIRED_SOURCES = ("cli.py", "server/client.py", "utils/logger.py",
                     "encoding/__init__.py", "encoding/serializer.py",
                     "encoding/wire.py", "exec/ingest.py",
                     "exec/adaptive.py", "exec/plan.py", "exec/fusion.py",
-                    "server/admission.py")
+                    "server/admission.py", "cluster/__init__.py",
+                    "cluster/hash.py", "cluster/node.py",
+                    "cluster/cluster.py", "cluster/broadcast.py",
+                    "cluster/membership.py", "cluster/executor.py",
+                    "cluster/resize.py", "server/syncer.py",
+                    "server/translate_sync.py", "tools/cluster.py")
 
 #: modules a client tool imports, and the ingest engine, the adaptive
 #: engine, the planner, whole-plan fusion and admission control: none

@@ -7,9 +7,9 @@ server (`--device cpu`), and the slow-query log. Differential: the same
 sequence of span operations (seeded with numpy) runs on both packages'
 modules, and the span trees must be equal by name and parent; the
 cross-node assembly helpers (`estimate_skew`, `merge_remote_spans`,
-`assemble_tree`) must give equal output on the same span dicts.
-Left for the cluster step: cross-node propagation through a 2-node
-cluster.
+`assemble_tree`) must give equal output on the same span dicts; and a
+fan-out query carries its trace id across a 2-node cluster of each
+package.
 """
 
 import http.server
@@ -285,3 +285,44 @@ def test_index_span_feeds_get_trace():
     tracing.index_span(span)
     assert [s["spanID"] for s in tracing.get_trace("tx")] == ["root"]
     assert tracing.get_trace("unknown") == []
+
+
+def test_cross_node_trace_propagation(tracer):
+    """A fan-out query through the non-owner of a 2-node cluster carries
+    one trace id through the remote node's HTTP layer (reference: handler
+    extractTracing / client inject), on the port's cluster as on the TPU
+    package's."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.tools.cluster import ClusterHarness
+
+    from tests.harness import ClusterHarness as JaxClusterHarness
+
+    ref_tracer = ref_tracing.InMemoryTracer()
+    ref_tracing.set_tracer(ref_tracer)
+    out = []
+    try:
+        for harness, t in ((JaxClusterHarness, ref_tracer),
+                           (ClusterHarness, tracer)):
+            c = harness(2)
+            try:
+                c[0].client.create_index("ti")
+                c[0].client.create_field("ti", "f")
+                # bits in two shards: the query fans out to both nodes
+                c[0].client.import_bits("ti", "f", [10, 10],
+                                        [5, SHARD_WIDTH + 5])
+                non_owner = c.non_owner_of("ti", 0)
+                t.clear()
+                result = non_owner.client.query(
+                    "ti", "Count(Row(f=10))")["results"]
+            finally:
+                c.close()
+            remote_spans = [s for s in t.spans
+                            if s.name.startswith("http.POST")
+                            and s.parent_id]
+            assert remote_spans, "no remote http span continued a trace"
+            trace_ids = {s.trace_id for s in t.find("executor.Execute")}
+            continued = any(s.trace_id in trace_ids for s in remote_spans)
+            out.append((result, continued))
+    finally:
+        ref_tracing.set_tracer(None)
+    assert out[1] == out[0] == ([2], True)

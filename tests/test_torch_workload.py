@@ -3,8 +3,9 @@ package's, on the CPU: query fingerprints and the per-shape table, the
 fragment heat ledger joined against the HBM ledger, and SLO burn.
 
 `tests/test_workload.py` ported to the port's executor and server (the
-cluster roll-up as the single node's /status roll-up; the misestimate
-attribution at the workload API and through the planner's analyze).
+/status roll-up on one node and on a 2-node cluster of each package; the
+misestimate attribution at the workload API and through the planner's
+analyze).
 Beside them:
 
 - `fingerprint(index, query)` gives the same (fingerprint, shape) in
@@ -597,3 +598,48 @@ def test_debug_workload_equal_to_reference(tmp_path):
         port.stop()
         ref.close()
         jworkload.reset()
+
+
+def test_cluster_status_rolls_up_observatory():
+    """The coordinator's /status?observability=true carries the workload,
+    heat and slo summaries of EVERY node, on a 2-node cluster of each
+    package given the same writes and reads: the same summary keys per
+    node, no degraded peer fetch, and the same headline shape."""
+    pytest.importorskip("jax")
+    import pilosa_tpu.utils.workload as jax_workload
+    from pilosa_tpu_torch.tools.cluster import ClusterHarness
+
+    from tests.harness import ClusterHarness as JaxClusterHarness
+
+    out = []
+    for harness, wl in ((JaxClusterHarness, jax_workload),
+                        (ClusterHarness, workload)):
+        wl.reset()
+        c = harness(2)
+        try:
+            coord = c.node_by_id(c[0].cluster.coordinator.id)
+            coord.client.create_index("ci")
+            coord.client.create_field("ci", "f")
+            for col in (1, SHARD_WIDTH + 1, 2 * SHARD_WIDTH + 1):
+                coord.client.query("ci", f"Set({col}, f=7)")
+            for row in (7, 8, 9, 10):  # 4 reads > 3 writes: Count is top
+                coord.client.query("ci", f"Count(Row(f={row}))")
+            obs = coord.client._request(
+                "GET", "/status?observability=true")["observability"]
+            assert len(obs) == 2
+            for node_id, summary in obs.items():
+                assert "error" not in summary, (node_id, summary)
+                assert set(summary) >= {"workload", "heat", "slo"}
+                assert summary["slo"]["objectives"] == 0
+            local = obs[coord.cluster.local_id]
+            peer = next(s for n, s in obs.items()
+                        if n != coord.cluster.local_id)
+            out.append((sorted(local), sorted(peer),
+                        local["workload"]["total_queries"],
+                        local["workload"]["top"]["shape"],
+                        peer["workload"]["top"]))
+        finally:
+            c.close()
+            wl.reset()
+    assert out[1] == out[0], (out[1], out[0])
+    assert out[1][3] == "ci:Count(Row(f=_))"
