@@ -101,7 +101,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    - observability (serve_observe, after the BSI path; the server runs
      with --watchdog-deadline 60s): per path, the Count of
      Intersect(Row(f=2), Row(g=2)) over index b (K1), config 3's
-     TopN(f, n=10) (K3) and config 4's Jan+Feb Sum (K3), 20 ?profile=true
+     TopN(f, n=10) (K3) and config 4's Jan+Feb Sum (K3), 10 ?profile=true
      warm queries give the host split (medians of client wall, the
      server's http_request_seconds, the profile's root span,
      executor.Execute, lock wait, each dispatch phase, kernel wall) and
@@ -139,7 +139,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    - the wire and the health surface (serve_ops; the main server runs
      with --incident-dir): a second listener on the same API with TLS
      (an embedded test-only pair) and allowed origins (a CORS
-     preflight); the 954-shard Count 50 times each over HTTP JSON,
+     preflight); the 954-shard Count 25 times each over HTTP JSON,
      HTTPS JSON and HTTPS protobuf, in turns, with each transport's p50
      (K1 must launch once a Count); protobuf TopN, GroupBy and Row over
      index tg equal to their JSON answers; a protobuf ImportRequest of
@@ -173,7 +173,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      records its tile decision and launches K4 at that tile; an
      `ingest-json:` line has the numbers;
    - whole-plan fusion and admission control (serve_fusion_admission,
-     last, on servers of their own over the same holder): a 5-call
+     on servers of their own over the same holder): a 5-call
      Count (dense chain, dense union, sparse leaf, sparse pair,
      run-length pair) over index b with --fusion on --fusion-min-hits 2
      runs interpreted twice, builds its program, then every run is one
@@ -186,29 +186,47 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      lapsing in the admission queue answering 504 with no launch,
      X-Query-Class: bogus answering 400, /debug/admission and /status's
      admission block; a `fusion-json:` line has the numbers;
-   - the HTTP cluster (serve_cluster, last): BASELINE config 5's HTTP
+   - the HTTP cluster (serve_cluster): BASELINE config 5's HTTP
      plane, three `python -m pilosa_tpu_torch server --device cuda
      --cluster-hosts ... --replicas 2` children on the one card (a 5 s
      anti-entropy interval); index b's rows 1-2 of f and g loaded over
-     all 954 shards through node 0, one import-roaring per field and
-     shard, each routed to both owners, and every shard found on exactly
-     its two owners; the four headline Counts through every node equal
-     numpy, each one count_expr launch on every primary node (each
-     node's /debug/dispatch) with no leg retried; 100 warm Counts through
-     node 0 timed in turns beside the single server, 20 profiled ones
-     split into the coordinator's own leg, the remote legs and the rest;
+     its first 240 shards (CLUSTER_SHARDS) through node 0, one
+     import-roaring per field and shard, each routed to both owners, and
+     every shard found on exactly its two owners; the four headline
+     Counts through every node equal numpy, each one count_expr launch
+     on every primary node (each node's /debug/dispatch) with no leg
+     retried; 50 warm Counts through node 0 timed in turns beside the
+     single server, 20 profiled ones split into the coordinator's own
+     leg, the remote legs and the rest;
      the 43 golden PQL cases (tests/testdata/golden_pql.json) through
      every node; node 2 paused (SIGSTOP): marked DOWN, the headline
      Count served by the replicas, a one-bit import into one of its
      shards, and after SIGCONT that shard's blocks equal on every owner
      (anti-entropy) and the Count through node 2 reads the bit; keys
-     created through nodes 1 and 2 resolve alike on every node; a fourth
-     node started with --join enters through the coordinator's resize,
-     every node then holds exactly the shards placement gives, and the
-     headline Count through it equals numpy; a `cluster-json:` line has
-     every number and the card's memory;
+     created through nodes 1 and 2 resolve alike on every node; then b
+     and kx dropped, a fourth node started with --join enters through
+     the coordinator's resize over the golden index, every node holds
+     exactly the golden shards placement gives, and the 43 cases through
+     it equal their wants; a `cluster-json:` line has every number and
+     the card's memory;
+   - the collective plane (serve_spmd, last): BASELINE config 5's
+     second plane, three `python -m pilosa_tpu_torch server --device
+     cuda --spmd --replicas 1` children on the one card, one gloo process
+     group; index b's f=1 and g=1 at all 954 shards loaded through node
+     0 by import-roaring; four Counts through every node, twice (cold,
+     then warm), equal numpy, every node's step counter, its steps'
+     count_expr launches (/internal/spmd/stats `step_launches`) and
+     spmd_count dispatches (/debug/dispatch) up by one a Count, no
+     fallback; 5 profiled Counts split by step phase (the coordinator's
+     spmd.step span); the 43 golden cases through every node (the sum,
+     minmax, topn and groupby steps dispatched equally on every rank,
+     K3 and K4 launched by the steps on every rank, the condition Count
+     among them); a `spmd-json:` line has every number, and the launches
+     every rank's steps made join the kernels line;
    each path runs with every launch counter set to 0 just before it and
-   read just after; cold latency of each first query and warm HTTP p50s.
+   read just after; cold latency of each first query and warm HTTP p50s;
+   a `phase:` line as each phase ends and a `phases:` line with every
+   phase's wall before the kernels line.
 
 The line before the last is a JSON object with a `kernels` list; the
 last line is {"ok": true, "device": {...}}.
@@ -1544,18 +1562,19 @@ def serve_tree_limits(srv, k1, tg, card):
             f"on {card})")
 
 
-def count_expect(planes):
+def count_expect(planes, n_shards=None):
     """Numpy answers of the four Count(Intersect(Row(f=a), Row(g=b)))
-    and the four single-row Counts over index b."""
+    and the four single-row Counts over index b (over its first
+    `n_shards` shards, every shard by default)."""
+    n = N_SHARDS if n_shards is None else n_shards
     expect = {}
     for a in (1, 2):
         for b in (1, 2):
             expect[f"Count(Intersect(Row(f={a}), Row(g={b})))"] = \
-                N_SHARDS * popcount(planes[("f", a)] & planes[("g", b)])
+                n * popcount(planes[("f", a)] & planes[("g", b)])
     for f in ("f", "g"):
         for r in (1, 2):
-            expect[f"Count(Row({f}={r}))"] = \
-                N_SHARDS * popcount(planes[(f, r)])
+            expect[f"Count(Row({f}={r}))"] = n * popcount(planes[(f, r)])
     return expect
 
 
@@ -2420,7 +2439,7 @@ PJikLAxCax9S4jF4dxg4NNVFHwKhRANCAATWD6X6Q7nv7tNhUVFotM5zUwlKoSR1
 Y2nKWG/ARszVazt0ATg90JCra6CX2CcaO729lzEthqdOV+e7uORgve75
 -----END PRIVATE KEY-----
 """
-OPS_COUNTS = 50  # warm Counts per transport
+OPS_COUNTS = 25  # warm Counts per transport
 OPS_IMPORT_BITS = 100_000  # ImportRequest records over every shard
 OPS_IMPORT_VALUES = 10_000  # ImportValueRequest records over every shard
 OPS_CODEC_ELEMENTS = 1_000_000  # the packed field the codec is timed on
@@ -2891,7 +2910,7 @@ def serve_bsi_path(srv, k1, k3, k5, br, card):
             "vals": vals}
 
 
-OBSERVE_PROFILED = 20  # ?profile=true warm queries per path
+OBSERVE_PROFILED = 10  # ?profile=true warm queries per path
 OBSERVE_TRACED = 10  # warm queries per path under one torch.profiler trace
 
 
@@ -3285,7 +3304,7 @@ def time_analyze(torch, planes, comp, card):
 
 
 INGEST_INTERVAL = 0.25  # seconds: the --ingest-merge-interval 250ms engine
-TAX_QUERIES = 250  # warm Counts per side and round of the read-tax A/B
+TAX_QUERIES = 125  # warm Counts per side and round of the read-tax A/B
 TAX_ROUNDS = 2  # rounds of (engine off, engine on)
 TAX_WRITE_EVERY = 0.05  # seconds between the importer's writes
 
@@ -3686,7 +3705,7 @@ FUSION_QUERY = ("Count(Intersect(Row(f=1), Row(g=1))) "
                 "Count(Intersect(Row(f=10), Row(g=10))) "
                 "Count(Intersect(Row(f=20), Row(g=20)))")
 FUSION_MIN_HITS = 2  # --fusion-min-hits of the fused server
-AB_QUERIES = 100  # warm queries a side and round of each A/B
+AB_QUERIES = 50  # warm queries a side and round of each A/B
 AB_ROUNDS = 2  # rounds of each A/B, the side that goes first alternating
 ADMISSION_CAPACITY = 2000.0  # --admission-capacity of the A/B server
 SHED_CAPACITY = 1.0  # --admission-capacity of the shedding server
@@ -4006,9 +4025,13 @@ CLUSTER_ANTI_ENTROPY = "5s"
 #: the device the cluster's children serve on (a CPU rehearsal sets cpu)
 CLUSTER_DEVICE = "cuda"
 CLUSTER_LOAD_THREADS = 6
-CLUSTER_WARM = 100
+CLUSTER_WARM = 50
 CLUSTER_PROFILED = 20
-CLUSTER_DEGRADED = 4  # Counts timed while node 2 is paused
+CLUSTER_DEGRADED = 2  # Counts timed while node 2 is paused
+#: index b's shards the HTTP cluster loads: its first 240 of 954 (the
+#: cut PERF.md section 4 names: the load through node 0 is host-bound and
+#: ran 70-88 s at every shard; serve_spmd keeps all 954)
+CLUSTER_SHARDS = 240
 GOLDEN = os.path.join(ROOT, "tests", "testdata", "golden_pql.json")
 #: the golden index's schema (tests/test_golden_cluster.py's)
 GOLDEN_FIELDS = (("f", {"type": "set"}), ("g", {"type": "set"}),
@@ -4049,14 +4072,14 @@ def load_golden(shard_width):
     return [resolve_pql(s) for s in doc["setup"]], cases
 
 
-def field_blob(planes, fname, shard_width):
-    """One shard's roaring blob of rows 1 and 2 of `fname` (row * shard
-    width + offset positions): index b repeats its planes in every
-    shard, so one blob serves every shard."""
+def field_blob(planes, fname, shard_width, rows=(1, 2)):
+    """One shard's roaring blob of `rows` of `fname` (row * shard width
+    + offset positions): index b repeats its planes in every shard, so
+    one blob serves every shard."""
     from pilosa_tpu_torch.roaring import Bitmap, serialize
 
     bm = Bitmap()
-    for row in (1, 2):
+    for row in rows:
         bits = np.unpackbits(planes[(fname, row)].view(np.uint8),
                              bitorder="little")
         bm.add_many(np.nonzero(bits)[0].astype(np.uint64)
@@ -4115,11 +4138,11 @@ def serve_cluster(srv, planes, card):
     from pilosa_tpu_torch.tools.cluster import ProcCluster
 
     t_phase = time.perf_counter()
-    expect = count_expect(planes)
+    expect = count_expect(planes, CLUSTER_SHARDS)
     pairs = [q for q in expect if q.startswith("Count(Intersect")]
     headline = pairs[0]
     out = {"card": card, "nodes": CLUSTER_NODES,
-           "replicas": CLUSTER_REPLICAS, "shards": N_SHARDS,
+           "replicas": CLUSTER_REPLICAS, "shards": CLUSTER_SHARDS,
            "anti_entropy": CLUSTER_ANTI_ENTROPY}
     base = tempfile.mkdtemp(prefix="pilosa-torch-smoke-cluster-")
     mem_before = card_memory()
@@ -4140,7 +4163,7 @@ def serve_cluster(srv, planes, card):
 
         # -- load: one import-roaring per (field, shard) through node 0
         blobs = {f: field_blob(planes, f, SHARD_WIDTH) for f in ("f", "g")}
-        jobs = [(f, s) for s in range(N_SHARDS) for f in ("f", "g")]
+        jobs = [(f, s) for s in range(CLUSTER_SHARDS) for f in ("f", "g")]
         nbytes = sum(len(blobs[f]) for f, _ in jobs)
 
         def load(part):
@@ -4156,7 +4179,7 @@ def serve_cluster(srv, planes, card):
         out["load_s"] = time.perf_counter() - t0
         out["load_mb"] = nbytes / 1e6
         out["load_mb_per_s"] = out["load_mb"] / out["load_s"]
-        log(f"cluster: loaded b ({N_SHARDS} shards x 2 fields, "
+        log(f"cluster: loaded b ({CLUSTER_SHARDS} shards x 2 fields, "
             f"{len(jobs)} import-roaring requests, {out['load_mb']:.1f} MB) "
             f"through node 0 in {out['load_s']:.1f} s "
             f"({out['load_mb_per_s']:.1f} MB/s, each to both owners)")
@@ -4167,7 +4190,7 @@ def serve_cluster(srv, planes, card):
                         replica_n=CLUSTER_REPLICAS)
         held = {h: set(c.index_shards("b")["shards"])
                 for h, c in zip(pc.hosts, cl)}
-        for shard in range(N_SHARDS):
+        for shard in range(CLUSTER_SHARDS):
             owners = {n.id for n in place.shard_nodes("b", shard)}
             have = {h for h, s in held.items() if shard in s}
             if have != owners or len(owners) != CLUSTER_REPLICAS:
@@ -4179,17 +4202,17 @@ def serve_cluster(srv, planes, card):
                                        place.shard_nodes("b", 7)}:
             raise AssertionError(f"cluster: /internal/fragment/nodes {spot}")
         primaries = {n.id: len(s) for n, s in
-                     place.shards_by_node("b", range(N_SHARDS)).items()}
+                     place.shards_by_node("b", range(CLUSTER_SHARDS)).items()}
         # the coordinator's placement walk a fan-out Count pays (FNV-1a +
         # jump hash per shard, host Python), timed on this host
         t0 = time.perf_counter()
         for _ in range(20):
-            place.shards_by_node("b", range(N_SHARDS))
+            place.shards_by_node("b", range(CLUSTER_SHARDS))
         out["placement_walk_ms"] = 1e3 * (time.perf_counter() - t0) / 20
         out["held"] = {h: len(s) for h, s in held.items()}
         out["primary_shards"] = primaries
         log(f"cluster: shards held {out['held']}, primary {primaries}; "
-            f"placement walk over {N_SHARDS} shards "
+            f"placement walk over {CLUSTER_SHARDS} shards "
             f"{out['placement_walk_ms']:.3f} ms on this host")
 
         # -- the headline Counts through every node: numpy, one count
@@ -4270,7 +4293,8 @@ def serve_cluster(srv, planes, card):
             "merge_and_rest": statistics.median(s[2] for s in splits)}
         log(f"cluster: warm headline Count through node 0 p50/p99 "
             f"{out['warm_ms']['cluster_p50']:.3f}/"
-            f"{out['warm_ms']['cluster_p99']:.3f} ms vs the single server "
+            f"{out['warm_ms']['cluster_p99']:.3f} ms ({CLUSTER_SHARDS} "
+            f"shards) vs the single server ({N_SHARDS} shards) "
             f"{out['warm_ms']['single_p50']:.3f}/"
             f"{out['warm_ms']['single_p99']:.3f} ms ({len(clustered)} each, "
             f"in turns); profiled split p50: own leg "
@@ -4336,7 +4360,7 @@ def serve_cluster(srv, planes, card):
                     raise AssertionError(f"cluster: degraded warm {got}")
             out["failover_warm_p50_ms"] = 1e3 * _pct(ts, 50)
             # a one-bit write into a shard node 2 owns, during the pause
-            shard = next(s for s in range(N_SHARDS) if victim_id in
+            shard = next(s for s in range(CLUSTER_SHARDS) if victim_id in
                          {n.id for n in place.shard_nodes("b", s)})
             word = int(np.nonzero(planes[("f", 1)] == 0)[0][0])
             col = shard * SHARD_WIDTH + word * 32
@@ -4402,8 +4426,15 @@ def serve_cluster(srv, planes, card):
         log(f"cluster: keys colA (node 1) and colB (node 2) resolve alike "
             f"on every node: {out['keys']}")
 
-        # -- resize: a fourth node joins through the coordinator
-        held_before = {h: set(c.index_shards("b")["shards"])
+        # -- resize: a fourth node joins through the coordinator, over
+        # the golden index alone (index b and kx dropped first: the
+        # cut PERF.md section 4 names, which frees the run's wall for
+        # serve_spmd)
+        cl[0].delete_index("b")
+        cl[0].delete_index("kx")
+        gold_shards = sorted(set().union(*(
+            c.index_shards("gold")["shards"] for c in cl)))
+        held_before = {h: set(c.index_shards("gold")["shards"])
                        for h, c in zip(pc.hosts, cl)}
         t0 = time.perf_counter()
         joiner = pc.join(seed=0)
@@ -4423,26 +4454,30 @@ def serve_cluster(srv, planes, card):
         nodes4 = [Node(h, f"http://{h}") for h in pc.hosts]
         place4 = Cluster(nodes=nodes4, local_id=pc.hosts[0],
                          replica_n=CLUSTER_REPLICAS)
-        held_after = {h: set(c.index_shards("b")["shards"])
+        held_after = {h: set(c.index_shards("gold")["shards"])
                       for h, c in zip(pc.hosts, pc.clients)}
         for h, s in held_after.items():
-            owned = {x for x in range(N_SHARDS)
-                     if place4.owns_shard(h, "b", x)}
+            owned = {x for x in gold_shards
+                     if place4.owns_shard(h, "gold", x)}
             if s != owned:
                 raise AssertionError(f"cluster: {h} holds {len(s)} shards, "
                                      f"placement gives {len(owned)}")
         moved = sum(len(held_after[h] - held_before.get(h, set()))
                     for h in held_after)
-        out["resize_fragments_moved"] = 2 * moved  # fields f and g
-        got = pc.clients[joiner].query("b", headline)["results"][0]
-        if got != expect[headline]:
-            raise AssertionError(f"cluster: via the joined node {got}")
+        out["resize_shards_moved"] = moved
+        failures = []
+        for name, pql, want, whole in cases:
+            results = pc.clients[joiner].query("gold", pql)["results"]
+            if (results if whole else results[0]) != want:
+                failures.append(name)
+        if failures:
+            raise AssertionError(f"cluster: via the joined node {failures}")
         out["joined_shards"] = len(held_after[pc.hosts[joiner]])
         log(f"cluster: a fourth node joined through the coordinator's "
-            f"resize in {out['resize_s']:.1f} s ({moved} shards of b, "
-            f"{out['resize_fragments_moved']} fragments, moved to new "
+            f"resize over the golden index in {out['resize_s']:.1f} s "
+            f"({moved} of its {len(gold_shards)} shards moved to new "
             f"owners); it holds {out['joined_shards']} shards as placement "
-            f"gives and answers the headline Count = numpy")
+            f"gives and answers the {len(cases)} golden cases")
         out["memory"] = {"used_mib_before": mem_before,
                          "used_mib_with_cluster": card_memory(),
                          "hbm_total_bytes": [
@@ -4457,6 +4492,239 @@ def serve_cluster(srv, planes, card):
         pc.remove_dirs()
     if any(code not in (0, -15) for code in codes):
         raise AssertionError(f"cluster: a node exited with {codes}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+SPMD_NODES = 3
+SPMD_PROFILED = 5  # profiled headline Counts through the coordinator
+SPMD_STATS = ("count_expr", "row_counts", "pairwise_counts", "bsi_range")
+#: the step kinds the golden suite must dispatch on every rank
+SPMD_GOLDEN_KINDS = ("sum", "minmax", "topn", "groupby")
+
+
+def _spmd_stats(clients):
+    return [c._request("GET", "/internal/spmd/stats") for c in clients]
+
+
+def _dispatch_count(client, family):
+    phases = client._request("GET", "/debug/dispatch")["phases"]
+    return phases.get(family, {}).get("lock_wait", {}).get("count", 0)
+
+
+def _spmd_split(resp):
+    """The spmd.step span's phases (ms) of one profiled Count, or None
+    when the Count did not ride the collective."""
+    for span in _walk_spans(resp["profile"]["spans"]):
+        if span["name"] == "spmd.step":
+            return span["tags"].get("phases_ms") or {}
+    return None
+
+
+def serve_spmd(planes, card):
+    """BASELINE config 5's second query plane on one card: three `python
+    -m pilosa_tpu_torch server --spmd --replicas 1` children, one gloo
+    process group, each rank counting its own shards with the port's
+    kernels and the partials meeting in one collective a step. Loads
+    index b's rows f=1 and g=1 at every shard through node 0, serves
+    four Counts through every node (numpy; every node's step counter and
+    its steps' count_expr launches advance by one a Count; no fallback),
+    times them cold and warm, splits profiled ones by step phase, then
+    runs the 43 golden cases through every node (the sum, minmax, topn
+    and groupby steps dispatched equally on every rank, K3 and K4
+    launched by them, a condition Count among them). Returns the phase's
+    numbers, with the kernel launches of every rank's steps."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.tools.cluster import ProcCluster, free_ports
+
+    t_phase = time.perf_counter()
+    f1, g1 = planes[("f", 1)], planes[("g", 1)]
+    expect = {
+        "Count(Intersect(Row(f=1), Row(g=1)))": N_SHARDS * popcount(f1 & g1),
+        "Count(Row(f=1))": N_SHARDS * popcount(f1),
+        "Count(Row(g=1))": N_SHARDS * popcount(g1),
+        "Count(Union(Row(f=1), Row(g=1)))": N_SHARDS * popcount(f1 | g1)}
+    headline = next(iter(expect))
+    out = {"card": card, "nodes": SPMD_NODES, "replicas": 1,
+           "shards": N_SHARDS}
+    base = tempfile.mkdtemp(prefix="pilosa-torch-smoke-spmd-")
+    mem_before = card_memory()
+    t0 = time.perf_counter()
+    pc = ProcCluster(
+        SPMD_NODES, replica_n=1, device=CLUSTER_DEVICE,
+        extra_flags=["--spmd", "--spmd-port", str(free_ports(1)[0]),
+                     "--spmd-cpu-collectives", "gloo"],
+        base_dir=base, client_timeout=600)
+    try:
+        pc.wait_ready(timeout=240)
+        out["boot_s"] = time.perf_counter() - t0
+        cl = pc.clients
+        coord = min(range(SPMD_NODES), key=lambda i: pc.hosts[i])
+        log(f"spmd: {SPMD_NODES} --spmd nodes (one gloo group, replicas "
+            f"1) NORMAL in {out['boot_s']:.1f} s on {card}; coordinator "
+            f"node {coord}")
+        cl[0].create_index("b")
+        for fname in ("f", "g"):
+            cl[0].create_field("b", fname)
+
+        # -- load: rows f=1 and g=1, one import-roaring per (field,
+        # shard) through node 0
+        blobs = {f: field_blob(planes, f, SHARD_WIDTH, rows=(1,))
+                 for f in ("f", "g")}
+        jobs = [(f, s) for s in range(N_SHARDS) for f in ("f", "g")]
+
+        def load(part):
+            from pilosa_tpu_torch.server import Client
+
+            c = Client(f"http://{pc.hosts[0]}", timeout=300)
+            for fname, shard in part:
+                c.import_roaring("b", fname, shard, blobs[fname])
+
+        t0 = time.perf_counter()
+        concurrently(*[(lambda p=jobs[i::CLUSTER_LOAD_THREADS]: load(p))
+                       for i in range(CLUSTER_LOAD_THREADS)])
+        out["load_s"] = time.perf_counter() - t0
+        held = [set(c.index_shards("b")["shards"]) for c in cl]
+        if set().union(*held) != set(range(N_SHARDS)) \
+                or sum(len(h) for h in held) != N_SHARDS:
+            raise AssertionError(f"spmd: shards held {[len(h) for h in held]}")
+        out["held"] = [len(h) for h in held]
+        log(f"spmd: loaded b's f=1 and g=1 ({N_SHARDS} shards, "
+            f"{len(jobs)} import-roaring requests) through node 0 in "
+            f"{out['load_s']:.1f} s; shards held {out['held']}")
+
+        # -- the four Counts through every node, cold then warm
+        s0 = _spmd_stats(cl)
+        d0 = [_dispatch_count(c, "spmd_count") for c in cl]
+        walls = {"cold": [], "warm": []}
+        for rnd in ("cold", "warm"):
+            for i, c in enumerate(cl):
+                for pql, want in expect.items():
+                    t0 = time.perf_counter()
+                    got = c.query("b", pql)["results"][0]
+                    walls[rnd].append(time.perf_counter() - t0)
+                    if got != want:
+                        raise AssertionError(f"spmd: {pql} = {got} via "
+                                             f"node {i}, numpy {want}")
+        s1 = _spmd_stats(cl)
+        n = 2 * len(cl) * len(expect)
+        steps = [b["steps"] - a["steps"] for a, b in zip(s0, s1)]
+        k1 = [b["step_launches"]["count_expr"]
+              - a["step_launches"]["count_expr"] for a, b in zip(s0, s1)]
+        disp = [_dispatch_count(c, "spmd_count") - d
+                for c, d in zip(cl, d0)]
+        # (a CPU rehearsal launches no kernel: its wrappers run the
+        # plain versions)
+        on_card = CLUSTER_DEVICE == "cuda"
+        if steps != [n] * len(cl) or k1 != [n if on_card else 0] * len(cl) \
+                or disp != [n] * len(cl):
+            raise AssertionError(f"spmd: {n} Counts gave steps {steps}, "
+                                 f"count_expr launches {k1}, spmd_count "
+                                 f"dispatches {disp}")
+        if any(s["fallbacks"] for s in s1) \
+                or any(s["device_failures"] for s in s1):
+            raise AssertionError(f"spmd: fallbacks {s1}")
+        out["counts"] = n
+        out["cold_ms_p50"] = 1e3 * statistics.median(walls["cold"])
+        out["warm_ms_p50"] = 1e3 * statistics.median(walls["warm"])
+        out["warm_ms_p99"] = 1e3 * _pct(walls["warm"], 99)
+        out["first_count_ms"] = 1e3 * walls["cold"][0]
+        log(f"spmd: {len(expect)} Counts through each node equal numpy, "
+            f"twice; every node ran {n} steps, {n} count_expr launches, "
+            f"{n} spmd_count dispatches; fallbacks 0; Count p50 cold "
+            f"{out['cold_ms_p50']:.1f} ms (first {out['first_count_ms']:.1f})"
+            f", warm {out['warm_ms_p50']:.1f} ms (p99 "
+            f"{out['warm_ms_p99']:.1f}), {len(walls['warm'])} each; {card}")
+        splits, missed = [], 0
+        while len(splits) < SPMD_PROFILED:
+            sp = _spmd_split(cl[coord].query("b", headline, profile=True))
+            if sp is None:
+                # the Count took the HTTP merge: name the decline
+                missed += 1
+                stats = _spmd_stats(cl)
+                log(f"spmd: a profiled Count did not ride the collective; "
+                    f"declines {[s['declined'] for s in stats]}, node "
+                    f"states {[(x['id'], x['state']) for x in cl[coord].status()['nodes']]}")
+                if missed > SPMD_PROFILED:
+                    raise AssertionError("spmd: profiled Counts declined")
+                time.sleep(1.5)  # a peer marked DOWN is READY again
+                continue
+            splits.append(sp)
+        out["split_missed"] = missed
+        out["split_ms_p50"] = {
+            p: statistics.median(sp.get(p, 0.0) for sp in splits)
+            for p in ("announce_recv", "stack_gather", "upload",
+                      "device_enter", "result_fetch", "psum", "exit")}
+        log(f"spmd: the coordinator's step split, p50 of {len(splits)} "
+            f"profiled Counts (ms): {out['split_ms_p50']}; {card}")
+
+        # -- the golden suite through every node
+        setup, cases = load_golden(SHARD_WIDTH)
+        cl[coord].create_index("gold")
+        for fname, opts in GOLDEN_FIELDS:
+            cl[coord].create_field("gold", fname, opts)
+        for pql in setup:
+            cl[coord].query("gold", pql)
+        s2 = _spmd_stats(cl)
+        d2 = {k: [_dispatch_count(c, "spmd_" + k) for c in cl]
+              for k in SPMD_GOLDEN_KINDS}
+        t0 = time.perf_counter()
+        failures = []
+        for i, c in enumerate(cl):
+            for name, pql, want, whole in cases:
+                results = c.query("gold", pql)["results"]
+                got = results if whole else results[0]
+                if got != want:
+                    failures.append(f"{name} via node {i}: {got} != {want}")
+        dt = time.perf_counter() - t0
+        if failures:
+            raise AssertionError("spmd golden: " + "; ".join(failures))
+        s3 = _spmd_stats(cl)
+        # launches the steps made (not the HTTP legs of declined calls)
+        moved = {k: [b["step_launches"][k] - a["step_launches"][k]
+                     for a, b in zip(s2, s3)] for k in SPMD_STATS}
+        steps = [b["steps"] - a["steps"] for a, b in zip(s2, s3)]
+        # each step kind dispatched, and equally on every rank
+        kinds = {k: [_dispatch_count(c, "spmd_" + k) - d
+                     for c, d in zip(cl, d2[k])] for k in SPMD_GOLDEN_KINDS}
+        if (on_card and (min(moved["row_counts"]) < 1
+                         or min(moved["pairwise_counts"]) < 1)) \
+                or any(min(v) < 1 or len(set(v)) != 1
+                       for v in kinds.values()) \
+                or len(set(steps)) != 1 or steps[0] < 1:
+            raise AssertionError(f"spmd golden: launches {moved}, steps "
+                                 f"{steps}, dispatches by kind {kinds}")
+        if any(s["fallbacks"] for s in s3):
+            raise AssertionError(f"spmd golden: fallbacks {s3}")
+        out["golden"] = {"cases": len(cases), "nodes": len(cl),
+                         "qps": len(cases) * len(cl) / dt,
+                         "steps": steps[0], "launches": moved,
+                         "dispatches": {k: v[0] for k, v in kinds.items()}}
+        log(f"spmd: {len(cases)} golden cases through each of {len(cl)} "
+            f"nodes equal their wants ({out['golden']['qps']:.1f} "
+            f"queries/s; {steps[0]} collective steps on every node, the "
+            f"condition Count among them; step dispatches per node by kind "
+            f"{out['golden']['dispatches']}; step launches per node {moved})")
+        out["launches"] = {k: sum(b["step_launches"][k]
+                                  - a["step_launches"][k]
+                                  for a, b in zip(s0, s3))
+                           for k in SPMD_STATS}
+        out["memory"] = {"used_mib_before": mem_before,
+                         "used_mib_with_cluster": card_memory()}
+    except BaseException:
+        for i in range(len(pc.procs)):  # each node's log, for the failure
+            try:
+                stats = pc.clients[i]._request("GET",
+                                               "/internal/spmd/stats")
+            except Exception as e:  # noqa: BLE001 — best effort
+                stats = repr(e)
+            log(f"spmd: node {i} stats {stats}; log tail:\n{pc.tail(i)}")
+        raise
+    finally:
+        codes = pc.close(timeout=60)
+        pc.remove_dirs()
+    if any(code not in (0, -15) for code in codes):
+        raise AssertionError(f"spmd: a node exited with {codes}")
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -4487,7 +4755,19 @@ def main():
         f"MHz, {sms} SMs | torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
 
+    walls = {}
+    last = [time.perf_counter()]
+
+    def phase_done(name):
+        """Record the wall of the phase that just ended."""
+        now = time.perf_counter()
+        walls[name] = round(now - last[0], 1)
+        last[0] = now
+        log(f"phase: {name} {walls[name]} s")
+
+    phase_done("device")
     build_kernels(cuda_build)
+    phase_done("build")
     errs, timings = {}, {}
     errs["count_expr"], timings["count_expr"] = check_k1(
         torch, k1, WORDS_PER_ROW)
@@ -4509,6 +4789,7 @@ def main():
     errs["count_expr_multi"], timings["count_expr_multi"] = check_k1_multi(
         torch, k1, WORDS_PER_ROW, card)
     log(f"kernels: {list(ENTRIES)}")
+    phase_done("kernels")
 
     mods = {"count_expr": k1.count_expr, "row_counts": k3.row_counts,
             "pairwise_counts": k4.pairwise_counts,
@@ -4536,6 +4817,7 @@ def main():
             f"x {BR_VALUES_PER_SHARD} values (index br) in {t2 - t1:.1f} s; "
             f"{N_SHARDS} shards x 2 fields x 2 rows + 5 compressible rows "
             f"(index b) in {time.perf_counter() - t2:.1f} s")
+        phase_done("data")
         # index tg alone, before any write, for the coalescing server
         shutil.copytree(os.path.join(tmp, "tg"), os.path.join(co_dir, "tg"))
         t0 = time.perf_counter()
@@ -4544,6 +4826,7 @@ def main():
                             "60s", "--incident-dir", inc_dir])
         log(f"serve: server up at {srv.uri} in "
             f"{time.perf_counter() - t0:.1f} s (holder open)")
+        phase_done("holder_open")
         try:
             reset_counters(mods)  # the Count path's run starts here
             set_at = serve_count_path(srv, k1, planes, card)
@@ -4552,18 +4835,22 @@ def main():
             if k1.count_expr_batch.launches:
                 raise AssertionError("a lone Count launched the batched "
                                      "entry on the Count path")
+            phase_done("serve_count")
             reset_counters(mods)  # the batched paths' run starts here
             serve_batch_path(srv, k1, planes, set_at, card)
             serve_coalescer(srv, co_dir, card)
             launches["count_expr_batch"] = k1.count_expr_batch.launches
+            phase_done("serve_batch")
             reset_counters(mods)  # the TopN/GroupBy path's run starts here
             tg_set = serve_topn_path(srv, k3, k4, tg, card)
             launches["row_counts"] = k3.row_counts.launches
             launches["pairwise_counts"] = k4.pairwise_counts.launches
+            phase_done("serve_topn")
             reset_counters(mods)  # the BSI path's run starts here
             bsi_state = serve_bsi_path(srv, k1, k3, k5, br, card)
             bsi_sum = bsi_state["sum"]
             launches["bsi_range"] = k5.bsi_range_mask.launches
+            phase_done("serve_bsi")
             reset_counters(mods)  # the observability phase starts here
             t0 = time.perf_counter()
             serve_observe(srv, torch, k1, k3, planes, tg, tg_set, bsi_sum,
@@ -4571,6 +4858,7 @@ def main():
             log(f"observe: phase in {time.perf_counter() - t0:.1f} s")
             launches["count_expr"] += k1.count_expr.launches
             launches["row_counts"] += k3.row_counts.launches
+            phase_done("observe")
             reset_counters(mods)  # the compressed path's run starts here
             served = serve_compressed_path(srv, k1, k2, planes, comp, set_at,
                                            card)
@@ -4580,6 +4868,7 @@ def main():
             errs["count_blocks"] = max(errs["count_blocks"], err)
             del served
             time_analyze(torch, planes, comp, card)
+            phase_done("serve_compressed")
             reset_counters(mods)  # the PQL/HTTP surface path starts here
             t0 = time.perf_counter()
             serve_pql_surface(srv, k1, k3, planes, comp, tg, set_at, tg_set,
@@ -4588,15 +4877,18 @@ def main():
                 f"{time.perf_counter() - t0:.1f} s")
             launches["count_expr"] += k1.count_expr.launches
             launches["row_counts"] += k3.row_counts.launches
+            phase_done("serve_pql_surface")
             reset_counters(mods)  # the command-line tools' run starts here
             serve_tools(srv, k1, planes, comp, card)
             launches["count_expr"] += k1.count_expr.launches
+            phase_done("serve_tools")
             reset_counters(mods)  # the wire and health phase starts here
             ops = serve_ops(srv, k1, k3, k4, planes, card)
             log("ops-json: " + json.dumps(ops))
             launches["count_expr"] += k1.count_expr.launches
             launches["row_counts"] += k3.row_counts.launches
             launches["pairwise_counts"] += k4.pairwise_counts.launches
+            phase_done("serve_ops")
             reset_counters(mods)  # the ingest and planner phase starts here
             ingest_plan, truth = serve_ingest_plan(
                 srv, k1, k2, k3, k4, k5, planes, comp, set_at, tg, tg_set,
@@ -4607,6 +4899,7 @@ def main():
             launches["row_counts"] += k3.row_counts.launches
             launches["pairwise_counts"] += k4.pairwise_counts.launches
             launches["bsi_range"] += k5.bsi_range_mask.launches
+            phase_done("serve_ingest_plan")
             reset_counters(mods)  # the fusion and admission phase starts
             fa = serve_fusion_admission(srv, k1, k2, k4, planes, comp,
                                         truth, tg, card)
@@ -4615,11 +4908,23 @@ def main():
             launches["count_expr"] += k1.count_expr.launches
             launches["count_blocks"] += k2_launches(k2)
             launches["pairwise_counts"] += k4.pairwise_counts.launches
-            # the HTTP cluster (last): its nodes are child processes, so
-            # their launches are read from each node's /debug/dispatch
+            phase_done("serve_fusion_admission")
+            # the HTTP cluster: its nodes are child processes, so their
+            # launches are read from each node's /debug/dispatch
             reset_counters(mods)
             cluster = serve_cluster(srv, planes, card)
             log("cluster-json: " + json.dumps(cluster))
+            phase_done("serve_cluster")
+            # the collective plane (last): the ranks are child
+            # processes, so their launches come from each node's
+            # /internal/spmd/stats `step_launches` (the launches its
+            # steps made), counted from 0 at the phase's start
+            reset_counters(mods)
+            spmd = serve_spmd(planes, card)
+            log("spmd-json: " + json.dumps(spmd))
+            for name, n in spmd["launches"].items():
+                launches[name] += n
+            phase_done("serve_spmd")
         finally:
             srv.stop()
     finally:
@@ -4629,6 +4934,9 @@ def main():
     for name in ENTRIES:
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on its path")
+
+    walls["total"] = round(sum(walls.values()), 1)
+    log("phases: " + json.dumps(walls))
 
     sources = {"count_expr": "pilosa_tpu/ops/pallas_kernels.py:141",
                "row_counts": "pilosa_tpu/ops/pallas_kernels.py:515",

@@ -130,10 +130,13 @@ def _apply_server_flags(config, args):
                  "fusion", "fusion_cache_size", "fusion_min_hits",
                  "ingest_merge_interval",
                  "admission", "admission_capacity",
-                 "admission_queue_depth", "admission_queue_timeout"):
+                 "admission_queue_depth", "admission_queue_timeout",
+                 "spmd_port", "spmd_cpu_collectives"):
         val = getattr(args, flag, None)
         if val is not None:
             config[flag.replace("_", "-")] = val
+    if getattr(args, "spmd", False):
+        config["spmd"] = True
     # TLS and CORS live in config sub-tables ([tls], [handler]); fold the
     # flags into those tables so `config` prints them where the server
     # reads them (reference: server/config.go TLS + handler sections).
@@ -251,6 +254,11 @@ def start_server(argv):
     args = _parser().parse_args(["server", *argv])
     config = _apply_server_flags(load_config(args.config), args)
     device = resolve_device(config.get("device", "cuda"))
+    # The collective data plane: every node joins one process group
+    # before anything else boots (joining blocks until all have)
+    spmd_requested = bool(config.get("spmd"))
+    if spmd_requested:
+        _spmd_initialize(config)
     # Size the shared host-work pool before anything can submit to it
     # (default min(32, cpu); workers=1 == serial execution).
     if config.get("workers") is not None:
@@ -342,7 +350,9 @@ def start_server(argv):
                   admission_queue_depth=int(adm_qd) if adm_qd else None,
                   admission_queue_timeout=parse_duration(str(adm_qt))
                   if adm_qt else None,
-                  cluster=cluster)
+                  cluster=cluster,
+                  spmd=_spmd_plane(holder, cluster)
+                  if spmd_requested else None)
         if cluster is not None:  # even single-node: the cluster can grow
             from .server import Client
             from .server.syncer import AntiEntropyMonitor, HolderSyncer
@@ -489,6 +499,40 @@ def start_server(argv):
                   runtime_monitor=runtime_monitor, watchdog=watchdog,
                   prober=prober, incidents=incidents,
                   diagnostics=diagnostics, cluster_services=services)
+
+
+def _spmd_initialize(config):
+    """Join the collective data plane's process group: this node's rank
+    is its place in --cluster-hosts, the group's store is on the first
+    host at --spmd-port (default 27121)."""
+    from .cluster.spmd import SpmdDataPlane
+
+    if not config.get("cluster-hosts"):
+        raise SystemExit("--spmd requires --cluster-hosts")
+    norm = [h.strip().split("//", 1)[-1]
+            for h in str(config["cluster-hosts"]).split(",") if h.strip()]
+    local_ref = str(config.get("node-id") or config["bind"]).split(
+        "//", 1)[-1]
+    if local_ref not in norm:
+        raise SystemExit(
+            f"--spmd: node id {local_ref!r} not in --cluster-hosts")
+    coord_host = norm[0].rsplit(":", 1)[0]
+    SpmdDataPlane.initialize(
+        coordinator_address=f"{coord_host}:"
+                            f"{int(config.get('spmd-port', 27121))}",
+        num_processes=len(norm), process_id=norm.index(local_ref),
+        cpu_collectives=config.get("spmd-cpu-collectives"))
+
+
+def _spmd_plane(holder, cluster):
+    """The node's collective data plane (None without a cluster)."""
+    if cluster is None:
+        return None
+    from .cluster.spmd import SpmdDataPlane
+    from .server import Client
+    from .utils.logger import StandardLogger
+
+    return SpmdDataPlane(holder, cluster, Client, logger=StandardLogger())
 
 
 def _cluster_from_config(config, args, data_dir, services):
@@ -1042,6 +1086,19 @@ def _server_flags(p):
                         "with --cluster-hosts)")
     p.add_argument("--replicas", type=int, default=None,
                    help="replication factor (default 1)")
+    p.add_argument("--spmd", action="store_true", default=False,
+                   help="collective data plane: every --cluster-hosts "
+                        "node joins one torch.distributed process group "
+                        "and coverable Count/Sum/Min/Max/TopN/GroupBy "
+                        "merges ride its collectives instead of HTTP")
+    p.add_argument("--spmd-port", type=int, default=None,
+                   help="port of the process group's store on the first "
+                        "--cluster-hosts host (default 27121)")
+    p.add_argument("--spmd-cpu-collectives", default=None,
+                   choices=["none", "gloo"],
+                   help="collectives backend for --spmd; the group is "
+                        "gloo either way (its collectives reduce host "
+                        "tensors)")
     p.add_argument("--container-repr", default=None,
                    choices=["auto", "dense", "sparse", "rle"],
                    help="leaf container representation: auto (default, or "

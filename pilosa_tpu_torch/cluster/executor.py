@@ -24,9 +24,11 @@ event). A LOCAL leg that fails because of this node's card
 propagates out of the query, so a failing card is seen, not hidden
 behind another process.
 
-The collective data plane's hooks (`maybe_execute`,
-`maybe_execute_analyze`, `maybe_execute_fused`) come with
-cluster/spmd.py; without it every read is the HTTP map-reduce below.
+With a collective data plane (cluster/spmd.py, `server --spmd`),
+coverable Count, Sum, Min/Max, TopN and GroupBy calls merge over the
+process group instead (`maybe_execute`); anything it declines takes the
+HTTP map-reduce below. Its fused whole-query step (`maybe_execute_fused`)
+comes with mesh-resident serving.
 """
 
 import os
@@ -191,18 +193,19 @@ class ClusterExecutor:
     none) it degrades to purely local execution."""
 
     #: what the query coalescer may batch THROUGH a cluster coordinator:
-    #: only Count (the collective plane's batch step, with
-    #: cluster/spmd.py); the local Executor's wider set applies on
-    #: single nodes and fan-out legs
+    #: only Count (the collective plane's batch step, with mesh-resident
+    #: serving); the local Executor's wider set applies on single nodes
+    #: and fan-out legs
     BATCHABLE_CALLS = frozenset(("Count",))
 
     def __init__(self, holder, cluster, client_factory, device=None,
-                 logger=None, max_writes_per_request=0):
+                 logger=None, max_writes_per_request=0, spmd=None):
         from ..utils.logger import NopLogger
 
         self.holder = holder
         self.cluster = cluster
         self.client_factory = client_factory
+        self.spmd = spmd
         self.logger = logger or NopLogger()
         self.local = Executor(
             holder, device=device,
@@ -278,7 +281,8 @@ class ClusterExecutor:
         try:
             plan_calls = [] if explain == "analyze" else None
             # (the collective plane's fused whole-query step,
-            # maybe_execute_fused, hooks in here with cluster/spmd.py)
+            # maybe_execute_fused, hooks in here with mesh-resident
+            # serving)
             results = []
             deadline = getattr(opt, "deadline", None)
             for call in query.calls:
@@ -325,6 +329,19 @@ class ClusterExecutor:
             strategy="write" if call.writes() else "cluster-map-reduce")
         node.annotations["nodes"] = len(children)
         node.annotations["shards"] = len(shards or [])
+        if self.spmd is not None and not call.writes():
+            if any(isinstance(c, dict) and c.get("node") == "mesh"
+                   for c in children):
+                # the call executed (or would execute) over the
+                # collective plane: the mesh identity at the call node
+                node.strategy = "spmd-collective"
+                node.annotations["spmd"] = True
+                node.annotations["mesh"] = self.spmd.mesh_shape()
+            else:
+                # the collective plane is bypassed under explain so the
+                # per-node sub-plans can be captured: the normal path
+                # may differ
+                node.annotations["spmd_bypassed"] = True
         node.children = list(children)
         return node
 
@@ -364,6 +381,15 @@ class ClusterExecutor:
             if call.writes():
                 plan_calls.append(
                     local_planner.plan_call(idx, call, shards, opt))
+                continue
+            if self.spmd is not None \
+                    and self.spmd.plan_eligible(idx, call):
+                # the serving path is the collective plane: ONE mesh
+                # child with zero dispatches, annotated spmd + mesh shape
+                plan_calls.append(self._cluster_plan_node(
+                    idx, call, shards,
+                    [{"node": "mesh", "shards": len(shards or []),
+                      "plan": self.spmd.plan_node(idx, call, shards)}]))
                 continue
             by_node = self.cluster.shards_by_node(idx.name, shards or [])
             children = []
@@ -467,8 +493,21 @@ class ClusterExecutor:
     def _map_reduce(self, idx, call, shards, opt, plan_sink=None):
         if shards is None:
             shards = self.cluster_shards(idx)
-        # (the collective plane's per-call steps, maybe_execute and
-        # maybe_execute_analyze, hook in here with cluster/spmd.py)
+        # The collective data plane: coverable trees merge over the
+        # process group, initiated from any node (non-coordinators forward
+        # in one hop); what it declines takes the HTTP merge below. A card
+        # failure on any rank raises out of it (trap 30). Under
+        # explain=analyze it reports the path that serves, when it serves.
+        if self.spmd is not None and plan_sink is None:
+            used, result = self.spmd.maybe_execute(idx, call, shards)
+            if used:
+                return result
+        elif self.spmd is not None:
+            used, result, entry = self.spmd.maybe_execute_analyze(
+                idx, call, shards)
+            if used:
+                plan_sink.append(entry)
+                return result
         by_node = self.cluster.shards_by_node(idx.name, shards)
 
         lock = threading.Lock()

@@ -625,6 +625,44 @@ def tree_signature(idx, call, leaves, leaf, bsi_leaf=None, time_leaf=None,
     return None
 
 
+def minmax_walk(planes, sign, exists, filt, is_max):
+    """The Min/Max walk over [D, S, W] BSI planes with [S, W] sign,
+    exists and optional filter stacks, on their device, as one int64
+    tensor [2 + D + 1]: (non-empty, negative branch chosen, the D bits
+    LSB first, the count of columns at the extreme). Both the
+    positive-branch and the negative-branch narrowing walks run (ops.bsi
+    max/min_unsigned: the walk's any() is global over every shard), and
+    the reference's sign rules pick one with 0-d device selects — Max:
+    highest positive, else closest-to-zero negative; Min: most negative,
+    else lowest positive — so nothing waits on the device. The count is
+    one K3 launch (`minmax_decode` reads the tensor)."""
+    consider = exists if filt is None else exists & filt
+    pos = consider & ~sign
+    neg = consider & sign
+    has_pos = pos.any()
+    has_neg = neg.any()
+    if is_max:
+        b_pos, f_pos = max_unsigned(planes, pos)
+        b_neg, f_neg = min_unsigned(planes, neg)
+        use_neg = ~has_pos
+    else:
+        b_neg, f_neg = max_unsigned(planes, neg)
+        b_pos, f_pos = min_unsigned(planes, pos)
+        use_neg = has_neg
+    bits = torch.where(use_neg, b_neg, b_pos)
+    final = torch.where(use_neg, f_neg, f_pos)
+    count = _row_counts_kernel(final.reshape(1, -1))
+    flags = torch.stack([has_pos | has_neg, use_neg])
+    return torch.cat([flags.to(torch.int64), bits.to(torch.int64), count])
+
+
+def minmax_decode(vals):
+    """(non-empty, negative, magnitude, count) from `minmax_walk`'s
+    fetched values."""
+    mag = sum(b << i for i, b in enumerate(vals[2:-1]))
+    return bool(vals[0]), bool(vals[1]), mag, vals[-1]
+
+
 class StackedEvaluator:
     def __init__(self, device):
         self.device = torch.device(device)
@@ -1989,14 +2027,7 @@ class StackedEvaluator:
         """(signed magnitude, count) of the Min/Max value over the stacked
         BSI planes, or None to fall back; (None, 0) when no column
         qualifies. The caller adds base (reference: fragment.go:1110-1227).
-
-        Both the positive-branch and the negative-branch narrowing walks
-        run (ops.bsi max/min_unsigned over [D, S, W] planes with [S, W]
-        filters: the walk's any() is global over every shard), and the
-        reference's sign rules pick one with 0-d device selects — Max:
-        highest positive, else closest-to-zero negative; Min: most
-        negative, else lowest positive — so nothing waits on the device
-        until the one fetch at the end."""
+        One `minmax_walk` under the dispatch lock, then one fetch."""
         data = self._bsi_filtered(idx, field, filter_call, tuple(shards))
         if data is None:
             return None
@@ -2007,32 +2038,14 @@ class StackedEvaluator:
                 + (0 if filt is None else filt.numel())) * 4
         self._note_spec("minmax", "row_counts", (1, sign.numel(), False))
         with self._locked_dispatch("minmax", nbytes_in=n_in) as ph:
-            consider = exists if filt is None else exists & filt
-            pos = consider & ~sign
-            neg = consider & sign
-            has_pos = pos.any()
-            has_neg = neg.any()
-            if is_max:
-                b_pos, f_pos = max_unsigned(planes, pos)
-                b_neg, f_neg = min_unsigned(planes, neg)
-                use_neg = ~has_pos
-            else:
-                b_neg, f_neg = max_unsigned(planes, neg)
-                b_pos, f_pos = min_unsigned(planes, pos)
-                use_neg = has_neg
-            bits = torch.where(use_neg, b_neg, b_pos)
-            final = torch.where(use_neg, f_neg, f_pos)
-            count = _row_counts_kernel(final.reshape(1, -1))
-            flags = torch.stack([has_pos | has_neg, use_neg])
+            walk = minmax_walk(planes, sign, exists, filt, is_max)
             ph.mark("dispatch_ack")
         with self._timed_sync("minmax"):
-            vals = self._fetch(torch.cat([
-                flags.to(torch.int64), bits.to(torch.int64),
-                count])).tolist()
-        if not vals[0]:
+            vals = self._fetch(walk).tolist()
+        nonempty, use_neg, mag, count = minmax_decode(vals)
+        if not nonempty:
             return None, 0
-        mag = sum(b << i for i, b in enumerate(vals[2:-1]))
-        return (-mag if vals[1] else mag), vals[-1]
+        return (-mag if use_neg else mag), count
 
     # -- declared kernel costs (GET /debug/kernels) ---------------------------
 

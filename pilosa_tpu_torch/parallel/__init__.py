@@ -1,3 +1,5 @@
-"""Stacked-plane query kernels (single device)."""
+"""Stacked-plane query kernels and the sharded engine over a group of
+ranks (parallel/sharded.py)."""
 
-from .sharded import QueryKernels, apply_op_chain
+from .sharded import (QueryKernels, ShardedQueryEngine, apply_op_chain,
+                      build_global_mesh)

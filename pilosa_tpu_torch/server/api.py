@@ -477,11 +477,14 @@ class API:
                  ingest_max_bytes=None, admission="off",
                  admission_capacity=None, admission_queue_depth=None,
                  admission_queue_timeout=None, cluster=None,
-                 client_factory=None):
+                 client_factory=None, spmd=None):
         from ..utils.logger import StandardLogger
 
         self.holder = holder
         self.cluster = cluster
+        # the collective data plane (cluster/spmd.py): when set, coverable
+        # cross-node merges ride the process group instead of HTTP
+        self.spmd = spmd
         self.logger = logger if logger is not None else StandardLogger()
         # last per-index shard set pushed to peers (gossiped shard map)
         self._pushed_shards = {}
@@ -494,7 +497,12 @@ class API:
             self.executor = ClusterExecutor(
                 holder, cluster, client_factory, device=device,
                 logger=self.logger,
-                max_writes_per_request=max_writes_per_request)
+                max_writes_per_request=max_writes_per_request, spmd=spmd)
+            if spmd is not None:
+                # the plane's condition leaves and launches go through
+                # the serving executor (its device, dispatch lock and
+                # accounting), not a second evaluator
+                spmd._local_exec = self.executor.local
             self.resize = ResizeManager(holder, cluster, self.client_factory)
             # Writes arriving while RESIZING are queued and replayed once
             # the cluster returns to NORMAL (see import_bits); the resize
@@ -1089,6 +1097,15 @@ class API:
             self.ingest.close()
         if self._coalescer is not None:
             self._coalescer.close()
+        if self.spmd is not None:
+            self.spmd.close()
+
+    def spmd_step(self, step):
+        """Run one collective step the coordinator announced (POST
+        /internal/spmd/step)."""
+        if self.spmd is None:
+            raise ApiError("spmd mode not enabled on this node")
+        return self.spmd.run_step(step)
 
     def create_index(self, name, options=None, remote=False):
         """(reference: api.CreateIndex; a cluster broadcasts it to every

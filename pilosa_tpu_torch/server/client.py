@@ -513,6 +513,24 @@ class Client:
         gossip; here an internal endpoint)."""
         return self._request("GET", f"/internal/index/{index}/shards")
 
+    def spmd_step(self, step):
+        """Announce a collective step (control plane; the result itself
+        merges over the process group). Never retried: a step entered
+        twice would unpair the collectives."""
+        return self._request("POST", "/internal/spmd/step",
+                             json.dumps(step).encode())
+
+    def spmd_validate(self, step):
+        """Pre-flight a collective step (cheap, short deadline)."""
+        return self._request("POST", "/internal/spmd/validate",
+                             json.dumps(step).encode())
+
+    def spmd_initiate(self, payload):
+        """Forward an eligible call to the coordinator, which initiates
+        its collective step (the non-coordinator's one hop)."""
+        return self._request("POST", "/internal/spmd/initiate",
+                             json.dumps(payload).encode())
+
     def shard_fragments(self, index, shard):
         """(field, view) fragments a node holds for one shard (backup's
         discovery: the views are data-dependent)."""

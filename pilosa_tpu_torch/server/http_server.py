@@ -178,6 +178,12 @@ class PilosaHTTPServer:
                   self._get_fragment_data,
                   args=("index", "field", "view", "shard")),
             Route("POST", r"/internal/cluster/message", self._post_message),
+            Route("POST", r"/internal/spmd/step", self._post_spmd_step),
+            Route("POST", r"/internal/spmd/validate",
+                  self._post_spmd_validate),
+            Route("POST", r"/internal/spmd/initiate",
+                  self._post_spmd_initiate),
+            Route("GET", r"/internal/spmd/stats", self._get_spmd_stats),
             Route("GET", r"/internal/fragment/nodes",
                   self._get_fragment_nodes),
             Route("DELETE",
@@ -583,6 +589,28 @@ class PilosaHTTPServer:
         self.api.receive_message(req.body)
         return None
 
+    # -- the collective data plane's control routes (cluster/spmd.py) -----
+
+    def _post_spmd_step(self, req):
+        return {"value": self.api.spmd_step(req.json())}
+
+    def _post_spmd_validate(self, req):
+        if self.api.spmd is None:
+            return {"ok": False, "reason": "spmd mode not enabled"}
+        return self.api.spmd.validate(req.json())
+
+    def _post_spmd_initiate(self, req):
+        """Non-coordinators forward eligible calls here: the coordinator
+        is the single step initiator."""
+        if self.api.spmd is None:
+            return {"used": False}
+        return self.api.spmd.initiate(req.json())
+
+    def _get_spmd_stats(self, req):
+        if self.api.spmd is None:
+            return {"steps": 0, "initialized": False}
+        return self.api.spmd.stats()
+
     def _get_fragment_nodes(self, req):
         """Owner nodes of one shard (reference: http/handler.go:311
         handleGetFragmentNodes — a stock internal client resolves fragment
@@ -730,6 +758,8 @@ class PilosaHTTPServer:
         and the worker pool."""
         out = json.loads(registry_of(self.stats).expvar_json())
         out["stacked"] = self.api.local_executor.stacked_stats()
+        if self.api.spmd is not None:
+            out["spmd"] = self.api.spmd.stats()
         out["workpool"] = workpool.get_pool().stats()
         return RawResponse(json.dumps(out).encode(), "application/json")
 

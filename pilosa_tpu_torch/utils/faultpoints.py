@@ -31,6 +31,8 @@ Well-known point names (grep for ``faultpoints.reached``):
   ``resize.drain.apply``      before applying one queued resize write
   ``resize.fetch``            before a resize shard fetch (drain timing)
   ``fragment.snapshot.rename``before the snapshot temp->live rename
+  ``spmd.gather``             before a collective step's host gather
+  ``spmd.launch``             at a collective step's kernel launch
 """
 
 import os

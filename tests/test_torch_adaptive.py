@@ -207,19 +207,22 @@ def test_decide_tile_forced_override(name):
 @BOTH
 def test_stats_timing_ewma_satellite(name):
     """The kernel_seconds series keeps a recency-weighted EWMA beside
-    the cumulative /metrics fields, which stay untouched."""
+    the cumulative /metrics fields, which stay untouched. Its own
+    series name: tests/test_adaptive.py counts the samples of
+    `_ewma_probe` in the TPU package's global stats, which this test
+    shares when both files run in one process."""
     stats = PKGS[name].stats
-    tags = {"kernel": "_ewma_probe"}
+    tags = {"kernel": "_ewma_probe_both"}
     stats.timing("kernel_seconds", 0.010, tags)
     stats.timing("kernel_seconds", 0.020, tags)
     ew = {dict(k[1]).get("kernel"): v
           for k, v in stats.timing_ewma("kernel_seconds").items()}
-    ewma, n = ew["_ewma_probe"]
+    ewma, n = ew["_ewma_probe_both"]
     assert n >= 2
     stats.timing_ewma_force("kernel_seconds", 0.5, tags)
     ew = {dict(k[1]).get("kernel"): v
           for k, v in stats.timing_ewma("kernel_seconds").items()}
-    assert ew["_ewma_probe"] == (0.5, n)
+    assert ew["_ewma_probe_both"] == (0.5, n)
 
 
 @BOTH

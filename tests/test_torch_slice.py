@@ -308,11 +308,12 @@ REQUIRED_SOURCES = ("cli.py", "server/client.py", "utils/logger.py",
                     "cluster/cluster.py", "cluster/broadcast.py",
                     "cluster/membership.py", "cluster/executor.py",
                     "cluster/resize.py", "server/syncer.py",
-                    "server/translate_sync.py", "tools/cluster.py")
+                    "server/translate_sync.py", "tools/cluster.py",
+                    "parallel/sharded.py", "cluster/spmd.py")
 
-#: modules a client tool imports, and the ingest engine, the adaptive
-#: engine, the planner, whole-plan fusion and admission control: none
-#: may load torch at import
+#: modules a client tool imports, the ingest engine, the adaptive
+#: engine, the planner, whole-plan fusion, admission control and the
+#: sharded engine: none may load torch at import
 LIGHT_MODULES = ("pilosa_tpu_torch.utils.tracing",
                  "pilosa_tpu_torch.utils.stats",
                  "pilosa_tpu_torch.utils.profile",
@@ -328,7 +329,12 @@ LIGHT_MODULES = ("pilosa_tpu_torch.utils.tracing",
                  "pilosa_tpu_torch.exec.adaptive",
                  "pilosa_tpu_torch.exec.plan",
                  "pilosa_tpu_torch.exec.fusion",
-                 "pilosa_tpu_torch.server.admission")
+                 "pilosa_tpu_torch.server.admission",
+                 "pilosa_tpu_torch.parallel.sharded")
+
+#: the collective modules: neither forms (nor imports the API of) a
+#: torch.distributed process group at import (trap 19)
+COLLECTIVE_SOURCES = ("parallel/sharded.py", "cluster/spmd.py")
 
 
 def test_port_sources_import_no_jax_or_reference():
@@ -384,6 +390,43 @@ except SystemExit as e:
 print("TORCH LOADED", "torch" in sys.modules)
 sys.exit(code)
 """
+
+
+def test_collective_modules_form_no_group_at_import():
+    """parallel/sharded.py and cluster/spmd.py import torch (and
+    torch.distributed) only inside the functions that form a group or
+    reduce: no module-level line names either. Imported in a subprocess
+    with jax and pilosa_tpu blocked, they leave no process group formed,
+    and a one-rank ShardedQueryEngine counts on the CPU without one."""
+    pkg = os.path.join(REPO, "pilosa_tpu_torch")
+    for rel in COLLECTIVE_SOURCES:
+        with open(os.path.join(pkg, rel), encoding="utf-8") as f:
+            top = [line for line in f if line[:1] not in (" ", "\t")]
+        assert not [line for line in top
+                    if line.startswith(("import ", "from "))
+                    and "torch" in line.replace("pilosa_tpu_torch", "")], rel
+    code = _BLOCKER + """
+import numpy as np
+import pilosa_tpu_torch.parallel.sharded
+import pilosa_tpu_torch.cluster.spmd as spmd
+import torch
+assert not torch.distributed.is_initialized()
+assert not spmd.SpmdDataPlane._initialized
+from pilosa_tpu_torch.parallel import ShardedQueryEngine
+e = ShardedQueryEngine(devices="cpu")
+a = np.full((3, 1 << 15), 0xFFFFFFFF, dtype=np.uint32)
+assert e.count_intersect(e.place(a), e.place(a)) == 3 << 20
+assert e.mesh == [0] and not torch.distributed.is_initialized()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pilosa_tpu"))
+print("LOADED", bad)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
 
 
 def test_observability_modules_load_no_torch():
