@@ -221,8 +221,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      spmd.step span); the 43 golden cases through every node (the sum,
      minmax, topn and groupby steps dispatched equally on every rank,
      K3 and K4 launched by the steps on every rank, the condition Count
-     among them); a `spmd-json:` line has every number, and the launches
-     every rank's steps made join the kernels line;
+     among them); then every node switched to serve on (mesh-resident
+     serving): the Counts cold and warm (warm ones mesh-cache hits on
+     every rank), a warm p50 beside serve off's, a coalesced batch of 6
+     distinct Counts and one of 4 of one signature (one step and one
+     K1 launch a rank; sent to an idle coordinator first, and if no
+     round of those coalesces, queued behind a step held at its launch
+     by the spmd.launch fault point), a warm fused 3-call query, the
+     step timeline at rest and a one-bit write; a `spmd-json:` line has
+     every number, and the launches every rank's steps made join the
+     kernels line;
    each path runs with every launch counter set to 0 just before it and
    read just after; cold latency of each first query and warm HTTP p50s;
    a `phase:` line as each phase ends and a `phases:` line with every
@@ -4498,18 +4506,86 @@ def serve_cluster(srv, planes, card):
 
 SPMD_NODES = 3
 SPMD_PROFILED = 5  # profiled headline Counts through the coordinator
-SPMD_STATS = ("count_expr", "row_counts", "pairwise_counts", "bsi_range")
+SPMD_STATS = ("count_expr", "row_counts", "pairwise_counts", "bsi_range",
+              "count_expr_batch", "count_expr_multi")
+#: K1's entries: a Count step launches exactly one of them a rank
+SPMD_K1 = ("count_expr", "count_expr_batch", "count_expr_multi")
+#: the children's coalescing window: a serve-on node coalesces Counts
+#: only when booted with one (trap 39); every Count through a node waits
+#: it once
+SPMD_COALESCE = "3ms"
+SPMD_WARM_ON = 60  # warm serve-on Counts through node 0, timed
+#: serve-on batch rounds. The first SPMD_WINDOW_TRIES send the burst
+#: to an idle coordinator: its members coalesce only if every handler
+#: submits inside the one window, which a host busy with other work
+#: (other processes, a node's background cache flush) can stretch past
+#: 3 ms for every round. The later rounds queue the burst behind a step
+#: held SPMD_HOLD_S at its launch on the coordinator (fault point
+#: spmd.launch, delay once): the busy pipeline's accumulation, where
+#: everything queued while a step runs rides the next one
+SPMD_WINDOW_TRIES = 3
+SPMD_BATCH_TRIES = 6
+SPMD_HOLD_S = 2.0
+#: the coalesced batch of distinct Counts over b's two loaded leaves
+#: (f=1, g=1): 2 leaves of 318 shards a rank are 83 MB of the mesh
+#: cache's 256 MiB, so every warm probe is a hit, never LRU churn
+SPMD_MIXED = ("Count(Row(f=1))", "Count(Row(g=1))",
+              "Count(Intersect(Row(f=1), Row(g=1)))",
+              "Count(Union(Row(f=1), Row(g=1)))",
+              "Count(Difference(Row(f=1), Row(g=1)))",
+              "Count(Xor(Row(f=1), Row(g=1)))")
+#: a batch of one signature (a lone leaf each): K1's batched entry
+SPMD_SAME = ("Count(Row(f=1))", "Count(Row(g=1))", "Count(Row(f=1))",
+             "Count(Row(g=1))")
+SPMD_FUSED = ("Count(Row(f=1)) Count(Row(g=1)) "
+              "Count(Intersect(Row(f=1), Row(g=1)))")
 #: the step kinds the golden suite must dispatch on every rank
 SPMD_GOLDEN_KINDS = ("sum", "minmax", "topn", "groupby")
 
 
 def _spmd_stats(clients):
+    _spmd_debug(clients)
     return [c._request("GET", "/internal/spmd/stats") for c in clients]
 
 
 def _dispatch_count(client, family):
     phases = client._request("GET", "/debug/dispatch")["phases"]
     return phases.get(family, {}).get("lock_wait", {}).get("count", 0)
+
+
+def _spmd_debug(clients, timeout=60.0):
+    """Every node's /debug/spmd once the ranks have settled: under serve
+    on the coordinator answers when its part of a step is done, while a
+    peer's stream runner may still be closing the step; every step runs
+    on every rank, so they are settled when each has exited as many
+    steps as it entered, all the same number."""
+    deadline = time.monotonic() + timeout
+    while True:
+        d = [c._request("GET", "/debug/spmd") for c in clients]
+        steps = [x["steps"] for x in d]
+        if len({x["exited"] for x in steps}) == 1 \
+                and all(x["entered"] == x["exited"] for x in steps):
+            return d
+        if time.monotonic() > deadline:
+            raise AssertionError(f"spmd: the ranks never settled: {steps}")
+        time.sleep(0.02)
+
+
+def _spmd_set_mode(clients, mode):
+    """The run-time serve-mode switch on every node (POST /debug/spmd)."""
+    for c in clients:
+        got = c._request("POST", "/debug/spmd",
+                         body=json.dumps({"serve_mode": mode}).encode())
+        if got != {"serve_mode": mode}:
+            raise AssertionError(f"spmd: serve mode {mode}: {got}")
+
+
+def _k1_step_launches(before, after):
+    """K1 launches (any entry) each rank's steps made between two reads
+    of /internal/spmd/stats, and by entry."""
+    by = {k: [b["step_launches"][k] - a["step_launches"][k]
+              for a, b in zip(before, after)] for k in SPMD_K1}
+    return [sum(v[i] for v in by.values()) for i in range(len(before))], by
 
 
 def _spmd_split(resp):
@@ -4550,10 +4626,15 @@ def serve_spmd(planes, card):
     base = tempfile.mkdtemp(prefix="pilosa-torch-smoke-spmd-")
     mem_before = card_memory()
     t0 = time.perf_counter()
+    # booted serve on with a coalescing window and fusion (the coalescer
+    # exists only if the API was built with serve != off, trap 39), then
+    # switched to serve off at run time for the serve-off checks
     pc = ProcCluster(
         SPMD_NODES, replica_n=1, device=CLUSTER_DEVICE,
         extra_flags=["--spmd", "--spmd-port", str(free_ports(1)[0]),
-                     "--spmd-cpu-collectives", "gloo"],
+                     "--spmd-cpu-collectives", "gloo",
+                     "--spmd-serve", "on", "--fusion", "on",
+                     "--coalesce-window", SPMD_COALESCE],
         base_dir=base, client_timeout=600)
     try:
         pc.wait_ready(timeout=240)
@@ -4561,8 +4642,10 @@ def serve_spmd(planes, card):
         cl = pc.clients
         coord = min(range(SPMD_NODES), key=lambda i: pc.hosts[i])
         log(f"spmd: {SPMD_NODES} --spmd nodes (one gloo group, replicas "
-            f"1) NORMAL in {out['boot_s']:.1f} s on {card}; coordinator "
-            f"node {coord}")
+            f"1, booted --spmd-serve on --fusion on --coalesce-window "
+            f"{SPMD_COALESCE}) NORMAL in {out['boot_s']:.1f} s on {card}; "
+            f"coordinator node {coord}; serve off first")
+        _spmd_set_mode(cl, "off")
         cl[0].create_index("b")
         for fname in ("f", "g"):
             cl[0].create_field("b", fname)
@@ -4705,9 +4788,11 @@ def serve_spmd(planes, card):
             f"queries/s; {steps[0]} collective steps on every node, the "
             f"condition Count among them; step dispatches per node by kind "
             f"{out['golden']['dispatches']}; step launches per node {moved})")
+        out["on"] = _serve_spmd_on(pc, coord, expect, f1, card, out)
+        s4 = _spmd_stats(cl)
         out["launches"] = {k: sum(b["step_launches"][k]
                                   - a["step_launches"][k]
-                                  for a, b in zip(s0, s3))
+                                  for a, b in zip(s0, s4))
                            for k in SPMD_STATS}
         out["memory"] = {"used_mib_before": mem_before,
                          "used_mib_with_cluster": card_memory()}
@@ -4726,6 +4811,359 @@ def serve_spmd(planes, card):
     if any(code not in (0, -15) for code in codes):
         raise AssertionError(f"spmd: a node exited with {codes}")
     out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _spmd_send(host, port, queries):
+    """One connection a query, all connected first, then every request
+    sent back to back before any answer is read: the burst reaches the
+    server within a fraction of a window (a client thread a query would
+    serialize on this process's GIL). Returns the open connections."""
+    import http.client
+
+    conns = [http.client.HTTPConnection(host, int(port), timeout=600)
+             for _ in queries]
+    for c in conns:
+        c.connect()
+    for c, q in zip(conns, queries):
+        c.request("POST", "/index/b/query", body=q.encode(),
+                  headers={"Content-Type": "text/plain"})
+    return conns
+
+
+def _spmd_read(conns):
+    """results[0] of each open connection's answer; closes them."""
+    try:
+        return [json.loads(c.getresponse().read())["results"][0]
+                for c in conns]
+    finally:
+        for c in conns:
+            c.close()
+
+
+def _spmd_hold(client, hold):
+    """Arm (hold seconds) or disarm (None) a node's one-shot delay at
+    spmd.launch."""
+    body = {"arm": f"spmd.launch=delay:{hold}x1"} if hold \
+        else {"disarm": "spmd.launch"}
+    client._request("POST", "/debug/faultpoints",
+                    body=json.dumps(body).encode())
+
+
+def _spmd_hold_fired(client):
+    """How often a node's spmd.launch delay has fired."""
+    got = client._request("GET", "/debug/faultpoints")
+    return next((p["fired"] for p in got["points"]
+                 if p["name"] == "spmd.launch"), 0)
+
+
+def _spmd_batch_round(pc, coord, queries, want):
+    """Send `queries` to the coordinator at once until a round coalesces
+    every one of them into one batch step (SPMD_BATCH_TRIES rounds: the
+    idle window first, then queued behind a held step). Returns (tries,
+    held, stats and debug before and after that round); a held round's
+    deltas include its blocker, one coalesced Count of its own (one step
+    and one count_expr_batch launch a rank). Every answer of every round
+    equals numpy; a round that did not coalesce logs what the
+    coordinator's coalescer made of it."""
+    cl = pc.clients
+    host, port = pc.hosts[coord].rsplit(":", 1)
+    blocker = "Count(Row(f=1))"
+    for tries in range(1, SPMD_BATCH_TRIES + 1):
+        held = tries > SPMD_WINDOW_TRIES
+        s0, d0 = _spmd_stats(cl), _spmd_debug(cl)
+        b0 = cl[coord]._request("GET", "/debug/batching")["coalescer"]
+        conns = []
+        try:
+            if held:
+                _spmd_hold(cl[coord], SPMD_HOLD_S)
+                conns += _spmd_send(host, port, [blocker])
+                # the blocker's step is inside its launch delay once the
+                # point fired: the coalescer's drain thread is then
+                # resolving it, and the burst queues behind it
+                t_end = time.monotonic() + 60
+                while _spmd_hold_fired(cl[coord]) < 1:
+                    if time.monotonic() > t_end:
+                        raise AssertionError("spmd on: the held step never "
+                                             "reached spmd.launch")
+                    time.sleep(0.01)
+            conns += _spmd_send(host, port, queries)
+            got = _spmd_read(conns)
+        finally:
+            for c in conns:
+                c.close()
+            if held:
+                _spmd_hold(cl[coord], None)
+        sent = ([blocker] if held else []) + list(queries)
+        if got != [want[q] for q in sent]:
+            raise AssertionError(f"spmd on: batch {sent} = {got}, numpy "
+                                 f"{[want[q] for q in sent]}")
+        s1, d1 = _spmd_stats(cl), _spmd_debug(cl)
+        b1 = cl[coord]._request("GET", "/debug/batching")["coalescer"]
+        a, b = s0[coord], s1[coord]
+        occ = {k: v - b0["occupancy_hist"].get(k, 0)
+               for k, v in b1["occupancy_hist"].items()
+               if v != b0["occupancy_hist"].get(k, 0)}
+        if b["batched_queries"] - a["batched_queries"] == len(sent) \
+                and b["batch_steps"] - a["batch_steps"] == 1 + held \
+                and occ.get(str(len(queries))) == 1:
+            return tries, held, s0, s1, d0, d1
+        log(f"spmd on: round {tries} ({'held' if held else 'idle window'})"
+            f" of {len(queries)} Counts did not coalesce into one batch: "
+            f"coalescer batches by size {occ}, coordinator batched queries "
+            f"+{b['batched_queries'] - a['batched_queries']}, batch steps "
+            f"+{b['batch_steps'] - a['batch_steps']}, fallbacks "
+            f"+{b['fallbacks'] - a['fallbacks']}")
+    raise AssertionError(f"spmd on: {len(queries)} Counts never coalesced "
+                         f"into one batch in {SPMD_BATCH_TRIES} rounds")
+
+
+def _serve_spmd_on(pc, coord, expect, f1, card, off):
+    """The serve-on half of `serve_spmd` (mesh-resident serving), on the
+    same children, every node switched to `on`: single Counts cold and
+    warm (warm ones mesh-cache hits on every rank, no data-plane bytes,
+    one K1 launch a rank a Count), a warm p50 through node 0 beside
+    serve off's, profiled splits, a coalesced batch of distinct Counts
+    (one step and one multi-tree K1 launch a rank), a batch of one
+    signature (one batched-entry launch a rank), a warm fused 3-call
+    query (one step a rank, a mesh-tagged program, no data-plane bytes),
+    a one-bit write (only its owner invalidates; the next Count reads
+    it) and the merged step timeline at rest. Returns its numbers."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    t_phase = time.perf_counter()
+    cl = pc.clients
+    on_card = CLUSTER_DEVICE == "cuda"
+    out = {}
+    _spmd_set_mode(cl, "on")
+
+    # -- single Counts through every node, cold then warm
+    walls, mc = {"cold": [], "warm": []}, {}
+    s0 = _spmd_stats(cl)
+    for rnd in ("cold", "warm"):
+        d_before = _spmd_debug(cl)
+        for i, c in enumerate(cl):
+            for pql, want in expect.items():
+                t0 = time.perf_counter()
+                got = c.query("b", pql)["results"][0]
+                walls[rnd].append(time.perf_counter() - t0)
+                if got != want:
+                    raise AssertionError(f"spmd on: {pql} = {got} via node "
+                                         f"{i}, numpy {want}")
+        mc[rnd] = [(b["mesh_cache"], a["mesh_cache"],
+                    b["http_data_plane_bytes"] - a["http_data_plane_bytes"])
+                   for a, b in zip(d_before, _spmd_debug(cl))]
+    s1 = _spmd_stats(cl)
+    n = 2 * len(cl) * len(expect)
+    k1, k1_by = _k1_step_launches(s0, s1)
+    steps = [b["steps"] - a["steps"] for a, b in zip(s0, s1)]
+    warm = mc["warm"]
+    if any(b["misses"] != a["misses"] or b["hits"] <= a["hits"]
+           for b, a, _ in warm) or any(dp for _, _, dp in warm):
+        raise AssertionError(f"spmd on: warm Counts: mesh cache / "
+                             f"data-plane bytes {warm}")
+    if steps != [n] * len(cl) or (on_card and k1 != [n] * len(cl)) \
+            or any(b["fallbacks"] != a["fallbacks"]
+                   for a, b in zip(s0, s1)):
+        raise AssertionError(f"spmd on: {n} Counts gave steps {steps}, "
+                             f"K1 step launches {k1_by}, stats {s1}")
+    out["counts"] = n
+    out["cold_ms_p50"] = 1e3 * statistics.median(walls["cold"])
+    out["first_count_ms"] = 1e3 * walls["cold"][0]
+    out["warm_all_nodes_ms_p50"] = 1e3 * statistics.median(walls["warm"])
+    out["k1_step_launches"] = k1_by
+    out["mesh_cache_warm"] = [
+        {"hits": b["hits"] - a["hits"], "misses": b["misses"] - a["misses"],
+         "entries": b["entries"], "bytes": b["bytes"]} for b, a, _ in warm]
+    log(f"spmd on: {len(expect)} Counts through each node equal numpy, "
+        f"cold then warm; every node ran {n} steps, K1 step launches by "
+        f"entry {k1_by}; warm round mesh cache per node "
+        f"{out['mesh_cache_warm']}, data-plane bytes 0, fallbacks 0; p50 "
+        f"cold {out['cold_ms_p50']:.1f} ms (first "
+        f"{out['first_count_ms']:.1f}), warm {out['warm_all_nodes_ms_p50']:.2f}"
+        f" ms through all nodes; {card}")
+
+    # -- the warm p50 through node 0, beside serve off's from this run
+    headline = next(iter(expect))
+    ws = []
+    for _ in range(SPMD_WARM_ON):
+        t0 = time.perf_counter()
+        got = cl[0].query("b", headline)["results"][0]
+        ws.append(time.perf_counter() - t0)
+        if got != expect[headline]:
+            raise AssertionError(f"spmd on: {headline} = {got}")
+    out["warm_ms_p50"] = 1e3 * statistics.median(ws)
+    out["warm_ms_p99"] = 1e3 * _pct(ws, 99)
+    out["warm_node0_is_coordinator"] = coord == 0
+    log(f"spmd on: warm {headline} through node 0 "
+        f"({'the coordinator' if coord == 0 else 'forwarded'}), p50 of "
+        f"{SPMD_WARM_ON}: {out['warm_ms_p50']:.2f} ms (p99 "
+        f"{out['warm_ms_p99']:.2f}); serve off in this run: warm p50 "
+        f"{off['warm_ms_p50']:.1f} ms, cold {off['cold_ms_p50']:.1f} ms "
+        f"(x{off['warm_ms_p50'] / out['warm_ms_p50']:.0f}); window "
+        f"{SPMD_COALESCE}; {card}")
+
+    # -- profiled splits through the coordinator: a hit gathers nothing
+    splits = []
+    for _ in range(SPMD_PROFILED):
+        sp = _spmd_split(cl[coord].query("b", headline, profile=True))
+        if sp is None:
+            raise AssertionError("spmd on: a profiled Count did not ride "
+                                 "the collective")
+        splits.append(sp)
+    out["split_ms_p50"] = {
+        p: statistics.median(sp.get(p, 0.0) for sp in splits)
+        for p in ("announce_recv", "stack_gather", "upload",
+                  "device_enter", "result_fetch", "psum", "exit")}
+    # a hit gathers nothing: the generation walk is what is left
+    if out["split_ms_p50"]["stack_gather"] \
+            > 0.1 * off["split_ms_p50"]["stack_gather"]:
+        raise AssertionError(f"spmd on: a warm step still gathers: "
+                             f"{out['split_ms_p50']} against serve off's "
+                             f"{off['split_ms_p50']}")
+    log(f"spmd on: the coordinator's step split, p50 of {SPMD_PROFILED} "
+        f"profiled Counts (ms): {out['split_ms_p50']}; {card}")
+
+    # -- a coalesced batch of distinct Counts: one step, one multi-tree
+    # K1 launch a rank
+    want = {q: expect.get(q) for q in SPMD_MIXED}
+    want["Count(Difference(Row(f=1), Row(g=1)))"] = \
+        expect["Count(Row(f=1))"] - expect[
+            "Count(Intersect(Row(f=1), Row(g=1)))"]
+    want["Count(Xor(Row(f=1), Row(g=1)))"] = \
+        expect["Count(Union(Row(f=1), Row(g=1)))"] - expect[
+            "Count(Intersect(Row(f=1), Row(g=1)))"]
+    want["Count(Row(f=1))"] = expect["Count(Row(f=1))"]  # the blocker
+    batches = {}
+    for name, queries, entry in (("mixed", SPMD_MIXED, "count_expr_multi"),
+                                 ("same", SPMD_SAME, "count_expr_batch")):
+        tries, held, s0, s1, d0, d1 = _spmd_batch_round(pc, coord, queries,
+                                                        want)
+        # a held round's blocker: one more step, one count_expr_batch
+        n_steps = 1 + held
+        steps = [b["steps"] - a["steps"] for a, b in zip(s0, s1)]
+        k1, k1_by = _k1_step_launches(s0, s1)
+        batch = [b["batch_steps"] - a["batch_steps"] for a, b in zip(s0, s1)]
+        miss = [b["mesh_cache"]["misses"] - a["mesh_cache"]["misses"]
+                for a, b in zip(d0, d1)]
+        k1_want = 1 + held * (entry == "count_expr_batch")
+        if steps != [n_steps] * len(cl) or batch != [n_steps] * len(cl) \
+                or any(miss) or (on_card and (
+                    k1 != [n_steps] * len(cl)
+                    or k1_by[entry] != [k1_want] * len(cl))):
+            raise AssertionError(f"spmd on: {name} batch of {len(queries)}"
+                                 f"{' behind a held step' if held else ''}"
+                                 f": steps {steps}, batch steps {batch}, K1 "
+                                 f"{k1_by}, misses {miss}")
+        batches[name] = {"queries": len(queries), "tries": tries,
+                         "held": held, "steps": steps, "k1": k1_by}
+        how = (f"queued behind a step held {SPMD_HOLD_S} s, its blocker "
+               f"Count in these numbers") if held else "one idle window"
+        log(f"spmd on: a coalesced batch of {len(queries)} Counts "
+            f"({name} signatures) equal numpy, one step on every node, K1 "
+            f"step launches {k1_by} (round {tries}: {how})")
+    out["batches"] = batches
+
+    # -- a warm fused 3-call query: one step a rank, no data-plane bytes
+    fwant = [expect["Count(Row(f=1))"], expect["Count(Row(g=1))"],
+             expect["Count(Intersect(Row(f=1), Row(g=1)))"]]
+    for _ in range(3):  # past the fusion admission floor (2 hits)
+        if cl[coord].query("b", SPMD_FUSED)["results"] != fwant:
+            raise AssertionError("spmd on: the fused query")
+    s0, d0 = _spmd_stats(cl), _spmd_debug(cl)
+    t0 = time.perf_counter()
+    got = cl[coord].query("b", SPMD_FUSED)["results"]
+    out["fused_ms"] = 1e3 * (time.perf_counter() - t0)
+    s1, d1 = _spmd_stats(cl), _spmd_debug(cl)
+    steps = [b["steps"] - a["steps"] for a, b in zip(s0, s1)]
+    k1, k1_by = _k1_step_launches(s0, s1)
+    dp = [b["http_data_plane_bytes"] - a["http_data_plane_bytes"]
+          for a, b in zip(d0, d1)]
+    mesh_programs = [p for p in cl[coord]._request(
+        "GET", "/debug/fusion")["programs"] if p.get("mesh")]
+    if got != fwant or steps != [1] * len(cl) or any(dp) \
+            or s1[coord]["fused_steps"] - s0[coord]["fused_steps"] != 1 \
+            or not mesh_programs \
+            or mesh_programs[0]["mesh"] != [len(cl), 1] \
+            or (on_card and k1_by["count_expr_multi"] != [1] * len(cl)):
+        raise AssertionError(f"spmd on: fused query {got} (numpy {fwant}),"
+                             f" steps {steps}, data-plane bytes {dp}, K1 "
+                             f"{k1_by}, mesh programs {mesh_programs}")
+    out["fused"] = {"steps": steps, "k1": k1_by,
+                    "program": mesh_programs[0]}
+    log(f"spmd on: warm fused 3-call query equal numpy in "
+        f"{out['fused_ms']:.2f} ms: one step on every node, K1 {k1_by}, "
+        f"data-plane bytes {dp}, ledgered as mesh program "
+        f"{mesh_programs[0]}")
+
+    # -- the timeline at rest: warm steps only (one straggler-free round
+    # of three: a process descheduled by the host is a true straggler)
+    for rounds in range(1, 4):
+        marker = _spmd_debug(cl)[coord]["steps"]["last_seq"]
+        for _ in range(3):
+            cl[coord].query("b", headline)
+        _spmd_debug(cl)  # every rank's ring holds the steps
+        tl = cl[coord]._request("GET", "/debug/spmd/steps?limit=16")
+        fresh = [st for st in tl["steps"] if st["seq"] > marker]
+        worst = 0.0
+        if len(fresh) < 3:
+            raise AssertionError(f"spmd on: timeline {tl}")
+        for st in fresh:
+            if len(st["peers"]) != len(cl):
+                raise AssertionError(f"spmd on: timeline step {st}")
+            for peer in st["peers"].values():
+                res = abs(sum(peer["phases"].values())
+                          - peer["wall_seconds"])
+                worst = max(worst, res / max(peer["wall_seconds"], 1e-9))
+                if res > 0.05 * peer["wall_seconds"] + 1e-5:
+                    raise AssertionError(f"spmd on: phases of {st}")
+        flagged = [st["stragglers"] for st in fresh if st["stragglers"]]
+        if not flagged:
+            break
+    if flagged:
+        raise AssertionError(f"spmd on: stragglers at rest {flagged}")
+    out["timeline"] = {"steps": len(fresh), "rounds": rounds,
+                       "worst_residual": worst,
+                       "skew_seconds": tl["skew_seconds"]}
+    log(f"spmd on: /debug/spmd/steps: {len(fresh)} warm steps with every "
+        f"node, phases sum to each wall (worst residual {worst:.2e}), no "
+        f"straggler (round {rounds}); skew {tl['skew_seconds']}")
+
+    # -- a one-bit write into one shard: only its owner invalidates
+    shard = N_SHARDS // 2
+    word = int(np.flatnonzero(f1 != 0xFFFFFFFF)[0])
+    bit = next(b for b in range(32) if not (int(f1[word]) >> b) & 1)
+    col = shard * SHARD_WIDTH + word * 32 + bit
+    owner = cl[0]._request(
+        "GET", f"/internal/fragment/nodes?index=b&shard={shard}")[0]["id"]
+    d0 = _spmd_debug(cl)
+    cl[0].query("b", f"Set({col}, f=1)")
+    got = cl[0].query("b", "Count(Row(f=1))")["results"][0]
+    d1 = _spmd_debug(cl)
+    inval = {pc.hosts[i]: b["mesh_cache"]["invalidations"]
+             - a["mesh_cache"]["invalidations"]
+             for i, (a, b) in enumerate(zip(d0, d1))}
+    if got != expect["Count(Row(f=1))"] + 1 \
+            or inval != {h: int(h == owner) for h in pc.hosts}:
+        raise AssertionError(f"spmd on: after a one-bit write into shard "
+                             f"{shard}: Count {got}, invalidations {inval}")
+    out["write"] = {"shard": shard, "owner": owner, "invalidations": inval}
+    log(f"spmd on: a one-bit Set into shard {shard}: only its owner "
+        f"{owner} invalidated ({inval}); the next Count reads the bit")
+
+    d = _spmd_debug(cl)
+    st = _spmd_stats(cl)
+    if any(x["steps"]["entered"] != x["steps"]["exited"]
+           or x["stream"]["errors"] or x["stream"]["resyncs"] for x in d) \
+            or any(x["fallbacks"] or x["seq_mismatches"]
+                   or x["device_failures"] for x in st):
+        raise AssertionError(f"spmd on: lifecycle {d}, stats {st}")
+    out["mesh_cache"] = [x["mesh_cache"] for x in d]
+    out["lifecycle"] = [x["steps"] for x in d]
+    out["card_memory_mib"] = card_memory()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"spmd on: lifecycle per node {out['lifecycle']}; stream errors "
+        f"0, resyncs 0; phase part {out['phase_s']:.1f} s")
     return out
 
 

@@ -131,7 +131,8 @@ def _apply_server_flags(config, args):
                  "ingest_merge_interval",
                  "admission", "admission_capacity",
                  "admission_queue_depth", "admission_queue_timeout",
-                 "spmd_port", "spmd_cpu_collectives"):
+                 "spmd_port", "spmd_serve", "spmd_cpu_collectives",
+                 "spmd_stream_gap_timeout"):
         val = getattr(args, flag, None)
         if val is not None:
             config[flag.replace("_", "-")] = val
@@ -351,7 +352,7 @@ def start_server(argv):
                   admission_queue_timeout=parse_duration(str(adm_qt))
                   if adm_qt else None,
                   cluster=cluster,
-                  spmd=_spmd_plane(holder, cluster)
+                  spmd=_spmd_plane(holder, cluster, config)
                   if spmd_requested else None)
         if cluster is not None:  # even single-node: the cluster can grow
             from .server import Client
@@ -524,15 +525,25 @@ def _spmd_initialize(config):
         cpu_collectives=config.get("spmd-cpu-collectives"))
 
 
-def _spmd_plane(holder, cluster):
-    """The node's collective data plane (None without a cluster)."""
+def _spmd_plane(holder, cluster, config):
+    """The node's collective data plane (None without a cluster), with
+    --spmd-serve and --spmd-stream-gap-timeout. It is the process's
+    active plane (the incident bundles' `spmd` collector reads it) and
+    hangs its stream-occupancy gauges on the process stats client."""
     if cluster is None:
         return None
-    from .cluster.spmd import SpmdDataPlane
+    from .cluster import spmd as spmd_mod
     from .server import Client
     from .utils.logger import StandardLogger
 
-    return SpmdDataPlane(holder, cluster, Client, logger=StandardLogger())
+    sgt = config.get("spmd-stream-gap-timeout")
+    plane = spmd_mod.SpmdDataPlane(
+        holder, cluster, Client, logger=StandardLogger(),
+        serve_mode=str(config.get("spmd-serve", "off")).lower(),
+        stream_gap_timeout=parse_duration(str(sgt)) if sgt else None)
+    spmd_mod.set_active_plane(plane)
+    plane.register_gauges()
+    return plane
 
 
 def _cluster_from_config(config, args, data_dir, services):
@@ -1094,11 +1105,26 @@ def _server_flags(p):
     p.add_argument("--spmd-port", type=int, default=None,
                    help="port of the process group's store on the first "
                         "--cluster-hosts host (default 27121)")
+    p.add_argument("--spmd-serve", default=None,
+                   choices=("off", "on", "shadow"),
+                   help="mesh-resident serving for --spmd: off (default) "
+                        "gathers every step's leaves from the host; on "
+                        "keeps each rank's leaf blocks on its device, "
+                        "announces steps over the step stream and runs "
+                        "coalesced and fused Count batches as one step; "
+                        "shadow serves as off while probing the mesh "
+                        "cache for divergence")
     p.add_argument("--spmd-cpu-collectives", default=None,
                    choices=["none", "gloo"],
                    help="collectives backend for --spmd; the group is "
                         "gloo either way (its collectives reduce host "
                         "tensors)")
+    p.add_argument("--spmd-stream-gap-timeout", default=None,
+                   help="how long a peer's step-stream runner waits on a "
+                        "sequence gap before resyncing past it (duration, "
+                        "default 30s); the gap's ONSET fires the "
+                        "spmd.stream_gap event and a collective_stall "
+                        "incident bundle at once")
     p.add_argument("--container-repr", default=None,
                    choices=["auto", "dense", "sparse", "rle"],
                    help="leaf container representation: auto (default, or "

@@ -28,8 +28,19 @@ from .broadcast import (
     HTTPBroadcaster,
 )
 from .membership import HealthMonitor
-from .executor import ClusterExecutor, result_from_json
 from .resize import ResizeError, ResizeJob, ResizeManager, clean_holder
+
+
+def __getattr__(name):
+    # the fan-out executor loads the executor stack (and torch) on first
+    # use, so the placement and messaging modules, and the collective
+    # plane's mesh cache, import without it (trap 19)
+    if name in ("ClusterExecutor", "result_from_json"):
+        from . import executor
+
+        return getattr(executor, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "Cluster",

@@ -27,8 +27,9 @@ behind another process.
 With a collective data plane (cluster/spmd.py, `server --spmd`),
 coverable Count, Sum, Min/Max, TopN and GroupBy calls merge over the
 process group instead (`maybe_execute`); anything it declines takes the
-HTTP map-reduce below. Its fused whole-query step (`maybe_execute_fused`)
-comes with mesh-resident serving.
+HTTP map-reduce below. Under `--spmd-serve on` with `--fusion on`, a
+whole multi-Count query runs as one collective step
+(`maybe_execute_fused`).
 """
 
 import os
@@ -280,9 +281,17 @@ class ClusterExecutor:
         t_query = _time.perf_counter()
         try:
             plan_calls = [] if explain == "analyze" else None
-            # (the collective plane's fused whole-query step,
-            # maybe_execute_fused, hooks in here with mesh-resident
-            # serving)
+            # the fused collective step (mesh serving + fusion on): the
+            # WHOLE multi-call Count query runs as one step, one K1
+            # launch a rank, zero result bytes over HTTP. A decline (a
+            # cold fingerprint, an uncoverable tree, a degraded cluster)
+            # falls through to the per-call loop; a card failure raises.
+            if self.spmd is not None and plan_calls is None \
+                    and all(not c.writes() for c in query.calls):
+                used, counts = self.spmd.maybe_execute_fused(
+                    idx, query, shards)
+                if used:
+                    return translate_results(idx, query.calls, counts)
             results = []
             deadline = getattr(opt, "deadline", None)
             for call in query.calls:

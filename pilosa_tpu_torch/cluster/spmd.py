@@ -41,19 +41,46 @@ Execution model:
 - Steps are gated on every node being READY and the membership being the
   one the group was formed with; otherwise the call takes the HTTP path.
 
-Serve-off only: every step gathers its leaves from the host fragments and
-uploads them, as the TPU package's `--spmd-serve off` does. Mesh-resident
-stacks, the step stream, batched and fused steps and the step ring with
-straggler attribution are not here yet (the places are marked).
+- gloo matches collectives by call order, not by step. Every reduced
+  vector therefore also carries one slot per node with the step number
+  that rank ran; a rank that finds the slots unequal raises on every
+  rank (a non-card failure: the coordinator falls back to HTTP), so two
+  different steps are never summed into one answer. The Min/Max
+  all_gather rows carry the same number.
+
+Serve modes (`--spmd-serve`, switched at run time by POST /debug/spmd):
+- `off` (the default): every step gathers its leaves from the host
+  fragments and uploads them, and peers run steps on their HTTP handler
+  thread, announced by a blocking POST /internal/spmd/step.
+- `on`: mesh-resident serving. Each rank keeps its own [seg_len, W]
+  block of each plan leaf on its device (cluster/meshstacks.py),
+  validated by fragment generations, so a warm step touches no host
+  fragment. Steps are announced over the step STREAM (POST
+  /internal/spmd/stream): a peer enqueues by sequence number and acks at
+  once, and its stream runner thread runs the steps in order. The
+  coalescer's Count batches (SpmdBatchRunner) and whole multi-Count
+  queries (maybe_execute_fused) each run as ONE step: ONE K1 launch a
+  rank (its batched entry for one signature, its multi-tree entry for
+  mixed ones) and one all_reduce of the [K] counts.
+- `shadow`: serves as `off`, and probes the mesh cache with each fresh
+  gather to detect divergence.
+- `http` (run time only): every call takes the HTTP merge, for A/B runs
+  on one cluster.
+
+The observatory: every step runs under a phase clock whose phases sum
+exactly to the step wall, and lands in a bounded ring; GET
+/debug/spmd/steps merges every node's ring into one skew-corrected
+timeline with per-phase straggler attribution.
 
 Nothing here imports torch at module import; `torch.distributed` is
 imported only to form the group and to reduce (trap 19).
 """
 
 import itertools
+import statistics
 import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from contextlib import contextmanager
 
 import numpy as np
@@ -64,20 +91,24 @@ from ..shardwidth import WORDS_PER_ROW
 from ..utils.logger import NopLogger
 
 #: the kernel wrappers a step may launch, by their launch-counter names
-STEP_KERNELS = ("count_expr", "row_counts", "pairwise_counts", "bsi_range")
+STEP_KERNELS = ("count_expr", "row_counts", "pairwise_counts", "bsi_range",
+                "count_expr_batch", "count_expr_multi")
 
 
 def _launches():
     """{kernel: launches so far in this process} of STEP_KERNELS."""
     from ..ops.bsi_range import bsi_range_mask
-    from ..ops.count_expr import count_expr
+    from ..ops.count_expr import (count_expr, count_expr_batch,
+                                  count_expr_multi)
     from ..ops.pairwise import pairwise_counts
     from ..ops.row_counts import row_counts
 
     return {"count_expr": count_expr.launches,
             "row_counts": row_counts.launches,
             "pairwise_counts": pairwise_counts.launches,
-            "bsi_range": bsi_range_mask.launches}
+            "bsi_range": bsi_range_mask.launches,
+            "count_expr_batch": count_expr_batch.launches,
+            "count_expr_multi": count_expr_multi.launches}
 
 
 class SpmdError(Exception):
@@ -173,6 +204,77 @@ class _StepClock:
         return self._t - self.t0
 
 
+def envelope_skew(t_send, t_recv, remote_now):
+    """NTP-style clock-offset estimate (remote - local, seconds) from one
+    RPC envelope: the peer stamped `remote_now` (its wall clock) while
+    handling a request sent at local wall time `t_send` and answered at
+    `t_recv`. Assuming symmetric network delay (tracing.estimate_skew's
+    assumption), the remote stamp corresponds to the local midpoint."""
+    return remote_now - (t_send + t_recv) / 2.0
+
+
+def attribute_stragglers(peers_phases, factor, noise_floor):
+    """Per-phase straggler attribution for ONE step's merged per-peer
+    phase walls. `peers_phases`: {node_id: {phase: seconds}}. A node is
+    the phase's straggler when its wall is the slowest AND exceeds the
+    median of the OTHER peers by `factor` (excluding the candidate: on a
+    2-node group a median over both would dilute the straggler's own wall
+    into the baseline) AND by more than `noise_floor` seconds in absolute
+    terms (so microsecond jitter between healthy peers never flags).
+    Returns [{phase, node, seconds, median_seconds, ratio}]."""
+    flags = []
+    phases = set()
+    for ph in peers_phases.values():
+        phases.update(ph)
+    for phase in sorted(phases):
+        walls = {node: ph[phase] for node, ph in peers_phases.items()
+                 if phase in ph}
+        if len(walls) < 2:
+            continue
+        worst_node = max(walls, key=walls.get)
+        worst = walls[worst_node]
+        med = statistics.median(v for n, v in walls.items()
+                                if n != worst_node)
+        if worst > med * factor and worst - med > noise_floor:
+            flags.append({
+                "phase": phase,
+                "node": worst_node,
+                "seconds": round(worst, 6),
+                "median_seconds": round(med, 6),
+                "ratio": round(worst / med, 2) if med > 0 else None,
+            })
+    return flags
+
+
+#: the serving process's data plane (set by the server command): what the
+#: incident bundles' `spmd` collector snapshots into EVERY bundle without
+#: holding an instance handle (utils/incident.py)
+_active_plane = None
+
+
+def set_active_plane(plane):
+    global _active_plane
+    _active_plane = plane
+    return plane
+
+
+def active_plane():
+    return _active_plane
+
+
+def observatory_snapshot():
+    """Incident-bundle collector payload: the active plane's observatory
+    state (step ring, phase tables and a best-effort cross-node
+    timeline), or the disabled stub."""
+    plane = _active_plane
+    if plane is None:
+        return {"enabled": False}
+    try:
+        return dict(plane.incident_snapshot(), enabled=True)
+    except Exception as e:  # noqa: BLE001 — never fail the bundle
+        return {"enabled": True, "error": str(e)}
+
+
 class SpmdDataPlane:
     #: process-wide: the group is formed once per process
     _initialized = False
@@ -186,6 +288,28 @@ class SpmdDataPlane:
     TOPN_MAX_ROWS = 4096
     #: group-cell cap for a GroupBy step
     GROUPBY_MAX_CELLS = 4096
+    #: program-table cache bound of the batch and fused steps
+    MAX_FNS = 128
+    #: serve modes settable at run time (POST /debug/spmd). "http" is run
+    #: time only: maybe_execute declines, so the SAME cluster can run the
+    #: HTTP fan-out for an A/B comparison.
+    SERVE_MODES = ("off", "on", "shadow", "http")
+    #: seconds a peer's stream runner waits on a sequence gap before
+    #: resyncing to the lowest queued step (a lost announcement must not
+    #: wedge the stream; the coordinator's collective for the lost step
+    #: fails at the group's timeout and falls back)
+    STREAM_GAP_TIMEOUT = 30
+    #: bounded per-node step ring: the most recent steps with per-phase
+    #: walls, what GET /debug/spmd/steps merges across nodes
+    STEP_RING_SIZE = 256
+    #: a node is a phase's straggler when its wall exceeds the peer median
+    #: by this factor AND by STRAGGLER_NOISE_FLOOR seconds (2x of a 50 us
+    #: gather is jitter, not a straggler)
+    STRAGGLER_FACTOR = 2.0
+    STRAGGLER_NOISE_FLOOR = 0.025
+    #: edge-trigger memory: (seq, node, phase) keys already counted, so
+    #: repeated scrapes of the same ring don't re-fire (bounded FIFO)
+    STRAGGLER_FLAGS_MAX = 1024
 
     @classmethod
     def initialize(cls, coordinator_address, num_processes, process_id,
@@ -224,23 +348,68 @@ class SpmdDataPlane:
             pass
         cls._initialized = False
 
-    def __init__(self, holder, cluster, client_factory, logger=None):
+    def __init__(self, holder, cluster, client_factory, logger=None,
+                 serve_mode="off", stream_gap_timeout=None):
+        from .meshstacks import MeshStackCache
+
         self.holder = holder
         self.cluster = cluster
         self.client_factory = client_factory
         self.logger = logger or NopLogger()
         self._lock = threading.Lock()  # one step at a time per process
         self._step_id = 0
-        # Serve-off only. Mesh-resident serving adds here: the serve mode
-        # switch (--spmd-serve), the MeshStackCache, the step-stream state
-        # (queue, runner thread, outbound sequence), the step ring with
-        # straggler attribution and the step lifecycle counters.
-        self.serve_mode = "off"
+        # --spmd-serve (an unknown boot value degrades to off)
+        self.serve_mode = serve_mode if serve_mode in self.SERVE_MODES \
+            else "off"
+        self.mesh_cache = MeshStackCache(logger=self.logger)
+        # the batch and fused steps' program tables (count_expr's
+        # MultiProgram), by ("count_batch", sigs, arities); the fusion
+        # ledger's eviction drops entries under self._lock
+        self._fn_specs = OrderedDict()
+        # the step stream (serve on): peers run announced steps in
+        # sequence order on a runner thread, not on the announcing HTTP
+        # handler thread, so the coordinator's announcement returns at
+        # the ack
+        self._stream_cond = threading.Condition()
+        self._stream_queue = {}  # seq -> step
+        self._stream_next = None  # next seq to run (set by the first recv)
+        self._stream_thread = None
+        self._stream_closed = False
+        # the outbound stream sequence: apart from _step_id, so steps of
+        # serve off/shadow never open gaps in the stream
+        self._stream_seq_out = 0
+        self.stream_errors = 0
+        self.stream_resyncs = 0
+        if stream_gap_timeout is not None and stream_gap_timeout > 0:
+            self.STREAM_GAP_TIMEOUT = float(stream_gap_timeout)
+        # -- the observatory: its own lock, so the ring can be read while
+        # a step holds _lock
+        self._obs_lock = threading.Lock()
+        self._step_ring = deque(maxlen=self.STEP_RING_SIZE)
+        self._phase_totals = {}  # phase -> [count, seconds]
         self._step_clock = None  # the in-flight step's (under _lock)
         # last completed step record, thread-local: the coordinator's
         # query thread IS its step thread, so ?profile=true grafts its
         # own step's phases race-free
         self._step_tls = threading.local()
+        self.gap_onsets = 0
+        self.gap_stall_seconds = 0.0
+        self._straggler_flags = OrderedDict()  # (seq, node, phase) -> 1
+        self.straggler_flags_total = 0
+        # the step lifecycle: announced > entered means a peer never
+        # reached the step, entered > exited that the step itself hung
+        self.steps_announced = 0
+        self.steps_entered = 0
+        self.steps_exited = 0
+        self.last_seq = 0
+        # batched and fused Count steps
+        self.batch_steps = 0
+        self.batched_queries = 0
+        self.fused_steps = 0
+        self.fused_queries = 0
+        # steps whose ranks reported different step numbers (gloo paired
+        # two steps' collectives)
+        self.seq_mismatches = 0
         # Count pre-flight epochs: {index: membership epoch} of the last
         # successful validation round (steps carry resolved plans, so one
         # validation round per epoch suffices)
@@ -267,14 +436,14 @@ class SpmdDataPlane:
         self._boot_node_ids = tuple(sorted(n.id for n in cluster.nodes)) \
             if cluster is not None else ()
 
-    def _count(self, what):
-        """Add one to a counter of stats(): an attribute, or a decline
+    def _count(self, what, n=1):
+        """Add n to a counter of stats(): an attribute, or a decline
         reason."""
         with self._stats_lock:
             if what in self.declined:
-                self.declined[what] += 1
+                self.declined[what] += n
             else:
-                setattr(self, what, getattr(self, what) + 1)
+                setattr(self, what, getattr(self, what) + n)
 
     # -- the group ------------------------------------------------------------
 
@@ -289,9 +458,17 @@ class SpmdDataPlane:
         return dist.get_world_size() if dist.is_initialized() else 1
 
     def mesh_shape(self):
-        """(processes, devices per process) — the shape EXPLAIN reports.
-        One card per rank."""
+        """(processes, devices per process) — the shape EXPLAIN and the
+        fusion ledger report. One card per rank."""
         return [self._num_processes(), 1]
+
+    def set_serve_mode(self, mode):
+        """Run-time serve-mode switch (POST /debug/spmd). Raises on an
+        unknown mode (the caller answers 400)."""
+        if mode not in self.SERVE_MODES:
+            raise SpmdError(f"unknown spmd serve mode: {mode!r}")
+        self.serve_mode = mode
+        return self.serve_mode
 
     # -- signature helper -----------------------------------------------------
 
@@ -397,6 +574,8 @@ class SpmdDataPlane:
         initiates directly; other nodes forward eligible calls to it in
         one hop. A card failure on any rank raises (a 500), never falls
         back (trap 30)."""
+        if self.serve_mode == "http":
+            return False, None  # A/B: force the HTTP fan-out
         kind = self._call_kind(call)
         if kind is None:
             return False, None
@@ -567,32 +746,49 @@ class SpmdDataPlane:
         }
 
     def _execute_step(self, step):
-        """Announce and run one validated step (coordinator side): a
-        blocking POST /internal/spmd/step per peer, joined around the
-        local step."""
+        """Announce and run one validated step (coordinator side).
+
+        Serve off/shadow: a blocking POST /internal/spmd/step per peer,
+        joined around the local step.
+
+        Serve on (streamed): POST /internal/spmd/stream per peer, which
+        enqueues the step by sequence number and acks before running it,
+        so this call returns as soon as the LOCAL step completes (the
+        collective itself is the synchronization) and the acks are
+        collected after the step lock is released."""
         from ..utils import flightrec, tracing
 
+        streamed = self.serve_mode == "on"
+        # carry the coordinator's trace id, so every node's step record
+        # (and the merged timeline) joins back to the query
         span = tracing.current_span()
         if span is not None and "trace" not in step:
             step["trace"] = span.trace_id
+        errors = []
         with self._lock:
             # announce_recv t0 on the coordinator: the announcement
             # fan-out (peers stamp their own receipt)
             step["_recv_t"] = time.perf_counter()
             self._step_id += 1
             step["step"] = self._step_id
+            if streamed:
+                self._stream_seq_out += 1
+                step["seq"] = self._stream_seq_out
+            self.steps_announced += 1
             flightrec.record(
                 "spmd.step_announce", index=step.get("index", ""),
-                op=step.get("kind", "count"), seq=self._step_id,
-                streamed=False)
+                op=step.get("kind", "count"),
+                seq=step.get("seq", self._step_id), streamed=streamed)
             wire = {k: v for k, v in step.items() if not k.startswith("_")}
-            errors = []
 
             def post(node):
                 try:
                     client = self.client_factory(node.uri)
                     client.timeout = self.STEP_TIMEOUT
-                    client.spmd_step(wire)
+                    if streamed:
+                        client.spmd_stream(wire)
+                    else:
+                        client.spmd_step(wire)
                 except Exception as e:  # surfaced after the step
                     errors.append((node.id, e))
 
@@ -603,30 +799,48 @@ class SpmdDataPlane:
                 t.start()
             try:
                 # join the step ourselves: the peers are inside run_step
-                return self._enter_exit_run(step)
+                # (or their stream runner) now
+                result = self._enter_exit_run(step)
             finally:
-                for t in threads:
-                    t.join()
-                if errors:
-                    # every process reached the collective (or the step
-                    # raised above): these are lost responses or peers
-                    # reporting the failure the step already carried
-                    self.logger.printf(
-                        "spmd: peer errors on step %s: %s",
-                        step["step"], errors)
+                if not streamed:
+                    for t in threads:
+                        t.join()
+                    self._log_peer_errors(step, errors, streamed)
+        if streamed:
+            # the acks raced the step: collect them without the lock
+            for t in threads:
+                t.join(timeout=self.VALIDATE_TIMEOUT)
+            self._log_peer_errors(step, errors, streamed)
+        return result
+
+    def _log_peer_errors(self, step, errors, streamed):
+        if not errors:
+            return
+        # every process reached the collective (or the step raised): these
+        # are lost responses or acks, or peers reporting the failure the
+        # step already carried
+        if streamed:
+            self.stream_errors += len(errors)
+        self.logger.printf("spmd: peer errors on step %s: %s",
+                           step["step"], errors)
 
     def _enter_exit_run(self, step):
-        """_run_step_locked bracketed by the step-lifecycle events and a
-        flight-recorder watchdog (a step stuck past its deadline trips
-        it), under a _StepClock whose t0 is the announcement receipt.
-        Caller holds self._lock."""
+        """_run_step_locked bracketed by the step-lifecycle counters and
+        events and a flight-recorder watchdog (a step stuck past its
+        deadline trips a collective_stall bundle), under a _StepClock
+        whose t0 is the announcement receipt, so announce_recv covers the
+        stream-queue and step-lock wait. The finished step lands in the
+        ring. Caller holds self._lock."""
         from ..utils import flightrec
 
-        seq = int(step.get("step") or 0)
+        seq = int(step.get("seq") or step.get("step") or 0)
         kind = step.get("kind", "count")
+        started = time.time()
         clk = _StepClock(t0=step.pop("_recv_t", None))
         clk.mark("announce_recv")
         self._step_clock = clk
+        self.steps_entered += 1
+        self.last_seq = max(self.last_seq, seq)
         flightrec.record("spmd.step_enter", index=step.get("index", ""),
                          op=kind, seq=seq)
         token = flightrec.watch_begin("spmd.step", seq=seq, op=kind,
@@ -640,9 +854,10 @@ class SpmdDataPlane:
             flightrec.watch_end(token)
             self._step_clock = None
             wall = clk.close("exit")
+            self.steps_exited += 1
             flightrec.record("spmd.step_exit", index=step.get("index", ""),
                              op=kind, seq=seq, ok=ok)
-            self._note_step(step, seq, wall, clk.phases, ok)
+            self._note_step(step, seq, started, wall, clk.phases, ok)
 
     def _mark_phase(self, phase):
         """Attribute time since the last mark to `phase` on the in-flight
@@ -651,18 +866,31 @@ class SpmdDataPlane:
         if clk is not None:
             clk.mark(phase)
 
-    def _note_step(self, step, seq, wall, phase_marks, ok):
-        """Fold one finished step into the thread-local last record and
-        the `spmd_step_seconds{phase}` and `spmd_step_wall_seconds`
-        timings."""
+    def _note_step(self, step, seq, started, wall, phase_marks, ok):
+        """Fold one finished step into the observatory: the bounded ring
+        and the per-phase totals (under _obs_lock, so readers never touch
+        the step lock), the thread-local last record, and the
+        `spmd_step_seconds{phase}` and `spmd_step_wall_seconds` timings
+        with the step's trace id as exemplar."""
         phases = {}
         for name, secs in phase_marks:
             phases[name] = phases.get(name, 0.0) + secs
-        rec = {"seq": seq, "kind": step.get("kind", "count"),
-               "index": step.get("index", ""),
+        rec = {"seq": seq, "step": step.get("step", 0),
+               "kind": step.get("kind", "count"),
+               "index": step.get("index", ""), "start": started,
                "wall_seconds": round(wall, 6), "ok": ok,
                "phases": {p: round(s, 6) for p, s in phases.items()}}
         trace = step.get("trace")
+        if trace:
+            rec["trace"] = trace
+        with self._obs_lock:
+            self._step_ring.append(rec)
+            for name, secs in phases.items():
+                tot = self._phase_totals.get(name)
+                if tot is None:
+                    tot = self._phase_totals[name] = [0, 0.0]
+                tot[0] += 1
+                tot[1] += secs
         self._step_tls.rec = rec
         try:
             from ..utils.stats import global_stats
@@ -702,6 +930,172 @@ class SpmdDataPlane:
         if not self._ensure_count_epoch(step):
             return None
         return self._execute_step(step)
+
+    # -- batched and fused Count steps ----------------------------------------
+
+    def _cluster_ready(self):
+        """The maybe_execute gates shared by the batch and fused entries
+        (called on the serving node by the coalescer and the executor):
+        this node is the coordinator, every node is READY, the membership
+        is the group's."""
+        cluster = self.cluster
+        if cluster is None or len(cluster.nodes) < 2:
+            return False
+        if self._gate_decline() is not None:
+            return False
+        return cluster.coordinator.id == cluster.local_id
+
+    def _count_plans(self, idx, calls):
+        """Wire plans of a list of Count calls, or None when any call is
+        not coverable (the whole batch falls back: splitting it would
+        break the one-announcement contract)."""
+        plans = []
+        for call in calls:
+            if self._call_kind(call) != "count":
+                return None
+            sig_leaves = self._signature(idx, call.children[0])
+            if sig_leaves is None:
+                return None
+            sig, leaf_keys = sig_leaves
+            plans.append({"sig": sig_to_wire(sig),
+                          "leaves": [self._leaf_to_wire(k)
+                                     for k in leaf_keys]})
+        return plans
+
+    def _batch_step(self, idx, plans, shards):
+        """A count_batch step of `plans`, padded to the batch bucket by
+        repeating plan 0 (its leaves are the same blocks, so a repeat
+        costs the kernel one more member and no gather), or None when
+        the pre-flight declines."""
+        from ..exec.stacked import batch_bucket
+
+        step = self._gate(idx, shards)
+        step["kind"] = "count_batch"
+        bucket = batch_bucket(len(plans))
+        step["plans"] = plans + [plans[0]] * (bucket - len(plans))
+        step["bucket"] = bucket
+        if not self._ensure_count_epoch(step):
+            return None
+        return step
+
+    def _step_or_fallback(self, idx, step, kind, k, shards):
+        """Run a count_batch step under its spmd.step span: the counts,
+        or None after a non-card failure (the epoch invalidated, the
+        caller serves per query). A card failure raises (trap 30)."""
+        from ..ops.cuda_build import is_device_failure
+        from ..utils import tracing
+
+        try:
+            with tracing.start_span("spmd.step", kind=kind,
+                                    shards=len(shards), batch=k) as span:
+                counts = self._execute_step(step)
+                self._graft_span(span)
+        except Exception as e:
+            if is_device_failure(e):
+                self._count("device_failures")
+                raise
+            self._count("fallbacks")
+            self._count_epochs.pop(idx.name, None)
+            self.logger.printf(
+                "spmd: %s step failed (%s); epoch invalidated, falling "
+                "back to the per-query path", kind, e)
+            return None
+        return counts
+
+    def maybe_execute_batch(self, idx, calls, shards):
+        """K eligible Count calls as ONE collective step: (used, counts).
+        The coalescer's cluster adapter (SpmdBatchRunner) lands here;
+        serve mode must be on (batching changes the control plane's
+        shape, so it never runs on the serve-off path)."""
+        if self.serve_mode != "on" or not calls:
+            return False, None
+        if not self._cluster_ready():
+            return False, None
+        plans = self._count_plans(idx, calls)
+        if plans is None:
+            return False, None
+        step = self._batch_step(idx, plans, shards)
+        if step is None:
+            return False, None
+        counts = self._step_or_fallback(idx, step, "count_batch",
+                                        len(plans), shards)
+        if counts is None:
+            return False, None
+        self._count("batched_queries", len(plans))
+        return True, counts[:len(plans)]
+
+    def maybe_execute_fused(self, idx, query, shards):
+        """A whole multi-call Count query as ONE collective step: (used,
+        counts). Gated by fusion's admission (a cold fingerprint never
+        builds a program table) and ledgered under the mesh-shaped
+        program key, so /debug/fusion shows the collective programs. Warm
+        path: one announcement, one K1 launch a rank, zero result bytes
+        over HTTP."""
+        from ..exec import fusion as fusion_mod
+
+        if self.serve_mode != "on" or not fusion_mod.acting():
+            return False, None
+        calls = list(query.calls)
+        if not calls or any(self._call_kind(c) != "count" for c in calls):
+            return False, None
+        if not self._cluster_ready():
+            return False, None
+        from ..utils import workload as workload_mod
+
+        fp = workload_mod.current_fingerprint()
+        if fp is None:
+            fp, _ = workload_mod.fingerprint(idx.name, query)
+        if not fusion_mod.admit(fp):
+            return False, None
+        plans = self._count_plans(idx, calls)
+        if plans is None:
+            return False, None
+        step = self._batch_step(idx, plans, shards)
+        if step is None:
+            return False, None
+        fn_key = self._program_key(step)
+        compiled = fn_key not in self._fn_specs
+        t0 = time.perf_counter()
+        counts = self._step_or_fallback(idx, step, "fused", len(plans),
+                                        shards)
+        if counts is None:
+            return False, None
+        wall = time.perf_counter() - t0
+        # ledger AFTER _execute_step released self._lock: fusion's
+        # eviction takes it to drop a program table
+        key = fusion_mod.mesh_program_key(
+            fp, fn_key[1], step["bucket"], self.mesh_shape())
+        fusion_mod.touch_mesh_program(
+            key, self, fn_key, compile_ms=wall * 1000 if compiled else None)
+        fusion_mod.note_fused(len(plans))
+        workload_mod.note_batch(len(plans))
+        self._count("fused_steps")
+        self._count("fused_queries")
+        return True, counts[:len(plans)]
+
+    @staticmethod
+    def _program_key(step):
+        """("count_batch", sigs, arities) of a count_batch step: its
+        program table's key in _fn_specs."""
+        plans = step["plans"]
+        return ("count_batch",
+                tuple(sig_from_wire(p["sig"]) for p in plans),
+                tuple(len(p["leaves"]) for p in plans))
+
+    def _program(self, fn_key):
+        """The multi-tree entry's program table for `fn_key` (built on
+        the first launch of the key, LRU past MAX_FNS). Caller holds
+        self._lock."""
+        from ..ops.count_expr import MultiProgram
+
+        program = self._fn_specs.get(fn_key)
+        if program is None:
+            program = self._fn_specs[fn_key] = MultiProgram()
+            while len(self._fn_specs) > self.MAX_FNS:
+                self._fn_specs.popitem(last=False)
+        else:
+            self._fn_specs.move_to_end(fn_key)
+        return program
 
     # -- EXPLAIN (plan + analyze) ---------------------------------------------
 
@@ -1113,15 +1507,118 @@ class SpmdDataPlane:
     # -- step execution (every process) ---------------------------------------
 
     def run_step(self, step):
-        """HTTP-handler entry for peers (POST /internal/spmd/step)."""
-        # announce_recv then measures this node's step-lock wait
+        """HTTP-handler entry for peers (POST /internal/spmd/step, serve
+        off/shadow)."""
+        # announce_recv then measures this node's step-lock wait (any
+        # stamp that came over the wire is another process's clock)
         step["_recv_t"] = time.perf_counter()
         with self._lock:
             return self._enter_exit_run(step)
 
+    def run_stream(self, step):
+        """HTTP-handler entry for STREAMED announcements (serve on):
+        enqueue by sequence number and ack at once; the stream runner
+        thread runs the steps in seq order."""
+        seq = int(step["seq"])
+        # announce_recv t0 at ENQUEUE: it then measures the stream-queue
+        # wait and the step-lock wait
+        step["_recv_t"] = time.perf_counter()
+        with self._stream_cond:
+            self._stream_queue[seq] = step
+            if self._stream_next is None:
+                self._stream_next = seq
+            if self._stream_thread is None \
+                    or not self._stream_thread.is_alive():
+                self._stream_thread = threading.Thread(
+                    target=self._stream_loop, name="spmd-stream",
+                    daemon=True)
+                self._stream_thread.start()
+            self._stream_cond.notify_all()
+            return {"ok": True, "seq": seq,
+                    "queued": len(self._stream_queue)}
+
     def close(self):
-        """Server shutdown: leave the process group."""
+        """Server shutdown: stop the stream runner, leave the process
+        group."""
+        with self._stream_cond:
+            self._stream_closed = True
+            self._stream_cond.notify_all()
         type(self).shutdown()
+
+    def _stream_loop(self):
+        """Peer-side stream runner: runs queued steps strictly in
+        sequence order. A gap (an announcement lost while later steps
+        keep arriving) is announced at its ONSET (the spmd.stream_gap
+        event and a collective_stall incident), times out after
+        STREAM_GAP_TIMEOUT and resyncs to the lowest queued seq: the
+        coordinator's collective for the lost step has failed at the
+        group's timeout and fallen back, so skipping it keeps the same
+        step order on every process for the steps that did run."""
+        from ..utils import flightrec, incident
+
+        while True:
+            with self._stream_cond:
+                deadline = None
+                gap_started = None
+                while not self._stream_closed:
+                    nxt = self._stream_next
+                    if nxt is not None and nxt in self._stream_queue:
+                        break
+                    if self._stream_queue:
+                        now = time.monotonic()
+                        if deadline is None:
+                            # gap ONSET: later steps queued, the expected
+                            # one missing
+                            deadline = now + self.STREAM_GAP_TIMEOUT
+                            gap_started = now
+                            self.gap_onsets += 1
+                            flightrec.record(
+                                "spmd.stream_gap", expected=nxt,
+                                queued=len(self._stream_queue),
+                                timeout_seconds=self.STREAM_GAP_TIMEOUT)
+                            incident.maybe_trigger(
+                                "collective_stall", cause="stream_gap",
+                                expected_seq=nxt if nxt is not None
+                                else -1,
+                                queued=len(self._stream_queue))
+                        if now >= deadline:
+                            resync = min(self._stream_queue)
+                            self.stream_resyncs += 1
+                            self.gap_stall_seconds += now - gap_started
+                            gap_started = None
+                            flightrec.record(
+                                "spmd.stream_resync",
+                                expected=nxt, resync=resync)
+                            self.logger.printf(
+                                "spmd: stream gap at seq %s; resyncing "
+                                "to %s", nxt, resync)
+                            self._stream_next = resync
+                            break
+                        self._stream_cond.wait(deadline - now)
+                    else:
+                        deadline = None
+                        gap_started = None
+                        self._stream_cond.wait(1.0)
+                if gap_started is not None:
+                    # the gap closed by arrival (or shutdown): account
+                    # the time the stream stood blocked on it
+                    self.gap_stall_seconds += time.monotonic() \
+                        - gap_started
+                if self._stream_closed:
+                    return
+                step = self._stream_queue.pop(self._stream_next)
+                self._stream_next += 1
+            try:
+                with self._lock:
+                    # the result is the coordinator's to read
+                    self._enter_exit_run(step)
+            except Exception as e:  # noqa: BLE001 — keep the runner alive
+                # the coordinator saw the same failure in the step's
+                # collective; the next step must still run
+                self.stream_errors += 1
+                self.logger.printf(
+                    "spmd: streamed step %s failed on this node: %s",
+                    step.get("seq"), e)
 
     def _run_step_locked(self, step):
         # Every failure past this point still enters the collective
@@ -1133,9 +1630,9 @@ class SpmdDataPlane:
                "sum": self._run_sum_step,
                "minmax": self._run_minmax_step,
                "topn": self._run_topn_step,
-               "groupby": self._run_groupby_step}.get(kind)
+               "groupby": self._run_groupby_step,
+               "count_batch": self._run_count_batch_step}.get(kind)
         if run is None:
-            # (count_batch arrives with mesh-resident serving)
             raise SpmdError(f"unknown spmd step kind: {kind}")
         return run(idx, step)
 
@@ -1247,12 +1744,41 @@ class SpmdDataPlane:
     def _leaf_blocks(self, idx, step):
         """This rank's [seg_len, W] device blocks of a step's plan leaves
         (tagged wire entries: ["row", f, r] | ["bsicond", f, op, vals] |
-        ["timerow", f, r, views]), in leaf order. Marks stack_gather and
-        upload."""
+        ["timerow", f, r, views]), in leaf order, mesh-cache aware:
+
+        - serve on: each leaf probes the mesh cache first; a hit is the
+          resident device block, with no gather and no upload (a rank's
+          block feeds only its own launch, so per-rank divergence is
+          safe). A miss gathers, uploads and fills the cache.
+        - serve shadow: the gather serves; each fresh block feeds the
+          cache's divergence detector.
+        - serve off/http: the gather serves, the cache untouched.
+
+        A condition leaf is built on the card; filling (or probing) the
+        cache with it fetches the block once to digest it. Marks
+        stack_gather and upload."""
+        from .meshstacks import entry_key
+
         entries = step.get("leaves", [])
+        seg_len, mine = self._my_shards(step)
+        mode = self.serve_mode
         blocks = [None] * len(entries)
         host = {}
+        fill = {}  # leaf position -> (cache key, gens) to put or probe
         for i, entry in enumerate(entries):
+            if mode in ("on", "shadow"):
+                # gens BEFORE the gather: a write racing it leaves the
+                # entry stale, never stale data under fresh gens
+                gens = self.mesh_cache.gens(idx, entry, mine)
+                if gens is not None:
+                    key = (step["index"], entry_key(entry), seg_len,
+                           tuple(mine))
+                    if mode == "on":
+                        hit = self.mesh_cache.get(key, gens)
+                        if hit is not None:
+                            blocks[i] = hit
+                            continue
+                    fill[i] = (key, gens)
             if entry[0] == "bsicond":
                 blocks[i] = self._cond_block(idx, step, entry)
             elif entry[0] == "timerow":
@@ -1264,8 +1790,7 @@ class SpmdDataPlane:
                                            [int(row_id)], view_name)[0]
                     acc = part if acc is None else acc | part
                 if acc is None:
-                    acc = np.zeros((int(step["seg_len"]), WORDS_PER_ROW),
-                                   dtype=np.uint32)
+                    acc = np.zeros((seg_len, WORDS_PER_ROW), dtype=np.uint32)
                 host[i] = acc
             else:
                 _, field_name, row_id = entry
@@ -1275,6 +1800,14 @@ class SpmdDataPlane:
         for i, words in host.items():
             blocks[i] = self._upload(words)
         self._sync()
+        for i, (key, gens) in fill.items():
+            local = host.get(i)
+            if local is None:
+                local = blocks[i].cpu().numpy()
+            if mode == "on":
+                self.mesh_cache.put(key, gens, blocks[i], local)
+            else:
+                self.mesh_cache.shadow_probe(key, gens, local)
         self._mark_phase("upload")
         return blocks
 
@@ -1362,43 +1895,70 @@ class SpmdDataPlane:
         raise SpmdError(f"spmd {kind} step {step.get('step')} failed on "
                         f"node {', '.join(failed)}")
 
+    def _check_seqs(self, step, nodes, seqs):
+        """Raise on every rank when the ranks ran different steps: gloo
+        matches collectives by call order, not by step, so a rank that
+        resynced past a lost announcement could pair its step N + 1 with
+        another rank's step N. The sums are then never returned; the
+        failure is not the card's, so the coordinator falls back to
+        HTTP."""
+        mine = int(step.get("step") or 0)
+        if all(int(q) == mine for q in seqs):
+            return
+        self._count("seq_mismatches")
+        raise SpmdError(
+            f"spmd {step.get('kind', 'count')} step {mine}: the ranks ran "
+            f"different steps ({dict(zip(nodes, (int(q) for q in seqs)))}"
+            "); the collective paired two steps, its sums are dropped")
+
     def _collective(self, step, n, local):
         """Run this rank's part `local()` (a host int64 tensor [n]) and
-        the engine's ONE all_reduce of it with one failure slot per node
-        as its extra tail: a rank whose part raised contributes zeros and
-        its failure code, so every rank enters the collective and learns
-        the outcome from it. Returns the reduced [n] as Python ints, or
-        raises the failure."""
+        the engine's ONE all_reduce of it with two slots per node as its
+        extra tail: the failure slots (a rank whose part raised
+        contributes zeros and its failure code, so every rank enters the
+        collective and learns the outcome from it) and the step slots
+        (each rank's step number, checked equal on every rank). Returns
+        the reduced [n] as Python ints, or raises the failure."""
         import torch
 
         nodes, me = self._node_slot(step)
         vals, code = self._local_or_failure(step, local)
         if vals is None:
             vals = torch.zeros(n, dtype=torch.int64)
-        slots = torch.zeros(len(nodes), dtype=torch.int64)
+        slots = torch.zeros(2 * len(nodes), dtype=torch.int64)
         slots[me] = code
-        sums, codes = self._engine()._all_reduce(vals, extra=slots)
+        slots[len(nodes) + me] = int(step.get("step") or 0)
+        engine = self._engine()
+        sums, tail = engine._all_reduce(vals, extra=slots)
         self._mark_phase("psum")
         self.steps_run += 1
-        self._raise_failures(step, nodes, codes.tolist())
+        tail = tail.tolist()
+        # a group of one (no process group) reduces nothing: only this
+        # rank's own slots carry anything
+        self._check_seqs(step, nodes, tail[len(nodes):]
+                         if engine.n_devices > 1 else [tail[len(nodes) + me]])
+        self._raise_failures(step, nodes, tail[:len(nodes)])
         return sums.tolist()
 
     def _gather_collective(self, step, n, local):
         """Like _collective, but ONE all_gather: every rank's [n] partial
-        beside its failure code, in node order."""
+        beside its failure code, its node slot and its step number, in
+        node order."""
         import torch
 
         nodes, me = self._node_slot(step)
         vals, code = self._local_or_failure(step, local)
-        row = torch.zeros(n + 2, dtype=torch.int64)
+        row = torch.zeros(n + 3, dtype=torch.int64)
         if vals is not None:
             row[:n] = vals.reshape(-1)
         row[n] = code
         row[n + 1] = me
+        row[n + 2] = int(step.get("step") or 0)
         rows = [torch.zeros_like(row) for _ in range(self._num_processes())]
         self._dist().all_gather(rows, row)
         self._mark_phase("psum")
         self.steps_run += 1
+        self._check_seqs(step, nodes, [int(r[n + 2]) for r in rows])
         by_node = {int(r[n + 1]): r.tolist() for r in rows}
         codes = [by_node.get(i, [0] * (n + 1))[n] for i in range(len(nodes))]
         self._raise_failures(step, nodes, codes)
@@ -1418,6 +1978,44 @@ class SpmdDataPlane:
             return self._fetch(total)
 
         return self._collective(step, 1, local)[0]
+
+    def _run_count_batch_step(self, idx, step):
+        """K Count plans in ONE step: every distinct leaf of the plans
+        gathered (or served from the mesh cache) once, ONE K1 launch over
+        all K trees (the engine's count_batch_partial: the batched entry
+        for one signature, the multi-tree entry for mixed ones), ONE
+        all_reduce of the [K] counts — the counterpart of the TPU
+        package's _count_batch_fn and its one [2, K] reduce."""
+        from .meshstacks import entry_key
+
+        plans = step["plans"]
+        k = len(plans)
+        fn_key = self._program_key(step)
+
+        def local():
+            sigs = list(fn_key[1])
+            order, slot = [], {}
+            for plan in plans:
+                for entry in plan["leaves"]:
+                    ek = entry_key(entry)
+                    if ek not in slot:
+                        slot[ek] = len(order)
+                        order.append(entry)
+            blocks = self._leaf_blocks(idx, dict(step, leaves=order))
+            members = [[blocks[slot[entry_key(e)]] for e in plan["leaves"]]
+                       for plan in plans]
+            program = self._program(fn_key)
+            n_in = sum(b.numel() for b in blocks) * 4
+            with self._dispatch("count_batch", n_in, 8 * k) as ph:
+                self._fault_point()
+                counts = self._engine().count_batch_partial(
+                    sigs, members, program=program)
+                ph.mark("dispatch_ack")
+            return self._fetch(counts)
+
+        out = self._collective(step, k, local)
+        self.batch_steps += 1
+        return out
 
     def _bsi_blocks(self, idx, step):
         """(planes [D, seg_len, W], sign, exists, filter or None) device
@@ -1597,11 +2195,10 @@ class SpmdDataPlane:
         return out
 
     def stats(self):
-        """GET /internal/spmd/stats: the TPU package's keys (the batched
-        and fused counts stay 0 until mesh-resident serving), the port's
-        declines by reason and card failures, this process's kernel launch
-        counters (`launches`) and the launches its steps made
-        (`step_launches`)."""
+        """GET /internal/spmd/stats: the TPU package's keys, the port's
+        declines by reason, card failures and step-number mismatches,
+        this process's kernel launch counters (`launches`) and the
+        launches its steps made (`step_launches`)."""
         return {"steps": self.steps_run,
                 "initialized": type(self)._initialized,
                 "serve_mode": self.serve_mode,
@@ -1610,11 +2207,387 @@ class SpmdDataPlane:
                 "forwarded": self.forwarded,
                 "forward_errors": self.forward_errors,
                 "fallbacks": self.fallbacks,
-                "batch_steps": 0,
-                "batched_queries": 0,
-                "fused_steps": 0,
-                "fused_queries": 0,
+                "batch_steps": self.batch_steps,
+                "batched_queries": self.batched_queries,
+                "fused_steps": self.fused_steps,
+                "fused_queries": self.fused_queries,
                 "declined": dict(self.declined),
                 "device_failures": self.device_failures,
+                "seq_mismatches": self.seq_mismatches,
                 "launches": _launches(),
                 "step_launches": dict(self.step_launches)}
+
+    def _counters(self):
+        """The step-lifecycle and query counters of /debug/spmd and the
+        /status roll-up."""
+        return {
+            "steps": {
+                "run": self.steps_run,
+                "announced": self.steps_announced,
+                "entered": self.steps_entered,
+                "exited": self.steps_exited,
+                "last_seq": self.last_seq,
+                "batch": self.batch_steps,
+                "fused": self.fused_steps,
+            },
+            "queries": {
+                "batched": self.batched_queries,
+                "fused": self.fused_queries,
+                "forwarded": self.forwarded,
+                "fallbacks": self.fallbacks,
+            },
+        }
+
+    def debug_snapshot(self):
+        """GET /debug/spmd: serve mode and mesh shape, the step-lifecycle
+        counters (announced vs entered vs exited per node), stream state,
+        the observatory's counters, mesh-cache stats, and the HTTP
+        data-plane byte counter (flat while collectives serve)."""
+        from ..server import client as client_mod
+
+        with self._stream_cond:
+            stream = {
+                "next": self._stream_next,
+                "queued": len(self._stream_queue),
+                "errors": self.stream_errors,
+                "resyncs": self.stream_resyncs,
+            }
+        try:
+            mesh = self.mesh_shape()
+        except Exception:  # noqa: BLE001 — no group yet
+            mesh = None
+        return {
+            "serve_mode": self.serve_mode,
+            "initialized": type(self)._initialized,
+            "mesh": mesh,
+            **self._counters(),
+            "stream": stream,
+            "stream_gap_timeout": self.STREAM_GAP_TIMEOUT,
+            "observatory": self.observatory_stats(),
+            "mesh_cache": self.mesh_cache.stats(),
+            "http_data_plane_bytes": client_mod.data_plane_bytes(),
+        }
+
+    # -- the observatory (read side) ------------------------------------------
+
+    def observatory_stats(self):
+        """Compact observatory counters (no ring contents): per-phase
+        totals, stream occupancy, gap and straggler tallies."""
+        with self._obs_lock:
+            totals = {p: {"count": c, "seconds": round(sec, 6)}
+                      for p, (c, sec) in self._phase_totals.items()}
+            ring = len(self._step_ring)
+        return {
+            "steps_recorded": ring,
+            "ring_size": self.STEP_RING_SIZE,
+            "phase_totals": totals,
+            "occupancy": self.occupancy(),
+            "straggler_flags": self.straggler_flags_total,
+        }
+
+    def occupancy(self):
+        """Step-stream occupancy: queue depth, how far this node's
+        execution lags the highest announced seq it has seen, and the
+        time the runner stood blocked on sequence gaps."""
+        with self._stream_cond:
+            queued = len(self._stream_queue)
+            head = max(self._stream_queue) if self._stream_queue else None
+            nxt = self._stream_next
+        return {
+            "queue_depth": queued,
+            "seq_lag": max(0, (head or self.last_seq) - self.last_seq),
+            "stream_next": nxt,
+            "last_seq": self.last_seq,
+            "gap_onsets": self.gap_onsets,
+            "gap_stall_seconds": round(self.gap_stall_seconds, 6),
+        }
+
+    def register_gauges(self):
+        """Scrape-time stream-occupancy gauges on the process-global stats
+        client (called once by the server command, not by __init__, so
+        short-lived planes in tests leave no gauge closures behind)."""
+        from ..utils.stats import global_stats
+
+        if not hasattr(global_stats, "gauge_fn"):
+            return
+        global_stats.gauge_fn(
+            "spmd_stream_queue_depth",
+            lambda: len(self._stream_queue))
+        global_stats.gauge_fn(
+            "spmd_stream_seq_lag",
+            lambda: max(0, (max(self._stream_queue)
+                            if self._stream_queue else self.last_seq)
+                        - self.last_seq))
+        global_stats.gauge_fn(
+            "spmd_stream_gap_stall_seconds",
+            lambda: self.gap_stall_seconds)
+
+    def _local_node_id(self):
+        if self.cluster is not None:
+            return self.cluster.local_id
+        return "local"
+
+    def steps_local(self, seq=None, limit=None):
+        """This node's slice of the step timeline (what the coordinator
+        fans out for with ?local=true): recent step records with
+        per-phase walls, stamped with this node's wall clock so the
+        caller can skew-correct from the RPC envelope."""
+        with self._obs_lock:
+            steps = list(self._step_ring)
+        if seq is not None:
+            steps = [r for r in steps if r["seq"] == seq]
+        elif limit is not None and limit > 0:
+            steps = steps[-int(limit):]
+        return {
+            "node": self._local_node_id(),
+            "time": time.time(),
+            "steps": steps,
+            "occupancy": self.occupancy(),
+        }
+
+    def steps_timeline(self, seq=None, limit=32, local_only=False):
+        """GET /debug/spmd/steps[/{seq}]: the cross-node step timeline.
+
+        Fans out to the peers for their local slices (?local=true),
+        estimates each peer's clock offset from the RPC envelope
+        (envelope_skew), shifts every peer's step starts onto this node's
+        clock, and merges per seq into one timeline with per-phase
+        straggler attribution. Straggler flags are edge-triggered: each
+        (seq, node, phase) counts toward
+        spmd_step_straggler_total{node,phase} and fires the
+        spmd.straggler event exactly once, however often the timeline is
+        scraped."""
+        local_id = self._local_node_id()
+        payloads = {local_id: (self.steps_local(seq=seq, limit=limit),
+                               0.0)}
+        if not local_only and self.cluster is not None \
+                and len(self.cluster.nodes) > 1:
+            from ..utils import tracing
+
+            with tracing.with_span(None):  # debug plumbing: never traced
+                for node in self.cluster.peers():
+                    try:
+                        client = self.client_factory(node.uri)
+                        t_send = time.time()
+                        remote = client.debug_spmd_steps(seq=seq,
+                                                         limit=limit)
+                        t_recv = time.time()
+                    except Exception:  # noqa: BLE001 — best effort
+                        continue
+                    if not remote or remote.get("steps") is None:
+                        continue
+                    theta = envelope_skew(
+                        t_send, t_recv,
+                        float(remote.get("time") or t_recv))
+                    payloads[remote.get("node", node.id)] = (remote,
+                                                             theta)
+        merged = {}
+        for node, (payload, theta) in payloads.items():
+            for rec in payload.get("steps", []):
+                st = merged.setdefault(rec["seq"], {
+                    "seq": rec["seq"],
+                    "kind": rec.get("kind", "count"),
+                    "index": rec.get("index", ""),
+                    "peers": {},
+                })
+                if rec.get("trace") and not st.get("trace"):
+                    st["trace"] = rec["trace"]
+                st["peers"][node] = {
+                    # the peer's wall-clock start shifted onto OUR clock
+                    "start": round(rec["start"] - theta, 6),
+                    "wall_seconds": rec["wall_seconds"],
+                    "phases": rec.get("phases", {}),
+                    "ok": rec.get("ok", True),
+                }
+        steps = [merged[k] for k in sorted(merged)]
+        for st in steps:
+            st["stragglers"] = attribute_stragglers(
+                {n: p["phases"] for n, p in st["peers"].items()},
+                self.STRAGGLER_FACTOR, self.STRAGGLER_NOISE_FLOOR)
+            self._flag_stragglers(st["seq"], st["stragglers"])
+        return {
+            "node": local_id,
+            "skew_seconds": {n: round(th, 6)
+                             for n, (_, th) in payloads.items()},
+            "straggler_factor": self.STRAGGLER_FACTOR,
+            "noise_floor_seconds": self.STRAGGLER_NOISE_FLOOR,
+            "steps": steps,
+        }
+
+    def _flag_stragglers(self, seq, flags):
+        """Edge-triggered straggler accounting (see steps_timeline)."""
+        if not flags:
+            return
+        from ..utils import flightrec
+        from ..utils.stats import global_stats
+
+        for flag in flags:
+            key = (seq, flag["node"], flag["phase"])
+            with self._obs_lock:
+                if key in self._straggler_flags:
+                    continue
+                self._straggler_flags[key] = 1
+                while len(self._straggler_flags) \
+                        > self.STRAGGLER_FLAGS_MAX:
+                    self._straggler_flags.popitem(last=False)
+                self.straggler_flags_total += 1
+            try:
+                global_stats.count(
+                    "spmd_step_straggler_total",
+                    tags={"node": str(flag["node"]),
+                          "phase": flag["phase"]})
+            except Exception:  # noqa: BLE001
+                pass
+            flightrec.record(
+                "spmd.straggler", seq=seq, node=str(flag["node"]),
+                phase=flag["phase"], ratio=flag.get("ratio") or 0,
+                seconds=flag["seconds"])
+
+    def summary(self):
+        """Compact roll-up for /status?observability=true: serve mode,
+        step-lifecycle counters, stream health, mesh-cache stats."""
+        occ = self.occupancy()
+        counters = self._counters()
+        counters["steps"].pop("run")
+        return {
+            "serve_mode": self.serve_mode,
+            **counters,
+            "stream": {
+                "errors": self.stream_errors,
+                "resyncs": self.stream_resyncs,
+                "queue_depth": occ["queue_depth"],
+                "seq_lag": occ["seq_lag"],
+                "gap_onsets": occ["gap_onsets"],
+                "gap_stall_seconds": occ["gap_stall_seconds"],
+            },
+            "straggler_flags": self.straggler_flags_total,
+            "mesh_cache": self.mesh_cache.stats(),
+        }
+
+    def incident_snapshot(self):
+        """Postmortem-bundle payload (utils/incident.py `spmd`
+        collector): the debug snapshot, this node's step ring and, best
+        effort, the merged cross-node timeline — captured while a
+        collective_stall is still open, so the bundle shows WHERE every
+        peer was when the stream wedged."""
+        snap = self.debug_snapshot()
+        snap["steps_local"] = self.steps_local(limit=64)
+        try:
+            snap["timeline"] = self.steps_timeline(limit=16)
+        except Exception as e:  # noqa: BLE001 — never fail the bundle
+            snap["timeline_error"] = str(e)
+        return snap
+
+
+class SpmdBatchRunner:
+    """The coalescer's adapter on a mesh-serving cluster coordinator: it
+    presents Executor.launch_batch/resolve_batch's (handle, state) ->
+    [(results, error, batch_size)] contract, but resolves
+    eligible Count batches as ONE collective step
+    (SpmdDataPlane.maybe_execute_batch) instead of local batched
+    launches: one announcement, one K1 launch a rank, one all_reduce for
+    K queries. Launch is deliberately cheap: the collective IS the
+    batched launch, so the coalescer's double buffering degenerates to
+    serial resolution without waste. A batch the plane declines, or a
+    non-card failure, re-runs per member on the ordinary cluster path
+    (per-query error isolation); a card failure fails every member of
+    the batch with the same error (a 500 naming the node), never re-run
+    over HTTP (trap 30)."""
+
+    #: what server.api._try_coalesce admits on a cluster coordinator:
+    #: only Count merges collectively
+    BATCHABLE_CALLS = frozenset(("Count",))
+
+    def __init__(self, api):
+        self.api = api
+        self.spmd = api.spmd
+
+    def launch_batch(self, index_name, queries, shards=None,
+                     options=None):
+        return None, (index_name, list(queries))
+
+    def resolve_batch(self, handle, state):
+        import copy
+
+        from ..exec.executor import validate_uint_args
+        from ..exec.stacked import BATCH_BUCKETS
+        from ..exec.translate import translate_calls, translate_results
+        from ..utils import workload as workload_mod
+
+        index_name, queries = state
+        executor = self.api.executor
+        idx = executor.holder.index(index_name)
+        entries = []
+        for query in queries:
+            # e["raw"] is the untranslated form every fallback re-runs:
+            # translation mutates the call tree in place
+            e = {"query": query, "raw": query, "error": None,
+                 "eligible": False, "out": None}
+            entries.append(e)
+            if idx is None:
+                e["error"] = SpmdError(f"index not found: {index_name}")
+                continue
+            try:
+                if isinstance(query, str):
+                    query = e["query"] = parse(query)
+                calls = query.calls
+                if len(calls) == 1 and calls[0].name == "Count" \
+                        and len(calls[0].children) == 1 \
+                        and not calls[0].writes():
+                    if not isinstance(e["raw"], str):
+                        e["raw"] = copy.deepcopy(query)
+                    translate_calls(idx, query.calls)
+                    validate_uint_args(calls[0])
+                    e["eligible"] = True
+            except Exception as exc:  # noqa: BLE001 — per-query isolation
+                e["error"] = exc
+        eligible = [e for e in entries
+                    if e["eligible"] and e["error"] is None]
+        if eligible:
+            cluster_shards = executor.cluster_shards(idx)
+            cap = BATCH_BUCKETS[-1]
+            for i in range(0, len(eligible), cap):
+                chunk = eligible[i:i + cap]
+                calls = [e["query"].calls[0] for e in chunk]
+                t0 = time.perf_counter()
+                try:
+                    used, counts = self.spmd.maybe_execute_batch(
+                        idx, calls, cluster_shards)
+                except Exception as exc:  # noqa: BLE001 — a card failure
+                    for e in chunk:
+                        e["out"] = (None, exc, 0)
+                    continue
+                if not used:
+                    continue  # the whole chunk re-runs per query below
+                wall = time.perf_counter() - t0
+                k = len(chunk)
+                for j, (e, count) in enumerate(zip(chunk, counts)):
+                    try:
+                        wctx = workload_mod.begin_query(
+                            idx.name, e["query"])
+                        wctx.strategies.append("Count=spmd-collective")
+                        workload_mod.note_batch(k)
+                        # the step's one launch is charged to exactly ONE
+                        # member
+                        workload_mod.end_query(wctx, wall / k, deltas={
+                            "dispatches": 1 if j == 0 else 0,
+                            "cache_hits": 0, "cache_misses": 0,
+                            "bytes_materialized": 0})
+                        results = translate_results(
+                            idx, e["query"].calls, [int(count)])
+                        e["out"] = (results, None, k)
+                    except Exception as exc:  # noqa: BLE001
+                        e["out"] = (None, exc, 0)
+        outs = []
+        for e in entries:
+            if e["out"] is not None:
+                outs.append(e["out"])
+            elif e["error"] is not None:
+                outs.append((None, e["error"], 0))
+            else:
+                try:
+                    outs.append((executor.execute(index_name, e["raw"]),
+                                 None, 0))
+                except Exception as exc:  # noqa: BLE001
+                    outs.append((None, exc, 0))
+        return outs

@@ -135,10 +135,16 @@ class Holder:
     # -- TopN caches ---------------------------------------------------------
 
     def _all_fragments(self):
+        """Every open fragment. Each view's map is snapshotted under the
+        view's lock before its fragments are handed out: an import may
+        create fragments while a sweep (sync_fragments under the oplog's
+        rotation checkpoint, a cache flush) walks them."""
         for idx in list(self.indexes.values()):
             for field in list(idx.fields.values()):
                 for view in list(field.views.values()):
-                    yield from view.fragments.values()
+                    with view._lock:
+                        frags = list(view.fragments.values())
+                    yield from frags
 
     def flush_caches(self):
         """Persist every fragment's TopN cache (reference: holder cache

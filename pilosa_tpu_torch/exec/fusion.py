@@ -40,8 +40,10 @@ exec/adaptive.py. A failure of the card itself (a kernel wrapper's
 failed launch, a CUDA error) propagates out of the query; anything else
 the fused path trips over (an ineligible shape, a vanished field, a
 validation error) falls back to the interpreted loop, which reports it
-as usual. The TPU package's mesh (collective) programs wait for the
-port's cluster layer (cluster/spmd.py).
+as usual. A cluster coordinator's fused COLLECTIVE step
+(cluster/spmd.py `maybe_execute_fused`) is ledgered here too, under the
+mesh-shaped key `mesh_program_key` gives; its program table lives in the
+data plane's `_fn_specs`, so the same LRU drops it.
 """
 
 import threading
@@ -208,6 +210,8 @@ def _touch_program(key, ev, fn_key, compile_ms=None):
                 "compile_ms": 0.0, "hits": 0, "created": now,
                 "last_hit": now, "evaluator": ev, "fn_key": fn_key,
             }
+            if len(key) > 3:
+                entry["mesh"] = list(key[3])
             _by_fp.setdefault(key[0], set()).add(key)
             _evict_over_budget()
         else:
@@ -225,14 +229,45 @@ def _touch_program(key, ev, fn_key, compile_ms=None):
 def admit(fp):
     """Shared compile-admission verdict for a fingerprint: a live
     program, or enough completed queries to cross the min-hits floor.
-    (The TPU package's mesh programs, `mesh_program_key` and
-    `touch_mesh_program`, apply it too; they wait for the port's
-    cluster/spmd.py.)"""
+    The collective fused path (cluster/spmd.maybe_execute_fused) applies
+    the same cold-shape-never-builds rule as the local fused path."""
     from ..utils import workload as workload_mod
 
     if has_program(fp):
         return True
     return workload_mod.fingerprint_hits(fp) >= _min_hits
+
+
+# ------------------------------------------------- mesh (collective) programs
+
+
+def mesh_program_key(fp, sigs, bucket, mesh):
+    """Ledger key for a fused COLLECTIVE program: the local key's
+    (fingerprint, signatures, bucket) extended by the mesh shape
+    ([ranks, devices per rank]) — the same fingerprint stepped over a
+    different group is a different program."""
+    return (fp, tuple(sigs), int(bucket), tuple(int(m) for m in mesh))
+
+
+def touch_mesh_program(key, ev, fn_key, compile_ms=None):
+    """Record one fused collective execution. `ev` follows the
+    evaluator contract (`_lock` + `_fn_specs`): SpmdDataPlane qualifies,
+    so eviction drops its program table exactly like a local program's.
+    MUST be called after the data plane's step lock is released:
+    eviction takes ev._lock (see _evict_over_budget).
+
+    Returns True on a program-cache hit."""
+    hit = _touch_program(key, ev, fn_key, compile_ms=compile_ms)
+    if compile_ms is not None:
+        _flightrec.record("fusion.compile", fingerprint=key[0],
+                          calls=len(key[1]), bucket=key[2],
+                          mesh=list(key[3]),
+                          compile_ms=round(compile_ms, 3))
+    _bump("fused")
+    global_stats.count("fused_dispatches_total", 1)
+    if hit:
+        global_stats.count("fusion_cache_hits_total", 1)
+    return hit
 
 
 # ------------------------------------------------------------- execution
@@ -378,6 +413,7 @@ def snapshot():
             "hits": e["hits"],
             "age_seconds": round(now - e["created"], 1),
             "last_hit_age_seconds": round(now - e["last_hit"], 1),
+            **({"mesh": e["mesh"]} if "mesh" in e else {}),
         } for e in _programs.values()]
         return {
             "mode": _mode,

@@ -191,6 +191,21 @@ class ShardedQueryEngine:
         return count_expr(sig, planes).reshape(1)
 
     @staticmethod
+    def count_batch_partial(sigs, members, program=None):
+        """K Count trees over this rank's slices in ONE K1 launch, a [K]
+        int64 tensor on their device: K1's batched entry when every tree
+        has one signature and leaf count (bucket padding makes that
+        common), else its multi-tree entry (`program`, a MultiProgram,
+        keeps that entry's table between calls). Trees past K1's limits
+        are fitted by the entries themselves (fit_tree)."""
+        from ..ops.count_expr import count_expr_batch, count_expr_multi
+
+        sigs = list(sigs)
+        if len(set(sigs)) == 1 and len({len(m) for m in members}) == 1:
+            return count_expr_batch(sigs[0], members)
+        return count_expr_multi(sigs, members, program=program)
+
+    @staticmethod
     def row_counts_partial(stack, filt=None):
         """K3: per-row popcount(row & filt) of this rank's [R, S, W] (or
         [R, S·W]) slice, an int64 [R] tensor on its device."""

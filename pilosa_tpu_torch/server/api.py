@@ -467,7 +467,8 @@ class QueryCoalescer:
 class API:
     """Holds the holder and the port's Executor on `device` (a
     ClusterExecutor around it when a cluster is given), the query
-    coalescer when `coalesce_window` > 0 on a single node, and the
+    coalescer when `coalesce_window` > 0 on a single node (or on a
+    cluster node whose collective plane boots serving the mesh), and the
     write-ahead oplog when one is given."""
 
     def __init__(self, holder, device=None, coalesce_window=0.0,
@@ -531,13 +532,19 @@ class API:
         # None disables the log and the profiling it implies
         self.long_query_time = long_query_time
         # window 0 — the default — builds no coalescer: every query takes
-        # the per-query path. A cluster coordinator never coalesces: on
-        # the HTTP fan-out the legs are where launches happen, so
-        # coordinator coalescing would only add latency.
+        # the per-query path. A cluster node coalesces only when its
+        # collective plane serves the mesh (serve mode != off at boot):
+        # eligible batches then run as ONE collective step
+        # (SpmdBatchRunner); on the HTTP fan-out the legs are where
+        # launches happen, so coordinator coalescing would only add
+        # latency.
         self.coalesce_window = float(coalesce_window or 0.0)
         self.coalesce_max_queue = int(coalesce_max_queue)
         self._coalescer = None
-        if self.coalesce_window > 0 and cluster is None:
+        if self.coalesce_window > 0 and (
+                cluster is None
+                or (spmd is not None
+                    and getattr(spmd, "serve_mode", "off") != "off")):
             self._coalescer = QueryCoalescer(
                 self, self.coalesce_window, self.coalesce_max_queue)
         # Streaming ingest engine (exec/ingest.py): interval 0 — the
@@ -591,7 +598,13 @@ class API:
         return self.local_executor.device
 
     def batch_executor(self):
-        """The executor the coalescer drains into."""
+        """The executor the coalescer drains into: the local batched
+        pipeline on a single node, the collective batch adapter on a
+        cluster with a collective plane."""
+        if self.cluster is not None and self.spmd is not None:
+            from ..cluster.spmd import SpmdBatchRunner
+
+            return SpmdBatchRunner(self)
         return self.local_executor
 
     # -- cluster state and the resize write queue ----------------------------
@@ -916,6 +929,10 @@ class API:
         except ApiError:
             raise
         except Exception as e:
+            from ..ops.cuda_build import is_device_failure
+
+            if is_device_failure(e):
+                raise  # the card failed: a 500, not a client error
             raise ApiError(str(e)) from e
         finally:
             flightrec.watch_end(wtoken)
@@ -1107,6 +1124,48 @@ class API:
             raise ApiError("spmd mode not enabled on this node")
         return self.spmd.run_step(step)
 
+    def spmd_stream(self, step):
+        """Enqueue one STREAMED collective step (serve mode on; POST
+        /internal/spmd/stream): acks before the step runs."""
+        if self.spmd is None:
+            raise ApiError("spmd mode not enabled on this node")
+        return self.spmd.run_stream(step)
+
+    def spmd_debug(self):
+        """GET /debug/spmd payload."""
+        if self.spmd is None:
+            return {"enabled": False}
+        snap = self.spmd.debug_snapshot()
+        snap["enabled"] = True
+        return snap
+
+    def spmd_debug_steps(self, seq=None, limit=32, local_only=False):
+        """GET /debug/spmd/steps[/{seq}] payload: the cross-node step
+        timeline (merged, skew-corrected, straggler-attributed), or this
+        node's local slice with ?local=true (what the peers answer, so
+        the fan-out never recurses)."""
+        if self.spmd is None:
+            return {"enabled": False}
+        if local_only:
+            out = self.spmd.steps_local(seq=seq, limit=limit)
+        else:
+            out = self.spmd.steps_timeline(seq=seq, limit=limit)
+        out["enabled"] = True
+        return out
+
+    def spmd_set_mode(self, mode):
+        """POST /debug/spmd {"serve_mode": ...}: the run-time serve-mode
+        switch (off|on|shadow|http; http forces the HTTP fan-out for A/B
+        runs on one cluster)."""
+        from ..cluster.spmd import SpmdError
+
+        if self.spmd is None:
+            raise ApiError("spmd mode not enabled on this node")
+        try:
+            return {"serve_mode": self.spmd.set_serve_mode(mode)}
+        except SpmdError as e:  # an unknown mode
+            raise ApiError(str(e)) from e
+
     def create_index(self, name, options=None, remote=False):
         """(reference: api.CreateIndex; a cluster broadcasts it to every
         peer, which applies it with remote=True)"""
@@ -1137,6 +1196,10 @@ class API:
         except HolderError as e:
             raise NotFoundError(str(e)) from e
         self._pushed_shards.pop(name, None)
+        if self.spmd is not None:
+            # mesh-resident blocks of a deleted index must not pin device
+            # memory (gen validation already keeps them unread)
+            self.spmd.mesh_cache.invalidate_index(name)
         if self.cluster is not None:
             self.cluster.drop_remote_index(name)
         if not remote:
@@ -2205,6 +2268,11 @@ class API:
             out["admission"] = self._admission.summary()
         if self.oplog is not None:
             out["oplog"] = self.oplog.summary(compact=True)
+        if self.spmd is not None:
+            # the collective plane's roll-up: serve mode, step lifecycle,
+            # stream health, mesh-cache stats (full views at /debug/spmd
+            # and /debug/spmd/steps)
+            out["spmd"] = self.spmd.summary()
         return out
 
     #: peer observability fetches must never wedge a /status response
@@ -2276,6 +2344,17 @@ class API:
                 out["admission"] = {k: adm.get(k) for k in
                                     ("state", "state_age_seconds",
                                      "calibration")}
+            sp = client.debug_spmd()
+            if sp.get("enabled"):
+                out["spmd"] = {
+                    "serve_mode": sp.get("serve_mode"),
+                    "steps": sp.get("steps"),
+                    "stream": sp.get("stream"),
+                    "mesh_cache": {
+                        k: (sp.get("mesh_cache") or {}).get(k)
+                        for k in ("hits", "misses", "entries",
+                                  "bytes")},
+                }
             return out
         except Exception as e:  # noqa: BLE001 — degraded, not fatal
             return {"error": str(e)}

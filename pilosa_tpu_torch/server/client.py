@@ -498,6 +498,27 @@ class Client:
         the node runs without --incident-dir)."""
         return self._request("GET", "/debug/incidents")
 
+    def debug_spmd(self, deadline=2.0):
+        """The peer's collective-plane snapshot (serve mode, step
+        lifecycle counters, stream and observatory state); {"enabled":
+        False} when the node runs without --spmd. Short deadline: the
+        /status roll-up must never wedge behind a stalled group."""
+        return self._request("GET", "/debug/spmd", deadline=deadline)
+
+    def debug_spmd_steps(self, seq=None, limit=None, deadline=2.0):
+        """The peer's LOCAL slice of the collective step timeline (its
+        step ring with per-phase walls, stamped with the peer's wall
+        clock): the ?local=true form, so the coordinator skew-corrects
+        from the RPC envelope and merges, and the fan-out never
+        recurses."""
+        path = "/debug/spmd/steps"
+        if seq is not None:
+            path += f"/{int(seq)}"
+        path += "?local=true"
+        if limit is not None:
+            path += f"&limit={int(limit)}"
+        return self._request("GET", path, deadline=deadline)
+
     def export_csv(self, index, field, shard):
         data = self._request(
             "GET", f"/export?index={index}&field={field}&shard={shard}")
@@ -518,6 +539,13 @@ class Client:
         merges over the process group). Never retried: a step entered
         twice would unpair the collectives."""
         return self._request("POST", "/internal/spmd/step",
+                             json.dumps(step).encode())
+
+    def spmd_stream(self, step):
+        """Announce a STREAMED collective step (serve mode on): the peer
+        enqueues it by sequence number and acks at once, without waiting
+        for the collective. Never retried, as spmd_step."""
+        return self._request("POST", "/internal/spmd/stream",
                              json.dumps(step).encode())
 
     def spmd_validate(self, step):

@@ -179,6 +179,8 @@ class PilosaHTTPServer:
                   args=("index", "field", "view", "shard")),
             Route("POST", r"/internal/cluster/message", self._post_message),
             Route("POST", r"/internal/spmd/step", self._post_spmd_step),
+            Route("POST", r"/internal/spmd/stream",
+                  self._post_spmd_stream),
             Route("POST", r"/internal/spmd/validate",
                   self._post_spmd_validate),
             Route("POST", r"/internal/spmd/initiate",
@@ -232,6 +234,12 @@ class PilosaHTTPServer:
             Route("GET", r"/debug/optimizer", self._get_debug_optimizer),
             Route("GET", r"/debug/ingest", self._get_debug_ingest),
             Route("GET", r"/debug/fusion", self._get_debug_fusion),
+            Route("GET", r"/debug/spmd", self._get_debug_spmd),
+            Route("POST", r"/debug/spmd", self._post_debug_spmd),
+            Route("GET", r"/debug/spmd/steps", self._get_debug_spmd_steps,
+                  args=("local", "limit")),
+            Route("GET", r"/debug/spmd/steps/(?P<seq>[0-9]+)",
+                  self._get_debug_spmd_step, args=("local", "limit")),
             Route("GET", r"/debug/admission", self._get_debug_admission),
             Route("GET", r"/debug/workload", self._get_debug_workload,
                   args=("top",)),
@@ -594,6 +602,12 @@ class PilosaHTTPServer:
     def _post_spmd_step(self, req):
         return {"value": self.api.spmd_step(req.json())}
 
+    def _post_spmd_stream(self, req):
+        """Streamed step announcement (serve mode on): enqueue and ack;
+        the peer's stream runner runs the step, which is what lets the
+        coordinator announce the next one at the ack."""
+        return self.api.spmd_stream(req.json())
+
     def _post_spmd_validate(self, req):
         if self.api.spmd is None:
             return {"ok": False, "reason": "spmd mode not enabled"}
@@ -610,6 +624,36 @@ class PilosaHTTPServer:
         if self.api.spmd is None:
             return {"steps": 0, "initialized": False}
         return self.api.spmd.stats()
+
+    def _get_debug_spmd(self, req):
+        """The collective plane's state: serve mode and mesh shape, the
+        per-node step-lifecycle counters (announced/entered/exited),
+        stream state, mesh-cache stats, and the HTTP data-plane byte
+        counter."""
+        return self.api.spmd_debug()
+
+    def _post_debug_spmd(self, req):
+        """Run-time serve-mode switch: {"serve_mode": off|on|shadow|http}
+        ("http" forces the HTTP fan-out for A/B runs on one cluster)."""
+        body = req.json() or {}
+        return self.api.spmd_set_mode(body.get("serve_mode"))
+
+    def _get_debug_spmd_steps(self, req, seq=None):
+        """The cross-node collective step timeline: every peer's
+        per-phase step walls skew-corrected onto this node's clock and
+        merged by seq, with per-phase straggler attribution. ?local=true
+        returns this node's raw slice (what the coordinator fans out
+        for)."""
+        local_only = (self._q1(req, "local", "") or "").lower() \
+            in ("1", "true", "yes")
+        limit = self._q1(req, "limit", None)
+        limit = int(limit) if limit is not None else 32
+        return self.api.spmd_debug_steps(seq=seq, limit=limit,
+                                         local_only=local_only)
+
+    def _get_debug_spmd_step(self, req):
+        """One step of the cross-node timeline by sequence number."""
+        return self._get_debug_spmd_steps(req, seq=int(req.params["seq"]))
 
     def _get_fragment_nodes(self, req):
         """Owner nodes of one shard (reference: http/handler.go:311
@@ -927,6 +971,14 @@ class PilosaHTTPServer:
                          "(fingerprint / compile-ms / hits / last-hit "
                          "age), evictions, fuse-vs-interpret decision "
                          "counters",
+        "/debug/spmd": "collective data plane: serve mode, step "
+                       "lifecycle counters, stream + observatory state, "
+                       "mesh-resident cache (POST switches serve mode)",
+        "/debug/spmd/steps": "cross-node collective step timeline: "
+                             "per-peer phase walls skew-corrected and "
+                             "merged by seq with straggler attribution; "
+                             "/debug/spmd/steps/{seq} for one step, "
+                             "?local=true for this node's raw ring",
         "/debug/admission": "admission controller: degradation-ladder "
                             "state + transitions, per-class token "
                             "buckets, queue occupancy, rejections",

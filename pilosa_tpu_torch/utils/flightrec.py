@@ -47,6 +47,12 @@ Event kinds the port records:
                   (utils/workload.py SloEngine; edge-triggered)
   incident.*   postmortem bundles triggered and written
                 (utils/incident.py)
+  spmd.*       the collective plane's step lifecycle (cluster/spmd.py):
+               step_announce on the coordinator, step_enter/step_exit on
+               every process (tags: seq, ok), stream_gap at the ONSET of
+               a step-stream sequence gap, stream_resync when the runner
+               skips past it, straggler (edge-triggered) when one node's
+               phase wall stands out in the merged step timeline
 """
 
 import collections
@@ -320,9 +326,14 @@ class Watchdog:
         from . import incident as _incident
 
         # evt's "kind" is the stalled OP's kind — rename so it cannot
-        # collide with the trigger kind parameter
+        # collide with the trigger kind parameter. A wedged collective
+        # step (an spmd.* op: entered, never exited past its deadline) is
+        # its own incident class: its bundle also carries every peer's
+        # step ring through the spmd collector.
+        trigger = "collective_stall" if op.kind.startswith("spmd.") \
+            else "watchdog_stall"
         _incident.maybe_trigger(
-            "watchdog_stall",
+            trigger,
             **{("op" if k == "kind" else k): v for k, v in evt.items()})
 
     def open_ops(self, now=None):

@@ -8,6 +8,10 @@ signals
 
     devhealth_down    device-link prober transitions to DOWN
     watchdog_stall    an in-flight op ran past its watchdog deadline
+    collective_stall  the collective plane wedged: a step-stream sequence
+                      gap opened (cluster/spmd.py _stream_loop, at ONSET)
+                      or a collective step ran past its watchdog deadline
+                      (flightrec Watchdog, spmd.* op kinds)
     slo_burn          error-budget burn alert fired (both windows)
     deadline_storm    >= N deadline-expired rejections inside a window
     fatal_signal      SIGTERM / crash-handler chain
@@ -16,7 +20,8 @@ signals
 trigger a bundle write: a timestamped directory under --incident-dir
 containing the flightrec dump, every thread's stack, the /debug/*
 snapshots an operator would have curled (device, dispatch, workload,
-heat, slo, oplog...), recent query profiles, and the open-op table.
+heat, slo, fusion, oplog, spmd...), recent query profiles, and the
+open-op table.
 Bundles are capped (--incident-max, oldest deleted), rate-limited per
 trigger kind, and written off-thread (except on the dying-process path).
 Served at GET /debug/incidents.
@@ -331,10 +336,18 @@ def _default_collectors():
         from . import tracing
         return tracing.trace_index().stats()
 
+    def spmd():
+        # the collective plane's observatory: step ring, per-phase tables
+        # and (best effort) the cross-node timeline — in EVERY bundle, so
+        # a devhealth_down or watchdog_stall autopsy also shows where the
+        # collective plane was
+        from ..cluster import spmd as spmd_mod
+        return spmd_mod.observatory_snapshot()
+
     return {"device": device, "dispatch": dispatch,
             "workload": workload_, "heat": heat, "slo": slo,
             "fusion": fusion, "queries": queries,
-            "open_ops": open_ops, "traces": traces}
+            "open_ops": open_ops, "traces": traces, "spmd": spmd}
 
 
 # -- module singleton (the flightrec/devhealth pattern) ----------------------

@@ -11,9 +11,9 @@ under concurrent finishes, and metrics exemplars that resolve through
 GET /debug/traces/{trace_id}.
 
 Beside them:
-- a bundle's sections equal the TPU package's for the same trigger,
-  minus its `spmd` collector (the SPMD plane is not in the port; the
-  `fusion` collector came with whole-plan fusion);
+- a bundle's sections equal the TPU package's for the same trigger
+  (the `fusion` collector came with whole-plan fusion, the `spmd`
+  collector with mesh-resident serving);
 - `X-Request-Deadline` already expired answers 504 without a launch,
   and a storm of them writes a `deadline_storm` bundle; a deadline that
   lapses between a query's calls answers 504 too;
@@ -269,7 +269,7 @@ def test_bundle_sections_equal_reference_minus_fusion_and_spmd(tmp_path):
         (meta,) = mgr.list()
         assert meta["trigger"] == {"note": "same"}
         files.append(set(meta["files"]))
-    assert files[1] == files[0] - {"spmd.json"}
+    assert files[1] == files[0]
     assert {"fusion.json", "spmd.json"} <= files[0]
 
 

@@ -412,3 +412,68 @@ def test_server_boot_replays_and_reports(tmp_path, capsys):
             c2.create_index("oplog")
     finally:
         srv2.stop()
+
+
+def test_sync_fragments_races_no_fragment_creation(tmp_path, monkeypatch):
+    """Holder.sync_fragments (the oplog rotation checkpoint's fsync
+    sweep) while an import creates fragments in the same view: each
+    view's fragment map is snapshotted under its lock, so the sweep
+    never fails with "dictionary changed size during iteration". Every
+    fragment that existed when the sweep reached its view is synced, and
+    the next sweep syncs the new ones too."""
+    import threading
+
+    from pilosa_tpu_torch.core.fragment import Fragment
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    holder = torch_core.Holder(str(tmp_path / "h"),
+                               use_snapshot_queue=False).open()
+    try:
+        field = holder.create_index("i").create_field("f")
+        for shard in range(4):
+            field.set_bit(1, shard * SHARD_WIDTH)
+        real_sync = Fragment.sync
+        synced, created = [], []
+
+        def create_more():
+            # an import landing in shards the view does not hold yet
+            for shard in range(4, 12):
+                field.set_bit(1, shard * SHARD_WIDTH + 3)
+                created.append(shard)
+
+        def sync_and_race(frag):
+            if not synced:
+                t = threading.Thread(target=create_more)
+                t.start()
+                t.join()
+            synced.append(frag.shard)
+            return real_sync(frag)
+
+        monkeypatch.setattr(Fragment, "sync", sync_and_race)
+        assert holder.sync_fragments() == 4
+        assert sorted(synced) == [0, 1, 2, 3] and len(created) == 8
+        monkeypatch.setattr(Fragment, "sync", real_sync)
+        assert holder.sync_fragments() == 12
+
+        # free-running: a writer thread creating fragments while sweeps
+        # run back to back
+        stop = threading.Event()
+
+        def writer():
+            shard = 12
+            while not stop.is_set() and shard < 400:
+                field.set_bit(2, shard * SHARD_WIDTH)
+                shard += 1
+
+        t = threading.Thread(target=writer)
+        t.start()
+        try:
+            for _ in range(20):
+                holder.sync_fragments()
+        finally:
+            stop.set()
+            t.join()
+        view = field.view("standard")
+        assert holder.sync_fragments() == len(view.fragments)
+    finally:
+        holder.close()

@@ -292,8 +292,9 @@ assert not bad, bad
 #: tools, the client and the logger the oplog writes through, the
 #: observability and health modules every layer imports, the wire
 #: codec, the ingest engine, the adaptive engine, the planner, whole-plan
-#: fusion, admission control, and the HTTP cluster (placement, messaging,
-#: membership, fan-out, resize, anti-entropy, key replication)
+#: fusion, admission control, the HTTP cluster (placement, messaging,
+#: membership, fan-out, resize, anti-entropy, key replication) and the
+#: collective plane with its mesh cache
 REQUIRED_SOURCES = ("cli.py", "server/client.py", "utils/logger.py",
                     "storage/oplog.py", "server/api.py", "utils/tracing.py",
                     "utils/stats.py", "utils/profile.py",
@@ -309,11 +310,12 @@ REQUIRED_SOURCES = ("cli.py", "server/client.py", "utils/logger.py",
                     "cluster/membership.py", "cluster/executor.py",
                     "cluster/resize.py", "server/syncer.py",
                     "server/translate_sync.py", "tools/cluster.py",
-                    "parallel/sharded.py", "cluster/spmd.py")
+                    "parallel/sharded.py", "cluster/spmd.py",
+                    "cluster/meshstacks.py")
 
 #: modules a client tool imports, the ingest engine, the adaptive
-#: engine, the planner, whole-plan fusion, admission control and the
-#: sharded engine: none may load torch at import
+#: engine, the planner, whole-plan fusion, admission control, the
+#: sharded engine and the mesh cache: none may load torch at import
 LIGHT_MODULES = ("pilosa_tpu_torch.utils.tracing",
                  "pilosa_tpu_torch.utils.stats",
                  "pilosa_tpu_torch.utils.profile",
@@ -330,7 +332,8 @@ LIGHT_MODULES = ("pilosa_tpu_torch.utils.tracing",
                  "pilosa_tpu_torch.exec.plan",
                  "pilosa_tpu_torch.exec.fusion",
                  "pilosa_tpu_torch.server.admission",
-                 "pilosa_tpu_torch.parallel.sharded")
+                 "pilosa_tpu_torch.parallel.sharded",
+                 "pilosa_tpu_torch.cluster.meshstacks")
 
 #: the collective modules: neither forms (nor imports the API of) a
 #: torch.distributed process group at import (trap 19)
