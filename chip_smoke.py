@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi);
 2. build: every kernel of the served paths (K1 count_expr and its
-   batched and multi-tree entries, K2 count_blocks, K3 row_counts, K4
+   batched and multi-tree entries, K2 count_blocks and its batched
+   entry, K3 row_counts, K4
    pairwise_counts, K5 bsi_range), one nvcc per source, all started
    together, from the checkout; registers and spills from ptxas, per
    kernel function;
@@ -116,7 +117,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      dense-with-sparse intersection (densify + K1), each launch delta
      exact; the pool's forms and resident bytes; cold and warm p50s of
      the K2 pair and the rle pair; a Set that decays a sparse leaf to
-     dense through a patch; then K2 timed on the served containers and
+     dense through a patch; before that Set, one POST query-batch of
+     the sparse Counts (f=10 & g=10, f=11 & g=10, f=10, f=11; 8 times
+     each) against numpy: two groups of 16, each exactly one launch of
+     K2's batched entry (fused mode, mode 0), no single K2 or K1 launch;
+     then K2 timed on the served containers, K2's batched entry checked
+     on them (both modes at B = 4 and 1, an edge batch of padding-only
+     members and a member with no match, each equal to its plain version
+     and to B single launches; an empty batch and NB = 0 without a
+     launch) and timed with L2 flushed at B = 4 and at the served groups
+     of 16 beside as many single K2 launches, and
      a cold leaf build split into upload, the chooser's `analyze` on the
      card (its counts checked against numpy) and the host builder, for
      a dense, a sparse and a run-length leaf;
@@ -240,6 +250,7 @@ The line before the last is a JSON object with a `kernels` list; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import itertools
 import json
 import os
 import re
@@ -274,7 +285,8 @@ KERNELS = ("count_expr", "row_counts", "pairwise_counts", "bsi_range",
            "count_blocks")
 # the kernels line's entries: one per source, and K1's batched and
 # multi-tree entries, which live in count_expr.cu
-ENTRIES = KERNELS + ("count_expr_batch", "count_expr_multi")
+ENTRIES = KERNELS + ("count_expr_batch", "count_expr_multi",
+                     "count_blocks_batch")
 COMP_SEED = 5
 SPARSE_BLOCKS = 24  # non-empty 128-word blocks per shard of f=10, f=11, g=10
 SHARED_BLOCKS = 12  # of them shared by f=10 and g=10 in every shard
@@ -284,6 +296,9 @@ TOOLS_VALUES = 100_000  # int values of the CLI import
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K2_NBS = (0, 1, 7, 8, 33, 32768, 131072)
 K2_ID_SPACE = 1 << 21  # block ids drawn below the sentinel 2^30
+K2B_REPEAT = 8  # times each sparse Count rides the served query-batch
+# batches timed: B = 1 (against the single entry), the check's, the served
+K2B_SIZES = (1, 4, 2 * K2B_REPEAT)
 # (op, allow_eq) of tests/test_pallas.py's BSI range cases
 K5_CASES = (("eq", False), ("lt", False), ("lt", True), ("gt", False),
             ("gt", True))
@@ -388,6 +403,10 @@ def call_device_ms(torch, fn, reps, kernel, skip=FLUSH_KERNELS):
 
 
 L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
+# inputs a timed K2 batch cycles through: the L2 keeps part of inputs
+# that calls reread, past a 128 MB flush (small inputs read at 163 % of
+# their byte bound) and past a cycle of 512 MB (mode 0 at B = 16, 102 %)
+K2B_ROTATE_BYTES = 2 << 30
 
 
 def kernel_ms(torch, fn, reps, kernel, cold_l2=False):
@@ -1128,6 +1147,11 @@ def k2_edge_ids(case, rng):
 
 def k2_launches(k2):
     return k2.count_blocks.launches + k2.count_and_blocks.launches
+
+
+def k2_batch_launches(k2):
+    return k2.count_blocks_batch.launches + \
+        k2.count_and_blocks_batch.launches
 
 
 def k2_fused_bytes(ids_a, ids_b):
@@ -3142,8 +3166,10 @@ def serve_observe(srv, torch, k1, k3, planes, tg, tg_set, bsi_sum, card):
 
 def serve_compressed_path(srv, k1, k2, planes, comp, set_at, card):
     """Counts over index b's compressible rows under the auto chooser,
-    every result against numpy and every launch delta exact. Returns the
-    served f=10 and g=10 containers (for timing K2 on them)."""
+    every result against numpy and every launch delta exact, and the
+    query-batch of sparse Counts (serve_k2_batch). Returns the served
+    f=10, g=10 and f=11 containers (for checking and timing K2 on
+    them)."""
     from pilosa_tpu_torch.ops import containers
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
@@ -3211,9 +3237,11 @@ def serve_compressed_path(srv, k1, k2, planes, comp, set_at, card):
             f"cold {cold[pql] * 1e3:.3f} ms, warm p50 "
             f"{statistics.median(warm[name]) * 1e3:.3f} ms over 60 queries")
 
+    serve_k2_batch(srv, k1, k2, comp, card)
+
     # a Set in one shard of the sparse f=10 leaf: the next Count reads
     # it back through a patch that decays the leaf to dense (K1, not K2)
-    served = (held[("f", 10)], held[("g", 10)])
+    served = (held[("f", 10)], held[("g", 10)], held[("f", 11)])
     shard = N_SHARDS // 3
     word = int(np.nonzero(f10[shard] == 0)[0][0])
     col = shard * SHARD_WIDTH + word * 32
@@ -3231,14 +3259,59 @@ def serve_compressed_path(srv, k1, k2, planes, comp, set_at, card):
         f"{dt * 1e3:.1f} ms)")
     log(f"serve: launches on the compressed path: K2 {k2_launches(k2)} "
         f"(count_blocks {k2.count_blocks.launches}, count_and_blocks "
-        f"{k2.count_and_blocks.launches}), K1 {k1.count_expr.launches}")
+        f"{k2.count_and_blocks.launches}), K2 batched "
+        f"{k2_batch_launches(k2)}, K1 {k1.count_expr.launches}")
     return served
+
+
+def serve_k2_batch(srv, k1, k2, comp, card):
+    """One POST /index/b/query-batch of index b's sparse Counts (two
+    pairs, two single rows), each K2B_REPEAT times: every answer equals
+    numpy, the pairs ride one group and the rows another, and each group
+    is exactly one launch of K2's batched entry (its fused mode for the
+    pairs, mode 0 for the rows) with no single K2 or K1 launch."""
+    f10, f11, g10 = comp[("f", 10)], comp[("f", 11)], comp[("g", 10)]
+    want = {"Count(Intersect(Row(f=10), Row(g=10)))": popcount(f10 & g10),
+            "Count(Intersect(Row(f=11), Row(g=10)))": popcount(f11 & g10),
+            "Count(Row(f=10))": popcount(f10),
+            "Count(Row(f=11))": popcount(f11)}
+    batch = list(want) * K2B_REPEAT
+    before = (k2.count_blocks_batch.launches,
+              k2.count_and_blocks_batch.launches, k2_launches(k2),
+              k1.count_expr.launches, k1.count_expr_batch.launches)
+    t0 = time.perf_counter()
+    out = http(srv.uri, "/index/b/query-batch",
+               json.dumps({"queries": batch}))["results"]
+    wall = time.perf_counter() - t0
+    for pql, slot in zip(batch, out):
+        if slot.get("results") != [want[pql]]:
+            raise AssertionError(f"query-batch {pql}: {slot} != "
+                                 f"{want[pql]}")
+        if slot.get("batch") != 2 * K2B_REPEAT:
+            raise AssertionError(f"query-batch {pql}: batch "
+                                 f"{slot.get('batch')}, not "
+                                 f"{2 * K2B_REPEAT}")
+    moved = tuple(b - a for a, b in zip(before, (
+        k2.count_blocks_batch.launches, k2.count_and_blocks_batch.launches,
+        k2_launches(k2), k1.count_expr.launches,
+        k1.count_expr_batch.launches)))
+    if moved != (1, 1, 0, 0, 0):
+        raise AssertionError(
+            f"query-batch of {len(batch)} sparse Counts: launches (K2 "
+            f"batched mode 0, fused mode, single K2, K1, batched K1) moved "
+            f"by {moved}, not (1, 1, 0, 0, 0)")
+    log(f"serve: POST query-batch of {len(batch)} sparse Counts over "
+        f"{N_SHARDS} shards (two pairs and two rows of f=10, f=11, g=10, "
+        f"{K2B_REPEAT} times each) = numpy in {wall * 1e3:.1f} ms: two "
+        f"groups of {2 * K2B_REPEAT}, one launch of K2's batched entry "
+        f"each (fused mode 1, mode 0 1), no single K2 or K1 launch; card "
+        f"{card}")
 
 
 def time_served_k2(torch, k2, served, card):
     """K2 on the served f=10 and g=10 containers: the fused pair (the
     served launch) and count_blocks of f=10. Returns the pair's timing."""
-    (ids_a, blocks_a), (ids_b, blocks_b) = (c.arrays for c in served)
+    (ids_a, blocks_a), (ids_b, blocks_b) = (c.arrays for c in served[:2])
     fused_bytes, matched = k2_fused_bytes(ids_a, ids_b)
     args = (ids_a, blocks_a, ids_b, blocks_b)
     got = k2.count_and_blocks(*args)
@@ -3272,6 +3345,167 @@ def time_served_k2(torch, k2, served, card):
             out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": "bytes"}
     return err, out
+
+
+def _k2_no_match(torch, ids, blocks):
+    """A container of the same NB as (ids, blocks) whose real ids are as
+    many but none of `ids`, each block random, padding after."""
+    from pilosa_tpu_torch.ops.count_blocks import SPARSE_SENTINEL
+
+    have = ids.cpu().numpy()
+    real = have[have != SPARSE_SENTINEL]
+    rng = np.random.default_rng(COMP_SEED + 1)
+    space = np.setdiff1d(np.arange(N_SHARDS * 256), real)
+    pick = np.sort(rng.choice(space, len(real), replace=False))
+    full = np.full(len(have), SPARSE_SENTINEL, dtype=np.int32)
+    full[:len(pick)] = pick
+    words = rng.integers(0, 1 << 32, tuple(blocks.shape), dtype=np.uint32)
+    words[len(pick):] = 0
+    return (torch.from_numpy(full).cuda(),
+            torch.from_numpy(words.view(np.int32)).cuda())
+
+
+def check_k2_batch(torch, k2, served, card):
+    """K2's batched entry on the served f=10, g=10 and f=11 containers
+    (NB 32,768 each): both modes at B = 4 (the pairs f=10 & g=10, f=11 &
+    g=10, f=10 & f=11, g=10 & f=11; the rows f=10, f=11, g=10, f=10), an
+    edge batch (members of padding only on either side, a member with no
+    match) and B = 1, each equal to its plain version and to B single
+    launches, exactly, with one batched launch a call; an empty batch
+    and NB = 0 launch nothing. Then timed with L2 flushed (128 MB written
+    before each call) against the same members as B single launches, at
+    B = 1, 4 and the served query-batch's groups of 2 x K2B_REPEAT, over
+    every device operation of a call (the pointer table's copy and the
+    memset included), and per call by events. Every timed member reads
+    a copy of its leaves of its own, so that the bound (each member's
+    bytes, summed) is what the batch must move from HBM: the served
+    groups repeat f=10, f=11 and g=10, and a repeat would be read from
+    L2. Each timed call takes the next of as many such sets of copies
+    as fill K2B_ROTATE_BYTES, so no call rereads what a recent one
+    read. Returns (max_abs_err, timing of the fused mode at the served
+    group)."""
+    from pilosa_tpu_torch.ops.count_blocks import SPARSE_SENTINEL
+
+    f10, g10, f11 = (c.arrays for c in served)
+    nb = f10[0].shape[0]
+    pad = (torch.full((nb,), SPARSE_SENTINEL, dtype=torch.int32,
+                      device="cuda"),
+           torch.zeros_like(f10[1]))
+    none = _k2_no_match(torch, *f10)
+    pairs = [(*f10, *g10), (*f11, *g10), (*f10, *f11), (*g10, *f11)]
+    rows = [f10[1], f11[1], g10[1], f10[1]]
+    cases = {
+        "B=4": (rows, pairs),
+        "edge": ([f10[1], pad[1], g10[1]],
+                 [(*f10, *g10), (*pad, *g10), (*f10, *pad), (*f10, *none)]),
+        "B=1": ([f11[1]], [(*f10, *g10)]),
+    }
+    max_err = n_cases = 0
+    for name, (rs, ps) in cases.items():
+        for mode, fn, plain, single, members in (
+                ("mode 0", k2.count_blocks_batch,
+                 k2.count_blocks_batch_reference, k2.count_blocks, rs),
+                ("fused", k2.count_and_blocks_batch,
+                 k2.count_and_blocks_batch_reference, k2.count_and_blocks,
+                 ps)):
+            before = k2_batch_launches(k2)
+            got = fn(members)
+            torch.cuda.synchronize()
+            step = k2_batch_launches(k2) - before
+            want = plain(members)
+            ones = [int(single(*m) if mode == "fused" else single(m))
+                    for m in members]
+            err = int((got - want).abs().max())
+            max_err = max(max_err, err)
+            n_cases += 1
+            if err or got.tolist() != ones or step != 1 \
+                    or got.shape != (len(members),):
+                raise AssertionError(
+                    f"K2 batched {mode} {name}: {got.tolist()} vs plain "
+                    f"{want.tolist()} and singles {ones}, {step} launches")
+            if name == "edge" and mode == "fused" \
+                    and got.tolist()[1:] != [0, 0, 0]:
+                raise AssertionError(f"K2 batched edge members: "
+                                     f"{got.tolist()}")
+    before = k2_batch_launches(k2)
+    empty = torch.zeros((0, 128), dtype=torch.int32, device="cuda")
+    ids0 = torch.zeros((0,), dtype=torch.int32, device="cuda")
+    if k2.count_blocks_batch([]).shape != (0,) \
+            or k2.count_blocks_batch([empty] * 3).tolist() != [0] * 3 \
+            or k2.count_and_blocks_batch(
+                [(*f10, ids0, empty)] * 2).tolist() != [0, 0] \
+            or k2_batch_launches(k2) != before:
+        raise AssertionError("K2 batched: an empty batch or NB = 0 "
+                             "launched or was not 0")
+    n_cases += 3
+    log(f"kernels: K2 batched == plain == B single launches on {n_cases} "
+        f"cases (both modes at B = 4, 1 and an edge batch of padding-only "
+        f"members and a member with no match, on the served f=10, g=10, "
+        f"f=11 at NB {nb}; an empty batch and NB = 0 without a launch)")
+
+    junk = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    timing = None
+    for b in K2B_SIZES:
+        # the served group alternates two pairs (two rows); B <= 4 takes
+        # the check's members in order; every member a copy of its own
+        src_p, src_r = (pairs, rows) if b <= 4 else (pairs[:2], rows[:2])
+        held_p = sum(t.nbytes for q in range(b)
+                     for t in src_p[q % len(src_p)])
+        p_sets = [[tuple(t.clone() for t in src_p[q % len(src_p)])
+                   for q in range(b)]
+                  for _ in range(-(-K2B_ROTATE_BYTES // held_p))]
+        r_sets = [[src_r[q % len(src_r)].clone() for q in range(b)]
+                  for _ in range(-(-K2B_ROTATE_BYTES // (b * nb * 512)))]
+        next_p = itertools.cycle(p_sets).__next__
+        next_r = itertools.cycle(r_sets).__next__
+        for mode, batch, singles, plain, nbytes, kernel, n_sets in (
+                ("mode 0", lambda: k2.count_blocks_batch(next_r()),
+                 lambda: [k2.count_blocks(r) for r in next_r()],
+                 lambda: k2.count_blocks_batch_reference(r_sets[0]),
+                 b * (nb * 512 + 8), "count_blocks_batch_kernel",
+                 len(r_sets)),
+                ("fused", lambda: k2.count_and_blocks_batch(next_p()),
+                 lambda: [k2.count_and_blocks(*p) for p in next_p()],
+                 lambda: k2.count_and_blocks_batch_reference(p_sets[0]),
+                 sum(k2_fused_bytes(p[0], p[2])[0] for p in p_sets[0]),
+                 "fused_batch_kernel", len(p_sets))):
+            def flushed(fn=batch):
+                junk.fill_(1)
+                return fn()
+
+            def flushed_singles(fn=singles):
+                junk.fill_(1)
+                return fn()
+
+            all_ms, kernel_only, names = traced_call_ms(torch, flushed, 20,
+                                                        kernel)
+            single_ms = traced_call_ms(torch, flushed_singles, 20,
+                                       "count_blocks_kernel")
+            call_ms = time_cuda(torch, batch, 20)
+            singles_call_ms = time_cuda(torch, singles, 20)
+            plain_ms = time_cuda(torch, plain, 3)
+            bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+            log(f"kernels: K2 batched {mode} at B={b} (NB {nb}, {nbytes} "
+                f"bytes; {n_sets} sets of copies in turn), L2 flushed: "
+                f"{all_ms * 1e3:.2f} us device per call "
+                f"over {sorted(set(names))} ({kernel_only * 1e3:.2f} us in "
+                f"the kernel; {bound_ms / all_ms:.0%} of the bound), "
+                f"{call_ms * 1e3:.2f} us per call by events; the same "
+                f"members as {b} single K2 launches: "
+                f"{single_ms[0] * 1e3:.2f} us device "
+                f"({single_ms[1] * 1e3:.2f} us in the kernels), "
+                f"{singles_call_ms * 1e3:.2f} us by events; bound "
+                f"{bound_ms * 1e3:.2f} us at 3.35 TB/s; plain "
+                f"{plain_ms * 1e3:.2f} us; card {card}")
+            if mode == "fused" and b == 2 * K2B_REPEAT:
+                timing = {"ms": all_ms, "kernel_ms": kernel_only,
+                          "single_ms": single_ms[0], "call_ms": call_ms,
+                          "plain_ms": plain_ms, "bytes": nbytes,
+                          "bound_ms": bound_ms, "bound_by": "bytes"}
+        del p_sets, r_sets
+    del junk, pad, none
+    torch.cuda.empty_cache()
+    return max_err, timing
 
 
 def time_analyze(torch, planes, comp, card):
@@ -5235,7 +5469,9 @@ def main():
             "count_blocks": k2.count_blocks,
             "count_and_blocks": k2.count_and_blocks,
             "count_expr_batch": k1.count_expr_batch,
-            "count_expr_multi": k1.count_expr_multi}
+            "count_expr_multi": k1.count_expr_multi,
+            "count_blocks_batch": k2.count_blocks_batch,
+            "count_and_blocks_batch": k2.count_and_blocks_batch}
     launches = {}
     tmp = tempfile.mkdtemp(prefix="pilosa-torch-smoke-")
     co_dir = tempfile.mkdtemp(prefix="pilosa-torch-smoke-co-")
@@ -5301,9 +5537,12 @@ def main():
             served = serve_compressed_path(srv, k1, k2, planes, comp, set_at,
                                            card)
             launches["count_blocks"] = k2_launches(k2)
+            launches["count_blocks_batch"] = k2_batch_launches(k2)
             err, timings["count_blocks"] = time_served_k2(
                 torch, k2, served, card)
             errs["count_blocks"] = max(errs["count_blocks"], err)
+            errs["count_blocks_batch"], timings["count_blocks_batch"] = \
+                check_k2_batch(torch, k2, served, card)
             del served
             time_analyze(torch, planes, comp, card)
             phase_done("serve_compressed")
@@ -5334,6 +5573,7 @@ def main():
             log("ingest-json: " + json.dumps(ingest_plan))
             launches["count_expr"] += k1.count_expr.launches
             launches["count_blocks"] += k2_launches(k2)
+            launches["count_blocks_batch"] += k2_batch_launches(k2)
             launches["row_counts"] += k3.row_counts.launches
             launches["pairwise_counts"] += k4.pairwise_counts.launches
             launches["bsi_range"] += k5.bsi_range_mask.launches
@@ -5345,6 +5585,7 @@ def main():
             launches["count_expr_multi"] = k1.count_expr_multi.launches
             launches["count_expr"] += k1.count_expr.launches
             launches["count_blocks"] += k2_launches(k2)
+            launches["count_blocks_batch"] += k2_batch_launches(k2)
             launches["pairwise_counts"] += k4.pairwise_counts.launches
             phase_done("serve_fusion_admission")
             # the HTTP cluster: its nodes are child processes, so their
@@ -5385,14 +5626,16 @@ def main():
                                    "vmapped by pilosa_tpu/exec/stacked.py:1620",
                "count_expr_multi": "pilosa_tpu/ops/pallas_kernels.py:141, "
                                    "traced per call by pilosa_tpu/exec/"
-                                   "stacked.py:1452 (fused_count_fn)"}
+                                   "stacked.py:1452 (fused_count_fn)",
+               "count_blocks_batch": "pilosa_tpu/ops/pallas_kernels.py:235, "
+                                     ":245 (call :218), vmapped by "
+                                     "pilosa_tpu/exec/stacked.py:1620"}
     log(card)
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": "pilosa_tpu_torch/csrc/"
-                  f"{'count_expr' if name.startswith('count_expr') else name}"
-                  ".cu",
+                  f"{name.replace('_batch', '').replace('_multi', '')}.cu",
         "replaces": sources[name],
         "launches": launches[name],
         "max_abs_err": errs[name],

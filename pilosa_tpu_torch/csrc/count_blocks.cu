@@ -9,6 +9,9 @@
 // Two entries, both exact 64-bit totals:
 //   mode 0  Σ popcount(a)                      count_blocks
 //   mode 2  Σ popcount(a & b[match(ids_a)])    count_and_blocks
+// and their batched entry (count_blocks_batch_launch, at the end): B
+// members of one shape in one launch, as the TPU package's vmapped count
+// program makes one kernel of a batch of sparse Counts.
 // Mode 2 is `count_and_blocks_stack` with its caller's searchsorted
 // alignment (pilosa_tpu/ops/containers.py:757-761) fused in: a block of a
 // counts against b's block of the same id; one without a partner, or with
@@ -87,9 +90,10 @@ __device__ __forceinline__ void block_reduce_add(unsigned long long total,
     }
 }
 
-__global__ void __launch_bounds__(K2_THREADS)
-count_blocks_kernel(const uint4* __restrict__ a, long long nb_a,
-                    unsigned long long* __restrict__ out) {
+// Mode 0's body over one container: the CTA's share of a's blocks.
+__device__ __forceinline__ void count_blocks_body(
+        const uint4* __restrict__ a, long long nb_a,
+        unsigned long long* __restrict__ out) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const long long stride = (long long)gridDim.x * K2_WARPS;
     unsigned long long total = 0;
@@ -110,9 +114,16 @@ count_blocks_kernel(const uint4* __restrict__ a, long long nb_a,
 }
 
 __global__ void __launch_bounds__(K2_THREADS)
-count_blocks_kernel_fused(const uint4* __restrict__ a, const uint4* __restrict__ b,
-                          const int* __restrict__ ids_a, const int* __restrict__ ids_b,
-                          int nb_a, int nb_b, unsigned long long* __restrict__ out) {
+count_blocks_kernel(const uint4* __restrict__ a, long long nb_a,
+                    unsigned long long* __restrict__ out) {
+    count_blocks_body(a, nb_a, out);
+}
+
+// Mode 2's body over one pair of containers: the CTA's tile of a's ids.
+__device__ __forceinline__ void count_and_blocks_body(
+        const uint4* __restrict__ a, const uint4* __restrict__ b,
+        const int* __restrict__ ids_a, const int* __restrict__ ids_b,
+        int nb_a, int nb_b, unsigned long long* __restrict__ out) {
     __shared__ int s_ids_a[K2_TILE];
     __shared__ int s_chunk[K2_CHUNK];
     __shared__ int s_pair_a[K2_TILE], s_pair_b[K2_TILE];
@@ -205,6 +216,13 @@ count_blocks_kernel_fused(const uint4* __restrict__ a, const uint4* __restrict__
     block_reduce_add(total, out);
 }
 
+__global__ void __launch_bounds__(K2_THREADS)
+count_blocks_kernel_fused(const uint4* __restrict__ a, const uint4* __restrict__ b,
+                          const int* __restrict__ ids_a, const int* __restrict__ ids_b,
+                          int nb_a, int nb_b, unsigned long long* __restrict__ out) {
+    count_and_blocks_body(a, b, ids_a, ids_b, nb_a, nb_b, out);
+}
+
 // One full wave: as many blocks as can be resident at once.
 template <typename Kernel>
 static int resident_blocks(Kernel kernel) {
@@ -245,6 +263,95 @@ extern "C" int count_blocks_launch(int mode, const void* a, const void* b,
         count_blocks_kernel_fused<<<tiles, K2_THREADS, 0, s>>>(
             (const uint4*)a, (const uint4*)b, (const int*)ids_a,
             (const int*)ids_b, (int)nb_a, (int)nb_b, o);
+    }
+    return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The batched entry: B members of one shape in one launch.
+//
+// Replaces `count_blocks_stack` and `count_and_blocks_stack` (pilosa_tpu/
+// ops/pallas_kernels.py:235, :245; call :218) as the TPU package's vmapped
+// count program runs them (`_vmap_count_fn`, pilosa_tpu/exec/stacked.py:1620):
+// `jax.vmap` of a `pallas_call` is one kernel with the batch as an extra grid
+// axis. Here too: the grid is the single kernels' grid with the member as
+// blockIdx.y — mode 0's resident wave split evenly over the members, mode
+// 2's one CTA per K2_TILE ids of a. Every member of a batch has the same
+// nb_a (and, in mode 2, nb_b): the callers group members on their exact
+// shapes.
+//
+// Member q's pointers are row q of a device-resident int64 table (mode 0:
+// a's blocks; mode 2: a's blocks, b's blocks, a's ids, b's ids). Each CTA
+// stages its row in shared memory: B pointers as kernel parameters indexed
+// by blockIdx would be copied to local memory (ROADMAP trap 6). Then it runs
+// the single kernel's body on that member and adds its sum into out[q].
+// A mode-2 tile of padding only exits, as in the single kernel.
+//
+// Bound: memory, as the single kernels: every member's blocks that count
+// and its id arrays read once, plus the table and the B totals.
+
+#define K2B_MODE0_PTRS 1
+#define K2B_MODE2_PTRS 4
+
+__global__ void __launch_bounds__(K2_THREADS)
+count_blocks_batch_kernel(const long long* __restrict__ table, long long nb_a,
+                          unsigned long long* __restrict__ out) {
+    __shared__ long long s_ptr[K2B_MODE0_PTRS];
+    if (threadIdx.x < K2B_MODE0_PTRS)
+        s_ptr[threadIdx.x] = table[(long long)blockIdx.y * K2B_MODE0_PTRS + threadIdx.x];
+    __syncthreads();
+    count_blocks_body(reinterpret_cast<const uint4*>(s_ptr[0]), nb_a,
+                      out + blockIdx.y);
+}
+
+__global__ void __launch_bounds__(K2_THREADS)
+count_blocks_fused_batch_kernel(const long long* __restrict__ table, int nb_a,
+                                int nb_b, unsigned long long* __restrict__ out) {
+    __shared__ long long s_ptr[K2B_MODE2_PTRS];
+    if (threadIdx.x < K2B_MODE2_PTRS)
+        s_ptr[threadIdx.x] = table[(long long)blockIdx.y * K2B_MODE2_PTRS + threadIdx.x];
+    __syncthreads();
+    count_and_blocks_body(reinterpret_cast<const uint4*>(s_ptr[0]),
+                          reinterpret_cast<const uint4*>(s_ptr[1]),
+                          reinterpret_cast<const int*>(s_ptr[2]),
+                          reinterpret_cast<const int*>(s_ptr[3]), nb_a, nb_b,
+                          out + blockIdx.y);
+}
+
+// Plain C entry point, bound with ctypes. `table` is a device [n_members,
+// 1] (mode 0) or [n_members, 4] (mode 2: a, b, ids_a, ids_b) int64 array of
+// pointers, laid out as count_blocks_launch takes them (16-byte aligned
+// blocks, sorted ids with padding last); every member has nb_a blocks of a
+// and, in mode 2, nb_b of b (< 2^31 each). 1 <= n_members <= 65535 (grid.y).
+// Zeroes `out` (n_members uint64) and launches on `stream`; with nb_a == 0,
+// or nb_b == 0 in mode 2, it launches nothing. Returns cudaGetLastError().
+extern "C" int count_blocks_batch_launch(int mode, const void* table,
+                                         int n_members, long long nb_a,
+                                         long long nb_b, void* out,
+                                         void* stream) {
+    if ((mode != 0 && mode != 2) || !table || n_members < 1 ||
+        n_members > 65535 || nb_a < 0 || nb_b < 0 ||
+        (mode == 2 && (nb_a > INT_MAX - K2_TILE || nb_b > INT_MAX - K2_CHUNK)))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err = cudaMemsetAsync(
+        out, 0, (size_t)n_members * sizeof(unsigned long long), s);
+    if (err != cudaSuccess) return (int)err;
+    if (nb_a == 0 || (mode == 2 && nb_b == 0)) return (int)cudaGetLastError();
+    const long long* tab = (const long long*)table;
+    unsigned long long* o = (unsigned long long*)out;
+    if (mode == 0) {
+        static const int cap = resident_blocks(count_blocks_batch_kernel);
+        const long long want = (nb_a + K2_WARPS - 1) / K2_WARPS;
+        long long per = cap / n_members;
+        per = per < 1 ? 1 : (per > want ? want : per);
+        count_blocks_batch_kernel<<<dim3((unsigned)per, (unsigned)n_members),
+                                    K2_THREADS, 0, s>>>(tab, nb_a, o);
+    } else {
+        const unsigned tiles = (unsigned)((nb_a + K2_TILE - 1) / K2_TILE);
+        count_blocks_fused_batch_kernel<<<dim3(tiles, (unsigned)n_members),
+                                          K2_THREADS, 0, s>>>(
+            tab, (int)nb_a, (int)nb_b, o);
     }
     return (int)cudaGetLastError();
 }

@@ -64,8 +64,10 @@ package:
   arrive leads and drains every Count queued meanwhile, groups them by
   signature, container signature and shapes, counts each dense group
   with ONE launch of K1's batched entry (`containers.count_program_batch`
-  -> `count_expr_batch`) and each other group member by member, and
-  fetches every total with ONE device->host copy. A lone Count takes the
+  -> `count_expr_batch`), each block-sparse group with ONE launch of
+  K2's (`count_blocks_batch`, `count_and_blocks_batch`) and each
+  run-length group member by member, and fetches every total with ONE
+  device->host copy. A lone Count takes the
   plain one-launch path.
 - TopN, GroupBy, Sum, Min and Max share their result fetches through a
   second GroupCommit (`_fetch_commit`).
@@ -1583,8 +1585,8 @@ class StackedEvaluator:
         how many queries shared the payload's launch. Payloads group by
         signature, container signature and component shapes; each group
         is `count_program_batch` (one launch of K1's batched entry for a
-        dense group of two or more), and every group's totals come back
-        in ONE device->host copy."""
+        dense group of two or more, one of K2's for a block-sparse one),
+        and every group's totals come back in ONE device->host copy."""
         if len(payloads) == 1:
             sig, stacks = payloads[0]
             return [(self._count_fn(sig, stacks), 1)]
@@ -1643,7 +1645,8 @@ class StackedEvaluator:
         result into pinned host memory, WITHOUT waiting for any of it.
         Items group on (kind, sig, gsig) and chunk at BATCH_BUCKETS[-1]:
         a count group is `count_program_batch` (one launch of K1's
-        batched entry when its leaves are dense), a plane group one
+        batched entry when its leaves are dense, one of K2's when they
+        are block-sparse), a plane group one
         `plane_program` per member. Returns the handle
         `resolve_query_batch` turns into per-item results.
 

@@ -37,9 +37,13 @@ it can: a single sparse leaf and a pure-`&` tree of sparse leaves go to
 K2 (ops/count_blocks.py), rle leaves to torch sums of run lengths and
 overlaps, and anything else — a leaf with overlay terms included —
 densifies its leaves on the device and goes to K1 (ops/count_expr.py).
-`count_program_multi` counts a whole query's trees (whole-plan fusion):
-every member that would end in K1 rides ONE launch of K1's multi-tree
-entry, the others their own `count_program`. `plane_program` densifies
+`count_program_batch` counts B trees of one signature and shapes: the
+members that end in K1 ride ONE launch of K1's batched entry, those
+that end in K2 ONE launch of K2's batched entry, as the TPU package's
+vmapped count program makes one kernel of each. `count_program_multi`
+counts a whole query's trees (whole-plan fusion): every member that
+would end in K1 rides ONE launch of K1's multi-tree entry, the others
+their own `count_program`. `plane_program` densifies
 every leaf and evaluates the tree. Every count is an exact int64.
 """
 
@@ -55,7 +59,9 @@ from .count_blocks import (
     SPARSE_SENTINEL,
     align_blocks,
     count_and_blocks,
+    count_and_blocks_batch,
     count_blocks,
+    count_blocks_batch,
 )
 from .count_expr import count_expr, count_expr_batch, count_expr_multi, \
     popcount_total, tree_eval
@@ -741,7 +747,7 @@ def count_kernels(sig, csig, shapes, batch=1):
     `count_program_batch` launches for one tree, from the signature and
     the shapes of its flattened args alone: [(kernel, cost args)] as
     `ops.declared_cost` takes them. A batch of K1 members is one launch
-    of the batched entry; other members launch one by one; the
+    of K1's batched entry, a batch of K2 members one launch of K2's; the
     run-length sums launch nothing hand-written."""
     conts = unflatten(csig, [_Shaped(s) for s in shapes])
     route = _count_route(sig, conts)
@@ -753,13 +759,30 @@ def count_kernels(sig, csig, shapes, batch=1):
                      (batch, len(conts), s, WORDS_PER_ROW))]
         return [("count_expr", (len(conts), s, WORDS_PER_ROW))]
     if route == "sparse":
-        return [("count_blocks", (conts[sig[1]][1][1].shape[0],))]
+        nb = conts[sig[1]][1][1].shape[0]
+        if batch > 1:
+            return [("count_blocks_batch", (batch, nb))]
+        return [("count_blocks", (nb,))]
     if route == "sparse_and":
         leaf_ids = _pure_intersect_leaves(sig)
-        return [("count_and_blocks",
-                 (conts[leaf_ids[0]][1][0].shape[0],
-                  conts[leaf_ids[-1]][1][0].shape[0]))]
+        na = conts[leaf_ids[0]][1][0].shape[0]
+        nb = conts[leaf_ids[-1]][1][0].shape[0]
+        if batch > 1:
+            return [("count_and_blocks_batch", (batch, na, nb))]
+        return [("count_and_blocks", (na, nb))]
     return []
+
+
+def _sparse_and_operands(sig, conts):
+    """The last pair of an all-sparse `&` tree, as `count_and_blocks`
+    takes it: the leading leaves folded onto the first leaf's block index
+    in torch, then the last leaf."""
+    leaf_ids = _pure_intersect_leaves(sig)
+    acc_ids, acc_blocks = conts[leaf_ids[0]][1]
+    for i in leaf_ids[1:-1]:
+        acc_blocks = sparse_intersect_blocks(acc_ids, acc_blocks,
+                                             *conts[i][1])
+    return (acc_ids, acc_blocks, *conts[leaf_ids[-1]][1])
 
 
 def count_program(sig, csig, flat):
@@ -785,39 +808,52 @@ def count_program(sig, csig, flat):
     route = _count_route(sig, conts)
     if route == "k1":
         return count_expr(sig, [to_dense(c) for c in conts])
-    leaf_ids = _pure_intersect_leaves(sig)
     if route == "sparse_and":
-        acc_ids, acc_blocks = conts[leaf_ids[0]][1]
-        for i in leaf_ids[1:-1]:
-            acc_blocks = sparse_intersect_blocks(
-                acc_ids, acc_blocks, *conts[i][1])
-        return count_and_blocks(acc_ids, acc_blocks,
-                                *conts[leaf_ids[-1]][1])
+        return count_and_blocks(*_sparse_and_operands(sig, conts))
+    leaf_ids = _pure_intersect_leaves(sig)
     return rle_intersect(*conts[leaf_ids[0]][1], *conts[leaf_ids[1]][1])
 
 
 def count_program_batch(sig, csig, flats):
     """[B] int64 counts of B trees of one signature, each over its own
     flattened container args, equal to `count_program` member by member.
-    A lone member is `count_program`; otherwise the members whose count
-    ends in K1 are counted by ONE launch of K1's batched entry
-    (`count_expr_batch`), the others (K2, the run-length sums) by
-    `count_program` one by one."""
+    A lone member is `count_program`; otherwise the members are counted
+    by their route: those that end in K1 by ONE launch of K1's batched
+    entry (`count_expr_batch`), single sparse leaves by ONE launch of
+    K2's batched entry (`count_blocks_batch`), all-sparse `&` trees by
+    ONE launch of its fused mode (`count_and_blocks_batch`, each member's
+    leading leaves folded first), the run-length sums by `count_program`
+    one by one. Members grouped on their exact shapes share the batched
+    entries' NB."""
     if len(flats) == 1:
         return count_program(sig, csig, flats[0]).reshape(1)
     members = [unflatten(csig, flat) for flat in flats]
-    k1 = [i for i, conts in enumerate(members)
-          if _count_route(sig, conts) == "k1"]
-    out = [None if i in k1 else count_program(sig, csig, flats[i])
-           for i in range(len(members))]
-    if k1:
-        vals = count_expr_batch(
-            sig, [[to_dense(c) for c in members[i]] for i in k1])
-        if len(k1) == len(members):
+    routes = [_count_route(sig, conts) for conts in members]
+    out = [None] * len(members)
+    for route, launch in _BATCHED_ROUTES.items():
+        idx = [i for i, r in enumerate(routes) if r == route]
+        if not idx:
+            continue
+        vals = launch(sig, [members[i] for i in idx])
+        if len(idx) == len(members):
             return vals
-        for j, i in enumerate(k1):
+        for j, i in enumerate(idx):
             out[i] = vals[j]
+    for i, route in enumerate(routes):
+        if route not in _BATCHED_ROUTES:
+            out[i] = count_program(sig, csig, flats[i])
     return torch.stack(out)
+
+
+#: count_program_batch's one-launch routes: route -> fn(sig, members)
+_BATCHED_ROUTES = {
+    "k1": lambda sig, members: count_expr_batch(
+        sig, [[to_dense(c) for c in conts] for conts in members]),
+    "sparse": lambda sig, members: count_blocks_batch(
+        [conts[sig[1]][1][1] for conts in members]),
+    "sparse_and": lambda sig, members: count_and_blocks_batch(
+        [_sparse_and_operands(sig, conts) for conts in members]),
+}
 
 
 def count_program_multi(plans, flats_per_call, program=None):

@@ -17,9 +17,18 @@ pilosa_tpu/ops/containers.py:757-761) into the kernel, which intersects
 the two sorted id lists tile by tile. Bound: memory (the id arrays and
 the blocks that count, read once; see csrc/count_blocks.cu).
 
+Their batched entry counts B members of one shape in one launch, each
+total its own, as the TPU package's vmapped count program
+(`_vmap_count_fn`, pilosa_tpu/exec/stacked.py:1620) makes one kernel of
+a batch of sparse Counts:
+
+    count_blocks_batch([blocks, ...])              [B] Σ popcount
+    count_and_blocks_batch([(ids_a, blocks_a, ids_b, blocks_b), ...])
+                                                   [B] Σ popcount(a ∩ b)
+
 Each wrapper takes its plain version for CPU tensors and launches the
 hand-written kernel `csrc/count_blocks.cu` for CUDA tensors, or raises.
-An empty input returns 0 without a launch.
+An empty input returns 0 without a launch (zeros, for a batch).
 """
 
 import ctypes
@@ -35,9 +44,15 @@ __all__ = [
     "SPARSE_SENTINEL",
     "align_blocks",
     "count_and_blocks",
+    "count_and_blocks_batch",
+    "count_and_blocks_batch_cost",
+    "count_and_blocks_batch_reference",
     "count_and_blocks_cost",
     "count_and_blocks_reference",
     "count_blocks",
+    "count_blocks_batch",
+    "count_blocks_batch_cost",
+    "count_blocks_batch_reference",
     "count_blocks_cost",
     "count_blocks_reference",
 ]
@@ -116,7 +131,11 @@ def _check_fused(ids_a, blocks_a, ids_b, blocks_b):
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
-    """The C entry point of csrc/count_blocks.cu (built at first use)."""
+    """The C entry point of csrc/count_blocks.cu (built at first use).
+    A lone Count keeps this single entry: the batched entry at B = 1
+    takes its device time within 1.3 us but 41-83 us more a call by
+    CUDA events on an H100 SXM at 700 W (its pinned pointer table;
+    chip_smoke.py's "K2 batched ... at B=1" lines)."""
     fn = cuda_build.load("count_blocks").count_blocks_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -125,15 +144,19 @@ def _kernel_fn():
     return fn
 
 
-def _launch(mode, wrapper, a, b=None, ids_a=None, ids_b=None):
-    fn = _kernel_fn()
-    for t in (a, b, ids_a, ids_b):
+def _check_launchable(tensors):
+    for t in tensors:
         if t is None:
             continue
         if not t.is_contiguous():
             raise ValueError("K2 inputs must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError("K2 inputs must be 16-byte aligned")
+
+
+def _launch(mode, wrapper, a, b=None, ids_a=None, ids_b=None):
+    fn = _kernel_fn()
+    _check_launchable((a, b, ids_a, ids_b))
     out = torch.empty((1,), dtype=torch.int64, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = fn(_MODES[mode], a.data_ptr(),
@@ -201,3 +224,137 @@ def count_and_blocks_cost(na, nb, matched=None, device=None):
     return cuda_build.declared_cost(
         (na + nb) * 4 + 2 * matched * BLOCK_WORDS * 4 + 8, device)
 
+
+# ------------------------------------------------------- the batched entry
+
+#: grid.y's limit: the batched kernels' member axis
+MAX_BATCH = 65535
+
+
+def count_blocks_batch_reference(blocks_per_member):
+    """The plain version of `count_blocks_batch`: one
+    `count_blocks_reference` per member, as a [B] int64 tensor."""
+    if not blocks_per_member:
+        return torch.zeros((0,), dtype=torch.int64)
+    return torch.stack([count_blocks_reference(blocks)
+                        for blocks in blocks_per_member])
+
+
+def count_and_blocks_batch_reference(members):
+    """The plain version of `count_and_blocks_batch`: one
+    `count_and_blocks_reference` per member, as a [B] int64 tensor."""
+    if not members:
+        return torch.zeros((0,), dtype=torch.int64)
+    return torch.stack([count_and_blocks_reference(*m) for m in members])
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_kernel_fn():
+    """The batched C entry point of csrc/count_blocks.cu."""
+    fn = cuda_build.load("count_blocks").count_blocks_batch_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    return fn
+
+
+def _check_batch(rows, dev, name):
+    """Every member's arrays of one shape per slot, on `dev`, and at most
+    MAX_BATCH members."""
+    if len(rows) > MAX_BATCH:
+        raise ValueError(f"{name}: {len(rows)} members > {MAX_BATCH}")
+    first = rows[0]
+    for row in rows:
+        for t, t0 in zip(row, first):
+            if t.shape != t0.shape:
+                raise ValueError(
+                    f"{name}: members must share one shape per slot, got "
+                    f"{tuple(t.shape)} and {tuple(t0.shape)}")
+            if t.device != dev:
+                raise ValueError(f"{name}: members lie on different devices")
+
+
+def _launch_batch(mode, wrapper, rows, nb_a, nb_b):
+    fn = _batch_kernel_fn()
+    for row in rows:
+        _check_launchable(row)
+    dev = rows[0][0].device
+    # [B, k] pointers, copied from pinned memory without a wait: the host
+    # allocator keeps the pinned rows until the copy has run
+    table = torch.tensor([[t.data_ptr() for t in row] for row in rows],
+                         dtype=torch.int64).pin_memory().to(
+                             dev, non_blocking=True)
+    out = torch.empty((len(rows),), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(_MODES[mode], table.data_ptr(), len(rows), nb_a, nb_b,
+             out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"count_blocks batch kernel launch failed: CUDA error {err}")
+    cuda_build.count_launch(wrapper)
+    return out
+
+
+def count_blocks_batch(blocks_per_member):
+    """[B] int64 tensor of Σ popcount over each member's [NB, 128]
+    blocks, every member of one NB on one device: the plain version for
+    CPU tensors, ONE launch of the batched kernel for CUDA tensors (none
+    for NB = 0; an empty batch gives an empty tensor)."""
+    for blocks in blocks_per_member:
+        _check_blocks(blocks)
+    if not blocks_per_member:
+        return torch.zeros((0,), dtype=torch.int64)
+    dev = blocks_per_member[0].device
+    rows = [(blocks,) for blocks in blocks_per_member]
+    _check_batch(rows, dev, "count_blocks_batch")
+    if not _route(dev, "count_blocks_batch"):
+        return count_blocks_batch_reference(blocks_per_member)
+    nb = blocks_per_member[0].shape[0]
+    if nb == 0:
+        return torch.zeros((len(rows),), dtype=torch.int64, device=dev)
+    return _launch_batch("blocks", count_blocks_batch, rows, nb, 0)
+
+
+def count_and_blocks_batch(members):
+    """[B] int64 tensor of each member's `count_and_blocks`: members are
+    (ids_a, blocks_a, ids_b, blocks_b) tuples, all of one NB_a and one
+    NB_b on one device. CPU tensors take the plain version, CUDA tensors
+    ONE launch of the batched kernel (none when NB_a or NB_b is 0; an
+    empty batch gives an empty tensor)."""
+    members = [tuple(m) for m in members]
+    devs = [_check_fused(*m) for m in members]
+    if not members:
+        return torch.zeros((0,), dtype=torch.int64)
+    dev = devs[0]
+    _check_batch(members, dev, "count_and_blocks_batch")
+    if not _route(dev, "count_and_blocks_batch"):
+        return count_and_blocks_batch_reference(members)
+    nb_a, nb_b = members[0][1].shape[0], members[0][3].shape[0]
+    if nb_a == 0 or nb_b == 0:
+        return torch.zeros((len(members),), dtype=torch.int64, device=dev)
+    # the kernel's pointer row: a's blocks, b's blocks, a's ids, b's ids
+    rows = [(blocks_a, blocks_b, ids_a, ids_b)
+            for ids_a, blocks_a, ids_b, blocks_b in members]
+    return _launch_batch("fused", count_and_blocks_batch, rows, nb_a, nb_b)
+
+
+#: launches of the batched entry since the last reset, per mode
+#: (chip_smoke.py sums them)
+count_blocks_batch.launches = 0
+count_and_blocks_batch.launches = 0
+
+
+def count_blocks_batch_cost(b, nb, device=None):
+    """The batched entry's declared cost for B members of [NB, 128]
+    blocks: the sum of the members' `count_blocks_cost`."""
+    return cuda_build.declared_cost(
+        b * count_blocks_cost(nb)["bytes accessed"], device)
+
+
+def count_and_blocks_batch_cost(b, na, nb, device=None):
+    """The batched entry's declared cost for B members of id lists of NA
+    and NB entries: the sum of the members' `count_and_blocks_cost`,
+    each declaring the most (the shapes do not show the matched ids)."""
+    return cuda_build.declared_cost(
+        b * count_and_blocks_cost(na, nb)["bytes accessed"], device)

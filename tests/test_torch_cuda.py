@@ -575,6 +575,87 @@ def test_count_blocks_kernels_reject_misaligned(cuda):
         k2.count_and_blocks(ids, odd, ids, odd)
 
 
+def _k2_batch_members(b, nb_a, nb_b, device):
+    """B (ids_a, blocks_a, ids_b, blocks_b) members of one shape: each
+    matching none, half or all of a's real ids in b, one member whose a
+    is padding only and one whose b is (at B >= 3)."""
+    rng = np.random.default_rng(b * 31 + nb_a)
+    out = []
+    for q in range(b):
+        real_a, real_b = nb_a - nb_a // 4 - q % 5, nb_b - nb_b // 4
+        if q == b - 1 and b >= 3:
+            real_a = 0
+        if q == b - 2 and b >= 3:
+            real_b = 0
+        ids_a = np.sort(rng.choice(1 << 20, real_a, replace=False))
+        share = min(real_a, real_b) * (q % 3) // 2
+        rest = np.setdiff1d(np.arange(1 << 20), ids_a)
+        ids_b = np.sort(np.concatenate([
+            rng.choice(ids_a, share, replace=False),
+            rng.choice(rest, real_b - share, replace=False)]))
+        out.append((*_sparse(nb_a, real_a, ids_a, seed=2 * q, device=device),
+                    *_sparse(nb_b, real_b, ids_b, seed=2 * q + 1,
+                             device=device)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nb_a,nb_b", [(1, 64, 64), (3, 200, 1100),
+                                         (5, 1100, 200), (16, 32768, 32768)])
+def test_count_blocks_batch_kernel_matches_plain_and_singles(cuda, b, nb_a,
+                                                             nb_b):
+    """Both modes of K2's batched entry: one launch each, equal to the
+    plain version and to B single launches, padding-only members 0."""
+    members = _k2_batch_members(b, nb_a, nb_b, cuda)
+    blocks = [m[1] for m in members]
+    before = (k2.count_blocks_batch.launches,
+              k2.count_and_blocks_batch.launches)
+    got = k2.count_blocks_batch(blocks)
+    fused = k2.count_and_blocks_batch(members)
+    torch.cuda.synchronize()
+    assert (k2.count_blocks_batch.launches,
+            k2.count_and_blocks_batch.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert got.device.type == "cuda" and got.shape == (b,)
+    assert got.tolist() == k2.count_blocks_batch_reference(blocks).tolist()
+    assert got.tolist() == [int(k2.count_blocks(x)) for x in blocks]
+    assert fused.tolist() == \
+        k2.count_and_blocks_batch_reference(members).tolist()
+    assert fused.tolist() == [int(k2.count_and_blocks(*m)) for m in members]
+    if b >= 3:
+        assert fused.tolist()[-2:] == [0, 0]
+
+
+@pytest.mark.cuda
+def test_count_blocks_batch_kernel_empty_and_misaligned(cuda):
+    """An empty batch, NB = 0 and NB_b = 0 give zeros without a launch;
+    misaligned blocks and mismatched members are refused."""
+    before = (k2.count_blocks_batch.launches,
+              k2.count_and_blocks_batch.launches)
+    assert k2.count_blocks_batch([]).shape == (0,)
+    empty = _sparse(0, 0, [], seed=0, device=cuda)
+    some = _sparse(8, 6, np.arange(6), seed=1, device=cuda)
+    out = k2.count_blocks_batch([empty[1]] * 3)
+    assert out.device.type == "cuda" and out.tolist() == [0, 0, 0]
+    out = k2.count_and_blocks_batch([(*some, *empty)] * 2)
+    assert out.device.type == "cuda" and out.tolist() == [0, 0]
+    assert (k2.count_blocks_batch.launches,
+            k2.count_and_blocks_batch.launches) == before
+    base = torch.zeros(4 * 128 + 1, dtype=torch.int32, device=cuda)
+    odd = base[1:].view(4, 128)
+    ids = torch.arange(4, dtype=torch.int32, device=cuda)
+    good = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        k2.count_blocks_batch([good, odd])
+    with pytest.raises(ValueError, match="aligned"):
+        k2.count_and_blocks_batch([(ids, good, ids, good),
+                                   (ids, odd, ids, good)])
+    with pytest.raises(ValueError, match="one shape"):
+        k2.count_blocks_batch([good, some[1]])
+    assert (k2.count_blocks_batch.launches,
+            k2.count_and_blocks_batch.launches) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("pattern", ["random", "blocks", "runs", "empty"])
 def test_analyze_on_card_matches_cpu(cuda, pattern):

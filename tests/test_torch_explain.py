@@ -486,6 +486,11 @@ BOUND_BYTES = [
     ("count_expr_multi", ((2, 2), 954, W), 500_170_846),
     ("count_blocks", (32768,), 16_777_224),
     ("count_blocks", (131072,), 67_108_872),
+    # K2's batched entry: the sum of its members' single costs (B = 4
+    # and the served query-batch's 16 at index b's NB = 32,768)
+    ("count_blocks_batch", (4, 32768), 67_108_896),
+    ("count_blocks_batch", (16, 32768), 268_435_584),
+    ("count_and_blocks_batch", (4, 32768, 32768), 135_266_336),
     ("row_counts", (100, 10 * W, False), 131_072_800),
     ("row_counts", (1, 954 * W, True), 250_085_384),
     ("row_counts", (21, 128 * W, True), 369_098_920),
@@ -525,6 +530,46 @@ def test_declared_k2_fused_and_k4_popc_costs():
     cost = pairwise_cost(102, 102, 10 * W, False, device="cuda")
     assert cost["popc"] == 102 * 102 * 10 * W
     assert cost["optimal_seconds"] * 1e6 == pytest.approx(815.25, abs=0.01)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 16])
+def test_count_kernels_declare_k2_batched_entry(batch):
+    """A count group's declared launches from its shapes alone: B > 1
+    block-sparse members are ONE launch of K2's batched entry (mode 0 for
+    a lone leaf, the fused mode for an all-sparse `&` of two or three
+    leaves, its NB_a the first leaf's and NB_b the last's), B = 1 the
+    single entry; the cost is B single members' bytes."""
+    from pilosa_tpu_torch.ops import containers as tc
+
+    leaf = ("leaf", 0)
+    pair = ("&", (("leaf", 0), ("leaf", 1)))
+    triple = ("&", (("leaf", 0), ("leaf", 1), ("leaf", 2)))
+    sp = ("sparse", 954)
+    shapes = {32768: ((32768,), (32768, 128)), 16384: ((16384,),
+                                                        (16384, 128))}
+    got = {
+        "leaf": tc.count_kernels(leaf, (sp,), shapes[32768], batch),
+        "pair": tc.count_kernels(pair, (sp, sp),
+                                 shapes[32768] + shapes[16384], batch),
+        "triple": tc.count_kernels(triple, (sp, sp, sp), shapes[16384]
+                                   + shapes[32768] + shapes[32768], batch),
+    }
+    if batch == 1:
+        assert got == {"leaf": [("count_blocks", (32768,))],
+                       "pair": [("count_and_blocks", (32768, 16384))],
+                       "triple": [("count_and_blocks", (16384, 32768))]}
+    else:
+        assert got == {
+            "leaf": [("count_blocks_batch", (batch, 32768))],
+            "pair": [("count_and_blocks_batch", (batch, 32768, 16384))],
+            "triple": [("count_and_blocks_batch", (batch, 16384, 32768))]}
+    one = declared_cost("count_blocks", (32768,))["bytes accessed"]
+    pair_one = declared_cost("count_and_blocks", (32768, 16384))[
+        "bytes accessed"]
+    (kernel, args), = got["leaf"]
+    assert declared_cost(kernel, args)["bytes accessed"] == batch * one
+    (kernel, args), = got["pair"]
+    assert declared_cost(kernel, args)["bytes accessed"] == batch * pair_one
 
 
 def test_debug_kernels_lists_declared_costs_per_launched_shape(env):
