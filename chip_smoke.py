@@ -130,6 +130,20 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      a cold leaf build split into upload, the chooser's `analyze` on the
      card (its counts checked against numpy) and the host builder, for
      a dense, a sparse and a run-length leaf;
+   - the randomized differential (serve_fuzz, after the compressed
+     path): pilosa_tpu_torch/tools/fuzz.py's set fuzz (2 shards, 25
+     random Intersect/Union/Difference/Xor/Not trees of each of seeds 7,
+     23 and 1009 as a Count and as the Row's columns, TopN and Rows of
+     seeds 3 and 17, and every row's and f x g pair's Count) under each
+     container repr (auto, dense, sparse, rle), and its full-type fuzz
+     (mutex, bool, BSI, time, keyed fields; 40 trees of seeds 13 and
+     101, filtered Sum/Min/Max, one Count of each BSI operator) under
+     auto and sparse, on the port's Executor over fresh data directories,
+     every answer equal to the naive model; then one concurrent
+     read/write/snapshot/DDL round of tests/test_stress.py under
+     PILOSA_TPU_PARANOIA=1 with 100 writes a writer (cut from 300), its
+     rows against the writers' record; K1, both K2 entries, K3 and K5
+     must each launch in the phase; a `fuzz-json:` line has the numbers;
    - command-line tools and durable imports (serve_tools): a second
      server, `python -m pilosa_tpu_torch server --device cuda --config
      <toml>` (max-op-n 10000, [storage] fsync "always") as a child
@@ -200,7 +214,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      plane, three `python -m pilosa_tpu_torch server --device cuda
      --cluster-hosts ... --replicas 2` children on the one card (a 5 s
      anti-entropy interval); index b's rows 1-2 of f and g loaded over
-     its first 240 shards (CLUSTER_SHARDS) through node 0, one
+     its first 120 shards (CLUSTER_SHARDS) through node 0, one
      import-roaring per field and shard, each routed to both owners, and
      every shard found on exactly its two owners; the four headline
      Counts through every node equal numpy, each one count_expr launch
@@ -223,8 +237,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      second plane, three `python -m pilosa_tpu_torch server --device
      cuda --spmd --replicas 1` children on the one card, one gloo process
      group; index b's f=1 and g=1 at all 954 shards loaded through node
-     0 by import-roaring; four Counts through every node, twice (cold,
-     then warm), equal numpy, every node's step counter, its steps'
+     0 by import-roaring; four Counts through every node, once (a
+     serve-off step gathers its leaves every query, so a second pass
+     repeats the first), equal numpy, every node's step counter, its steps'
      count_expr launches (/internal/spmd/stats `step_launches`) and
      spmd_count dispatches (/debug/dispatch) up by one a Count, no
      fallback; 5 profiled Counts split by step phase (the coordinator's
@@ -4269,11 +4284,11 @@ CLUSTER_DEVICE = "cuda"
 CLUSTER_LOAD_THREADS = 6
 CLUSTER_WARM = 50
 CLUSTER_PROFILED = 20
-CLUSTER_DEGRADED = 2  # Counts timed while node 2 is paused
-#: index b's shards the HTTP cluster loads: its first 240 of 954 (the
+CLUSTER_DEGRADED = 2  # Counts timed while node 2 is paused: one a live node
+#: index b's shards the HTTP cluster loads: its first 120 of 954 (the
 #: cut PERF.md section 4 names: the load through node 0 is host-bound and
 #: ran 70-88 s at every shard; serve_spmd keeps all 954)
-CLUSTER_SHARDS = 240
+CLUSTER_SHARDS = 120
 GOLDEN = os.path.join(ROOT, "tests", "testdata", "golden_pql.json")
 #: the golden index's schema (tests/test_golden_cluster.py's)
 GOLDEN_FIELDS = (("f", {"type": "set"}), ("g", {"type": "set"}),
@@ -4910,21 +4925,21 @@ def serve_spmd(planes, card):
             f"{len(jobs)} import-roaring requests) through node 0 in "
             f"{out['load_s']:.1f} s; shards held {out['held']}")
 
-        # -- the four Counts through every node, cold then warm
+        # -- the four Counts through every node, one pass: a serve-off
+        # step gathers its leaves every query, first or not (trap 36)
         s0 = _spmd_stats(cl)
         d0 = [_dispatch_count(c, "spmd_count") for c in cl]
-        walls = {"cold": [], "warm": []}
-        for rnd in ("cold", "warm"):
-            for i, c in enumerate(cl):
-                for pql, want in expect.items():
-                    t0 = time.perf_counter()
-                    got = c.query("b", pql)["results"][0]
-                    walls[rnd].append(time.perf_counter() - t0)
-                    if got != want:
-                        raise AssertionError(f"spmd: {pql} = {got} via "
-                                             f"node {i}, numpy {want}")
+        walls = []
+        for i, c in enumerate(cl):
+            for pql, want in expect.items():
+                t0 = time.perf_counter()
+                got = c.query("b", pql)["results"][0]
+                walls.append(time.perf_counter() - t0)
+                if got != want:
+                    raise AssertionError(f"spmd: {pql} = {got} via "
+                                         f"node {i}, numpy {want}")
         s1 = _spmd_stats(cl)
-        n = 2 * len(cl) * len(expect)
+        n = len(cl) * len(expect)
         steps = [b["steps"] - a["steps"] for a, b in zip(s0, s1)]
         k1 = [b["step_launches"]["count_expr"]
               - a["step_launches"]["count_expr"] for a, b in zip(s0, s1)]
@@ -4942,16 +4957,15 @@ def serve_spmd(planes, card):
                 or any(s["device_failures"] for s in s1):
             raise AssertionError(f"spmd: fallbacks {s1}")
         out["counts"] = n
-        out["cold_ms_p50"] = 1e3 * statistics.median(walls["cold"])
-        out["warm_ms_p50"] = 1e3 * statistics.median(walls["warm"])
-        out["warm_ms_p99"] = 1e3 * _pct(walls["warm"], 99)
-        out["first_count_ms"] = 1e3 * walls["cold"][0]
-        log(f"spmd: {len(expect)} Counts through each node equal numpy, "
-            f"twice; every node ran {n} steps, {n} count_expr launches, "
-            f"{n} spmd_count dispatches; fallbacks 0; Count p50 cold "
-            f"{out['cold_ms_p50']:.1f} ms (first {out['first_count_ms']:.1f})"
-            f", warm {out['warm_ms_p50']:.1f} ms (p99 "
-            f"{out['warm_ms_p99']:.1f}), {len(walls['warm'])} each; {card}")
+        out["first_count_ms"] = 1e3 * walls[0]
+        out["warm_ms_p50"] = 1e3 * statistics.median(walls[1:])
+        out["warm_ms_p99"] = 1e3 * _pct(walls[1:], 99)
+        log(f"spmd: {len(expect)} Counts through each node equal numpy; "
+            f"every node ran {n} steps, {n} count_expr launches, "
+            f"{n} spmd_count dispatches; fallbacks 0; the first Count "
+            f"{out['first_count_ms']:.1f} ms, the {n - 1} after it p50 "
+            f"{out['warm_ms_p50']:.1f} ms (p99 {out['warm_ms_p99']:.1f}); "
+            f"{card}")
         splits, missed = [], 0
         while len(splits) < SPMD_PROFILED:
             sp = _spmd_split(cl[coord].query("b", headline, profile=True))
@@ -5233,7 +5247,7 @@ def _serve_spmd_on(pc, coord, expect, f1, card, off):
         f"({'the coordinator' if coord == 0 else 'forwarded'}), p50 of "
         f"{SPMD_WARM_ON}: {out['warm_ms_p50']:.2f} ms (p99 "
         f"{out['warm_ms_p99']:.2f}); serve off in this run: warm p50 "
-        f"{off['warm_ms_p50']:.1f} ms, cold {off['cold_ms_p50']:.1f} ms "
+        f"{off['warm_ms_p50']:.1f} ms, first {off['first_count_ms']:.1f} ms "
         f"(x{off['warm_ms_p50'] / out['warm_ms_p50']:.0f}); window "
         f"{SPMD_COALESCE}; {card}")
 
@@ -5401,6 +5415,138 @@ def _serve_spmd_on(pc, coord, expect, f1, card, off):
     return out
 
 
+FUZZ_SET_SEEDS = (7, 23, 1009)  # the PQL differential, 25 trees each
+FUZZ_AGG_SEEDS = (3, 17)  # TopN and Rows
+FUZZ_FULL_SEEDS = (13, 101)  # the full-type differential, 40 trees each
+FUZZ_REPRS = ("auto", "dense", "sparse", "rle")
+FUZZ_FULL_REPRS = ("auto", "sparse")
+# the stress round's writes per writer (tests/test_stress.py: 300)
+FUZZ_STRESS_OPS = 100
+
+
+def serve_fuzz(k1, k2, k3, k5, card):
+    """The randomized PQL differential of pilosa_tpu_torch/tools/fuzz.py
+    through the port's API and Executor on the card (their default
+    device), every answer against the naive model exactly:
+
+    - the set fuzz (2 shards, fields f and g, rows 0..3) under each repr
+      of FUZZ_REPRS: 25 trees of each of FUZZ_SET_SEEDS as a Count and
+      as the Row's columns, TopN and Rows of FUZZ_AGG_SEEDS, and the
+      fixed set (every row's Count and every f x g pair's Intersect
+      Count), so that K2's two modes launch whatever the seeds draw;
+    - the full-type fuzz (mutex, bool, BSI, time, keyed fields) under
+      FUZZ_FULL_REPRS: 40 trees of each of FUZZ_FULL_SEEDS in both
+      forms, the filtered Sum/Min/Max, and one Count of each BSI
+      operator on v;
+    - one concurrent read/write/snapshot/DDL round of tests/test_stress.py
+      (tools/stress.py) under PILOSA_TPU_PARANOIA=1, cut to
+      FUZZ_STRESS_OPS writes per writer, its final rows against the
+      writers' record.
+
+    Each seed's data is written once; every repr gets a fresh Executor
+    (an empty stack pool) over it. A mismatch raises. Returns the
+    queries checked per repr."""
+    import random
+
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.ops import containers
+    from pilosa_tpu_torch.server.api import API
+    from pilosa_tpu_torch.tools import fuzz, stress
+
+    base = tempfile.mkdtemp(prefix="pilosa-torch-smoke-fuzz-")
+    prev = containers.repr_mode()
+    holders = []
+    checked = {}
+    try:
+        t0 = time.perf_counter()
+        sets, fulls = {}, {}
+        for seed in FUZZ_SET_SEEDS + FUZZ_AGG_SEEDS:
+            h, _api, model = fuzz.build(os.path.join(base, f"s{seed}"), seed)
+            holders.append(h)
+            sets[seed] = (h, model)
+        for seed in FUZZ_FULL_SEEDS:
+            h, _api, model = fuzz.build_full(
+                os.path.join(base, f"t{seed}"), seed)
+            holders.append(h)
+            fulls[seed] = (h, model)
+        log(f"fuzz: data of {len(sets)} set and {len(fulls)} full-type "
+            f"seeds written in {time.perf_counter() - t0:.1f} s")
+        for mode in FUZZ_REPRS:
+            containers.configure(mode)
+            t0 = time.perf_counter()
+            n = 0
+            for seed in FUZZ_SET_SEEDS:
+                h, model = sets[seed]
+                ex = Executor(h)
+                tag = f"{mode} seed={seed}"
+                n += 2 * len(fuzz.check_set(
+                    ex, model, random.Random(seed * 31), 25, tag=tag))
+                if seed == FUZZ_SET_SEEDS[0]:
+                    n += len(fuzz.check_fixed(
+                        ex, "fz", model, fuzz.fixed_set_queries(), tag=tag))
+            for seed in FUZZ_AGG_SEEDS:
+                h, model = sets[seed]
+                n += len(fuzz.check_aggregates(Executor(h), model, tag=mode))
+            if mode in FUZZ_FULL_REPRS:
+                for seed in FUZZ_FULL_SEEDS:
+                    h, model = fulls[seed]
+                    ex = Executor(h)
+                    tag = f"{mode} seed={seed}"
+                    n += 2 * len(fuzz.check_full(
+                        ex, model, random.Random(seed * 101), 40, tag=tag))
+                    n += len(fuzz.check_bsi_aggregates(ex, model, tag=tag))
+                    n += len(fuzz.check_fixed(
+                        ex, "fz2", model, fuzz.fixed_bsi_queries(), tag=tag))
+            checked[mode] = n
+            log(f"fuzz: {mode}: {n} queries equal to the model in "
+                f"{time.perf_counter() - t0:.1f} s")
+        containers.configure(prev)
+        for h in holders:
+            h.close()
+        holders = []
+
+        # one stress round, cut from 300 to FUZZ_STRESS_OPS writes a writer
+        paranoia = os.environ.get("PILOSA_TPU_PARANOIA")
+        os.environ["PILOSA_TPU_PARANOIA"] = "1"
+        try:
+            t0 = time.perf_counter()
+            h = Holder(os.path.join(base, "stress")).open()
+            holders.append(h)
+            bits = stress.concurrent_round(API(h), Executor(h),
+                                           FUZZ_STRESS_OPS)
+        finally:
+            if paranoia is None:
+                del os.environ["PILOSA_TPU_PARANOIA"]
+            else:
+                os.environ["PILOSA_TPU_PARANOIA"] = paranoia
+        log(f"fuzz: stress round (PILOSA_TPU_PARANOIA=1, OPS_PER_WRITER cut "
+            f"300 -> {FUZZ_STRESS_OPS}, {stress.N_WRITERS} writers, "
+            f"{stress.N_READERS} readers, snapshots, "
+            f"DDL churn): {bits} bits, every row equal to the writers' "
+            f"record, storage checks clean, in "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        containers.configure(prev)
+        for h in holders:
+            h.close()
+        shutil.rmtree(base, ignore_errors=True)
+    moved = {"count_expr": k1.count_expr.launches,
+             "count_blocks": k2.count_blocks.launches,
+             "count_and_blocks": k2.count_and_blocks.launches,
+             "row_counts": k3.row_counts.launches,
+             "bsi_range": k5.bsi_range_mask.launches}
+    log(f"fuzz: launches in the phase on {card}: " + ", ".join(
+        f"{name} {n}" for name, n in moved.items()))
+    for name, n in moved.items():
+        if n < 1:
+            raise AssertionError(f"serve_fuzz: {name} was not launched")
+    log("fuzz-json: " + json.dumps({"checked": checked, "launches": moved,
+                                    "stress_ops_per_writer":
+                                        FUZZ_STRESS_OPS}))
+    return checked
+
+
 def main():
     import torch
 
@@ -5546,6 +5692,15 @@ def main():
             del served
             time_analyze(torch, planes, comp, card)
             phase_done("serve_compressed")
+            reset_counters(mods)  # the fuzz differential's run starts here
+            serve_fuzz(k1, k2, k3, k5, card)
+            launches["count_expr"] += k1.count_expr.launches
+            launches["count_blocks"] += k2_launches(k2)
+            launches["count_blocks_batch"] += k2_batch_launches(k2)
+            launches["row_counts"] += k3.row_counts.launches
+            launches["bsi_range"] += k5.bsi_range_mask.launches
+            launches["count_expr_batch"] += k1.count_expr_batch.launches
+            phase_done("serve_fuzz")
             reset_counters(mods)  # the PQL/HTTP surface path starts here
             t0 = time.perf_counter()
             serve_pql_surface(srv, k1, k3, planes, comp, tg, set_at, tg_set,

@@ -736,3 +736,35 @@ def test_ingest_merge_and_overlay_on_card(cuda, tmp_path):
         holder.close()
         containers.AUTO_COMPRESS_FLOOR = floor
         containers.configure(mode)
+
+
+@pytest.mark.cuda
+def test_fuzz_trees_sparse_through_kernels(cuda, tmp_path):
+    """Five random trees of tools/fuzz.py's set fuzz (seed 7) and its
+    fixed set, under a forced sparse repr on the card: every Count and
+    Row equals the naive model, and K2's two entries and K1 launch."""
+    import random
+
+    from pilosa_tpu_torch.ops import containers
+    from pilosa_tpu_torch.tools import fuzz
+
+    prev = containers.repr_mode()
+    containers.configure("sparse")
+    holder, api, model = fuzz.build(tmp_path, 7, device=cuda)
+    try:
+        for fn in (k1.count_expr, k2.count_blocks, k2.count_and_blocks):
+            fn.launches = 0
+        done = fuzz.check_set(api.executor, model, random.Random(7 * 31), 5)
+        fuzz.check_fixed(api.executor, "fz", model, fuzz.fixed_set_queries())
+        # a mixed tree: every leaf densified, one K1 launch
+        mixed = "Count(Union(Row(f=1), Not(Row(g=2))))"
+        want = len(model.rows[("f", 1)]
+                   | (model.exists - model.rows[("g", 2)]))
+        assert api.executor.execute("fz", mixed) == [want]
+        assert len(done) == 5
+        assert k2.count_blocks.launches > 0
+        assert k2.count_and_blocks.launches > 0
+        assert k1.count_expr.launches > 0
+    finally:
+        holder.close()
+        containers.configure(prev)

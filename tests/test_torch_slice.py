@@ -289,7 +289,8 @@ assert not bad, bad
 
 
 #: modules that must exist and be scanned: the command line with its
-#: tools, the client and the logger the oplog writes through, the
+#: tools, the fuzz and stress rounds chip_smoke.py drives on the card,
+#: the client and the logger the oplog writes through, the
 #: observability and health modules every layer imports, the wire
 #: codec, the ingest engine, the adaptive engine, the planner, whole-plan
 #: fusion, admission control, the HTTP cluster (placement, messaging,
@@ -311,7 +312,8 @@ REQUIRED_SOURCES = ("cli.py", "server/client.py", "utils/logger.py",
                     "cluster/resize.py", "server/syncer.py",
                     "server/translate_sync.py", "tools/cluster.py",
                     "parallel/sharded.py", "cluster/spmd.py",
-                    "cluster/meshstacks.py")
+                    "cluster/meshstacks.py", "tools/fuzz.py",
+                    "tools/stress.py")
 
 #: modules a client tool imports, the ingest engine, the adaptive
 #: engine, the planner, whole-plan fusion, admission control, the
@@ -517,6 +519,50 @@ print("TORCH LOADED", "torch" in sys.modules)
     assert "TORCH LOADED False" in proc.stdout
     assert wire_proc.returncode == 0, wire_proc.stdout + wire_proc.stderr
     assert "TORCH LOADED False" in wire_proc.stdout
+
+
+def test_fuzz_tools_run_with_jax_blocked(tmp_path):
+    """tools/fuzz.py and tools/stress.py, as chip_smoke.py's serve_fuzz
+    phase drives them, with jax, jaxlib and pilosa_tpu blocked from
+    import: a set and a full-type data set, five trees of each under a
+    forced sparse repr, the fixed sets, and a stress round of 20 writes
+    a writer."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_BLOCKER)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = f"{site}{os.pathsep}{REPO}"
+    env["OMP_NUM_THREADS"] = "1"
+    code = f"""
+import random, sys
+from pilosa_tpu_torch.core import Holder
+from pilosa_tpu_torch.exec import Executor
+from pilosa_tpu_torch.ops import containers
+from pilosa_tpu_torch.server.api import API
+from pilosa_tpu_torch.tools import fuzz, stress
+containers.configure("sparse")
+h, api, m = fuzz.build({str(tmp_path / "s")!r}, 7, device="cpu")
+assert len(fuzz.check_set(api.executor, m, random.Random(7 * 31), 5)) == 5
+fuzz.check_fixed(api.executor, "fz", m, fuzz.fixed_set_queries())
+fuzz.check_aggregates(api.executor, m)
+h.close()
+h, api, m = fuzz.build_full({str(tmp_path / "t")!r}, 13, device="cpu")
+assert len(fuzz.check_full(api.executor, m, random.Random(13 * 101), 5)) == 5
+fuzz.check_bsi_aggregates(api.executor, m)
+fuzz.check_fixed(api.executor, "fz2", m, fuzz.fixed_bsi_queries())
+h.close()
+h = Holder({str(tmp_path / "st")!r}).open()
+assert stress.concurrent_round(API(h, device="cpu"),
+                               Executor(h, device="cpu"), 20) > 0
+h.close()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pilosa_tpu"))
+print("LOADED", bad)
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
 
 
 def test_row_results_are_row_objects(pair):
