@@ -72,8 +72,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (g=10 shares 12 of f=10's blocks in every shard), and f=20 and g=20
      with two runs of 2^20 // 200 bits per shard (g=20's start half a
      run later);
-5. serve: one HTTP server on that directory (--device cuda, an ephemeral
-   port) answers, each checked against numpy:
+5. serve: one HTTP server on that directory (--device cuda:0, an
+   ephemeral port) answers, each checked against numpy:
    - Count path: /status, the four Count(Intersect(Row, Row)) queries, a
      nested Count, a Count(Xor), and a Set whose next Count reads the
      write back; then, over index tg, Counts past K1's limits: a 17-leaf
@@ -148,7 +148,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      server, `python -m pilosa_tpu_torch server --device cuda --config
      <toml>` (max-op-n 10000, [storage] fsync "always") as a child
      process over a fresh data directory, takes a CSV `import` of
-     1,000,000 (row, column) records (rows 1-4, columns over all 954
+     250,000 (row, column) records (rows 1-4, columns over all 954
      shards, seed 3) and 100,000 int values; a fault point armed over
      POST /debug/faultpoints kills it at import.post-append (rc 86), and
      its restart replays the one record; Counts and a Sum there against
@@ -210,6 +210,21 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      lapsing in the admission queue answering 504 with no launch,
      X-Query-Class: bogus answering 400, /debug/admission and /status's
      admission block; a `fusion-json:` line has the numbers;
+   - one node over several parts (serve_multicard, on a server of its
+     own over the same holder): `--device` every visible card, or
+     cuda:0 four times on a host of one (each stack split over the
+     parts, S padded to a multiple of them); the headline Count cold and
+     warm (K1 once a part), b's sparse and run-length pairs, a
+     query-batch and the 5-call fused query (the multi-tree entry once
+     a part), a Set into each part read back through in-place patches;
+     config 3's TopN and GroupBy (K3 and K4 a multiple of the parts) with
+     a Row read-back batch; config 4's range Count, Sum, Min and Max;
+     each answer equal to the main (one-part) server's and, for b and
+     GroupBy(Rows(a), Rows(b)), to numpy; the warm headline p50 against
+     the main server in turns and the per-part K1 device time against
+     its byte bound; a `multicard-json:` line has the numbers (the main
+     server itself runs on cuda:0 alone, so every other phase's launch
+     counts are those of one part);
    - the HTTP cluster (serve_cluster): BASELINE config 5's HTTP
      plane, three `python -m pilosa_tpu_torch server --device cuda
      --cluster-hosts ... --replicas 2` children on the one card (a 5 s
@@ -237,12 +252,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      second plane, three `python -m pilosa_tpu_torch server --device
      cuda --spmd --replicas 1` children on the one card, one gloo process
      group; index b's f=1 and g=1 at all 954 shards loaded through node
-     0 by import-roaring; four Counts through every node, once (a
+     0 by import-roaring; two Counts through every node, once (a
      serve-off step gathers its leaves every query, so a second pass
      repeats the first), equal numpy, every node's step counter, its steps'
      count_expr launches (/internal/spmd/stats `step_launches`) and
      spmd_count dispatches (/debug/dispatch) up by one a Count, no
-     fallback; 5 profiled Counts split by step phase (the coordinator's
+     fallback; 3 profiled Counts split by step phase (the coordinator's
      spmd.step span); the 43 golden cases through every node (the sum,
      minmax, topn and groupby steps dispatched equally on every rank,
      K3 and K4 launched by the steps on every rank, the condition Count
@@ -306,7 +321,7 @@ COMP_SEED = 5
 SPARSE_BLOCKS = 24  # non-empty 128-word blocks per shard of f=10, f=11, g=10
 SHARED_BLOCKS = 12  # of them shared by f=10 and g=10 in every shard
 RUN_BITS = (1 << 20) // 200  # bits per run of f=20 and g=20, two per shard
-TOOLS_RECORDS = 1_000_000  # (row, column) records of the CLI import
+TOOLS_RECORDS = 250_000  # (row, column) records of the CLI import
 TOOLS_VALUES = 100_000  # int values of the CLI import
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K2_NBS = (0, 1, 7, 8, 33, 32768, 131072)
@@ -1312,13 +1327,11 @@ def compressible_rows(words):
     return rows
 
 
-def build_count_data(path, words):
-    """Index b: the Count path's rows 1 and 2 of f and g, one random
-    plane repeated over every shard, and the compressed path's rows
-    (compressible_rows). Returns (planes, compressed stacks)."""
-    from pilosa_tpu_torch.core import Holder
-    from pilosa_tpu_torch.core.field import FieldOptions
-
+def count_data_rows(words):
+    """Index b's rows: the Count path's rows 1 and 2 of f and g, one
+    random plane each to repeat over every shard, and the compressed
+    path's rows (compressible_rows). Returns (planes, compressed
+    stacks)."""
     rng = np.random.default_rng(SEED)
     planes = {}
     for fname in ("f", "g"):
@@ -1326,7 +1339,16 @@ def build_count_data(path, words):
             dense = rng.integers(0, 1 << 32, words, dtype=np.uint32)
             keep = rng.random(words) < DENSITY
             planes[(fname, row)] = np.where(keep, dense, 0).astype(np.uint32)
-    comp = compressible_rows(words)
+    return planes, compressible_rows(words)
+
+
+def build_count_data(path, words):
+    """Index b: count_data_rows written over N_SHARDS shards. Returns
+    (planes, compressed stacks)."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.core.field import FieldOptions
+
+    planes, comp = count_data_rows(words)
     holder = Holder(path, use_snapshot_queue=False).open()
     try:
         idx = holder.create_index("b")
@@ -1439,6 +1461,53 @@ def build_bsi_data(path):
         holder.close()
     return {"cols": np.concatenate(cols), "vals": np.concatenate(vals),
             "months": np.concatenate(months), "depth": depth}
+
+
+class IndexWriter:
+    """One index's writer in a child process, started before the kernel
+    build so that the writes run beside the build and the kernel checks
+    (index b's 954 shards take a minute of host work, config 4's 128
+    about half that): the child runs `build(<dir>, *args)` into a holder
+    directory of its own and saves what it returns, a dict of arrays, as
+    result.npz there. `wait` moves the index directory into the parent's
+    data directory (an index's directory holds all of it) and returns
+    that dict; `wall_s` is the child's wall from spawn to exit."""
+
+    def __init__(self, path, index, build, *args):
+        self.path, self.index = path, index
+        self.work = tempfile.mkdtemp(prefix=f"pilosa-torch-smoke-{index}-",
+                                     dir=os.path.dirname(path))
+        self.t0 = time.perf_counter()
+        self.wall_s = None
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, numpy as np, chip_smoke as c; "
+             f"out = c.{build}(sys.argv[1], *map(int, sys.argv[2:])); "
+             "np.savez(sys.argv[1] + '/result.npz', "
+             "**(out if isinstance(out, dict) else {}))",
+             self.work, *map(str, args)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+
+    def wait(self, timeout=900):
+        try:
+            out, _ = self.proc.communicate(timeout=timeout)
+            self.wall_s = time.perf_counter() - self.t0
+            if self.proc.returncode != 0:
+                raise AssertionError(f"index {self.index}'s writer: rc "
+                                     f"{self.proc.returncode}: {out[-2000:]}")
+            os.rename(os.path.join(self.work, self.index),
+                      os.path.join(self.path, self.index))
+            with np.load(os.path.join(self.work, "result.npz")) as z:
+                return {k: z[k] for k in z.files}
+        finally:
+            self.close()
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.work, ignore_errors=True)
 
 
 def topn_expect(tg):
@@ -3561,7 +3630,7 @@ def time_analyze(torch, planes, comp, card):
 
 
 INGEST_INTERVAL = 0.25  # seconds: the --ingest-merge-interval 250ms engine
-TAX_QUERIES = 125  # warm Counts per side and round of the read-tax A/B
+TAX_QUERIES = 60  # warm Counts per side and round of the read-tax A/B
 TAX_ROUNDS = 2  # rounds of (engine off, engine on)
 TAX_WRITE_EVERY = 0.05  # seconds between the importer's writes
 
@@ -4273,6 +4342,370 @@ def serve_fusion_admission(srv, k1, k2, k4, planes, comp, truth, tg, card):
     return out
 
 
+# -- one node over several parts (serve_multicard) ----------------------------
+
+#: parts of the one card when the host has one (a card repeated splits it)
+MULTICARD_PARTS = 4
+MULTICARD_WARM = 30  # warm headline Counts a side and round, in turns
+MULTICARD_ROUNDS = 2
+MULTICARD_TRACED = 10  # warm headline Counts under one torch.profiler trace
+MULTICARD_BR_T = 524288  # the range Count's threshold over br's v
+#: the fused query of the phase: FUSION_QUERY without its dense union,
+#: so that every leaf is one the phase has already made resident
+MULTICARD_FUSED = ("Count(Intersect(Row(f=1), Row(g=1))) "
+                   "Count(Row(f=10)) "
+                   "Count(Intersect(Row(f=10), Row(g=10))) "
+                   "Count(Intersect(Row(f=20), Row(g=20)))")
+
+
+def multicard_devices(torch):
+    """Every visible card, or MULTICARD_PARTS parts of the one card."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [f"cuda:{i}" for i in range(n)]
+    return ["cuda:0"] * MULTICARD_PARTS
+
+
+def serve_multicard(srv, torch, k1, k2, k3, k4, k5, planes, comp, truth, tg,
+                    card):
+    """One node over several parts (exec/parts.py), as the TPU package
+    serves from every local chip: an API and HTTP server over the main
+    server's holder with `--device` every visible card, or MULTICARD_PARTS
+    parts of the one card (`cuda:0,cuda:0,...`), answers beside the main
+    (one-part) server, each answer equal to the one-part server's and,
+    where the phase knows it, to numpy (`truth` as serve_ingest_plan left
+    index b):
+
+    - index tg (config 3): TopN and GroupBy, K3 and K4 once per part per
+      chunk or tile (counts summed before the top-k and the limit), a
+      query-batch with two Row read-backs (the parts' planes in shard
+      order, the padding dropped);
+    - index br (config 4): a range Count (K5 and K1 once per part), the
+      Jan+Feb Sum, Min and Max (K3 a multiple of the parts);
+    - index b (954 shards): the headline Count cold (the parts' leaves
+      gathered) and warm, K1 launched once per part; the sparse pair
+      (K2's fused entry per part) and the run-length pair; a
+      query-batch of those Counts; a 4-call fused query over the same
+      leaves (K1's multi-tree entry once per part); a Set into f=1 in
+      the first shard of every part and the headline Count reading the
+      k bits back through in-place patches, then the Clears;
+    - while b's leaves are resident: the warm headline p50 against the
+      one-part server in turns; the device time of the Count's K1
+      launches from one torch.profiler trace (warm: whatever the L2
+      holds between launches); one part's K1 launched directly on that
+      part's two resident leaves, L2 flushed before each launch by a
+      128 MB write and, apart, by a 128 MB read, against the part's
+      byte bound, beside the one-part leaves' launch flushed by the
+      write (these timing launches are taken off K1's counter).
+
+    Returns the numbers it printed, with each section's wall."""
+    from pilosa_tpu_torch.exec import fusion
+    from pilosa_tpu_torch.server.api import API
+    from pilosa_tpu_torch.server.http_server import PilosaHTTPServer
+
+    t_phase = time.perf_counter()
+    devices = multicard_devices(torch)
+    k = len(devices)
+    out = {"card": card, "cards": torch.cuda.device_count(),
+           "devices": devices, "parts": k}
+    f1, f10 = truth["f1"], truth["f10"]
+    g1 = np.tile(planes[("g", 1)], (N_SHARDS, 1))
+    g10, f20, g20 = comp[("g", 10)], comp[("f", 20)], comp[("g", 20)]
+    headline = "Count(Intersect(Row(f=1), Row(g=1)))"
+    b_counts = {headline: popcount(f1 & g1),
+                "Count(Intersect(Row(f=10), Row(g=10)))": popcount(f10 & g10),
+                "Count(Intersect(Row(f=20), Row(g=20)))": popcount(f20 & g20)}
+    mods = {"count_expr": k1.count_expr, "row_counts": k3.row_counts,
+            "pairwise_counts": k4.pairwise_counts,
+            "bsi_range": k5.bsi_range_mask,
+            "count_expr_multi": k1.count_expr_multi}
+
+    def counts():
+        c = {name: fn.launches for name, fn in mods.items()}
+        c["count_blocks"] = k2_launches(k2)
+        return c
+
+    def moved(before):
+        return {name: n - before[name] for name, n in counts().items()}
+
+    walls = out["walls_s"] = {}
+    # of each section's wall, the one-part server's queries (its own
+    # cold gathers, where earlier phases evicted its stacks)
+    one_walls = out["one_part_walls_s"] = {}
+    mark = [time.perf_counter(), 0.0]
+
+    def section(name):
+        now = time.perf_counter()
+        walls[name] = round(now - mark[0], 2)
+        one_walls[name] = round(mark[1], 2)
+        mark[0], mark[1] = now, 0.0
+
+    api_m = API(srv.holder, device=devices)
+    msrv = PilosaHTTPServer(api_m, host="127.0.0.1", port=0).start()
+    try:
+        named = http(msrv.uri, "/status")["devices"]
+        if named != [str(torch.device(d)) for d in devices]:
+            raise AssertionError(f"/status devices {named} != {devices}")
+        ev = api_m.executor._stacked
+        pad = ev._padded_len(range(N_SHARDS))
+        log(f"multicard: a node over {k} parts {devices} ({out['cards']} "
+            f"visible card(s)); index b's {N_SHARDS} shards padded to "
+            f"{pad}, {pad // k} a part; /status names {named}; card {card}")
+        section("boot")
+
+        def both(index, pql, want=None, path="query", one=None):
+            """The multi-part answer, equal to the one-part server's (its
+            answer `one` when given, else asked now) and to `want` when
+            given; its client wall and its launches."""
+            if one is None:
+                t0 = time.perf_counter()
+                one = http(srv.uri, f"/index/{index}/{path}",
+                           pql)["results"]
+                mark[1] += time.perf_counter() - t0
+            before = counts()
+            t0 = time.perf_counter()
+            got = http(msrv.uri, f"/index/{index}/{path}", pql)["results"]
+            dt = time.perf_counter() - t0
+            m = moved(before)
+            if got != one:
+                raise AssertionError(f"{k} parts: {pql[:80]} = "
+                                     f"{str(got)[:200]}, one part "
+                                     f"{str(one)[:200]}")
+            if want is not None and got != want:
+                raise AssertionError(f"{k} parts: {pql[:80]} = {got}, "
+                                     f"numpy {want}")
+            return got, dt, m
+
+        # -- index tg (config 3) and br (config 4) first. The one-part
+        # server's br answers come first, while it still holds br's stack
+        # from the ingest phase; then its six b leaves are gathered in a
+        # thread beside the two sections (a cold leaf's build launches no
+        # counted kernel), so that b's comparisons below read them warm
+        time_row = f"Row(t=0, {BR_JAN_FEB})"
+        br_pqls = (f"Count(Row(v > {MULTICARD_BR_T}))",
+                   f"Sum({time_row}, field=v)", f"Min({time_row}, field=v)",
+                   f"Max({time_row}, field=v)")
+        t0 = time.perf_counter()
+        br_one = {pql: http(srv.uri, "/index/br/query", pql)["results"]
+                  for pql in br_pqls}
+        mark[1] += time.perf_counter() - t0
+
+        def one_part_b_leaves():
+            t0 = time.perf_counter()
+            one_ev = srv.api.executor._stacked
+            idx = srv.holder.index("b")
+            for fname, row in (("f", 1), ("g", 1), ("f", 10), ("g", 10),
+                               ("f", 20), ("g", 20)):
+                one_ev.leaf_stack(idx, fname, row, tuple(range(N_SHARDS)))
+            out["one_part_b_gather_s"] = time.perf_counter() - t0
+
+        def tg_and_br():
+            expect = topn_expect(tg)
+            for pql in ("TopN(f, n=10)", "TopN(f, Row(a=1), n=5)",
+                        "GroupBy(Rows(a), Rows(b))",
+                        "GroupBy(Rows(a), Rows(b), filter=Row(f=0))",
+                        "GroupBy(Rows(a), Rows(b), limit=7)"):
+                got, dt, m = both("tg", pql)
+                if pql == "GroupBy(Rows(a), Rows(b))" \
+                        and got[0] != expect[pql]:
+                    raise AssertionError(f"{pql}: {got} != numpy")
+                kern = "row_counts" if pql.startswith("TopN") \
+                    else "pairwise_counts"
+                if m[kern] < k or m[kern] % k:
+                    raise AssertionError(f"{pql}: {kern} launched "
+                                         f"{m[kern]} times, not a multiple "
+                                         f"of {k}")
+                log(f"multicard: {pql} over {TG_SHARDS} shards = one "
+                    f"part's ({dt * 1e3:.1f} ms; {kern} {m[kern]})")
+            rows_batch = ["Count(Row(f=1))", "Row(f=50)", "Row(f=99)",
+                          "Count(Row(f=2))"]
+            both("tg", json.dumps({"queries": rows_batch}),
+                 path="query-batch")
+            section("tg")
+            for pql in br_pqls:
+                got, dt, m = both("br", pql, one=br_one[pql])
+                if pql.startswith("Count"):
+                    # a dense Count: K5's mask and K1 once a part
+                    ok = m["bsi_range"] == k and m["count_expr"] == k
+                else:
+                    # K3 once a part a pass (Sum: three passes; Min, Max:
+                    # one a walked bit-plane chunk)
+                    ok = m["row_counts"] >= k and m["row_counts"] % k == 0 \
+                        and m["bsi_range"] == 0
+                if not ok:
+                    raise AssertionError(f"{pql}: launches {m} over {k} "
+                                         f"parts")
+                log(f"multicard: {pql} over {BR_SHARDS} shards = {got[0]} "
+                    f"(one part's; {dt * 1e3:.1f} ms; launches "
+                    f"{ {x: v for x, v in m.items() if v} })")
+            section("br")
+
+        concurrently(one_part_b_leaves, tg_and_br)
+        log(f"multicard: the one-part server's b leaves gathered in "
+            f"{out['one_part_b_gather_s']:.1f} s beside the tg and br "
+            f"sections")
+
+        # -- index b: the headline Count cold and warm, the compressed pairs
+        before = counts()
+        t0 = time.perf_counter()
+        got = http(msrv.uri, "/index/b/query", headline)["results"]
+        cold = time.perf_counter() - t0
+        if got != [b_counts[headline]]:
+            raise AssertionError(f"cold {headline} = {got}, numpy "
+                                 f"{b_counts[headline]}")
+        if moved(before)["count_expr"] != k:
+            raise AssertionError(f"cold headline Count launched K1 "
+                                 f"{moved(before)['count_expr']} times, "
+                                 f"not {k}")
+        out["cold_ms"] = cold * 1e3
+        steps = {}
+        for pql, want in b_counts.items():
+            _, _, m = both("b", pql, [want])
+            steps[pql] = (m["count_expr"], m["count_blocks"])
+            if pql == headline and m["count_expr"] != k:
+                raise AssertionError(f"warm headline Count launched K1 "
+                                     f"{m['count_expr']} times, not {k}")
+        log(f"multicard: {headline} over {N_SHARDS} shards = "
+            f"{b_counts[headline]} (numpy, and the one-part server): cold "
+            f"{cold * 1e3:.1f} ms (the parts' leaves gathered); launches "
+            f"(K1, K2) a Count {steps}; card {card}")
+        section("b_counts")
+        batch = list(b_counts) * 4
+        before = counts()
+        res = http(msrv.uri, "/index/b/query-batch",
+                   json.dumps({"queries": batch}))["results"]
+        for pql, slot in zip(batch, res):
+            if slot.get("results") != [b_counts[pql]]:
+                raise AssertionError(f"{k} parts query-batch {pql}: {slot}")
+        log(f"multicard: POST query-batch of {len(batch)} Counts over b = "
+            f"numpy; launches {moved(before)}")
+        fusion.configure(mode="on", min_hits=0)
+        try:
+            want = [popcount(f1 & g1), popcount(f10), popcount(f10 & g10),
+                    popcount(f20 & g20)]
+            for i in range(2):  # the first builds the parts' programs
+                before = counts()
+                got = http(msrv.uri, "/index/b/query", MULTICARD_FUSED)
+                if got["results"] != want:
+                    raise AssertionError(f"{k} parts fused: {got} != {want}")
+            if moved(before)["count_expr_multi"] != k:
+                raise AssertionError(f"fused query launched the multi-tree "
+                                     f"entry {moved(before)} times, not {k}")
+        finally:
+            fusion.reset()
+        log(f"multicard: the 4-call fused query = {want} (numpy); warm "
+            f"launches {moved(before)}")
+        section("b_batch_fused")
+
+        # -- a write in the first shard of every part, read back
+        n = pad // k
+        cols = []
+        for p in range(k):
+            shard = min(p * n, N_SHARDS - 1)
+            word = next(w for w in range(f1.shape[1])
+                        if (~f1[shard, w]) & g1[shard, w] & 1)
+            cols.append(shard * (1 << 20) + word * 32)
+        cols = sorted(set(cols))
+        patches = api_m.executor.stacked_stats()["patches"]
+        for c in cols:
+            http(msrv.uri, "/index/b/query", f"Set({c}, f=1)")
+        both("b", headline, [b_counts[headline] + len(cols)])
+        patched = api_m.executor.stacked_stats()["patches"] - patches
+        for c in cols:
+            http(msrv.uri, "/index/b/query", f"Clear({c}, f=1)")
+        both("b", headline, [b_counts[headline]])
+        if patched < 1:
+            raise AssertionError("the Sets did not patch a part in place")
+        log(f"multicard: Set f=1 at {cols} (one bit a part), the headline "
+            f"Count read them back (+{len(cols)}; {patched} in-place "
+            f"patches), then the Clears")
+        section("b_writes")
+
+        # -- warm p50 in turns, and per-part K1 device time
+        lat = {"parts": [], "one": []}
+        for rnd in range(MULTICARD_ROUNDS):
+            order = ("parts", "one") if rnd % 2 == 0 else ("one", "parts")
+            for side in order:
+                uri = msrv.uri if side == "parts" else srv.uri
+                for _ in range(MULTICARD_WARM):
+                    t0 = time.perf_counter()
+                    http(uri, "/index/b/query", headline)
+                    lat[side].append(time.perf_counter() - t0)
+        out["warm_p50_ms"] = statistics.median(lat["parts"]) * 1e3
+        out["one_part_p50_ms"] = statistics.median(lat["one"]) * 1e3
+
+        section("warm_ab")
+
+        def run(ex):
+            return lambda: ex.execute("b", headline)
+
+        def leaves(ev, shards):
+            """The dense stacks of b's f=1 and g=1 over `shards` in `ev`'s
+            pool."""
+            got = {key[2]: e[1].arrays[0]
+                   for key, e in ev._pools["leaf"].items()
+                   if key[1:4] in (("b", "f", 1), ("b", "g", 1))
+                   and key[4] == shards}
+            return [got["f"], got["g"]]
+
+        per_call = device_ms(torch, run(api_m.executor), MULTICARD_TRACED,
+                             "count_chain_kernel")
+        sig = k1.chain_signature(2, "&")
+        n_k1 = k1.count_expr.launches
+        part_pair = leaves(ev.parts[0], ev.split(range(N_SHARDS))[0])
+        one_pair = leaves(srv.api.executor._stacked, tuple(range(N_SHARDS)))
+        part_ms, part_call, how = kernel_ms(
+            torch, lambda: k1.count_expr(sig, part_pair), MULTICARD_TRACED,
+            "count_chain_kernel", cold_l2=True)
+        one_ms, _, _ = kernel_ms(
+            torch, lambda: k1.count_expr(sig, one_pair), MULTICARD_TRACED,
+            "count_chain_kernel", cold_l2=True)
+        junk = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                          device=part_pair[0].device)
+        part_read_ms = device_ms(
+            torch, lambda: (junk.sum(), k1.count_expr(sig, part_pair)),
+            MULTICARD_TRACED, "count_chain_kernel")
+        del junk
+        k1.count_expr.launches = n_k1  # timing launches: off the counter
+        part_bytes = sum(t.numel() * 4 for t in part_pair) + 8
+        one_bytes = sum(t.numel() * 4 for t in one_pair) + 8
+        out["k1_count_trace_us"] = None if per_call is None \
+            else per_call * 1e3
+        out["k1_part_us"] = part_ms * 1e3
+        out["k1_part_call_us"] = part_call * 1e3
+        out["k1_part_read_flushed_us"] = None if part_read_ms is None \
+            else part_read_ms * 1e3
+        out["k1_part_bound_us"] = part_bytes / H100_BYTES_PER_S * 1e6
+        out["k1_one_part_us"] = one_ms * 1e3
+        out["k1_one_part_bound_us"] = one_bytes / H100_BYTES_PER_S * 1e6
+        log(f"multicard: warm {headline} p50 {out['warm_p50_ms']:.3f} ms "
+            f"over {k} parts vs {out['one_part_p50_ms']:.3f} ms over one, "
+            f"{MULTICARD_ROUNDS} rounds x {MULTICARD_WARM} a side in turns; "
+            f"the Count's {k} K1 launches {out['k1_count_trace_us']} us of "
+            f"device time a Count (profiler, {MULTICARD_TRACED} warm "
+            f"Counts); one part's K1 on its resident leaves "
+            f"{out['k1_part_us']:.2f} us ({how} by a write; "
+            f"{out['k1_part_read_flushed_us']} us flushed by a 128 MB read; "
+            f"{part_call * 1e3:.2f} us per call by events), bound "
+            f"{out['k1_part_bound_us']:.2f} us "
+            f"for {part_bytes} bytes at 3.35 TB/s; the one-part leaves' K1 "
+            f"{out['k1_one_part_us']:.2f} us, bound "
+            f"{out['k1_one_part_bound_us']:.2f} us; peer copies and "
+            f"launches across real cards not measured on {out['cards']} "
+            f"card(s); card {card}")
+        section("k1_timing")
+
+        out["by_device"] = http(msrv.uri, "/debug/hbm?top=0")["by_device"]
+    finally:
+        msrv.stop()
+        api_m.close()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"multicard: phase in {out['seconds']:.1f} s (sections {walls}; "
+        f"the one-part server's queries in them {one_walls}); "
+        f"/debug/hbm by device {out['by_device']}")
+    return out
+
+
 # -- the HTTP cluster (serve_cluster) ------------------------------------------
 
 #: the cluster phase's nodes, replicas and anti-entropy interval
@@ -4282,7 +4715,7 @@ CLUSTER_ANTI_ENTROPY = "5s"
 #: the device the cluster's children serve on (a CPU rehearsal sets cpu)
 CLUSTER_DEVICE = "cuda"
 CLUSTER_LOAD_THREADS = 6
-CLUSTER_WARM = 50
+CLUSTER_WARM = 25
 CLUSTER_PROFILED = 20
 CLUSTER_DEGRADED = 2  # Counts timed while node 2 is paused: one a live node
 #: index b's shards the HTTP cluster loads: its first 120 of 954 (the
@@ -4754,7 +5187,8 @@ def serve_cluster(srv, planes, card):
 
 
 SPMD_NODES = 3
-SPMD_PROFILED = 5  # profiled headline Counts through the coordinator
+SPMD_PROFILED = 3  # profiled headline Counts through the coordinator
+SPMD_OFF_COUNTS = 2  # serve-off Counts through each node: the first two
 SPMD_STATS = ("count_expr", "row_counts", "pairwise_counts", "bsi_range",
               "count_expr_batch", "count_expr_multi")
 #: K1's entries: a Count step launches exactly one of them a rank
@@ -4852,13 +5286,13 @@ def serve_spmd(planes, card):
     process group, each rank counting its own shards with the port's
     kernels and the partials meeting in one collective a step. Loads
     index b's rows f=1 and g=1 at every shard through node 0, serves
-    four Counts through every node (numpy; every node's step counter and
-    its steps' count_expr launches advance by one a Count; no fallback),
-    times them cold and warm, splits profiled ones by step phase, then
-    runs the 43 golden cases through every node (the sum, minmax, topn
-    and groupby steps dispatched equally on every rank, K3 and K4
-    launched by them, a condition Count among them). Returns the phase's
-    numbers, with the kernel launches of every rank's steps."""
+    SPMD_OFF_COUNTS Counts through every node (numpy; every node's step
+    counter and its steps' count_expr launches advance by one a Count; no
+    fallback), times them cold and warm, splits profiled ones by step
+    phase, then runs the 43 golden cases through every node (the sum,
+    minmax, topn and groupby steps dispatched equally on every rank, K3
+    and K4 launched by them, a condition Count among them). Returns the
+    phase's numbers, with the kernel launches of every rank's steps."""
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
     from pilosa_tpu_torch.tools.cluster import ProcCluster, free_ports
 
@@ -4925,13 +5359,14 @@ def serve_spmd(planes, card):
             f"{len(jobs)} import-roaring requests) through node 0 in "
             f"{out['load_s']:.1f} s; shards held {out['held']}")
 
-        # -- the four Counts through every node, one pass: a serve-off
-        # step gathers its leaves every query, first or not (trap 36)
+        # -- the first SPMD_OFF_COUNTS Counts through every node, one
+        # pass: a serve-off step gathers its leaves every query, first or
+        # not (trap 36)
         s0 = _spmd_stats(cl)
         d0 = [_dispatch_count(c, "spmd_count") for c in cl]
         walls = []
         for i, c in enumerate(cl):
-            for pql, want in expect.items():
+            for pql, want in list(expect.items())[:SPMD_OFF_COUNTS]:
                 t0 = time.perf_counter()
                 got = c.query("b", pql)["results"][0]
                 walls.append(time.perf_counter() - t0)
@@ -4939,7 +5374,7 @@ def serve_spmd(planes, card):
                     raise AssertionError(f"spmd: {pql} = {got} via "
                                          f"node {i}, numpy {want}")
         s1 = _spmd_stats(cl)
-        n = len(cl) * len(expect)
+        n = len(cl) * SPMD_OFF_COUNTS
         steps = [b["steps"] - a["steps"] for a, b in zip(s0, s1)]
         k1 = [b["step_launches"]["count_expr"]
               - a["step_launches"]["count_expr"] for a, b in zip(s0, s1)]
@@ -4960,8 +5395,8 @@ def serve_spmd(planes, card):
         out["first_count_ms"] = 1e3 * walls[0]
         out["warm_ms_p50"] = 1e3 * statistics.median(walls[1:])
         out["warm_ms_p99"] = 1e3 * _pct(walls[1:], 99)
-        log(f"spmd: {len(expect)} Counts through each node equal numpy; "
-            f"every node ran {n} steps, {n} count_expr launches, "
+        log(f"spmd: {SPMD_OFF_COUNTS} Counts through each node equal "
+            f"numpy; every node ran {n} steps, {n} count_expr launches, "
             f"{n} spmd_count dispatches; fallbacks 0; the first Count "
             f"{out['first_count_ms']:.1f} ms, the {n - 1} after it p50 "
             f"{out['warm_ms_p50']:.1f} ms (p99 {out['warm_ms_p99']:.1f}); "
@@ -5584,30 +6019,41 @@ def main():
         log(f"phase: {name} {walls[name]} s")
 
     phase_done("device")
-    build_kernels(cuda_build)
-    phase_done("build")
-    errs, timings = {}, {}
-    errs["count_expr"], timings["count_expr"] = check_k1(
-        torch, k1, WORDS_PER_ROW)
-    t = timings["count_expr"]
-    log(f"kernels: K1 at S={N_SHARDS}, 2 leaves ({t['bytes']} bytes): "
-        f"{t['ms'] * 1e3:.2f} us/launch ({t['how']}; "
-        f"{t['call_ms'] * 1e3:.2f} us per call by events), bound "
-        f"{t['bound_ms'] * 1e3:.2f} us at 3.35 TB/s, plain version "
-        f"{t['plain_ms'] * 1e3:.2f} us; card {card}")
-    errs["row_counts"], timings["row_counts"] = check_k3(
-        torch, k3, WORDS_PER_ROW)
-    errs["pairwise_counts"], timings["pairwise_counts"] = check_k4(
-        torch, k4, WORDS_PER_ROW, sms, clock_mhz * 1e6, card)
-    errs["bsi_range"], timings["bsi_range"] = check_k5(
-        torch, k5, k3, WORDS_PER_ROW, card)
-    errs["count_blocks"] = check_k2(torch, k2, card)
-    errs["count_expr_batch"], timings["count_expr_batch"] = check_k1_batch(
-        torch, k1, WORDS_PER_ROW, card)
-    errs["count_expr_multi"], timings["count_expr_multi"] = check_k1_multi(
-        torch, k1, WORDS_PER_ROW, card)
-    log(f"kernels: {list(ENTRIES)}")
-    phase_done("kernels")
+    tmp = tempfile.mkdtemp(prefix="pilosa-torch-smoke-")
+    # indexes b and br are written in child processes beside the kernel
+    # build and checks; the data phase waits for what is left of them
+    writers = {"b": IndexWriter(tmp, "b", "build_count_data", WORDS_PER_ROW),
+               "br": IndexWriter(tmp, "br", "build_bsi_data")}
+    try:
+        build_kernels(cuda_build)
+        phase_done("build")
+        errs, timings = {}, {}
+        errs["count_expr"], timings["count_expr"] = check_k1(
+            torch, k1, WORDS_PER_ROW)
+        t = timings["count_expr"]
+        log(f"kernels: K1 at S={N_SHARDS}, 2 leaves ({t['bytes']} bytes): "
+            f"{t['ms'] * 1e3:.2f} us/launch ({t['how']}; "
+            f"{t['call_ms'] * 1e3:.2f} us per call by events), bound "
+            f"{t['bound_ms'] * 1e3:.2f} us at 3.35 TB/s, plain version "
+            f"{t['plain_ms'] * 1e3:.2f} us; card {card}")
+        errs["row_counts"], timings["row_counts"] = check_k3(
+            torch, k3, WORDS_PER_ROW)
+        errs["pairwise_counts"], timings["pairwise_counts"] = check_k4(
+            torch, k4, WORDS_PER_ROW, sms, clock_mhz * 1e6, card)
+        errs["bsi_range"], timings["bsi_range"] = check_k5(
+            torch, k5, k3, WORDS_PER_ROW, card)
+        errs["count_blocks"] = check_k2(torch, k2, card)
+        errs["count_expr_batch"], timings["count_expr_batch"] = check_k1_batch(
+            torch, k1, WORDS_PER_ROW, card)
+        errs["count_expr_multi"], timings["count_expr_multi"] = check_k1_multi(
+            torch, k1, WORDS_PER_ROW, card)
+        log(f"kernels: {list(ENTRIES)}")
+        phase_done("kernels")
+    except BaseException:
+        for w in writers.values():
+            w.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
 
     mods = {"count_expr": k1.count_expr, "row_counts": k3.row_counts,
             "pairwise_counts": k4.pairwise_counts,
@@ -5619,30 +6065,36 @@ def main():
             "count_blocks_batch": k2.count_blocks_batch,
             "count_and_blocks_batch": k2.count_and_blocks_batch}
     launches = {}
-    tmp = tempfile.mkdtemp(prefix="pilosa-torch-smoke-")
     co_dir = tempfile.mkdtemp(prefix="pilosa-torch-smoke-co-")
     inc_dir = tempfile.mkdtemp(prefix="pilosa-torch-smoke-incidents-")
     try:
-        # configs 3 and 4 first: each writer opens a Holder on the
-        # directory, and opening the 954-shard index alone takes about a
-        # minute
+        # config 3 here (each writer opens a Holder on its directory, and
+        # opening the 954-shard index alone takes about a minute), index
+        # b's rows drawn again as its writer drew them
         t0 = time.perf_counter()
         tg = build_topn_data(tmp)
         t1 = time.perf_counter()
-        br = build_bsi_data(tmp)
-        t2 = time.perf_counter()
-        planes, comp = build_count_data(tmp, WORDS_PER_ROW)
+        planes, comp = count_data_rows(WORDS_PER_ROW)
+        writers["b"].wait()
+        br = writers["br"].wait()
+        br["depth"] = int(br["depth"])
         log(f"data: BASELINE config 3 over {TG_SHARDS} shards (index tg) "
-            f"written in {t1 - t0:.1f} s; config 4 over {BR_SHARDS} shards "
-            f"x {BR_VALUES_PER_SHARD} values (index br) in {t2 - t1:.1f} s; "
-            f"{N_SHARDS} shards x 2 fields x 2 rows + 5 compressible rows "
-            f"(index b) in {time.perf_counter() - t2:.1f} s")
+            f"written in {t1 - t0:.1f} s; index b ({N_SHARDS} shards x 2 "
+            f"fields x 2 rows + 5 compressible rows) and config 4 over "
+            f"{BR_SHARDS} shards x {BR_VALUES_PER_SHARD} values (index br) "
+            f"written by child processes beside the kernel build and "
+            f"checks in {writers['b'].wall_s:.1f} and "
+            f"{writers['br'].wall_s:.1f} s; the phase waited "
+            f"{time.perf_counter() - t1:.1f} s for them")
         phase_done("data")
         # index tg alone, before any write, for the coalescing server
         shutil.copytree(os.path.join(tmp, "tg"), os.path.join(co_dir, "tg"))
         t0 = time.perf_counter()
+        # the main server keeps one part (the first card) on a host of
+        # several, so that every phase's launch counts stay those of one
+        # part; serve_multicard serves the parts
         srv = start_server(["--bind", "127.0.0.1:0", "--data-dir", tmp,
-                            "--device", "cuda", "--watchdog-deadline",
+                            "--device", "cuda:0", "--watchdog-deadline",
                             "60s", "--incident-dir", inc_dir])
         log(f"serve: server up at {srv.uri} in "
             f"{time.perf_counter() - t0:.1f} s (holder open)")
@@ -5743,6 +6195,19 @@ def main():
             launches["count_blocks_batch"] += k2_batch_launches(k2)
             launches["pairwise_counts"] += k4.pairwise_counts.launches
             phase_done("serve_fusion_admission")
+            reset_counters(mods)  # one node over several parts starts here
+            mc = serve_multicard(srv, torch, k1, k2, k3, k4, k5, planes,
+                                 comp, truth, tg, card)
+            log("multicard-json: " + json.dumps(mc))
+            launches["count_expr"] += k1.count_expr.launches
+            launches["count_expr_multi"] += k1.count_expr_multi.launches
+            launches["count_blocks"] += k2_launches(k2)
+            launches["count_blocks_batch"] += k2_batch_launches(k2)
+            launches["row_counts"] += k3.row_counts.launches
+            launches["pairwise_counts"] += k4.pairwise_counts.launches
+            launches["bsi_range"] += k5.bsi_range_mask.launches
+            launches["count_expr_batch"] += k1.count_expr_batch.launches
+            phase_done("serve_multicard")
             # the HTTP cluster: its nodes are child processes, so their
             # launches are read from each node's /debug/dispatch
             reset_counters(mods)
@@ -5762,6 +6227,8 @@ def main():
         finally:
             srv.stop()
     finally:
+        for w in writers.values():
+            w.close()
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(co_dir, ignore_errors=True)
         shutil.rmtree(inc_dir, ignore_errors=True)

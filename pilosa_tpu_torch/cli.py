@@ -243,7 +243,7 @@ def start_server(argv):
     holder and the oplog, replay the oplog and start the HTTP server;
     returns a Server."""
     from .core import Holder
-    from .device import resolve_device
+    from .device import resolve_devices
     from .ops import containers
     from .server import API, PilosaHTTPServer
     from .storage import oplog as oplog_mod
@@ -254,12 +254,18 @@ def start_server(argv):
 
     args = _parser().parse_args(["server", *argv])
     config = _apply_server_flags(load_config(args.config), args)
-    device = resolve_device(config.get("device", "cuda"))
+    # The device list is checked first: a missing card must fail the
+    # boot before this rank joins the others.
+    device = resolve_devices(config.get("device", "cuda"))
     # The collective data plane: every node joins one process group
-    # before anything else boots (joining blocks until all have)
+    # before anything else boots (joining blocks until all have). A rank
+    # keeps one card: a bare `cuda` is cuda:{rank mod visible cards}.
     spmd_requested = bool(config.get("spmd"))
     if spmd_requested:
-        _spmd_initialize(config)
+        rank = _spmd_initialize(config)
+        device = resolve_devices(config.get("device", "cuda"), rank=rank)
+        if len(device) != 1:
+            raise SystemExit("--spmd: a rank drives one device")
     # Size the shared host-work pool before anything can submit to it
     # (default min(32, cpu); workers=1 == serial execution).
     if config.get("workers") is not None:
@@ -505,7 +511,7 @@ def start_server(argv):
 def _spmd_initialize(config):
     """Join the collective data plane's process group: this node's rank
     is its place in --cluster-hosts, the group's store is on the first
-    host at --spmd-port (default 27121)."""
+    host at --spmd-port (default 27121). Returns the rank."""
     from .cluster.spmd import SpmdDataPlane
 
     if not config.get("cluster-hosts"):
@@ -523,6 +529,7 @@ def _spmd_initialize(config):
                             f"{int(config.get('spmd-port', 27121))}",
         num_processes=len(norm), process_id=norm.index(local_ref),
         cpu_collectives=config.get("spmd-cpu-collectives"))
+    return norm.index(local_ref)
 
 
 def _spmd_plane(holder, cluster, config):
@@ -691,7 +698,8 @@ def cmd_server(argv):
         print(f"oplog: replayed {srv.replayed} record(s) after unclean "
               "shutdown", flush=True)
     extra = f", cluster of {len(srv.cluster.nodes)}" if srv.cluster else ""
-    print(f"listening on {srv.uri} (device {srv.api.device}, data: "
+    devices = ",".join(str(d) for d in srv.api.devices)
+    print(f"listening on {srv.uri} (device {devices}, data: "
           f"{srv.holder.path}{extra})", flush=True)
     done = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -1083,8 +1091,12 @@ def _server_flags(p):
     p.add_argument("--data-dir", default=None,
                    help="data directory (default ~/.pilosa_tpu_torch)")
     p.add_argument("--device", default=None,
-                   help="torch device for the query path (cuda, the "
-                        "default, or cpu)")
+                   help="torch devices for the query path: cuda (the "
+                        "default: every visible card, each stack split "
+                        "over them), cuda:N (one card), a comma list of "
+                        "parts (cuda:0,cuda:1; a card repeated splits "
+                        "it), or cpu; under --spmd a bare cuda is "
+                        "cuda:{rank mod visible cards}")
     p.add_argument("--cluster-hosts", default=None,
                    help="comma-separated host:port list of ALL cluster "
                         "nodes (static bootstrap); omit for single-node")

@@ -1936,7 +1936,7 @@ class SpmdDataPlane:
         # a group of one (no process group) reduces nothing: only this
         # rank's own slots carry anything
         self._check_seqs(step, nodes, tail[len(nodes):]
-                         if engine.n_devices > 1 else [tail[len(nodes) + me]])
+                         if engine.n_ranks > 1 else [tail[len(nodes) + me]])
         self._raise_failures(step, nodes, tail[:len(nodes)])
         return sums.tolist()
 

@@ -76,7 +76,7 @@ from ..core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT, BSI_SIGN_BIT
 from ..core.row import Row
 from ..core import timeq
 from ..core.view import VIEW_STANDARD
-from ..device import resolve_device
+from ..device import resolve_devices
 from ..ops import bitplane
 from ..ops import bsi as bsi_ops
 from ..ops.row_counts import row_counts as _row_counts_kernel
@@ -267,18 +267,24 @@ PORTED_CALLS = frozenset((
 
 
 class Executor:
-    """Single-node executor over a Holder, on `device` (default cuda;
-    raises when CUDA is absent and the CPU was not asked for). A query
-    with more than `max_writes_per_request` write calls is refused
-    (<= 0: no limit)."""
+    """Single-node executor over a Holder, on `device` (default cuda:
+    every visible card, as the TPU package serves from every local chip;
+    raises when CUDA is absent and the CPU was not asked for). `device`
+    may name several parts (`device.resolve_devices`): the stacked path
+    then splits every stack over them (exec/parts.py), and the per-shard
+    path runs on the first. A query with more than
+    `max_writes_per_request` write calls is refused (<= 0: no limit)."""
 
     def __init__(self, holder, device=None, max_writes_per_request=0):
+        from .parts import PartedEvaluator
         from .stacked import StackedEvaluator
 
         self.holder = holder
         self.max_writes_per_request = max_writes_per_request
-        self.device = resolve_device(device)
-        self._stacked = StackedEvaluator(self.device)
+        self.devices = resolve_devices(device)
+        self.device = self.devices[0]
+        self._stacked = StackedEvaluator(self.device) \
+            if len(self.devices) == 1 else PartedEvaluator(self.devices)
         # ?explain=analyze strategy capture: decision points append the
         # path they actually took to `notes` (set per top-level call by
         # explain_analyze_call; every strategy choice runs on the calling
@@ -2134,7 +2140,7 @@ class Executor:
                 idx, child, tuple(shard_list))
             if covered:
                 # a copy: on the CPU the fetch may alias a cached leaf
-                return np.array(bitplane.to_host(stack))
+                return np.array(self._stacked.host_planes(stack))
 
         def gather_shard(shard):
             plane = self.bitmap_call_shard(idx, child, shard)

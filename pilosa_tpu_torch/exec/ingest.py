@@ -305,8 +305,9 @@ class IngestEngine:
         if snapshot:
             touched = {(k[0], k[1]) for k in snapshot}
             ev = self._evaluator()
-            if ev is not None:
-                self._merge_into(ev, touched, stats)
+            # a node over several parts merges into each part's pools
+            for part in getattr(ev, "parts", () if ev is None else (ev,)):
+                self._merge_into(part, touched, stats)
         if deferred:
             for lsn in deferred:
                 self.api._oplog_applied(lsn)

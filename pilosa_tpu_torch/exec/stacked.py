@@ -666,8 +666,15 @@ def minmax_decode(vals):
 
 
 class StackedEvaluator:
-    def __init__(self, device):
+    def __init__(self, device, budget_parts=1):
         self.device = torch.device(device)
+        # a part of a node split over several (exec/parts.py) holds 1/k
+        # of every stack, so its pools take 1/k of the node's budgets and
+        # its ledger gauges report the node's bytes, summed over the
+        # parts (`_siblings`); one part is the whole node
+        self.budget_parts = int(budget_parts)
+        self._siblings = (self,)
+        self._cards = (self.device,)
         # two byte-budgeted LRU pools, picked by _pool_of(key): "leaf"
         # (Count leaves, [S, W] Containers, and BSI [D+2, S, W] stacks)
         # and "rows" (TopN/GroupBy row chunks and time-view rows,
@@ -906,10 +913,11 @@ class StackedEvaluator:
         new = self._hbm_ledger.get(lkey, 0) + delta
         if new <= 0:
             self._hbm_ledger.pop(lkey, None)
-            new = 0
         else:
             self._hbm_ledger[lkey] = new
-        global_stats.gauge("hbm_stack_bytes", new, {
+        if len(self._siblings) > 1:
+            new = sum(s._hbm_ledger.get(lkey, 0) for s in self._siblings)
+        global_stats.gauge("hbm_stack_bytes", max(new, 0), {
             "index": key[1], "field": key[2],
             "pool": self._pool_name(pool), "repr": repr_kind})
 
@@ -921,9 +929,9 @@ class StackedEvaluator:
         global_stats.count("stacked_evictions", n,
                            {"pool": pool_name, "cause": cause})
 
-    @staticmethod
-    def _budget(pool):
-        return MAX_STACK_BYTES if pool == "leaf" else MAX_ROWS_STACK_BYTES
+    def _budget(self, pool):
+        return (MAX_STACK_BYTES if pool == "leaf"
+                else MAX_ROWS_STACK_BYTES) // self.budget_parts
 
     def _pop_victim(self, entries):
         """One over-budget victim of a pool (caller holds self._lock).
@@ -1046,13 +1054,14 @@ class StackedEvaluator:
                               rows_entries=n_rows)
 
     def hbm_ledger(self, pool="leaf"):
-        """{(index, field): resident device bytes} of one pool; sums to
-        that pool's byte counter."""
+        """{(index, field): resident device bytes} of one pool over every
+        part; sums to that pool's byte counters."""
         out = {}
-        with self._lock:
-            for (p, index, field, _), v in self._hbm_ledger.items():
-                if p == pool:
-                    out[(index, field)] = out.get((index, field), 0) + v
+        for part in self._caches():
+            with part._lock:
+                for (p, index, field, _), v in part._hbm_ledger.items():
+                    if p == pool:
+                        out[(index, field)] = out.get((index, field), 0) + v
         return out
 
     def hbm_snapshot(self, top=50):
@@ -1062,59 +1071,85 @@ class StackedEvaluator:
         eviction causes, and the card's headroom from torch. Pools carry
         the TPU package's names ("stack" is the leaf pool). `total_bytes`
         is EXACTLY the two pools' byte counters (the ledger moves in
-        lockstep under the same lock)."""
+        lockstep under the same lock). A node of several parts sums its
+        parts' (the budgets are the node's), tags each entry with its
+        part and card, and adds the bytes `by_part` and `by_device`."""
         now = time.time()
-        entries = []
-        with self._lock:
-            for pool, entries_of in self._pools.items():
-                for key, entry in entries_of.items():
-                    e = {
-                        "pool": self._pool_name(pool),
-                        "kind": key[0],
-                        "index": key[1],
-                        "field": key[2],
-                        "bytes": entry[2],
-                        "repr": _containers.kind_of(entry[1]),
-                        "last_hit_age_seconds": round(now - entry[4], 3),
-                        "key": repr(key),
-                    }
-                    if isinstance(entry[1], _containers.Container):
-                        ratio = entry[1].meta.get("ratio")
-                        if ratio is not None:
-                            e["compression_ratio"] = ratio
-                        if entry[1].overlay:
-                            e["overlay_terms"] = entry[1].overlay
-                    entries.append(e)
-            agg = {}
-            by_repr = {}
-            for (p, i, f, r), b in self._hbm_ledger.items():
-                k = (i, f, self._pool_name(p))
-                agg[k] = agg.get(k, 0) + b
-                by_repr[r] = by_repr.get(r, 0) + b
-            snap = {
-                "total_bytes": sum(self._pool_bytes.values()),
-                "stack_bytes": self._pool_bytes["leaf"],
-                "stack_entries": len(self._pools["leaf"]),
-                "stack_budget_bytes": MAX_STACK_BYTES,
-                "rows_stack_bytes": self._pool_bytes["rows"],
-                "rows_stack_entries": len(self._pools["rows"]),
-                "rows_stack_budget_bytes": MAX_ROWS_STACK_BYTES,
-                "by_index_field": [
-                    {"index": i, "field": f, "pool": p, "bytes": b}
-                    for (i, f, p), b in sorted(
-                        agg.items(), key=lambda kv: -kv[1])],
-                "by_index_field_repr": [
-                    {"index": i, "field": f, "pool": self._pool_name(p),
-                     "repr": r, "bytes": b}
-                    for (p, i, f, r), b in sorted(
-                        self._hbm_ledger.items(), key=lambda kv: -kv[1])],
-                "by_repr": by_repr,
-                "evictions": {
-                    f"{p}.{c}": n
-                    for (p, c), n in sorted(self.pool_evictions.items())},
-            }
+        caches = self._caches()
+        entries, ledger, evictions = [], {}, {}
+        pool_bytes = {"leaf": 0, "rows": 0}
+        pool_entries = {"leaf": 0, "rows": 0}
+        by_part = []
+        for n, part in enumerate(caches):
+            with part._lock:
+                for pool, entries_of in part._pools.items():
+                    pool_bytes[pool] += part._pool_bytes[pool]
+                    pool_entries[pool] += len(entries_of)
+                    for key, entry in entries_of.items():
+                        e = {
+                            "pool": self._pool_name(pool),
+                            "kind": key[0],
+                            "index": key[1],
+                            "field": key[2],
+                            "bytes": entry[2],
+                            "repr": _containers.kind_of(entry[1]),
+                            "last_hit_age_seconds": round(now - entry[4], 3),
+                            "key": repr(key),
+                        }
+                        if isinstance(entry[1], _containers.Container):
+                            ratio = entry[1].meta.get("ratio")
+                            if ratio is not None:
+                                e["compression_ratio"] = ratio
+                            if entry[1].overlay:
+                                e["overlay_terms"] = entry[1].overlay
+                        if len(caches) > 1:
+                            e["part"] = n
+                            e["device"] = str(part.device)
+                        entries.append(e)
+                for k, b in part._hbm_ledger.items():
+                    ledger[k] = ledger.get(k, 0) + b
+                for k, c in part.pool_evictions.items():
+                    evictions[k] = evictions.get(k, 0) + c
+                by_part.append({"part": n, "device": str(part.device),
+                                "bytes": sum(part._pool_bytes.values())})
+        agg = {}
+        by_repr = {}
+        for (p, i, f, r), b in ledger.items():
+            k = (i, f, self._pool_name(p))
+            agg[k] = agg.get(k, 0) + b
+            by_repr[r] = by_repr.get(r, 0) + b
+        snap = {
+            "total_bytes": sum(pool_bytes.values()),
+            "stack_bytes": pool_bytes["leaf"],
+            "stack_entries": pool_entries["leaf"],
+            "stack_budget_bytes": MAX_STACK_BYTES,
+            "rows_stack_bytes": pool_bytes["rows"],
+            "rows_stack_entries": pool_entries["rows"],
+            "rows_stack_budget_bytes": MAX_ROWS_STACK_BYTES,
+            "by_index_field": [
+                {"index": i, "field": f, "pool": p, "bytes": b}
+                for (i, f, p), b in sorted(
+                    agg.items(), key=lambda kv: -kv[1])],
+            "by_index_field_repr": [
+                {"index": i, "field": f, "pool": self._pool_name(p),
+                 "repr": r, "bytes": b}
+                for (p, i, f, r), b in sorted(
+                    ledger.items(), key=lambda kv: -kv[1])],
+            "by_repr": by_repr,
+            "evictions": {
+                f"{p}.{c}": n for (p, c), n in sorted(evictions.items())},
+        }
         entries.sort(key=lambda e: -e["bytes"])
         snap["entries"] = entries[:top]
+        if len(caches) > 1:
+            snap["by_part"] = by_part
+            by_device = {}
+            for e in by_part:
+                d = by_device.setdefault(e["device"], {
+                    "device": e["device"], "parts": 0, "bytes": 0})
+                d["parts"] += 1
+                d["bytes"] += e["bytes"]
+            snap["by_device"] = list(by_device.values())
         snap["container_fragments"] = _containers.fragment_ledger()
         snap["device_memory"] = _device_memory()
         return snap
@@ -1403,9 +1438,60 @@ class StackedEvaluator:
 
     def _padded_len(self, shards):
         """Shard-axis length of every stack: the filter [S, W] and the
-        rows [R, S, W] stacks must agree. One device, so no padding (the
-        TPU package pads to a multiple of its mesh's devices)."""
+        rows [R, S, W] stacks must agree. One part, so no padding (a node
+        of k parts pads to a multiple of k, exec/parts.py, as the TPU
+        package pads to a multiple of its mesh's devices)."""
         return len(shards)
+
+    # -- parts: the layout hooks a node of several overrides (exec/parts.py)
+
+    def split(self, shards):
+        """Each part's range of `shards`: one part holds them all."""
+        return [tuple(shards)]
+
+    def _caches(self):
+        """The evaluators whose pools hold the stacks, one a part."""
+        return (self,)
+
+    def _tensors(self, stack):
+        """Each part's tensor of a stack (None, no filter: None a part)."""
+        return [stack]
+
+    def _join(self, tensors, n_shards):
+        """The stack over `n_shards` shards made of each part's tensor."""
+        return tensors[0]
+
+    def _leaf_parts(self, stacks):
+        """Each part's leaf containers of a gathered tree."""
+        return [stacks]
+
+    def _plan_parts(self, plans):
+        """Each part's fused plans: (sig, csig) a call, the csig that
+        part's containers'."""
+        return [plans]
+
+    def _part_args(self, stacks):
+        """[(csig, flat args)] a part of a gathered tree's leaves."""
+        return [(tuple(c.csig for c in conts), _containers.flatten(conts))
+                for conts in self._leaf_parts(stacks)]
+
+    def _reduce(self, outs):
+        """Σ of the parts' int64 partials (one shape) on the first part's
+        card: a peer copy for a part on another card, none on the first;
+        one part's own partial as it is."""
+        acc = outs[0]
+        for o in outs[1:]:
+            acc = acc + o.to(self.device, non_blocking=True)
+        return acc
+
+    def host_planes(self, stack):
+        """Host uint32 [S, W] words of a `filter_stack` result: the
+        parts' planes in shard order, any padding dropped."""
+        tensors = self._tensors(stack)
+        if len(tensors) == 1:
+            return _bitplane.to_host(tensors[0])
+        return np.concatenate([_bitplane.to_host(t)
+                               for t in tensors])[:stack.n_shards]
 
     def row_chunk_size(self, shards):
         """Rows per [R, S, W] chunk under the CHUNK_BYTES budget."""
@@ -1518,14 +1604,16 @@ class StackedEvaluator:
         """Tree -> exact int count over all shards: one count program
         over the leaves' containers (K2 for sparse leaves, torch sums for
         rle ones, else K1 over the densified tree) under the dispatch
-        lock, then one host sync after it."""
-        flat = _containers.flatten(stacks)
-        csig = tuple(c.csig for c in stacks)
-        self._note_count_specs("count", sig, csig, flat)
+        lock, then one host sync after it. A node of several parts runs
+        the program once a part and sums the partials on its first card."""
+        args = self._part_args(stacks)
+        for csig, flat in args:
+            self._note_count_specs("count", sig, csig, flat)
         with self._locked_dispatch(
                 "count", nbytes_in=sum(c.nbytes for c in stacks),
-                nbytes_out=8) as ph:
-            total = _containers.count_program(sig, csig, flat)
+                nbytes_out=8 * len(args)) as ph:
+            total = self._reduce([_containers.count_program(sig, csig, flat)
+                                  for csig, flat in args])
             ph.mark("dispatch_ack")
         with self._timed_sync("count"):
             return int(total)
@@ -1539,25 +1627,35 @@ class StackedEvaluator:
         key in `_fn_specs` (fusion's LRU eviction pops it), and whether
         THIS call built the program: the first on a key, whose dispatch
         is the `compile` phase. The program is the multi-tree entry's
-        count_expr.MultiProgram, its device table uploaded by that first
-        dispatch."""
+        count_expr.MultiProgram a part (each part's calls route by its
+        own containers), its device table uploaded by that first
+        dispatch; the parts' [n] totals sum on the first card."""
         key = ("fused", plans)
+        plans_parts = self._plan_parts(plans)
         with self._lock:
-            program = self._fn_specs.get(key)
-            compiled = program is None
+            programs = self._fn_specs.get(key)
+            compiled = programs is None
             if compiled:
-                program = self._fn_specs[key] = _count_expr.MultiProgram()
+                programs = self._fn_specs[key] = [
+                    _count_expr.MultiProgram() for _ in plans_parts]
             self.dispatches += 1
             self.fused_dispatches += 1
-        flats = [_containers.flatten(stacks) for stacks in stacks_per_call]
-        self._note_fused_specs(plans, flats)
+        per_call = [self._leaf_parts(stacks) for stacks in stacks_per_call]
+        flats_parts = []
+        for p, plans_p in enumerate(plans_parts):
+            flats = [_containers.flatten(parts[p]) for parts in per_call]
+            self._note_fused_specs(plans_p, flats)
+            flats_parts.append(flats)
         with self._locked_dispatch(
                 "fused",
                 nbytes_in=sum(c.nbytes for stacks in stacks_per_call
                               for c in stacks),
                 nbytes_out=8 * len(plans)) as ph:
-            out = _containers.count_program_multi(plans, flats,
-                                                  program=program)
+            out = self._reduce([
+                _containers.count_program_multi(plans_p, flats,
+                                                program=program)
+                for plans_p, flats, program in zip(plans_parts, flats_parts,
+                                                   programs)])
             ph.mark("compile" if compiled else "dispatch_ack")
         with self._timed_sync("fused"):
             counts = [int(v) for v in self._fetch(out)]
@@ -1598,19 +1696,15 @@ class StackedEvaluator:
             gsig = tuple(c.gsig for c in stacks)
             groups.setdefault((sig, csig, gsig), []).append(pos)
         outs = []
-        for (sig, csig, _gsig), positions in groups.items():
+        for (sig, _csig, _gsig), positions in groups.items():
             for i in range(0, len(positions), self.MAX_COUNT_BATCH):
                 chunk = positions[i:i + self.MAX_COUNT_BATCH]
-                flats = [_containers.flatten(payloads[pos][1])
-                         for pos in chunk]
-                self._note_count_specs("count", sig, csig, flats[0],
-                                       batch=len(flats))
+                members = [payloads[pos][1] for pos in chunk]
                 with self._locked_dispatch(
                         "count",
-                        nbytes_in=sum(c.nbytes for pos in chunk
-                                      for c in payloads[pos][1]),
+                        nbytes_in=sum(c.nbytes for m in members for c in m),
                         nbytes_out=8 * len(chunk)) as ph:
-                    out = _containers.count_program_batch(sig, csig, flats)
+                    out = self._count_group("count", sig, members)
                     ph.mark("dispatch_ack")
                 outs.append((chunk, out))
         with self._timed_sync("count"):
@@ -1622,6 +1716,32 @@ class StackedEvaluator:
                 results[pos] = (vals[i], len(chunk))
                 i += 1
         return results
+
+    def _count_group(self, family, sig, members):
+        """[B] int64 counts of a batch group, under a held dispatch: the
+        members are leaf-container lists of one grouping signature, and
+        `count_program_batch` counts them once a part (one launch of K1's
+        batched entry for a dense group of two or more, one of K2's for a
+        block-sparse one), the parts' counts summed on the first card."""
+        outs = []
+        for conts in zip(*[self._leaf_parts(m) for m in members]):
+            csig = tuple(c.csig for c in conts[0])
+            flats = [_containers.flatten(c) for c in conts]
+            self._note_count_specs(family, sig, csig, flats[0],
+                                   batch=len(flats))
+            outs.append(_containers.count_program_batch(sig, csig, flats))
+        return self._reduce(outs)
+
+    def _plane_group(self, sig, members):
+        """Each member's [S, W] plane of a plane batch group (one
+        `plane_program` a member and part), under a held dispatch."""
+        per_part = []
+        for conts in zip(*[self._leaf_parts(m) for m in members]):
+            csig = tuple(c.csig for c in conts[0])
+            per_part.append([_containers.plane_program(
+                sig, csig, _containers.flatten(c)) for c in conts])
+        return [self._join(list(planes), m[0].shape[0])
+                for m, planes in zip(members, zip(*per_part))]
 
     def _fetch(self, values):
         """Host numpy copy of one int64 device tensor, the fetch shared
@@ -1660,11 +1780,10 @@ class StackedEvaluator:
             groups.setdefault((kind, sig, gsig), []).append(pos)
         launched = []
         for (kind, sig, _gsig), positions in groups.items():
-            csig = tuple(c.csig for c in items[positions[0]][2])
             kname = "count_batched" if kind == "count" else "plane_batched"
             for i in range(0, len(positions), BATCH_BUCKETS[-1]):
                 chunk = positions[i:i + BATCH_BUCKETS[-1]]
-                flats = [_containers.flatten(items[pos][2]) for pos in chunk]
+                members = [items[pos][2] for pos in chunk]
                 with self._lock:
                     self.dispatches += 1
                     self.batch_dispatches += 1
@@ -1676,54 +1795,55 @@ class StackedEvaluator:
                     "kernel": kname, "bucket": str(bucket)})
                 # batch-size histogram: occupancy per batched launch
                 global_stats.timing("coalesce_batch_size", float(len(chunk)))
-                nbytes_in = sum(c.nbytes for pos in chunk
-                                for c in items[pos][2])
-                if kind == "count":
-                    self._note_count_specs(kname, sig, csig, flats[0],
-                                           batch=len(flats))
+                nbytes_in = sum(c.nbytes for m in members for c in m)
                 with self._locked_dispatch(kname,
                                            nbytes_in=nbytes_in) as ph:
                     if kind == "count":
-                        out = _containers.count_program_batch(
-                            sig, csig, flats)
+                        out = self._count_group(kname, sig, members)
                     else:
-                        out = [_containers.plane_program(sig, csig, flat)
-                               for flat in flats]
+                        out = self._plane_group(sig, members)
                     ph.mark("dispatch_ack")
                 launched.append((kind, chunk, out))
         return self._copy_to_host(launched)
 
     def _copy_to_host(self, launched):
         """Enqueue the device->host copy of every launched result: the
-        counts into one pinned int64 buffer, the planes into one pinned
-        [n, S, W] buffer, and one event behind them. On the CPU the
+        counts into one pinned int64 buffer, each plane's parts into its
+        rows of one pinned [n, S_pad, W] buffer (handed back without the
+        padding), and one event a card behind them. On the CPU the
         buffers are the results' own copies and there is no event."""
         cuda = self.device.type == "cuda"
         n_counts = sum(len(chunk) for kind, chunk, _ in launched
                        if kind == "count")
-        planes = [p for kind, _, out in launched if kind != "count"
-                  for p in out]
+        outs = [p for kind, _, out in launched if kind != "count"
+                for p in out]
+        planes = [self._tensors(p) for p in outs]
         counts_h = torch.empty((n_counts,), dtype=torch.int64,
                                pin_memory=cuda)
         planes_h = None
         if planes:
-            planes_h = torch.empty((len(planes), *planes[0].shape),
+            n = planes[0][0].shape[0]
+            planes_h = torch.empty((len(planes), n * len(planes[0]),
+                                    WORDS_PER_ROW),
                                    dtype=torch.int32, pin_memory=cuda)
-        i = j = 0
+        i = 0
         for kind, chunk, out in launched:
             if kind == "count":
                 counts_h[i:i + len(chunk)].copy_(out, non_blocking=cuda)
                 i += len(chunk)
-            else:
-                for plane in out:
-                    planes_h[j].copy_(plane, non_blocking=cuda)
-                    j += 1
-        event = None
+        for j, tensors in enumerate(planes):
+            for p, t in enumerate(tensors):
+                planes_h[j, p * n:(p + 1) * n].copy_(t, non_blocking=cuda)
+        events = []
         if cuda:
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+            for dev in self._cards:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                events.append(event)
+        if planes and len(planes[0]) > 1:
+            planes_h = planes_h[:, :outs[0].n_shards]
         return [(kind, chunk) for kind, chunk, _ in launched], counts_h, \
-            planes_h, event
+            planes_h, events
 
     def resolve_query_batch(self, handle):
         """Wait for the ONE copy `launch_query_batch` enqueued and split
@@ -1731,14 +1851,15 @@ class StackedEvaluator:
         results are exact Python ints, plane results host [S, W] uint32
         arrays (row j = the j-th shard the stacks were gathered over);
         `launch` numbers the batched launch the item rode."""
-        launched, counts_h, planes_h, event = handle
-        if event is not None and launched:
-            # the one event stands behind every launch of the handle; its
+        launched, counts_h, planes_h, events = handle
+        if events and launched:
+            # the events stand behind every launch of the handle; their
             # wait is the sync of the family launched last
             kname = "count_batched" if launched[-1][0] == "count" \
                 else "plane_batched"
             with self._timed_sync(kname):
-                event.synchronize()
+                for event in events:
+                    event.synchronize()
         with self._lock:
             self.batch_fetches += 1
         counts = counts_h.tolist()
@@ -1851,12 +1972,13 @@ class StackedEvaluator:
         sig, stacks = gathered
         with self._lock:
             self.dispatches += 1
-        csig = tuple(c.csig for c in stacks)
         with self._locked_dispatch(
                 "filter", nbytes_in=sum(c.nbytes for c in stacks),
-                nbytes_out=stacks[0].shape[0] * WORDS_PER_ROW * 4) as ph:
-            out = _containers.plane_program(sig, csig,
-                                            _containers.flatten(stacks))
+                nbytes_out=self._padded_len(shards) * WORDS_PER_ROW * 4) \
+                as ph:
+            out = self._join([_containers.plane_program(sig, csig, flat)
+                              for csig, flat in self._part_args(stacks)],
+                             len(shards))
             ph.mark("dispatch_ack")
         return True, out
 
@@ -1891,14 +2013,14 @@ class StackedEvaluator:
                             (len(chunk), stack[0].numel(), filt is not None))
             with self._locked_dispatch("row_counts", nbytes_in=n_in,
                                        nbytes_out=8 * len(chunk)) as ph:
-                counts = _row_counts_kernel(
-                    stack.reshape(len(chunk), -1), flat_filt)
+                counts = self._row_counts_launch(stack, flat_filt,
+                                                 len(chunk))
                 ph.mark("dispatch_ack")
                 if not cache and self.device.type == "cuda":
                     # Transient chunks: finish before the next one is
                     # built, so peak device memory stays ~CHUNK_BYTES.
                     del stack
-                    torch.cuda.current_stream(self.device).synchronize()
+                    self._sync_device()
                     ph.mark("sync")
             pending.append((chunk, counts))
         if pending:
@@ -1911,6 +2033,18 @@ class StackedEvaluator:
                     out[row_id] = vals[k]
                     k += 1
         return out
+
+    def _row_counts_launch(self, stack, flat_filt, n_rows):
+        """K3 over an [R, S, W] row chunk and a flat filter once a part,
+        the [R] int64 counts summed on the first card BEFORE the caller's
+        top-k (trap 4)."""
+        return self._reduce([
+            _row_counts_kernel(s.reshape(n_rows, -1), f)
+            for s, f in zip(self._tensors(stack), self._tensors(flat_filt))])
+
+    def _sync_device(self):
+        for dev in self._cards:
+            torch.cuda.current_stream(dev).synchronize()
 
     def pairwise_counts(self, idx, a_field, a_rows, b_field, b_rows, filt,
                         shards, view_name=VIEW_STANDARD, tile=None):
@@ -1961,7 +2095,7 @@ class StackedEvaluator:
                 with self._locked_dispatch(
                         "pairwise", nbytes_in=n_in,
                         nbytes_out=8 * len(a_chunk) * len(b_chunk)) as ph:
-                    counts = _pairwise_kernel(a_stack, b_stack, filt)
+                    counts = self._pairwise_launch(a_stack, b_stack, filt)
                     ph.mark("dispatch_ack")
                 if observe:
                     # calibrate the per-launch wall at the NOMINAL tile —
@@ -1980,19 +2114,38 @@ class StackedEvaluator:
                     out[(a_chunk[x], b_chunk[y])] = int(totals[x, y])
         return out
 
-    def _bsi_filtered(self, idx, field, filter_call, shards):
-        """(planes, sign, exists, filt) for Sum/Min/Max over `shards`, or
-        None to fall back (too few shards, an uncoverable filter, or the
-        field vanished)."""
+    def _pairwise_launch(self, a_stack, b_stack, filt):
+        """K4 over two [R, S, W] row tiles and a filter once a part, the
+        [R1, R2] int64 cells summed on the first card before the
+        caller's limit and offset."""
+        return self._reduce([
+            _pairwise_kernel(a, b, f)
+            for a, b, f in zip(self._tensors(a_stack), self._tensors(b_stack),
+                               self._tensors(filt))])
+
+    def _bsi_parts(self, idx, field, filter_call, shards):
+        """[(planes, sign, exists, filt) a part] for Sum/Min/Max over
+        `shards`, or None to fall back (too few shards, an uncoverable
+        filter, or the field vanished)."""
         if len(shards) < MIN_SHARDS:
             return None
         covered, filt = self.filter_stack(idx, filter_call, shards)
         if not covered:
             return None
-        data = self.bsi_stack(idx, field.name, shards)
-        if data is None:
-            return None
-        return (*data, filt)
+        out = []
+        for part, part_shards, f in zip(self._caches(), self.split(shards),
+                                        self._tensors(filt)):
+            data = part.bsi_stack(idx, field.name, part_shards)
+            if data is None:
+                return None
+            out.append((*data, f))
+        return out
+
+    @staticmethod
+    def _bsi_bytes(parts):
+        return sum((planes.numel() + sign.numel() + exists.numel()
+                    + (0 if filt is None else filt.numel())) * 4
+                   for planes, sign, exists, filt in parts)
 
     def try_sum(self, idx, field, filter_call, shards):
         """(signed magnitude total, count) for Sum over the stacked BSI
@@ -2000,27 +2153,30 @@ class StackedEvaluator:
         with the positive and with the negative consider mask, and over
         the consider mask itself, then ONE host fetch. The caller adds
         base*count (field.go:1583). Python ints take Σ (pos[i] − neg[i])
-        << i, which D = 64 would overflow in int64."""
-        data = self._bsi_filtered(idx, field, filter_call, tuple(shards))
-        if data is None:
+        << i, which D = 64 would overflow in int64. A node of several
+        parts launches them once a part and sums the [2D + 1] counts on
+        its first card."""
+        parts = self._bsi_parts(idx, field, filter_call, tuple(shards))
+        if parts is None:
             return None
-        planes, sign, exists, filt = data
-        depth = planes.shape[0]
+        depth = parts[0][0].shape[0]
         with self._lock:
             self.dispatches += 1
-        n_in = (planes.numel() + sign.numel() + exists.numel()
-                + (0 if filt is None else filt.numel())) * 4
         # bsi_plane_counts: K3 over the planes with the positive and with
         # the negative consider mask, then over the consider mask alone
-        self._note_spec("sum", "row_counts", (depth, sign.numel(), True))
-        self._note_spec("sum", "row_counts", (1, sign.numel(), False))
-        with self._locked_dispatch("sum", nbytes_in=n_in,
+        for _planes, sign, _exists, _filt in parts:
+            self._note_spec("sum", "row_counts", (depth, sign.numel(), True))
+            self._note_spec("sum", "row_counts", (1, sign.numel(), False))
+        with self._locked_dispatch("sum", nbytes_in=self._bsi_bytes(parts),
                                    nbytes_out=8 * (2 * depth + 1)) as ph:
-            pos, neg, count = bsi_plane_counts(planes, sign, exists, filt)
+            sums = []
+            for data in parts:
+                pos, neg, count = bsi_plane_counts(*data)
+                sums.append(torch.cat([pos, neg, count.reshape(1)]))
+            total = self._reduce(sums)
             ph.mark("dispatch_ack")
         with self._timed_sync("sum"):
-            vals = self._fetch(
-                torch.cat([pos, neg, count.reshape(1)])).tolist()
+            vals = self._fetch(total).tolist()
         total = 0
         for i in range(depth):
             total += (vals[i] - vals[depth + i]) << i
@@ -2030,25 +2186,32 @@ class StackedEvaluator:
         """(signed magnitude, count) of the Min/Max value over the stacked
         BSI planes, or None to fall back; (None, 0) when no column
         qualifies. The caller adds base (reference: fragment.go:1110-1227).
-        One `minmax_walk` under the dispatch lock, then one fetch."""
-        data = self._bsi_filtered(idx, field, filter_call, tuple(shards))
-        if data is None:
+        One `minmax_walk` a part under the dispatch lock, one fetch of
+        the parts' rows, then the collective plane's combine
+        (`cluster.spmd.combine_minmax`: -0 below +0, counts summed at the
+        extreme, empty parts never win)."""
+        from ..cluster.spmd import combine_minmax
+
+        parts = self._bsi_parts(idx, field, filter_call, tuple(shards))
+        if parts is None:
             return None
-        planes, sign, exists, filt = data
         with self._lock:
             self.dispatches += 1
-        n_in = (planes.numel() + sign.numel() + exists.numel()
-                + (0 if filt is None else filt.numel())) * 4
-        self._note_spec("minmax", "row_counts", (1, sign.numel(), False))
-        with self._locked_dispatch("minmax", nbytes_in=n_in) as ph:
-            walk = minmax_walk(planes, sign, exists, filt, is_max)
+        for _planes, sign, _exists, _filt in parts:
+            self._note_spec("minmax", "row_counts", (1, sign.numel(), False))
+        with self._locked_dispatch("minmax",
+                                   nbytes_in=self._bsi_bytes(parts)) as ph:
+            walks = [minmax_walk(*data, is_max) for data in parts]
+            walk = walks[0][None] if len(walks) == 1 else torch.stack(
+                [w.to(self.device, non_blocking=True) for w in walks])
             ph.mark("dispatch_ack")
         with self._timed_sync("minmax"):
-            vals = self._fetch(walk).tolist()
-        nonempty, use_neg, mag, count = minmax_decode(vals)
-        if not nonempty:
+            rows = self._fetch(walk).tolist()
+        empty, negative, mag, count = combine_minmax(
+            [minmax_decode(r) for r in rows], is_max)
+        if empty:
             return None, 0
-        return (-mag if use_neg else mag), count
+        return (-mag if negative else mag), count
 
     # -- declared kernel costs (GET /debug/kernels) ---------------------------
 

@@ -140,13 +140,14 @@ def _launch(op, planes, sign, exists, pred, neg_pred, allow_eq):
         raise ValueError("words per plane and the plane stride must be "
                          "multiples of 4")
     out = torch.empty_like(sign)
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    err = fn(planes.data_ptr(), stride, planes.shape[0], pred,
-             sign.data_ptr(), exists.data_ptr(), _OPCODES[op],
-             int(bool(neg_pred)), int(bool(allow_eq)), out.data_ptr(),
-             n_words, stream)
+    with cuda_build.on_card(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        err = fn(planes.data_ptr(), stride, planes.shape[0], pred,
+                 sign.data_ptr(), exists.data_ptr(), _OPCODES[op],
+                 int(bool(neg_pred)), int(bool(allow_eq)), out.data_ptr(),
+                 n_words, stream)
     if err != 0:
-        raise RuntimeError(f"bsi_range kernel launch failed: CUDA error {err}")
+        raise cuda_build.launch_error("bsi_range", planes.device, err)
     cuda_build.count_launch(bsi_range_mask)
     return out
 

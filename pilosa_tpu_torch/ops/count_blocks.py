@@ -158,15 +158,16 @@ def _launch(mode, wrapper, a, b=None, ids_a=None, ids_b=None):
     fn = _kernel_fn()
     _check_launchable((a, b, ids_a, ids_b))
     out = torch.empty((1,), dtype=torch.int64, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = fn(_MODES[mode], a.data_ptr(),
-             None if b is None else b.data_ptr(),
-             None if ids_a is None else ids_a.data_ptr(),
-             None if ids_b is None else ids_b.data_ptr(),
-             a.shape[0], 0 if b is None else b.shape[0],
-             out.data_ptr(), stream)
+    with cuda_build.on_card(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(_MODES[mode], a.data_ptr(),
+                 None if b is None else b.data_ptr(),
+                 None if ids_a is None else ids_a.data_ptr(),
+                 None if ids_b is None else ids_b.data_ptr(),
+                 a.shape[0], 0 if b is None else b.shape[0],
+                 out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"count_blocks kernel launch failed: CUDA error {err}")
+        raise cuda_build.launch_error("count_blocks", a.device, err)
     cuda_build.count_launch(wrapper)
     return out[0]
 
@@ -286,12 +287,12 @@ def _launch_batch(mode, wrapper, rows, nb_a, nb_b):
                          dtype=torch.int64).pin_memory().to(
                              dev, non_blocking=True)
     out = torch.empty((len(rows),), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(_MODES[mode], table.data_ptr(), len(rows), nb_a, nb_b,
-             out.data_ptr(), stream)
+    with cuda_build.on_card(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(_MODES[mode], table.data_ptr(), len(rows), nb_a, nb_b,
+                 out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(
-            f"count_blocks batch kernel launch failed: CUDA error {err}")
+        raise cuda_build.launch_error("count_blocks batch", dev, err)
     cuda_build.count_launch(wrapper)
     return out
 

@@ -338,11 +338,13 @@ def _launch(sig, stacks):
         raise ValueError("words per shard must be a multiple of 4")
     out = torch.empty((1,), dtype=torch.int64, device=stacks[0].device)
     ptrs = (ctypes.c_void_p * len(stacks))(*[s.data_ptr() for s in stacks])
-    stream = torch.cuda.current_stream(stacks[0].device).cuda_stream
-    err = fn(ptrs, len(stacks), code, len(code), stacks[0].numel(),
-             out.data_ptr(), stream)
+    dev = stacks[0].device
+    with cuda_build.on_card(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ptrs, len(stacks), code, len(code), stacks[0].numel(),
+                 out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"count_expr kernel launch failed: CUDA error {err}")
+        raise cuda_build.launch_error("count_expr", dev, err)
     cuda_build.count_launch(count_expr)
     return out[0]
 
@@ -418,12 +420,12 @@ def _launch_batch(sig, members):
                          dtype=torch.int64).pin_memory().to(
                              dev, non_blocking=True)
     out = torch.empty((len(members),), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(code, len(code), table.data_ptr(), len(members[0]),
-             len(members), first.numel(), out.data_ptr(), stream)
+    with cuda_build.on_card(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(code, len(code), table.data_ptr(), len(members[0]),
+                 len(members), first.numel(), out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(
-            f"count_expr_batch kernel launch failed: CUDA error {err}")
+        raise cuda_build.launch_error("count_expr_batch", dev, err)
     cuda_build.count_launch(count_expr_batch)
     return out
 
@@ -574,12 +576,12 @@ def _launch_multi(program, members):
                         dtype=torch.int64).pin_memory().to(
                             dev, non_blocking=True)
     out = torch.empty((len(members),), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(table.data_ptr(), len(members), ptrs.data_ptr(), first.numel(),
-             out.data_ptr(), stream)
+    with cuda_build.on_card(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(table.data_ptr(), len(members), ptrs.data_ptr(),
+                 first.numel(), out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(
-            f"count_expr_multi kernel launch failed: CUDA error {err}")
+        raise cuda_build.launch_error("count_expr_multi", dev, err)
     cuda_build.count_launch(count_expr_multi)
     return out
 

@@ -110,6 +110,25 @@ def count_launch(wrapper):
         wrapper.launches += 1
 
 
+def on_card(device):
+    """The context every ctypes launch runs under: the card its inputs
+    lie on made the calling thread's current device. A launcher reads
+    `cudaGetDevice` and a stream handle of 0 names the current device's
+    default stream, so without it a tensor on cuda:1 launched from a
+    thread whose current device is cuda:0 would run in card 0's
+    context on card 1's pointers."""
+    import torch
+
+    return torch.cuda.device(device)
+
+
+def launch_error(name, device, err):
+    """The error a wrapper raises for a failed launch: it names the card
+    and carries "CUDA error", which `is_device_failure` keys on."""
+    return RuntimeError(
+        f"{name} kernel launch failed on {device}: CUDA error {err}")
+
+
 def is_device_failure(exc):
     """True for a failure of the card itself: a kernel wrapper's failed
     launch ("... kernel launch failed: CUDA error N") or an error torch

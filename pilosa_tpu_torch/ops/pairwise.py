@@ -119,12 +119,13 @@ def _launch(a, b, filt):
         raise ValueError("row counts exceed the kernel's int range")
     out = torch.empty((n_a, n_b), dtype=torch.int64, device=a.device)
     stream = torch.cuda.current_stream(a.device)
-    err = fn(a.data_ptr(), n_a, b.data_ptr(), n_b,
-             None if filt is None else filt.data_ptr(), n_words,
-             out.data_ptr(), _state(stream).data_ptr(), stream.cuda_stream)
+    state = _state(stream)
+    with cuda_build.on_card(a.device):
+        err = fn(a.data_ptr(), n_a, b.data_ptr(), n_b,
+                 None if filt is None else filt.data_ptr(), n_words,
+                 out.data_ptr(), state.data_ptr(), stream.cuda_stream)
     if err != 0:
-        raise RuntimeError(
-            f"pairwise_counts kernel launch failed: CUDA error {err}")
+        raise cuda_build.launch_error("pairwise_counts", a.device, err)
     cuda_build.count_launch(pairwise_counts)
     return out
 

@@ -78,11 +78,12 @@ def _launch(rows, filt):
     if n_rows > 2**31 - 1:
         raise ValueError(f"{n_rows} rows exceed the kernel's int range")
     out = torch.empty((n_rows,), dtype=torch.int64, device=rows.device)
-    stream = torch.cuda.current_stream(rows.device).cuda_stream
-    err = fn(rows.data_ptr(), None if filt is None else filt.data_ptr(),
-             n_rows, n_words, out.data_ptr(), stream)
+    with cuda_build.on_card(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = fn(rows.data_ptr(), None if filt is None else filt.data_ptr(),
+                 n_rows, n_words, out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"row_counts kernel launch failed: CUDA error {err}")
+        raise cuda_build.launch_error("row_counts", rows.device, err)
     cuda_build.count_launch(row_counts)
     return out
 

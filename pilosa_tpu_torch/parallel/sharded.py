@@ -8,15 +8,18 @@ port maps it onto a `torch.distributed` process group, one rank per
 device: each rank holds a contiguous slice of the global [S, W] stack on
 its own device, counts it with the port's hand-written kernel (K1
 count_expr, K3 row_counts, K4 pairwise_counts), and the int64 partials
-meet in ONE `all_reduce` per step. The group is gloo, which reduces
+meet in ONE `all_reduce` per step. A rank may also drive several local
+parts, as a TPU host drives every local chip: its slice splits again
+into one contiguous range per part, each kernel launches once per part,
+and the partials sum in the process before the one `all_reduce`. The group is gloo, which reduces
 host tensors (NCCL refuses two ranks on one card), so a partial is
 fetched once before it travels.
 
 Two layers:
 - `QueryKernels`: stacked-plane kernels on one device, one launch for
   every shard of the stack.
-- `ShardedQueryEngine`: one rank's view of the group, its device and its
-  slice of each stack, and the collective steps.
+- `ShardedQueryEngine`: one rank's view of the group, its devices and
+  its slice of each stack, and the collective steps.
 
 A group of size 1 needs no launcher: without an initialized process
 group the engine is one rank and reduces nothing. Nothing here imports
@@ -99,27 +102,24 @@ class QueryKernels:
 
 
 class ShardedQueryEngine:
-    """One rank of a group: its device, its slice of every stack, and
-    the query steps — a local launch of K1, K3 or K4 over the slice,
-    then ONE all_reduce of the int64 partials (the counterpart of the
-    TPU package's shard_map + psum).
+    """One rank of a group: its devices, its slice of every stack, and
+    the query steps — a local launch of K1, K3 or K4 over the slice (once
+    per local part), then ONE all_reduce of the int64 partials (the
+    counterpart of the TPU package's shard_map + psum).
 
-    `devices`: this rank's device (a torch.device or name, or a list of
-    exactly one), cuda by default. `group`: a gloo process group, the
-    world by default; without an initialized process group the engine
-    is a group of one."""
+    `devices`: this rank's parts (`device.resolve_devices`: a
+    torch.device or name, a comma list or a list, a card or the CPU
+    repeated to split it), every visible card by default, as the TPU
+    package's engine takes every device. Every rank of a group drives as
+    many parts. `group`: a gloo process group, the world by default;
+    without an initialized process group the engine is a group of
+    one."""
 
     def __init__(self, devices=None, group=None):
-        from ..device import resolve_device
+        from ..device import resolve_devices
 
-        if isinstance(devices, (list, tuple)):
-            if len(devices) != 1:
-                raise ValueError(
-                    "a rank drives one device: pass one, not "
-                    f"{len(devices)}")
-            devices = devices[0]
-        self.device = resolve_device(devices)
-        self.devices = [self.device]
+        self.devices = resolve_devices(devices)
+        self.device = self.devices[0]
         self.group = group
         dist = _dist()
         self._distributed = dist.is_available() and dist.is_initialized()
@@ -128,12 +128,18 @@ class ShardedQueryEngine:
             if self._distributed else 0
 
     @property
-    def n_devices(self):
-        """Ranks in the group (one device each)."""
+    def n_ranks(self):
+        """Ranks in the group."""
         return len(self.mesh)
 
+    @property
+    def n_devices(self):
+        """Parts in the group: ranks x each rank's local parts (the TPU
+        package's mesh size)."""
+        return len(self.mesh) * len(self.devices)
+
     def pad_shards(self, n_shards):
-        """Shard count padded to a multiple of the rank count (padding
+        """Shard count padded to a multiple of the group's parts (padding
         shards are all-zero planes and cannot affect set-algebra
         results)."""
         d = self.n_devices
@@ -143,8 +149,9 @@ class ShardedQueryEngine:
         """This rank's contiguous slice of a global host stack on its
         device, as int32 words: [S, W] slices rows, [R, S, W] (and
         [D, S, W]) slices the shard axis, which is always the one before
-        the words. S must be a multiple of the rank count
-        (`pad_shards`)."""
+        the words. With several local parts, a list of the slice's
+        contiguous pieces, one on each part's device. S must be a
+        multiple of the group's parts (`pad_shards`)."""
         import torch
 
         if isinstance(stack, torch.Tensor):
@@ -154,13 +161,30 @@ class ShardedQueryEngine:
         n = stack.shape[axis]
         if n % self.n_devices:
             raise ValueError(
-                f"{n} shards do not split over {self.n_devices} ranks; "
+                f"{n} shards do not split over {self.n_devices} parts; "
                 "pad with pad_shards")
         per = n // self.n_devices
-        local = np.take(stack, range(self.rank * per, (self.rank + 1) * per),
-                        axis=axis)
-        words = np.ascontiguousarray(local).view(np.int32)
-        return torch.from_numpy(words).to(self.device)
+        pieces = [
+            torch.from_numpy(np.ascontiguousarray(np.take(
+                stack, range(first * per, (first + 1) * per),
+                axis=axis)).view(np.int32)).to(dev)
+            for first, dev in enumerate(self.devices,
+                                        self.rank * len(self.devices))]
+        return pieces[0] if len(pieces) == 1 else pieces
+
+    def _per_part(self, fn, *args):
+        """`fn` over this rank's slices: once per local part where the
+        arguments are `place`'s lists of pieces (an argument that is not
+        a list goes to every part), the int64 partials summed on the
+        first part's device."""
+        if not any(isinstance(a, list) for a in args):
+            return fn(*args)
+        outs = [fn(*[a[p] if isinstance(a, list) else a for a in args])
+                for p in range(len(self.devices))]
+        total = outs[0]
+        for o in outs[1:]:
+            total = total + o.to(total.device)
+        return total
 
     # -- the collective -----------------------------------------------------
 
@@ -176,7 +200,7 @@ class ShardedQueryEngine:
         n = partial.numel()
         buf = partial.contiguous() if extra is None else torch.cat(
             [partial, torch.as_tensor(extra, dtype=torch.int64).reshape(-1)])
-        if self._distributed and self.n_devices > 1:
+        if self._distributed and self.n_ranks > 1:
             _dist().all_reduce(buf, group=self.group)
         return buf if extra is None else (buf[:n], buf[n:])
 
@@ -266,14 +290,15 @@ class ShardedQueryEngine:
         """Distributed fused expression count: `planes` are this rank's
         [S, W] slices, `ops` the operator chain (QueryKernels.count_expr).
         One K1 launch, one all_reduce."""
-        total = _count_expr_fn(tuple(ops), len(planes))(*planes)
+        total = self._per_part(_count_expr_fn(tuple(ops), len(planes)),
+                               *planes)
         return int(self._all_reduce(total.reshape(1))[0])
 
     def topn_step(self, stack, filter_stack, k):
         """Distributed TopN over a [R, S, W] row×shard slice: K3's
         per-row counts of row ∩ filter, one all_reduce of [R], then the
         top k on the host. Returns (totals [k] int64, order [k] int32)."""
-        counts = self.row_counts_partial(stack, filter_stack)
+        counts = self._per_part(self.row_counts_partial, stack, filter_stack)
         return self.top_k(self._all_reduce(counts).numpy(), k)
 
     def pairwise_step(self, a, b, filt=None):
@@ -281,7 +306,7 @@ class ShardedQueryEngine:
         product) of row slices a [R1, S, W] and b [R2, S, W], with an
         optional filter slice [S, W]: K4 over the slices, one all_reduce
         of [R1, R2]. Returns the host int64 [R1, R2] matrix."""
-        counts = self.pairwise_partial(a, b, filt)
+        counts = self._per_part(self.pairwise_partial, a, b, filt)
         return self._all_reduce(counts).numpy().astype(np.int64).reshape(
             counts.shape)
 
@@ -290,5 +315,7 @@ class ShardedQueryEngine:
         all_reduce of the [2D + 1] counts, then the signed fold. planes
         [D, S, W]; sign, exists, filt [S, W] (filt may be None). Returns
         (total, count)."""
-        vals = self._all_reduce(self.sum_partial(planes, sign, exists, filt))
-        return self.sum_fold(vals.tolist(), int(planes.shape[0]))
+        vals = self._all_reduce(
+            self._per_part(self.sum_partial, planes, sign, exists, filt))
+        depth = (planes[0] if isinstance(planes, list) else planes).shape[0]
+        return self.sum_fold(vals.tolist(), int(depth))

@@ -597,6 +597,12 @@ class API:
     def device(self):
         return self.local_executor.device
 
+    @property
+    def devices(self):
+        """The node's parts (`device.resolve_devices`), first the device
+        of the per-shard path."""
+        return self.local_executor.devices
+
     def batch_executor(self):
         """The executor the coalescer drains into: the local batched
         pipeline on a single node, the collective batch adapter on a
@@ -2224,9 +2230,11 @@ class API:
             state, replica_n = "NORMAL", 1
             nodes = [{"id": "local", "uri": {"scheme": "http"},
                       "isCoordinator": True, "state": "READY"}]
-        # replicaN lets a --join'ing node inherit the replication factor
+        # replicaN lets a --join'ing node inherit the replication factor;
+        # devices names this node's parts (the port's own key)
         out = {"state": state, "nodes": nodes, "replicaN": replica_n,
-               "localShardWidth": SHARD_WIDTH}
+               "localShardWidth": SHARD_WIDTH,
+               "devices": [str(d) for d in self.devices]}
         local_id = self.cluster.local_id if self.cluster is not None \
             else "local"
         obs = {local_id: self._node_observability()}

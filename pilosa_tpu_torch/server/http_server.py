@@ -267,7 +267,8 @@ class PilosaHTTPServer:
     def _home(self, req):
         return {"pilosa_tpu_torch": "the bitmap index on PyTorch and CUDA",
                 "version": self.api.info()["version"],
-                "device": str(self.api.device)}
+                "device": str(self.api.device),
+                "devices": [str(d) for d in self.api.devices]}
 
     def _get_indexes(self, req):
         return self.api.schema()
@@ -853,8 +854,10 @@ class PilosaHTTPServer:
         """Device-link health: the prober's state machine plus the full
         canary sample ring (?limit= bounds the ring; 0 = summary only)."""
         limit = self._q1(req, "limit")
-        return devhealth.snapshot(
+        out = devhealth.snapshot(
             limit=int(limit) if limit is not None else None)
+        out["devices"] = [str(d) for d in self.api.devices]
+        return out
 
     def _get_debug_hbm(self, req):
         """HBM ledger: resident stack-cache bytes per (index, field,

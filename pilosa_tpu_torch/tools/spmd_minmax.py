@@ -82,13 +82,13 @@ def _rank(args):
     import torch
     import torch.distributed as dist
 
-    from ..device import resolve_device
+    from ..device import resolve_devices
 
     dist.init_process_group(
         "gloo", init_method=f"tcp://127.0.0.1:{args.port}",
         world_size=args.ranks, rank=args.rank,
         timeout=timedelta(seconds=300))
-    dev = resolve_device(args.device)
+    dev = resolve_devices(args.device, rank=args.rank)[0]
     gen = torch.Generator(device=dev).manual_seed(1000 + args.rank)
 
     def words(*shape):

@@ -62,30 +62,44 @@ _canary_inputs = {}
 def default_canary(device="cuda"):
     """One tiny device round trip through the real dispatch path.
 
-    Launches a one-element int32 `x + 1` on `device` under the stacked
-    evaluator's process-wide `_DISPATCH_LOCK` (the same serialization
-    point every query launch goes through), then reads the result back
-    with a blocking `.item()` outside the lock, as the port's queries
-    fetch: the read waits for every kernel queued on the stream before
-    it. Returns the seconds spent waiting on the lock so the prober can
-    split lock contention from pure link RTT. torch is imported here —
-    merely importing this module must never load it.
+    Launches a one-element int32 `x + 1` on `device` — on each distinct
+    card of a list, each on its own card (`cuda_build.on_card`) — under
+    the stacked evaluator's process-wide `_DISPATCH_LOCK` (the same
+    serialization point every query launch goes through), then reads
+    the results back with a blocking `.item()` outside the lock, as the
+    port's queries fetch: each read waits for every kernel queued on its
+    card's stream before it. Returns the seconds spent waiting on the
+    lock so the prober can split lock contention from pure link RTT.
+    torch is imported here — merely importing this module must never
+    load it.
     """
     import torch
 
     from ..exec import stacked as _stacked
+    from ..ops.cuda_build import on_card
 
-    dev = torch.device(device)
+    devs = []
+    for d in device if isinstance(device, (list, tuple)) else [device]:
+        d = torch.device(d)
+        if d not in devs:
+            devs.append(d)
     t0 = time.perf_counter()
+    outs = []
     with _stacked._DISPATCH_LOCK:
         t1 = time.perf_counter()
-        x = _canary_inputs.get(dev)
-        if x is None:
-            x = _canary_inputs[dev] = torch.ones(1, dtype=torch.int32,
-                                                 device=dev)
-        out = x + 1
-    if out.item() != 2:
-        raise RuntimeError("canary x + 1 did not give 2")
+        for dev in devs:
+            x = _canary_inputs.get(dev)
+            if x is None:
+                x = _canary_inputs[dev] = torch.ones(1, dtype=torch.int32,
+                                                     device=dev)
+            if dev.type == "cuda":
+                with on_card(dev):
+                    outs.append((dev, x + 1))
+            else:
+                outs.append((dev, x + 1))
+    for dev, out in outs:
+        if out.item() != 2:
+            raise RuntimeError(f"canary x + 1 did not give 2 on {dev}")
     return t1 - t0
 
 

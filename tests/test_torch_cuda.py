@@ -1,5 +1,7 @@
 """K1 (and its batched and multi-tree entries), K2, K3, K4 and K5 on the
-card: each CUDA kernel against its plain PyTorch version.
+card: each CUDA kernel against its plain PyTorch version; each entry on
+the last card while the current device is the first (skipped on one
+card), and a node split 4 ways over one card against its one-part self.
 
 Imports only torch and the port, so it runs on a machine without JAX:
 
@@ -699,7 +701,7 @@ def test_ingest_merge_and_overlay_on_card(cuda, tmp_path):
     containers.AUTO_COMPRESS_FLOOR = 0
     containers.configure("auto")
     holder = Holder(str(tmp_path), use_snapshot_queue=False).open()
-    api = API(holder, device="cuda", ingest_interval=3600.0)
+    api = API(holder, device="cuda:0", ingest_interval=3600.0)
     try:
         api.create_index("i")
         api.create_field("i", "f")
@@ -768,3 +770,158 @@ def test_fuzz_trees_sparse_through_kernels(cuda, tmp_path):
     finally:
         holder.close()
         containers.configure(prev)
+
+
+def _last_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards to launch on one that is not "
+                    f"the current device: {n} visible")
+    return torch.device("cuda", n - 1)
+
+
+def _entries(dev):
+    """(name, wrapper call, plain call, launch counter) of every kernel
+    entry, on tensors of `dev`."""
+    sig = k1.chain_signature(3, "&|")
+    stacks = _stacks(3, 5, seed=11, device=dev)
+    members = [_stacks(3, 5, seed=12 + i, device=dev) for i in range(3)]
+    multi_sigs = [sig, k1.chain_signature(2, "^")]
+    multi = [members[0], members[1][:2]]
+    ids = np.arange(0, 40, 3)
+    other = np.sort(np.concatenate([ids[::2], ids[1::2] + 1]))  # half shared
+    a = _sparse(16, len(ids), ids, seed=3, device=dev)
+    b = _sparse(16, len(other), other, seed=4, device=dev)
+    rows = _rows(5, 4 * WORDS_PER_ROW, seed=5, device=dev)
+    filt = _rows(1, 4 * WORDS_PER_ROW, seed=6, device=dev)[0]
+    stack = _bsi(21, 3, 12345, seed=7, device=dev)
+    pbits = [(12345 >> d) & 1 for d in range(21)]
+    bsi = (stack[2:], stack[1], stack[0], pbits, False, True)
+    return [
+        ("K1", lambda: k1.count_expr(sig, stacks),
+         lambda: k1.count_expr_reference(sig, stacks), k1.count_expr),
+        ("K1 batched", lambda: k1.count_expr_batch(sig, members),
+         lambda: k1.count_expr_batch_reference(sig, members),
+         k1.count_expr_batch),
+        ("K1 multi-tree", lambda: k1.count_expr_multi(multi_sigs, multi),
+         lambda: k1.count_expr_multi_reference(multi_sigs, multi),
+         k1.count_expr_multi),
+        ("K2", lambda: k2.count_blocks(a[1]),
+         lambda: k2.count_blocks_reference(a[1]), k2.count_blocks),
+        ("K2 fused", lambda: k2.count_and_blocks(*a, *b),
+         lambda: k2.count_and_blocks_reference(*a, *b), k2.count_and_blocks),
+        ("K2 batched", lambda: k2.count_blocks_batch([a[1], b[1]]),
+         lambda: k2.count_blocks_batch_reference([a[1], b[1]]),
+         k2.count_blocks_batch),
+        ("K2 batched fused",
+         lambda: k2.count_and_blocks_batch([(*a, *b), (*b, *a)]),
+         lambda: k2.count_and_blocks_batch_reference([(*a, *b), (*b, *a)]),
+         k2.count_and_blocks_batch),
+        ("K3", lambda: k3.row_counts(rows, filt),
+         lambda: k3.row_counts_reference(rows, filt), k3.row_counts),
+        ("K4", lambda: k4.pairwise_counts(rows, rows[:3], filt),
+         lambda: k4.pairwise_counts_reference(rows, rows[:3], filt),
+         k4.pairwise_counts),
+        ("K5", lambda: k5.bsi_range_mask("lt", *bsi),
+         lambda: k5.bsi_range_mask_reference("lt", *bsi), k5.bsi_range_mask),
+    ]
+
+
+@pytest.mark.cuda
+def test_every_entry_launches_on_its_inputs_card():
+    """With the current device cuda:0, each entry given tensors on the
+    last card launches there (`cuda_build.on_card`) and equals its plain
+    version on the same tensors."""
+    dev = _last_card()
+    torch.cuda.set_device(0)
+    for name, call, plain, wrapper in _entries(dev):
+        before = wrapper.launches
+        got = call()
+        torch.cuda.synchronize(dev)
+        assert got.device == dev, name
+        assert torch.equal(got, plain()), name
+        assert wrapper.launches == before + 1, name
+        assert torch.cuda.current_device() == 0, name
+
+
+@pytest.mark.cuda
+def test_every_entry_raises_on_mixed_cards():
+    """An entry given inputs on two cards raises before any launch."""
+    last = _last_card()
+    first = torch.device("cuda", 0)
+    sig = k1.chain_signature(2, "&")
+    x, y = _stacks(2, 3, seed=1, device=first)
+    ids = np.arange(8)
+    a = _sparse(8, 8, ids, seed=1, device=first)
+    b = _sparse(8, 8, ids, seed=2, device=last)
+    rows = _rows(2, WORDS_PER_ROW, seed=1, device=first)
+    stack = _bsi(3, 1, 5, seed=1, device=first)
+    calls = [
+        lambda: k1.count_expr(sig, [x, y.to(last)]),
+        lambda: k1.count_expr_batch(sig, [[x, y], [x.to(last), y.to(last)]]),
+        lambda: k1.count_expr_multi([sig, sig], [[x, y], [x, y.to(last)]]),
+        lambda: k2.count_and_blocks(*a, *b),
+        lambda: k2.count_blocks_batch([a[1], b[1]]),
+        lambda: k2.count_and_blocks_batch([(*a, *a), (*b, *b)]),
+        lambda: k3.row_counts(rows, rows[0].to(last)),
+        lambda: k4.pairwise_counts(rows, rows.to(last)),
+        lambda: k5.bsi_range_mask("lt", stack[2:], stack[1].to(last),
+                                  stack[0], [1, 0, 1], False, True),
+    ]
+    counters = [k1.count_expr, k1.count_expr_batch, k1.count_expr_multi,
+                k2.count_and_blocks, k2.count_blocks_batch,
+                k2.count_and_blocks_batch, k3.row_counts, k4.pairwise_counts,
+                k5.bsi_range_mask]
+    before = [c.launches for c in counters]
+    for call in calls:
+        with pytest.raises(ValueError, match="device"):
+            call()
+    assert [c.launches for c in counters] == before
+
+
+@pytest.mark.cuda
+def test_four_parts_of_one_card_equal_one_part(cuda, tmp_path):
+    """A node split 4 ways over cuda:0 answers as the one-part node over
+    the same holder, launching K1 once per part for a dense Count."""
+    from pilosa_tpu_torch.core import FieldOptions, Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.ops import containers
+    from pilosa_tpu_torch.server.api import API
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    mode = containers.repr_mode()
+    containers.configure("dense")
+    holder = Holder(str(tmp_path), use_snapshot_queue=False).open()
+    api = API(holder, device="cuda:0")
+    try:
+        api.create_index("i")
+        for f in ("f", "g"):
+            api.create_field("i", f)
+        api.create_field("i", "v", FieldOptions.int_field(-500, 500))
+        rng = np.random.default_rng(9)
+        cols = rng.choice(7 * SHARD_WIDTH, 30000, replace=False)
+        for f in ("f", "g"):
+            for row in (1, 2, 3):
+                pick = rng.choice(cols, 3000 * row, replace=False)
+                api.import_bits("i", f, [row] * len(pick), pick.tolist())
+        api.import_values("i", "v", cols.tolist(),
+                          rng.integers(-500, 501, len(cols)).tolist())
+        queries = ["Count(Intersect(Row(f=1), Row(g=2)))",
+                   "Count(Union(Row(f=3), Not(Row(g=1))))",
+                   "TopN(f, Row(g=3), n=2)", "GroupBy(Rows(f), Rows(g))",
+                   "Count(Row(v > 100))", "Sum(field=v)", "Min(field=v)",
+                   "Max(Row(f=2), field=v)"]
+        one = Executor(holder, device="cuda:0")
+        four = Executor(holder, device=["cuda:0"] * 4)
+        assert len(four._stacked.parts) == 4
+        for q in queries:
+            assert str(four.execute("i", q)) == str(one.execute("i", q)), q
+        before = k1.count_expr.launches
+        four.execute("i", queries[0])
+        assert k1.count_expr.launches == before + 4
+    finally:
+        api.close()
+        holder.close()
+        containers.configure(mode)

@@ -9,7 +9,10 @@ pad_shards, each on:
 - a group of one rank in this process (no process group, no launcher);
 - a 2-rank gloo group: two spawned `python` children on 127.0.0.1, each
   holding its half of every stack (`place`), counting it with the
-  kernels' plain versions and meeting the other in one all_reduce.
+  kernels' plain versions and meeting the other in one all_reduce;
+- one rank over 8 local parts ("1x8", `devices=["cpu"] * 8`), as the
+  reference's mesh holds 8 devices: each stack split into 8 pieces,
+  each kernel once per piece, the partials summed in the process.
 
 The inputs are numpy stacks drawn from a seed in this process; the
 children read them from a file. Answers are compared as exact int64.
@@ -211,7 +214,9 @@ def port(inputs, tmp_path_factory):
     as spawned children."""
     from pilosa_tpu_torch.parallel import ShardedQueryEngine
 
-    out = {1: run_port_cases(ShardedQueryEngine(devices="cpu"), inputs)}
+    out = {1: run_port_cases(ShardedQueryEngine(devices="cpu"), inputs),
+           "1x8": run_port_cases(ShardedQueryEngine(devices=["cpu"] * 8),
+                                 inputs)}
     tmp = tmp_path_factory.mktemp("sharded")
     path = str(tmp / "inputs.npz")
     np.savez(path, **inputs)
@@ -240,11 +245,11 @@ def port(inputs, tmp_path_factory):
         == {k: v for k, v in ranks[1].items() if k != "rank"}
     assert [r["rank"] for r in ranks] == [0, 1]
     out[2] = ranks[0]
-    assert [out[n]["ranks"] for n in (1, 2)] == [1, 2]
+    assert [out[n]["ranks"] for n in (1, 2, "1x8")] == [1, 2, 8]
     return out
 
 
-RANKS = [1, 2]
+RANKS = [1, 2, "1x8"]
 
 
 @pytest.mark.parametrize("ranks", RANKS)
@@ -302,8 +307,9 @@ def test_count_overflow_over_mesh(reference, port, ranks):
 
 @pytest.mark.parametrize("ranks", RANKS)
 def test_pad_shards_to_rank_count(port, ranks):
+    parts = port[ranks]["ranks"]  # ranks x each rank's local parts
     assert port[ranks]["pad_shards"] == [
-        -(-k // ranks) * ranks for k in range(10)]
+        -(-k // parts) * parts for k in range(10)]
 
 
 def test_all_reduce_carries_an_extra_tail_on_one_rank():

@@ -4,10 +4,9 @@ the CPU: the cases of `tests/test_stacked.py`.
 One-dispatch whole-index Counts over generation-invalidated stacks,
 against the per-shard path, the JAX package on a copy of the same data
 directory, and writes through every path; the stack pool's byte bound;
-a dropped and re-created field. The reference's
-`test_stacks_sharded_over_devices` (JAX mesh sharding of the cached
-stacks) is not ported: the port's counterpart over torch.distributed is
-`tests/test_torch_sharded.py`. Tolerance: exact equality.
+a dropped and re-created field; `test_stacks_sharded_over_devices`
+over a node of several parts (exec/parts.py): one part per device
+entry, S padded to a multiple of the parts. Tolerance: exact equality.
 """
 
 import numpy as np
@@ -149,3 +148,24 @@ def test_fast_path_matches_jax(setup, tmp_path_factory):
             assert ex.execute("st", q) == jex.execute("st", q), q
     finally:
         jh.close()
+
+
+@pytest.mark.parametrize("k", [2, 3, 8])
+def test_stacks_sharded_over_devices(setup, k):
+    """On a node of k parts the cached stacks are split over them, one
+    contiguous range a part (the reference's mesh-sharded stacks): a
+    part per device entry, S zero-padded to a multiple of k, and the
+    Count equal to the one-part node's."""
+    holder, api = setup
+    one = Executor(holder, device="cpu").execute("st", "Count(Row(f=1))")[0]
+    ex = Executor(holder, device=["cpu"] * k)
+    assert ex.execute("st", "Count(Row(f=1))")[0] == one > 0
+    parts = ex._stacked.parts
+    assert len(parts) == len(ex.devices) == k
+    n = -(-4 // k)  # 4 shards
+    for part in parts:
+        (entry,) = list(part._pools["leaf"].values())
+        stack = entry[1].arrays[0]  # dense container: (plane stack,)
+        assert stack.device == part.device
+        assert stack.shape[0] == n
+    assert n * k % k == 0 and n * k >= 4  # zero-padded
