@@ -39,22 +39,27 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      members of mixed programs (chain, tree, a lone leaf, a 17-slot
      Union fitted past K1's limits) at S in {0, 1, 7, 954}, members that
      share leaves and (below S = 954) members that do not;
-   and times per launch beside each bound and the plain version's time:
-   K1 at S = 954 with two leaves; K3 at the served TopN shape
-   [100, 10 x 32768], at [1, 954 x 32768] with a filter and at Sum's
-   [21, 128 x 32768] with a filter; K4 at the served GroupBy tile
-   5 x 4 x S = 10 with and without a filter, at a 1B-column GroupBy's
-   1 x 1 x S = 954 and at 102 x 102 x S = 10, each with L2 flushed and
-   warm, summed over every device operation of a call (memset included)
-   beside the kernel alone, with bytes, bound and share;
+   and times per launch beside each bound and the plain version's time,
+   every one L2 cold (`cold_call`: a 128 MB read before each call, and
+   each call on the next of as many sets of copies of its inputs as fill
+   2 GiB, so no call rereads what a recent one read; a time under its
+   bound is flagged REUSE on its line, never quoted as a share):
+   K1's 2-leaf chain at S = 954, 477, 239 and 120 (one part's shape on a
+   node of 1, 2, 4 and 8 cards) and a nested 4-leaf tree at S = 954; K3
+   at the served TopN shape [100, 10 x 32768], at [1, 954 x 32768] with
+   a filter and at Sum's [21, 128 x 32768] with a filter; K4 at the
+   served GroupBy tile 5 x 4 x S = 10 with and without a filter, at a
+   1B-column GroupBy's 1 x 1 x S = 954 and at 102 x 102 x S = 10, cold
+   and warm, summed over every device operation of a call (memset
+   included) beside the kernel alone, with bytes, bound and share;
    K5 at [21, 128 x 32768] and [21, 954 x 32768]; K2's entries at
-   NB = 32768 and 131072 (L2 flushed; the fused one also warm); K1's
-   batched entry at B = 4 x 2 leaves x S = 954 beside four single K1
-   launches on the same members, and at B = 64 x 2 leaves x S = 10, over
-   every device operation of a call (memset and pointer-table copy
-   included); the multi-tree entry at the served fused query's two K1
-   members (a 2-leaf chain and a 2-leaf union at S = 954), L2 flushed,
-   beside the same members as two single K1 launches;
+   NB = 32768 and 131072 (the fused one also warm); K1's batched entry
+   at B = 4 x 2 leaves x S = 954 beside four single K1 launches on the
+   same members, and at B = 64 x 2 leaves x S = 10, over every device
+   operation of a call (memset and pointer-table copy included); the
+   multi-tree entry at the served fused query's two K1 members (a 2-leaf
+   chain and a 2-leaf union at S = 954) beside the same members as two
+   single K1 launches;
 4. data, in one data directory, written through the port's Holder:
    - index tg, BASELINE config 3 at bench_suite.bench_topn_groupby's
      chip shape (10 shards; field f with 100 rows of 100000/(r+1)+100
@@ -125,7 +130,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      on them (both modes at B = 4 and 1, an edge batch of padding-only
      members and a member with no match, each equal to its plain version
      and to B single launches; an empty batch and NB = 0 without a
-     launch) and timed with L2 flushed at B = 4 and at the served groups
+     launch) and timed L2 cold at B = 1, 4 and at the served groups
      of 16 beside as many single K2 launches, and
      a cold leaf build split into upload, the chooser's `analyze` on the
      card (its counts checked against numpy) and the host builder, for
@@ -148,7 +153,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      server, `python -m pilosa_tpu_torch server --device cuda --config
      <toml>` (max-op-n 10000, [storage] fsync "always") as a child
      process over a fresh data directory, takes a CSV `import` of
-     250,000 (row, column) records (rows 1-4, columns over all 954
+     100,000 (row, column) records (rows 1-4, columns over all 954
      shards, seed 3) and 100,000 int values; a fault point armed over
      POST /debug/faultpoints kills it at import.post-append (rc 86), and
      its restart replays the one record; Counts and a Sum there against
@@ -167,7 +172,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      HTTPS JSON and HTTPS protobuf, in turns, with each transport's p50
      (K1 must launch once a Count); protobuf TopN, GroupBy and Row over
      index tg equal to their JSON answers; a protobuf ImportRequest of
-     100,000 bits and an ImportValueRequest of 10,000 values into a new
+     100,000 bits and an ImportValueRequest of 2,500 values into a new
      954-shard index over HTTPS, read back against numpy; the codec's
      encode and decode of a 1,000,000-column Row; the device-link
      canary (x + 1 on the card, every 0.2 s) LIVE with its RTT and lock
@@ -248,7 +253,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      exactly the golden shards placement gives, and the 43 cases through
      it equal their wants; a `cluster-json:` line has every number and
      the card's memory;
-   - the collective plane (serve_spmd, last): BASELINE config 5's
+   - the collective plane (serve_spmd): BASELINE config 5's
      second plane, three `python -m pilosa_tpu_torch server --device
      cuda --spmd --replicas 1` children on the one card, one gloo process
      group; index b's f=1 and g=1 at all 954 shards loaded through node
@@ -270,7 +275,21 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      by the spmd.launch fault point), a warm fused 3-call query, the
      step timeline at rest and a one-bit write; a `spmd-json:` line has
      every number, and the launches every rank's steps made join the
-     kernels line;
+     kernels line; the three ranks share the one card, so their boot
+     must have chosen gloo for the data collectives
+     (/internal/spmd/stats `collective_backend`);
+   - the data collectives over NCCL (serve_nccl, after serve_spmd): NCCL
+     refuses two ranks on one card, so a child process makes an NCCL
+     group of one rank over the card (the boot's choice for a rank on a
+     card of its own) and runs the engine's steps at full width through
+     it and through a gloo group of one: the headline Count over b's f=1
+     and g=1 at all 954 shards, TopN(f, n=10) and GroupBy(Rows(a),
+     Rows(b)) over tg, Sum, Max and Min of br's v, each through the
+     engine and through a one-rank plane's two-phase collective (the
+     vote over gloo, then the reduce on the card, then one fetch), 10
+     timed steps a kind and backend; every answer equal to numpy and to
+     the gloo engine's; `nccl:` lines print both backends' psum and
+     result_fetch medians and an `nccl-json:` line every number;
    each path runs with every launch counter set to 0 just before it and
    read just after; cold latency of each first query and warm HTTP p50s;
    a `phase:` line as each phase ends and a `phases:` line with every
@@ -321,7 +340,7 @@ COMP_SEED = 5
 SPARSE_BLOCKS = 24  # non-empty 128-word blocks per shard of f=10, f=11, g=10
 SHARED_BLOCKS = 12  # of them shared by f=10 and g=10 in every shard
 RUN_BITS = (1 << 20) // 200  # bits per run of f=20 and g=20, two per shard
-TOOLS_RECORDS = 250_000  # (row, column) records of the CLI import
+TOOLS_RECORDS = 100_000  # (row, column) records of the CLI import
 TOOLS_VALUES = 100_000  # int values of the CLI import
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K2_NBS = (0, 1, 7, 8, 33, 32768, 131072)
@@ -402,7 +421,8 @@ def device_ms(torch, fn, reps, kernel):
     return total_us / reps / 1e3 if n else None
 
 
-# the L2 flushes' own kernels (a write: junk.fill_; a read: a reduction)
+# the L2 flushes' own kernels (a read: a row-wise reduction; a write,
+# which tools/ab_k2.py and ab_k4.py still offer: junk.fill_)
 FLUSH_KERNELS = ("FillFunctor", "reduce_kernel")
 
 
@@ -433,34 +453,84 @@ def call_device_ms(torch, fn, reps, kernel, skip=FLUSH_KERNELS):
 
 
 L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
-# inputs a timed K2 batch cycles through: the L2 keeps part of inputs
-# that calls reread, past a 128 MB flush (small inputs read at 163 % of
-# their byte bound) and past a cycle of 512 MB (mode 0 at B = 16, 102 %)
-K2B_ROTATE_BYTES = 2 << 30
+# bytes of input copies a cold timing cycles through: the L2 keeps part
+# of inputs that calls reread past a 128 MB flush (small inputs read at
+# 163 % of their byte bound) and past a cycle of 512 MB (102 %); 2 GiB
+# brought every share under 100 % (ROADMAP trap 42)
+ROTATE_BYTES = 2 << 30
 
 
-def kernel_ms(torch, fn, reps, kernel, cold_l2=False):
-    """(ms, call_ms, source): the kernel's device time per launch from
-    the profiler (asked twice), or — where the trace shows no device
-    time — the CUDA event time per call; call_ms is always the event
-    time per call. With cold_l2, every profiled call first writes
-    L2_FLUSH_BYTES, so inputs that fit in L2 are read from HBM as a
-    query that finds them cold would read them (the flush's own kernel
-    is not counted)."""
-    call_ms = time_cuda(torch, fn, reps)
-    timed = fn
-    if cold_l2:
-        junk = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+def _tensors(x):
+    """The tensors in `x`: a tensor, or lists and tuples of them (other
+    values skipped)."""
+    if hasattr(x, "data_ptr"):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for item in x for t in _tensors(item)]
+    return []
 
-        def timed():
-            junk.fill_(1)
-            fn()
+
+def _copies(x):
+    """`x` with every tensor cloned, lists and tuples kept."""
+    if hasattr(x, "data_ptr"):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_copies(item) for item in x)
+    return x
+
+
+def cold_call(torch, fn, inputs, rotate=ROTATE_BYTES):
+    """A call of `fn(*inputs)` taking no arguments that finds its inputs
+    cold in L2, as a query that finds them cold would read them: each
+    call first reads L2_FLUSH_BYTES (a read: it leaves no dirty line
+    that the timed kernel would have to write back), then takes the next
+    of as many sets of copies of `inputs` as fill `rotate` bytes (the
+    inputs themselves the first), so that no call rereads what a recent
+    one read. The callable's `sets` is that count."""
+    held = _tensors(inputs)
+    nbytes = sum(t.numel() * t.element_size() for t in held)
+    n_sets = max(1, -(-rotate // max(nbytes, 1)))
+    sets = [inputs] + [_copies(inputs) for _ in range(n_sets - 1)]
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                       device=held[0].device).view(-1, 4096)
+    turn = itertools.cycle(sets).__next__
+
+    def call():
+        flush.amax(dim=1)
+        return fn(*turn())
+
+    call.sets = n_sets
+    return call
+
+
+def share(bound_ms, ms):
+    """A time's share of its bound, for a log line; a time under its
+    bound is flagged as reuse instead (an input was read from L2, so the
+    time is not a share of the HBM bound)."""
+    if ms < bound_ms:
+        return (f"REUSE: {ms * 1e3:.2f} us is under its "
+                f"{bound_ms * 1e3:.2f} us bound, no share")
+    return f"{bound_ms / ms:.0%} of the bound"
+
+
+def kernel_ms(torch, fn, inputs, reps, kernel, cold_l2=False):
+    """(ms, call_ms, source) of `fn(*inputs)`: the kernel's device time
+    per launch from the profiler (asked twice), or — where the trace
+    shows no device time — the CUDA event time per call; call_ms is
+    always the event time per call. With cold_l2, every profiled call
+    is a `cold_call`: its inputs are read from HBM as a query that finds
+    them cold would read them (the flush's own kernel is not counted)."""
+    call_ms = time_cuda(torch, lambda: fn(*inputs), reps)
+    timed = cold_call(torch, fn, inputs) if cold_l2 \
+        else (lambda: fn(*inputs))
     ms = device_ms(torch, timed, reps, kernel)
     if ms is None:
         ms = device_ms(torch, timed, reps, kernel)
     if ms is None:
         return call_ms, call_ms, "events"
-    return ms, call_ms, "profiler" + (", L2 flushed" if cold_l2 else "")
+    return ms, call_ms, "profiler" + (
+        f", L2 cold ({timed.sets} sets of inputs in turn, read flush)"
+        if cold_l2 else "")
 
 
 def _demangle(symbol):
@@ -514,9 +584,15 @@ def _edge_rows(rng, r, t):
     return x
 
 
-def check_k1(torch, k1, words):
+#: K1's timed shard counts: one part's shape on a node of 1, 2, 4 and 8
+#: cards (954 shards padded to a multiple of the parts)
+K1_PART_SHARDS = (954, 477, 239, 120)
+
+
+def check_k1(torch, k1, words, card):
     """K1 against the plain version on the card; returns (max_abs_err,
-    timing dict at S = 954, two leaves)."""
+    timing dict at S = 954, two leaves). K1's 2-leaf chain is timed L2
+    cold at each of K1_PART_SHARDS."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     chains = ["&", "|", "^", "-", "&|", "|-^", "^-&|", "-&^|&"]
@@ -553,25 +629,35 @@ def check_k1(torch, k1, words):
                     f"{int(want)}")
         if s == N_SHARDS:
             sig = k1.chain_signature(2, "&")
-            pair = stacks[:2]
-            ms, call_ms, how = kernel_ms(
-                torch, lambda: k1.count_expr(sig, pair), 50,
-                "count_chain_kernel")
-            plain_ms = time_cuda(
-                torch, lambda: k1.count_expr_reference(sig, pair), 10)
-            nbytes = sum(t.numel() * 4 for t in pair) + 8
-            timing = {"ms": ms, "call_ms": call_ms, "how": how,
-                      "plain_ms": plain_ms, "bytes": nbytes,
-                      "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
-                      "bound_by": "bytes"}
+            for part_s in K1_PART_SHARDS:
+                pair = [t[:part_s] for t in stacks[:2]]
+                ms, call_ms, how = kernel_ms(
+                    torch, lambda *p: k1.count_expr(sig, list(p)), pair, 50,
+                    "count_chain_kernel", cold_l2=True)
+                nbytes = sum(t.numel() * 4 for t in pair) + 8
+                bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+                log(f"kernels: K1 2-leaf chain at S={part_s} (one part's "
+                    f"shape on a node of {round(s / part_s)} card(s); "
+                    f"{nbytes} bytes): {ms * 1e3:.2f} us/launch ({how}; "
+                    f"{call_ms * 1e3:.2f} us per call by events), bound "
+                    f"{bound_ms * 1e3:.2f} us at 3.35 TB/s, "
+                    f"{share(bound_ms, ms)}; card {card}")
+                if part_s == N_SHARDS:
+                    plain_ms = time_cuda(
+                        torch, lambda: k1.count_expr_reference(sig, pair),
+                        10)
+                    timing = {"ms": ms, "call_ms": call_ms, "how": how,
+                              "plain_ms": plain_ms, "bytes": nbytes,
+                              "bound_ms": bound_ms, "bound_by": "bytes"}
             tree_ms, tree_call, how = kernel_ms(
-                torch, lambda: k1.count_expr(nested[0], stacks), 20,
-                "count_tree_kernel")
+                torch, lambda *leaves: k1.count_expr(nested[0], list(leaves)),
+                stacks[:4], 20, "count_tree_kernel", cold_l2=True)
             tree_bytes = 4 * stacks[0].numel() * 4 + 8
+            tree_bound = tree_bytes / H100_BYTES_PER_S * 1e3
             log(f"kernels: K1 nested 4-leaf tree at S={s}: "
                 f"{tree_ms * 1e3:.2f} us/launch ({how}; "
                 f"{tree_call * 1e3:.2f} us per call by events), bound "
-                f"{tree_bytes / H100_BYTES_PER_S * 1e6:.2f} us")
+                f"{tree_bound * 1e3:.2f} us, {share(tree_bound, tree_ms)}")
         del stacks
         torch.cuda.empty_cache()
     log(f"kernels: K1 == plain on {n_cases} cases "
@@ -597,9 +683,9 @@ def check_k1_batch(torch, k1, words, card):
     """K1's batched entry against its plain version on the card: B in
     K1B_SIZES at S = 10, chain and tree programs (and one past K1's
     limits), members that share leaves and members that do not, and
-    S = 0; then timed at B = 4 x 2 leaves x S = N_SHARDS beside four
-    single K1 launches on the same inputs, and at B = 64 x 2 leaves x
-    S = 10. Returns (max_abs_err, timing dict at B = 4, S = N_SHARDS)."""
+    S = 0; then timed L2 cold at B = 4 x 2 leaves x S = N_SHARDS beside
+    four single K1 launches on the same inputs, and at B = 64 x 2 leaves
+    x S = 10. Returns (max_abs_err, timing dict at B = 4, S = N_SHARDS)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 5)
     sigs = [k1.chain_signature(2, "&"), k1.chain_signature(4, "|-^"),
@@ -656,20 +742,24 @@ def check_k1_batch(torch, k1, words, card):
         members = [leaves[2 * q:2 * q + 2] for q in range(b)]
         nbytes = 2 * b * s * words * 4 + 2 * b * 8 + b * 8
         bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-        batch = lambda: k1.count_expr_batch(sig, members)  # noqa: E731
+        batch = cold_call(
+            torch, lambda m: k1.count_expr_batch(sig, m), (members,))
         all_ms, kernel_only, names = traced_call_ms(torch, batch, reps,
                                                     "_batch_kernel")
-        singles = lambda: [k1.count_expr(sig, m)  # noqa: E731
-                           for m in members]
+        singles = cold_call(
+            torch, lambda m: [k1.count_expr(sig, ms) for ms in m],
+            (members,))
         single_all = traced_call_ms(torch, singles, reps,
                                     "count_chain_kernel")
-        call_ms = time_cuda(torch, batch, reps)
+        del batch, singles
+        call_ms = time_cuda(
+            torch, lambda: k1.count_expr_batch(sig, members), reps)
         plain_ms = time_cuda(
             torch, lambda: k1.count_expr_batch_reference(sig, members), 3)
         log(f"kernels: batched K1 at B={b} x 2 leaves x S={s} ({nbytes} "
-            f"bytes): {all_ms * 1e3:.2f} us device per call over "
+            f"bytes), L2 cold: {all_ms * 1e3:.2f} us device per call over "
             f"{sorted(set(names))} ({kernel_only * 1e3:.2f} us in the "
-            f"kernel; {bound_ms / all_ms:.0%} of the bound), "
+            f"kernel; {share(bound_ms, all_ms)}), "
             f"{call_ms * 1e3:.2f} us per call by events; {b} single K1 "
             f"launches on the same members: "
             f"{single_all[0] * 1e3:.2f} us device; bound "
@@ -716,7 +806,7 @@ def check_k1_multi(torch, k1, words, card):
     that share leaves and (but at S = N_SHARDS) members that do not,
     exact; then timed at the served 5-call query's two K1 members (the
     2-leaf chain of Intersect(Row(f=1), Row(g=1)) and the 2-leaf union of
-    Union(Row(f=2), Row(g=2))) at S = N_SHARDS, L2 flushed, beside the
+    Union(Row(f=2), Row(g=2))) at S = N_SHARDS, L2 cold, beside the
     same members as two single K1 launches. Returns (max_abs_err, timing
     dict at the served members)."""
     dev = torch.device("cuda")
@@ -778,29 +868,27 @@ def check_k1_multi(torch, k1, words, card):
     members = [[four[0], four[1]], [four[2], four[3]]]
     nbytes = multi_bytes(k1, sigs, members, N_SHARDS, words)
     bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    junk = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     prog = k1.MultiProgram()
-
-    def multi():
-        junk.fill_(1)
-        return k1.count_expr_multi(sigs, members, program=prog)
-
-    def singles():
-        junk.fill_(1)
-        return [k1.count_expr(sig, m) for sig, m in zip(sigs, members)]
-
+    multi = cold_call(
+        torch, lambda m: k1.count_expr_multi(sigs, m, program=prog),
+        (members,))
+    singles = cold_call(
+        torch, lambda m: [k1.count_expr(sig, ms) for sig, ms in zip(sigs, m)],
+        (members,))
     all_ms, kernel_only, names = traced_call_ms(torch, multi, 20,
                                                 "count_multi_kernel")
     single_ms = traced_call_ms(torch, singles, 20, "count_chain_kernel")
+    del multi, singles
     call_ms = time_cuda(
         torch, lambda: k1.count_expr_multi(sigs, members, program=prog), 20)
     plain_ms = time_cuda(
         torch, lambda: k1.count_expr_multi_reference(sigs, members), 5)
     log(f"kernels: multi-tree K1 at the served members (2-leaf chain + "
-        f"2-leaf union, S={N_SHARDS}, {nbytes} bytes), L2 flushed: "
+        f"2-leaf union, S={N_SHARDS}, {nbytes} bytes), L2 cold: "
         f"{all_ms * 1e3:.2f} us device per call over {sorted(set(names))} "
-        f"({kernel_only * 1e3:.2f} us in the kernel; {bound_ms / all_ms:.0%} "
-        f"of the bound), {call_ms * 1e3:.2f} us per call by events; the "
+        f"({kernel_only * 1e3:.2f} us in the kernel; "
+        f"{share(bound_ms, all_ms)}), {call_ms * 1e3:.2f} us per call by "
+        f"events; the "
         f"same members as 2 single K1 launches: {single_ms[0] * 1e3:.2f} us "
         f"device ({single_ms[1] * 1e3:.2f} us in the kernels); bound "
         f"{bound_ms * 1e3:.2f} us at 3.35 TB/s; plain {plain_ms * 1e3:.2f} "
@@ -809,14 +897,14 @@ def check_k1_multi(torch, k1, words, card):
               "single_ms": single_ms[0], "call_ms": call_ms,
               "plain_ms": plain_ms, "bytes": nbytes, "bound_ms": bound_ms,
               "bound_by": "bytes"}
-    del four, members, junk
+    del four, members
     torch.cuda.empty_cache()
     return max_err, timing
 
 
-def check_k3(torch, k3, words):
+def check_k3(torch, k3, words, card):
     """K3 against the plain version on the card; returns (max_abs_err,
-    timing dict at the served TopN shape)."""
+    timing dict at the served TopN shape, L2 cold)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 1)
     max_err = 0
@@ -857,7 +945,8 @@ def check_k3(torch, k3, words):
     served = torch.from_numpy(
         _edge_rows(rng, 100, TG_SHARDS * words).view(np.int32)).to(dev)
     ms, call_ms, how = kernel_ms(
-        torch, lambda: k3.row_counts(served), 50, "row_counts_kernel")
+        torch, k3.row_counts, (served,), 50, "row_counts_kernel",
+        cold_l2=True)
     plain_ms = time_cuda(torch, lambda: k3.row_counts_reference(served), 10)
     nbytes = served.numel() * 4 + 100 * 8
     timing = {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
@@ -866,22 +955,26 @@ def check_k3(torch, k3, words):
     log(f"kernels: K3 at the served TopN shape [100, {TG_SHARDS}x{words}] "
         f"({nbytes} bytes): {ms * 1e3:.2f} us/launch ({how}; "
         f"{call_ms * 1e3:.2f} us per call by events), bound "
-        f"{timing['bound_ms'] * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us")
+        f"{timing['bound_ms'] * 1e3:.2f} us, "
+        f"{share(timing['bound_ms'], ms)}, plain {plain_ms * 1e3:.2f} us; "
+        f"card {card}")
     del served
     big = torch.from_numpy(
         _edge_rows(rng, 1, N_SHARDS * words).view(np.int32)).to(dev)
     bfilt = torch.from_numpy(
         _edge_rows(rng, 1, N_SHARDS * words)[0].view(np.int32)).to(dev)
     big_ms, big_call, how = kernel_ms(
-        torch, lambda: k3.row_counts(big, bfilt), 50, "row_counts_kernel")
+        torch, k3.row_counts, (big, bfilt), 50, "row_counts_kernel",
+        cold_l2=True)
     big_plain = time_cuda(
         torch, lambda: k3.row_counts_reference(big, bfilt), 10)
     big_bytes = (big.numel() + bfilt.numel()) * 4 + 8
+    big_bound = big_bytes / H100_BYTES_PER_S * 1e3
     log(f"kernels: K3 at [1, {N_SHARDS}x{words}] with a filter "
         f"({big_bytes} bytes): {big_ms * 1e3:.2f} us/launch ({how}; "
         f"{big_call * 1e3:.2f} us per call by events), bound "
-        f"{big_bytes / H100_BYTES_PER_S * 1e6:.2f} us, plain "
-        f"{big_plain * 1e3:.2f} us")
+        f"{big_bound * 1e3:.2f} us, {share(big_bound, big_ms)}, plain "
+        f"{big_plain * 1e3:.2f} us; card {card}")
     del big, bfilt
     torch.cuda.empty_cache()
     return max_err, timing
@@ -899,18 +992,13 @@ def k4_bound(r1, r2, t, sms, clock_hz, has_filt=False):
     return bytes_ms, "bytes", bytes_ms, popc_ms
 
 
-def k4_call_ms(torch, fn, reps, cold_l2):
-    """(all_ms, kernel_ms) of one K4 call from a profiler trace: every
-    device operation the call issues (a memset included), and the K4
-    kernel alone; with cold_l2 each call first writes L2_FLUSH_BYTES
-    (the flush is not counted)."""
-    timed = fn
-    if cold_l2:
-        junk = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-
-        def timed():
-            junk.fill_(1)
-            fn()
+def k4_call_ms(torch, fn, inputs, reps, cold_l2):
+    """(all_ms, kernel_ms) of one K4 call `fn(*inputs)` from a profiler
+    trace: every device operation the call issues (a memset included),
+    and the K4 kernel alone; with cold_l2 each call is a `cold_call` (the
+    flush is not counted)."""
+    timed = cold_call(torch, fn, inputs) if cold_l2 \
+        else (lambda: fn(*inputs))
     for _ in range(3):  # a trace now and then holds no device time
         got = call_device_ms(torch, timed, reps, "pairwise_")
         if got is not None:
@@ -927,7 +1015,7 @@ K4_TIMED = ((5, 4, TG_SHARDS, False, 50, 10), (5, 4, TG_SHARDS, True, 50, 10),
 
 def check_k4(torch, k4, words, sms, clock_hz, card):
     """K4 against the plain version on the card; returns (max_abs_err,
-    timing dict at the served GroupBy shape, L2 flushed)."""
+    timing dict at the served GroupBy shape, L2 cold)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 2)
     max_err = 0
@@ -968,10 +1056,12 @@ def check_k4(torch, k4, words, sms, clock_hz, card):
         b = torch.from_numpy(_edge_rows(rng, r2, t).view(np.int32)).to(dev)
         f = torch.from_numpy(_edge_rows(rng, 1, t)[0].view(np.int32)).to(
             dev) if has_filt else None
-        call = lambda: k4.pairwise_counts(a, b, f)  # noqa: E731
-        call_ms = time_cuda(torch, call, reps)
-        flushed, flushed_kernel = k4_call_ms(torch, call, reps, True)
-        warm, warm_kernel = k4_call_ms(torch, call, reps, False)
+        call_ms = time_cuda(torch, lambda: k4.pairwise_counts(a, b, f),
+                            reps)
+        flushed, flushed_kernel = k4_call_ms(
+            torch, k4.pairwise_counts, (a, b, f), reps, True)
+        warm, warm_kernel = k4_call_ms(
+            torch, k4.pairwise_counts, (a, b, f), reps, False)
         plain_ms = time_cuda(
             torch, lambda: k4.pairwise_counts_reference(a, b, f), plain_reps)
         bound_ms, bound_by, bytes_ms, popc_ms = k4_bound(
@@ -979,11 +1069,11 @@ def check_k4(torch, k4, words, sms, clock_hz, card):
         nbytes = bytes_ms / 1e3 * H100_BYTES_PER_S
         log(f"kernels: K4 at {r1}x{r2} x S={s}"
             f"{' with a filter' if has_filt else ''} ({nbytes:.0f} bytes): "
-            f"{flushed * 1e3:.2f} us device per call with L2 flushed "
+            f"{flushed * 1e3:.2f} us device per call with L2 cold "
             f"({flushed_kernel * 1e3:.2f} us in the kernel; "
-            f"{bound_ms / flushed:.0%} of the bound), {warm * 1e3:.2f} us "
-            f"warm ({warm_kernel * 1e3:.2f} us in the kernel; "
-            f"{bound_ms / warm:.0%}), {call_ms * 1e3:.2f} us per call by "
+            f"{share(bound_ms, flushed)}), {warm * 1e3:.2f} us warm "
+            f"({warm_kernel * 1e3:.2f} us in the kernel), "
+            f"{call_ms * 1e3:.2f} us per call by "
             f"events; bound {bound_ms * 1e3:.2f} us by {bound_by} (bytes "
             f"{bytes_ms * 1e3:.2f} us at 3.35 TB/s, POPC "
             f"{popc_ms * 1e3:.2f} us at {sms} SMs x "
@@ -1080,8 +1170,8 @@ def check_k5(torch, k5, k3, words, card):
         pbits = [(pred >> d) & 1 for d in range(depth)]
         args = ("gt", planes, sign, exists, pbits, False, False)
         ms, call_ms, how = kernel_ms(
-            torch, lambda: k5.bsi_range_mask(*args), reps,
-            "bsi_range_kernel")
+            torch, k5.bsi_range_mask, args, reps, "bsi_range_kernel",
+            cold_l2=True)
         plain_ms = time_cuda(
             torch, lambda: k5.bsi_range_mask_reference(*args), plain_reps)
         nbytes = (depth + 3) * s * words * 4
@@ -1089,7 +1179,8 @@ def check_k5(torch, k5, k3, words, card):
         log(f"kernels: K5 gt at [{depth}, {s}x{words}] ({nbytes} bytes): "
             f"{ms * 1e3:.2f} us/launch ({how}; {call_ms * 1e3:.2f} us per "
             f"call by events), bound {bound_ms * 1e3:.2f} us at 3.35 TB/s, "
-            f"plain {plain_ms * 1e3:.2f} us; card {card}")
+            f"{share(bound_ms, ms)}, plain {plain_ms * 1e3:.2f} us; card "
+            f"{card}")
         if timing is None:
             timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": "bytes"}
@@ -1097,17 +1188,18 @@ def check_k5(torch, k5, k3, words, card):
             flat = planes.reshape(depth, -1)
             filt = sign.reshape(-1)
             k3_ms, k3_call, how = kernel_ms(
-                torch, lambda: k3.row_counts(flat, filt), reps,
-                "row_counts_kernel")
+                torch, k3.row_counts, (flat, filt), reps,
+                "row_counts_kernel", cold_l2=True)
             k3_plain = time_cuda(
                 torch, lambda: k3.row_counts_reference(flat, filt),
                 plain_reps)
             k3_bytes = (depth + 1) * s * words * 4 + depth * 8
+            k3_bound = k3_bytes / H100_BYTES_PER_S * 1e3
             log(f"kernels: K3 at Sum's [{depth}, {s}x{words}] with a "
                 f"filter ({k3_bytes} bytes): {k3_ms * 1e3:.2f} us/launch "
                 f"({how}; {k3_call * 1e3:.2f} us per call by events), "
-                f"bound {k3_bytes / H100_BYTES_PER_S * 1e6:.2f} us, plain "
-                f"{k3_plain * 1e3:.2f} us; card {card}")
+                f"bound {k3_bound * 1e3:.2f} us, {share(k3_bound, k3_ms)}, "
+                f"plain {k3_plain * 1e3:.2f} us; card {card}")
             del flat, filt
         del stack, planes, sign, exists
         torch.cuda.empty_cache()
@@ -1243,31 +1335,32 @@ def check_k2(torch, k2, card):
                            keep=rng.choice(ids_a, real // 2, replace=False))
             b = k2_sparse(torch, rng, nb, ids_b)
             fused_bytes, matched = k2_fused_bytes(ids, b[0])
-            for name, fn, plain, kernel_bytes in (
-                    ("count_blocks", lambda: k2.count_blocks(blocks),
+            for name, fn, inputs, plain, kernel_bytes in (
+                    ("count_blocks", k2.count_blocks, (blocks,),
                      lambda: k2.count_blocks_reference(blocks),
                      nb * 512 + 8),
-                    ("count_and_blocks",
-                     lambda: k2.count_and_blocks(ids, blocks, *b),
+                    ("count_and_blocks", k2.count_and_blocks,
+                     (ids, blocks, *b),
                      lambda: k2.count_and_blocks_reference(ids, blocks, *b),
                      fused_bytes)):
-                ms, call_ms, how = kernel_ms(torch, fn, 50,
+                ms, call_ms, how = kernel_ms(torch, fn, inputs, 50,
                                              "count_blocks_kernel",
                                              cold_l2=True)
                 warm = ""
                 if name == "count_and_blocks":
-                    warm_ms = kernel_ms(torch, fn, 50,
+                    warm_ms = kernel_ms(torch, fn, inputs, 50,
                                         "count_blocks_kernel")[0]
                     warm = f"; {warm_ms * 1e3:.2f} us with the inputs in L2"
                 plain_ms = time_cuda(torch, plain, 10)
+                bound_ms = kernel_bytes / H100_BYTES_PER_S * 1e3
                 log(f"kernels: K2 {name} at NB={nb}"
                     + (f" (half matched: {matched} blocks)"
                        if name == "count_and_blocks" else "")
                     + f" ({kernel_bytes} bytes): {ms * 1e3:.2f} us/launch "
                     f"({how}{warm}; {call_ms * 1e3:.2f} us per call by "
-                    f"events), bound "
-                    f"{kernel_bytes / H100_BYTES_PER_S * 1e6:.2f} us at "
-                    f"3.35 TB/s, plain {plain_ms * 1e3:.2f} us; card {card}")
+                    f"events), bound {bound_ms * 1e3:.2f} us at 3.35 TB/s, "
+                    f"{share(bound_ms, ms)}, plain {plain_ms * 1e3:.2f} us; "
+                    f"card {card}")
             del b
         del ids, blocks, other
     for case in K2_EDGE_CASES:
@@ -2557,7 +2650,7 @@ Y2nKWG/ARszVazt0ATg90JCra6CX2CcaO729lzEthqdOV+e7uORgve75
 """
 OPS_COUNTS = 25  # warm Counts per transport
 OPS_IMPORT_BITS = 100_000  # ImportRequest records over every shard
-OPS_IMPORT_VALUES = 10_000  # ImportValueRequest records over every shard
+OPS_IMPORT_VALUES = 2_500  # ImportValueRequest records over every shard
 OPS_CODEC_ELEMENTS = 1_000_000  # the packed field the codec is timed on
 OPS_ORIGIN = "https://ui.example"
 
@@ -3406,25 +3499,28 @@ def time_served_k2(torch, k2, served, card):
     bound_ms = fused_bytes / H100_BYTES_PER_S * 1e3
     one_bytes = blocks_a.numel() * 4 + 8
     out = None
-    for name, fn, plain, nbytes in (
+    for name, fn, inputs, plain, nbytes in (
             (f"count_and_blocks on the served f=10 & g=10 (NB "
              f"{ids_a.shape[0]} and {ids_b.shape[0]}, {matched} matched "
-             f"blocks)", lambda: k2.count_and_blocks(*args),
+             f"blocks)", k2.count_and_blocks, args,
              lambda: k2.count_and_blocks_reference(*args), fused_bytes),
-            ("count_blocks on the served f=10",
-             lambda: k2.count_blocks(blocks_a),
-             lambda: k2.count_blocks_reference(blocks_a), one_bytes)):
+            ("count_blocks on the served f=10", k2.count_blocks,
+             (blocks_a,), lambda: k2.count_blocks_reference(blocks_a),
+             one_bytes)):
         # L2-warm: the same query back to back finds its 17 MB leaf in
         # the 50 MB L2; L2-cold: a query after others reads it from HBM
-        warm_ms, call_ms, _ = kernel_ms(torch, fn, 50, "count_blocks_kernel")
-        ms, _, how = kernel_ms(torch, fn, 50, "count_blocks_kernel",
+        warm_ms, call_ms, _ = kernel_ms(torch, fn, inputs, 50,
+                                        "count_blocks_kernel")
+        ms, _, how = kernel_ms(torch, fn, inputs, 50, "count_blocks_kernel",
                                cold_l2=True)
         plain_ms = time_cuda(torch, plain, 10)
+        cold_bound = nbytes / H100_BYTES_PER_S * 1e3
         log(f"kernels: K2 {name} ({nbytes} bytes): {ms * 1e3:.2f} us/launch "
             f"({how}; {warm_ms * 1e3:.2f} us with the inputs in L2; "
             f"{call_ms * 1e3:.2f} us per call by events), bound "
-            f"{nbytes / H100_BYTES_PER_S * 1e6:.2f} us at 3.35 TB/s, plain "
-            f"{plain_ms * 1e3:.2f} us; card {card}")
+            f"{cold_bound * 1e3:.2f} us at 3.35 TB/s, "
+            f"{share(cold_bound, ms)}, plain {plain_ms * 1e3:.2f} us; card "
+            f"{card}")
         if out is None:
             out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": "bytes"}
@@ -3456,18 +3552,15 @@ def check_k2_batch(torch, k2, served, card):
     edge batch (members of padding only on either side, a member with no
     match) and B = 1, each equal to its plain version and to B single
     launches, exactly, with one batched launch a call; an empty batch
-    and NB = 0 launch nothing. Then timed with L2 flushed (128 MB written
-    before each call) against the same members as B single launches, at
-    B = 1, 4 and the served query-batch's groups of 2 x K2B_REPEAT, over
-    every device operation of a call (the pointer table's copy and the
-    memset included), and per call by events. Every timed member reads
-    a copy of its leaves of its own, so that the bound (each member's
-    bytes, summed) is what the batch must move from HBM: the served
-    groups repeat f=10, f=11 and g=10, and a repeat would be read from
-    L2. Each timed call takes the next of as many such sets of copies
-    as fill K2B_ROTATE_BYTES, so no call rereads what a recent one
-    read. Returns (max_abs_err, timing of the fused mode at the served
-    group)."""
+    and NB = 0 launch nothing. Then timed L2 cold (`cold_call`) against
+    the same members as B single launches, at B = 1, 4 and the served
+    query-batch's groups of 2 x K2B_REPEAT, over every device operation
+    of a call (the pointer table's copy and the memset included), and
+    per call by events. Every timed member reads a copy of its leaves of
+    its own, so that the bound (each member's bytes, summed) is what the
+    batch must move from HBM: the served groups repeat f=10, f=11 and
+    g=10, and a repeat would be read from L2. Returns (max_abs_err,
+    timing of the fused mode at the served group)."""
     from pilosa_tpu_torch.ops.count_blocks import SPARSE_SENTINEL
 
     f10, g10, f11 = (c.arrays for c in served)
@@ -3527,53 +3620,55 @@ def check_k2_batch(torch, k2, served, card):
         f"members and a member with no match, on the served f=10, g=10, "
         f"f=11 at NB {nb}; an empty batch and NB = 0 without a launch)")
 
-    junk = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     timing = None
     for b in K2B_SIZES:
         # the served group alternates two pairs (two rows); B <= 4 takes
         # the check's members in order; every member a copy of its own
         src_p, src_r = (pairs, rows) if b <= 4 else (pairs[:2], rows[:2])
-        held_p = sum(t.nbytes for q in range(b)
-                     for t in src_p[q % len(src_p)])
-        p_sets = [[tuple(t.clone() for t in src_p[q % len(src_p)])
-                   for q in range(b)]
-                  for _ in range(-(-K2B_ROTATE_BYTES // held_p))]
-        r_sets = [[src_r[q % len(src_r)].clone() for q in range(b)]
-                  for _ in range(-(-K2B_ROTATE_BYTES // (b * nb * 512)))]
-        next_p = itertools.cycle(p_sets).__next__
-        next_r = itertools.cycle(r_sets).__next__
-        for mode, batch, singles, plain, nbytes, kernel, n_sets in (
-                ("mode 0", lambda: k2.count_blocks_batch(next_r()),
-                 lambda: [k2.count_blocks(r) for r in next_r()],
-                 lambda: k2.count_blocks_batch_reference(r_sets[0]),
-                 b * (nb * 512 + 8), "count_blocks_batch_kernel",
-                 len(r_sets)),
-                ("fused", lambda: k2.count_and_blocks_batch(next_p()),
-                 lambda: [k2.count_and_blocks(*p) for p in next_p()],
-                 lambda: k2.count_and_blocks_batch_reference(p_sets[0]),
-                 sum(k2_fused_bytes(p[0], p[2])[0] for p in p_sets[0]),
-                 "fused_batch_kernel", len(p_sets))):
-            def flushed(fn=batch):
-                junk.fill_(1)
-                return fn()
+        own_p = [tuple(t.clone() for t in src_p[q % len(src_p)])
+                 for q in range(b)]
+        own_r = [src_r[q % len(src_r)].clone() for q in range(b)]
+        for mode, batch, single, members, plain, nbytes, kernel in (
+                ("mode 0", k2.count_blocks_batch, k2.count_blocks, own_r,
+                 k2.count_blocks_batch_reference, b * (nb * 512 + 8),
+                 "count_blocks_batch_kernel"),
+                ("fused", k2.count_and_blocks_batch, k2.count_and_blocks,
+                 own_p, k2.count_and_blocks_batch_reference,
+                 sum(k2_fused_bytes(p[0], p[2])[0] for p in own_p),
+                 "fused_batch_kernel")):
+            def singles(ms, fn=single, fused=mode == "fused"):
+                return [fn(*m) if fused else fn(m) for m in ms]
 
-            def flushed_singles(fn=singles):
-                junk.fill_(1)
-                return fn()
-
-            all_ms, kernel_only, names = traced_call_ms(torch, flushed, 20,
-                                                        kernel)
-            single_ms = traced_call_ms(torch, flushed_singles, 20,
-                                       "count_blocks_kernel")
-            call_ms = time_cuda(torch, batch, 20)
-            singles_call_ms = time_cuda(torch, singles, 20)
-            plain_ms = time_cuda(torch, plain, 3)
+            cold_batch = cold_call(torch, batch, (members,))
+            all_ms, kernel_only, names = traced_call_ms(
+                torch, cold_batch, 20, kernel)
+            n_sets = cold_batch.sets
+            del cold_batch
             bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+            if all_ms < bound_ms:
+                # under its byte bound: time it again over twice the
+                # copies (a time still under the bound is no L2 reuse)
+                twice = cold_call(torch, batch, (members,),
+                                  rotate=2 * ROTATE_BYTES)
+                again = traced_call_ms(torch, twice, 20, kernel)
+                log(f"kernels: K2 batched {mode} at B={b} under its bound "
+                    f"({all_ms * 1e3:.2f} us); over {twice.sets} sets of "
+                    f"copies: {again[0] * 1e3:.2f} us device per call "
+                    f"({again[1] * 1e3:.2f} us in the kernel), "
+                    f"{share(bound_ms, again[0])}; card {card}")
+                del twice
+            cold_singles = cold_call(torch, singles, (members,))
+            single_ms = traced_call_ms(torch, cold_singles, 20,
+                                       "count_blocks_kernel")
+            del cold_singles
+            call_ms = time_cuda(torch, lambda: batch(members), 20)
+            singles_call_ms = time_cuda(torch, lambda: singles(members), 20)
+            plain_ms = time_cuda(torch, lambda: plain(members), 3)
             log(f"kernels: K2 batched {mode} at B={b} (NB {nb}, {nbytes} "
-                f"bytes; {n_sets} sets of copies in turn), L2 flushed: "
+                f"bytes; {n_sets} sets of copies in turn), L2 cold: "
                 f"{all_ms * 1e3:.2f} us device per call "
                 f"over {sorted(set(names))} ({kernel_only * 1e3:.2f} us in "
-                f"the kernel; {bound_ms / all_ms:.0%} of the bound), "
+                f"the kernel; {share(bound_ms, all_ms)}), "
                 f"{call_ms * 1e3:.2f} us per call by events; the same "
                 f"members as {b} single K2 launches: "
                 f"{single_ms[0] * 1e3:.2f} us device "
@@ -3586,8 +3681,8 @@ def check_k2_batch(torch, k2, served, card):
                           "single_ms": single_ms[0], "call_ms": call_ms,
                           "plain_ms": plain_ms, "bytes": nbytes,
                           "bound_ms": bound_ms, "bound_by": "bytes"}
-        del p_sets, r_sets
-    del junk, pad, none
+        del own_p, own_r
+    del pad, none
     torch.cuda.empty_cache()
     return max_err, timing
 
@@ -4392,11 +4487,11 @@ def serve_multicard(srv, torch, k1, k2, k3, k4, k5, planes, comp, truth, tg,
     - while b's leaves are resident: the warm headline p50 against the
       one-part server in turns; the device time of the Count's K1
       launches from one torch.profiler trace (warm: whatever the L2
-      holds between launches); one part's K1 launched directly on that
-      part's two resident leaves, L2 flushed before each launch by a
-      128 MB write and, apart, by a 128 MB read, against the part's
-      byte bound, beside the one-part leaves' launch flushed by the
-      write (these timing launches are taken off K1's counter).
+      holds between launches); one part's K1 launched directly on
+      copies of that part's two resident leaves, L2 cold (`cold_call`),
+      against the part's byte bound, beside the one-part leaves' launch
+      timed the same way (these timing launches are taken off K1's
+      counter).
 
     Returns the numbers it printed, with each section's wall."""
     from pilosa_tpu_torch.exec import fusion
@@ -4654,18 +4749,13 @@ def serve_multicard(srv, torch, k1, k2, k3, k4, k5, planes, comp, truth, tg,
         n_k1 = k1.count_expr.launches
         part_pair = leaves(ev.parts[0], ev.split(range(N_SHARDS))[0])
         one_pair = leaves(srv.api.executor._stacked, tuple(range(N_SHARDS)))
+        count = lambda *p: k1.count_expr(sig, list(p))  # noqa: E731
         part_ms, part_call, how = kernel_ms(
-            torch, lambda: k1.count_expr(sig, part_pair), MULTICARD_TRACED,
-            "count_chain_kernel", cold_l2=True)
+            torch, count, part_pair, MULTICARD_TRACED, "count_chain_kernel",
+            cold_l2=True)
         one_ms, _, _ = kernel_ms(
-            torch, lambda: k1.count_expr(sig, one_pair), MULTICARD_TRACED,
-            "count_chain_kernel", cold_l2=True)
-        junk = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32,
-                          device=part_pair[0].device)
-        part_read_ms = device_ms(
-            torch, lambda: (junk.sum(), k1.count_expr(sig, part_pair)),
-            MULTICARD_TRACED, "count_chain_kernel")
-        del junk
+            torch, count, one_pair, MULTICARD_TRACED, "count_chain_kernel",
+            cold_l2=True)
         k1.count_expr.launches = n_k1  # timing launches: off the counter
         part_bytes = sum(t.numel() * 4 for t in part_pair) + 8
         one_bytes = sum(t.numel() * 4 for t in one_pair) + 8
@@ -4673,8 +4763,6 @@ def serve_multicard(srv, torch, k1, k2, k3, k4, k5, planes, comp, truth, tg,
             else per_call * 1e3
         out["k1_part_us"] = part_ms * 1e3
         out["k1_part_call_us"] = part_call * 1e3
-        out["k1_part_read_flushed_us"] = None if part_read_ms is None \
-            else part_read_ms * 1e3
         out["k1_part_bound_us"] = part_bytes / H100_BYTES_PER_S * 1e6
         out["k1_one_part_us"] = one_ms * 1e3
         out["k1_one_part_bound_us"] = one_bytes / H100_BYTES_PER_S * 1e6
@@ -4683,16 +4771,17 @@ def serve_multicard(srv, torch, k1, k2, k3, k4, k5, planes, comp, truth, tg,
             f"{MULTICARD_ROUNDS} rounds x {MULTICARD_WARM} a side in turns; "
             f"the Count's {k} K1 launches {out['k1_count_trace_us']} us of "
             f"device time a Count (profiler, {MULTICARD_TRACED} warm "
-            f"Counts); one part's K1 on its resident leaves "
-            f"{out['k1_part_us']:.2f} us ({how} by a write; "
-            f"{out['k1_part_read_flushed_us']} us flushed by a 128 MB read; "
+            f"Counts); one part's K1 on copies of its resident leaves "
+            f"{out['k1_part_us']:.2f} us ({how}; "
             f"{part_call * 1e3:.2f} us per call by events), bound "
             f"{out['k1_part_bound_us']:.2f} us "
-            f"for {part_bytes} bytes at 3.35 TB/s; the one-part leaves' K1 "
-            f"{out['k1_one_part_us']:.2f} us, bound "
-            f"{out['k1_one_part_bound_us']:.2f} us; peer copies and "
-            f"launches across real cards not measured on {out['cards']} "
-            f"card(s); card {card}")
+            f"for {part_bytes} bytes at 3.35 TB/s, "
+            f"{share(out['k1_part_bound_us'] / 1e3, part_ms)}; the "
+            f"one-part leaves' K1 {out['k1_one_part_us']:.2f} us, bound "
+            f"{out['k1_one_part_bound_us']:.2f} us, "
+            f"{share(out['k1_one_part_bound_us'] / 1e3, one_ms)}; peer "
+            f"copies and launches across real cards not measured on "
+            f"{out['cards']} card(s); card {card}")
         section("k1_timing")
 
         out["by_device"] = http(msrv.uri, "/debug/hbm?top=0")["by_device"]
@@ -5324,10 +5413,18 @@ def serve_spmd(planes, card):
         out["boot_s"] = time.perf_counter() - t0
         cl = pc.clients
         coord = min(range(SPMD_NODES), key=lambda i: pc.hosts[i])
+        # three ranks share the one card: NCCL refuses them (trap 34), so
+        # the boot's identity exchange must keep every rank on gloo
+        backends = [s["collective_backend"] for s in _spmd_stats(cl)]
+        if backends != ["gloo"] * SPMD_NODES:
+            raise AssertionError(f"spmd: ranks sharing a card chose "
+                                 f"{backends}, not gloo")
+        out["collective_backend"] = backends
         log(f"spmd: {SPMD_NODES} --spmd nodes (one gloo group, replicas "
             f"1, booted --spmd-serve on --fusion on --coalesce-window "
             f"{SPMD_COALESCE}) NORMAL in {out['boot_s']:.1f} s on {card}; "
-            f"coordinator node {coord}; serve off first")
+            f"coordinator node {coord}; collective backend {backends}; "
+            f"serve off first")
         _spmd_set_mode(cl, "off")
         cl[0].create_index("b")
         for fname in ("f", "g"):
@@ -5850,6 +5947,273 @@ def _serve_spmd_on(pc, coord, expect, f1, card, off):
     return out
 
 
+# -- the collective plane's NCCL data group (serve_nccl) ----------------------
+
+NCCL_REPS = 10  # timed steps of each kind on each backend
+NCCL_TOPN = 10
+NCCL_KINDS = ("count", "topn", "groupby", "sum", "max", "min")
+NCCL_KERNELS = ("count_expr", "row_counts", "pairwise_counts")
+NCCL_DEVICE = "cuda:0"  # the child's card ("cpu" in a CPU rehearsal)
+
+
+def _rows_words(rows, cols, n_rows, n_shards):
+    """[n_rows, n_shards, W] uint32 words with global column cols[i] set
+    in row rows[i] (no (row, column) twice)."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    cols = np.asarray(cols, dtype=np.int64)
+    per_row = n_shards * SHARD_WIDTH // 32
+    at = np.asarray(rows, dtype=np.int64) * per_row + (cols >> 5)
+    words = np.bincount(at, weights=(1 << (cols & 31)).astype(np.float64),
+                        minlength=n_rows * per_row)
+    return words.astype(np.uint32).reshape(n_rows, n_shards, -1)
+
+
+def nccl_child(inputs, out):
+    """serve_nccl's child process: a gloo world of one over a FileStore,
+    the boot's backend choice (`SpmdDataPlane.form_data_group`, which
+    must pick NCCL for one rank on its card), and the same rank's data
+    collectives over that NCCL group and over a gloo group of one. Each
+    engine runs its steps at full width (`query_step`, `topn_step`,
+    `pairwise_step`, `sum_step`), and a one-rank plane over it runs every
+    collective step kind NCCL_REPS times through `_collective` /
+    `_gather_collective`, under a step clock for its phases. Writes the
+    answers, the medians of psum and result_fetch per kind and backend,
+    and the kernel launches."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from pilosa_tpu_torch.cluster.spmd import (SpmdDataPlane, _StepClock,
+                                               combine_minmax)
+    from pilosa_tpu_torch.exec.stacked import minmax_decode, minmax_walk
+    from pilosa_tpu_torch.ops import count_expr as k1
+    from pilosa_tpu_torch.ops import pairwise as k4
+    from pilosa_tpu_torch.ops import row_counts as k3
+    from pilosa_tpu_torch.parallel.sharded import ShardedQueryEngine
+
+    dev = torch.device(NCCL_DEVICE)
+    dist.init_process_group("gloo", store=dist.FileStore(inputs + ".store",
+                                                         1),
+                            world_size=1, rank=0,
+                            timeout=timedelta(seconds=300))
+    try:
+        t0 = time.perf_counter()
+        res = {"boot_backend": SpmdDataPlane.form_data_group(dev),
+               "nccl_up_s": time.perf_counter() - t0}
+        if res["boot_backend"] != "nccl":
+            raise AssertionError(f"one rank on its card chose "
+                                 f"{res['boot_backend']}, not nccl")
+        engines = {"nccl": ShardedQueryEngine(
+                       dev, data_group=SpmdDataPlane._data_group),
+                   "gloo": ShardedQueryEngine(
+                       dev, data_group=dist.new_group(backend="gloo"))}
+        t0 = time.perf_counter()
+        with np.load(inputs) as z:
+            inp = {k: z[k] for k in z.files}
+        place = engines["nccl"].place
+        depth = int(inp["br_depth"])
+        f1 = place(np.tile(inp["f1"], (N_SHARDS, 1)))
+        g1 = place(np.tile(inp["g1"], (N_SHARDS, 1)))
+        tg_f = place(_rows_words(inp["tg_f_rows"], inp["tg_f_cols"], 100,
+                                 TG_SHARDS))
+        tg_a = place(_rows_words(inp["tg_a"], inp["tg_g_cols"], 5,
+                                 TG_SHARDS))
+        tg_b = place(_rows_words(inp["tg_b"], inp["tg_g_cols"], 4,
+                                 TG_SHARDS))
+        cols, vals = inp["br_cols"], inp["br_vals"]
+        bits = np.concatenate([np.full(int(((vals >> i) & 1).sum()), i)
+                               for i in range(depth)] + [np.full(len(cols),
+                                                                 depth)])
+        at = np.concatenate([cols[(vals >> i) & 1 == 1]
+                             for i in range(depth)] + [cols])
+        planes = place(_rows_words(bits, at, depth + 1, BR_SHARDS))
+        exists = planes[depth]
+        planes = planes[:depth]
+        sign = torch.zeros_like(exists)  # config 4's values are >= 0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        res["data_s"] = time.perf_counter() - t0
+        sig = k1.chain_signature(2, "&")
+        res["answers"], res["steps"], res["phases_ms"] = {}, {}, {}
+
+        class _OneNode:  # the cluster view of a plane of one rank
+            class _Node:
+                id = "n0"
+
+            nodes = [_Node()]
+            local_id = "n0"
+
+        for name, eng in engines.items():
+            total, order = eng.topn_step(tg_f, None, NCCL_TOPN)
+            res["answers"][name] = {
+                "count": eng.query_step([f1, g1], "&"),
+                "topn": [total.tolist(), order.tolist()],
+                "groupby": eng.pairwise_step(tg_a, tg_b).tolist(),
+                "sum": list(eng.sum_step(planes, sign, exists, None))}
+            plane = SpmdDataPlane(None, _OneNode(), None)
+            plane._sharded = eng
+            if dev.type == "cuda" and plane.collective_backend != name:
+                raise AssertionError(f"plane reports "
+                                     f"{plane.collective_backend}")
+
+            def minmax(is_max, plane=plane):
+                walk = minmax_walk(planes, sign, exists, None, is_max)
+                ne, neg, mag, cnt = minmax_decode(
+                    plane._fetch(walk, host=True).tolist())
+                return torch.tensor([int(ne), int(neg), mag, cnt])
+
+            run = {
+                "count": lambda p=plane, e=eng: p._collective(
+                    p._nccl_step, 1, lambda: p._fetch(
+                        e.count_partial(sig, [f1, g1])))[0],
+                "topn": lambda p=plane, e=eng: e.top_k(p._collective(
+                    p._nccl_step, 100, lambda: p._fetch(
+                        e.row_counts_partial(tg_f))), NCCL_TOPN)[0]
+                .tolist(),
+                "groupby": lambda p=plane, e=eng: p._collective(
+                    p._nccl_step, 20, lambda: p._fetch(
+                        e.pairwise_partial(tg_a, tg_b).reshape(-1))),
+                "sum": lambda p=plane, e=eng: list(e.sum_fold(
+                    p._collective(p._nccl_step, 2 * depth + 1,
+                                  lambda: p._fetch(e.sum_partial(
+                                      planes, sign, exists))), depth)),
+                "max": lambda p=plane: list(combine_minmax(
+                    p._gather_collective(p._nccl_step, 4,
+                                         lambda: minmax(True)), True)),
+                "min": lambda p=plane: list(combine_minmax(
+                    p._gather_collective(p._nccl_step, 4,
+                                         lambda: minmax(False)), False)),
+            }
+            res["steps"][name], res["phases_ms"][name] = {}, {}
+            for kind in NCCL_KINDS:
+                got, psum, fetch = [], [], []
+                for rep in range(NCCL_REPS + 1):  # the first one warms up
+                    plane._nccl_step = {"step": rep + 1, "nodes": ["n0"],
+                                        "kind": kind}
+                    clk = plane._step_clock = _StepClock()
+                    got.append(run[kind]())
+                    plane._step_clock = None
+                    marks = {}
+                    for ph, sec in clk.phases:
+                        marks[ph] = marks.get(ph, 0.0) + sec
+                    if rep:
+                        psum.append(marks.get("psum", 0.0) * 1e3)
+                        fetch.append(marks.get("result_fetch", 0.0) * 1e3)
+                if any(g != got[0] for g in got):
+                    raise AssertionError(f"{name} {kind}: steps disagree")
+                res["steps"][name][kind] = got[0]
+                res["phases_ms"][name][kind] = {
+                    "psum": statistics.median(psum),
+                    "result_fetch": statistics.median(fetch),
+                    "order": [ph for ph, _ in clk.phases]}
+            res["data_collectives_" + name] = eng.data_collectives
+        res["launches"] = {"count_expr": k1.count_expr.launches,
+                           "row_counts": k3.row_counts.launches,
+                           "pairwise_counts": k4.pairwise_counts.launches}
+    finally:
+        SpmdDataPlane._data_group, SpmdDataPlane._backend = None, "gloo"
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def serve_nccl(planes, tg, br, card):
+    """The collective plane's data collectives over NCCL, on the one
+    card: NCCL refuses two ranks on one card, so the three `--spmd` ranks
+    of serve_spmd stay on gloo; here a child process (`nccl_child`) makes
+    an NCCL group of one rank over the card, as the boot makes it when
+    every rank has a card of its own, and runs the engine's steps at
+    full width through it and through a gloo group of one: the headline
+    Count over index b's f=1 and g=1 at all N_SHARDS shards, TopN(f,
+    n=10) and GroupBy(Rows(a), Rows(b)) over tg, and Sum, Max and Min of
+    br's v. Every answer equals the gloo engine's and numpy's; each
+    step's phases run device_enter, psum, result_fetch on NCCL. Prints
+    both backends' psum and result_fetch medians per kind. Returns the
+    numbers, with the child's kernel launches."""
+    t_phase = time.perf_counter()
+    f1, g1 = planes[("f", 1)], planes[("g", 1)]
+    counts = [len(c) for c in tg["f"]]
+    order = sorted(range(100), key=lambda r: (-counts[r], r))[:NCCL_TOPN]
+    vals = br["vals"]
+    hi, lo = int(vals.max()), int(vals.min())
+    expect = {
+        "count": N_SHARDS * popcount(f1 & g1),
+        "topn": [[counts[r] for r in order], order],
+        "groupby": [[int(np.sum((tg["a"] == i) & (tg["b"] == j)))
+                     for j in range(4)] for i in range(5)],
+        "sum": [int(vals.sum()), len(vals)],
+        "max": [False, False, hi, int((vals == hi).sum())],
+        "min": [False, False, lo, int((vals == lo).sum())],
+    }
+    tmp = tempfile.mkdtemp(prefix="pilosa-torch-smoke-nccl-")
+    try:
+        path = os.path.join(tmp, "inputs.npz")
+        np.savez(path, f1=f1, g1=g1,
+                 tg_f_rows=np.concatenate([np.full(len(c), r)
+                                           for r, c in enumerate(tg["f"])]),
+                 tg_f_cols=np.concatenate(tg["f"]), tg_g_cols=tg["g_cols"],
+                 tg_a=tg["a"], tg_b=tg["b"], br_cols=br["cols"],
+                 br_vals=vals, br_depth=br["depth"])
+        out_path = os.path.join(tmp, "out.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--nccl-child", path,
+             out_path], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"nccl: the child failed (rc "
+                                 f"{proc.returncode}):\n{proc.stdout[-4000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+        with open(out_path) as f:
+            res = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in ("nccl", "gloo"):
+        ans = res["answers"][name]
+        for kind in ("count", "topn", "groupby", "sum"):
+            if ans[kind] != expect[kind]:
+                raise AssertionError(f"nccl: {name} engine {kind} "
+                                     f"{ans[kind]} != numpy {expect[kind]}")
+        steps = res["steps"][name]
+        want = dict(expect, topn=expect["topn"][0],
+                    groupby=[n for row in expect["groupby"] for n in row])
+        for kind in NCCL_KINDS:
+            if steps[kind] != want[kind]:
+                raise AssertionError(f"nccl: {name} plane {kind} step "
+                                     f"{steps[kind]} != numpy {want[kind]}")
+    for kind in NCCL_KINDS:
+        # on the card the partial is reduced first, then fetched once
+        marks = res["phases_ms"]["nccl"][kind]["order"]
+        if marks[-2:] != ["psum", "result_fetch"]:
+            raise AssertionError(f"nccl: {kind} step phases {marks}")
+    for name in NCCL_KERNELS:
+        if res["launches"][name] < 1:
+            raise AssertionError(f"nccl: {name} was not launched")
+    ph = res["phases_ms"]
+    for kind in NCCL_KINDS:
+        n, g = ph["nccl"][kind], ph["gloo"][kind]
+        log(f"nccl: {kind} step, one rank at full width: psum "
+            f"{n['psum']:.3f} ms over NCCL (the reduce on the card; one "
+            f"rank's vote reduces nothing) vs {g['psum']:.3f} ms over "
+            f"gloo (the host partial's reduce); result_fetch "
+            f"{n['result_fetch']:.3f} vs {g['result_fetch']:.3f} ms "
+            f"(medians of {NCCL_REPS} steps, in the same call); answers "
+            f"equal numpy and the gloo engine's; card {card}")
+    out = {"card": card, "boot_backend": res["boot_backend"],
+           "nccl_up_s": res["nccl_up_s"], "data_s": res["data_s"],
+           "phases_ms": ph, "launches": res["launches"],
+           "data_collectives": {n: res["data_collectives_" + n]
+                                for n in ("nccl", "gloo")},
+           "seconds": time.perf_counter() - t_phase}
+    log(f"nccl: an NCCL group of one over the card came up in "
+        f"{out['nccl_up_s']:.2f} s (the boot's choice for one rank on its "
+        f"card: {res['boot_backend']}); phase in {out['seconds']:.1f} s; "
+        f"launches {res['launches']}")
+    return out
+
+
 FUZZ_SET_SEEDS = (7, 23, 1009)  # the PQL differential, 25 trees each
 FUZZ_AGG_SEEDS = (3, 17)  # TopN and Rows
 FUZZ_FULL_SEEDS = (13, 101)  # the full-type differential, 40 trees each
@@ -6029,15 +6393,16 @@ def main():
         phase_done("build")
         errs, timings = {}, {}
         errs["count_expr"], timings["count_expr"] = check_k1(
-            torch, k1, WORDS_PER_ROW)
+            torch, k1, WORDS_PER_ROW, card)
         t = timings["count_expr"]
         log(f"kernels: K1 at S={N_SHARDS}, 2 leaves ({t['bytes']} bytes): "
             f"{t['ms'] * 1e3:.2f} us/launch ({t['how']}; "
             f"{t['call_ms'] * 1e3:.2f} us per call by events), bound "
-            f"{t['bound_ms'] * 1e3:.2f} us at 3.35 TB/s, plain version "
+            f"{t['bound_ms'] * 1e3:.2f} us at 3.35 TB/s, "
+            f"{share(t['bound_ms'], t['ms'])}, plain version "
             f"{t['plain_ms'] * 1e3:.2f} us; card {card}")
         errs["row_counts"], timings["row_counts"] = check_k3(
-            torch, k3, WORDS_PER_ROW)
+            torch, k3, WORDS_PER_ROW, card)
         errs["pairwise_counts"], timings["pairwise_counts"] = check_k4(
             torch, k4, WORDS_PER_ROW, sms, clock_mhz * 1e6, card)
         errs["bsi_range"], timings["bsi_range"] = check_k5(
@@ -6224,6 +6589,14 @@ def main():
             for name, n in spmd["launches"].items():
                 launches[name] += n
             phase_done("serve_spmd")
+            # the data collectives over NCCL: a child process of one rank
+            # on the card, its launches counted from 0 there
+            reset_counters(mods)
+            nccl = serve_nccl(planes, tg, br, card)
+            log("nccl-json: " + json.dumps(nccl))
+            for name, n in nccl["launches"].items():
+                launches[name] += n
+            phase_done("serve_nccl")
         finally:
             srv.stop()
     finally:
@@ -6274,4 +6647,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--nccl-child"]:  # serve_nccl's child process
+        sys.exit(nccl_child(*sys.argv[2:4]))
     sys.exit(main())

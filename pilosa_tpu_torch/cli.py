@@ -511,7 +511,9 @@ def start_server(argv):
 def _spmd_initialize(config):
     """Join the collective data plane's process group: this node's rank
     is its place in --cluster-hosts, the group's store is on the first
-    host at --spmd-port (default 27121). Returns the rank."""
+    host at --spmd-port (default 27121). The ranks then choose the data
+    collectives' backend from their cards (NCCL when every rank has a
+    card of its own). Returns the rank."""
     from .cluster.spmd import SpmdDataPlane
 
     if not config.get("cluster-hosts"):
@@ -528,7 +530,8 @@ def _spmd_initialize(config):
         coordinator_address=f"{coord_host}:"
                             f"{int(config.get('spmd-port', 27121))}",
         num_processes=len(norm), process_id=norm.index(local_ref),
-        cpu_collectives=config.get("spmd-cpu-collectives"))
+        cpu_collectives=config.get("spmd-cpu-collectives"),
+        device=config.get("device", "cuda"))
     return norm.index(local_ref)
 
 
@@ -1128,9 +1131,10 @@ def _server_flags(p):
                         "cache for divergence")
     p.add_argument("--spmd-cpu-collectives", default=None,
                    choices=["none", "gloo"],
-                   help="collectives backend for --spmd; the group is "
-                        "gloo either way (its collectives reduce host "
-                        "tensors)")
+                   help="collectives backend of --spmd's CPU ranks; "
+                        "gloo either way (it reduces host tensors). When "
+                        "every rank has a card of its own, the data "
+                        "collectives run over NCCL on the cards")
     p.add_argument("--spmd-stream-gap-timeout", default=None,
                    help="how long a peer's step-stream runner waits on a "
                         "sequence gap before resyncing past it (duration, "

@@ -5,12 +5,21 @@ executor.go:2414). The TPU package replaces that data plane with one
 global JAX distributed system: each leaf is a globally sharded array and
 one jitted program runs on every process, XLA inserting the all-reduce.
 The port joins every server process into ONE `torch.distributed` process
-group (gloo: the partials are a few bytes to a few KB of host int64, and
-NCCL refuses two ranks on one card), and each of those programs becomes
-two things on every rank: a launch of the port's hand-written kernel over
+group (gloo, the control group), and each of those programs becomes two
+things on every rank: a launch of the port's hand-written kernel over
 the rank's own shards (K1 count_expr for a Count, K3 row_counts for Sum
 and TopN, K4 pairwise_counts for GroupBy; Min/Max walks as the single
-node does, its count with K3), and ONE collective of the int64 partials.
+node does, its count with K3), and the collective of the int64 partials.
+At boot the ranks exchange their cards' identities over gloo; when every
+rank has a card of its own they form an NCCL data group
+(`parallel.sharded.collective_backend`), and a step's collective takes
+two phases: a vote of the failure and step slots over gloo, then, only
+when the vote is clean, the partials reduced (Min/Max: gathered) on the
+cards over NCCL and fetched once. A rank whose card failed never enters
+an NCCL collective: it would wedge the others until NCCL's watchdog
+tore their processes down. Ranks on the CPU, or sharing a card (NCCL
+refuses two ranks on one), reduce host partials over gloo in ONE
+collective that carries the slots too.
 The Count, Sum, TopN and GroupBy kernels and their all_reduce are
 `parallel.sharded.ShardedQueryEngine`'s, one engine per rank.
 Covered merges: Count, Sum, Min/Max, TopN, GroupBy.
@@ -43,10 +52,10 @@ Execution model:
 
 - gloo matches collectives by call order, not by step. Every reduced
   vector therefore also carries one slot per node with the step number
-  that rank ran; a rank that finds the slots unequal raises on every
-  rank (a non-card failure: the coordinator falls back to HTTP), so two
-  different steps are never summed into one answer. The Min/Max
-  all_gather rows carry the same number.
+  that rank ran (on NCCL, the vote does); a rank that finds the slots
+  unequal raises on every rank (a non-card failure: the coordinator
+  falls back to HTTP), so two different steps are never summed into one
+  answer. The Min/Max all_gather rows carry the same number.
 
 Serve modes (`--spmd-serve`, switched at run time by POST /debug/spmd):
 - `off` (the default): every step gathers its leaves from the host
@@ -151,7 +160,9 @@ def sig_from_wire(wire):
 #: host-to-device copies; device_enter — the kernel launches and the wait
 #: for them; result_fetch — the partial's device-to-host copy; psum — the
 #: collective; exit — residual (decode and bookkeeping), so the phases
-#: sum EXACTLY to the step wall.
+#: sum EXACTLY to the step wall. On an NCCL data group the partial is
+#: reduced on the card before it is fetched: psum (the vote and the data
+#: collective) then comes before result_fetch.
 STEP_PHASES = ("announce_recv", "stack_gather", "upload", "device_enter",
                "result_fetch", "psum", "exit")
 
@@ -311,14 +322,22 @@ class SpmdDataPlane:
     #: repeated scrapes of the same ring don't re-fire (bounded FIFO)
     STRAGGLER_FLAGS_MAX = 1024
 
+    #: process-wide: the NCCL data group when every rank has a card of
+    #: its own (None: the data collectives ride the gloo group), and its
+    #: backend's name
+    _data_group = None
+    _backend = "gloo"
+
     @classmethod
     def initialize(cls, coordinator_address, num_processes, process_id,
-                   cpu_collectives=None):
+                   cpu_collectives=None, device=None):
         """Join the process group: gloo, its TCP store on
         `coordinator_address` (host:port, served by rank 0), the timeout
-        STEP_TIMEOUT. Blocks until every rank has joined. The group is
-        gloo whatever `cpu_collectives` says ("none" or "gloo", the TPU
-        package's choices): its collectives reduce host tensors."""
+        STEP_TIMEOUT. Blocks until every rank has joined. That gloo group
+        is the control group whatever `cpu_collectives` says ("none" or
+        "gloo", the TPU package's choices for CPU ranks). Then the data
+        group: this rank's card (`device`, resolved for `process_id`),
+        its identity exchanged with every rank's (`form_data_group`)."""
         if cls._initialized:
             return
         if cpu_collectives not in (None, "none", "gloo"):
@@ -329,23 +348,61 @@ class SpmdDataPlane:
 
         import torch.distributed as dist
 
+        from ..device import resolve_devices
+
         dist.init_process_group(
             "gloo", init_method=f"tcp://{coordinator_address}",
             world_size=int(num_processes), rank=int(process_id),
             timeout=timedelta(seconds=cls.STEP_TIMEOUT))
         cls._initialized = True
+        cls.form_data_group(resolve_devices(device, rank=process_id)[0])
+
+    @classmethod
+    def form_data_group(cls, device):
+        """Every rank's `card_identity` gathered over the (initialized)
+        gloo group, the same `collective_backend` chosen on every rank,
+        and for "nccl" a new NCCL group of every rank, brought up at once
+        by one all_reduce on `device` (this rank's card): an NCCL group
+        that was chosen and does not come up fails the boot with its
+        error, never falling back to gloo. Returns the backend."""
+        from datetime import timedelta
+
+        import torch
+        import torch.distributed as dist
+
+        from ..parallel.sharded import card_identity, collective_backend
+
+        ids = [None] * dist.get_world_size()
+        dist.all_gather_object(ids, card_identity(device))
+        backend = collective_backend(ids, dist.is_nccl_available())
+        if backend == "nccl":
+            group = dist.new_group(
+                backend="nccl", timeout=timedelta(seconds=cls.STEP_TIMEOUT))
+            with torch.cuda.device(device):
+                probe = torch.ones(1, dtype=torch.int64, device=device)
+                dist.all_reduce(probe, group=group)
+                if int(probe) != len(ids):
+                    raise RuntimeError(
+                        f"the NCCL data group summed {int(probe)} over "
+                        f"{len(ids)} ranks")
+            cls._data_group = group
+        cls._backend = backend
+        return backend
 
     @classmethod
     def shutdown(cls):
-        """Leave the process group (server stop)."""
+        """Leave the data group and the process group (server stop)."""
         if not cls._initialized:
             return
         import torch.distributed as dist
 
-        try:
-            dist.destroy_process_group()
-        except Exception:  # noqa: BLE001 — shutting down regardless
-            pass
+        groups = [cls._data_group] if cls._data_group is not None else []
+        for group in groups + [None]:  # None: the world, last
+            try:
+                dist.destroy_process_group(group)
+            except Exception:  # noqa: BLE001 — shutting down regardless
+                pass
+        cls._data_group, cls._backend = None, "gloo"
         cls._initialized = False
 
     def __init__(self, holder, cluster, client_factory, logger=None,
@@ -1648,13 +1705,23 @@ class SpmdDataPlane:
 
     def _engine(self):
         """This rank's ShardedQueryEngine on the serving device, over
-        the world group: the steps' kernels and their all_reduce."""
+        the world group and the data group formed at boot: the steps'
+        kernels and their collectives."""
         if self._sharded is None:
             from ..parallel.sharded import ShardedQueryEngine
 
             self._sharded = ShardedQueryEngine(
-                devices=self._local_executor().device)
+                devices=self._local_executor().device,
+                data_group=type(self)._data_group)
         return self._sharded
+
+    @property
+    def collective_backend(self):
+        """"nccl" or "gloo": what this plane's data collectives run over,
+        chosen at boot (`form_data_group`)."""
+        if self._sharded is not None:
+            return self._sharded.collective_backend
+        return type(self)._backend
 
     def _my_shards(self, step):
         seg_len = int(step["seg_len"])
@@ -1735,7 +1802,7 @@ class SpmdDataPlane:
         return torch.from_numpy(words).to(self._local_executor().device)
 
     def _sync(self):
-        dev = self._local_executor().device
+        dev = self._engine().device
         if dev.type == "cuda":
             import torch
 
@@ -1821,11 +1888,15 @@ class SpmdDataPlane:
 
         return tree_eval(sig, blocks)
 
-    def _fetch(self, values):
+    def _fetch(self, values, host=False):
         """Wait for the step's launches (device_enter), then copy the
-        int64 partial to the host (result_fetch)."""
+        int64 partial to the host (result_fetch). On an NCCL data group
+        the partial stays on the card, for `_collective` to reduce
+        there and fetch once, unless `host` asks for it here."""
         self._sync()
         self._mark_phase("device_enter")
+        if not host and self.collective_backend == "nccl":
+            return values
         out = values.cpu()
         self._mark_phase("result_fetch")
         return out
@@ -1912,57 +1983,103 @@ class SpmdDataPlane:
             "); the collective paired two steps, its sums are dropped")
 
     def _collective(self, step, n, local):
-        """Run this rank's part `local()` (a host int64 tensor [n]) and
-        the engine's ONE all_reduce of it with two slots per node as its
-        extra tail: the failure slots (a rank whose part raised
-        contributes zeros and its failure code, so every rank enters the
-        collective and learns the outcome from it) and the step slots
-        (each rank's step number, checked equal on every rank). Returns
-        the reduced [n] as Python ints, or raises the failure."""
+        """Run this rank's part `local()` (an int64 tensor [n]) and
+        reduce it over the group with two slots per node: the failure
+        slots (a rank whose part raised reports its failure code, so
+        every rank learns the outcome) and the step slots (each rank's
+        step number, checked equal on every rank). Without a data group
+        the slots ride the engine's ONE all_reduce after the partial (a
+        failed rank contributes zeros). With one, they are voted first
+        over the gloo control group, and only a clean vote lets the
+        ranks reduce the partial over the data group (on the card for
+        NCCL) and fetch it once. Returns the reduced [n] as Python ints,
+        or raises the failure on every rank."""
         import torch
 
         nodes, me = self._node_slot(step)
         vals, code = self._local_or_failure(step, local)
-        if vals is None:
-            vals = torch.zeros(n, dtype=torch.int64)
+        slots = self._slots(step, nodes, me, code)
+        engine = self._engine()
+        if engine.data_group is None:
+            if vals is None:
+                vals = torch.zeros(n, dtype=torch.int64)
+            sums, tail = engine._all_reduce(vals, extra=slots)
+            self._mark_phase("psum")
+            self.steps_run += 1
+            self._check_slots(step, nodes, me, engine, tail.tolist())
+            return sums.tolist()
+        self._vote(step, nodes, me, engine, slots)
+        sums = engine._data_reduce(vals)
+        self._mark_phase("psum")
+        out = sums.cpu()
+        self._mark_phase("result_fetch")
+        return out.tolist()
+
+    @staticmethod
+    def _slots(step, nodes, me, code):
+        """This rank's failure slots (its code at its node's place) and
+        step slots (its step number there), one int64 each a node."""
+        import torch
+
         slots = torch.zeros(2 * len(nodes), dtype=torch.int64)
         slots[me] = code
         slots[len(nodes) + me] = int(step.get("step") or 0)
-        engine = self._engine()
-        sums, tail = engine._all_reduce(vals, extra=slots)
-        self._mark_phase("psum")
+        return slots
+
+    def _vote(self, step, nodes, me, engine, slots):
+        """Phase 1 on a data group: the failure and step slots summed
+        over the gloo control group (host int64); a failure or a step
+        mismatch raises on every rank here, so no rank enters the data
+        collective."""
+        tail = engine.vote(slots).tolist()
         self.steps_run += 1
-        tail = tail.tolist()
-        # a group of one (no process group) reduces nothing: only this
-        # rank's own slots carry anything
+        self._check_slots(step, nodes, me, engine, tail)
+
+    def _check_slots(self, step, nodes, me, engine, tail):
+        """Raise on a step mismatch or a failure in the reduced slots. A
+        group of one (no process group) reduces nothing: only this
+        rank's own slots carry anything."""
         self._check_seqs(step, nodes, tail[len(nodes):]
                          if engine.n_ranks > 1 else [tail[len(nodes) + me]])
         self._raise_failures(step, nodes, tail[:len(nodes)])
-        return sums.tolist()
 
     def _gather_collective(self, step, n, local):
         """Like _collective, but ONE all_gather: every rank's [n] partial
-        beside its failure code, its node slot and its step number, in
-        node order."""
+        beside its node slot (and, without a data group, its failure
+        code and step number), in node order. With a data group the
+        slots are voted first, as in _collective, and the rows gathered
+        over the data group (on the card for NCCL) and fetched once."""
         import torch
 
         nodes, me = self._node_slot(step)
         vals, code = self._local_or_failure(step, local)
-        row = torch.zeros(n + 3, dtype=torch.int64)
-        if vals is not None:
-            row[:n] = vals.reshape(-1)
-        row[n] = code
-        row[n + 1] = me
-        row[n + 2] = int(step.get("step") or 0)
-        rows = [torch.zeros_like(row) for _ in range(self._num_processes())]
-        self._dist().all_gather(rows, row)
+        engine = self._engine()
+        if engine.data_group is None:
+            row = torch.zeros(n + 3, dtype=torch.int64)
+            if vals is not None:
+                row[:n] = vals.reshape(-1)
+            row[n] = code
+            row[n + 1] = me
+            row[n + 2] = int(step.get("step") or 0)
+            rows = engine._all_gather(row)
+            self._mark_phase("psum")
+            self.steps_run += 1
+            self._check_seqs(step, nodes, [int(r[n + 2]) for r in rows])
+            by_node = {int(r[n + 1]): r.tolist() for r in rows}
+            codes = [by_node.get(i, [0] * (n + 1))[n]
+                     for i in range(len(nodes))]
+            self._raise_failures(step, nodes, codes)
+            return [by_node[i][:n] for i in sorted(by_node)]
+        self._vote(step, nodes, me, engine,
+                   self._slots(step, nodes, me, code))
+        rows = engine._all_gather(torch.cat([
+            vals.reshape(-1).to(torch.int64),
+            torch.tensor([me], dtype=torch.int64)]))
         self._mark_phase("psum")
-        self.steps_run += 1
-        self._check_seqs(step, nodes, [int(r[n + 2]) for r in rows])
-        by_node = {int(r[n + 1]): r.tolist() for r in rows}
-        codes = [by_node.get(i, [0] * (n + 1))[n] for i in range(len(nodes))]
-        self._raise_failures(step, nodes, codes)
-        return [by_node[i][:n] for i in sorted(by_node)]
+        rows = rows.cpu()
+        self._mark_phase("result_fetch")
+        by_node = {int(r[n]): r[:n].tolist() for r in rows}
+        return [by_node[i] for i in sorted(by_node)]
 
     def _run_count_step(self, idx, step):
         """K1 over the leaves' blocks (count_expr, fit past K1's limits),
@@ -2077,7 +2194,7 @@ class SpmdDataPlane:
                 walk = minmax_walk(planes, sign, exists, filt, is_max)
                 ph.mark("dispatch_ack")
             nonempty, use_neg, mag, count = minmax_decode(
-                self._fetch(walk).tolist())
+                self._fetch(walk, host=True).tolist())
             return torch.tensor([int(nonempty), int(use_neg), mag, count],
                                 dtype=torch.int64)
 
@@ -2201,6 +2318,7 @@ class SpmdDataPlane:
         launches its steps made (`step_launches`)."""
         return {"steps": self.steps_run,
                 "initialized": type(self)._initialized,
+                "collective_backend": self.collective_backend,
                 "serve_mode": self.serve_mode,
                 "validations": self.validations,
                 "validations_skipped": self.validations_skipped,

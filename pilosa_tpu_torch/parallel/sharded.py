@@ -11,9 +11,15 @@ count_expr, K3 row_counts, K4 pairwise_counts), and the int64 partials
 meet in ONE `all_reduce` per step. A rank may also drive several local
 parts, as a TPU host drives every local chip: its slice splits again
 into one contiguous range per part, each kernel launches once per part,
-and the partials sum in the process before the one `all_reduce`. The group is gloo, which reduces
-host tensors (NCCL refuses two ranks on one card), so a partial is
-fetched once before it travels.
+and the partials sum in the process before the one `all_reduce`.
+
+Two groups: the control group (gloo, the world by default) and the data
+group. Where every rank has a card of its own (`collective_backend`),
+the data group is NCCL and a partial is reduced ON its card, as the TPU
+package's psum reduces on the device, then fetched once. Otherwise
+(ranks on the CPU, or sharing a card: NCCL refuses two ranks on one)
+there is no data group of its own: the partial is fetched and reduced
+over the gloo group, with any extra slots in the same collective.
 
 Two layers:
 - `QueryKernels`: stacked-plane kernels on one device, one launch for
@@ -29,7 +35,7 @@ torch at module import (trap 19).
 import numpy as np
 
 __all__ = ["QueryKernels", "ShardedQueryEngine", "apply_op_chain",
-           "build_global_mesh"]
+           "build_global_mesh", "card_identity", "collective_backend"]
 
 
 def apply_op_chain(acc, planes, ops):
@@ -63,6 +69,35 @@ def build_global_mesh(group=None):
     if group is None:
         return list(range(dist.get_world_size()))
     return sorted(dist.get_process_group_ranks(group))
+
+
+def card_identity(device):
+    """This rank's identity for the backend choice: "cpu", or (hostname,
+    UUID of the card) for a CUDA device. Cards compare by UUID, never
+    by index: cuda:0 on two hosts is two cards."""
+    import socket
+
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return (socket.gethostname(),
+            str(torch.cuda.get_device_properties(index).uuid))
+
+
+def collective_backend(identities, nccl_available):
+    """"nccl" when every rank (its `card_identity`, in rank order) is on
+    a card, no two ranks share a card, and NCCL is available; else
+    "gloo". Every rank computes it from the same list, so every rank
+    makes the same choice."""
+    ids = [tuple(i) if isinstance(i, (list, tuple)) else i
+           for i in identities]
+    if not ids or not nccl_available or any(i == "cpu" for i in ids):
+        return "gloo"
+    return "nccl" if len(set(ids)) == len(ids) else "gloo"
 
 
 _count_expr_cache = {}
@@ -111,21 +146,38 @@ class ShardedQueryEngine:
     torch.device or name, a comma list or a list, a card or the CPU
     repeated to split it), every visible card by default, as the TPU
     package's engine takes every device. Every rank of a group drives as
-    many parts. `group`: a gloo process group, the world by default;
+    many parts. `group`: the gloo control group, the world by default;
     without an initialized process group the engine is a group of
-    one."""
+    one. `data_group`: a group of the same ranks for the data
+    collectives, always used when given, even a group of one. On it a
+    step takes two phases: extra slots ride the control group first
+    (`vote`), then the partial rides the data group, on the card when
+    it is NCCL (the first part's card, which must be the rank's NCCL
+    card) or fetched first when it is gloo. Without one, the partial and
+    its extra slots are fetched and ride ONE collective of the control
+    group."""
 
-    def __init__(self, devices=None, group=None):
+    def __init__(self, devices=None, group=None, data_group=None):
         from ..device import resolve_devices
 
         self.devices = resolve_devices(devices)
         self.device = self.devices[0]
         self.group = group
+        self.data_group = data_group
         dist = _dist()
         self._distributed = dist.is_available() and dist.is_initialized()
         self.mesh = build_global_mesh(group)
         self.rank = self.mesh.index(dist.get_rank()) \
             if self._distributed else 0
+        #: "nccl" or "gloo": the backend the partials are reduced over
+        self.collective_backend = "gloo" if data_group is None \
+            else str(dist.get_backend(data_group)).lower()
+        if self.collective_backend == "nccl" and self.device.type != "cuda":
+            raise ValueError("an NCCL data group needs the rank's parts on "
+                             "its card")
+        #: data collectives this engine entered (all_reduce and
+        #: all_gather over the data group)
+        self.data_collectives = 0
 
     @property
     def n_ranks(self):
@@ -186,16 +238,23 @@ class ShardedQueryEngine:
             total = total + o.to(total.device)
         return total
 
-    # -- the collective -----------------------------------------------------
+    # -- the collectives ----------------------------------------------------
 
     def _all_reduce(self, partial, extra=None):
         """Σ over the group of each rank's int64 `partial`, as a host
-        tensor: the partial fetched, then ONE all_reduce (nothing for a
-        group of one). `extra`, host int64 values, rides the same
-        collective after the partial (the data plane's failure slots);
-        the call then returns (partial sums, extra sums)."""
+        tensor. Without a data group: the partial fetched, then ONE
+        all_reduce over the control group (nothing for a group of one),
+        `extra` (host int64 values, the data plane's failure slots)
+        riding after the partial. With one: `extra` reduced over the
+        control group first (`vote`), then the partial over the data
+        group (`_data_reduce`) and fetched once. With `extra` the call
+        returns (partial sums, extra sums)."""
         import torch
 
+        if self.data_group is not None:
+            tail = None if extra is None else self.vote(extra)
+            sums = self._data_reduce(partial).cpu()
+            return sums if extra is None else (sums, tail)
         partial = partial.cpu().reshape(-1)
         n = partial.numel()
         buf = partial.contiguous() if extra is None else torch.cat(
@@ -203,6 +262,74 @@ class ShardedQueryEngine:
         if self._distributed and self.n_ranks > 1:
             _dist().all_reduce(buf, group=self.group)
         return buf if extra is None else (buf[:n], buf[n:])
+
+    def vote(self, slots):
+        """Σ over the control group (gloo, host int64) of each rank's
+        `slots`: the data plane's failure and step slots, which never
+        ride an NCCL collective."""
+        import torch
+
+        buf = torch.as_tensor(slots, dtype=torch.int64).cpu().reshape(-1) \
+            .clone()
+        if self._distributed and self.n_ranks > 1:
+            _dist().all_reduce(buf, group=self.group)
+        return buf
+
+    def _on_data_side(self, t):
+        """`t` where the data group reduces it: on this rank's card for
+        NCCL, on the host for gloo; int64, flat, contiguous."""
+        import torch
+
+        t = torch.as_tensor(t, dtype=torch.int64).reshape(-1)
+        if self.collective_backend == "nccl":
+            return t.to(self.device).contiguous()
+        return t.cpu().contiguous()
+
+    def _data_reduce(self, partial):
+        """ONE all_reduce of the int64 `partial` over the data group,
+        where it lives: on the card for NCCL (the result stays there;
+        the caller fetches it once), on the host for gloo. NCCL runs on
+        its own stream: the collective waits for the launches queued on
+        the card's current stream, and the current stream waits for the
+        collective, so a fetch after it reads the sums."""
+        t = self._on_data_side(partial)
+        with self._on_card():
+            _dist().all_reduce(t, group=self.data_group,
+                               async_op=True).wait()
+        self.data_collectives += 1
+        return t
+
+    def _all_gather(self, row):
+        """Every rank's int64 `row` as one [ranks, n] tensor in group rank
+        order: ONE all_gather over the data group (on the card for NCCL,
+        left there for the caller's one fetch), or without one, of host
+        rows over the control group (this rank's row alone without a
+        process group)."""
+        import torch
+
+        dist = _dist()
+        row = self._on_data_side(row)
+        if self.data_group is None and not self._distributed:
+            return row.reshape(1, -1)
+        group = self.group if self.data_group is None else self.data_group
+        rows = [torch.zeros_like(row)
+                for _ in range(dist.get_world_size(group))]
+        with self._on_card():
+            dist.all_gather(rows, row, group=group, async_op=True).wait()
+        if self.data_group is not None:
+            self.data_collectives += 1
+        return torch.stack(rows)
+
+    def _on_card(self):
+        """The rank's card as the current device for an NCCL call (a
+        no-op context otherwise)."""
+        import contextlib
+
+        if self.collective_backend != "nccl":
+            return contextlib.nullcontext()
+        import torch
+
+        return torch.cuda.device(self.device)
 
     # -- the local partials: one kernel path each, no collective ------------
 

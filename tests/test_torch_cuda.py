@@ -925,3 +925,100 @@ def test_four_parts_of_one_card_equal_one_part(cuda, tmp_path):
         api.close()
         holder.close()
         containers.configure(mode)
+
+
+# -- the collective plane's NCCL data group -----------------------------------
+
+class _OneNode:
+    """The cluster view of a plane of one rank."""
+
+    class _Node:
+        id = "n0"
+
+    nodes = [_Node()]
+    local_id = "n0"
+    coordinator = nodes[0]
+
+
+@pytest.mark.cuda
+def test_card_identity_picks_nccl_for_one_rank_gloo_for_two(cuda):
+    """The card's own identity (hostname, UUID): NCCL for one rank on
+    it, gloo for two ranks sharing it (NCCL refuses them, trap 34)."""
+    import torch.distributed as dist
+
+    from pilosa_tpu_torch.parallel.sharded import (card_identity,
+                                                   collective_backend)
+
+    ident = card_identity(torch.device("cuda", 0))
+    assert ident[1] == str(torch.cuda.get_device_properties(0).uuid)
+    assert collective_backend([ident], dist.is_nccl_available()) == "nccl"
+    assert collective_backend([ident, ident], True) == "gloo"
+
+
+@pytest.mark.cuda
+def test_nccl_group_of_one_reduces_and_gathers_on_the_card(cuda, tmp_path):
+    """A world of one over a FileStore: the boot's choice forms an NCCL
+    data group; the engine reduces a partial ON the card over it and
+    gathers Min/Max rows there, equal to a gloo data group on the same
+    partials; a one-rank plane's Count step runs device_enter, then psum
+    (the vote and the NCCL reduce), then its one result_fetch."""
+    import torch.distributed as dist
+
+    from pilosa_tpu_torch.cluster.spmd import (SpmdDataPlane, _StepClock,
+                                               combine_minmax)
+    from pilosa_tpu_torch.parallel.sharded import ShardedQueryEngine
+
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), world_size=1, rank=0)
+    try:
+        assert SpmdDataPlane.form_data_group(dev) == "nccl"
+        nccl = SpmdDataPlane._data_group
+        assert dist.get_backend(nccl) == "nccl"
+        eng = {"nccl": ShardedQueryEngine(dev, data_group=nccl),
+               "gloo": ShardedQueryEngine(
+                   dev, data_group=dist.new_group(backend="gloo"))}
+        partial = torch.tensor([5, 1 << 40, -3, 0], dtype=torch.int64,
+                               device=dev)
+        on_card = eng["nccl"]._data_reduce(partial.clone())
+        assert on_card.device == dev
+        assert on_card.cpu().tolist() \
+            == eng["gloo"]._data_reduce(partial.clone()).tolist() \
+            == partial.cpu().tolist()
+        row = torch.tensor([1, 0, 1 << 33, 7], dtype=torch.int64)
+        rows = eng["nccl"]._all_gather(row)
+        assert rows.device == dev
+        assert rows.cpu().tolist() == eng["gloo"]._all_gather(row).tolist() \
+            == [row.tolist()]
+        stacks = _stacks(3, 9, seed=4, device=dev)
+        sig = k1.chain_signature(2, "&")
+        want = int(k1.count_expr_reference(sig, stacks[:2]))
+        for e in eng.values():
+            assert e.query_step(stacks[:2], "&") == want
+            assert e.topn_step(torch.stack(stacks), None, 2)[0].tolist() \
+                == sorted(int(k1.count_expr_reference(("leaf", 0), [t]))
+                          for t in stacks)[::-1][:2]
+        answers, order = {}, {}
+        for name, e in eng.items():
+            plane = SpmdDataPlane(None, _OneNode(), None)
+            plane._sharded = e
+            assert plane.collective_backend == name
+            assert plane.stats()["collective_backend"] == name
+            clk = plane._step_clock = _StepClock()
+            count = plane._collective(
+                {"step": 1, "nodes": ["n0"]}, 1,
+                lambda p=plane, e=e: p._fetch(
+                    e.count_partial(sig, stacks[:2])))[0]
+            order[name] = [ph for ph, _ in clk.phases]
+            minmax = combine_minmax(plane._gather_collective(
+                {"step": 2, "nodes": ["n0"]}, 4,
+                lambda: torch.tensor([1, 0, 41, 3])), True)
+            answers[name] = (count, minmax)
+        assert answers["nccl"] == answers["gloo"] \
+            == (want, (False, False, 41, 3))
+        assert order["nccl"] == ["device_enter", "psum", "result_fetch"]
+        assert order["gloo"][:2] == ["device_enter", "result_fetch"]
+        assert eng["nccl"].data_collectives == 6
+    finally:
+        SpmdDataPlane._data_group, SpmdDataPlane._backend = None, "gloo"
+        dist.destroy_process_group()

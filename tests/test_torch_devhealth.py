@@ -275,6 +275,11 @@ def _scripted(script, release):
     return canary
 
 
+#: seconds a scripted "ok" or "fail" canary step may take (a bound on the
+#: wait, not a wait: the step returns as soon as its canary does)
+STEP_DEADLINE = 30.0
+
+
 @pytest.mark.parametrize("script", [
     ["ok", "fail", "ok", "fail", "fail", "fail", "ok", "ok", "ok"],
     ["fail", "hang", "ok", "ok", "fail", "ok", "ok"],
@@ -285,7 +290,14 @@ def test_state_machine_equal_to_reference(script):
     the same state after every probe, the same transitions and the same
     probe counters. A hung canary times out at its deadline, and the
     next slot waits for the release first (so both sides see the same
-    number of in-flight failures)."""
+    number of in-flight failures).
+
+    Only a "hang" step may time out: it probes with the 50 ms deadline
+    and its canary is released only after probe_once has recorded the
+    timeout. An "ok" or "fail" step probes with a deadline of
+    STEP_DEADLINE, so a runner thread descheduled under load still
+    answers it; at 50 ms such a stall recorded a timeout (and "still in
+    flight" for the slots after it) on one side only."""
     pytest.importorskip("jax")
     from pilosa_tpu.utils import devhealth as jdevhealth
 
@@ -297,11 +309,12 @@ def test_state_machine_equal_to_reference(script):
         states = []
         try:
             for step in script:
+                p.deadline = 0.05 if step == "hang" else STEP_DEADLINE
                 p.probe_once()
                 states.append(p.state)
                 if step == "hang":
                     release.set()
-                    deadline = time.time() + 5
+                    deadline = time.time() + STEP_DEADLINE
                     while p._runner.busy and time.time() < deadline:
                         time.sleep(0.005)
         finally:

@@ -33,6 +33,7 @@ PILOSA_TPU_PROC_TESTS=0 skips it.
 """
 
 import http.client
+import itertools
 import json
 import os
 import shutil
@@ -55,6 +56,9 @@ pytestmark = pytest.mark.skipif(
     reason="process cluster tests disabled")
 
 N = 3
+#: seconds of warm rounds the merged-timeline test may run looking for a
+#: round at rest (one with no straggler)
+ROUNDS_DEADLINE = 90.0
 
 #: the differential mix: every collective kind, BSI conditions, a time
 #: range, and one non-collective call that stays on HTTP either way
@@ -393,16 +397,24 @@ def test_merged_timeline_every_peer_phase_sums_no_stragglers(cluster):
     its step wall (<= 5% residual), and a warm same-host group flags no
     straggler (the 25 ms noise floor swallows scheduler jitter). On a
     host loaded by other test workers a process can really be
-    descheduled for tens of ms, a true straggler: the test asks for one
-    straggler-free round of warm steps in three, every round checked
-    for the rest."""
+    descheduled for tens of ms, a true straggler: a Sum step's plain K3
+    work takes 58-77 ms a rank at rest, and under load one rank's
+    device_enter ran 100-390 ms longer than the others', whose psum
+    (the wait for it) was then flagged. So the test asks for one
+    straggler-free round of warm steps, running rounds (at least three)
+    until one is or ROUNDS_DEADLINE seconds have passed, every round
+    checked for the rest. A false straggler that is systematic flags
+    every round and still fails."""
     coord = cluster.clients[cluster.coord]
     _set_mode(cluster, "on")
     warm = ("Count(Row(f=1))", "Sum(field=v)", "TopN(f, n=2)")
     for q in warm:
         coord.query("m", q)
     flagged = []
-    for _ in range(3):
+    deadline = time.monotonic() + ROUNDS_DEADLINE
+    for round_no in itertools.count():
+        if round_no >= 3 and time.monotonic() > deadline:
+            break
         marker = _debug(cluster)[cluster.coord]["steps"]["last_seq"]
         for q in warm:
             coord.query("m", q)
