@@ -59,7 +59,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    operation of a call (memset and pointer-table copy included); the
    multi-tree entry at the served fused query's two K1 members (a 2-leaf
    chain and a 2-leaf union at S = 954) beside the same members as two
-   single K1 launches;
+   single K1 launches; last the stream yardstick (`stream_ms`: one int64
+   `amax`, a plain read, timed L2 cold as the kernels are) at the bytes
+   of K2's batched mode 0 at B = 16 and of K1's 2-leaf chain at each
+   part shape, with its rate and its share of 3.35 TB/s;
 4. data, in one data directory, written through the port's Holder:
    - index tg, BASELINE config 3 at bench_suite.bench_topn_groupby's
      chip shape (10 shards; field f with 100 rows of 100000/(r+1)+100
@@ -348,6 +351,9 @@ K2_ID_SPACE = 1 << 21  # block ids drawn below the sentinel 2^30
 K2B_REPEAT = 8  # times each sparse Count rides the served query-batch
 # batches timed: B = 1 (against the single entry), the check's, the served
 K2B_SIZES = (1, 4, 2 * K2B_REPEAT)
+# bytes K2's batched mode 0 reads at the served group of 2 x K2B_REPEAT
+# rows (NB 32,768 blocks of 512 bytes each, and an 8-byte total)
+K2B_MODE0_BYTES = 2 * K2B_REPEAT * (32768 * 512 + 8)
 # (op, allow_eq) of tests/test_pallas.py's BSI range cases
 K5_CASES = (("eq", False), ("lt", False), ("lt", True), ("gt", False),
             ("gt", True))
@@ -503,6 +509,62 @@ def cold_call(torch, fn, inputs, rotate=ROTATE_BYTES):
     return call
 
 
+def stream_ms(torch, nbytes, reps=20, fill="random"):
+    """(ms, names) of the stream yardstick: one plain read of `nbytes`
+    (an int64 `amax`, one PyTorch reduction, never called by the port)
+    timed as the kernels are, L2 cold by `cold_call`: the device time per
+    call of every operation in a profiler trace but the flush's own
+    kernels (found by tracing the flush alone; the flush reads int32, so
+    its reduction is not the yardstick's). `fill`: "random" words, or
+    "zeros"."""
+    from torch.autograd import DeviceType
+
+    n = nbytes // 8
+    x = torch.zeros(n, dtype=torch.int64, device="cuda") if fill == "zeros" \
+        else torch.randint(-(1 << 62), 1 << 62, (n,), dtype=torch.int64,
+                           device="cuda")
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                       device="cuda").view(-1, 4096)
+    flush_keys = {e.key for e in _trace(torch, lambda: flush.amax(dim=1), 3)
+                  if e.device_type == DeviceType.CUDA}
+    del flush
+    timed = cold_call(torch, lambda t: t.amax(), (x,))
+    for _ in range(timed.sets):
+        timed()
+    for _ in range(3):  # a trace now and then holds no device time
+        total_us, names = 0.0, []
+        for e in _trace(torch, timed, reps):
+            if e.device_type != DeviceType.CUDA or e.key in flush_keys:
+                continue
+            total_us += getattr(e, "device_time_total", 0.0) \
+                or getattr(e, "cuda_time_total", 0.0)
+            names.append(e.key)
+        if names:
+            return total_us / reps / 1e3, names
+    raise RuntimeError("three profiler traces held no stream read")
+
+
+def stream_yardstick(torch, words, card):
+    """The stream yardstick beside the kernels it settles: a plain read of
+    the bytes of K2's batched mode 0 at B = 16 (268,435,584, ROADMAP
+    fault 3), over random words and over zeros (the served rows' padding
+    blocks are zeros), and of K1's 2-leaf chain at each of
+    K1_PART_SHARDS."""
+    for label, nbytes, fill in [
+            ("K2 batched mode 0 at B=16", K2B_MODE0_BYTES, "random"),
+            ("K2 batched mode 0 at B=16", K2B_MODE0_BYTES, "zeros")] + [
+            (f"K1 2-leaf chain at S={s}", 2 * s * words * 4 + 8, "random")
+            for s in K1_PART_SHARDS]:
+        ms, names = stream_ms(torch, nbytes, fill=fill)
+        bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+        log(f"kernels: stream yardstick for {label} ({nbytes} bytes of "
+            f"{fill} words, int64 amax over {sorted(set(names))}), L2 "
+            f"cold: {ms * 1e3:.2f} us "
+            f"per call, {nbytes / ms / 1e9:.3f} TB/s, "
+            f"{bound_ms / ms:.1%} of 3.35 TB/s (bound "
+            f"{bound_ms * 1e3:.2f} us); card {card}")
+
+
 def share(bound_ms, ms):
     """A time's share of its bound, for a log line; a time under its
     bound is flagged as reuse instead (an input was read from L2, so the
@@ -533,14 +595,6 @@ def kernel_ms(torch, fn, inputs, reps, kernel, cold_l2=False):
         if cold_l2 else "")
 
 
-def _demangle(symbol):
-    """The plain name of a C++ mangled kernel symbol (_Z<len><name>...)."""
-    m = re.match(r"_Z(\d+)", symbol)
-    if not m:
-        return symbol
-    return symbol[m.end():m.end() + int(m.group(1))]
-
-
 def build_kernels(cuda_build):
     """One nvcc per kernel source, all started together; then load."""
     errors = []
@@ -563,14 +617,11 @@ def build_kernels(cuda_build):
         cuda_build.load(name)
         info = cuda_build.build_info[name]
         log(f"build: {name}: nvcc {info['seconds']:.2f} s")
-        fn = "?"
-        for line in info["log"].splitlines():
-            # ptxas names each function before its registers and spills
-            m = re.search(r"(?:entry function '|properties for )(\w+)", line)
-            if m:
-                fn = _demangle(m.group(1))
-            elif "registers" in line or "spill" in line:
-                log(f"build: {name}: {fn}: {line.strip()}")
+        for fn, r in sorted(cuda_build.kernel_report(info["log"]).items()):
+            log(f"build: {name}: {fn}: {r.get('registers')} registers, "
+                f"{r.get('stack')} bytes stack frame, {r.get('spill_stores')}"
+                f" bytes spill stores, {r.get('spill_loads')} bytes spill "
+                f"loads")
     log(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
 
 
@@ -3645,18 +3696,22 @@ def check_k2_batch(torch, k2, served, card):
             n_sets = cold_batch.sets
             del cold_batch
             bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-            if all_ms < bound_ms:
-                # under its byte bound: time it again over twice the
-                # copies (a time still under the bound is no L2 reuse)
-                twice = cold_call(torch, batch, (members,),
-                                  rotate=2 * ROTATE_BYTES)
-                again = traced_call_ms(torch, twice, 20, kernel)
+            if all_ms < bound_ms and mode == "mode 0":
+                # under its byte bound (and over twice the copies too, so
+                # no L2 reuse): the same batch over random words in every
+                # block, where the served rows' padding blocks are zeros
+                noisy = [torch.randint(-(1 << 31), (1 << 31) - 1,
+                                       tuple(m.shape), dtype=torch.int32,
+                                       device="cuda") for m in members]
+                rnd = cold_call(torch, batch, (noisy,))
+                again = traced_call_ms(torch, rnd, 20, kernel)
                 log(f"kernels: K2 batched {mode} at B={b} under its bound "
-                    f"({all_ms * 1e3:.2f} us); over {twice.sets} sets of "
-                    f"copies: {again[0] * 1e3:.2f} us device per call "
+                    f"({all_ms * 1e3:.2f} us); the same batch over random "
+                    f"words in every block ({rnd.sets} sets of copies): "
+                    f"{again[0] * 1e3:.2f} us device per call "
                     f"({again[1] * 1e3:.2f} us in the kernel), "
                     f"{share(bound_ms, again[0])}; card {card}")
-                del twice
+                del rnd, noisy
             cold_singles = cold_call(torch, singles, (members,))
             single_ms = traced_call_ms(torch, cold_singles, 20,
                                        "count_blocks_kernel")
@@ -6412,6 +6467,7 @@ def main():
             torch, k1, WORDS_PER_ROW, card)
         errs["count_expr_multi"], timings["count_expr_multi"] = check_k1_multi(
             torch, k1, WORDS_PER_ROW, card)
+        stream_yardstick(torch, WORDS_PER_ROW, card)
         log(f"kernels: {list(ENTRIES)}")
         phase_done("kernels")
     except BaseException:

@@ -13,16 +13,30 @@
 //
 // Bound: memory. Every leaf word is read once and nothing is written
 // but the 8-byte total: two leaves at S = 954 are 250,085,376 bytes,
-// about 75 us at an H100 SXM's 3.35 TB/s. The design reads each word
-// exactly once with 16-byte streaming (evict-first) loads in a grid-stride
-// loop and never materialises an intermediate plane. Two variants share
-// the reduction:
+// about 75 us at an H100 SXM's 3.35 TB/s; one part's shape on a node of 8
+// cards (S = 120) is 31.5 MB, about 9.4 us, so every microsecond a launch
+// spends before or after its stream is a tenth of the bound there. The
+// design reads each word exactly once with 16-byte streaming (evict-first)
+// loads in a grid-stride loop over one resident wave and never
+// materialises an intermediate plane. Two variants share the reduction:
 //  - chain programs (L0 L1 op L2 op ..., every flat Intersect/Union/...
 //    and the north-star Count(Intersect(Row, Row))) keep one accumulator
 //    per vector and evaluate K1_ILP vectors per thread per step, so each
 //    thread has K1_ILP independent loads in flight;
 //  - any other tree runs a register stack (named slots behind a switch
 //    on the depth, uniform across the grid, so it never diverges).
+// No kernel parameter is indexed at run time: thread 0 copies the leaf
+// pointers and the program into shared memory with compile-time indices
+// (`stage_params`). A runtime index makes nvcc copy the whole parameter
+// block into every thread's local memory (ROADMAP trap 6): 192-208 bytes
+// a thread, ~26 MB of local traffic a launch at 1,024 threads an SM: about
+// 11 of the 13.6 us each launch cost beside its stream on an H100 80GB
+// HBM3. Without it ptxas reports no stack frame and no spill for any K1
+// kernel (the chain kernels run 3 blocks an SM, up to 85 registers a
+// thread, where 4 blocks spilled). A ring of bulk asynchronous copies
+// (cp.async.bulk into shared memory, a persistent grid) was measured
+// against this loop on an H100 and was slower at every shape: PERF.md has
+// both.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,7 +45,7 @@
 #define K1_MAX_PROG 64
 #define K1_MAX_STACK 8
 #define K1_THREADS 256
-#define K1_MIN_BLOCKS_PER_SM 4
+#define K1_MIN_BLOCKS_PER_SM 3
 #define K1_ILP 4
 
 enum { OP_AND = 16, OP_OR = 17, OP_XOR = 18, OP_ANDNOT = 19 };
@@ -81,13 +95,29 @@ __device__ __forceinline__ void block_reduce_add(unsigned long long total,
     }
 }
 
-// Kernel parameters indexed by a runtime value would be copied to local
-// memory; shared copies keep the per-step lookups on chip.
+// Thread 0's copies of the kernel parameters into shared memory, every
+// index a compile-time constant (the parameters are __grid_constant__, so
+// reading them through a reference copies nothing either); the per-step
+// lookups then stay on chip.
+__device__ __forceinline__ void stage_code(uint8_t* s_code,
+                                           const Program& prog) {
+    #pragma unroll
+    for (int k = 0; k < K1_MAX_PROG; ++k) s_code[k] = prog.code[k];
+}
+
+__device__ __forceinline__ void stage_params(const uint4** s_ptr,
+                                             uint8_t* s_code,
+                                             const Leaves& leaves,
+                                             const Program& prog) {
+    #pragma unroll
+    for (int k = 0; k < K1_MAX_LEAVES; ++k) s_ptr[k] = leaves.ptr[k];
+    stage_code(s_code, prog);
+}
+
 #define K1_STAGE_PARAMS()                                                   \
     __shared__ const uint4* s_ptr[K1_MAX_LEAVES];                           \
     __shared__ uint8_t s_code[K1_MAX_PROG];                                 \
-    if (threadIdx.x < K1_MAX_LEAVES) s_ptr[threadIdx.x] = leaves.ptr[threadIdx.x]; \
-    if (threadIdx.x < K1_MAX_PROG) s_code[threadIdx.x] = prog.code[threadIdx.x];   \
+    if (threadIdx.x == 0) stage_params(s_ptr, s_code, leaves, prog);       \
     __syncthreads()
 
 // The chain loop: one accumulator per vector, K1_ILP vectors in flight per
@@ -128,8 +158,9 @@ __device__ __forceinline__ unsigned long long chain_total(
 }
 
 __global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS_PER_SM)
-count_chain_kernel(Leaves leaves, Program prog, int prog_len, long long n_vec,
-                   unsigned long long* out) {
+count_chain_kernel(const __grid_constant__ Leaves leaves,
+                   const __grid_constant__ Program prog, int prog_len,
+                   long long n_vec, unsigned long long* out) {
     K1_STAGE_PARAMS();
     block_reduce_add(chain_total(s_ptr, s_code, prog_len, n_vec), out);
 }
@@ -192,8 +223,9 @@ __device__ __forceinline__ unsigned long long tree_total(
 }
 
 __global__ void __launch_bounds__(K1_THREADS)
-count_tree_kernel(Leaves leaves, Program prog, int prog_len, long long n_vec,
-                  unsigned long long* out) {
+count_tree_kernel(const __grid_constant__ Leaves leaves,
+                  const __grid_constant__ Program prog, int prog_len,
+                  long long n_vec, unsigned long long* out) {
     K1_STAGE_PARAMS();
     block_reduce_add(tree_total(s_ptr, s_code, prog_len, n_vec), out);
 }
@@ -265,7 +297,8 @@ extern "C" int count_expr_launch(const void* const* leaf_ptrs, int n_leaves,
 // pointers as kernel parameters indexed by blockIdx would be copied to local
 // memory (ROADMAP trap 6). The grid is (blocks per member, B): the blocks of
 // one resident wave split evenly over the members. Each block stages its
-// member's row of the table and the program in shared memory once, runs
+// member's row of the table and the program in shared memory once (the
+// program with compile-time indices into the parameter), runs
 // K1's chain loop (K1_ILP evict-first 16-byte vectors in flight) or its
 // register stack over that member's words, and adds its block sum into
 // out[q] with one 64-bit atomicAdd.
@@ -280,11 +313,12 @@ extern "C" int count_expr_launch(const void* const* leaf_ptrs, int n_leaves,
     if ((int)threadIdx.x < n_leaves)                                        \
         s_ptr[threadIdx.x] = reinterpret_cast<const uint4*>(                \
             table[(long long)blockIdx.y * n_leaves + threadIdx.x]);         \
-    if (threadIdx.x < K1_MAX_PROG) s_code[threadIdx.x] = prog.code[threadIdx.x]; \
+    if (threadIdx.x == 0) stage_code(s_code, prog);                        \
     __syncthreads()
 
 __global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS_PER_SM)
-count_chain_batch_kernel(const long long* table, int n_leaves, Program prog,
+count_chain_batch_kernel(const long long* table, int n_leaves,
+                         const __grid_constant__ Program prog,
                          int prog_len, long long n_vec,
                          unsigned long long* out) {
     K1B_STAGE_PARAMS();
@@ -293,7 +327,8 @@ count_chain_batch_kernel(const long long* table, int n_leaves, Program prog,
 }
 
 __global__ void __launch_bounds__(K1_THREADS)
-count_tree_batch_kernel(const long long* table, int n_leaves, Program prog,
+count_tree_batch_kernel(const long long* table, int n_leaves,
+                        const __grid_constant__ Program prog,
                         int prog_len, long long n_vec,
                         unsigned long long* out) {
     K1B_STAGE_PARAMS();

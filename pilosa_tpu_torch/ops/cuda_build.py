@@ -11,8 +11,10 @@ module on machines without `nvcc`.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -86,6 +88,49 @@ def build(name):
     os.replace(tmp, out)
     build_info[name] = {"seconds": seconds, "cached": False,
                         "log": proc.stdout + proc.stderr}
+    return out
+
+
+def ptxas_log(name):
+    """nvcc's output (ptxas's `-v` report) for `csrc/<name>.cu` with the
+    port's flags: the build's own, or, where the library was already
+    built by another process, that of a fresh compile into a temporary
+    directory."""
+    log = build_info.get(name, {}).get("log")
+    if log:
+        return log
+    with tempfile.TemporaryDirectory(prefix="ptxas-") as tmp:
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", os.path.join(tmp, "lib.so"),
+             source_path(name)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def kernel_report(log):
+    """{kernel: {"stack", "spill_stores", "spill_loads", "registers"}}
+    from a ptxas `-v` report, each `__global__` function by its plain
+    name (the C++ mangling `_Z<len><name>...` stripped)."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function '|properties for )(\w+)", line)
+        if m:
+            sym = m.group(1)
+            n = re.match(r"_Z(\d+)", sym)
+            fn = sym[n.end():n.end() + int(n.group(1))] if n else sym
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(fn, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(fn, {})["registers"] = int(m.group(1))
     return out
 
 

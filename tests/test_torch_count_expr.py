@@ -302,3 +302,52 @@ def test_multi_program_table_layout():
     assert not k1._is_chain(k1.compile_program(NESTED[0]))
     with pytest.raises(ValueError, match="leaves"):
         k1.MultiProgram().bind([("leaf", 0)], [0])
+
+
+def test_ab_k1_shapes_bound_by_the_declared_costs():
+    """tools/ab_k1.py's shape table and the bytes it bounds each call by
+    equal the wrappers' declared costs (count_expr_cost,
+    count_expr_batch_cost, count_expr_multi_cost) at every shape, and
+    cover each entry and one part's shape on a node of 1, 2, 4 and 8
+    cards."""
+    from pilosa_tpu_torch.tools import ab_k1
+
+    for shape in ab_k1.SHAPES:
+        _, entry, n, s, b = shape
+        sigs = ab_k1.signatures(shape)
+        assert len(sigs) == b
+        assert all(max(k1._leaf_slots(g, {})) + 1 == n for g in sigs)
+        cost = {"single": lambda: k1.count_expr_cost(n, s, WORDS_PER_ROW),
+                "batch": lambda: k1.count_expr_batch_cost(
+                    b, n, s, WORDS_PER_ROW),
+                "multi": lambda: k1.count_expr_multi_cost(
+                    [n] * b, s, WORDS_PER_ROW)}[entry]()
+        assert ab_k1.shape_bytes(shape, WORDS_PER_ROW) \
+            == cost["bytes accessed"], shape
+    assert {sh[1] for sh in ab_k1.SHAPES} == {"single", "batch", "multi"}
+    assert [sh[3] for sh in ab_k1.SHAPES if sh[0].startswith("chain")] \
+        == [954, 477, 239, 120]
+
+
+def test_ab_k1_imports_without_cuda_or_jax():
+    """The A/B tool imports on a machine with no card and no JAX: in a
+    fresh interpreter with no visible card it loads no jax, jaxlib or
+    pilosa_tpu module."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys\n"
+            "import pilosa_tpu_torch.tools.ab_k1 as m\n"
+            "assert len(m.SHAPES) == 8\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k.split('.')[0] in ('jax', 'jaxlib', "
+            "'pilosa_tpu'))\n"
+            "print('LOADED', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=repo, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout

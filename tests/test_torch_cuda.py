@@ -249,6 +249,138 @@ def test_batch_kernel_empty_and_mismatched(cuda):
     assert k1.count_expr_batch.launches == before
 
 
+# K1's edges: [S, W] shapes of one 16-byte vector, of fewer vectors than
+# a block has threads (75), of a count that is no whole number of the
+# grid's steps (10,759: 7 x 1537), and whole shards
+K1_EDGE_SHAPES = [(1, 4), (3, 100), (7, 4 * 1537), (1, WORDS_PER_ROW),
+               (7, WORDS_PER_ROW)]
+_OPS = "&|^-"
+
+
+def _words(n, s, w, seed, device):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 32, (n, s, w), dtype=np.uint32)
+    x[:, :, 0] = 0xFFFFFFFF
+    t = torch.from_numpy(x.view(np.int32)).to(device)
+    return [t[i].contiguous() for i in range(n)]
+
+
+def _edge_sigs():
+    """Chains of 1 to 16 leaves over every op, the right-nested tree of
+    stack depth 8 and the 17-leaf Union that fit_tree folds."""
+    sigs = {f"chain_{n}": k1.chain_signature(
+        n, "".join(_OPS[i % 4] for i in range(n - 1)))
+        for n in range(1, 17)}
+    sigs["depth_8"] = _right_nested(8)[0]
+    sigs["union_17"] = BEYOND_LIMITS["union_17_leaves"][0]
+    return sigs
+
+
+K1_EDGE_SIGS = _edge_sigs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,w", K1_EDGE_SHAPES)
+@pytest.mark.parametrize("name", sorted(K1_EDGE_SIGS))
+def test_k1_edges_match_plain(cuda, name, s, w):
+    """K1 at its edges: every leaf count, the deepest stack, a folded
+    tree, over word counts shorter than one step of the grid and counts
+    that end inside a step; one launch, equal to the plain version."""
+    sig = K1_EDGE_SIGS[name]
+    stacks = _words(max(k1._leaf_slots(sig, {})) + 1, s, w, seed=s * w,
+                    device=cuda)
+    before = k1.count_expr.launches
+    got = k1.count_expr(sig, stacks)
+    torch.cuda.synchronize()
+    assert int(got) == int(k1.popcount_total(k1.tree_eval(sig, stacks)))
+    assert k1.count_expr.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,w", K1_EDGE_SHAPES[1:3])
+@pytest.mark.parametrize("b", [1, 17, 64])
+def test_k1_batch_and_multi_edges_match_plain(cuda, b, s, w):
+    """The batched entry at B = 1, 17 and 64 and the multi-tree entry over
+    mixed chain and tree members (1 to 16 leaves, a folded Union), on
+    word counts that end inside a step of the grid: equal to their plain
+    versions."""
+    names = sorted(K1_EDGE_SIGS)
+    sig = K1_EDGE_SIGS["chain_3"]
+    pool = _words(3 * b, s, w, seed=b, device=cuda)
+    members = [pool[3 * q:3 * q + 3] for q in range(b)]
+    got = k1.count_expr_batch(sig, members)
+    torch.cuda.synchronize()
+    assert got.tolist() \
+        == k1.count_expr_batch_reference(sig, members).tolist()
+    sigs = [K1_EDGE_SIGS[names[q % len(names)]] for q in range(b)]
+    multi = [_words(max(k1._leaf_slots(g, {})) + 1, s, w, seed=q,
+                    device=cuda) for q, g in enumerate(sigs)]
+    got = k1.count_expr_multi(sigs, multi)
+    torch.cuda.synchronize()
+    assert got.tolist() == [int(k1.popcount_total(k1.tree_eval(g, m)))
+                            for g, m in zip(sigs, multi)]
+
+
+@pytest.mark.cuda
+def test_k1_entries_two_streams(cuda):
+    """K1's single and multi-tree entries back to back on two streams,
+    unsynchronised, over whole shards: each result equals the plain
+    version."""
+    sig = K1_EDGE_SIGS["chain_5"]
+    stacks = _stacks(5, 33, seed=5, device=cuda)
+    sigs, multi = _multi(5, 7, cuda, shared=True)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = []
+    for rnd in range(6):
+        with torch.cuda.stream(streams[rnd % 2]):
+            got.append((k1.count_expr(sig, stacks),
+                        k1.count_expr_multi(sigs, multi)))
+    torch.cuda.synchronize()
+    want = (int(k1.count_expr_reference(sig, stacks)),
+            k1.count_expr_multi_reference(sigs, multi).tolist())
+    assert all((int(a), b.tolist()) == want for a, b in got)
+
+
+@pytest.mark.cuda
+def test_k1_launches_on_each_cards_own_inputs(cuda):
+    """Each visible card (each part's card) launches K1's three entries
+    on its own inputs, equal to the plain version there."""
+    sig = K1_EDGE_SIGS["chain_2"]
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        stacks = _stacks(2, 9, seed=i, device=dev)
+        before = k1.count_expr.launches
+        got = [k1.count_expr(sig, stacks),
+               k1.count_expr_batch(sig, [stacks, stacks[::-1]]),
+               k1.count_expr_multi([sig, ("leaf", 0)],
+                                   [stacks, stacks[1:]])]
+        torch.cuda.synchronize(dev)
+        assert all(g.device == dev for g in got)
+        want = int(k1.count_expr_reference(sig, stacks))
+        assert int(got[0]) == want and got[1].tolist() == [want, want]
+        assert got[2].tolist() == [
+            want, int(k1.count_expr_reference(("leaf", 0), stacks[1:]))]
+        assert k1.count_expr.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_k1_kernels_no_stack_frame_or_spill(cuda):
+    """ptxas reports a 0-byte stack frame and no spill for every K1
+    kernel: no kernel parameter is indexed at run time (ROADMAP trap 6)."""
+    from pilosa_tpu_torch.ops import cuda_build
+
+    k1.count_expr(("leaf", 0), _stacks(1, 1, seed=0, device=cuda))
+    report = {fn: r for fn, r in cuda_build.kernel_report(
+        cuda_build.ptxas_log("count_expr")).items() if "kernel" in fn}
+    assert set(report) == {"count_chain_kernel", "count_tree_kernel",
+                           "count_chain_batch_kernel",
+                           "count_tree_batch_kernel", "count_multi_kernel"}
+    for fn, r in report.items():
+        assert (r["stack"], r["spill_stores"], r["spill_loads"]) \
+            == (0, 0, 0), (fn, r)
+
+
 def _rows(r, t, seed, device):
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 1 << 32, (r, t), dtype=np.uint32)
