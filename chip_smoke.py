@@ -18,9 +18,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    - K3 at R in {0, 1, 5, 102} x S in {1, 10}, and R = 1 at S = 954, with
      and without a filter, edge words planted, plus a tie case for the
      top-k;
-   - K4 at (R1, R2) in {(0, 3), (1, 1), (5, 4), (13, 130), (102, 102)} x
-     S in {1, 10}, and at every (R1, R2) in 1..8 x 1..8 at S = 10 (the
-     small kernel's exact shapes), with and without a filter;
+   - K4 at (R1, R2) in {(0, 3), (1, 1), (5, 4), (9, 3), (9, 9), (13, 130),
+     (33, 17), (100, 5), (100, 100), (102, 102), (128, 128), (129, 130)}
+     x S in {1, 10}, at 33 x 17 and 102 x 102 on S·W + 4 words (not a
+     whole 256-bit step), and at every (R1, R2) in 1..8 x 1..8 at S = 10
+     (the small kernel's exact shapes), with and without a filter;
    - K5 at every (op, allow_eq, neg_pred) of tests/test_pallas.py x depth
      in {1, 21, 64} x S in {0, 1, 7, 128}, random sign and exists,
      predicates 0, 2^D - 1 and random, edge words and columns equal to
@@ -49,9 +51,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    at the served TopN shape [100, 10 x 32768], at [1, 954 x 32768] with
    a filter and at Sum's [21, 128 x 32768] with a filter; K4 at the
    served GroupBy tile 5 x 4 x S = 10 with and without a filter, at a
-   1B-column GroupBy's 1 x 1 x S = 954 and at 102 x 102 x S = 10, cold
-   and warm, summed over every device operation of a call (memset
-   included) beside the kernel alone, with bytes, bound and share;
+   1B-column GroupBy's 1 x 1 x S = 954, and the tiled (tensor-core)
+   kernel at the served 100 x 5 and 100 x 100, at 102 x 102 (config 3's
+   full chunk) and 13 x 130, all at S = 10, cold and warm, summed over
+   every device operation of a call (memset included) beside the kernel
+   alone, with bytes, bound (the larger of the bytes at 3.35 TB/s and
+   the bit pairs at the fastest rate this run measured for them) and
+   share; before K4, the card's rate for K4's function by three routes
+   (tools/k4_peak.py: the tensor cores' 1-bit mma, the CUDA cores' POPC
+   and a Harley-Seal count);
    K5 at [21, 128 x 32768] and [21, 954 x 32768]; K2's entries at
    NB = 32768 and 131072 (the fused one also warm); K1's batched entry
    at B = 4 x 2 leaves x S = 954 beside four single K1 launches on the
@@ -97,10 +105,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      alone answers 8 threads x 25 Counts and Rows as the first server
      does, with /debug/batching showing 200 coalesced queries and a
      batch of two or more;
-   - TopN/GroupBy path: three TopN, Rows, three GroupBy, and a Set whose
+   - TopN/GroupBy path: three TopN, Rows, five GroupBy, and a Set whose
      next TopN reads the write back through a patched row chunk; K3's
      counter must advance on every TopN and K4's on every two-field
-     GroupBy;
+     GroupBy, by exactly 1 on GroupBy(Rows(f), Rows(a)) (100 x 5) and
+     GroupBy(Rows(f), Rows(f)) (100 x 100: the tiled kernel), whose warm
+     p50s are printed beside GroupBy(Rows(a), Rows(b))'s;
    - BSI path (config 4): the bench's eight Count(Row(v > t)), the
      Jan+Feb Sum, Min and Max, Count(Row(v == x)), Count(Row(v != x)),
      Count(Row(v >< [lo, hi])) and a condition intersected with a time
@@ -320,9 +330,6 @@ import urllib.request
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak (NVIDIA data sheet)
-# POPC results per SM per clock, compute capability 9.0 (CUDA C
-# Programming Guide, arithmetic-instruction throughput table)
-POPC_PER_SM_PER_CLOCK = 16
 N_SHARDS = 954
 DENSITY = 0.05
 SEED = 3
@@ -335,6 +342,8 @@ BR_DATES = ("2019-01-15T00:00", "2019-02-15T00:00", "2019-03-15T00:00")
 BR_JAN_FEB = 'from="2019-01-01T00:00", to="2019-03-01T00:00"'
 KERNELS = ("count_expr", "row_counts", "pairwise_counts", "bsi_range",
            "count_blocks")
+# built beside them: K4's rate probe (tools/k4_peak.py), on no served path
+PROBES = ("k4_peak",)
 # the kernels line's entries: one per source, and K1's batched and
 # multi-tree entries, which live in count_expr.cu
 ENTRIES = KERNELS + ("count_expr_batch", "count_expr_multi",
@@ -343,6 +352,7 @@ COMP_SEED = 5
 SPARSE_BLOCKS = 24  # non-empty 128-word blocks per shard of f=10, f=11, g=10
 SHARED_BLOCKS = 12  # of them shared by f=10 and g=10 in every shard
 RUN_BITS = (1 << 20) // 200  # bits per run of f=20 and g=20, two per shard
+TILED_WARM = 20  # warm queries of each GroupBy on K4's tiled kernel
 TOOLS_RECORDS = 100_000  # (row, column) records of the CLI import
 TOOLS_VALUES = 100_000  # int values of the CLI import
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -432,12 +442,15 @@ def device_ms(torch, fn, reps, kernel):
 FLUSH_KERNELS = ("FillFunctor", "reduce_kernel")
 
 
-def call_device_ms(torch, fn, reps, kernel, skip=FLUSH_KERNELS):
+def call_device_ms(torch, fn, reps, kernel, skip=FLUSH_KERNELS,
+                   launches=None):
     """(all_ms, kernel_ms, names): mean device milliseconds per call
     summed over every device operation of the trace (kernels, memsets,
     copies) but those whose name holds a `skip` term, the same over
     kernels whose name holds `kernel` alone, and the names summed in
-    all_ms; None when the trace holds no such kernel."""
+    all_ms; None when the trace holds no such kernel, or, given the
+    `launches` of it each call makes, any other number of them (a trace
+    that dropped events)."""
     from torch.autograd import DeviceType
 
     total_us = kernel_us = 0.0
@@ -453,7 +466,7 @@ def call_device_ms(torch, fn, reps, kernel, skip=FLUSH_KERNELS):
         if kernel in e.key:
             kernel_us += us
             n += e.count
-    if not n:
+    if not n or (launches is not None and n != launches * reps):
         return None
     return total_us / reps / 1e3, kernel_us / reps / 1e3, names
 
@@ -606,14 +619,15 @@ def build_kernels(cuda_build):
             errors.append(e)
 
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=one, args=(n,)) for n in KERNELS]
+    threads = [threading.Thread(target=one, args=(n,))
+               for n in KERNELS + PROBES]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    for name in KERNELS:
+    for name in KERNELS + PROBES:
         cuda_build.load(name)
         info = cuda_build.build_info[name]
         log(f"build: {name}: nvcc {info['seconds']:.2f} s")
@@ -622,7 +636,8 @@ def build_kernels(cuda_build):
                 f"{r.get('stack')} bytes stack frame, {r.get('spill_stores')}"
                 f" bytes spill stores, {r.get('spill_loads')} bytes spill "
                 f"loads")
-    log(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
+    log(f"build: {len(KERNELS)} kernels and {len(PROBES)} probe in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def _edge_rows(rng, r, t):
@@ -1031,16 +1046,43 @@ def check_k3(torch, k3, words, card):
     return max_err, timing
 
 
-def k4_bound(r1, r2, t, sms, clock_hz, has_filt=False):
-    """(bound_ms, bound_by, bytes_ms, popc_ms) of one K4 launch: bytes
-    in (the filter's too) and out over HBM, or R1·R2·T POPC at the SMs'
-    issue rate, whichever is larger."""
+def k4_bound(r1, r2, t, has_filt=False, rate=None):
+    """(bound_ms, bound_by, bytes_ms, ops_ms) of one K4 launch: bytes in
+    (the filter's too) and out over HBM, or R1·R2·T·32 bit pairs ANDed
+    and counted at `rate` a second, whichever is larger. `rate` is the
+    fastest route's rate on the card (chip_smoke passes the one this run
+    measured; by default the one cuda_build states for the H100)."""
+    from pilosa_tpu_torch.ops import cuda_build
+
+    if rate is None:
+        rate = cuda_build.AND_POPC_BIT_PAIRS_PER_SECOND
     nbytes = (r1 + r2 + has_filt) * t * 4 + r1 * r2 * 8
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    popc_ms = r1 * r2 * t / (sms * POPC_PER_SM_PER_CLOCK * clock_hz) * 1e3
-    if popc_ms > bytes_ms:
-        return popc_ms, "operations", bytes_ms, popc_ms
-    return bytes_ms, "bytes", bytes_ms, popc_ms
+    ops_ms = r1 * r2 * t * 32 / rate * 1e3
+    if ops_ms > bytes_ms:
+        return ops_ms, "operations", bytes_ms, ops_ms
+    return bytes_ms, "bytes", bytes_ms, ops_ms
+
+
+def k4_rates(torch, card):
+    """The card's rate for K4's function by each route of
+    tools/k4_peak.py, logged; returns the fastest (bit pairs a second)."""
+    from pilosa_tpu_torch.tools import k4_peak
+
+    got = k4_peak.rates(torch)
+    for route, _, _ in k4_peak.ROUTES:
+        r = got[route]
+        log(f"kernels: K4's function by {route}: "
+            f"{r['bit_pairs_per_s']:.4e} bit pairs/s ({r['blocks']} blocks "
+            f"x {k4_peak.THREADS} threads, {r['iters']} iterations, "
+            f"{r['ms']:.3f} ms a launch, median of 5, from registers); "
+            f"card {card}")
+    fastest = got[got["fastest"]]["bit_pairs_per_s"]
+    log(f"kernels: K4's bound counts bit pairs at {got['fastest']}'s "
+        f"{fastest:.4e}/s ({fastest / got['popc']['bit_pairs_per_s']:.1f}x "
+        f"POPC, {fastest / got['harley_seal']['bit_pairs_per_s']:.1f}x "
+        f"Harley-Seal)")
+    return fastest
 
 
 def k4_call_ms(torch, fn, inputs, reps, cold_l2):
@@ -1051,31 +1093,43 @@ def k4_call_ms(torch, fn, inputs, reps, cold_l2):
     timed = cold_call(torch, fn, inputs) if cold_l2 \
         else (lambda: fn(*inputs))
     for _ in range(3):  # a trace now and then holds no device time
-        got = call_device_ms(torch, timed, reps, "pairwise_")
+        got = call_device_ms(torch, timed, reps, "pairwise_", launches=1)
         if got is not None:
             return got[:2]
-    raise RuntimeError("three profiler traces held no K4 kernel")
+    raise RuntimeError("three profiler traces held no K4 kernel, or lost "
+                       "launches")
 
 
 # K4's timed shapes: (R1, R2, S, filter, profiled calls, plain calls);
-# the served GroupBy tile first, a 1B-column GroupBy's 1 x 1 tile, and
-# the tiled kernel at a full tile
+# the served GroupBy tile first, a 1B-column GroupBy's 1 x 1 tile, then
+# the tiled kernel: the served 100 x 5 and 100 x 100 (GroupBy(Rows(f),
+# Rows(a)) and GroupBy(Rows(f), Rows(f)) over tg), config 3's full chunk
+# and a ragged 13 x 130
 K4_TIMED = ((5, 4, TG_SHARDS, False, 50, 10), (5, 4, TG_SHARDS, True, 50, 10),
-            (1, 1, N_SHARDS, False, 20, 3), (102, 102, TG_SHARDS, False, 20, 3))
+            (1, 1, N_SHARDS, False, 20, 3), (100, 5, TG_SHARDS, False, 20, 3),
+            (100, 100, TG_SHARDS, False, 20, 3),
+            (102, 102, TG_SHARDS, False, 20, 3),
+            (13, 130, TG_SHARDS, False, 20, 3))
+# K4's checked shapes past the small kernel's 8 x 8, at S in {1, 10}
+K4_TILED_CASES = ((9, 3), (9, 9), (13, 130), (33, 17), (100, 5), (100, 100),
+                  (102, 102), (128, 128), (129, 130))
 
 
-def check_k4(torch, k4, words, sms, clock_hz, card):
+def check_k4(torch, k4, words, rate, card):
     """K4 against the plain version on the card; returns (max_abs_err,
-    timing dict at the served GroupBy shape, L2 cold)."""
+    timing dict at the served GroupBy shape, L2 cold). `rate`: the
+    card's fastest rate for K4's bit pairs, from this run."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 2)
     max_err = 0
     n_cases = 0
-    cases = [(r1, r2, s) for r1, r2 in ((0, 3), (1, 1), (5, 4), (13, 130),
-                                        (102, 102)) for s in (1, 10)]
-    cases += [(r1, r2, TG_SHARDS) for r1 in range(1, 9) for r2 in range(1, 9)]
-    for r1, r2, s in cases:
-        t = s * words
+    cases = [(r1, r2, s * words) for r1, r2 in ((0, 3), (1, 1), (5, 4))
+             + K4_TILED_CASES for s in (1, 10)]
+    # a word count that is not a whole 256-bit k-step of the tiled kernel
+    cases += [(33, 17, TG_SHARDS * words + 4), (102, 102, words + 4)]
+    cases += [(r1, r2, TG_SHARDS * words) for r1 in range(1, 9)
+              for r2 in range(1, 9)]
+    for r1, r2, t in cases:
         a = torch.from_numpy(_edge_rows(rng, r1, t).view(np.int32)).to(dev)
         b = torch.from_numpy(_edge_rows(rng, r2, t).view(np.int32)).to(dev)
         filt = torch.from_numpy(
@@ -1093,12 +1147,13 @@ def check_k4(torch, k4, words, sms, clock_hz, card):
             n_cases += 1
             if err or got.shape != want.shape:
                 raise AssertionError(
-                    f"K4 != plain at {r1}x{r2} S={s} "
+                    f"K4 != plain at {r1}x{r2} on {t} words "
                     f"filter={f is not None}")
         del a, b, filt
     log(f"kernels: K4 == plain on {n_cases} cases ((R1,R2) in (0,3),(1,1),"
-        f"(5,4),(13,130),(102,102) x S in 1,10, and every (R1,R2) in "
-        f"1..8 x 1..8 at S={TG_SHARDS}, with and without a filter)")
+        f"(5,4) and {','.join(f'({x},{y})' for x, y in K4_TILED_CASES)} x "
+        f"S in 1,10; 33x17 and 102x102 on S*W+4 words; every (R1,R2) in "
+        f"1..8 x 1..8 at S={TG_SHARDS}; with and without a filter)")
 
     timing = None
     for r1, r2, s, has_filt, reps, plain_reps in K4_TIMED:
@@ -1115,8 +1170,8 @@ def check_k4(torch, k4, words, sms, clock_hz, card):
             torch, k4.pairwise_counts, (a, b, f), reps, False)
         plain_ms = time_cuda(
             torch, lambda: k4.pairwise_counts_reference(a, b, f), plain_reps)
-        bound_ms, bound_by, bytes_ms, popc_ms = k4_bound(
-            r1, r2, t, sms, clock_hz, has_filt)
+        bound_ms, bound_by, bytes_ms, ops_ms = k4_bound(
+            r1, r2, t, has_filt, rate)
         nbytes = bytes_ms / 1e3 * H100_BYTES_PER_S
         log(f"kernels: K4 at {r1}x{r2} x S={s}"
             f"{' with a filter' if has_filt else ''} ({nbytes:.0f} bytes): "
@@ -1126,9 +1181,8 @@ def check_k4(torch, k4, words, sms, clock_hz, card):
             f"({warm_kernel * 1e3:.2f} us in the kernel), "
             f"{call_ms * 1e3:.2f} us per call by "
             f"events; bound {bound_ms * 1e3:.2f} us by {bound_by} (bytes "
-            f"{bytes_ms * 1e3:.2f} us at 3.35 TB/s, POPC "
-            f"{popc_ms * 1e3:.2f} us at {sms} SMs x "
-            f"{POPC_PER_SM_PER_CLOCK}/clock x {clock_hz / 1e9:.3f} GHz); "
+            f"{bytes_ms * 1e3:.2f} us at 3.35 TB/s, {r1 * r2 * t * 32:.4e} "
+            f"bit pairs {ops_ms * 1e3:.2f} us at {rate:.4e}/s); "
             f"plain {plain_ms * 1e3:.2f} us; card {card}")
         if timing is None:
             timing = {"ms": flushed, "plain_ms": plain_ms,
@@ -1694,6 +1748,47 @@ def topn_expect(tg):
     }
 
 
+def cross_counts(left, right):
+    """[len(left), len(right)] int64 of |left[i] & right[j]| over sorted
+    unique column arrays, from one sort of every (column, side, row)."""
+    cols = np.concatenate(list(left) + list(right))
+    n_left = sum(len(c) for c in left)
+    side = np.arange(len(cols)) >= n_left
+    rows = np.concatenate([np.full(len(c), i) for i, c in enumerate(left)]
+                          + [np.full(len(c), j) for j, c in enumerate(right)])
+    order = np.argsort(cols, kind="stable")  # a column's left rows first
+    cols, side, rows = cols[order], side[order], rows[order]
+    starts = np.flatnonzero(np.r_[True, cols[1:] != cols[:-1]])
+    ends = np.r_[starts[1:], len(cols)]
+    out = np.zeros((len(left), len(right)), dtype=np.int64)
+    pair = (ends - starts == 2) & ~side[starts] & side[np.minimum(
+        starts + 1, len(cols) - 1)]
+    np.add.at(out, (rows[starts[pair]], rows[starts[pair] + 1]), 1)
+    for st, en in zip(starts[ends - starts > 2], ends[ends - starts > 2]):
+        li, rj = rows[st:en][~side[st:en]], rows[st:en][side[st:en]]
+        np.add.at(out, (np.repeat(li, len(rj)), np.tile(rj, len(li))), 1)
+    return out
+
+
+def groupby_expect(counts, left, right):
+    """GroupBy's JSON for a [R1, R2] count matrix of fields `left` and
+    `right`: every non-zero group, in row order."""
+    return [{"group": [{"field": left, "rowID": int(i)},
+                       {"field": right, "rowID": int(j)}],
+             "count": int(counts[i, j])}
+            for i, j in zip(*np.nonzero(counts))]
+
+
+def tiled_groupbys(tg, f_sets):
+    """The served GroupBys that reach K4's tiled kernel, over tg's f rows
+    `f_sets`: {query: expected JSON}."""
+    a_sets = [np.sort(tg["g_cols"][tg["a"] == i]) for i in range(5)]
+    return {"GroupBy(Rows(f), Rows(a))": groupby_expect(
+                cross_counts(f_sets, a_sets), "f", "a"),
+            "GroupBy(Rows(f), Rows(f))": groupby_expect(
+                cross_counts(f_sets, f_sets), "f", "f")}
+
+
 def http(uri, path, body=None):
     req = urllib.request.Request(
         uri + path, data=None if body is None else body.encode(),
@@ -1993,6 +2088,11 @@ def serve_topn_path(srv, k3, k4, tg, card):
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
     expect = topn_expect(tg)
+    # config 3's f is 100 rows, one row chunk at S = 10 (102 rows): f x a
+    # and f x f are one tile pair each, so exactly one K4 launch a query,
+    # on the tiled kernel
+    tiled = tiled_groupbys(tg, tg["f"])
+    expect.update(tiled)
 
     def query(pql, k3_step=0, k4_step=0):
         b3, b4 = k3.row_counts.launches, k4.pairwise_counts.launches
@@ -2003,8 +2103,13 @@ def serve_topn_path(srv, k3, k4, tg, card):
             raise AssertionError(f"{pql}: K3 did not launch")
         if k4.pairwise_counts.launches < b4 + k4_step:
             raise AssertionError(f"{pql}: K4 did not launch")
+        if pql in tiled and k4.pairwise_counts.launches != b4 + 1:
+            raise AssertionError(
+                f"{pql}: {k4.pairwise_counts.launches - b4} K4 launches, "
+                f"not 1")
         if pql in expect and got != expect[pql]:
-            raise AssertionError(f"{pql}: {got} != {expect[pql]}")
+            raise AssertionError(f"{pql}: {str(got)[:300]} != "
+                                 f"{str(expect[pql])[:300]}")
         return got, dt
 
     # (query, K3 launches at least, K4 launches at least); the first two
@@ -2017,10 +2122,13 @@ def serve_topn_path(srv, k3, k4, tg, card):
             ("TopN(f, n=5, threshold=5000)", 1, 0),
             ("Rows(a)", 0, 0),
             ("GroupBy(Rows(a))", 1, 0),
-            ("GroupBy(Rows(a), Rows(b), filter=Row(f=0))", 0, 1)):
+            ("GroupBy(Rows(a), Rows(b), filter=Row(f=0))", 0, 1),
+            ("GroupBy(Rows(f), Rows(a))", 0, 1),
+            ("GroupBy(Rows(f), Rows(f))", 0, 1)):
         got, dt = query(pql, k3_step, k4_step)
         cold[pql] = dt
-        log(f"serve: {pql} = {json.dumps(got)[:160]} ({dt * 1e3:.1f} ms)")
+        log(f"serve: {pql} = {json.dumps(got)[:160]} ({dt * 1e3:.1f} ms"
+            f"{f', {len(got)} groups' if pql in tiled else ''})")
     # read-your-write through a patched row chunk: one more bit in f=9
     row, shard = 9, 3
     present = set(tg["f"][row].tolist())
@@ -2035,16 +2143,24 @@ def serve_topn_path(srv, k3, k4, tg, card):
         if p["id"] == row:
             p["count"] += 1
     expect["TopN(f, n=10)"] = want
+    f_sets = list(tg["f"])
+    f_sets[row] = np.sort(np.append(f_sets[row], col))
+    tiled = tiled_groupbys(tg, f_sets)
+    expect.update(tiled)
     got, dt = query("TopN(f, n=10)", 1, 0)
     if srv.api.executor.stacked_stats()["patches"] <= patches:
         raise AssertionError("Set did not patch the cached row chunk")
     log(f"serve: Set({col}, f={row}) then TopN(f, n=10) reads it back "
         f"(patched row chunk, {dt * 1e3:.1f} ms)")
-    warm = {"TopN(f, n=10)": [], "GroupBy(Rows(a), Rows(b))": []}
-    for _ in range(60):
+    warm = {"TopN(f, n=10)": [], "GroupBy(Rows(a), Rows(b))": [],
+            "GroupBy(Rows(f), Rows(a))": [], "GroupBy(Rows(f), Rows(f))": []}
+    for i in range(60):
         warm["TopN(f, n=10)"].append(query("TopN(f, n=10)", 1, 0)[1])
         warm["GroupBy(Rows(a), Rows(b))"].append(
             query("GroupBy(Rows(a), Rows(b))", 0, 1)[1])
+        if i < TILED_WARM:
+            for pql in tiled:
+                warm[pql].append(query(pql, 0, 1)[1])
     for pql, times in warm.items():
         log(f"serve: {pql} over {TG_SHARDS} shards on {card}: cold "
             f"{cold[pql] * 1e3:.3f} ms, warm p50 "
@@ -6459,7 +6575,7 @@ def main():
         errs["row_counts"], timings["row_counts"] = check_k3(
             torch, k3, WORDS_PER_ROW, card)
         errs["pairwise_counts"], timings["pairwise_counts"] = check_k4(
-            torch, k4, WORDS_PER_ROW, sms, clock_mhz * 1e6, card)
+            torch, k4, WORDS_PER_ROW, k4_rates(torch, card), card)
         errs["bsi_range"], timings["bsi_range"] = check_k5(
             torch, k5, k3, WORDS_PER_ROW, card)
         errs["count_blocks"] = check_k2(torch, k2, card)

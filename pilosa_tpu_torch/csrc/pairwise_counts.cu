@@ -7,13 +7,16 @@
 // PyTorch side), T = S·W, filter optional. Counts are exact 64-bit
 // (the TPU kernel accumulated int32 behind a 2^31-bit gate).
 //
-// Bound. Bytes are (R1·T + R2·T + T)·4; operations are R1·R2·T population
-// counts, and the SM issues 16 of them per clock (CUDA C Programming
-// Guide, arithmetic-instruction throughput, compute capability 9.0). At
-// a full tile (R1 = R2 = 102, S = 10) that is 3.41e9 POPC, ~0.8 ms at
-// 132 SMs and 1.98 GHz against 80 us of bytes: compute-bound. At
-// GroupBy's served shape (5 x 4, S = 10) it is bound by its 11.8 MB of
-// bytes, and by latency: the whole read fits in one batch of loads.
+// Bound. Bytes are (R1·T + R2·T + T)·4 read and R1·R2·8 written;
+// operations are R1·R2·T·32 bit pairs ANDed and counted. The fastest
+// route this card has for them is the tensor cores' 1-bit mma
+// (`mma.sync ... m16n8k256 ... b1.b1.s32.and.popc`, 32,768 bit pairs an
+// instruction): tools/k4_peak.py measures it beside the CUDA cores' POPC
+// (16 words an SM a clock) and a Harley-Seal carry-save count, and K4's
+// bound (ops/cuda_build.py, AND_POPC_BIT_PAIRS_PER_SECOND) takes the
+// fastest; PERF.md has the three rates. At GroupBy's served shape (5 x
+// 4, S = 10) K4 is bound by its 11.8 MB of bytes, and by latency: the
+// whole read fits in one batch of loads.
 //
 // pairwise_small_kernel<RA, RB, U> (R1 = RA, R2 = RB, both 1..8, one
 // instantiation per exact shape, so no padding row costs a load, a
@@ -49,37 +52,71 @@
 // flushed by a write the last block's data arrives ~7.3 us after entry
 // (the flush's dirty lines are written back as the rows come in).
 //
-// pairwise_tiled_kernel (anything larger): a block owns a 32-row A tile
-// x 16-row B tile and one slice of the word axis; it stages K4_KW words
-// of its A rows (filter applied), and of its B rows, in shared memory,
-// so each word comes from HBM once per tile pair; each of its 8 warps
-// owns an 8 x 8 sub-tile of pairs, its lanes split the staged words
-// (consecutive lanes, consecutive words: no bank conflicts) and every
-// thread keeps 64 sums in registers. Warps whose rows lie past R1 or R2
-// skip the arithmetic (the test is warp-uniform). Concurrent blocks
-// walk the tiles of one word slice, so a slice's rows stay in L2. Each
-// block ends with a warp-shuffle reduce and one 64-bit atomicAdd per
-// output it owns (the output is zeroed on the stream first). The
-// word-slice count is capped at K4_MAX_SLICES, which bounds the atomics
-// any one output sees. Ragged R1, R2 need no padding.
+// pairwise_mma_kernel (anything larger, R1 or R2 > 8) counts on the
+// tensor cores: a block owns a tile of up to 128 A rows x 128 B rows
+// (a side's rows split into tiles of equal height; 102 x 102, config 3's
+// row chunk at S = 10, is one tile) and takes the tile's stages of
+// K4T_KW words in turn with the tile's other blocks (stage slice, slice +
+// n_slices, ...), one resident wave of 1 block an SM over all tiles:
+//  - a producer warp keeps a K4T_STAGES-deep ring of shared-memory slots
+//    full with TMA copies (one box of the tile's A rows, one of its B
+//    rows, one of the filter's words a stage), each slot with a full and
+//    an empty barrier, so loads stay in flight while the 16 consumer
+//    warps count and no warp waits on another's arithmetic. Each word of
+//    HBM is read once per tile pair; words past the row's end (a count
+//    that is not a multiple of 8, one 256-bit k-step) and rows past R1 or
+//    R2 arrive as zeros from the TMA, never padded in HBM;
+//  - a consumer warp owns 32 x 32 outputs: per k-step it loads its A and
+//    B fragments with ldmatrix (a b1 row of 128 bits is 8 b16 elements;
+//    the TMA's 128-byte swizzle puts the 8 rows a matrix reads in 8 bank
+//    groups) and issues 8 m16n8k256 mmas into s32 fragments; the filter
+//    is ANDed into B's fragment in registers (one bit pattern for every
+//    row). The warps of one A band, and of one B band, sit on four SM
+//    sub-partitions, so a skinny side (100 x 5) still spreads its mmas
+//    over all four tensor cores; a warp whose outputs all lie past R1 or
+//    R2 sits the loop out;
+//  - a block takes at most 2^22 k-steps, so an s32 sum (256 at most an
+//    mma) stays under 2^30; each block ends with one 64-bit atomicAdd an
+//    output it owns into `out`, zeroed on the stream first.
+// What it replaced, and the designs measured against it (per-thread
+// cp.async rings that all warps refilled between two barriers, and
+// clusters that summed their partial tiles through distributed shared
+// memory before the atomics), are in PERF.md.
 //
-// Kernel parameters are scalars and raw pointers only: nothing is
-// indexed at run time, so nothing spills to local memory.
+// Kernel parameters are scalars, raw pointers and the tiled kernel's
+// TMA maps (`__grid_constant__`, read by the TMA through their address):
+// nothing is indexed at run time, so nothing spills to local memory.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #define K4_THREADS 256
 #define K4_WARPS (K4_THREADS / 32)
-#define K4_TA 32        // A rows per tile: 4 warp rows x 8
-#define K4_TB 16        // B rows per tile: 2 warp columns x 8
-#define K4_KW 128       // words staged per step
-#define K4_MAX_SLICES 256
 #define K4_SMALL_MAX 8  // the small kernel takes R1, R2 <= 8
 // a state word holds the blocks arrived above this bit, the count below
 #define K4_ARRIVAL_SHIFT 48
+
+// the tiled (tensor-core) kernel: one block of 16 warps an SM
+#define K4T_CONSUMERS 512  // 16 warps: 4 (A) x 4 (B), each 32 x 32 outputs
+#define K4T_THREADS (K4T_CONSUMERS + 32)  // and one warp that feeds them
+#define K4T_MT 2       // m16 tiles a warp
+#define K4T_NT 4       // n8 tiles a warp
+#define K4T_BM 128     // A rows a tile
+#define K4T_BN 128     // B rows a tile
+#define K4T_KW 32      // words of each row a stage holds: 4 k-steps of 256 bits
+#define K4T_ROW_BYTES (K4T_KW * 4)  // 128: one TMA 128-byte swizzle row
+#define K4T_STAGES 6
+// a slot: A rows, B rows, then the filter's words, 1024-byte aligned
+#define K4T_FILT_OFFSET ((K4T_BM + K4T_BN) * K4T_ROW_BYTES)
+#define K4T_STAGE_BYTES (K4T_FILT_OFFSET + 1024)
+// the ring, its full and empty barriers, and slack to align it to 1024
+#define K4T_SMEM (K4T_STAGES * (K4T_STAGE_BYTES + 16) + 1024)
+// stages a block may take: 2^22 k-steps of 8 words
+#define K4T_MAX_SLICE_STAGES ((1LL << 25) / K4T_KW)
 
 __device__ __forceinline__ unsigned popc4(uint4 v) {
     return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
@@ -87,13 +124,6 @@ __device__ __forceinline__ unsigned popc4(uint4 v) {
 
 __device__ __forceinline__ uint4 and4(uint4 a, uint4 b) {
     return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
-}
-
-__device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
-    #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-    return v;
 }
 
 __device__ __forceinline__ unsigned warp_sum32(unsigned v) {
@@ -183,92 +213,210 @@ pairwise_small_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b,
     }
 }
 
-__global__ void __launch_bounds__(K4_THREADS, 2)
-pairwise_tiled_kernel(const uint4* __restrict__ a, int n_a,
-                      const uint4* __restrict__ b, int n_b,
-                      const uint4* __restrict__ filt, long long n_words,
-                      int tiles_b, int n_tiles, long long slice_words,
-                      unsigned long long* __restrict__ out) {
-    __shared__ __align__(16) uint32_t sA[K4_TA][K4_KW];
-    __shared__ __align__(16) uint32_t sB[K4_TB][K4_KW];
-    const int tile = blockIdx.x % n_tiles;   // tiles vary fastest
-    const long long slice = blockIdx.x / n_tiles;
-    const int a0 = (tile / tiles_b) * K4_TA, b0 = (tile % tiles_b) * K4_TB;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int wa = warp >> 1, wb = warp & 1;  // 4 x 2 warps of 8 x 8 pairs
-    const int ra = a0 + wa * 8, rb = b0 + wb * 8;
-    const bool active = ra < n_a && rb < n_b;  // warp-uniform
-    const long long n_vec = n_words / 4;
-    const long long w_begin = slice * slice_words;
-    long long w_end = w_begin + slice_words;
-    if (w_end > n_words) w_end = n_words;
+// ---- the tiled kernel: b1 tensor-core mma fed by TMA -----------------
 
-    unsigned acc[8][8];
-    #pragma unroll
-    for (int m = 0; m < 8; ++m)
-        #pragma unroll
-        for (int n = 0; n < 8; ++n) acc[m][n] = 0;
-
-    const int vecs_per_row = K4_KW / 4;
-    for (long long w0 = w_begin; w0 < w_end; w0 += K4_KW) {
-        for (int k = threadIdx.x; k < (K4_TA + K4_TB) * vecs_per_row; k += K4_THREADS) {
-            const int row = k / vecs_per_row, v = k % vecs_per_row;
-            const long long vi = w0 / 4 + v;
-            uint4 x = make_uint4(0, 0, 0, 0);
-            if (vi * 4 < w_end) {
-                if (row < K4_TA) {
-                    const int r = a0 + row;
-                    if (r < n_a) {
-                        x = __ldg(a + (long long)r * n_vec + vi);
-                        if (filt) x = and4(x, __ldg(filt + vi));
-                    }
-                } else {
-                    const int r = b0 + row - K4_TA;
-                    if (r < n_b) x = __ldg(b + (long long)r * n_vec + vi);
-                }
-            }
-            uint4* dst = row < K4_TA ? (uint4*)&sA[row][v * 4]
-                                     : (uint4*)&sB[row - K4_TA][v * 4];
-            *dst = x;
-        }
-        __syncthreads();
-        if (active) {
-            #pragma unroll
-            for (int j = 0; j < K4_KW / 32; ++j) {
-                const int w = lane + 32 * j;
-                uint32_t av[8], bv[8];
-                #pragma unroll
-                for (int m = 0; m < 8; ++m) av[m] = sA[wa * 8 + m][w];
-                #pragma unroll
-                for (int n = 0; n < 8; ++n) bv[n] = sB[wb * 8 + n][w];
-                #pragma unroll
-                for (int m = 0; m < 8; ++m)
-                    #pragma unroll
-                    for (int n = 0; n < 8; ++n) acc[m][n] += __popc(av[m] & bv[n]);
-            }
-        }
-        __syncthreads();
-    }
-    if (!active) return;
-    #pragma unroll
-    for (int m = 0; m < 8; ++m)
-        #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-            const unsigned long long v = warp_sum(acc[m][n]);
-            if (lane == 0 && v && ra + m < n_a && rb + n < n_b)
-                atomicAdd(out + (long long)(ra + m) * n_b + (rb + n), v);
-        }
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
 }
 
-template <typename Kernel>
-static int resident_blocks(Kernel kernel) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K4_THREADS, 0);
-    if (sms < 1) sms = 132;
-    if (per_sm < 1) per_sm = 1;
-    return sms * per_sm;
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
+                 : "memory");
+}
+
+// the producer's arrival on a full barrier, with the bytes its copies
+// will add to the barrier's transaction count
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+    unsigned done = 0;
+    do {
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     " selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// one TMA copy of the box at (word w, row r) of `map` into shared memory
+// at `dst`, completing on `bar`
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map, int w,
+                                         int r, unsigned bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3}], [%4];\n"
+        :: "r"(dst), "l"((unsigned long long)map), "r"(w), "r"(r), "r"(bar)
+        : "memory");
+}
+
+// four 8 x 8 b16 matrices (8 rows of 16 bytes each): lane l gives the
+// row address of matrix l / 8, row l % 8, and receives, of each matrix,
+// the 4 bytes at row l / 4, bytes 4 (l % 4) .. +3
+__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned& r0,
+                                            unsigned& r1, unsigned& r2,
+                                            unsigned& r3) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+
+// d += popcount(A & B) over k: A 16 x 256 bits (row), B 256 x 8 (col)
+__device__ __forceinline__ void mma_and_popc(int (&d)[4], const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+    asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a stage's 16-byte chunk c of tile row r (A rows 0..127, B rows
+// 128..255): rows of 128 bytes, chunks XOR-swizzled by the row's low 3
+// bits as the TMA's 128-byte swizzle lays them, so the 8 rows an ldmatrix
+// matrix reads lie in 8 distinct bank groups
+__device__ __forceinline__ unsigned chunk_offset(int r, int c) {
+    return (unsigned)(r * K4T_ROW_BYTES + ((c ^ (r & 7)) << 4));
+}
+
+__global__ void __launch_bounds__(K4T_THREADS, 1)
+pairwise_mma_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    const __grid_constant__ CUtensorMap map_f, int has_filt,
+                    int n_a, int n_b, int tile_a, int tile_b, int tiles_b,
+                    unsigned stage_bytes, long long n_slices, long long n_stages,
+                    unsigned long long* __restrict__ out) {
+    extern __shared__ unsigned char smem_raw[];
+    // the ring's slots, 1024-byte aligned as the 128-byte swizzle needs
+    const unsigned raw = smem_addr(smem_raw);
+    const unsigned sbase = (raw + 1023) & ~1023u;
+    unsigned char* smem = smem_raw + (sbase - raw);
+    const unsigned full = sbase + K4T_STAGES * K4T_STAGE_BYTES;  // a barrier a slot
+    const unsigned empty = full + K4T_STAGES * 8;
+
+    const long long tile = blockIdx.x / n_slices;
+    const long long slice = blockIdx.x % n_slices;
+    const int a0 = (int)(tile / tiles_b) * tile_a;
+    const int b0 = (int)(tile % tiles_b) * tile_b;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    // a warp's outputs: K4T_MT m16 tiles x K4T_NT n8 tiles; the warps of
+    // one A band, and of one B band, lie on 4 different SM sub-partitions
+    // (the warp's sub-partition is warp % 4), so a skinny side still
+    // spreads its mmas over all four tensor cores
+    const int wm = warp >> 2, wn = ((warp & 3) - wm) & 3;
+    const int wa = wm * (K4T_MT * 16), wb = wn * (K4T_NT * 8);
+    // the tile's blocks take its stages in turn (slice, slice + n_slices,
+    // ...), so the blocks in flight read neighbouring spans of every row
+    const long long n_mine = (n_stages - slice + n_slices - 1) / n_slices;
+    // rows of the tile that exist: the rest are never multiplied (per
+    // m16 / n8 tile, warp-uniform), and a warp with none of them sits out
+    const int rows_a = min(tile_a, n_a - a0), rows_b = min(tile_b, n_b - b0);
+    const bool busy = warp < K4T_CONSUMERS / 32 && wa < rows_a && wb < rows_b;
+
+    if (tid == 0) {
+        int n_busy = 0;  // the warps that release each slot
+        for (int w = 0; w < K4T_CONSUMERS / 32; ++w)
+            n_busy += (w >> 2) * (K4T_MT * 16) < rows_a &&
+                      (((w & 3) - (w >> 2)) & 3) * (K4T_NT * 8) < rows_b;
+        for (int s = 0; s < K4T_STAGES; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, n_busy);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // the producer warp's first thread keeps the ring full: stage j goes
+    // to slot j % K4T_STAGES once every busy warp has released the slot's
+    // previous stage
+    if (tid == K4T_CONSUMERS) {
+        for (long long j = 0; j < n_mine; ++j) {
+            const int s = (int)(j % K4T_STAGES);
+            if (j >= K4T_STAGES)
+                mbar_wait(empty + 8 * s, (unsigned)((j / K4T_STAGES - 1) & 1));
+            const unsigned dst = sbase + s * K4T_STAGE_BYTES;
+            const int w0 = (int)((slice + j * n_slices) * K4T_KW);
+            mbar_expect(full + 8 * s, stage_bytes);
+            tma_load(dst, &map_a, w0, a0, full + 8 * s);
+            tma_load(dst + K4T_BM * K4T_ROW_BYTES, &map_b, w0, b0, full + 8 * s);
+            if (has_filt) tma_load(dst + K4T_FILT_OFFSET, &map_f, w0, 0, full + 8 * s);
+        }
+    }
+
+    int acc[K4T_MT][K4T_NT][4];
+    #pragma unroll
+    for (int mi = 0; mi < K4T_MT; ++mi)
+        #pragma unroll
+        for (int ni = 0; ni < K4T_NT; ++ni)
+            #pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+
+    // ldmatrix lane roles: matrix q = lane / 8, its row lane % 8
+    const int q = lane >> 3, qi = lane & 7;
+    const int tig = lane & 3;
+
+    for (long long j = 0; busy && j < n_mine; ++j) {
+        const int s = (int)(j % K4T_STAGES);
+        mbar_wait(full + 8 * s, (unsigned)((j / K4T_STAGES) & 1));
+        const unsigned buf = sbase + s * K4T_STAGE_BYTES;
+        const uint32_t* sf = (const uint32_t*)(smem + s * K4T_STAGE_BYTES + K4T_FILT_OFFSET);
+        #pragma unroll
+        for (int kk = 0; kk < K4T_KW / 8; ++kk) {
+            // B fragments, two n8 tiles an ldmatrix: matrices (rows +0..7,
+            // words 0..3), (+0..7, 4..7), (+8..15, 0..3), (+8..15, 4..7)
+            unsigned bf[K4T_NT][2];
+            #pragma unroll
+            for (int nj = 0; nj < K4T_NT / 2; ++nj) {
+                const int r = wb + nj * 16 + qi + ((q >> 1) << 3);
+                ldmatrix_x4(buf + chunk_offset(K4T_BM + r, kk * 2 + (q & 1)),
+                            bf[2 * nj][0], bf[2 * nj][1],
+                            bf[2 * nj + 1][0], bf[2 * nj + 1][1]);
+            }
+            if (has_filt) {  // the filter's words tig and 4 + tig of this k-step
+                const unsigned f0 = sf[kk * 8 + tig], f1 = sf[kk * 8 + 4 + tig];
+                #pragma unroll
+                for (int ni = 0; ni < K4T_NT; ++ni) {
+                    bf[ni][0] &= f0;
+                    bf[ni][1] &= f1;
+                }
+            }
+            #pragma unroll
+            for (int mi = 0; mi < K4T_MT; ++mi) {
+                // A fragment: matrices (rows +0..7, words 0..3), (+8..15,
+                // 0..3), (+0..7, 4..7), (+8..15, 4..7)
+                unsigned af[4];
+                const int r = wa + mi * 16 + qi + ((q & 1) << 3);
+                ldmatrix_x4(buf + chunk_offset(r, kk * 2 + (q >> 1)),
+                            af[0], af[1], af[2], af[3]);
+                #pragma unroll
+                for (int ni = 0; ni < K4T_NT; ++ni)
+                    if (wa + mi * 16 < rows_a && wb + ni * 8 < rows_b)
+                        mma_and_popc(acc[mi][ni], af, bf[ni][0], bf[ni][1]);
+            }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);  // this warp is done with slot s
+    }
+
+    // outputs of fragment element e of (mi, ni): row g (+8 for e >= 2),
+    // column 2 tig (+1 for odd e), g = lane / 4
+    const int g = lane >> 2;
+    #pragma unroll
+    for (int mi = 0; mi < K4T_MT; ++mi)
+        #pragma unroll
+        for (int ni = 0; ni < K4T_NT; ++ni)
+            #pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int r = wa + mi * 16 + g + (e >> 1) * 8;
+                const int c = wb + ni * 8 + tig * 2 + (e & 1);
+                if (busy && r < rows_a && c < rows_b && acc[mi][ni][e])
+                    atomicAdd(out + (long long)(a0 + r) * n_b + b0 + c,
+                              (unsigned long long)(unsigned)acc[mi][ni][e]);
+            }
 }
 
 // The small kernel's grid for n_vec vectors: a whole number of blocks
@@ -353,14 +501,83 @@ static bool is_small(int n_a, int n_b) {
     return n_a >= 1 && n_b >= 1 && n_a <= K4_SMALL_MAX && n_b <= K4_SMALL_MAX;
 }
 
+// cuTensorMapEncodeTiled (from libcuda), looked up once through the
+// runtime so the library links against nothing but cudart
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+    static const EncodeTiledFn fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+        const cudaError_t e =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+        return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? (EncodeTiledFn)p
+                                                                     : nullptr;
+    }();
+    return fn;
+}
+
+// A TMA map of `rows` rows of `n_words` uint32 words, copied in boxes of
+// K4T_KW words x `box_rows` rows, 128-byte swizzled into shared memory or
+// not; words and rows past the ends arrive as zeros.
+static bool row_map(CUtensorMap* map, const void* base, long long n_words, int rows,
+                    int box_rows, bool swizzle) {
+    const EncodeTiledFn enc = encode_tiled();
+    if (!enc) return false;
+    const cuuint64_t dims[2] = {(cuuint64_t)n_words, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)n_words * 4};
+    const cuuint32_t box[2] = {K4T_KW, (cuuint32_t)box_rows};
+    const cuuint32_t elem_strides[2] = {1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 2, const_cast<void*>(base), dims,
+               strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tiled kernel's blocks that run at once on card `dev` (one an SM),
+// found once a card after allowing its shared memory (above the default
+// 48 KB); -1 on an error.
+static int mma_kernel_slots(int dev) {
+    static std::atomic<unsigned long long> ready{0};
+    static std::atomic<int> slots[64];
+    if (dev < 0 || dev >= 64) return -1;
+    if (!(ready.load() >> dev & 1)) {
+        if (cudaFuncSetAttribute(pairwise_mma_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 K4T_SMEM) != cudaSuccess)
+            return -1;
+        int n = 0, sms = 0;
+        if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pairwise_mma_kernel, K4T_THREADS,
+                                                          K4T_SMEM) != cudaSuccess)
+            return -1;
+        n *= sms;
+        if (n < 1) return -1;
+        slots[dev] = n;
+        ready.fetch_or(1ull << dev);
+    }
+    return slots[dev].load();
+}
+
 // Plain C entry point, bound with ctypes. `a` is [n_a, n_words], `b`
 // [n_b, n_words], `filt` [n_words] or NULL (all 16-byte aligned, n_words
-// a multiple of 4); `out` is n_a x n_b uint64, row-major. For
-// 1 <= n_a, n_b <= 8 the small kernel writes `out`, and `state` is
-// n_a · n_b uint64 that are 0 and that no launch on another stream uses;
-// the launch leaves them 0. Otherwise `state` is unused, `out` is zeroed
-// on the stream and the tiled kernel adds into it. Launches on `stream`.
-// Returns cudaGetLastError().
+// a multiple of 4 and, past 8 x 8, under 2^31); `out` is n_a x n_b
+// uint64, row-major. For 1 <= n_a, n_b <= 8 the small kernel writes
+// `out`, and `state` is n_a · n_b uint64 that are 0 and that no launch on
+// another stream uses; the launch leaves them 0. Otherwise `state` is
+// unused, `out` is zeroed on the stream and the tiled kernel adds into it.
+// Launches on `stream`. Returns cudaGetLastError() (or the error that
+// refused the launch).
 extern "C" int pairwise_counts_launch(const void* a, int n_a, const void* b, int n_b,
                                       const void* filt, long long n_words,
                                       void* out, void* state, void* stream) {
@@ -379,26 +596,43 @@ extern "C" int pairwise_counts_launch(const void* a, int n_a, const void* b, int
         });
         return (int)cudaGetLastError();
     }
+    // the TMA's word coordinate is a signed 32-bit value
+    if (n_words >= (1LL << 31)) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaMemsetAsync(
         out, 0, sizeof(unsigned long long) * (size_t)n_a * (size_t)n_b, s);
     if (err != cudaSuccess) return (int)err;
     if (n_a == 0 || n_b == 0 || n_vec == 0) return (int)cudaGetLastError();
-    static const int cap = resident_blocks(pairwise_tiled_kernel);
-    const int tiles_a = (n_a + K4_TA - 1) / K4_TA;
-    const int tiles_b = (n_b + K4_TB - 1) / K4_TB;
+    int dev = 0;
+    cudaGetDevice(&dev);
+    const int slots = mma_kernel_slots(dev);
+    if (slots < 0) {
+        const int e = (int)cudaGetLastError();
+        return e ? e : (int)cudaErrorInvalidConfiguration;
+    }
+    // a side's rows split into tiles of equal height (a multiple of 8, the
+    // swizzle's period, at most 128), so that no tile's blocks wait on a
+    // fuller one; a TMA box is one tile's rows
+    const int tiles_a = (n_a + K4T_BM - 1) / K4T_BM, tiles_b = (n_b + K4T_BN - 1) / K4T_BN;
+    const int tile_a = ((n_a + tiles_a - 1) / tiles_a + 7) / 8 * 8;
+    const int tile_b = ((n_b + tiles_b - 1) / tiles_b + 7) / 8 * 8;
+    CUtensorMap map_a, map_b, map_f = {};  // map_f is read only with a filter
+    if (!row_map(&map_a, a, n_words, n_a, tile_a, true) ||
+        !row_map(&map_b, b, n_words, n_b, tile_b, true) ||
+        (filt && !row_map(&map_f, filt, n_words, 1, 1, false)))
+        return (int)cudaErrorInvalidValue;
+    const unsigned stage_bytes = K4T_ROW_BYTES * (tile_a + tile_b + (filt ? 1 : 0));
     const long long n_tiles = (long long)tiles_a * tiles_b;
-    const long long steps = (n_words + K4_KW - 1) / K4_KW;
-    long long n_slices = (2LL * cap + n_tiles - 1) / n_tiles;
-    if (n_slices > K4_MAX_SLICES) n_slices = K4_MAX_SLICES;
-    if (n_slices > steps) n_slices = steps;
+    const long long n_stages = (n_words + K4T_KW - 1) / K4T_KW;
+    // the tiles share one resident wave of blocks (at least one a tile);
+    // no block takes more than K4T_MAX_SLICE_STAGES
+    long long n_slices = slots / n_tiles;
+    const long long min_slices = (n_stages + K4T_MAX_SLICE_STAGES - 1) / K4T_MAX_SLICE_STAGES;
+    if (n_slices < min_slices) n_slices = min_slices;
     if (n_slices < 1) n_slices = 1;
-    const long long slice_words = ((steps + n_slices - 1) / n_slices) * K4_KW;
-    n_slices = (n_words + slice_words - 1) / slice_words;
     const long long grid = n_tiles * n_slices;
-    if (n_tiles > 0x7fffffffLL || grid > 0x7fffffffLL)
-        return (int)cudaErrorInvalidConfiguration;
-    pairwise_tiled_kernel<<<(unsigned)grid, K4_THREADS, 0, s>>>(
-        (const uint4*)a, n_a, (const uint4*)b, n_b, (const uint4*)filt, n_words,
-        tiles_b, (int)n_tiles, slice_words, o);
+    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    pairwise_mma_kernel<<<(unsigned)grid, K4T_THREADS, K4T_SMEM, s>>>(
+        map_a, map_b, map_f, filt ? 1 : 0, n_a, n_b, tile_a, tile_b, tiles_b, stage_bytes,
+        n_slices, n_stages, o);
     return (int)cudaGetLastError();
 }

@@ -26,12 +26,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: the card the declared costs' `optimal_seconds` are stated for: an
-#: NVIDIA H100 80GB HBM3 — its memory rate (bytes/s, NVIDIA data sheet)
-#: and its POPC issue rate (16 results per SM per clock, CUDA C
-#: Programming Guide, cc 9.0, x 132 SMs x 1.98 GHz)
+#: NVIDIA H100 80GB HBM3 — its memory rate (bytes/s, NVIDIA data sheet),
+#: its CUDA cores' POPC issue rate (16 results per SM per clock, CUDA C
+#: Programming Guide, cc 9.0, x 132 SMs x 1.98 GHz) and the fastest rate
+#: it has for K4's function, bit pairs ANDed and counted a second: its
+#: tensor cores' 1-bit mma (`mma.sync ... m16n8k256 ... and.popc`), as
+#: tools/k4_peak.py measured it on that card at a 700 W power limit,
+#: 39x its POPC rate and 30x a Harley-Seal count on its CUDA cores
+#: (PERF.md §6)
 COST_CARD = "NVIDIA H100 80GB HBM3"
 HBM_BYTES_PER_SECOND = 3.35e12
 POPC_PER_SECOND = 16 * 132 * 1.98e9
+AND_POPC_BIT_PAIRS_PER_SECOND = 5.259e15
 
 _lock = threading.Lock()
 _libs = {}
@@ -187,15 +193,15 @@ def declared_cost(nbytes, device=None, popc=None):
     arithmetic on its shapes (the port's stand-in for XLA's
     cost_analysis): `bytes accessed` — each input read once and the
     output written once, as PERF.md counts a kernel's bound — and, for
-    K4, its `popc` count. `optimal_seconds`, the bound (the larger of
-    bytes over COST_CARD's memory rate and POPCs over its issue rate),
-    is declared only for a CUDA device; on the CPU it is absent, as
-    XLA's is there."""
+    K4, its `popc` count (32-bit words ANDed and counted). `optimal_seconds`,
+    the bound (the larger of bytes over COST_CARD's memory rate and the
+    words' bit pairs over its rate for them), is declared only for a
+    CUDA device; on the CPU it is absent, as XLA's is there."""
     cost = {"bytes accessed": int(nbytes)}
     seconds = nbytes / HBM_BYTES_PER_SECOND
     if popc is not None:
         cost["popc"] = int(popc)
-        seconds = max(seconds, popc / POPC_PER_SECOND)
+        seconds = max(seconds, popc * 32 / AND_POPC_BIT_PAIRS_PER_SECOND)
     dev = getattr(device, "type", device)
     if dev is not None and str(dev).startswith("cuda"):
         cost["optimal_seconds"] = seconds

@@ -11,9 +11,11 @@ the TPU kernel `pairwise_counts_stack`
 `pairwise_counts_reference`; a CUDA tensor goes to the hand-written
 kernel `csrc/pairwise_counts.cu` (see that file for its design and its
 bounds) or raises. An empty R1 or R2 returns zeros without a launch.
-For R1, R2 <= 8 the kernel keeps its running sums, with the blocks
+The kernel picks its path by shape alone: for R1, R2 <= 8 one
+exact-shape kernel, which keeps its running sums, with the blocks
 arrived, in a per-stream state of 64 int64, made zero once on that
-stream and left zero by every launch (`_state`).
+stream and left zero by every launch (`_state`); past that a tiled
+kernel on the tensor cores' 1-bit mma.
 """
 
 import ctypes
@@ -163,7 +165,8 @@ def pairwise_counts_stack(a, b, filt=None):
 def pairwise_cost(r1, r2, t, has_filter, device=None):
     """K4's declared cost for [R1, T] and [R2, T] row stacks (and a [T]
     filter when `has_filter`): both stacks and the filter read once, the
-    [R1, R2] int64 matrix written, and R1·R2·T POPCs; its bound is the
+    [R1, R2] int64 matrix written, and R1·R2·T word popcounts (R1·R2·T·32
+    bit pairs, at the card's 1-bit tensor-core rate); its bound is the
     larger of the two times (cuda_build.declared_cost)."""
     nbytes = (r1 + r2 + bool(has_filter)) * t * 4 + r1 * r2 * 8
     return cuda_build.declared_cost(nbytes, device, popc=r1 * r2 * t)

@@ -13,8 +13,11 @@ as the wrapper hands it over; the side named by --stateless has the
 entry of c78a462 and before, which takes no state argument (give
 `--stateless A` when A is that tree). Shapes: GroupBy's served tile
 5 x 4 x S = 10 without and with a filter, 8 x 8 and 2 x 2 at S = 10, a
-1B-column GroupBy's 1 x 1 x S = 954, and 102 x 102 x S = 10 (the tiled
-kernel, as a control). Every result is checked against
+1B-column GroupBy's 1 x 1 x S = 954 (the small kernel), and the tiled
+kernel's: the served 100 x 5 and 100 x 100 (GroupBy(Rows(f), Rows(a))
+and GroupBy(Rows(f), Rows(f)) over config 3's 10 shards), 102 x 102
+(config 3's full row chunk) and a ragged 13 x 130, all at S = 10. Every
+result is checked against
 `pairwise_counts_reference` first. Each side's device time per call
 comes from a torch.profiler trace of `reps` calls, summed over every
 device operation the call issues (a memset included; the flush's own
@@ -25,9 +28,10 @@ the 50 MB L2: flushed by a 128 MB write right before every call
 and warm. The sides take turns A, B, B, A in each state. It prints a first JSON line with
 each side's nvcc seconds and ptxas register lines, then one per shape
 with every time in µs as [all operations, kernel] pairs, the bytes the
-call must move and its bound at 3.35 TB/s (and the POPC bound), the
-device operations counted in each state, and the card's name and power
-limit.
+call must move, its bound (the larger of the bytes at 3.35 TB/s and the
+bit pairs at the card's fastest rate for them, `chip_smoke.k4_bound`)
+and what bounds it, the device operations counted in each state, and
+the card's name and power limit.
 """
 
 import argparse
@@ -48,7 +52,10 @@ IDLE_S = 1e-4
 SHAPES = (("5x4 S=10", 5, 4, 10, False), ("5x4 S=10 filter", 5, 4, 10, True),
           ("8x8 S=10", 8, 8, 10, False), ("2x2 S=10", 2, 2, 10, False),
           ("1x1 S=954", 1, 1, 954, False),
-          ("102x102 S=10", 102, 102, 10, False))
+          ("100x5 S=10", 100, 5, 10, False),
+          ("100x100 S=10", 100, 100, 10, False),
+          ("102x102 S=10", 102, 102, 10, False),
+          ("13x130 S=10", 13, 130, 10, False))
 
 
 def _build(checkout, out_dir, tag, cuda_build):
@@ -126,8 +133,6 @@ def main(argv=None):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)  # loaded libraries stay mapped
     card = cs.nvidia_smi("name,power.limit")
-    clock_hz = float(cs.nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(json.dumps({"card": card, "a": args.a, "b": args.b,
                       "stateless": args.stateless, "build": builds}),
           flush=True)
@@ -144,7 +149,8 @@ def main(argv=None):
                 time.sleep(IDLE_S)
             fn()
         for _ in range(3):  # a trace now and then holds no device time
-            got = cs.call_device_ms(torch, timed, args.reps, "pairwise_")
+            got = cs.call_device_ms(torch, timed, args.reps, "pairwise_",
+                                    launches=1)
             if got is not None:
                 return [got[0] * 1e3, got[1] * 1e3], got[2]
         raise RuntimeError("three profiler traces held no K4 kernel")
@@ -174,12 +180,13 @@ def main(argv=None):
                 got, ops[side][flush] = device_us(
                     lambda: fns[side](a, b, fp, out), flush)
                 us[side][flush].append(got)
-        bound_ms, bound_by, bytes_ms, popc_ms = cs.k4_bound(
-            r1, r2, t, sms, clock_hz, has_filt)
+        bound_ms, bound_by, bytes_ms, ops_ms = cs.k4_bound(
+            r1, r2, t, has_filt)
         print(json.dumps({
             "shape": name, "bytes": round(bytes_ms / 1e3 * cs.H100_BYTES_PER_S),
-            "bound_us": bytes_ms * 1e3, "popc_bound_us": popc_ms * 1e3,
-            "bound_by": bound_by, "us": us, "ops": ops, "card": card}),
+            "bound_us": bound_ms * 1e3, "bytes_us": bytes_ms * 1e3,
+            "bit_pairs_us": ops_ms * 1e3, "bound_by": bound_by, "us": us,
+            "ops": ops, "card": card}),
             flush=True)
         del a, b, f
         torch.cuda.empty_cache()

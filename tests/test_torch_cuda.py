@@ -419,10 +419,16 @@ def test_topn_kernel_ties_lowest_index(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("r1,r2", [(0, 3), (1, 1), (5, 4), (8, 8), (9, 3),
-                                   (13, 130), (102, 102)])
+                                   (9, 9), (13, 130), (33, 17), (100, 5),
+                                   (100, 100), (102, 102), (128, 128),
+                                   (129, 130)])
 @pytest.mark.parametrize("s", [1, 10])
 @pytest.mark.parametrize("has_filt", [False, True])
 def test_pairwise_kernel_matches_plain(cuda, r1, r2, s, has_filt):
+    """Both paths: the small kernel up to 8 x 8, the tensor-core tiled
+    kernel past it (100 x 5 and 100 x 100 are the served GroupBys over
+    config 3's f; 102 x 102 its full row chunk at S = 10; 128 x 128 one
+    whole tile, 129 x 130 four ragged ones)."""
     t = s * WORDS_PER_ROW
     a = _rows(r1, t, seed=r1, device=cuda)
     b = _rows(r2, t, seed=1000 + r2, device=cuda)
@@ -498,6 +504,63 @@ def test_pairwise_kernel_edge_words(cuda, word, r1, r2):
         torch.cuda.synchronize()
         assert torch.equal(got, k4.pairwise_counts_reference(a, b, f))
         assert (got == want).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r1,r2", [(9, 3), (33, 17), (102, 102)])
+@pytest.mark.parametrize("t", [4, 12, WORDS_PER_ROW + 4,
+                               10 * WORDS_PER_ROW + 36])
+@pytest.mark.parametrize("has_filt", [False, True])
+def test_pairwise_tiled_kernel_ragged_words(cuda, r1, r2, t, has_filt):
+    """The tiled kernel takes 256-bit (8-word) k-steps; a word count with
+    t % 8 == 4 leaves half a step, which the copy zero-fills rather than
+    reading past the row."""
+    a = _rows(r1, t, seed=t % 1000 + r1, device=cuda)
+    b = _rows(r2, t, seed=t % 1000 + 70 + r2, device=cuda)
+    filt = _rows(1, t, seed=11, device=cuda)[0] if has_filt else None
+    before = k4.pairwise_counts.launches
+    got = k4.pairwise_counts(a, b, filt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k4.pairwise_counts_reference(a, b, filt))
+    assert k4.pairwise_counts.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_pairwise_tiled_kernel_counts_past_2_32(cuda):
+    """All-ones 9 x 9 rows of 2^27 + 4 words: each output is T·32 =
+    2^32 + 128 bits, past any 32-bit sum, and the tiled kernel's s32
+    fragments (at most 256 an mma) must be flushed into 64-bit sums
+    before they pass 2^31. The answer is in closed form: no plain
+    version over 9.7 GB."""
+    t = (1 << 27) + 4
+    ones = torch.full((9, t), -1, dtype=torch.int32, device=cuda)
+    got = k4.pairwise_counts(ones, ones)
+    torch.cuda.synchronize()
+    assert (got == t * 32).all() and t * 32 > 1 << 32
+    del ones
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_k4_kernels_no_stack_frame_or_spill(cuda):
+    """ptxas reports a 0-byte stack frame and no spill for the tiled
+    tensor-core kernel and for every instantiation of the small one (the
+    report keys functions by plain name, so every frame line of the
+    source's log is read)."""
+    import re
+
+    from pilosa_tpu_torch.ops import cuda_build
+
+    a = _rows(9, WORDS_PER_ROW, seed=1, device=cuda)
+    k4.pairwise_counts(a, a)
+    log = cuda_build.ptxas_log("pairwise_counts")
+    report = cuda_build.kernel_report(log)
+    assert {"pairwise_mma_kernel", "pairwise_small_kernel"} <= set(report)
+    assert "pairwise_tiled_kernel" not in report
+    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                        r"stores, (\d+) bytes spill loads", log)
+    assert len(frames) > 64  # the 64 small shapes and the tiled kernel
+    assert set(frames) == {("0", "0", "0")}, frames
 
 
 @pytest.mark.cuda

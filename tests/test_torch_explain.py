@@ -13,7 +13,8 @@ and row-chunk sizes: the TPU package pads the shard axis to its 8 test
 devices.
 
 Declared costs: each kernel wrapper's `*_cost` must declare the bytes
-PERF.md §6 counts as its bound at the table's shapes, and K4 its POPCs.
+PERF.md §6 counts as its bound at the table's shapes, and K4 its word
+popcounts, whose bit pairs at the card's 1-bit mma rate can bound it.
 """
 
 import io
@@ -525,11 +526,19 @@ def test_declared_k2_fused_and_k4_popc_costs():
         (4 + 8) * 4 + 2 * 2 * 512 + 8
     assert count_and_blocks_cost(4, 8)["bytes accessed"] == \
         (4 + 8) * 4 + 2 * 4 * 512 + 8
-    # K4 at 102 x 102 x S = 10: bound by its POPCs (PERF.md §6: 3.41e9
-    # POPC -> 815.25 us), not its bytes
+    # K4 at 102 x 102 x S = 10: 3.41e9 word popcounts, 1.09e11 bit pairs,
+    # at the H100's 1-bit tensor-core rate (5.259e15 a second, PERF.md §6)
+    # 20.74 us: bound by its 267,470,112 bytes (79.84 us), no longer by
+    # its POPCs on the CUDA cores (815.25 us)
     cost = pairwise_cost(102, 102, 10 * W, False, device="cuda")
     assert cost["popc"] == 102 * 102 * 10 * W
-    assert cost["optimal_seconds"] * 1e6 == pytest.approx(815.25, abs=0.01)
+    assert cost["bytes accessed"] == 267_470_112
+    assert cost["optimal_seconds"] * 1e6 == pytest.approx(79.84, abs=0.01)
+    # a tile whose bit pairs outweigh its bytes (4096 x 4096 rows of one
+    # shard) is bound by them at that rate
+    big = pairwise_cost(4096, 4096, W, False, device="cuda")
+    assert big["optimal_seconds"] == pytest.approx(
+        4096 * 4096 * W * 32 / 5.259e15)
 
 
 @pytest.mark.parametrize("batch", [1, 2, 16])
