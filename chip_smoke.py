@@ -359,11 +359,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 K2_NBS = (0, 1, 7, 8, 33, 32768, 131072)
 K2_ID_SPACE = 1 << 21  # block ids drawn below the sentinel 2^30
 K2B_REPEAT = 8  # times each sparse Count rides the served query-batch
-# batches timed: B = 1 (against the single entry), the check's, the served
-K2B_SIZES = (1, 4, 2 * K2B_REPEAT)
+# the query-batches served: each sparse Count once, twice (groups of 2
+# and 4, as a few concurrent clients form them) and K2B_REPEAT times
+K2B_REPEATS = (1, 2, K2B_REPEAT)
+K2B_WARM = 20  # warm query-batches a size
+# batches timed: B = 1 (against the single entry), the small groups, the
+# served query-batch's
+K2B_SIZES = (1, 2, 4, 2 * K2B_REPEAT)
 # bytes K2's batched mode 0 reads at the served group of 2 x K2B_REPEAT
-# rows (NB 32,768 blocks of 512 bytes each, and an 8-byte total)
-K2B_MODE0_BYTES = 2 * K2B_REPEAT * (32768 * 512 + 8)
+# rows (NB 32,768 blocks of 512 bytes each, an 8-byte total and an
+# 8-byte state word each)
+K2B_MODE0_BYTES = 2 * K2B_REPEAT * (32768 * 512 + 8 + 8)
 # (op, allow_eq) of tests/test_pallas.py's BSI range cases
 K5_CASES = (("eq", False), ("lt", False), ("lt", True), ("gt", False),
             ("gt", True))
@@ -407,18 +413,40 @@ def time_cuda(torch, fn, reps):
     return statistics.median(times)
 
 
+#: a trace's pad: spin kernels (`torch.cuda._sleep`, ~0.1 ms each at the
+#: H100's 1.98 GHz) and a sync before the timed calls. With the port's
+#: kernel libraries loaded, a CUPTI trace drops the first device
+#: operations it sees (up to half of a 20-call trace's launches in
+#: chip_smoke's runs); the pad takes that loss
+TRACE_PAD = 64
+SPIN_CYCLES = 200_000
+SPIN_KERNEL = "spin_kernel"
+
+
 def _trace(torch, fn, reps):
     """key_averages of a torch.profiler (CUPTI) trace of `reps` calls
-    after one warm-up."""
+    after one warm-up and the TRACE_PAD spins, without the spins' own
+    entry. The trace's lost operations are a prefix, so a trace that kept
+    any spin kept every timed call's; one that kept none is taken again,
+    three times at most."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return prof.key_averages()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        _trace.pad_kept = sum(e.count for e in events if SPIN_KERNEL in e.key)
+        if _trace.pad_kept:
+            return [e for e in events if SPIN_KERNEL not in e.key]
+    raise RuntimeError(f"three profiler traces lost all {TRACE_PAD} spins "
+                       f"of their pad")
 
 
 def device_ms(torch, fn, reps, kernel):
@@ -743,6 +771,34 @@ def traced_call_ms(torch, fn, reps, kernel):
         if got is not None:
             return got
     raise RuntimeError(f"three profiler traces held no {kernel}")
+
+
+def device_ops(torch, fn, reps, kernel, launches=1):
+    """({name: [µs, operations] a call}, µs a call in the kernels named
+    `kernel`) of `fn` from a profiler trace of `reps` calls, over every
+    device operation but the L2 flushes' own. A call is `launches`
+    launches of `kernel`: a trace that holds any other number of them
+    lost events, and is refused (three traces at most), not rescaled."""
+    from torch.autograd import DeviceType
+
+    for _ in range(3):
+        sums, n = {}, 0
+        for e in _trace(torch, fn, reps):
+            if e.device_type != DeviceType.CUDA \
+                    or any(k in e.key for k in FLUSH_KERNELS):
+                continue
+            us = getattr(e, "device_time_total", 0.0) \
+                or getattr(e, "cuda_time_total", 0.0)
+            got = sums.setdefault(e.key, [0.0, 0])
+            got[0] += us
+            got[1] += e.count
+            if kernel in e.key:
+                n += e.count
+        if n == launches * reps:
+            ops = {k: [us / reps, c / reps] for k, (us, c) in sums.items()}
+            return ops, sum(v[0] for k, v in ops.items() if kernel in k)
+    raise RuntimeError(f"three profiler traces of {reps} calls held other "
+                       f"than {launches * reps} launches of {kernel}")
 
 
 def check_k1_batch(torch, k1, words, card):
@@ -2505,11 +2561,20 @@ class ServerProcess:
 
 
 def free_port():
+    """A free port on 127.0.0.1 below 32768, where Linux's ephemeral range
+    starts: a server restarted on it never finds it taken by a client's
+    outgoing connection, which the kernel numbers from that range."""
+    import random
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    for port in random.Random(os.getpid()).sample(range(20000, 32768), 100):
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError("no free port in 20000-32767")
 
 
 def concurrently(*fns):
@@ -3609,47 +3674,58 @@ def serve_compressed_path(srv, k1, k2, planes, comp, set_at, card):
 
 
 def serve_k2_batch(srv, k1, k2, comp, card):
-    """One POST /index/b/query-batch of index b's sparse Counts (two
-    pairs, two single rows), each K2B_REPEAT times: every answer equals
-    numpy, the pairs ride one group and the rows another, and each group
-    is exactly one launch of K2's batched entry (its fused mode for the
-    pairs, mode 0 for the rows) with no single K2 or K1 launch."""
+    """POST /index/b/query-batch of index b's sparse Counts (two pairs,
+    two single rows), each 1, 2 and K2B_REPEAT times (groups of 2, 4 and
+    2 x K2B_REPEAT: the small batches that concurrent Counts form, and
+    the synthetic query-batch's): every answer equals numpy, the pairs
+    ride one group and the rows another, and each group is exactly one
+    launch of K2's batched entry (its fused mode for the pairs, mode 0
+    for the rows) with no single K2 or K1 launch. Then the warm wall of
+    K2B_WARM such batches a size."""
     f10, f11, g10 = comp[("f", 10)], comp[("f", 11)], comp[("g", 10)]
     want = {"Count(Intersect(Row(f=10), Row(g=10)))": popcount(f10 & g10),
             "Count(Intersect(Row(f=11), Row(g=10)))": popcount(f11 & g10),
             "Count(Row(f=10))": popcount(f10),
             "Count(Row(f=11))": popcount(f11)}
-    batch = list(want) * K2B_REPEAT
-    before = (k2.count_blocks_batch.launches,
-              k2.count_and_blocks_batch.launches, k2_launches(k2),
-              k1.count_expr.launches, k1.count_expr_batch.launches)
-    t0 = time.perf_counter()
-    out = http(srv.uri, "/index/b/query-batch",
-               json.dumps({"queries": batch}))["results"]
-    wall = time.perf_counter() - t0
-    for pql, slot in zip(batch, out):
-        if slot.get("results") != [want[pql]]:
-            raise AssertionError(f"query-batch {pql}: {slot} != "
-                                 f"{want[pql]}")
-        if slot.get("batch") != 2 * K2B_REPEAT:
-            raise AssertionError(f"query-batch {pql}: batch "
-                                 f"{slot.get('batch')}, not "
-                                 f"{2 * K2B_REPEAT}")
-    moved = tuple(b - a for a, b in zip(before, (
-        k2.count_blocks_batch.launches, k2.count_and_blocks_batch.launches,
-        k2_launches(k2), k1.count_expr.launches,
-        k1.count_expr_batch.launches)))
-    if moved != (1, 1, 0, 0, 0):
-        raise AssertionError(
-            f"query-batch of {len(batch)} sparse Counts: launches (K2 "
-            f"batched mode 0, fused mode, single K2, K1, batched K1) moved "
-            f"by {moved}, not (1, 1, 0, 0, 0)")
-    log(f"serve: POST query-batch of {len(batch)} sparse Counts over "
-        f"{N_SHARDS} shards (two pairs and two rows of f=10, f=11, g=10, "
-        f"{K2B_REPEAT} times each) = numpy in {wall * 1e3:.1f} ms: two "
-        f"groups of {2 * K2B_REPEAT}, one launch of K2's batched entry "
-        f"each (fused mode 1, mode 0 1), no single K2 or K1 launch; card "
-        f"{card}")
+
+    def counters():
+        return (k2.count_blocks_batch.launches,
+                k2.count_and_blocks_batch.launches, k2_launches(k2),
+                k1.count_expr.launches, k1.count_expr_batch.launches)
+
+    def send(batch, group):
+        before = counters()
+        t0 = time.perf_counter()
+        out = http(srv.uri, "/index/b/query-batch",
+                   json.dumps({"queries": batch}))["results"]
+        wall = time.perf_counter() - t0
+        for pql, slot in zip(batch, out):
+            if slot.get("results") != [want[pql]]:
+                raise AssertionError(f"query-batch {pql}: {slot} != "
+                                     f"{want[pql]}")
+            if slot.get("batch") != group:
+                raise AssertionError(f"query-batch {pql}: batch "
+                                     f"{slot.get('batch')}, not {group}")
+        moved = tuple(b - a for a, b in zip(before, counters()))
+        if moved != (1, 1, 0, 0, 0):
+            raise AssertionError(
+                f"query-batch of {len(batch)} sparse Counts: launches (K2 "
+                f"batched mode 0, fused mode, single K2, K1, batched K1) "
+                f"moved by {moved}, not (1, 1, 0, 0, 0)")
+        return wall
+
+    for repeat in K2B_REPEATS:
+        batch = list(want) * repeat
+        group = 2 * repeat
+        wall = send(batch, group)
+        warm = [send(batch, group) for _ in range(K2B_WARM)]
+        log(f"serve: POST query-batch of {len(batch)} sparse Counts over "
+            f"{N_SHARDS} shards (two pairs and two rows of f=10, f=11, "
+            f"g=10, {repeat} time(s) each) = numpy in {wall * 1e3:.1f} ms: "
+            f"two groups of {group}, one launch of K2's batched entry each "
+            f"(fused mode 1, mode 0 1), no single K2 or K1 launch; warm "
+            f"wall p50 {statistics.median(warm) * 1e3:.3f} ms over "
+            f"{K2B_WARM} batches (each checked the same way); card {card}")
 
 
 def time_served_k2(torch, k2, served, card):
@@ -3720,10 +3796,11 @@ def check_k2_batch(torch, k2, served, card):
     match) and B = 1, each equal to its plain version and to B single
     launches, exactly, with one batched launch a call; an empty batch
     and NB = 0 launch nothing. Then timed L2 cold (`cold_call`) against
-    the same members as B single launches, at B = 1, 4 and the served
+    the same members as B single launches, at B = 1, 2, 4 and the served
     query-batch's groups of 2 x K2B_REPEAT, over every device operation
-    of a call (the pointer table's copy and the memset included), and
-    per call by events. Every timed member reads a copy of its leaves of
+    of a call and in the kernel alone, with the device operations a call
+    (exactly 1, the kernel, up to each mode's by-value cap), and per call
+    by events against the same members' single launches. Every timed member reads a copy of its leaves of
     its own, so that the bound (each member's bytes, summed) is what the
     batch must move from HBM: the served groups repeat f=10, f=11 and
     g=10, and a repeat would be read from L2. Returns (max_abs_err,
@@ -3795,23 +3872,34 @@ def check_k2_batch(torch, k2, served, card):
         own_p = [tuple(t.clone() for t in src_p[q % len(src_p)])
                  for q in range(b)]
         own_r = [src_r[q % len(src_r)].clone() for q in range(b)]
-        for mode, batch, single, members, plain, nbytes, kernel in (
+        state = b * k2.STATE_BYTES
+        for mode, batch, single, members, plain, nbytes, kernel, cap in (
                 ("mode 0", k2.count_blocks_batch, k2.count_blocks, own_r,
-                 k2.count_blocks_batch_reference, b * (nb * 512 + 8),
-                 "count_blocks_batch_kernel"),
+                 k2.count_blocks_batch_reference, b * (nb * 512 + 8) + state,
+                 "count_blocks_batch_kernel", k2.by_value_cap("blocks")),
                 ("fused", k2.count_and_blocks_batch, k2.count_and_blocks,
                  own_p, k2.count_and_blocks_batch_reference,
-                 sum(k2_fused_bytes(p[0], p[2])[0] for p in own_p),
-                 "fused_batch_kernel")):
+                 sum(k2_fused_bytes(p[0], p[2])[0] for p in own_p) + state,
+                 "fused_batch_kernel", k2.by_value_cap("fused"))):
             def singles(ms, fn=single, fused=mode == "fused"):
                 return [fn(*m) if fused else fn(m) for m in ms]
 
             cold_batch = cold_call(torch, batch, (members,))
-            all_ms, kernel_only, names = traced_call_ms(
-                torch, cold_batch, 20, kernel)
+            per_op, kernel_us = device_ops(torch, cold_batch, 20, kernel)
+            pad_kept = _trace.pad_kept
             n_sets = cold_batch.sets
             del cold_batch
+            names = sorted(per_op)
+            all_ms = sum(v[0] for v in per_op.values()) / 1e3
+            kernel_only = kernel_us / 1e3
+            ops = sum(v[1] for v in per_op.values())
+            if b <= cap and (ops != 1 or len(names) != 1):
+                raise AssertionError(
+                    f"K2 batched {mode} at B={b}: {ops:g} device operations "
+                    f"a call ({names}), not its one kernel")
             bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+            # the singles' bound: the members' bytes without state words
+            single_bound_ms = (nbytes - state) / H100_BYTES_PER_S * 1e3
             if all_ms < bound_ms and mode == "mode 0":
                 # under its byte bound (and over twice the copies too, so
                 # no L2 reuse): the same batch over random words in every
@@ -3820,30 +3908,38 @@ def check_k2_batch(torch, k2, served, card):
                                        tuple(m.shape), dtype=torch.int32,
                                        device="cuda") for m in members]
                 rnd = cold_call(torch, batch, (noisy,))
-                again = traced_call_ms(torch, rnd, 20, kernel)
+                again, again_kernel = device_ops(torch, rnd, 20, kernel)
+                again_ms = sum(v[0] for v in again.values()) / 1e3
                 log(f"kernels: K2 batched {mode} at B={b} under its bound "
                     f"({all_ms * 1e3:.2f} us); the same batch over random "
                     f"words in every block ({rnd.sets} sets of copies): "
-                    f"{again[0] * 1e3:.2f} us device per call "
-                    f"({again[1] * 1e3:.2f} us in the kernel), "
-                    f"{share(bound_ms, again[0])}; card {card}")
+                    f"{again_ms * 1e3:.2f} us device per call "
+                    f"({again_kernel:.2f} us in the kernel), "
+                    f"{share(bound_ms, again_ms)}; card {card}")
                 del rnd, noisy
             cold_singles = cold_call(torch, singles, (members,))
-            single_ms = traced_call_ms(torch, cold_singles, 20,
-                                       "count_blocks_kernel")
+            single_ops, single_kernel_us = device_ops(
+                torch, cold_singles, 20, "count_blocks_kernel", launches=b)
+            single_ms = (sum(v[0] for v in single_ops.values()) / 1e3,
+                         single_kernel_us / 1e3)
             del cold_singles
             call_ms = time_cuda(torch, lambda: batch(members), 20)
             singles_call_ms = time_cuda(torch, lambda: singles(members), 20)
             plain_ms = time_cuda(torch, lambda: plain(members), 3)
             log(f"kernels: K2 batched {mode} at B={b} (NB {nb}, {nbytes} "
                 f"bytes; {n_sets} sets of copies in turn), L2 cold: "
-                f"{all_ms * 1e3:.2f} us device per call "
-                f"over {sorted(set(names))} ({kernel_only * 1e3:.2f} us in "
+                f"{all_ms * 1e3:.2f} us device per call (every launch of "
+                f"20 calls traced; the trace's pad kept {pad_kept} of "
+                f"{TRACE_PAD} spins) "
+                f"over {ops:g} device operation(s) a call "
+                f"{names} ({kernel_only * 1e3:.2f} us in "
                 f"the kernel; {share(bound_ms, all_ms)}), "
                 f"{call_ms * 1e3:.2f} us per call by events; the same "
                 f"members as {b} single K2 launches: "
                 f"{single_ms[0] * 1e3:.2f} us device "
-                f"({single_ms[1] * 1e3:.2f} us in the kernels), "
+                f"({single_ms[1] * 1e3:.2f} us in the kernels; bound "
+                f"{single_bound_ms * 1e3:.2f} us, "
+                f"{share(single_bound_ms, single_ms[0])}), "
                 f"{singles_call_ms * 1e3:.2f} us by events; bound "
                 f"{bound_ms * 1e3:.2f} us at 3.35 TB/s; plain "
                 f"{plain_ms * 1e3:.2f} us; card {card}")

@@ -26,6 +26,13 @@ a batch of sparse Counts:
     count_and_blocks_batch([(ids_a, blocks_a, ids_b, blocks_b), ...])
                                                    [B] Σ popcount(a ∩ b)
 
+Up to `by_value_cap(mode)` members (128 in mode 0, 32 fused) the call is
+that one kernel and nothing else: the members' pointers ride in the
+launch's parameters, and each member's total reaches `out` through a
+per-stream state word that the kernel leaves zero, so no table is
+built, pinned or copied and no memset runs. Larger batches pass a
+device table of pointers first.
+
 Each wrapper takes its plain version for CPU tensors and launches the
 hand-written kernel `csrc/count_blocks.cu` for CUDA tensors, or raises.
 An empty input returns 0 without a launch (zeros, for a batch).
@@ -33,6 +40,7 @@ An empty input returns 0 without a launch (zeros, for a batch).
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -132,10 +140,12 @@ def _check_fused(ids_a, blocks_a, ids_b, blocks_b):
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     """The C entry point of csrc/count_blocks.cu (built at first use).
-    A lone Count keeps this single entry: the batched entry at B = 1
-    takes its device time within 1.3 us but 41-83 us more a call by
-    CUDA events on an H100 SXM at 700 W (its pinned pointer table;
-    chip_smoke.py's "K2 batched ... at B=1" lines)."""
+    A lone Count keeps this single entry (count_program_batch counts a
+    batch of one as count_program does). The batched entry at B = 1 now
+    costs about the same: +0.6 to +2.1 us a call by CUDA events, called
+    in alternation with this one (+48.1 to +64.4 us before it carried
+    its pointers by value), on an H100 80GB HBM3 at 700 W
+    (tools/ab_k2.py; PERF.md §6)."""
     fn = cuda_build.load("count_blocks").count_blocks_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -254,10 +264,22 @@ def _batch_kernel_fn():
     """The batched C entry point of csrc/count_blocks.cu."""
     fn = cuda_build.load("count_blocks").count_blocks_batch_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def by_value_cap(mode):
+    """The most members ("blocks" or "fused" mode) whose pointers the
+    batched launch carries in its parameters, from the card's build
+    (csrc/count_blocks.cu's `count_blocks_batch_by_value_cap`: 128 pointer
+    slots, 1 a member in mode 0 and 4 fused)."""
+    fn = cuda_build.load("count_blocks").count_blocks_batch_by_value_cap
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    return fn(_MODES[mode])
 
 
 def _check_batch(rows, dev, name):
@@ -276,21 +298,84 @@ def _check_batch(rows, dev, name):
                 raise ValueError(f"{name}: members lie on different devices")
 
 
-def _launch_batch(mode, wrapper, rows, nb_a, nb_b):
+def batch_route(n_members, cap):
+    """How a batch of n_members reaches the kernel: "by_value" (the
+    pointers in the launch's parameters, no table) up to `cap`
+    (`by_value_cap` of its mode), else "table" (a device array of
+    pointers)."""
+    return "by_value" if n_members <= cap else "table"
+
+
+def kernel_rows(mode, members):
+    """Each member's tensors in the order the kernel reads its pointers:
+    mode 0 ("blocks", a member is its blocks) a's blocks; fused (a member
+    is (ids_a, blocks_a, ids_b, blocks_b)) a's blocks, b's blocks, a's
+    ids, b's ids."""
+    if mode == "blocks":
+        return [(blocks,) for blocks in members]
+    return [(blocks_a, blocks_b, ids_a, ids_b)
+            for ids_a, blocks_a, ids_b, blocks_b in members]
+
+
+def pack_pointers(mode, members):
+    """The members' pointers flat, in the kernel's order: member q's
+    `kernel_rows` data_ptr()s at [q * K, q * K + K)."""
+    return [t.data_ptr() for row in kernel_rows(mode, members) for t in row]
+
+
+#: the batched kernels' per-stream state (a running total and the CTAs
+#: arrived, one int64 a member), keyed (device index, stream handle)
+_batch_states = {}
+_batch_states_lock = threading.Lock()
+
+
+def _batch_state(stream, n_members):
+    """The stream's state of at least n_members int64, made zero on that
+    stream when it is first made or grown; every launch leaves the words
+    it used zero. One per stream, so launches on two streams never share
+    one."""
+    key = (stream.device.index, stream.cuda_stream)
+    t = _batch_states.get(key)
+    if t is None or t.numel() < n_members:
+        with _batch_states_lock, torch.cuda.stream(stream):
+            t = _batch_states.get(key)
+            if t is None or t.numel() < n_members:
+                # one allocation serves every batch of up to 128 members
+                size = max(n_members, 128)
+                t = _batch_states[key] = torch.zeros(
+                    1 << (size - 1).bit_length(), dtype=torch.int64,
+                    device=stream.device)
+    return t
+
+
+def _launch_batch(mode, wrapper, members, nb_a, nb_b):
+    """One launch of the batched kernel over `members` (CUDA tensors of
+    one shape, nb_a and nb_b >= 1): their pointers by value up to
+    by_value_cap(mode), so the call is that one kernel and nothing else;
+    past the cap, a device table copied from pinned memory first."""
     fn = _batch_kernel_fn()
+    rows = kernel_rows(mode, members)
     for row in rows:
         _check_launchable(row)
     dev = rows[0][0].device
-    # [B, k] pointers, copied from pinned memory without a wait: the host
-    # allocator keeps the pinned rows until the copy has run
-    table = torch.tensor([[t.data_ptr() for t in row] for row in rows],
-                         dtype=torch.int64).pin_memory().to(
-                             dev, non_blocking=True)
-    out = torch.empty((len(rows),), dtype=torch.int64, device=dev)
+    ptrs = pack_pointers(mode, members)
+    table = None
+    if batch_route(len(members), by_value_cap(mode)) == "by_value":
+        host = (ctypes.c_longlong * len(ptrs))(*ptrs)
+    else:
+        # [B, K] pointers copied from pinned memory without a wait: the
+        # host allocator keeps the pinned rows until the copy has run
+        host = None
+        table = torch.tensor(ptrs, dtype=torch.int64).pin_memory().to(
+            dev, non_blocking=True)
+    out = torch.empty((len(members),), dtype=torch.int64, device=dev)
     with cuda_build.on_card(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_MODES[mode], table.data_ptr(), len(rows), nb_a, nb_b,
-                 out.data_ptr(), stream)
+        stream = torch.cuda.current_stream(dev)
+        state = _batch_state(stream, len(members))
+        err = fn(_MODES[mode], host,
+                 None if table is None else table.data_ptr(), len(members),
+                 nb_a, nb_b, out.data_ptr(), state.data_ptr(),
+                 stream.cuda_stream)
     if err != 0:
         raise cuda_build.launch_error("count_blocks batch", dev, err)
     cuda_build.count_launch(wrapper)
@@ -307,14 +392,15 @@ def count_blocks_batch(blocks_per_member):
     if not blocks_per_member:
         return torch.zeros((0,), dtype=torch.int64)
     dev = blocks_per_member[0].device
-    rows = [(blocks,) for blocks in blocks_per_member]
+    rows = kernel_rows("blocks", blocks_per_member)
     _check_batch(rows, dev, "count_blocks_batch")
     if not _route(dev, "count_blocks_batch"):
         return count_blocks_batch_reference(blocks_per_member)
     nb = blocks_per_member[0].shape[0]
     if nb == 0:
         return torch.zeros((len(rows),), dtype=torch.int64, device=dev)
-    return _launch_batch("blocks", count_blocks_batch, rows, nb, 0)
+    return _launch_batch("blocks", count_blocks_batch, blocks_per_member,
+                         nb, 0)
 
 
 def count_and_blocks_batch(members):
@@ -334,10 +420,8 @@ def count_and_blocks_batch(members):
     nb_a, nb_b = members[0][1].shape[0], members[0][3].shape[0]
     if nb_a == 0 or nb_b == 0:
         return torch.zeros((len(members),), dtype=torch.int64, device=dev)
-    # the kernel's pointer row: a's blocks, b's blocks, a's ids, b's ids
-    rows = [(blocks_a, blocks_b, ids_a, ids_b)
-            for ids_a, blocks_a, ids_b, blocks_b in members]
-    return _launch_batch("fused", count_and_blocks_batch, rows, nb_a, nb_b)
+    return _launch_batch("fused", count_and_blocks_batch, members, nb_a,
+                         nb_b)
 
 
 #: launches of the batched entry since the last reset, per mode
@@ -346,16 +430,24 @@ count_blocks_batch.launches = 0
 count_and_blocks_batch.launches = 0
 
 
+#: bytes a member of the batched entry adds to its single cost: its
+#: int64 state word (a running total and the CTAs arrived)
+STATE_BYTES = 8
+
+
 def count_blocks_batch_cost(b, nb, device=None):
     """The batched entry's declared cost for B members of [NB, 128]
-    blocks: the sum of the members' `count_blocks_cost`."""
+    blocks: the sum of the members' `count_blocks_cost` and their state
+    words."""
     return cuda_build.declared_cost(
-        b * count_blocks_cost(nb)["bytes accessed"], device)
+        b * (count_blocks_cost(nb)["bytes accessed"] + STATE_BYTES), device)
 
 
 def count_and_blocks_batch_cost(b, na, nb, device=None):
     """The batched entry's declared cost for B members of id lists of NA
     and NB entries: the sum of the members' `count_and_blocks_cost`,
-    each declaring the most (the shapes do not show the matched ids)."""
+    each declaring the most (the shapes do not show the matched ids),
+    and their state words."""
     return cuda_build.declared_cost(
-        b * count_and_blocks_cost(na, nb)["bytes accessed"], device)
+        b * (count_and_blocks_cost(na, nb)["bytes accessed"] + STATE_BYTES),
+        device)

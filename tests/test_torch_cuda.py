@@ -796,13 +796,28 @@ def _k2_batch_members(b, nb_a, nb_b, device):
     return out
 
 
+#: K2 batch sizes: the small batches, each mode's by-value cap (fused
+#: 32, mode 0 128) and either side of it, and past both; NB_a != NB_b,
+#: ragged last tiles (NB_a not a multiple of the fused mode's 128 ids)
+K2_BATCHES = [(1, 64, 64), (2, 300, 77), (3, 200, 1100), (4, 129, 1100),
+              (5, 1100, 200), (16, 32768, 32768), (31, 200, 300),
+              (32, 200, 300), (33, 200, 300), (127, 64, 40), (128, 64, 40),
+              (129, 64, 40), (257, 40, 50)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,nb_a,nb_b", [(1, 64, 64), (3, 200, 1100),
-                                         (5, 1100, 200), (16, 32768, 32768)])
+@pytest.mark.parametrize("b,nb_a,nb_b", K2_BATCHES)
 def test_count_blocks_batch_kernel_matches_plain_and_singles(cuda, b, nb_a,
                                                              nb_b):
     """Both modes of K2's batched entry: one launch each, equal to the
-    plain version and to B single launches, padding-only members 0."""
+    plain version and to B single launches, padding-only members and a
+    member with no match (q % 3 == 0) 0, by value up to each mode's cap
+    and through the device table past it."""
+    assert (k2.by_value_cap("blocks"), k2.by_value_cap("fused")) == (128, 32)
+    assert k2.batch_route(b, k2.by_value_cap("blocks")) == (
+        "by_value" if b <= 128 else "table")
+    assert k2.batch_route(b, k2.by_value_cap("fused")) == (
+        "by_value" if b <= 32 else "table")
     members = _k2_batch_members(b, nb_a, nb_b, cuda)
     blocks = [m[1] for m in members]
     before = (k2.count_blocks_batch.launches,
@@ -821,6 +836,73 @@ def test_count_blocks_batch_kernel_matches_plain_and_singles(cuda, b, nb_a,
     assert fused.tolist() == [int(k2.count_and_blocks(*m)) for m in members]
     if b >= 3:
         assert fused.tolist()[-2:] == [0, 0]
+        assert fused.tolist()[0] == 0  # member 0 matches none of its ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["blocks", "fused"])
+def test_count_blocks_batch_kernel_back_to_back(cuda, mode):
+    """200 calls in a row without a synchronisation between them, of 4, 1
+    and past the by-value cap members in turn on one stream: each equals
+    the plain version, so every launch left the state words it used
+    zero for the next."""
+    fn, ref = {"blocks": (k2.count_blocks_batch,
+                          k2.count_blocks_batch_reference),
+               "fused": (k2.count_and_blocks_batch,
+                         k2.count_and_blocks_batch_reference)}[mode]
+    members = _k2_batch_members(k2.by_value_cap(mode) + 1, 300, 500, cuda)
+    if mode == "blocks":
+        members = [m[1] for m in members]
+    batches = [members[:4], members[4:5], members]
+    want = [ref(m).tolist() for m in batches]
+    outs = [fn(batches[i % 3]) for i in range(200)]
+    torch.cuda.synchronize()
+    assert [o.tolist() for o in outs] == [want[i % 3] for i in range(200)]
+
+
+@pytest.mark.cuda
+def test_count_blocks_batch_kernel_at_the_cta_limit(cuda):
+    """A fused member of more tiles of 128 ids than the kernel's 4096
+    CTAs a member (K2B_MAX_CTAS, so that each CTA's arrival fits the
+    state word's 16 bits): its CTAs walk several tiles each, exact
+    against the plain version and the single entry; mode 0 on the same
+    blocks too."""
+    nb_a = 4096 * 128 + 200
+    rng = np.random.default_rng(17)
+    real_a = nb_a - 150
+    ids_a = 2 * np.cumsum(rng.integers(1, 4, real_a))
+    ids_b = np.sort(np.concatenate([ids_a[::2], 1 + ids_a[1::4]]))
+    a = _sparse(nb_a, real_a, ids_a, seed=1, device=cuda)
+    b = _sparse(len(ids_b) + 60, len(ids_b), ids_b, seed=2, device=cuda)
+    members = [(*a, *b), (*a, *b)]
+    fused = k2.count_and_blocks_batch(members)
+    rows = k2.count_blocks_batch([a[1], a[1]])
+    torch.cuda.synchronize()
+    want = int(k2.count_and_blocks_reference(*a, *b))
+    assert want > 0
+    assert fused.tolist() == [want, want] == \
+        k2.count_and_blocks_batch_reference(members).tolist()
+    assert int(k2.count_and_blocks(*a, *b)) == want
+    assert rows.tolist() == [int(k2.count_blocks_reference(a[1]))] * 2
+
+
+@pytest.mark.cuda
+def test_k2_kernels_no_stack_frame_or_spill(cuda):
+    """ptxas reports a 0-byte stack frame and no spill for every K2
+    kernel: the batched kernels read their members' pointers from a
+    `const __grid_constant__` parameter at a run-time index, which nvcc
+    does not copy to local memory (ROADMAP trap 6)."""
+    from pilosa_tpu_torch.ops import cuda_build
+
+    k2.count_blocks(torch.zeros((1, 128), dtype=torch.int32, device=cuda))
+    report = {fn: r for fn, r in cuda_build.kernel_report(
+        cuda_build.ptxas_log("count_blocks")).items() if "kernel" in fn}
+    assert set(report) == {"count_blocks_kernel", "count_blocks_kernel_fused",
+                           "count_blocks_batch_kernel",
+                           "count_blocks_fused_batch_kernel"}
+    for fn, r in report.items():
+        assert (r["stack"], r["spill_stores"], r["spill_loads"]) \
+            == (0, 0, 0), (fn, r)
 
 
 @pytest.mark.cuda

@@ -487,11 +487,12 @@ BOUND_BYTES = [
     ("count_expr_multi", ((2, 2), 954, W), 500_170_846),
     ("count_blocks", (32768,), 16_777_224),
     ("count_blocks", (131072,), 67_108_872),
-    # K2's batched entry: the sum of its members' single costs (B = 4
-    # and the served query-batch's 16 at index b's NB = 32,768)
-    ("count_blocks_batch", (4, 32768), 67_108_896),
-    ("count_blocks_batch", (16, 32768), 268_435_584),
-    ("count_and_blocks_batch", (4, 32768, 32768), 135_266_336),
+    # K2's batched entry: the sum of its members' single costs and their
+    # 8-byte state words (B = 4 and the served query-batch's 16 at index
+    # b's NB = 32,768)
+    ("count_blocks_batch", (4, 32768), 67_108_928),
+    ("count_blocks_batch", (16, 32768), 268_435_712),
+    ("count_and_blocks_batch", (4, 32768, 32768), 135_266_368),
     ("row_counts", (100, 10 * W, False), 131_072_800),
     ("row_counts", (1, 954 * W, True), 250_085_384),
     ("row_counts", (21, 128 * W, True), 369_098_920),
@@ -575,10 +576,14 @@ def test_count_kernels_declare_k2_batched_entry(batch):
     one = declared_cost("count_blocks", (32768,))["bytes accessed"]
     pair_one = declared_cost("count_and_blocks", (32768, 16384))[
         "bytes accessed"]
+    # a batched member adds its 8-byte state word
+    state = 8 if batch > 1 else 0
     (kernel, args), = got["leaf"]
-    assert declared_cost(kernel, args)["bytes accessed"] == batch * one
+    assert declared_cost(kernel, args)["bytes accessed"] == \
+        batch * (one + state)
     (kernel, args), = got["pair"]
-    assert declared_cost(kernel, args)["bytes accessed"] == batch * pair_one
+    assert declared_cost(kernel, args)["bytes accessed"] == \
+        batch * (pair_one + state)
 
 
 def test_debug_kernels_lists_declared_costs_per_launched_shape(env):

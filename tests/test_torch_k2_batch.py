@@ -136,12 +136,14 @@ def test_count_and_blocks_batch_equals_singles(case, b):
         assert total == expect
 
 
-def test_batched_plain_matches_vmapped_pallas():
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5])
+def test_batched_plain_matches_vmapped_pallas(b):
     """The plain batched versions against the TPU package's K2 vmapped
     over the batch (pallas_kernels.py:218 under jax.vmap: one kernel with
     a batch grid axis), in interpret mode; the fused mode's alignment
-    done as the TPU package's count_program does it."""
-    members = _pairs("padded", 4, seed=3)
+    done as the TPU package's count_program does it. B = 1-5: the small
+    batches that concurrent Counts form."""
+    members = _pairs("padded", b, seed=3)
     blocks = np.stack([m[1].numpy().view(np.uint32) for m in members])
     want = jax.vmap(pk.count_blocks_stack)(jnp.asarray(blocks))
     got = k2.count_blocks_batch([m[1] for m in members])
@@ -159,6 +161,44 @@ def test_batched_plain_matches_vmapped_pallas():
                                                jnp.asarray(b))
     got = k2.count_and_blocks_batch(members)
     assert got.tolist() == [int(x) for x in np.asarray(want)]
+
+
+@pytest.mark.parametrize("b", [1, 2, 4, 31, 32, 33, 127, 128, 129, 257,
+                               65535])
+@pytest.mark.parametrize("cap", [128, 32])
+def test_batch_route_by_members(cap, b):
+    """The wrapper's route by B alone: the pointers by value (one device
+    operation a call) up to its mode's cap (the kernel's 128 pointer
+    slots: 128 members in mode 0, 32 fused; read from the card's build),
+    the device table past it."""
+    assert k2.batch_route(b, cap) == ("by_value" if b <= cap else "table")
+
+
+class _Fake:
+    """Stands in for a CUDA tensor: only its data_ptr is read."""
+
+    def __init__(self, ptr):
+        self.ptr = ptr
+
+    def data_ptr(self):
+        return self.ptr
+
+
+@pytest.mark.parametrize("b", [1, 3, 33])
+def test_pack_pointers_in_kernel_order(b):
+    """The pointers the batched launch passes, by value or in its device
+    table (33 fused members are past the cap): mode 0 each member's
+    blocks; the fused mode a's blocks, b's blocks, a's ids, b's ids of
+    each member (members come as (ids_a, blocks_a, ids_b, blocks_b)),
+    member after member."""
+    rows = [_Fake(1000 + 16 * q) for q in range(b)]
+    assert k2.pack_pointers("blocks", rows) == [1000 + 16 * q
+                                                for q in range(b)]
+    members = [tuple(_Fake(100 * q + j) for j in (1, 2, 3, 4))
+               for q in range(b)]  # ids_a, blocks_a, ids_b, blocks_b
+    assert k2.pack_pointers("fused", members) == [
+        p for q in range(b) for p in (100 * q + 2, 100 * q + 4,
+                                      100 * q + 1, 100 * q + 3)]
 
 
 def test_empty_batches_and_mismatched_members():
@@ -179,10 +219,15 @@ def test_empty_batches_and_mismatched_members():
 @pytest.mark.parametrize("b,na,nb", [(1, 8, 8), (4, 32768, 32768),
                                      (16, 32768, 32768)])
 def test_batch_costs_are_the_sum_of_single_costs(b, na, nb):
-    one = declared_cost("count_blocks", (na,))["bytes accessed"]
+    """A batch declares its members' single costs plus each member's
+    8-byte state word."""
+    one = declared_cost("count_blocks", (na,))["bytes accessed"] \
+        + k2.STATE_BYTES
+    assert k2.STATE_BYTES == 8
     assert declared_cost("count_blocks_batch", (b, na))[
         "bytes accessed"] == b * one
-    pair = declared_cost("count_and_blocks", (na, nb))["bytes accessed"]
+    pair = declared_cost("count_and_blocks", (na, nb))["bytes accessed"] \
+        + k2.STATE_BYTES
     assert declared_cost("count_and_blocks_batch", (b, na, nb))[
         "bytes accessed"] == b * pair
     card = declared_cost("count_blocks_batch", (b, na), "cuda:0")
@@ -375,11 +420,12 @@ def test_execute_batch_matches_reference(env, calls):
         assert res == jres == jex.execute("i", q), q
         assert size == jsize, q
     assert _sorted(calls) == WANT_CALLS
-    # /debug/kernels names each batched launch with its declared cost
+    # /debug/kernels names each batched launch with its declared cost:
+    # each member's blocks, total and state word
     compiled = {(c["family"], c["kernel"]): c["cost"]
                 for c in ex.kernel_stats()["compiled"]}
     assert compiled[("count_batched", "count_blocks_batch")][
-        "bytes accessed"] == 4 * (16 * 512 + 8)
+        "bytes accessed"] == 4 * (16 * 512 + 8 + 8)
     assert ("count_batched", "count_and_blocks_batch") in compiled
     assert ("count_batched", "count_expr_batch") in compiled
 
